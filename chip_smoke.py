@@ -2,17 +2,18 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each
-printing one line:
+printing one line (the prefix phase one per run):
 
 1. env      — the card's name and power limit (``nvidia-smi``), torch and
               CUDA versions, the float32 matmul settings.
-2. build    — compiles the three hand-written kernels (one ``nvcc`` per
+2. build    — compiles the four hand-written kernels (one ``nvcc`` per
               source, in parallel) from ``src/repro_torch/kernels/csrc``.
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the serving path's shapes (encode codes exactly equal,
-              attention within the stated tolerances, a NaN-poisoned
-              scratch page), then times kernel, plain version and — for
-              flash prefill — the PyTorch library call.
+              attention within the stated tolerances, NaN-poisoned
+              scratch pages and dead rows), then times kernel, plain
+              version and — for flash prefill and paged prefill — a
+              PyTorch library call.
 4. model    — full-width tinyllama-1.1b in bf16 (random weights from a
               seeded generator): a 512-token prefill and 16 teacher-forced
               decode steps through the kernels and through the plain
@@ -22,12 +23,19 @@ printing one line:
               64 new tokens, staggered arrivals). Launch counters are set
               to 0 just before and read just after; every kernel must have
               run the expected number of times.
-6. profile  — wall time of 8-slot decode steps against the device time of
+6. prefix   — chunked prefill with the shared-prefix page cache at full
+              width: 8 slots, max_len 2048, 256-token chunks, 12 greedy
+              requests sharing one 1024-token system prompt, served with
+              and without the prefix cache. The greedy streams must be
+              identical, 11 x 8 pages adopted, no COW split, and every
+              kernel launched the number of times the workload implies.
+7. profile  — wall time of 8-slot decode steps against the device time of
               their kernels (torch.profiler): the device's idle share and
               the largest kernels.
 
-Then one JSON line of per-kernel numbers, and last the device JSON. Any
-failure raises (non-zero exit). Without a CUDA device, or outside a
+Then one JSON line of per-kernel numbers (launches summed over the two
+serving phases), and last the device JSON. Any failure raises (non-zero
+exit). Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -57,6 +65,7 @@ PLAIN_LEAD = 20_000_000       # ~10 ms of spin: plain versions enqueue many ops
 # serving-path shapes of full-width tinyllama-1.1b with the default cache
 HKV, QH, D, G = 4, 8, 64, 128
 P = D // 2
+TC = 256                      # prefill chunk of the prefix phase
 
 
 def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
@@ -255,10 +264,11 @@ def check_decode(torch, dev, gen, flush) -> dict:
     pages = s * n * HKV
     nbytes = q.numel() * 4 + pages * (G * P + 4 * P * 4 + G * D * 2) \
         + table_t.numel() * 4 + s * 4 + s * HKV * QH * (D + 2) * 4
-    # per (page, kv head): LUT 3*Qh*P*2^t, scores 4*Qh*g*P, softmax
-    # ~4*Qh*g, p@V 2*Qh*g*d
-    flops = pages * (3 * QH * P * 16 + 4 * QH * G * P + 4 * QH * G
-                     + 2 * QH * G * D)
+    # per (page, kv head): LUT 3*Qh*P*2^t, rho~ 2*g*P once for every row,
+    # scores one FMA on a gathered LUT entry 2*Qh*g*P, softmax ~4*Qh*g,
+    # p@V 2*Qh*g*d
+    flops = pages * (3 * QH * P * 16 + 2 * G * P + 2 * QH * G * P
+                     + 4 * QH * G + 2 * QH * G * D)
     b_ms, by = bound(nbytes, flops, "fp32")
     return {"name": "paged_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -304,7 +314,116 @@ def check_prefill(torch, dev, gen, flush) -> dict:
             "replaces": "src/repro/kernels/flash_prefill.py:77",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": "SDPA",
             "shape": "1 x 32 heads (4 kv) x 1024 tokens x 64 bf16, causal"}
+
+
+def check_paged_prefill(torch, dev, gen, flush) -> dict:
+    from repro_torch.core import quantizers as qz
+    from repro_torch.kernels import paged_prefill as ppk
+    pp = 65
+    scratch = pp - 1
+    qt = QH * TC
+    codes = torch.randint(0, 256, (pp, HKV, G, P), generator=gen,
+                          device=dev, dtype=torch.int32).to(torch.uint8)
+
+    def stat(lo, hi):
+        return lo + (hi - lo) * torch.rand((pp, HKV, 1, P), generator=gen,
+                                           device=dev)
+
+    stats = (stat(0.01, 0.3), stat(0.0, 1.0), stat(0.05, 0.4),
+             stat(0.0, 0.5))
+    vals = torch.randn((pp, HKV, G, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    perm = torch.randperm(scratch, generator=gen, device=dev)[:16].to(
+        torch.int32)
+    for x in (*stats, vals):
+        x[scratch] = float("nan")
+    q = torch.randn((HKV, qt, D), generator=gen, device=dev) * D ** -0.5
+    errs = []
+    # start 0 (no page read), 384 over a fragmented row, 1024 (the system
+    # prompt of the prefix phase); full and ragged chunks; fp32 and bf16
+    # chunk K/V; the value page at `start` and the chunk rows past
+    # chunk_len poisoned, dead table entries on the NaN scratch page
+    for start in (0, 384, 1024):
+        for clen in (TC, 77):
+            for kvdt in (torch.float32, torch.bfloat16):
+                n_live = -(-(start + clen) // G)
+                row = perm.clone()
+                row[n_live:] = scratch
+                v = vals.clone()
+                v[int(row[start // G])] = float("nan")
+                kc = torch.randn((HKV, TC, D), generator=gen,
+                                 device=dev).to(kvdt)
+                vc = torch.randn((HKV, TC, D), generator=gen,
+                                 device=dev).to(kvdt)
+                kc[:, clen:] = float("nan")
+                vc[:, clen:] = float("nan")
+                width = 1 << (n_live - 1).bit_length()
+                got = ppk.polar_paged_prefill_grouped(
+                    q, kc, vc, codes, *stats, v, row[:width], start, clen)
+                ref = ppk.polar_paged_prefill_grouped_plain(
+                    q, kc, vc, codes, *stats, v, row[:width], start, clen)
+                torch.cuda.synchronize()
+                assert torch.isfinite(got).all(), "NaN leaked into prefill"
+                torch.testing.assert_close(got, ref, rtol=FP32_TOL,
+                                           atol=FP32_TOL)
+                errs.append(float((got - ref).abs().max()))
+
+    # timing: start 1024 (8 live pages) + a full 256-token chunk, bf16 as
+    # on the main path
+    start, n = 1024, 8
+    row = perm[:n].contiguous()
+    kc = torch.randn((HKV, TC, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    vc = torch.randn((HKV, TC, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ms = time_ms(torch, lambda: ppk.polar_paged_prefill_grouped(
+        q, kc, vc, codes, *stats, vals, row, start, TC), flush=flush)
+    plain_ms = time_ms(torch, lambda: ppk.polar_paged_prefill_grouped_plain(
+        q, kc, vc, codes, *stats, vals, row, start, TC), iters=5,
+        flush=flush, lead_cycles=PLAIN_LEAD)
+    # yardstick only (the port never calls it): SDPA over the prefix keys
+    # dequantized beforehand (outside the timed window) and concatenated
+    # with the chunk keys, under the same boolean mask, in fp32
+    rl = row.long()
+    pk = qz.PolarKeys(codes=codes[rl].transpose(0, 1), rho_scale=stats[0][rl]
+                      .transpose(0, 1), rho_zero=stats[1][rl].transpose(0, 1),
+                      theta_scale=stats[2][rl].transpose(0, 1),
+                      theta_zero=stats[3][rl].transpose(0, 1), rho_bits=4,
+                      theta_bits=4, pairing="half")
+    k_pre = qz.decode_polar_keys(pk, torch.float32).reshape(HKV, start, D)
+    v_pre = vals[rl].transpose(0, 1).reshape(HKV, start, D).float()
+    rep = QH
+    k_all = torch.cat([k_pre, kc.float()], 1).repeat_interleave(rep, 0)
+    v_all = torch.cat([v_pre, vc.float()], 1).repeat_interleave(rep, 0)
+    q_h = q.reshape(HKV * QH, TC, D)
+    i = torch.arange(TC, device=dev)
+    mask = torch.cat([torch.ones((TC, start), dtype=torch.bool, device=dev),
+                      i[:, None] >= i[None, :]], 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(q_h[None], k_all[None], v_all[None],
+                                         attn_mask=mask, scale=1.0),
+                     flush=flush)
+    nbytes = (HKV * n * (G * P + 4 * P * 4 + G * D * 2) + n * 4
+              + q.numel() * 4 + 2 * kc.numel() * 2 + HKV * qt * D * 4)
+    causal = QH * TC * (TC + 1) // 2          # (row, key) pairs per kv head
+    # per (kv head, page): LUT 3*QT*P*2^t, rho~ 2*g*P once for every row,
+    # scores one FMA on a gathered LUT entry 2*QT*g*P, softmax ~4*QT*g,
+    # p@V 2*QT*g*d; the chunk tile: q.k 2d, softmax 4, p@V 2d per causal
+    # pair
+    flops = HKV * n * (3 * qt * P * 16 + 2 * G * P + 2 * qt * G * P
+                       + 4 * qt * G + 2 * qt * G * D) \
+        + HKV * causal * (4 * D + 4)
+    b_ms, by = bound(nbytes, flops, "fp32")
+    return {"name": "paged_prefill", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_prefill.cu",
+            "replaces": "src/repro/kernels/paged_prefill.py:136",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": "SDPA over pre-dequantized keys (fp32, bool mask)",
+            "shape": "4 kv heads x 8 query heads x 256-token chunk over "
+                     "8 prefix pages (1024 tokens)"}
 
 
 def phase_kernels(torch) -> list[dict]:
@@ -314,11 +433,13 @@ def phase_kernels(torch) -> list[dict]:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = [check_encode(torch, dev, gen, flush),
             check_decode(torch, dev, gen, flush),
-            check_prefill(torch, dev, gen, flush)]
+            check_prefill(torch, dev, gen, flush),
+            check_paged_prefill(torch, dev, gen, flush)]
     print("kernels: " + "; ".join(
         f"{r['name']} err {r['max_abs_err']:.3g} {r['ms']:.4f} ms "
         f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-        f"{r['bound_by']}" + (f", library {r['library_ms']:.4f} ms"
+        f"{r['bound_by']}" + (f", {r.get('library', 'library')} "
+                              f"{r['library_ms']:.4f} ms"
                               if r["library_ms"] is not None else "") + ")"
         for r in rows), flush=True)
     return rows
@@ -330,8 +451,8 @@ def phase_kernels(torch) -> list[dict]:
 
 
 def plain_kernels():
-    """Swap the three kernel wrappers for their plain versions (the
-    reference run of the model phase)."""
+    """Swap the three kernel wrappers of the classic path for their plain
+    versions (the reference run of the model phase)."""
     from repro_torch.kernels import flash_prefill as fpk
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import polar_encode as pe
@@ -435,7 +556,8 @@ def phase_serve(torch, model, params, counters) -> dict:
     # every decode step launches the (masked) flush encode
     full = sum(int(t) >= G for t in lens)
     expect = {"polar_encode": nl * (full + steps),
-              "paged_decode": nl * steps, "flash_prefill": nl * pre}
+              "paged_decode": nl * steps, "flash_prefill": nl * pre,
+              "paged_prefill": 0}
     assert launches == expect, (launches, expect)
     assert pre == n_req
     print(f"serve: {n_req} requests x {new} tokens, 8 slots, max_len 1024, "
@@ -449,6 +571,94 @@ def phase_serve(torch, model, params, counters) -> dict:
           f"{out['mean_active_slots']:.2f}; launches {json.dumps(launches)}",
           flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: chunked prefill + the shared-prefix page cache at full width
+# ---------------------------------------------------------------------------
+
+
+def _chunk_plan(ctx_lens, hits, c):
+    """(chunks computed, chunks holding a full key group) of a workload:
+    request i prefills [hits[i], ctx_lens[i]) in chunks of c tokens."""
+    n = full = 0
+    for tl, hit in zip(ctx_lens, hits):
+        for off in range(hit, tl, c):
+            n += 1
+            full += min(c, tl - off) >= G
+    return n, full
+
+
+def phase_prefix(torch, model, params, counters) -> dict:
+    """12 greedy requests that share one 1024-token system prompt: rid 0
+    at t = 0, the rest at t = 5 s (the idle clock jumps there, so rid 0's
+    prompt pages are registered before any later admission). Served
+    chunked with the prefix cache, then chunked without it; returns the
+    launches of both runs, summed."""
+    import numpy as np
+    from repro_torch.serve import (
+        ContinuousBatchingEngine, GenerationConfig, Request,
+    )
+    cfg = model.cfg
+    rng = np.random.default_rng(3)
+    n_req, new, sys_len = 12, 32, 1024
+    system = rng.integers(0, cfg.vocab_size, (sys_len,)).astype(np.int32)
+    suffixes = [rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32)
+                for t in rng.integers(32, 401, n_req)]
+    prompts = [np.concatenate([system, s]) for s in suffixes]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=new,
+                        arrival_time=0.0 if i == 0 else 5.0)
+                for i, p in enumerate(prompts)]
+
+    runs, launches = {}, {}
+    for shared in (True, False):
+        eng = ContinuousBatchingEngine(model, params, max_slots=8,
+                                       max_len=2048, prefill_chunk=TC,
+                                       prefix_cache=shared)
+        eng.warmup([len(p) for p in prompts])
+        torch.cuda.synchronize()
+        for mod in counters:
+            mod.launches = 0
+        out = eng.run(reqs(), GenerationConfig())
+        torch.cuda.synchronize()
+        got = {mod.__name__.rsplit(".", 1)[1]: mod.launches
+               for mod in counters}
+        done = out["requests"]
+        assert len(done) == n_req and all(r.done_tokens == new for r in done)
+        check_events(out["events"], done)
+        hits = [0] + [sys_len] * (n_req - 1) if shared else [0] * n_req
+        chunks, full = _chunk_plan([len(p) for p in prompts], hits, TC)
+        nl, steps = cfg.num_layers, out["decode_steps"]
+        expect = {"polar_encode": nl * (full + steps),
+                  "paged_decode": nl * steps, "flash_prefill": 0,
+                  "paged_prefill": nl * chunks}
+        assert got == expect, (shared, got, expect)
+        assert out["prefills"] == chunks
+        assert out["cow_splits"] == 0
+        runs[shared], launches[shared] = out, got
+    sh, un = runs[True], runs[False]
+    tok = {r.rid: r.out_tokens for r in sh["requests"]}
+    assert tok == {r.rid: r.out_tokens for r in un["requests"]}, \
+        "greedy streams differ with and without the prefix cache"
+    assert sh["adopted_pages"] == (n_req - 1) * (sys_len // G), \
+        sh["adopted_pages"]
+    assert un["adopted_pages"] == 0
+    for name, out in (("shared", sh), ("unshared", un)):
+        print(f"prefix[{name}]: {n_req} requests x {new} tokens (1024-token "
+              f"system prompt + 32-400-token suffixes), 8 slots, max_len "
+              f"2048, chunk {TC}: {out['total_tokens']} tokens in "
+              f"{out['wall_s']:.3f} s = {out['tokens_per_s']:.1f} tok/s; "
+              f"TTFT p50 {out['p50_ttft_s'] * 1e3:.1f} ms p99 "
+              f"{out['p99_ttft_s'] * 1e3:.1f} ms; {out['prefills']} chunks "
+              f"{out['prefill_s_total']:.3f} s; decode {out['decode_steps']} "
+              f"steps mean {out['decode_step_s_mean'] * 1e3:.2f} ms; prefix "
+              f"hit rate {out['prefix_hit_rate']:.3f}, adopted pages "
+              f"{out['adopted_pages']}, bytes saved "
+              f"{out.get('prefix_pool_bytes_saved', 0)}; launches "
+              f"{json.dumps(launches[name == 'shared'])}", flush=True)
+    return {k: launches[True][k] + launches[False][k] for k in launches[True]}
 
 
 def phase_profile(torch, model, params) -> None:
@@ -508,6 +718,7 @@ def phase_profile(torch, model, params) -> None:
 
 
 def main() -> int:
+    t_start = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -520,6 +731,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_prefill as fpk
     from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as ppk
     from repro_torch.kernels import polar_encode as pe
     from repro_torch.models import get_model
 
@@ -533,11 +745,18 @@ def main() -> int:
     gen.manual_seed(0)
     params = model.init(generator=gen, device="cuda")
     phase_model(torch, model, params)
-    launches = phase_serve(torch, model, params, (pe, pd, fpk))
+    counters = (pe, pd, fpk, ppk)
+    serve = phase_serve(torch, model, params, counters)
+    prefix = phase_prefix(torch, model, params, counters)
     phase_profile(torch, model, params)
 
+    print("launches per serving phase: " + json.dumps(
+        {"serve": serve, "prefix": prefix}), flush=True)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = serve[r["name"]] + prefix[r["name"]]
+        assert r["launches"] > 0, f"{r['name']} never ran on the main path"
+    print(f"total: {time.monotonic() - t_start:.1f} s, kernel builds "
+          "included", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -7,10 +7,13 @@ from repro_torch.core.quantizers import (  # noqa: F401
 from repro_torch.core.codecs import (  # noqa: F401
     KeyCodec, PolarCodec, get_codec, register_codec,
 )
-from repro_torch.core.cache_layout import PageAllocator, PagedLayout  # noqa: F401
+from repro_torch.core.cache_layout import (  # noqa: F401
+    PageAllocator, PagedLayout, PrefixIndex, token_page_hashes,
+)
 from repro_torch.core.paged_cache import (  # noqa: F401
-    PagedKVCache, init_paged_cache, paged_append, paged_decode_attention,
-    paged_prefill,
+    PagedKVCache, copy_pool_pages, init_paged_cache, paged_append,
+    paged_decode_attention, paged_prefill, paged_prefill_attention,
+    pool_page_bytes,
 )
 from repro_torch.core.attention import reference_attention  # noqa: F401
 from repro_torch.core.lut import build_angle_table, lut_qk_scores  # noqa: F401

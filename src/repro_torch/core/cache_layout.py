@@ -1,6 +1,6 @@
-"""Paged cache layout and its host-side page allocator (port of
-``repro/core/cache_layout.py``; the shared-prefix index comes with the
-prefix-cache slice).
+"""Paged cache layout, its host-side page allocator and the shared-prefix
+page index (port of ``repro/core/cache_layout.py:106-452``; the linear
+and ring layouts of the dense cache come with the dense-cache slice).
 
 A :class:`PagedLayout` is a pool of fixed-size pages shared by up to
 ``slots`` sequences; a per-slot page-table row maps group index -> pool
@@ -9,13 +9,19 @@ key group plus its token-major value rows. Unassigned table entries point
 at the pool's *scratch page* (index ``num_pages``), so masked lanes of
 batched writes land there harmlessly.
 
-Pages are refcounted: a page returns to the free list only when its last
-reference drops.
+Pages are refcounted (DESIGN.md §12): a page may be mapped into several
+slots' table rows at once (shared-prefix reuse — the encoded bytes are
+shared verbatim) and additionally referenced by the :class:`PrefixIndex`,
+which keeps reclaimed prompt pages alive for future admissions. A page
+returns to the free list only when its last reference drops; writers go
+through :meth:`PageAllocator.cow` before mutating a page whose refcount
+exceeds one.
 """
 from __future__ import annotations
 
 import dataclasses
-from collections import deque
+import hashlib
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -54,7 +60,10 @@ class PageAllocator:
     """Host-side refcounting free-list allocator over a :class:`PagedLayout`.
 
     Mutates numpy state between device steps and ships the page table to
-    the device as an int32 tensor (:meth:`table`)."""
+    the device as an int32 tensor (:meth:`table`). Every mapping of a page
+    into a slot's table row holds one reference, and external holders (the
+    :class:`PrefixIndex`) take references through :meth:`incref`; a page
+    is free iff its refcount is zero, so :meth:`free_slot` *decrefs*."""
 
     def __init__(self, layout: PagedLayout):
         self.layout = layout
@@ -78,8 +87,28 @@ class PageAllocator:
     def slot_pages(self, slot: int) -> int:
         return len(self._owned[slot])
 
+    def slot_page_ids(self, slot: int) -> list[int]:
+        """The slot's owned pages in table-row order (copy)."""
+        return list(self._owned[slot])
+
+    def page_at(self, slot: int, idx: int) -> int:
+        return self._owned[slot][idx]
+
     def can_alloc(self, count: int) -> bool:
         return len(self._free) >= count
+
+    def refcount(self, page: int) -> int:
+        return int(self._ref[page])
+
+    def incref(self, page: int) -> int:
+        """Take an external reference on an *allocated* page (prefix-index
+        pin). Returns the new count."""
+        if not 0 <= page < self.layout.num_pages:
+            raise ValueError(f"page {page} out of pool range")
+        if self._ref[page] == 0:
+            raise ValueError(f"incref on free page {page}")
+        self._ref[page] += 1
+        return int(self._ref[page])
 
     def decref(self, page: int) -> int:
         """Drop one reference; the page returns to the free list when the
@@ -107,11 +136,44 @@ class PageAllocator:
             owned.append(page)
         return True
 
+    def adopt(self, slot: int, pages: list[int]) -> bool:
+        """Map already-allocated ``pages`` into ``slot``'s table row at
+        refcount+1 (shared-prefix hit: the encoded bytes are shared
+        verbatim). All-or-nothing on row capacity; the pages must be live."""
+        owned = self._owned[slot]
+        if len(owned) + len(pages) > self.layout.pages_per_slot:
+            return False
+        for page in pages:
+            self.incref(page)
+            self._table[slot, len(owned)] = page
+            owned.append(page)
+        return True
+
+    def cow(self, slot: int, idx: int) -> tuple[int, int] | None:
+        """Copy-on-write split of ``slot``'s ``idx``-th page: when it is
+        shared (refcount > 1), remap the row entry to a fresh page, drop the
+        old reference and return ``(old, new)`` so the caller copies the
+        pool bytes on the device before writing. None when the page is
+        exclusively owned. Raises when the pool is dry."""
+        page = self._owned[slot][idx]
+        if self._ref[page] <= 1:
+            return None
+        if not self._free:
+            raise RuntimeError("COW split with an empty pool")
+        new = self._free.popleft()
+        self._ref[new] = 1
+        self._owned[slot][idx] = new
+        self._table[slot, idx] = new
+        self.decref(page)
+        return page, new
+
     def free_slot(self, slot: int) -> int:
         """Drop ``slot``'s references; returns the number of pages whose
         last reference this was (i.e. actually reclaimed)."""
         n = 0
         for page in self._owned[slot]:
+            # pages shared with other slots or pinned by the prefix index
+            # survive with their encoded bytes intact
             if self.decref(page) == 0:
                 n += 1
         self._owned[slot] = []
@@ -122,3 +184,137 @@ class PageAllocator:
         """(slots, pages_per_slot) int32 page table on ``device`` (the
         host copy when None)."""
         return torch.as_tensor(self._table.copy(), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Shared-prefix page index
+# ---------------------------------------------------------------------------
+
+
+def token_page_hashes(tokens, page_size: int) -> list[bytes]:
+    """Chain hashes of ``tokens``, one per *full* page: ``h[i]`` digests
+    every token in ``[0, (i+1)*page_size)``, because a page's encoded bytes
+    depend on the whole token prefix through the transformer. int32 tokens
+    and a sha1 chain seeded with ``str(page_size)``: byte-equal to the JAX
+    package's hashes."""
+    toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+    out: list[bytes] = []
+    h = hashlib.sha1(str(page_size).encode())
+    for i in range(len(toks) // page_size):
+        h = h.copy()
+        h.update(toks[i * page_size:(i + 1) * page_size].tobytes())
+        out.append(h.digest())
+    return out
+
+
+class PrefixIndex:
+    """Content-hash index over encoded prompt pages (DESIGN.md §12).
+
+    Maps the chain hash of a token prefix (:func:`token_page_hashes`) to
+    the pool page holding that group's encoded keys and value rows.
+    Entries form a trie over chains: each records its parent hash, so
+    eviction stays *leaf-first* and never strands reachable descendants.
+    The index holds one allocator reference per entry (taken at
+    :meth:`register`); under pool pressure :meth:`evict` drops
+    least-recently-used leaf entries whose page has no other holder.
+
+    Page bytes are deterministic in (token prefix, group size, prefill
+    chunking), so an index serves one ``(page_size, chunk_tokens)`` pair.
+    """
+
+    def __init__(self, layout: PagedLayout, chunk_tokens: int = 0):
+        self.layout = layout
+        self.chunk_tokens = int(chunk_tokens)
+        # hash -> (page, parent_hash | None); order == LRU (oldest first)
+        self._entries: "OrderedDict[bytes, tuple[int, bytes | None]]" = \
+            OrderedDict()
+        self._children: dict[bytes, int] = {}   # hash -> live child count
+        self.hits = 0
+        self.queries = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def pages(self) -> list[int]:
+        return [p for p, _ in self._entries.values()]
+
+    def match(self, tokens, count: bool = True) -> list[int]:
+        """Pages of the longest indexed prefix of ``tokens`` (whole pages,
+        in position order; empty on a first-page miss). Touches matched
+        entries for LRU recency; ``count=False`` skips the query/hit
+        stats (repeated admission polls of the same queue head)."""
+        return self.match_hashes(
+            token_page_hashes(tokens, self.layout.page_size), count=count)
+
+    def match_hashes(self, hashes: list[bytes],
+                     count: bool = True) -> list[int]:
+        """:meth:`match` on precomputed chain hashes; the page walk always
+        runs against the live index (eviction may drop entries between
+        polls)."""
+        if count:
+            self.queries += 1
+        pages: list[int] = []
+        for h in hashes:
+            ent = self._entries.get(h)
+            if ent is None:
+                break
+            pages.append(ent[0])
+            self._entries.move_to_end(h)
+        if count:
+            self.hits += bool(pages)
+        return pages
+
+    def register(self, tokens, pages: list[int],
+                 alloc: PageAllocator) -> int:
+        """Index ``pages`` (the slot's table-row prefix) under the chain
+        hashes of ``tokens``, taking one allocator reference per *newly*
+        indexed page. Existing entries win (equal chain hash means
+        bit-identical bytes). Returns the number of new entries."""
+        new = 0
+        parent: bytes | None = None
+        for h, page in zip(token_page_hashes(tokens, self.layout.page_size),
+                           pages):
+            if h not in self._entries:
+                alloc.incref(page)
+                self._entries[h] = (page, parent)
+                self._children.setdefault(h, 0)
+                if parent is not None:
+                    self._children[parent] += 1
+                new += 1
+            self._entries.move_to_end(h)
+            parent = h
+        return new
+
+    def _drop(self, h: bytes, alloc: PageAllocator) -> None:
+        page, parent = self._entries.pop(h)
+        del self._children[h]
+        if parent is not None and parent in self._children:
+            self._children[parent] -= 1
+        alloc.decref(page)
+        self.evictions += 1
+
+    def drop_all(self, alloc: PageAllocator) -> None:
+        for h in list(self._entries):
+            self._drop(h, alloc)
+
+    def evict(self, alloc: PageAllocator, need: int,
+              keep: set[int] | None = None) -> int:
+        """Free up to ``need`` pages by dropping LRU *leaf* entries whose
+        page has no holder besides the index (refcount == 1) and is not in
+        ``keep`` (pages about to be adopted). Returns pages freed."""
+        keep = keep or set()
+        freed = 0
+        while freed < need:
+            victim = None
+            for h, (page, _) in self._entries.items():   # oldest first
+                if (self._children.get(h, 0) == 0 and page not in keep
+                        and alloc.refcount(page) == 1):
+                    victim = h
+                    break
+            if victim is None:
+                break
+            self._drop(victim, alloc)
+            freed += 1
+        return freed

@@ -4,8 +4,8 @@ codec only).
 
 A :class:`KeyCodec` owns everything method-specific about cached keys:
 buffer allocation, encode/decode, writing encoded groups straight into
-page-pool pages, and the page-native decode attention. The
-paged cache owns only the method-agnostic machinery (page placement, the
+page-pool pages, and the page-native decode and chunk-prefill attention.
+The paged cache owns only the method-agnostic machinery (page placement, the
 fp residual, values, lengths).
 
 Buffer layout (``lead`` is the cache's leading dims, ``(PP, H)`` for page
@@ -31,6 +31,7 @@ class KeyCodec:
     name: str = ""
     grouped: bool = False            # codes carry (G, g) axes + fp residual
     supports_paged_decode: bool = False
+    supports_paged_prefill: bool = False
 
     def init_buffers(self, cfg: QuantConfig, lead: tuple[int, ...],
                      tokens: int, head_dim: int, dtype, device
@@ -62,6 +63,13 @@ class KeyCodec:
         raise NotImplementedError(
             f"codec {self.name!r} has no page-native decode in this port")
 
+    def paged_prefill(self, cache, q: torch.Tensor, k_chunk: torch.Tensor,
+                      v_chunk: torch.Tensor, page_row: torch.Tensor,
+                      start: int, chunk_len: int, *,
+                      scale: Optional[float]) -> torch.Tensor:
+        raise NotImplementedError(
+            f"codec {self.name!r} has no page-native prefill in this port")
+
 
 _CODECS: dict[str, KeyCodec] = {}
 
@@ -91,6 +99,7 @@ class PolarCodec(KeyCodec):
     name = "polar"
     grouped = True
     supports_paged_decode = True
+    supports_paged_prefill = True
 
     def _gcount(self, cfg: QuantConfig, tokens: int) -> int:
         if tokens % cfg.group_size:
@@ -147,5 +156,20 @@ class PolarCodec(KeyCodec):
             cache.value_fp, page_table, cache.lengths, r_bits=cfg.rho_bits,
             t_bits=cfg.theta_bits, softmax_scale=scale)
 
+    def paged_prefill(self, cache, q, k_chunk, v_chunk, page_row, start,
+                      chunk_len, *, scale):
+        # page-native chunk prefill: LUT scores + online softmax walk the
+        # prefix pages in place; the chunk's fp causal tile shares the same
+        # flash carry — no full-row gather, no dense score spill
+        from repro_torch.kernels import ops
+        cfg = cache.cfg
+        sc = cache.key_scales
+        return ops.polar_paged_prefill_attention(
+            q, k_chunk, v_chunk, cache.key_codes, sc["rho_scale"],
+            sc["rho_zero"], sc["theta_scale"], sc["theta_zero"],
+            cache.value_fp, page_row, start, chunk_len, r_bits=cfg.rho_bits,
+            t_bits=cfg.theta_bits, softmax_scale=scale)
+
 
 register_codec(PolarCodec())
+

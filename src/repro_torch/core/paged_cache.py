@@ -1,6 +1,7 @@
 """Paged quantized KV cache: a shared page pool + per-slot page tables
-(port of ``repro/core/paged_cache.py``, the paths of classic
-continuous-batching serving).
+(port of ``repro/core/paged_cache.py``, the paths of paged
+continuous-batching serving: whole-prompt and chunked prefill, decode
+append, page-native decode and chunk attention, copy-on-write copies).
 
 One page holds exactly one quantization group (``page_size ==
 group_size``): its key codes/stats and its ``page_size`` token-major value
@@ -26,6 +27,8 @@ and stats straight into their pool pages (one kernel launch); a group
 that is not written (padding pages at prefill, non-flushing slots at
 decode) is skipped rather than redirected to the scratch page, so only
 the never-read scratch page can differ from the JAX cache.
+:func:`copy_pool_pages` (the device half of a COW split) also copies in
+place.
 """
 from __future__ import annotations
 
@@ -35,8 +38,7 @@ import torch
 
 from repro_torch.core.cache_layout import PagedLayout
 from repro_torch.core.quantizers import QuantConfig
-from repro_torch.utils import torch_dtype
-
+from repro_torch.utils import resolve_device, torch_dtype
 
 @dataclasses.dataclass
 class PagedKVCache:
@@ -55,8 +57,10 @@ class PagedKVCache:
 
 def init_paged_cache(cfg: QuantConfig, layout: PagedLayout, num_kv_heads: int,
                      head_dim: int, dtype=torch.bfloat16,
-                     device="cpu") -> PagedKVCache:
-    """Allocate empty page pools for ``layout`` under policy ``cfg``."""
+                     device=None) -> PagedKVCache:
+    """Allocate empty page pools for ``layout`` under policy ``cfg`` on
+    ``device`` (the card unless named)."""
+    device = resolve_device(device)
     codec = cfg.codec
     if not codec.grouped or not codec.supports_paged_decode:
         raise ValueError(f"codec {cfg.method!r} has no paged path in this "
@@ -91,7 +95,9 @@ def paged_prefill(cache: PagedKVCache, slot: int, page_row: torch.Tensor,
     """Write one request's prompt into its assigned pages, in place.
 
     k/v: (1, Hkv, Tp, d) post-RoPE, ``Tp`` a bucket length (multiple of
-    the page size; the real tokens are the first ``true_len``).
+    the page size; the real tokens are the first ``true_len``). A prefill
+    *chunk* passes its page-aligned absolute offset ``start`` (k RoPE'd at
+    the absolute positions).
     ``page_row``: (N,) int32 table row of ``slot`` on the cache's device.
     Value rows of every page holding a real token, and the key groups that
     are fully real, go to ``page_row[start // g:]``; the partial group goes
@@ -108,6 +114,9 @@ def paged_prefill(cache: PagedKVCache, slot: int, page_row: torch.Tensor,
     nfull = true_len // g                     # fully-real key groups
     ntouch = -(-true_len // g)                # pages holding any real value
     p0 = start // g
+    # only the pages holding real tokens are written, so a final chunk
+    # whose bucket window [p0, p0 + tp/g) overruns the row writes nothing
+    # past it (JAX pads the row with scratch for the same effect)
     if p0 + ntouch > page_row.shape[0]:
         raise ValueError("prompt overruns the slot's page-table row")
 
@@ -132,6 +141,55 @@ def paged_prefill(cache: PagedKVCache, slot: int, page_row: torch.Tensor,
         cache.key_residual.dtype)
     cache.lengths[slot] = start + true_len
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: attention of one chunk over the cached prefix
+# ---------------------------------------------------------------------------
+
+
+def paged_prefill_attention(cache: PagedKVCache, q: torch.Tensor,
+                            k_chunk: torch.Tensor, v_chunk: torch.Tensor,
+                            page_row: torch.Tensor, start: int,
+                            chunk_len: int,
+                            scale: float | None = None) -> torch.Tensor:
+    """Chunk-prefill attention, page-native (the ``"paged_fused"`` route
+    of ``repro/core/paged_cache.py:347``): the codec walks the slot's
+    table row and scores the quantized prefix pages in place with one
+    online softmax over prefix + chunk — the paged-prefill kernel for
+    CUDA tensors, its plain version for CPU tensors. ``page_row`` may be
+    width-sliced to the pages covering ``start + chunk_len``."""
+    return cache.codec.paged_prefill(cache, q, k_chunk, v_chunk, page_row,
+                                     start, chunk_len, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Copy-on-write page copy (device half of PageAllocator.cow)
+# ---------------------------------------------------------------------------
+
+
+def _pool_buffers(cache: PagedKVCache) -> list[torch.Tensor]:
+    return [cache.key_codes, *cache.key_scales.values(), cache.value_fp]
+
+
+def copy_pool_pages(cache: PagedKVCache, src: int, dst: int
+                    ) -> PagedKVCache:
+    """Copy pool page ``src`` -> ``dst`` in every page-indexed buffer, in
+    place (``index_copy_``) — the device half of a COW split. Slot state
+    (``key_residual``, ``lengths``) is untouched."""
+    dev = cache.key_codes.device
+    s = torch.tensor([src], dtype=torch.long, device=dev)
+    d = torch.tensor([dst], dtype=torch.long, device=dev)
+    for buf in _pool_buffers(cache):
+        buf.index_copy_(0, d, buf.index_select(0, s))
+    return cache
+
+
+def pool_page_bytes(cache: PagedKVCache) -> int:
+    """Physical bytes one pool page occupies across the page-indexed
+    buffers — the unit of the shared-prefix memory win."""
+    return sum(buf.numel() * buf.element_size() // buf.shape[0]
+               for buf in _pool_buffers(cache))
 
 
 def paged_append(cache: PagedKVCache, k_new: torch.Tensor,

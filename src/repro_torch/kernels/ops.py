@@ -1,5 +1,5 @@
 """Public entries over the hand-written kernels (port of
-``repro/kernels/ops.py``, the entries on this slice's path).
+``repro/kernels/ops.py``, the entries of the ported paths).
 
 There is no ``backend`` argument: each kernel wrapper launches its CUDA
 kernel for CUDA tensors and runs its plain version for CPU tensors.
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import flash_prefill as fp_mod
 from repro_torch.kernels import paged_decode as pd_mod
+from repro_torch.kernels import paged_prefill as pp_mod
 from repro_torch.kernels import polar_encode as pe_mod
 
 NEG_INF = -1e30
@@ -44,6 +45,31 @@ def polar_paged_decode_attention_grouped(q, codes, rs, rz, ts, tz, values,
 def flash_prefill(q, k, v, *, causal=True, scale=None):
     """Causal GQA flash attention forward for prefill."""
     return fp_mod.flash_prefill(q, k, v, causal=causal, scale=scale)
+
+
+def polar_paged_prefill_attention(q, k_chunk, v_chunk, codes, rs, rz, ts,
+                                  tz, values, page_row, start, chunk_len, *,
+                                  r_bits=4, t_bits=4, softmax_scale=None):
+    """Page-native fused chunk-prefill attention: one chunk's queries
+    against the slot's quantized prefix pages (LUT scores, in-place page
+    walk) + the chunk's own fp causal tile, one online softmax.
+
+    q (1, Hq, Tc, d) UNscaled post-RoPE queries; k_chunk/v_chunk
+    (1, Hkv, Tc, d); pools as in :func:`polar_paged_decode_attention_grouped`;
+    page_row (N,) int32; ``start`` (page-aligned) and ``chunk_len`` ints.
+    Returns (1, Hq, Tc, d) in q.dtype."""
+    _, hq, tc, d = q.shape
+    hkv = codes.shape[1]
+    qpk = hq // hkv
+    scale = d ** -0.5 if softmax_scale is None else softmax_scale
+    # fold chunk queries onto the head axis (row = qh * Tc + t) and
+    # pre-scale — the kernel consumes one tall operand per kv head
+    qf = (q.float() * scale).reshape(hkv, qpk * tc, d)
+    out = pp_mod.polar_paged_prefill_grouped(
+        qf, k_chunk[0].contiguous(), v_chunk[0].contiguous(), codes, rs, rz,
+        ts, tz, values, page_row.contiguous(), start, chunk_len,
+        r_bits=r_bits, t_bits=t_bits)
+    return out.reshape(1, hq, tc, d).to(q.dtype)
 
 
 def merge_softmax_partials(parts):

@@ -1,0 +1,121 @@
+"""Page-native fused PolarQuant chunk-prefill attention: hand-written CUDA
+kernel + its plain version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/paged_prefill.py::
+polar_paged_prefill_grouped``. Source: ``csrc/paged_prefill.cu``.
+
+One prefill chunk's queries (folded onto the head axis: QT = (Hq/Hkv)*Tc
+rows per kv head, row = qh*Tc + t, pre-scaled) attend to the slot's
+quantized prefix pages ``[0, start)`` through the angle LUT and,
+causally, to the chunk's own fp keys, under one online softmax. The
+grid tiles the QT rows (64 per block) across kv heads, so the serving
+shapes give 128 blocks; each block walks the ``start/g`` live pages on
+its own, with shared-memory gathers in place of the TPU's select tree.
+
+Bound: operations (fp32 LUT scores and p @ V; the first version runs them
+on the CUDA cores, not the tensor cores).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build as B
+from repro_torch.kernels import ref as ref_mod
+
+#: kernel launches since the last reset (CPU calls never count)
+launches = 0
+
+
+def _bind(lib) -> None:
+    lib.paged_prefill_launch.argtypes = [
+        B.VOIDP, B.VOIDP, B.VOIDP, B.INT, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP,
+        B.VOIDP, B.VOIDP, B.INT, B.VOIDP, B.INT, B.INT, B.VOIDP, B.INT, B.INT,
+        B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP]
+    lib.paged_prefill_launch.restype = B.INT
+
+
+def polar_paged_prefill_grouped_plain(q, k_chunk, v_chunk, codes, rs, rz, ts,
+                                      tz, values, page_row, start: int,
+                                      chunk_len: int, *, r_bits: int = 4,
+                                      t_bits: int = 4) -> torch.Tensor:
+    """Plain version: unfold the rows and run the gathering oracle
+    (``ref.ref_polar_paged_prefill_attention``) at softmax scale 1."""
+    hkv, qt, d = q.shape
+    tc = k_chunk.shape[1]
+    out = ref_mod.ref_polar_paged_prefill_attention(
+        q.reshape(1, qt // tc * hkv, tc, d), k_chunk[None], v_chunk[None],
+        codes, rs, rz, ts, tz, values, page_row, start, chunk_len,
+        r_bits=r_bits, t_bits=t_bits, softmax_scale=1.0)
+    return out.float().reshape(hkv, qt, d)
+
+
+def polar_paged_prefill_grouped(q: torch.Tensor, k_chunk: torch.Tensor,
+                                v_chunk: torch.Tensor, codes: torch.Tensor,
+                                rs: torch.Tensor, rz: torch.Tensor,
+                                ts: torch.Tensor, tz: torch.Tensor,
+                                values: torch.Tensor, page_row: torch.Tensor,
+                                start: int, chunk_len: int, *,
+                                r_bits: int = 4,
+                                t_bits: int = 4) -> torch.Tensor:
+    """One prefill chunk's fused attention, straight off the pools.
+
+    q (Hkv, QT, d) fp32, folded and ALREADY scaled; k_chunk/v_chunk
+    (Hkv, Tc, d) bf16/fp32; codes (PP, Hkv, g, d/2) uint8; stats
+    (PP, Hkv, 1, d/2) fp32; values (PP, Hkv, g, d) bf16/fp32 rows;
+    page_row (N,) int32, the slot's table row (may be width-sliced);
+    ``start`` page-aligned, ``start <= N*g``; ``chunk_len <= Tc`` real
+    chunk tokens. Returns (Hkv, QT, d) fp32. The kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    global launches
+    start, chunk_len = int(start), int(chunk_len)
+    g = codes.shape[2]
+    B.require(start % g == 0, f"start {start} is not page-aligned (g={g})")
+    B.require(0 <= start <= page_row.shape[0] * g,
+              f"start {start} beyond the table row's {page_row.shape[0]} "
+              "pages")
+    tensors = (q, k_chunk, v_chunk, codes, rs, rz, ts, tz, values, page_row)
+    if not B.on_card(*tensors):
+        return polar_paged_prefill_grouped_plain(
+            q, k_chunk, v_chunk, codes, rs, rz, ts, tz, values, page_row,
+            start, chunk_len, r_bits=r_bits, t_bits=t_bits)
+    hkv, qt, d = q.shape
+    pp, _, _, p = codes.shape
+    tc = k_chunk.shape[1]
+    B.require(q.dtype == torch.float32 and q.is_contiguous(),
+              "q must be contiguous float32 (Hkv, QT, d)")
+    B.require(d in (32, 64, 128) and p * 2 == d, f"head_dim {d} not in "
+              "(32, 64, 128)")
+    for x in (k_chunk, v_chunk):
+        B.require(x.dtype == k_chunk.dtype
+                  and x.dtype in (torch.float32, torch.bfloat16)
+                  and x.is_contiguous() and tuple(x.shape) == (hkv, tc, d),
+                  "k_chunk/v_chunk must be contiguous (Hkv, Tc, d), both "
+                  "bf16 or both fp32")
+    B.require(qt % tc == 0 and 0 <= chunk_len <= tc,
+              "QT must be a multiple of Tc and chunk_len <= Tc")
+    B.require(codes.dtype == torch.uint8 and codes.is_contiguous()
+              and codes.shape[1] == hkv and codes.data_ptr() % 4 == 0,
+              "codes pool must be contiguous uint8 (PP, Hkv, g, d/2)")
+    for st in (rs, rz, ts, tz):
+        B.require(st.dtype == torch.float32 and st.is_contiguous()
+                  and tuple(st.shape) == (pp, hkv, 1, p),
+                  "stat pools must be contiguous float32 (PP, Hkv, 1, d/2)")
+    B.require(values.dtype in (torch.float32, torch.bfloat16)
+              and values.is_contiguous()
+              and tuple(values.shape) == (pp, hkv, g, d),
+              "values must be contiguous bf16/fp32 (PP, Hkv, g, d)")
+    B.require(page_row.dtype == torch.int32 and page_row.dim() == 1
+              and page_row.is_contiguous(),
+              "page_row must be a contiguous int32 (N,) row")
+    out = torch.empty((hkv, qt, d), dtype=torch.float32, device=q.device)
+    lib = B.library("paged_prefill", _bind)
+    err = lib.paged_prefill_launch(
+        q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
+        int(k_chunk.dtype == torch.bfloat16), codes.data_ptr(),
+        rs.data_ptr(), rz.data_ptr(), ts.data_ptr(), tz.data_ptr(),
+        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        page_row.data_ptr(), start // g, chunk_len, out.data_ptr(), hkv, qt,
+        tc, d, g, pp, t_bits, B.stream_ptr(q))
+    B.check(err, "paged_prefill")
+    launches += 1
+    return out

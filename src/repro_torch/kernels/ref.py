@@ -1,5 +1,5 @@
 """Plain-PyTorch oracles of the kernels (port of ``repro/kernels/ref.py``,
-the entries this slice's kernels need).
+the entries the ported kernels need).
 
 Each ``ref_*`` function is the semantic ground truth its kernel is held
 to on the card, and what the wrappers run for CPU tensors.
@@ -89,3 +89,64 @@ def ref_polar_paged_decode_attention(q, codes, rs, rz, ts, tz, values,
     return ref_polar_decode_attention(
         q, pages(codes), pages(rs), pages(rz), pages(ts), pages(tz), v,
         flushed, r_bits=r_bits, t_bits=t_bits, softmax_scale=1.0)
+
+
+def ref_polar_paged_prefill_attention(q, k_chunk, v_chunk, codes, rs, rz,
+                                      ts, tz, values, page_row, start,
+                                      chunk_len, *, r_bits: int, t_bits: int,
+                                      softmax_scale: float | None = None):
+    """Page-native chunk-prefill oracle: one prefill chunk's attention over
+    the slot's quantized prefix pages + its own fp causal tile (port of
+    ``repro/kernels/ref.py:86``).
+
+    q (1, Hq, Tc, d) post-RoPE at absolute positions ``start + [0, Tc)``
+    (UNscaled); k_chunk/v_chunk (1, Hkv, Tc, d); codes (PP, Hkv, g, P) page
+    pool with stats (PP, Hkv, 1, P); values (PP, Hkv, g, d) fp rows;
+    page_row (N,) int32; ``start`` page-aligned; ``chunk_len`` real chunk
+    tokens. Pages outside ``[0, PP - 1)`` (the scratch page) read as
+    zeros, and value rows at or past ``start`` (prefix pool) or
+    ``chunk_len`` (chunk) are zeroed as the kernel zeroes them: their
+    probabilities are exactly 0, but 0 * NaN garbage would poison the
+    product. Returns (1, Hq, Tc, d) in q.dtype."""
+    _, hq, tc, d = q.shape
+    hkv = codes.shape[1]
+    qpk = hq // hkv
+    n = page_row.shape[0]
+    g = codes.shape[2]
+    t_cap = n * g
+    num_pages = codes.shape[0] - 1          # last pool page is scratch
+    scale = d ** -0.5 if softmax_scale is None else softmax_scale
+    dev = q.device
+    row = page_row.long()
+    pvalid = (row >= 0) & (row < num_pages)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+
+    def gat(pool):  # (PP, H, a, b) -> (1, H, N, a, b), invalid pages zeroed
+        x = pool[row.clamp(0, pool.shape[0] - 1)]
+        x = torch.where(pvalid[:, None, None, None], x,
+                        torch.zeros((), dtype=x.dtype, device=dev))
+        return x.transpose(0, 1)[None]
+
+    q4 = (q.float() * scale).reshape(1, hkv, qpk, tc, d)
+    qf = q4.reshape(1, hkv, qpk * tc, d)
+    s_prefix = ref_polar_qk_scores(qf, gat(codes), gat(rs), gat(rz),
+                                   gat(ts), gat(tz), r_bits=r_bits,
+                                   t_bits=t_bits)
+    s_prefix = s_prefix.reshape(1, hkv, qpk, tc, t_cap)
+    pos = torch.arange(t_cap, device=dev)
+    s_prefix = torch.where(pos < start, s_prefix, neg)
+
+    kf = k_chunk.float()
+    s_chunk = torch.einsum("bhqtd,bhsd->bhqts", q4, kf)
+    i = torch.arange(tc, device=dev)
+    cmask = (i[:, None] >= i[None, :]) & (i[None, :] < chunk_len)
+    s_chunk = torch.where(cmask, s_chunk, neg)
+    probs = torch.softmax(torch.cat([s_prefix, s_chunk], dim=-1), dim=-1)
+
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    v_tilde = gat(values).reshape(1, hkv, t_cap, d).float()
+    v_tilde = torch.where((pos < start)[:, None], v_tilde, zero)
+    v_c = torch.where((i < chunk_len)[:, None], v_chunk.float(), zero)
+    v_all = torch.cat([v_tilde, v_c], dim=2)
+    out = torch.einsum("bhqts,bhsd->bhqtd", probs, v_all)
+    return out.reshape(1, hq, tc, d).to(q.dtype)

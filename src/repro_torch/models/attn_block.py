@@ -4,6 +4,10 @@ paged entries of ``repro/models/attn_block.py``).
 * ``attention_prefill_paged`` — one request's prompt: causal flash
   attention (the flash-prefill kernel) + the paged cache fill (the encode
   kernel writes the prompt's key groups into their pages).
+* ``attention_prefill_chunk`` — one prefill chunk at a page-aligned
+  offset: the paged cache fill at ``start`` + page-native attention over
+  the quantized prefix and the chunk's own causal tile (the paged-prefill
+  kernel).
 * ``attention_decode_paged`` — one token per slot: append (residual
   write + masked group flush through the encode kernel) and page-native
   LUT decode attention (the paged-decode kernel).
@@ -44,6 +48,28 @@ def attention_prefill_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
     v = v.contiguous()
     cache = pgc.paged_prefill(cache, slot, page_row, k, v, true_len)
     out = ops.flash_prefill(q, k, v, causal=True)
+    return L.linear(L.merge_heads(out), params["wo"]), cache
+
+
+def attention_prefill_chunk(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                            cache: pgc.PagedKVCache, *, slot: int,
+                            page_row: torch.Tensor, start: int,
+                            chunk_len: int):
+    """One prefill chunk's attention + paged cache fill at offset
+    ``start`` (page-aligned). x: (1, Tc, D), real tokens ``[0,
+    chunk_len)``. RoPE runs at the absolute positions ``start + i``; the
+    queries attend to the slot's quantized prefix ``[0, start)`` and, fp
+    causally, to the chunk. Returns (y (1, Tc, D), cache)."""
+    t = x.shape[1]
+    positions = start + torch.arange(t, dtype=torch.int32, device=x.device)
+    q, k, v = _project(params, x, cfg)
+    q = L.apply_rope(q, positions, cfg.rope_base, cfg.rope_ntk_scale)
+    k = L.apply_rope(k, positions, cfg.rope_base, cfg.rope_ntk_scale)
+    v = v.contiguous()
+    cache = pgc.paged_prefill(cache, slot, page_row, k, v, chunk_len,
+                              start=start)
+    out = pgc.paged_prefill_attention(cache, q, k, v, page_row, start,
+                                      chunk_len)
     return L.linear(L.merge_heads(out), params["wo"]), cache
 
 

@@ -1,12 +1,15 @@
 """Model interface over the dense family's paged serving entries (port of
-``repro/models/registry.py:118-161``; run-ahead, speculative decoding and
-page copies come in later slices).
+``repro/models/registry.py:55-68,118-161``; run-ahead and speculative
+decoding come in later slices).
 
 ``get_model(cfg)`` returns a :class:`Model` bundle:
   init(generator, device) -> params
   init_paged_state(layout, device) -> list of per-layer PagedKVCaches
   prefill_paged(params, tokens (1,Tp), state, slot, page_row, true_len)
+  prefill_paged_chunk(params, tokens (1,Tc), state, slot, page_row, start,
+                      chunk_len)
   decode_paged(params, state, token (S,), page_table, active)
+  copy_pages(state, src, dst) — COW page copy across every layer's pools
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ class Model:
     init: Callable[..., dict]
     init_paged_state: Callable[..., Any]
     prefill_paged: Callable[..., Any]
+    prefill_paged_chunk: Callable[..., Any]
     decode_paged: Callable[..., Any]
+    copy_pages: Callable[..., Any]
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -38,6 +43,9 @@ def get_model(cfg: ModelConfig) -> Model:
             cfg, layout, device),
         prefill_paged=lambda p, toks, s, slot, row, tl:
             TF.prefill_paged_fn(p, toks, cfg, s, slot, row, tl),
+        prefill_paged_chunk=lambda p, toks, s, slot, row, start, cl:
+            TF.prefill_paged_chunk_fn(p, toks, cfg, s, slot, row, start, cl),
         decode_paged=lambda p, s, t, table, active:
             TF.decode_paged_fn(p, s, t, table, active, cfg),
+        copy_pages=TF.copy_state_pages,
     )

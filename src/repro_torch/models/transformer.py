@@ -45,6 +45,17 @@ def _block_prefill_paged(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + L.mlp(bp["ffn"], h, cfg.act), cache
 
 
+def _block_prefill_chunk(bp: dict, x: torch.Tensor, cfg: ModelConfig,
+                         cache, *, slot, page_row, start, chunk_len):
+    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    y, cache = AB.attention_prefill_chunk(bp["attn"], h, cfg, cache,
+                                          slot=slot, page_row=page_row,
+                                          start=start, chunk_len=chunk_len)
+    x = x + y
+    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + L.mlp(bp["ffn"], h, cfg.act), cache
+
+
 def _block_decode_paged(bp: dict, x: torch.Tensor, cfg: ModelConfig, cache,
                         *, page_table, active):
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
@@ -78,6 +89,33 @@ def prefill_paged_fn(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                                     page_row=page_row, true_len=true_len)
     logits = lm_logits(params, x[:, true_len - 1:true_len], cfg)
     return logits[:, 0], caches
+
+
+@torch.no_grad()
+def prefill_paged_chunk_fn(params: dict, tokens: torch.Tensor,
+                           cfg: ModelConfig, caches: list, slot: int,
+                           page_row: torch.Tensor, start: int,
+                           chunk_len: int):
+    """Prefill ONE fixed-size chunk of one request at absolute offset
+    ``start`` (page-aligned; the engine drives chunks front to back), in
+    place. tokens: (1, Tc) int (real tokens = first ``chunk_len``).
+    Returns (logits of row ``chunk_len - 1`` (1, V), caches); they are
+    meaningful only on a request's final chunk."""
+    x = embed_tokens(params, tokens, cfg)
+    for bp, cache in zip(params["layers"], caches):
+        x, _ = _block_prefill_chunk(bp, x, cfg, cache, slot=slot,
+                                    page_row=page_row, start=start,
+                                    chunk_len=chunk_len)
+    logits = lm_logits(params, x[:, chunk_len - 1:chunk_len], cfg)
+    return logits[:, 0], caches
+
+
+def copy_state_pages(caches: list, src: int, dst: int) -> list:
+    """Copy pool page ``src`` -> ``dst`` in every layer's pools, in place —
+    the device half of a COW split (DESIGN.md §12)."""
+    for c in caches:
+        pgc.copy_pool_pages(c, src, dst)
+    return caches
 
 
 @torch.no_grad()

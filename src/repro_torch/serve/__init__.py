@@ -1,8 +1,11 @@
 """Serving over the paged quantized KV cache: ``core.py`` owns every
 device dispatch, ``scheduler.py`` slots and pages host-side, ``engine.py``
-the batch-replay driver."""
+the batch-replay driver and ``api.py`` the streaming front door."""
 from repro_torch.serve.core import (  # noqa: F401
     EngineCore, GenerationConfig, TokenEvent,
+)
+from repro_torch.serve.api import (  # noqa: F401
+    StreamingEngine, check_event_stream, stream_latency_stats,
 )
 from repro_torch.serve.engine import ContinuousBatchingEngine  # noqa: F401
 from repro_torch.serve.scheduler import (  # noqa: F401

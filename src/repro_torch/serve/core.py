@@ -1,10 +1,12 @@
 """EngineCore: the step-shaped device-dispatch layer of the serve stack
-(port of the classic continuous-batching path of ``repro/serve/core.py``).
+(port of the continuous-batching paths of ``repro/serve/core.py``:
+classic whole-prompt prefill, chunked prefill and the shared-prefix page
+cache).
 
 One public :meth:`EngineCore.step` performs exactly one scheduling
-decision + at most one device dispatch (admit + whole-prompt prefill, or
-one batched decode step) and returns structured :class:`TokenEvent`\\ s.
-Requests move through::
+decision + at most one device dispatch (admit — with its whole-prompt
+prefill in classic mode —, one prefill chunk, or one batched decode step)
+and returns structured :class:`TokenEvent`\\ s. Requests move through::
 
     WAITING -> PREFILLING -> DECODING -> FINISHED
                                   \\-> PREEMPTED (-> WAITING)
@@ -13,9 +15,8 @@ Requests move through::
 The device state (one paged cache per layer) is updated in place by each
 dispatch. The engine clock advances by measured wall time around each
 dispatch, which ends in the host fetch of the sampled tokens — the fetch
-waits for the device, so the clock counts device time. Chunked prefill,
-the prefix cache, run-ahead, speculative decoding, QoS and chaos come in
-later slices.
+waits for the device, so the clock counts device time. Run-ahead,
+speculative decoding, QoS, chaos and the mesh come in later slices.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.cache_layout import PagedLayout
+from repro_torch.core import paged_cache as pgc
+from repro_torch.core.cache_layout import PagedLayout, PrefixIndex
 from repro_torch.models.registry import Model
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.utils import (
@@ -101,10 +103,19 @@ class EngineCore:
     ``max_slots`` concurrent requests share ``num_pages`` pages of one
     quantization group each (default: fully provisioned). ``device``:
     the card unless named — with no GPU and no device named, construction
-    raises. ``params`` must live on that device."""
+    raises. ``params`` must live on that device.
+
+    ``prefill_chunk > 0`` prefills prompts in page-aligned chunks
+    interleaved with decode steps, one chunk per cycle.
+    ``prefix_cache=True`` (which implies a chunk of two pages when none is
+    given) registers completed prompts' full-chunk pages in a
+    :class:`PrefixIndex`; admissions that match adopt those pages and
+    prefill only the tail (DESIGN.md §12). Page tables are width-sliced to
+    pow2 live-page buckets."""
 
     def __init__(self, model: Model, params: dict, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
+                 prefix_cache: bool = False, prefill_chunk: int = 0,
                  device=None):
         self.model = model
         self.params = params
@@ -116,6 +127,19 @@ class EngineCore:
         self.layout = PagedLayout(page_size=g, num_pages=num_pages,
                                   slots=max_slots,
                                   pages_per_slot=pages_per_slot)
+        self.prefix_cache = bool(prefix_cache)
+        chunk = int(prefill_chunk)
+        if chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got {chunk}")
+        if self.prefix_cache and chunk == 0:
+            chunk = 2 * g   # sharing requires the chunk-aligned path
+        if chunk:
+            chunk = cdiv(chunk, g) * g   # page-aligned chunks
+            if not model.cfg.quant.codec.supports_paged_prefill:
+                raise ValueError(
+                    f"codec {model.cfg.quant.method!r} has no page-native "
+                    "chunk prefill in this port")
+        self.prefill_chunk = chunk
         self.reset()
 
     # --- session lifecycle ------------------------------------------------
@@ -124,7 +148,10 @@ class EngineCore:
         """Start a fresh session: new device state, scheduler, clock, RNG
         and metrics."""
         self.gen = gen if gen is not None else GenerationConfig()
-        self.sched = Scheduler(self.layout)
+        self.prefix = (PrefixIndex(self.layout, self.prefill_chunk)
+                       if self.prefix_cache else None)
+        self.sched = Scheduler(self.layout, prefix_index=self.prefix,
+                               chunk_tokens=self.prefill_chunk)
         self.state = self.model.init_paged_state(self.layout, self.device)
         s = self.layout.slots
         self.clock = 0.0
@@ -134,11 +161,17 @@ class EngineCore:
         self._lengths = np.zeros((s,), np.int64)
         self._eff_max: dict[int, int] = {}
         self._admit_seq: dict[int, int] = {}   # slot -> admission order
+        self._prefilling: dict[int, dict] = {}  # slot -> {"ctx", "off"}
         self._n_admitted = 0
         self._arrivals: list[Request] = []     # sorted by arrival_time
         self.completed: list[Request] = []
         self.cancelled: list[Request] = []
+        # cycle state: one cycle is the phase sequence begin -> admit* ->
+        # prefill* -> decode, pumping arrivals and resetting the chunk
+        # budget once per cycle (the JAX engine's replay order)
         self._phase = "begin"
+        self._progressed = False
+        self._budget_left = 0
         # metrics
         self._util: list[float] = []
         self._active_hist: list[int] = []
@@ -146,6 +179,8 @@ class EngineCore:
         self._prefill_times: list[float] = []
         self.decode_steps = 0
         self.prefill_computed = 0   # prefill tokens run through the model
+        self.prefill_skipped = 0    # prefill tokens served from adoption
+        self.cow_splits = 0
 
     # --- request intake ---------------------------------------------------
 
@@ -179,6 +214,7 @@ class EngineCore:
         if summary is None:
             return []
         if summary.slot >= 0:
+            self._prefilling.pop(summary.slot, None)
             self._eff_max.pop(rid, None)
         return self._cancelled(summary.req, summary.slot)
 
@@ -214,6 +250,14 @@ class EngineCore:
                 return w
         return self.layout.pages_per_slot
 
+    def _prefill_widths(self, prompt_lens: list[int]) -> list[int]:
+        """Table-row widths the chunk prefill runs at: the decode buckets
+        up to the largest prompt's page count."""
+        maxw = self._step_width(
+            self.layout.pages_for(max(prompt_lens))
+            if prompt_lens else self.layout.pages_per_slot)
+        return [w for w in self._decode_widths() if w <= maxw]
+
     def _bucket(self, prompt_len: int) -> int:
         return min(pow2_bucket(prompt_len, self.layout.page_size),
                    self.layout.tokens_per_slot)
@@ -223,17 +267,28 @@ class EngineCore:
         return t if width is None else t[:, :width]
 
     def warmup(self, prompt_lens: list[int]) -> None:
-        """Run every prefill bucket of ``prompt_lens`` and every decode
-        width once against throwaway state (kernel builds and library
-        initialisation stay out of the measurements)."""
+        """Run every prefill bucket (or chunk width) of ``prompt_lens`` and
+        every decode width once against throwaway state (kernel builds and
+        library initialisation stay out of the measurements)."""
         state = self.model.init_paged_state(self.layout, self.device)
         row = self._table()[0]
         s = self.layout.slots
-        for tp in sorted({self._bucket(t) for t in prompt_lens}):
-            toks = torch.zeros((1, tp), dtype=torch.int64, device=self.device)
-            logits, _ = self.model.prefill_paged(self.params, toks, state, 0,
-                                                 row, tp)
-            _sample(logits, self.gen, self._generator).cpu()
+        if self.prefill_chunk:
+            c = self.prefill_chunk
+            toks = torch.zeros((1, c), dtype=torch.int64, device=self.device)
+            for w in self._prefill_widths(prompt_lens):
+                # a width-w row holds at most w pages of real tokens
+                logits, _ = self.model.prefill_paged_chunk(
+                    self.params, toks, state, 0, row[:w], 0,
+                    min(c, w * self.layout.page_size))
+                _sample(logits, self.gen, self._generator).cpu()
+        else:
+            for tp in sorted({self._bucket(t) for t in prompt_lens}):
+                toks = torch.zeros((1, tp), dtype=torch.int64,
+                                   device=self.device)
+                logits, _ = self.model.prefill_paged(self.params, toks, state,
+                                                     0, row, tp)
+                _sample(logits, self.gen, self._generator).cpu()
         for w in self._decode_widths():
             logits, _ = self.model.decode_paged(
                 self.params, state,
@@ -245,8 +300,10 @@ class EngineCore:
     # --- the step loop ----------------------------------------------------
 
     def step(self) -> list[TokenEvent]:
-        """One scheduling decision + at most one device dispatch: admit
-        (with its whole-prompt prefill) the next admissible request, or run
+        """One scheduling decision + at most one device dispatch, in cycle
+        priority order: admit the next admissible request (adopting prefix
+        pages; classic mode also runs its whole-prompt prefill here), run
+        one prefill chunk (chunked mode, under the cycle budget), or run
         one batched decode step over all decode-ready slots — or
         recompute-preempt the youngest admission when every slot stalls on
         a dry pool. Idle with scheduled arrivals jumps the clock; idle with
@@ -259,21 +316,33 @@ class EngineCore:
                 # idle engine: jump the clock to the next arrival
                 self.clock = max(self.clock, self._arrivals[0].arrival_time)
                 self._pump_arrivals()
+            self._progressed = False
+            self._budget_left = self.prefill_chunk
             self._phase = "admit"
-        req = self.sched.admissible()
-        if req is not None:
-            return self._admit(req)
-        if not self.sched.active:
-            # nothing running and the queue head can't fit: wait for
-            # arrivals (clock jump) or fail loudly
-            self._phase = "begin"
-            if self.sched.pending and self._arrivals:
-                self.clock = max(self.clock, self._arrivals[0].arrival_time)
+
+        if self._phase == "admit":
+            req = self.sched.admissible()
+            if req is not None:
+                return self._admit(req)
+            if not self.sched.active:
+                # nothing running and the queue head can't fit: wait for
+                # arrivals (clock jump) or fail loudly
+                self._phase = "begin"
+                if self.sched.pending and self._arrivals:
+                    self.clock = max(self.clock,
+                                     self._arrivals[0].arrival_time)
+                    return []
+                if self.sched.pending:
+                    raise RuntimeError("pool cannot fit a single pending "
+                                       "request (num_pages too small)")
                 return []
-            if self.sched.pending:
-                raise RuntimeError("pool cannot fit a single pending request "
-                                   "(num_pages too small)")
-            return []
+            self._phase = "prefill"
+
+        if self._phase == "prefill":
+            if self._budget_left > 0 and self._prefilling:
+                return self._prefill_one_chunk()
+            self._phase = "decode"
+
         self._phase = "begin"   # decode (or preempt) ends the cycle
         return self._decode_step()
 
@@ -283,9 +352,11 @@ class EngineCore:
             self.sched.submit(self._arrivals.pop(0))
 
     def _admit(self, req: Request) -> list[TokenEvent]:
-        """Assign a slot, reserve pages, prefill the whole context in one
-        dispatch and sample the first token (a preempted request resumes
-        by prefilling its full context)."""
+        """Assign a slot, adopt prefix hits, reserve pages. Chunked mode
+        queues the context for interleaved chunk prefill; classic mode
+        prefills the whole context in one dispatch and samples the first
+        token (a preempted request resumes by prefilling its full
+        context either way)."""
         slot = self.sched.admit(req)
         req.state = PREFILLING
         self._admit_seq[slot] = self._n_admitted
@@ -296,6 +367,14 @@ class EngineCore:
             req.max_new_tokens - req.done_tokens,
             self.layout.tokens_per_slot - tl + 1)
         events = [TokenEvent("admit", req.rid, self.clock, slot=slot)]
+        if self.prefill_chunk:
+            # adopted prefix pages skip their prefill compute; chunks
+            # cover [prefix_hit_tokens, tl)
+            self._prefilling[slot] = {"ctx": ctx_toks,
+                                      "off": req.prefix_hit_tokens}
+            self._lengths[slot] = req.prefix_hit_tokens
+            self.prefill_skipped += req.prefix_hit_tokens
+            return events
         toks = np.zeros((1, self._bucket(tl)), np.int64)
         toks[0, :tl] = ctx_toks
         t0 = time.monotonic()
@@ -309,6 +388,47 @@ class EngineCore:
         self._prefill_times.append(dt)
         self.prefill_computed += tl
         return events + self._take_first_token(slot, tok0, tl)
+
+    def _prefill_one_chunk(self) -> list[TokenEvent]:
+        """One prefill chunk for the oldest mid-prefill admission (FCFS);
+        the slot joins the decode batch the step after its final chunk."""
+        slot = min(self._prefilling, key=self._admit_seq.__getitem__)
+        cur = self._prefilling[slot]
+        ctx_toks, off = cur["ctx"], cur["off"]
+        tl = len(ctx_toks)
+        c = self.prefill_chunk
+        clen = min(c, tl - off)
+        toks = np.zeros((1, c), np.int64)
+        toks[0, :clen] = ctx_toks[off:off + clen]
+        # width-slice the row to the pages this chunk touches: the kernel
+        # then reads O(live prefix), not O(capacity)
+        row = self._table()[slot][:self._step_width(
+            cdiv(off + clen, self.layout.page_size))]
+        t0 = time.monotonic()
+        logits, self.state = self.model.prefill_paged_chunk(
+            self.params, torch.as_tensor(toks, device=self.device),
+            self.state, slot, row, off, clen)
+        self._progressed = True
+        self._budget_left -= clen
+        self.prefill_computed += clen
+        cur["off"] = off + clen
+        self._lengths[slot] = off + clen
+        if cur["off"] >= tl:
+            # final chunk: its last-token logits seed decode; the host
+            # fetch waits for the device
+            tok0 = int(_sample(logits, self.gen, self._generator).cpu()[0])
+            dt = time.monotonic() - t0
+            self.clock += dt
+            self._prefill_times.append(dt)
+            del self._prefilling[slot]
+            self.sched.register_prefix(slot)
+            return self._take_first_token(slot, tok0, tl)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # honest clock
+        dt = time.monotonic() - t0
+        self.clock += dt
+        self._prefill_times.append(dt)
+        return []
 
     def _take_first_token(self, slot: int, tok0: int,
                           tl: int) -> list[TokenEvent]:
@@ -339,12 +459,40 @@ class EngineCore:
         return [TokenEvent("finish", req.rid, self.clock, slot=slot)]
 
     def _decode_step(self) -> list[TokenEvent]:
-        """Batched decode over the non-stalled slots; recompute-preemption
-        when every slot stalls on a dry pool."""
-        sched = self.sched
-        stalled = set(sched.ensure_pages(self._lengths))
-        step_slots = [sl for sl in sched.active if sl not in stalled]
+        """Batched decode over the non-stalled, fully prefilled slots;
+        recompute-preemption when nothing can run and no chunk progressed
+        this cycle."""
+        sched, g = self.sched, self.layout.page_size
+        if not sched.active:
+            return []   # cancellation emptied the cycle mid-flight
+        stalled = set(sched.ensure_pages(self._lengths,
+                                         skip=self._prefilling.keys()))
+        step_slots = [sl for sl in sched.active
+                      if sl not in stalled and sl not in self._prefilling]
+
+        # copy-on-write guard: never append into a shared page. Chunk-
+        # aligned adoption makes this a no-op in steady state (adopted
+        # pages all precede the write frontier), but it is the invariant
+        # that keeps sharing safe under any adoption policy (DESIGN.md §12)
+        if step_slots and (self.prefix_cache or self.cow_splits):
+            safe = []
+            for sl in step_slots:
+                pidx = int(self._lengths[sl]) // g
+                if pidx < sched.alloc.slot_pages(sl) and sched.alloc.refcount(
+                        sched.alloc.page_at(sl, pidx)) > 1:
+                    if not sched.alloc.can_alloc(1):
+                        sched.reclaim(1)
+                    if not sched.alloc.can_alloc(1):
+                        continue   # no page to split into: stall a step
+                    src, dst = sched.alloc.cow(sl, pidx)
+                    self.state = self.model.copy_pages(self.state, src, dst)
+                    self.cow_splits += 1
+                safe.append(sl)
+            step_slots = safe
+
         if not step_slots:
+            if self._progressed:
+                return []   # chunk prefill advanced; next cycle retries
             # every slot needs a page and the pool is dry: recompute-
             # preempt the most recent admission so the rest make progress
             victim = max(sched.active, key=self._admit_seq.__getitem__)
@@ -353,6 +501,9 @@ class EngineCore:
                 raise RuntimeError(
                     "request thrashing on preemption — pool too small to "
                     "finish any request")
+            # mid-prefill slots can't be victims: chunk work always
+            # progresses when any exist, and progress skips this branch
+            assert victim not in self._prefilling
             retracted = vreq.out_tokens.pop() if vreq.out_tokens else None
             self._eff_max.pop(vreq.rid, None)
             sched.preempt(victim)
@@ -420,7 +571,7 @@ class EngineCore:
             t.numel() * t.element_size() for c in self.state
             for t in (c.key_codes, *c.key_scales.values(), c.key_residual,
                       c.value_fp, c.lengths))
-        return {
+        res = {
             "requests": completed,
             "total_tokens": total_tokens,
             "wall_s": self.clock,
@@ -434,6 +585,7 @@ class EngineCore:
             else 0.0,
             "decode_step_s_p50": float(np.median(step_times)) if step_times
             else 0.0,
+            # prefill dispatches: whole prompts, or chunks in chunked mode
             "prefill_s_total": float(np.sum(self._prefill_times)),
             "prefills": len(self._prefill_times),
             "mean_active_slots": float(np.mean(self._active_hist))
@@ -441,7 +593,25 @@ class EngineCore:
             "mean_page_utilization": float(np.mean(self._util))
             if self._util else 0.0,
             "cache_bytes": cache_bytes,
+            "prefill_chunk": self.prefill_chunk,
+            "prefix_cache": self.prefix_cache,
             "prefill_tokens_computed": self.prefill_computed,
+            "prefill_tokens_skipped": self.prefill_skipped,
+            "prefix_hit_rate": self.prefill_skipped / max(
+                self.prefill_skipped + self.prefill_computed, 1),
+            "adopted_pages": self.sched.adopted_pages,
+            "fresh_pages": self.sched.fresh_pages,
+            "cow_splits": self.cow_splits,
             "cancelled_requests": self.cancelled,
             "n_cancelled": len(self.cancelled),
         }
+        if self.prefix is not None:
+            page_bytes = sum(pgc.pool_page_bytes(c) for c in self.state)
+            res["pool_page_bytes"] = page_bytes
+            res["prefix_pool_bytes_saved"] = \
+                self.sched.adopted_pages * page_bytes
+            res["prefix_index"] = {
+                "entries": len(self.prefix), "queries": self.prefix.queries,
+                "evictions": self.prefix.evictions,
+            }
+        return res

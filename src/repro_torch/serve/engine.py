@@ -21,18 +21,39 @@ class ContinuousBatchingEngine:
     ``max_slots * ceil(max_len/g)``; fewer oversubscribe the pool — slots
     then stall, and preemption recomputes the youngest request). The
     clock advances by measured device time, so latencies compose queueing
-    + compute. Runs on the card unless ``device`` names another."""
+    + compute. Runs on the card unless ``device`` names another.
+
+    **Chunked prefill** (``prefill_chunk > 0``): prompts are prefilled in
+    page-aligned chunks interleaved with decode steps, one chunk per
+    cycle.
+
+    **Shared-prefix page reuse** (``prefix_cache=True``, implies chunked
+    prefill): completed prompts register their full-chunk pages in a
+    content-hash :class:`~repro_torch.core.cache_layout.PrefixIndex`;
+    admissions matching an indexed prefix adopt those pages at refcount+1
+    and prefill only the tail — the same greedy streams as the unshared
+    chunked run (DESIGN.md §12)."""
 
     def __init__(self, model, params, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
+                 prefix_cache: bool = False, prefill_chunk: int = 0,
                  device=None):
-        self.core = EngineCore(model, params, max_slots=max_slots,
-                               max_len=max_len, num_pages=num_pages,
-                               device=device)
+        self.core = EngineCore(
+            model, params, max_slots=max_slots, max_len=max_len,
+            num_pages=num_pages, prefix_cache=prefix_cache,
+            prefill_chunk=prefill_chunk, device=device)
+
+    @property
+    def prefill_chunk(self) -> int:
+        return self.core.prefill_chunk
+
+    @property
+    def prefix_cache(self) -> bool:
+        return self.core.prefix_cache
 
     def warmup(self, prompt_lens: list[int]) -> None:
-        """Run the prefill buckets and decode widths once on throwaway
-        state."""
+        """Run the prefill buckets (or chunk widths) and decode widths once
+        on throwaway state."""
         self.core.warmup(prompt_lens)
 
     def run(self, requests: list[Request],

@@ -81,6 +81,40 @@ def test_engine_without_device_raises_on_cpu_only_host(no_card):
         m.init(generator=gen)
 
 
+def test_paged_cache_without_device_raises_on_cpu_only_host(no_card):
+    """``init_paged_cache`` is an entry like the engine: the card unless a
+    device is named."""
+    from repro_torch.core import paged_cache as pgc
+    from repro_torch.core.cache_layout import PagedLayout
+    from repro_torch.core.quantizers import QuantConfig
+    lay = PagedLayout(page_size=32, num_pages=4, slots=1, pages_per_slot=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pgc.init_paged_cache(QuantConfig(group_size=32), lay, 2, 32)
+    c = pgc.init_paged_cache(QuantConfig(group_size=32), lay, 2, 32,
+                             device="cpu")
+    assert c.key_codes.device.type == "cpu"
+
+
+def test_cpu_chunked_prefix_serving_leaves_launch_counters_at_zero():
+    from repro_torch.kernels import paged_prefill as ppk
+    cfg = reduce_for_smoke(get_config("tinyllama-1.1b"))
+    m = get_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    p = m.init(generator=gen, device="cpu")
+    before = (pek.launches, pdk.launches, fpk.launches, ppk.launches)
+    eng = ContinuousBatchingEngine(m, p, max_slots=2, max_len=128,
+                                   prefix_cache=True, device="cpu")
+    shared = np.arange(64, dtype=np.int32)
+    reqs = [Request(rid=i, prompt=np.concatenate([shared, [i + 1] * 9])
+                    .astype(np.int32), max_new_tokens=4,
+                    arrival_time=0.0 if i == 0 else 1000.0)
+            for i in range(3)]
+    out = eng.run(reqs, GenerationConfig())
+    assert out["prefill_chunk"] == 64 and out["adopted_pages"] == 4
+    assert (pek.launches, pdk.launches, fpk.launches, ppk.launches) == before
+
+
 def test_cpu_serving_leaves_launch_counters_at_zero():
     cfg = reduce_for_smoke(get_config("tinyllama-1.1b"))
     m = get_model(cfg)

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_prefill as fpk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
+from repro_torch.kernels import paged_prefill as ppk  # noqa: E402
 from repro_torch.kernels import polar_encode as pek  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -107,6 +108,99 @@ def test_flash_prefill_kernel_matches_plain(dev, t, d, dtype):
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
 
+def _prefill_pools(dev, gen, pp, hkv, g, d):
+    k = torch.randn((1, pp * hkv, g, d), generator=gen, device=dev)
+    enc = ops.polar_encode(k, group_size=g)
+    pool = [x.reshape(pp, hkv, *x.shape[-2:]).contiguous() for x in enc]
+    values = torch.randn((pp, hkv, g, d), generator=gen, device=dev)
+    return pool, values
+
+
+# (start, chunk_len, row width): first chunk, fragmented prefix, ragged
+# chunk on a width-sliced row
+@pytest.mark.parametrize("start,clen,width", [(0, 256, 6), (384, 256, 6),
+                                              (384, 77, 4), (512, 1, 6)])
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_kernel_matches_plain(dev, start, clen, width,
+                                            kvdtype):
+    """Kernel #4 against its plain version at the serving shapes (Hkv 4,
+    Qh 8, d 64, g 128, Tc 256), NaN on the scratch page behind every dead
+    entry, on live value rows past ``start`` and on chunk K/V rows past
+    ``chunk_len``. fp32 chunk K/V: 1e-4; bf16 chunk K/V (both sides read
+    the same bf16 values, so only the summation order differs): 1e-4."""
+    hkv, qh, d, g, tc, pp = 4, 8, 64, 128, 256, 12
+    scratch = pp - 1
+    gen = _gen(dev, 5)
+    pool, values = _prefill_pools(dev, gen, pp, hkv, g, d)
+    row = torch.tensor([7, 2, 9, 0, 5, 3], dtype=torch.int32, device=dev)
+    row[start // g + (clen + g - 1) // g:] = scratch
+    for x in pool[1:]:
+        x[scratch] = float("nan")
+    values[scratch] = float("nan")
+    values[int(row[start // g])] = float("nan")   # dead: at/past start
+    q = torch.randn((hkv, qh * tc, d), generator=gen, device=dev) * d ** -0.5
+    kc = torch.randn((hkv, tc, d), generator=gen, device=dev).to(kvdtype)
+    vc = torch.randn((hkv, tc, d), generator=gen, device=dev).to(kvdtype)
+    kc[:, clen:] = float("nan")
+    vc[:, clen:] = float("nan")
+    sliced = row[:width]
+    n = ppk.launches
+    got = ppk.polar_paged_prefill_grouped(q, kc, vc, *pool, values, sliced,
+                                          start, clen)
+    assert ppk.launches == n + 1
+    ref = ppk.polar_paged_prefill_grouped_plain(q, kc, vc, *pool, values,
+                                                sliced, start, clen)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_paged_prefill_kernel_bf16_values_and_ops_entry(dev):
+    """bf16 value pool and the ops entry (fold, pre-scale, unfold) in the
+    model's bf16 dtype: within one bf16 step (2^-7) of the plain route."""
+    hkv, qh, d, g, tc, pp = 4, 8, 64, 128, 256, 12
+    gen = _gen(dev, 6)
+    pool, values = _prefill_pools(dev, gen, pp, hkv, g, d)
+    values = values.to(torch.bfloat16)
+    row = torch.tensor([4, 8, 1, 6, 10, 0, 3, 2], dtype=torch.int32,
+                       device=dev)
+    q = torch.randn((1, hkv * qh, tc, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kc = torch.randn((1, hkv, tc, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    vc = torch.randn((1, hkv, tc, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    got = ops.polar_paged_prefill_attention(q, kc, vc, *pool, values, row,
+                                            1024, 200)
+    ref = ppk.polar_paged_prefill_grouped_plain(
+        (q.float() * d ** -0.5).reshape(hkv, qh * tc, d), kc[0], vc[0],
+        *pool, values, row, 1024, 200).reshape(1, hkv * qh, tc, d)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref, rtol=2 ** -7, atol=2 ** -7)
+
+
+def test_copy_pool_pages_on_card(dev):
+    from repro_torch.core import paged_cache as pgc
+    from repro_torch.core.cache_layout import PagedLayout
+    from repro_torch.core.quantizers import QuantConfig
+    lay = PagedLayout(page_size=128, num_pages=6, slots=2, pages_per_slot=3)
+    c = pgc.init_paged_cache(QuantConfig(), lay, 4, 64)
+    assert c.key_codes.is_cuda
+    gen = _gen(dev, 7)
+    c.key_codes.copy_(torch.randint(0, 256, c.key_codes.shape, generator=gen,
+                                    device=dev, dtype=torch.int32))
+    for x in (*c.key_scales.values(), c.value_fp):
+        x.copy_(torch.randn(x.shape, generator=gen, device=dev))
+    before = [x.clone() for x in (c.key_codes, *c.key_scales.values(),
+                                  c.value_fp)]
+    pgc.copy_pool_pages(c, 4, 1)
+    for b, x in zip(before, (c.key_codes, *c.key_scales.values(),
+                             c.value_fp)):
+        assert torch.equal(x[1], b[4])
+        keep = [i for i in range(x.shape[0]) if i != 1]
+        assert torch.equal(x[keep], b[keep])
+
+
 def test_kernel_wrappers_reject_bad_inputs(dev):
     x = torch.zeros((1, 2, 8, 48), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -133,3 +227,40 @@ def test_engine_runs_on_card_by_default(dev):
     out = eng.run(reqs, GenerationConfig())
     assert all(r.done_tokens == 8 for r in out["requests"])
     assert pdk.launches > before
+
+
+def test_chunked_prefix_engine_on_card(dev):
+    """Chunked prefill with the prefix cache on the card: the paged-prefill
+    kernel runs, pages are adopted, and the greedy streams equal those of
+    the unshared chunked run."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import get_model
+    from repro_torch.serve import (
+        ContinuousBatchingEngine, GenerationConfig, Request,
+    )
+    cfg = reduce_for_smoke(get_config("tinyllama-1.1b"), dtype="bfloat16")
+    m = get_model(cfg)
+    params = m.init(generator=_gen(dev, 8))
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, cfg.vocab_size, (96,)).astype(np.int32)
+    tails = [rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32)
+             for t in rng.integers(8, 40, 4)]
+
+    def reqs():
+        return [Request(rid=i, prompt=np.concatenate([shared, t]),
+                        max_new_tokens=6,
+                        arrival_time=0.0 if i == 0 else 1000.0)
+                for i, t in enumerate(tails)]
+
+    outs = {}
+    for reuse in (False, True):
+        before = ppk.launches
+        eng = ContinuousBatchingEngine(m, params, max_slots=2, max_len=192,
+                                       prefill_chunk=32, prefix_cache=reuse)
+        out = eng.run(reqs(), GenerationConfig())
+        assert ppk.launches > before
+        outs[reuse] = out
+    assert outs[True]["adopted_pages"] > 0
+    assert outs[True]["cow_splits"] == 0
+    assert {r.rid: r.out_tokens for r in outs[True]["requests"]} == \
+        {r.rid: r.out_tokens for r in outs[False]["requests"]}

@@ -136,7 +136,7 @@ def test_decode_attention_matches_jax(caches):
 def test_append_rejects_misaligned_prefill_start():
     lay = PagedLayout(page_size=G, num_pages=4, slots=1, pages_per_slot=4)
     c = tpg.init_paged_cache(QuantConfig(group_size=G), lay, H, D,
-                             dtype=torch.float32)
+                             dtype=torch.float32, device="cpu")
     x = torch.zeros((1, H, G, D))
     with pytest.raises(ValueError, match="page-aligned"):
         tpg.paged_prefill(c, 0, PageAllocator(lay).table()[0], x, x, 3,
