@@ -6,14 +6,16 @@ printing one line (the prefix phase one per run):
 
 1. env      — the card's name and power limit (``nvidia-smi``), torch and
               CUDA versions, the float32 matmul settings.
-2. build    — compiles the four hand-written kernels (one ``nvcc`` per
+2. build    — compiles the six hand-written kernels (one ``nvcc`` per
               source, in parallel) from ``src/repro_torch/kernels/csrc``.
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the serving path's shapes (encode codes exactly equal,
-              attention within the stated tolerances, NaN-poisoned
-              scratch pages and dead rows), then times kernel, plain
-              version and — for flash prefill and paged prefill — a
-              PyTorch library call.
+              the serving paths' shapes (encode codes exactly equal,
+              attention and scores within the stated tolerances,
+              NaN-poisoned scratch pages and dead rows), then times kernel,
+              plain version and — for flash prefill, paged prefill and the
+              two dense-cache kernels — a PyTorch library call; then the
+              paged engine's three decode backends against each other on
+              one fragmented cache.
 4. model    — full-width tinyllama-1.1b in bf16 (random weights from a
               seeded generator): a 512-token prefill and 16 teacher-forced
               decode steps through the kernels and through the plain
@@ -29,17 +31,26 @@ printing one line (the prefix phase one per run):
               and without the prefix cache. The greedy streams must be
               identical, 11 x 8 pages adopted, no COW split, and every
               kernel launched the number of times the workload implies.
-7. profile  — wall time of 8-slot decode steps against the device time of
+7. static   — the static-batching ``ServeEngine`` over dense caches at
+              full width: 8 rows, 1000-token prompts, 64 greedy tokens,
+              max_len 1152, on the score-only route (polar ``"jnp"``), the
+              fused route (polar ``"paged_fused"``) and the fp ``"none"``
+              cache; exact launch counts, the logits of each polar run
+              within rel. L2 5e-2 of its plain path, cache bytes per layer
+              and their polar / fp ratio, and the two polar routes' greedy
+              agreement (reported, not gated).
+8. profile  — wall time of 8-slot decode steps against the device time of
               their kernels (torch.profiler): the device's idle share and
               the largest kernels.
 
-Then one JSON line of per-kernel numbers (launches summed over the two
+Then one JSON line of per-kernel numbers (launches summed over the three
 serving phases), and last the device JSON. Any failure raises (non-zero
 exit). Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -66,6 +77,11 @@ PLAIN_LEAD = 20_000_000       # ~10 ms of spin: plain versions enqueue many ops
 HKV, QH, D, G = 4, 8, 64, 128
 P = D // 2
 TC = 256                      # prefill chunk of the prefix phase
+# the static phase: 8 rows, 1000-token prompts, 64 new tokens, a 1152-token
+# dense buffer (9 groups); the kernel checks run at its decode shapes with
+# 8 flushed groups
+SB, SPROMPT, SNEW, SMAX = 8, 1000, 64, 1152
+SG = SMAX // G
 
 
 def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
@@ -120,8 +136,10 @@ def phase_build() -> None:
     res = _build.build()
     regs = {}
     for name, r in res.items():
-        regs[name] = [ln.split("Used ")[1].strip() for ln in
-                      r["log"].splitlines() if "Used " in ln]
+        # per kernel instantiation: registers, then stack and spills
+        regs[name] = [ln.split("Used ")[1].strip() if "Used " in ln else
+                      ln.strip() for ln in r["log"].splitlines()
+                      if "Used " in ln or "spill" in ln]
     print(f"build: {time.monotonic() - t0:.1f} s for {sorted(res)}; ptxas "
           f"{json.dumps(regs)}", flush=True)
 
@@ -426,6 +444,173 @@ def check_paged_prefill(torch, dev, gen, flush) -> dict:
                      "8 prefix pages (1024 tokens)"}
 
 
+def _dense_cache(torch, dev, gen, flushed_groups=8):
+    """Dense static-phase buffers: codes/stats of ``flushed_groups`` groups
+    from the dense encode kernel (the later groups zero, as an unflushed
+    cache holds them), bf16 value rows."""
+    from repro_torch.kernels import polar_encode as pe
+    k = torch.randn((SB, HKV, flushed_groups * G, D), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    enc = pe.polar_encode(k)
+    bufs = [torch.zeros((SB, HKV, SG, *x.shape[3:]), dtype=x.dtype,
+                        device=dev) for x in enc]
+    for b, x in zip(bufs, enc):
+        b[:, :, :flushed_groups] = x
+    vals = torch.randn((SB, HKV, SMAX, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    return bufs, vals
+
+
+def _dequant(torch, bufs):
+    """fp32 keys of the dense buffers (B, Hkv, G*g, d), for the library
+    yardsticks (computed outside the timed window)."""
+    from repro_torch.core import quantizers as qz
+    pk = qz.PolarKeys(codes=bufs[0], rho_scale=bufs[1], rho_zero=bufs[2],
+                      theta_scale=bufs[3], theta_zero=bufs[4], rho_bits=4,
+                      theta_bits=4, pairing="half")
+    return qz.decode_polar_keys(pk, torch.float32).reshape(SB, HKV, SMAX, D)
+
+
+def _dense_flops(groups, with_attention=True):
+    """Operations on ``groups`` (row, kv head, group) tiles: LUT build
+    3*Qh*P*2^t, rho~ 2*g*P once for every row, one FMA per gathered LUT
+    entry 2*Qh*g*P; the fused kernel adds softmax ~4*Qh*g and p@V
+    2*Qh*g*d."""
+    per = 3 * QH * P * 16 + 2 * G * P + 2 * QH * G * P
+    if with_attention:
+        per += 4 * QH * G + 2 * QH * G * D
+    return groups * per
+
+
+def check_polar_attention(torch, dev, gen, flush) -> dict:
+    from repro_torch.kernels import polar_attention as pak
+    bufs, vals = _dense_cache(torch, dev, gen)
+    q = torch.randn((SB, HKV, QH, D), generator=gen, device=dev) * D ** -0.5
+    errs = []
+    # per-row lengths: the static phase's 1024, empty, partial and whole
+    # groups; every value row (and every stat row) past a row's length
+    # NaN-poisoned
+    for lens in ([1024] * SB, [1024, 900, 0, 128, 1, 513, 640, 1023]):
+        length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        v = vals.clone()
+        st = [x.clone() for x in bufs[1:]]
+        for i, n in enumerate(lens):
+            v[i, :, n:] = float("nan")
+            for x in st:
+                x[i, :, -(-n // G):] = float("nan")
+        got = pak.polar_decode_attention_grouped(q, bufs[0], *st, v, length)
+        ref = pak.polar_decode_attention_grouped_plain(q, bufs[0], *st, v,
+                                                       length)
+        torch.cuda.synchronize()
+        for a, r in zip(got, ref):
+            assert torch.isfinite(a).all(), "NaN leaked from a dead row"
+            torch.testing.assert_close(a, r, rtol=FP32_TOL, atol=FP32_TOL)
+            errs.append(float((a - r).abs().max()))
+    # timing: every row at 8 flushed groups, bf16 values (the static phase)
+    length = torch.full((SB,), 8 * G, dtype=torch.int32, device=dev)
+    ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped(
+        q, *bufs, vals, length), flush=flush)
+    plain_ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped_plain(
+        q, *bufs, vals, length), iters=10, flush=flush,
+        lead_cycles=PLAIN_LEAD)
+    # yardstick only (the port never calls it): SDPA over the keys
+    # dequantized beforehand, fp32, under the length mask
+    kf = _dequant(torch, bufs).repeat_interleave(QH, 1)
+    vf = vals.float().repeat_interleave(QH, 1)
+    qf = q.reshape(SB, HKV * QH, 1, D)
+    mask = (torch.arange(SMAX, device=dev) < 8 * G)[None, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(qf, kf, vf, attn_mask=mask,
+                                         scale=1.0), flush=flush)
+    groups = SB * HKV * 8
+    nbytes = q.numel() * 4 + groups * (G * P + 4 * P * 4 + G * D * 2) \
+        + SB * 4 + SB * HKV * QH * (D + 2) * 4
+    b_ms, by = bound(nbytes, _dense_flops(groups), "fp32")
+    return {"name": "polar_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/polar_attention.cu",
+            "replaces": "src/repro/kernels/polar_attention.py:104",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": "SDPA over pre-dequantized keys (fp32, length mask)",
+            "shape": "8 rows x 4 kv heads x 8 query heads x 8 flushed "
+                     "groups of a 1152-token buffer"}
+
+
+def check_qk_scores(torch, dev, gen, flush) -> dict:
+    from repro_torch.kernels import polar_encode as pe
+    from repro_torch.kernels import polar_qk as qkk
+    bufs, _ = _dense_cache(torch, dev, gen)
+    q = torch.randn((SB, HKV, QH, D), generator=gen, device=dev) * D ** -0.5
+    errs = []
+    for t_bits in (4, 3):
+        enc = bufs
+        if t_bits == 3:   # the 3-bit sweep of tests/test_kernels.py
+            k = torch.randn((SB, HKV, SMAX, D), generator=gen, device=dev)
+            enc = list(pe.polar_encode(k, r_bits=3, t_bits=3))
+        got = qkk.polar_qk_scores(q, *enc, r_bits=t_bits, t_bits=t_bits)
+        ref = qkk.polar_qk_scores_plain(q, *enc, r_bits=t_bits,
+                                        t_bits=t_bits)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, ref, rtol=FP32_TOL, atol=FP32_TOL)
+        errs.append(float((got - ref).abs().max()))
+    ms = time_ms(torch, lambda: qkk.polar_qk_scores(q, *bufs), flush=flush)
+    plain_ms = time_ms(torch, lambda: qkk.polar_qk_scores_plain(q, *bufs),
+                       iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    # yardstick only: one matmul of q against the pre-dequantized keys
+    kt = _dequant(torch, bufs).transpose(-1, -2).contiguous()
+    lib_ms = time_ms(torch, lambda: torch.matmul(q, kt), flush=flush)
+    groups = SB * HKV * SG        # every group is scored
+    nbytes = q.numel() * 4 + groups * (G * P + 4 * P * 4) \
+        + SB * HKV * QH * SMAX * 4
+    b_ms, by = bound(nbytes, _dense_flops(groups, with_attention=False),
+                     "fp32")
+    return {"name": "polar_qk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/polar_qk.cu",
+            "replaces": "src/repro/kernels/polar_qk.py:68",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": "matmul over pre-dequantized keys (fp32)",
+            "shape": "8 rows x 4 kv heads x 8 query heads x 9 groups "
+                     "(1152 tokens)"}
+
+
+def check_paged_backends(torch, dev, gen) -> float:
+    """One fragmented paged cache with a NaN-poisoned scratch page: the
+    paged engine's three decode backends agree within 1e-4 (fp32 q)."""
+    from repro_torch.core import paged_cache as pgc
+    from repro_torch.core.cache_layout import PagedLayout
+    from repro_torch.core.quantizers import QuantConfig
+    s, n = 8, 8
+    lay = PagedLayout(page_size=G, num_pages=s * n, slots=s,
+                      pages_per_slot=n)
+    c = pgc.init_paged_cache(QuantConfig(), lay, HKV, D, device=dev)
+    perm = torch.randperm(lay.num_pages, generator=gen, device=dev)
+    table = torch.full((s, n), lay.scratch_page, dtype=torch.int32,
+                       device=dev)
+    for sl, tl in enumerate((1000, 77, 128, 500, 1023, 256, 640, 900)):
+        npg = -(-tl // G)
+        table[sl, :npg] = perm[sl * n:sl * n + npg].to(torch.int32)
+        k = torch.randn((1, HKV, npg * G, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn((1, HKV, npg * G, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        pgc.paged_prefill(c, sl, table[sl], k, v, tl)
+    for x in (*c.key_scales.values(), c.value_fp):
+        x[lay.scratch_page] = float("nan")
+    q = torch.randn((s, HKV * QH, D), generator=gen, device=dev)
+    outs = {b: pgc.paged_decode_attention(c, q, table, backend=b)
+            for b in pgc.DECODE_BACKENDS}
+    torch.cuda.synchronize()
+    err = 0.0
+    for b, out in outs.items():
+        assert torch.isfinite(out).all(), f"{b}: NaN from the scratch page"
+        torch.testing.assert_close(out, outs["paged_fused"], rtol=FP32_TOL,
+                                   atol=FP32_TOL)
+        err = max(err, float((out - outs["paged_fused"]).abs().max()))
+    return err
+
+
 def phase_kernels(torch) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -434,7 +619,10 @@ def phase_kernels(torch) -> list[dict]:
     rows = [check_encode(torch, dev, gen, flush),
             check_decode(torch, dev, gen, flush),
             check_prefill(torch, dev, gen, flush),
-            check_paged_prefill(torch, dev, gen, flush)]
+            check_paged_prefill(torch, dev, gen, flush),
+            check_polar_attention(torch, dev, gen, flush),
+            check_qk_scores(torch, dev, gen, flush)]
+    backends_err = check_paged_backends(torch, dev, gen)
     print("kernels: " + "; ".join(
         f"{r['name']} err {r['max_abs_err']:.3g} {r['ms']:.4f} ms "
         f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -442,6 +630,9 @@ def phase_kernels(torch) -> list[dict]:
                               f"{r['library_ms']:.4f} ms"
                               if r["library_ms"] is not None else "") + ")"
         for r in rows), flush=True)
+    print(f"paged backends: jnp, gathered and paged_fused agree to "
+          f"{backends_err:.3g} (limit {FP32_TOL}) on a fragmented 8-slot "
+          "cache with a NaN scratch page", flush=True)
     return rows
 
 
@@ -450,17 +641,25 @@ def phase_kernels(torch) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
 def plain_kernels():
-    """Swap the three kernel wrappers of the classic path for their plain
-    versions (the reference run of the model phase)."""
+    """Swap every kernel wrapper of the model paths for its plain version
+    (the reference runs of the model and static phases)."""
     from repro_torch.kernels import flash_prefill as fpk
     from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import polar_attention as pak
     from repro_torch.kernels import polar_encode as pe
+    from repro_torch.kernels import polar_qk as qkk
     stack = mock.patch.multiple
-    return (stack(pe, polar_encode_pages=pe.polar_encode_pages_plain),
+    with stack(pe, polar_encode_pages=pe.polar_encode_pages_plain,
+               polar_encode=pe.polar_encode_plain), \
             stack(pd, polar_paged_decode_grouped=
-                  pd.polar_paged_decode_grouped_plain),
-            stack(fpk, flash_prefill=fpk.flash_prefill_plain))
+                  pd.polar_paged_decode_grouped_plain), \
+            stack(fpk, flash_prefill=fpk.flash_prefill_plain), \
+            stack(pak, polar_decode_attention_grouped=
+                  pak.polar_decode_attention_grouped_plain), \
+            stack(qkk, polar_qk_scores=qkk.polar_qk_scores_plain):
+        yield
 
 
 def phase_model(torch, model, params) -> None:
@@ -489,8 +688,7 @@ def phase_model(torch, model, params) -> None:
         return torch.stack(out)
 
     kern = run()
-    a, b, c = plain_kernels()
-    with a, b, c:
+    with plain_kernels():
         plain = run()
     rel = ((kern - plain).norm(dim=-1) / plain.norm(dim=-1)).flatten()
     agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
@@ -557,7 +755,7 @@ def phase_serve(torch, model, params, counters) -> dict:
     full = sum(int(t) >= G for t in lens)
     expect = {"polar_encode": nl * (full + steps),
               "paged_decode": nl * steps, "flash_prefill": nl * pre,
-              "paged_prefill": 0}
+              "paged_prefill": 0, "polar_attention": 0, "polar_qk": 0}
     assert launches == expect, (launches, expect)
     assert pre == n_req
     print(f"serve: {n_req} requests x {new} tokens, 8 slots, max_len 1024, "
@@ -633,7 +831,8 @@ def phase_prefix(torch, model, params, counters) -> dict:
         nl, steps = cfg.num_layers, out["decode_steps"]
         expect = {"polar_encode": nl * (full + steps),
                   "paged_decode": nl * steps, "flash_prefill": 0,
-                  "paged_prefill": nl * chunks}
+                  "paged_prefill": nl * chunks, "polar_attention": 0,
+                  "polar_qk": 0}
         assert got == expect, (shared, got, expect)
         assert out["prefills"] == chunks
         assert out["cow_splits"] == 0
@@ -659,6 +858,129 @@ def phase_prefix(torch, model, params, counters) -> dict:
               f"{out.get('prefix_pool_bytes_saved', 0)}; launches "
               f"{json.dumps(launches[name == 'shared'])}", flush=True)
     return {k: launches[True][k] + launches[False][k] for k in launches[True]}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the static-batching engine over dense caches at full width
+# ---------------------------------------------------------------------------
+
+
+def _teacher_logits(torch, model, params, prompts, tokens, steps):
+    """Logits (steps + 1, B, V) fp32 of a prefill of ``prompts`` then
+    ``steps`` decode steps fed ``tokens[:, :steps]``, and the state."""
+    state = model.init_decode_state(prompts.shape[0], SMAX, prompts.device)
+    lg, _ = model.prefill(params, {"tokens": prompts}, state)
+    out = [lg.float()]
+    for i in range(steps):
+        lg, _ = model.decode(params, state, tokens[:, i])
+        out.append(lg.float())
+    return torch.stack(out), state
+
+
+def phase_static(torch, cfg, params, counters) -> dict:
+    """``ServeEngine`` at full width: 8 rows, 1000-token prompts (one group
+    flush, at position 1023, falls inside the decode loop), 64 greedy new
+    tokens, max_len 1152; polar on the score-only route (``"jnp"``), polar
+    on the fused route (``"paged_fused"``) and the fp ``"none"`` cache.
+    Counters are set to 0 just before each generate and read just after;
+    returns the launches of the three runs, summed."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.models import get_model
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    t_phase = time.monotonic()
+    dev = params["embed"].device
+    prompts = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (SB, SPROMPT)), device=dev).long()
+    nl, steps = cfg.num_layers, SNEW - 1
+    total: dict = {}
+    models, toks, per_layer = {}, {}, {}
+    for method, backend in (("polar", "jnp"), ("polar", "paged_fused"),
+                            ("none", "jnp")):
+        name = f"{method}/{backend}"
+        model = get_model(dataclasses.replace(
+            cfg, decode_backend=backend,
+            quant=dataclasses.replace(cfg.quant, method=method)))
+        eng = ServeEngine(model, params, max_len=SMAX)
+        eng.generate({"tokens": prompts}, GenerationConfig(max_new_tokens=2))
+        torch.cuda.synchronize()
+        for mod in counters:
+            mod.launches = 0
+        out = eng.generate({"tokens": prompts},
+                           GenerationConfig(max_new_tokens=SNEW))
+        torch.cuda.synchronize()
+        got = {mod.__name__.rsplit(".", 1)[1]: mod.launches
+               for mod in counters}
+        polar = method == "polar"
+        # prefill encodes its 7 full groups in one launch per layer, the
+        # append at position 1023 flushes once; one attention launch per
+        # layer and decode step on the run's route
+        expect = {"polar_encode": 2 * nl if polar else 0, "paged_decode": 0,
+                  "flash_prefill": nl, "paged_prefill": 0,
+                  "polar_attention": nl * steps if polar and
+                  backend == "paged_fused" else 0,
+                  "polar_qk": nl * steps if polar and backend == "jnp"
+                  else 0}
+        assert got == expect, (name, got, expect)
+        assert out["tokens"].shape == (SB, SNEW)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        models[name], toks[name] = model, out["tokens"]
+        per_layer[name] = out["cache_bytes_per_layer"]
+        assert len(set(per_layer[name])) == 1 and \
+            out["cache_bytes"] == nl * per_layer[name][0]
+        gate = ""
+        if polar:
+            # gate 1: the logits after prefill and over the first 8 decode
+            # steps, against the same run with every kernel's plain version
+            tok_t = torch.as_tensor(out["tokens"], device=dev).long()
+            kern, _ = _teacher_logits(torch, model, params, prompts, tok_t,
+                                      8)
+            with plain_kernels():
+                plain, _ = _teacher_logits(torch, model, params, prompts,
+                                           tok_t, 8)
+            rel = ((kern - plain).norm(dim=-1) / plain.norm(dim=-1))
+            assert torch.isfinite(kern).all()
+            assert float(rel.max()) <= MODEL_REL_L2, \
+                f"{name} logits drift {rel.flatten().tolist()}"
+            gate = (f"; rel. L2 logits vs plain max {float(rel.max()):.3e} "
+                    f"(prefill {float(rel[0].max()):.3e}, limit "
+                    f"{MODEL_REL_L2})")
+        bits = kvc.cache_logical_bits(model.init_decode_state(1, G, dev)[0])
+        print(f"static[{name}]: {SB} rows x {SPROMPT}-token prompts, "
+              f"{SNEW} greedy tokens, max_len {SMAX}: prefill "
+              f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s = "
+              f"{out['tokens_per_s']:.1f} tok/s; cache "
+              f"{per_layer[name][0]} B per layer "
+              f"({bits:.2f} logical key "
+              f"bits/element){gate}; launches {json.dumps(got)}",
+              flush=True)
+    ratio = per_layer["polar/jnp"][0] / per_layer["none/jnp"][0]
+    assert per_layer["polar/jnp"] == per_layer["polar/paged_fused"]
+    a, b = toks["polar/jnp"], toks["polar/paged_fused"]
+    same = a == b
+    line = (f"static: cache bytes per layer polar / fp = {ratio:.4f}; "
+            f"greedy tokens of the score-only and fused routes agree on "
+            f"{float(same.mean()):.4f} of {same.size}")
+    if not same.all():
+        # the earliest step at which any row differs: every row fed both
+        # runs the same tokens before it, so the logits there compare
+        i = int(np.argmax((~same).any(axis=0)))
+        r = int(np.argmax(~same[:, i]))
+        ta, tb = int(a[r, i]), int(b[r, i])
+        margins = []
+        for name, x, y in (("polar/jnp", ta, tb),
+                           ("polar/paged_fused", tb, ta)):
+            lg, _ = _teacher_logits(
+                torch, models[name], params, prompts,
+                torch.as_tensor(a, device=dev).long(), i)
+            margins.append(float(lg[i, r, x] - lg[i, r, y]))
+        line += (f"; first divergence at row {r}, token {i}: {ta} vs {tb}, "
+                 f"logit margin {margins[0]:.4f} (score-only route) / "
+                 f"{margins[1]:.4f} (fused route)")
+    print(line + f"; phase {time.monotonic() - t_phase:.1f} s", flush=True)
+    return total
 
 
 def phase_profile(torch, model, params) -> None:
@@ -732,7 +1054,9 @@ def main() -> int:
     from repro_torch.kernels import flash_prefill as fpk
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_prefill as ppk
+    from repro_torch.kernels import polar_attention as pak
     from repro_torch.kernels import polar_encode as pe
+    from repro_torch.kernels import polar_qk as qkk
     from repro_torch.models import get_model
 
     phase_env(torch)
@@ -745,15 +1069,17 @@ def main() -> int:
     gen.manual_seed(0)
     params = model.init(generator=gen, device="cuda")
     phase_model(torch, model, params)
-    counters = (pe, pd, fpk, ppk)
+    counters = (pe, pd, fpk, ppk, pak, qkk)
     serve = phase_serve(torch, model, params, counters)
     prefix = phase_prefix(torch, model, params, counters)
+    static = phase_static(torch, cfg, params, counters)
     phase_profile(torch, model, params)
 
     print("launches per serving phase: " + json.dumps(
-        {"serve": serve, "prefix": prefix}), flush=True)
+        {"serve": serve, "prefix": prefix, "static": static}), flush=True)
     for r in rows:
-        r["launches"] = serve[r["name"]] + prefix[r["name"]]
+        r["launches"] = serve[r["name"]] + prefix[r["name"]] \
+            + static[r["name"]]
         assert r["launches"] > 0, f"{r['name']} never ran on the main path"
     print(f"total: {time.monotonic() - t_start:.1f} s, kernel builds "
           "included", flush=True)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
+from repro_torch.core.paged_cache import DECODE_BACKENDS
 from repro_torch.core.quantizers import QuantConfig
 
 
@@ -28,8 +29,19 @@ class ModelConfig:
     scale_embedding: bool = False     # gemma-style sqrt(d_model) embed scale
     # uniform key-cache policy (per-layer mixing comes in a later slice)
     quant: QuantConfig = field(default_factory=QuantConfig)
+    # decode attention (core.paged_cache.DECODE_BACKENDS): "paged_fused"
+    # walks the page table in place (paged engine) / runs the fused dense
+    # kernel (dense cache); "gathered" reads a dense per-slot copy through
+    # the fused kernel (paged engine; the fused kernel on a dense cache);
+    # "jnp" is the score-only LUT kernel + masked softmax over a dense
+    # copy. JAX defaults to "jnp"; the port to the route its paged engine
+    # has always run. The tensors' device picks kernel or plain version.
+    decode_backend: str = "paged_fused"
 
     def __post_init__(self):
+        if self.decode_backend not in DECODE_BACKENDS:
+            raise ValueError(f"unknown decode_backend {self.decode_backend!r};"
+                             f" expected one of {DECODE_BACKENDS}")
         if self.head_dim == 0 and self.num_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 

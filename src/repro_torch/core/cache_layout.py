@@ -1,6 +1,10 @@
-"""Paged cache layout, its host-side page allocator and the shared-prefix
-page index (port of ``repro/core/cache_layout.py:106-452``; the linear
-and ring layouts of the dense cache come with the dense-cache slice).
+"""Cache layouts, the paged layout's host-side page allocator and the
+shared-prefix page index (port of ``repro/core/cache_layout.py``; the ring
+layout of windowed caches waits for the windowed families, which the
+port's ``ModelConfig`` does not have yet).
+
+A :class:`LinearLayout` places the dense cache's tokens at their absolute
+positions.
 
 A :class:`PagedLayout` is a pool of fixed-size pages shared by up to
 ``slots`` sequences; a per-slot page-table row maps group index -> pool
@@ -25,6 +29,20 @@ from collections import OrderedDict, deque
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearLayout:
+    """Dense layout: absolute position == buffer slot. Requires
+    ``length <= capacity`` at all times."""
+
+    capacity: int
+
+    def prefill_offset(self, t: int) -> int:
+        if t > self.capacity:
+            raise ValueError(
+                f"prompt length {t} exceeds linear capacity {self.capacity}")
+        return 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,17 +1,20 @@
 """KeyCodec registry: the single dispatch point for key-cache quantization
 methods (port of ``repro/core/codecs.py``; this slice registers the polar
-codec only).
+codec and the fp passthrough ``"none"``).
 
 A :class:`KeyCodec` owns everything method-specific about cached keys:
-buffer allocation, encode/decode, writing encoded groups straight into
-page-pool pages, and the page-native decode and chunk-prefill attention.
-The paged cache owns only the method-agnostic machinery (page placement, the
-fp residual, values, lengths).
+buffer allocation, encode/decode, the score path, bits accounting, writing
+encoded groups straight into page-pool pages, and the fused decode and
+chunk-prefill attention. The caches (``kv_cache.py`` dense,
+``paged_cache.py`` pools) own only the method-agnostic machinery
+(placement, the fp residual, values, lengths, masks and softmax).
 
-Buffer layout (``lead`` is the cache's leading dims, ``(PP, H)`` for page
-pools): a grouped codec's ``codes`` are ``(*lead, G, g, ·)`` and every
-scale array is ``(*lead, G, 1|g, ·)``; the cache keeps an fp residual for
-the trailing partial group.
+Buffer layout (``lead`` is the cache's leading dims, ``(B, H)`` for dense
+caches, ``(PP, H)`` for page pools): a grouped codec's ``codes`` are
+``(*lead, G, g, ·)`` and every scale array is ``(*lead, G, 1|g, ·)``; the
+cache keeps an fp residual for the trailing partial group. A token-wise
+codec's ``codes`` are ``(*lead, T, ·)``; the fp passthrough stores the keys
+themselves in the model dtype with an empty scale dict.
 """
 from __future__ import annotations
 
@@ -30,8 +33,13 @@ class KeyCodec:
 
     name: str = ""
     grouped: bool = False            # codes carry (G, g) axes + fp residual
+    supports_fused_decode: bool = False
     supports_paged_decode: bool = False
     supports_paged_prefill: bool = False
+
+    def bits_per_element(self, cfg: QuantConfig, head_dim: int) -> float:
+        """Logical key bits/element including quantization-stat overhead."""
+        raise NotImplementedError
 
     def init_buffers(self, cfg: QuantConfig, lead: tuple[int, ...],
                      tokens: int, head_dim: int, dtype, device
@@ -49,6 +57,19 @@ class KeyCodec:
                dtype=torch.float32) -> torch.Tensor:
         """Dequantize buffers back to Cartesian keys ``(*lead, T, d)``."""
         raise NotImplementedError
+
+    def scores(self, cfg: QuantConfig, q: torch.Tensor, codes: torch.Tensor,
+               scales: dict[str, torch.Tensor]) -> torch.Tensor:
+        """``q . K~`` for every cached token: q ``(*lead, Qh, d)`` ->
+        ``(*lead, Qh, T)`` fp32. The default dequantizes then multiplies;
+        codecs with a structured decode (polar's angle LUT) override it."""
+        k_tilde = self.decode(cfg, codes, scales)
+        return torch.einsum("...qd,...td->...qt", q.float(), k_tilde)
+
+    def fused_decode(self, cache, q: torch.Tensor, *,
+                     scale: Optional[float]) -> torch.Tensor:
+        raise NotImplementedError(
+            f"codec {self.name!r} has no fused decode kernel")
 
     def encode_pages(self, cfg: QuantConfig, k: torch.Tensor,
                      pages: torch.Tensor, codes_pool: torch.Tensor,
@@ -92,14 +113,47 @@ def get_codec(name: str) -> KeyCodec:
                        f"{sorted(_CODECS)}") from None
 
 
+class NoneCodec(KeyCodec):
+    """fp passthrough: keys stored unquantized in the model dtype."""
+
+    name = "none"
+
+    def bits_per_element(self, cfg, head_dim):
+        return 16.0
+
+    def init_buffers(self, cfg, lead, tokens, head_dim, dtype, device):
+        return torch.zeros((*lead, tokens, head_dim), dtype=dtype,
+                           device=device), {}
+
+    def encode(self, cfg, k):
+        return k, {}
+
+    def decode(self, cfg, codes, scales, dtype=torch.float32):
+        return codes.to(dtype)
+
+
+def _polar_kernel_cfg(cfg: QuantConfig) -> None:
+    """The polar kernels take the "half" pairing and float32 stats."""
+    if cfg.pairing != "half" or cfg.scale_dtype != "float32":
+        raise ValueError("the polar kernels take 'half' pairing and float32 "
+                         f"stats, got {cfg.pairing!r} / {cfg.scale_dtype!r}")
+
+
 class PolarCodec(KeyCodec):
     """PolarQuant radius/angle quantization; decode attention scores
     through the angle LUT."""
 
     name = "polar"
     grouped = True
+    supports_fused_decode = True
     supports_paged_decode = True
     supports_paged_prefill = True
+
+    def bits_per_element(self, cfg, head_dim):
+        # (r + t)/2 payload bits per element; four fp16 stat rows (rho and
+        # theta scale/zero) per channel pair per group over 2*g elements
+        return (cfg.rho_bits + cfg.theta_bits) / 2.0 \
+            + 4 * 16.0 / (2.0 * cfg.group_size)
 
     def _gcount(self, cfg: QuantConfig, tokens: int) -> int:
         if tokens % cfg.group_size:
@@ -120,10 +174,15 @@ class PolarCodec(KeyCodec):
                  "theta_scale": stat(), "theta_zero": stat()})
 
     def encode(self, cfg, k):
-        pk = qz.encode_polar_keys(k, cfg)
-        return pk.codes, {"rho_scale": pk.rho_scale, "rho_zero": pk.rho_zero,
-                          "theta_scale": pk.theta_scale,
-                          "theta_zero": pk.theta_zero}
+        # the dense form of the encode kernel for CUDA tensors, the plain
+        # encode for CPU tensors
+        from repro_torch.kernels import ops
+        _polar_kernel_cfg(cfg)
+        codes, rs, rz, ts, tz = ops.polar_encode(
+            k, r_bits=cfg.rho_bits, t_bits=cfg.theta_bits,
+            group_size=cfg.group_size)
+        return codes, {"rho_scale": rs, "rho_zero": rz, "theta_scale": ts,
+                       "theta_zero": tz}
 
     def decode(self, cfg, codes, scales, dtype=torch.float32):
         return qz.decode_polar_keys(
@@ -131,13 +190,33 @@ class PolarCodec(KeyCodec):
                          theta_bits=cfg.theta_bits, pairing=cfg.pairing,
                          **scales), dtype)
 
+    def scores(self, cfg, q, codes, scales):
+        # the score-only LUT kernel for CUDA tensors, the gather-form LUT
+        # for CPU tensors; codes (B, H, G, g, P), q (B, H, Qh, d)
+        from repro_torch.kernels import ops
+        _polar_kernel_cfg(cfg)
+        return ops.polar_qk_scores(
+            q.float().contiguous(), codes, scales["rho_scale"],
+            scales["rho_zero"], scales["theta_scale"], scales["theta_zero"],
+            r_bits=cfg.rho_bits, t_bits=cfg.theta_bits)
+
+    def fused_decode(self, cache, q, *, scale):
+        # LUT scores fused with the value matmul over the flushed groups,
+        # merged exactly with the fp residual segment
+        from repro_torch.kernels import ops
+        cfg = cache.cfg
+        sc = cache.key_scales
+        return ops.polar_decode_attention_full(
+            q, cache.key_codes, sc["rho_scale"], sc["rho_zero"],
+            sc["theta_scale"], sc["theta_zero"], cache.key_residual,
+            cache.value_fp, cache.length, r_bits=cfg.rho_bits,
+            t_bits=cfg.theta_bits, softmax_scale=scale)
+
     def encode_pages(self, cfg, k, pages, codes_pool, scale_pools):
         # the hand-written encode kernel writes codes and stats straight
         # into pool[page] — encode and scatter fused in one launch
         from repro_torch.kernels import ops
-        if cfg.pairing != "half" or cfg.scale_dtype != "float32":
-            raise ValueError("the paged polar encode takes 'half' pairing "
-                             "and float32 stats")
+        _polar_kernel_cfg(cfg)
         ops.polar_encode_pages(
             k, pages, codes_pool, scale_pools["rho_scale"],
             scale_pools["rho_zero"], scale_pools["theta_scale"],
@@ -171,5 +250,6 @@ class PolarCodec(KeyCodec):
             t_bits=cfg.theta_bits, softmax_scale=scale)
 
 
+register_codec(NoneCodec())
 register_codec(PolarCodec())
 

@@ -1,0 +1,240 @@
+"""Dense quantized KV cache over pluggable key codecs (port of
+``repro/core/kv_cache.py`` for linear layouts; ring layouts wait for the
+windowed families).
+
+The cache owns placement and the method-agnostic machinery; the resolved
+:class:`~repro_torch.core.codecs.KeyCodec` owns buffer shapes,
+encode/decode and the score path. Buffers:
+
+* grouped codecs (polar): ``key_codes`` (B, Hkv, G, g, ·) uint8,
+  ``key_scales`` per-group stat arrays, ``key_residual`` (B, Hkv, g, d)
+  in ``cfg.residual_dtype`` — the tokens of the not-yet-full group;
+* token-wise codecs (the fp passthrough ``"none"``): ``key_codes``
+  (B, Hkv, T, ·) and per-token ``key_scales`` (``{}`` for ``"none"``);
+* ``value_fp`` (B, Hkv, T, d) token-major values in the model dtype.
+
+``flushed = (length // g) * g`` tokens live in quantized groups; positions
+``[flushed, length)`` live in the residual at row ``pos % g`` (which is
+why ``max_len`` is a multiple of g).
+
+**Lengths.** ``length`` is an int32 tensor on the cache's device: ``()``
+for a lock-step batch (the static engine), ``(B,)`` for gathered paged
+views where every slot sits at its own position. A ``()`` cache also keeps
+its value on the host (``host_length``): :func:`append` decides the group
+flush from it, so a decode step never waits for the device (JAX's
+``lax.cond`` flush).
+
+**In-place updates.** JAX's functions return new caches; here
+:func:`prefill` and :func:`append` write the buffers and the length in
+place and return the same cache object.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.cache_layout import LinearLayout
+from repro_torch.core.quantizers import QuantConfig
+from repro_torch.utils import resolve_device, torch_dtype
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass
+class KVCache:
+    key_codes: torch.Tensor          # codec codes (fp keys for "none")
+    key_scales: dict                 # codec stat arrays (may be {})
+    key_residual: Optional[torch.Tensor]   # grouped codecs only
+    value_fp: torch.Tensor           # (B, Hkv, T, d)
+    length: torch.Tensor             # () or (B,) int32
+    cfg: QuantConfig
+    max_len: int
+    layout: LinearLayout
+    host_length: Optional[int] = None   # the host's copy of a () length
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.key_codes.shape[1]
+
+    @property
+    def head_dim(self) -> int:
+        return self.value_fp.shape[-1]
+
+    @property
+    def codec(self):
+        return self.cfg.codec
+
+    @property
+    def grouped(self) -> bool:
+        return self.cfg.codec.grouped
+
+
+def init_cache(cfg: QuantConfig, batch: int, num_kv_heads: int,
+               head_dim: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> KVCache:
+    """Allocate an empty linear cache of ``max_len`` tokens on ``device``
+    (the card unless named)."""
+    device = resolve_device(device)
+    if cfg.value_bits:
+        raise ValueError("quantized values come in a later slice of the "
+                         "port (value_bits must be 0)")
+    b, h, d = batch, num_kv_heads, head_dim
+    codec = cfg.codec
+    key_codes, key_scales = codec.init_buffers(cfg, (b, h), max_len, d,
+                                               dtype, device)
+    key_residual = None
+    if codec.grouped:
+        key_residual = torch.zeros((b, h, cfg.group_size, d),
+                                   dtype=torch_dtype(cfg.residual_dtype),
+                                   device=device)
+    return KVCache(
+        key_codes=key_codes, key_scales=key_scales,
+        key_residual=key_residual,
+        value_fp=torch.zeros((b, h, max_len, d), dtype=dtype, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device), cfg=cfg,
+        max_len=max_len, layout=LinearLayout(max_len), host_length=0)
+
+
+def append(cache: KVCache, k_new: torch.Tensor,
+           v_new: torch.Tensor) -> KVCache:
+    """Append one token to every row, in place. k_new/v_new: (B, Hkv, 1, d)
+    post-RoPE. A grouped codec writes the key to residual row ``pos % g``
+    and, when that completes the group, encodes the residual into group
+    ``pos // g`` (one encode launch, decided on the host)."""
+    cfg = cache.cfg
+    codec = cache.codec
+    pos = cache.host_length
+    if pos is None:
+        raise ValueError("append needs a lock-step () length")
+    if pos >= cache.max_len:
+        raise ValueError(f"linear cache of capacity {cache.max_len} is full")
+    cache.value_fp[:, :, pos] = v_new[:, :, 0].to(cache.value_fp.dtype)
+    if not codec.grouped:
+        codes, scales = codec.encode(cfg, k_new)
+        cache.key_codes[:, :, pos] = codes[:, :, 0].to(cache.key_codes.dtype)
+        for key, buf in cache.key_scales.items():
+            buf[:, :, pos] = scales[key][:, :, 0].to(buf.dtype)
+    else:
+        g = cfg.group_size
+        res = cache.key_residual
+        res[:, :, pos % g] = k_new[:, :, 0].to(res.dtype)
+        if pos % g == g - 1:
+            # res (B,H,g,d) -> codes (B,H,1,g,·) / scales (B,H,1,1,·)
+            codes, scales = codec.encode(cfg, res)
+            gidx = pos // g
+            cache.key_codes[:, :, gidx] = codes[:, :, 0]
+            for key, buf in cache.key_scales.items():
+                buf[:, :, gidx] = scales[key][:, :, 0].to(buf.dtype)
+    cache.length += 1
+    cache.host_length = pos + 1
+    return cache
+
+
+def prefill(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
+    """Fill an empty cache with ``T`` tokens at once, in place.
+    k/v: (B, Hkv, T, d) post-RoPE, ``T <= max_len``."""
+    cfg = cache.cfg
+    codec = cache.codec
+    t = k.shape[2]
+    cache.layout.prefill_offset(t)          # capacity check
+    cache.value_fp[:, :, :t] = v.to(cache.value_fp.dtype)
+    if not codec.grouped:
+        codes, scales = codec.encode(cfg, k)
+        cache.key_codes[:, :, :t] = codes.to(cache.key_codes.dtype)
+        for key, buf in cache.key_scales.items():
+            buf[:, :, :t] = scales[key].to(buf.dtype)
+    else:
+        g = cfg.group_size
+        nfull = t // g
+        # round through the residual dtype so bulk prefill and token-by-
+        # token append produce bit-identical codes (streaming parity)
+        k_rdt = k.to(torch_dtype(cfg.residual_dtype))
+        if nfull:
+            codes, scales = codec.encode(cfg, k_rdt[:, :, :nfull * g])
+            cache.key_codes[:, :, :nfull] = codes
+            for key, buf in cache.key_scales.items():
+                buf[:, :, :nfull] = scales[key].to(buf.dtype)
+        if t > nfull * g:
+            cache.key_residual[:, :, :t - nfull * g] = k_rdt[:, :, nfull * g:]
+    cache.length.fill_(t)
+    cache.host_length = t
+    return cache
+
+
+def key_scores(cache: KVCache, q: torch.Tensor) -> torch.Tensor:
+    """Scores of q (B, Hkv, Qh, d) against all stored keys through the
+    codec's score path -> (B, Hkv, Qh, max_len)."""
+    return cache.codec.scores(cache.cfg, q, cache.key_codes,
+                              cache.key_scales)
+
+
+def position_masks(t_cap: int, g: int, length: torch.Tensor):
+    """Validity masks over the slots of a linear cache.
+
+    ``length`` is () — one shared length — or (B,) per-row lengths.
+    Returns (valid_grouped, in_residual, flushed): (t_cap,) bools and a
+    () flushed count, or (B, t_cap) bools and (B,) for per-row lengths."""
+    i = torch.arange(t_cap, dtype=torch.int32, device=length.device)
+    flushed = (length // g) * g
+    fl, ln = flushed, length
+    if length.dim():
+        i, fl, ln = i[None, :], flushed[:, None], length[:, None]
+    return i < fl, (i >= fl) & (i < ln), flushed
+
+
+def decode_attention(cache: KVCache, q: torch.Tensor,
+                     scale: float | None = None) -> torch.Tensor:
+    """Single-step attention of q (B, Hq, d) over the cache: masked softmax
+    over the codec's scores (the score-only LUT kernel for polar) and the
+    fp residual's, then p @ V. GQA folds query heads onto their kv head.
+    Returns (B, Hq, d) in q.dtype."""
+    cfg = cache.cfg
+    b, hq, d = q.shape
+    hkv = cache.num_kv_heads
+    qpk = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    q4 = (q.float() * scale).reshape(b, hkv, qpk, d)
+    t_cap = cache.max_len
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+
+    def bc(mask):  # (T,) or (B,T) -> broadcastable against (B,Hkv,Qh,T)
+        return mask if mask.dim() == 1 else mask[:, None, None, :]
+
+    if cache.grouped:
+        g = cfg.group_size
+        valid_g, in_res, _ = position_masks(t_cap, g, cache.length)
+        s_grouped = key_scores(cache, q4)                        # (B,H,Qh,T)
+        res = cache.key_residual.float()                         # (B,H,g,d)
+        s_res = torch.einsum("bhqd,bhgd->bhqg", q4, res)
+        s_res_tiled = s_res.repeat(1, 1, 1, t_cap // g)          # slot % g
+        scores = torch.where(bc(in_res), s_res_tiled,
+                             torch.where(bc(valid_g), s_grouped, neg))
+    else:
+        valid_g, in_res, _ = position_masks(t_cap, 1, cache.length)
+        scores = torch.where(bc(valid_g | in_res), key_scores(cache, q4),
+                             neg)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqt,bhtd->bhqd", probs, cache.value_fp.float())
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def fused_decode_attention(cache: KVCache, q: torch.Tensor,
+                           scale: float | None = None) -> torch.Tensor:
+    """Single-step decode attention through the codec's fused flash-decode
+    kernel (polar: :func:`repro_torch.kernels.ops.
+    polar_decode_attention_full`): LUT scores over the quantized groups
+    fused with the value matmul, merged exactly with the fp residual.
+    Equal to :func:`decode_attention` on a linear cache; ``cache.length``
+    may be () or (B,)."""
+    if not cache.codec.supports_fused_decode:
+        raise ValueError("fused decode path requires a codec with a fused "
+                         f"kernel, got {cache.codec.name!r}")
+    return cache.codec.fused_decode(cache, q, scale=scale)
+
+
+def cache_logical_bits(cache: KVCache) -> float:
+    """Logical bits per key element of this cache's policy (the paper's
+    accounting)."""
+    return cache.cfg.key_bits_per_element(cache.head_dim)

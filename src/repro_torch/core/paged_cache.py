@@ -1,7 +1,8 @@
 """Paged quantized KV cache: a shared page pool + per-slot page tables
 (port of ``repro/core/paged_cache.py``, the paths of paged
 continuous-batching serving: whole-prompt and chunked prefill, decode
-append, page-native decode and chunk attention, copy-on-write copies).
+append, decode attention on its three backends, page-native chunk
+attention, copy-on-write copies).
 
 One page holds exactly one quantization group (``page_size ==
 group_size``): its key codes/stats and its ``page_size`` token-major value
@@ -36,7 +37,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.cache_layout import PagedLayout
+from repro_torch.core import kv_cache as kvc
+from repro_torch.core.cache_layout import LinearLayout, PagedLayout
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.utils import resolve_device, torch_dtype
 
@@ -233,11 +235,78 @@ def paged_append(cache: PagedKVCache, k_new: torch.Tensor,
     return cache
 
 
+# ---------------------------------------------------------------------------
+# Gathered dense view + decode attention
+# ---------------------------------------------------------------------------
+
+
+def gather_view(cache: PagedKVCache,
+                page_table: torch.Tensor) -> kvc.KVCache:
+    """Materialize per-slot dense cache views from the page table.
+
+    Returns a :class:`~repro_torch.core.kv_cache.KVCache` with batch ==
+    slots and ``length`` (S,), consumable by ``kv_cache.decode_attention``
+    and ``kv_cache.fused_decode_attention``. Unassigned table entries (the
+    scratch page, or out of pool range) are masked at *page* granularity:
+    their gathered pages are zeroed before any scoring, so stale
+    masked-write garbage on the scratch page can never leak through a
+    zero-probability lane (``0 * NaN``)."""
+    lay = cache.layout
+    s, n = page_table.shape
+    t_cap = n * lay.page_size
+    pvalid = (page_table >= 0) & (page_table < lay.num_pages)     # (S, N)
+    idx = page_table.long().clamp(0, lay.pool_pages - 1)
+
+    def masked(x):  # (PP, H, a, b) -> (S, H, N, a, b), dead pages zeroed
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        # where() keeps the transposed strides: the kernels take dense rows
+        return torch.where(pvalid[:, None, :, None, None],
+                           x[idx].transpose(1, 2), zero).contiguous()
+
+    value_fp = masked(cache.value_fp)
+    return kvc.KVCache(
+        key_codes=masked(cache.key_codes),
+        key_scales={k: masked(v) for k, v in cache.key_scales.items()},
+        key_residual=cache.key_residual,
+        value_fp=value_fp.reshape(s, value_fp.shape[1], t_cap,
+                                  value_fp.shape[-1]),
+        length=cache.lengths, cfg=cache.cfg, max_len=t_cap,
+        layout=LinearLayout(t_cap))
+
+
+#: decode backends over a paged cache: "jnp" and "gathered" read a dense
+#: per-slot copy (gather_view) through the score-only LUT kernel + softmax
+#: and through the fused dense kernel; "paged_fused" walks the page table
+#: in place. In the port the tensors' device picks kernel or plain version.
+DECODE_BACKENDS = ("jnp", "gathered", "paged_fused")
+
+
+def gathered_decode_attention(cache: PagedKVCache, q: torch.Tensor,
+                              page_table: torch.Tensor, *,
+                              scale: float | None = None,
+                              backend: str = "jnp") -> torch.Tensor:
+    """Decode attention over the dense per-slot view (an O(capacity) copy):
+    ``kv_cache.decode_attention`` for ``"jnp"``, the fused dense kernel
+    otherwise. The pre-page-native formulation, kept as a reference and
+    A/B arm."""
+    view = gather_view(cache, page_table)
+    if backend == "jnp" or not cache.codec.supports_fused_decode:
+        return kvc.decode_attention(view, q, scale=scale)
+    return kvc.fused_decode_attention(view, q, scale=scale)
+
+
 def paged_decode_attention(cache: PagedKVCache, q: torch.Tensor,
                            page_table: torch.Tensor,
-                           scale: float | None = None) -> torch.Tensor:
-    """Single-step attention of q (S, Hq, d) over all slots' pages — the
-    page-native ``"paged_fused"`` route: the codec walks the page table
-    and reads quantized pages in place. ``page_table`` may be width-sliced
-    to the live pages."""
-    return cache.codec.paged_decode(cache, q, page_table, scale=scale)
+                           scale: float | None = None,
+                           backend: str = "paged_fused") -> torch.Tensor:
+    """Single-step attention of q (S, Hq, d) over all slots' pages, on one
+    of :data:`DECODE_BACKENDS`. ``"paged_fused"``: the codec walks the page
+    table and reads quantized pages in place. ``page_table`` may be
+    width-sliced to the live pages."""
+    if backend not in DECODE_BACKENDS:
+        raise ValueError(f"unknown paged decode backend {backend!r}; "
+                         f"expected one of {DECODE_BACKENDS}")
+    if backend == "paged_fused":
+        return cache.codec.paged_decode(cache, q, page_table, scale=scale)
+    return gathered_decode_attention(cache, q, page_table, scale=scale,
+                                     backend=backend)

@@ -30,7 +30,7 @@ _EPS = 1e-8
 class QuantConfig:
     """Cache-quantization policy (hashable, pure configuration)."""
 
-    method: str = "polar"            # this slice registers "polar" only
+    method: str = "polar"            # "polar" | "none" (fp passthrough)
     rho_bits: int = 4                # polar radius bits (r)
     theta_bits: int = 4              # polar angle bits (t)
     value_bits: int = 0              # 0 => values stay fp
@@ -45,6 +45,11 @@ class QuantConfig:
         ``method``."""
         from repro_torch.core.codecs import get_codec  # codecs imports us
         return get_codec(self.method)
+
+    def key_bits_per_element(self, head_dim: int) -> float:
+        """Logical key bits/element incl. quantization-stat overhead (the
+        codec owns the accounting)."""
+        return self.codec.bits_per_element(self, head_dim)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,11 @@
 
 There is no ``backend`` argument: each kernel wrapper launches its CUDA
 kernel for CUDA tensors and runs its plain version for CPU tensors.
-``polar_paged_decode_attention_full`` is the end-to-end decode-attention
-entry: kernel partials over the flushed pages merged exactly with the fp
-residual segment (associative online-softmax merge, plain PyTorch).
+``polar_decode_attention_full`` (dense cache) and
+``polar_paged_decode_attention_full`` (page pools) are the end-to-end
+decode-attention entries: kernel partials over the flushed groups merged
+exactly with the fp residual segment (associative online-softmax merge,
+plain PyTorch).
 """
 from __future__ import annotations
 
@@ -14,9 +16,18 @@ import torch
 from repro_torch.kernels import flash_prefill as fp_mod
 from repro_torch.kernels import paged_decode as pd_mod
 from repro_torch.kernels import paged_prefill as pp_mod
+from repro_torch.kernels import polar_attention as pa_mod
 from repro_torch.kernels import polar_encode as pe_mod
+from repro_torch.kernels import polar_qk as qk_mod
 
 NEG_INF = -1e30
+
+
+def polar_qk_scores(q, codes, rs, rz, ts, tz, *, r_bits=4, t_bits=4):
+    """LUT q.K scores over the dense cache: q (B, Hkv, Qh, d), codes
+    (B, Hkv, G, g, P), stats (B, Hkv, G, 1, P) -> (B, Hkv, Qh, G*g) fp32."""
+    return qk_mod.polar_qk_scores(q, codes, rs, rz, ts, tz, r_bits=r_bits,
+                                  t_bits=t_bits)
 
 
 def polar_encode(k, *, r_bits=4, t_bits=4, group_size=128):
@@ -30,6 +41,15 @@ def polar_encode_pages(k, pages, codes, rs, rz, ts, tz, *, r_bits=4,
     """Paged polar encode in place (see ``polar_encode.polar_encode_pages``)."""
     pe_mod.polar_encode_pages(k, pages, codes, rs, rz, ts, tz,
                               r_bits=r_bits, t_bits=t_bits)
+
+
+def polar_decode_attention_grouped(q, codes, rs, rz, ts, tz, values, length,
+                                   *, r_bits=4, t_bits=4):
+    """Fused flash decode over the dense grouped segment: q (B, Hkv, Qh, d)
+    pre-scaled, dense buffers, length (B,) int32 -> flash partials."""
+    return pa_mod.polar_decode_attention_grouped(
+        q, codes, rs, rz, ts, tz, values, length, r_bits=r_bits,
+        t_bits=t_bits)
 
 
 def polar_paged_decode_attention_grouped(q, codes, rs, rz, ts, tz, values,
@@ -110,6 +130,44 @@ def _residual_flash_partials(q4, key_residual, n_res, v_res):
     v_res = torch.where(row_live[:, None, :, None], v_res, zero)
     acc_r = torch.einsum("bhqg,bhgd->bhqd", p_r, v_res)
     return acc_r, m_r, l_r
+
+
+def polar_decode_attention_full(q, codes, rs, rz, ts, tz, key_residual,
+                                values, length, *, r_bits=4, t_bits=4,
+                                softmax_scale=None):
+    """End-to-end decode attention over the dense cache: flushed groups
+    through the fused kernel + the fp residual segment, merged exactly.
+
+    q (B, Hq, d); codes (B, Hkv, G, g, P) with stats (B, Hkv, G, 1, P);
+    key_residual (B, Hkv, g, d); values (B, Hkv, T, d) token-major rows;
+    length () or (B,) int32 total tokens (per-row lengths mask gathered
+    continuous-batching slots at their own positions). Returns (B, Hq, d)
+    in q.dtype."""
+    b, hq, d = q.shape
+    hkv = codes.shape[1]
+    g = codes.shape[3]
+    qpk = hq // hkv
+    scale = d ** -0.5 if softmax_scale is None else softmax_scale
+    q4 = (q.float() * scale).reshape(b, hkv, qpk, d).contiguous()
+    len_b = length.to(torch.int32).expand(b).contiguous()
+    flushed = (len_b // g) * g                                   # (B,)
+
+    acc_g, m_g, l_g = polar_decode_attention_grouped(
+        q4, codes, rs, rz, ts, tz, values, flushed, r_bits=r_bits,
+        t_bits=t_bits)
+
+    # residual V rows live token-major at [flushed, flushed + g), gathered
+    # per row (flushed differs across slots; the clamp keeps the gather in
+    # bounds when a full cache leaves no residual rows to read)
+    t_cap = values.shape[2]
+    slot = torch.arange(g, dtype=torch.int32, device=q.device)
+    rows = torch.clamp(flushed[:, None] + slot[None, :], max=t_cap - 1)
+    idx = rows[:, None, :, None].long().expand(b, hkv, g, d)
+    v_res = torch.gather(values, 2, idx).float()                 # (B,H,g,d)
+    acc_r, m_r, l_r = _residual_flash_partials(q4, key_residual,
+                                               len_b - flushed, v_res)
+    out = merge_softmax_partials([(acc_g, m_g, l_g), (acc_r, m_r, l_r)])
+    return out.reshape(b, hq, d).to(q.dtype)
 
 
 def polar_paged_decode_attention_full(

@@ -6,11 +6,13 @@ polar_paged_decode_grouped`` (LUT tile ``repro/kernels/polar_attention.py::
 _lut_scores_block``). Source: ``csrc/paged_decode.cu``.
 
 Per (slot, kv head) it walks the slot's live pages in the page table and,
-per page, builds the angle LUT in shared memory, scores the page's tokens
-by gather, masks positions >= ``flushed[s]``, and folds them into an
-online softmax and p @ V with dead value rows zeroed. Output: the
-unnormalized flash partials (acc, m, l) over the flushed groups; the
-residual merge happens in ``kernels/ops.py``.
+per page, stages the page's stats, codes and value rows in shared memory
+(16-byte loads, dead value rows zeroed), builds the angle LUT, scores the
+page's tokens by gather, masks positions >= ``flushed[s]``, and folds them
+into an online softmax and p @ V. The LUT flash-decode body is shared with
+the dense-cache kernel (``csrc/lut_decode.cuh``). Output: the unnormalized
+flash partials (acc, m, l) over the flushed groups; the residual merge
+happens in ``kernels/ops.py``.
 
 Bound: bytes — the live pages' codes, stats and value rows are read once
 per (slot, kv head). The grid has only S*Hkv blocks (32 on the serving

@@ -1,0 +1,99 @@
+"""Fused PolarQuant decode attention over the dense cache: hand-written
+CUDA kernel + its plain version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/polar_attention.py::
+polar_decode_attention_grouped``. Source: ``csrc/polar_attention.cu``
+(the LUT flash-decode body is shared with the page-walking kernel in
+``csrc/lut_decode.cuh``).
+
+Per (row, kv head) it walks the row's live groups of the dense
+``(B, Hkv, G, g, P)`` buffers and, per group, stages the group's stats,
+codes and value rows in shared memory (16-byte loads, dead value rows
+zeroed), builds the angle LUT, scores the group's tokens by gather, masks
+positions >= ``length[b]``, and folds them into an online softmax and
+p @ V. Output: the unnormalized flash partials (acc, m, l); the residual
+merge happens in ``kernels/ops.py``.
+
+Bound: bytes — the live groups' codes, stats and value rows are read once
+per (row, kv head). The grid has only B*Hkv blocks (32 on the static
+serving path), as for the paged kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build as B
+from repro_torch.kernels import ref as ref_mod
+
+#: kernel launches since the last reset (CPU calls never count)
+launches = 0
+
+
+def _bind(lib) -> None:
+    lib.polar_attention_launch.argtypes = [
+        B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
+        B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT, B.INT, B.INT, B.INT, B.INT,
+        B.INT, B.INT, B.VOIDP]
+    lib.polar_attention_launch.restype = B.INT
+
+
+def polar_decode_attention_grouped_plain(q, codes, rs, rz, ts, tz, values,
+                                         length, *, r_bits: int = 4,
+                                         t_bits: int = 4):
+    """Plain version: LUT scores, masked softmax partials, dead value rows
+    zeroed (``ref.ref_polar_decode_attention`` with q already scaled)."""
+    return ref_mod.ref_polar_decode_attention(
+        q, codes, rs, rz, ts, tz, values, length, r_bits=r_bits,
+        t_bits=t_bits, softmax_scale=1.0)
+
+
+def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
+                                   rs: torch.Tensor, rz: torch.Tensor,
+                                   ts: torch.Tensor, tz: torch.Tensor,
+                                   values: torch.Tensor, length: torch.Tensor,
+                                   *, r_bits: int = 4, t_bits: int = 4):
+    """Fused flash decode over the dense grouped segment.
+
+    q (B, Hkv, Qh, d) fp32, ALREADY scaled; codes (B, Hkv, G, g, P) uint8;
+    stats (B, Hkv, G, 1, P) fp32; values (B, Hkv, G*g, d) bf16/fp32
+    token-major rows; length (B,) int32 valid grouped tokens per row.
+    Returns (acc (B,Hkv,Qh,d), m (B,Hkv,Qh), l (B,Hkv,Qh)) fp32. The kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    global launches
+    tensors = (q, codes, rs, rz, ts, tz, values, length)
+    if not B.on_card(*tensors):
+        return polar_decode_attention_grouped_plain(
+            q, codes, rs, rz, ts, tz, values, length, r_bits=r_bits,
+            t_bits=t_bits)
+    b, hkv, qh, d = q.shape
+    B.require(codes.dim() == 5, "codes must be (B, Hkv, G, g, d/2)")
+    _, _, gc, g, p = codes.shape
+    B.require(q.dtype == torch.float32 and q.is_contiguous(),
+              "q must be contiguous float32 (B, Hkv, Qh, d)")
+    B.require(codes.dtype == torch.uint8 and codes.is_contiguous()
+              and tuple(codes.shape[:2]) == (b, hkv) and p * 2 == d,
+              "codes must be contiguous uint8 (B, Hkv, G, g, d/2)")
+    for st in (rs, rz, ts, tz):
+        B.require(st.dtype == torch.float32 and st.is_contiguous()
+                  and tuple(st.shape) == (b, hkv, gc, 1, p),
+                  "stats must be contiguous float32 (B, Hkv, G, 1, d/2)")
+    B.require(values.dtype in (torch.float32, torch.bfloat16)
+              and values.is_contiguous()
+              and tuple(values.shape) == (b, hkv, gc * g, d),
+              "values must be contiguous bf16/fp32 (B, Hkv, G*g, d)")
+    B.require(length.dtype == torch.int32 and length.is_contiguous()
+              and tuple(length.shape) == (b,), "length must be int32 (B,)")
+    B.require(r_bits + t_bits <= 8, "r_bits + t_bits must fit one byte")
+    acc = torch.empty((b, hkv, qh, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, hkv, qh), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, hkv, qh), dtype=torch.float32, device=q.device)
+    lib = B.library("polar_attention", _bind)
+    err = lib.polar_attention_launch(
+        q.data_ptr(), codes.data_ptr(), rs.data_ptr(), rz.data_ptr(),
+        ts.data_ptr(), tz.data_ptr(), values.data_ptr(),
+        int(values.dtype == torch.bfloat16), length.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, qh, d, gc, g,
+        t_bits, B.stream_ptr(q))
+    B.check(err, "polar_attention")
+    launches += 1
+    return acc, m, l

@@ -1,0 +1,73 @@
+"""LUT q·K̃ scores over the dense cache, no softmax: hand-written CUDA
+kernel + its plain version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/polar_qk.py::
+polar_qk_scores`` (the paper's Appendix-A kernel). Source:
+``csrc/polar_qk.cu``.
+
+Per (group, kv head, row) it builds the group's angle LUT in shared
+memory for all query heads, dequantizes ρ̃ once per (token, pair) and
+adds one gathered LUT entry per (query head, token, pair). Every position
+of the ``(B, Hkv, Qh, G*g)`` output is written. Bound: bytes (codes and
+stats in, fp32 scores out); the score spill to memory is what the fused
+decode kernel (``polar_attention``) removes.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build as B
+from repro_torch.kernels import ref as ref_mod
+
+#: kernel launches since the last reset (CPU calls never count)
+launches = 0
+
+
+def _bind(lib) -> None:
+    lib.polar_qk_launch.argtypes = [
+        B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
+        B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP]
+    lib.polar_qk_launch.restype = B.INT
+
+
+def polar_qk_scores_plain(q, codes, rs, rz, ts, tz, *, r_bits: int = 4,
+                          t_bits: int = 4) -> torch.Tensor:
+    """Plain version: the gather-form LUT scores
+    (``ref.ref_polar_qk_scores``)."""
+    return ref_mod.ref_polar_qk_scores(q, codes, rs, rz, ts, tz,
+                                       r_bits=r_bits, t_bits=t_bits)
+
+
+def polar_qk_scores(q: torch.Tensor, codes: torch.Tensor, rs: torch.Tensor,
+                    rz: torch.Tensor, ts: torch.Tensor, tz: torch.Tensor, *,
+                    r_bits: int = 4, t_bits: int = 4) -> torch.Tensor:
+    """LUT q·K̃ scores. q (B, Hkv, Qh, d) fp32; codes (B, Hkv, G, g, P)
+    uint8; stats (B, Hkv, G, 1, P) fp32. Returns (B, Hkv, Qh, G*g) fp32.
+    The kernel for CUDA tensors, the plain version for CPU tensors."""
+    global launches
+    if not B.on_card(q, codes, rs, rz, ts, tz):
+        return polar_qk_scores_plain(q, codes, rs, rz, ts, tz, r_bits=r_bits,
+                                     t_bits=t_bits)
+    b, hkv, qh, d = q.shape
+    B.require(codes.dim() == 5, "codes must be (B, Hkv, G, g, d/2)")
+    _, _, gc, g, p = codes.shape
+    B.require(q.dtype == torch.float32 and q.is_contiguous(),
+              "q must be contiguous float32 (B, Hkv, Qh, d)")
+    B.require(codes.dtype == torch.uint8 and codes.is_contiguous()
+              and tuple(codes.shape[:2]) == (b, hkv) and p * 2 == d,
+              "codes must be contiguous uint8 (B, Hkv, G, g, d/2)")
+    for st in (rs, rz, ts, tz):
+        B.require(st.dtype == torch.float32 and st.is_contiguous()
+                  and tuple(st.shape) == (b, hkv, gc, 1, p),
+                  "stats must be contiguous float32 (B, Hkv, G, 1, d/2)")
+    B.require(r_bits + t_bits <= 8, "r_bits + t_bits must fit one byte")
+    out = torch.empty((b, hkv, qh, gc * g), dtype=torch.float32,
+                      device=q.device)
+    lib = B.library("polar_qk", _bind)
+    err = lib.polar_qk_launch(
+        q.data_ptr(), codes.data_ptr(), rs.data_ptr(), rz.data_ptr(),
+        ts.data_ptr(), tz.data_ptr(), out.data_ptr(), b, hkv, qh, d, gc, g,
+        t_bits, B.stream_ptr(q))
+    B.check(err, "polar_qk")
+    launches += 1
+    return out

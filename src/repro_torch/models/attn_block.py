@@ -1,6 +1,17 @@
-"""GQA attention block over the paged quantized KV cache (port of the
-paged entries of ``repro/models/attn_block.py``).
+"""GQA attention block over the quantized KV caches (port of the dense
+and paged entries of ``repro/models/attn_block.py``).
 
+* ``make_cache`` — one layer's dense cache: linear layout, capacity
+  rounded up to a group multiple.
+* ``attention_prefill`` — the static batch's prompt: causal flash
+  attention (the flash-prefill kernel, where JAX runs the jnp
+  ``flash_attention``) + the dense cache fill (the encode kernel).
+* ``attention_decode`` — one token per row over the dense cache: append
+  (residual write, group flush through the encode kernel) and decode
+  attention on ``cfg.decode_backend``: ``"jnp"`` through the score-only
+  LUT kernel + softmax, ``"paged_fused"`` and ``"gathered"`` through the
+  fused dense kernel (JAX's ``_dense_kernel_backend`` mapping); codecs
+  without a fused kernel fall back to the ``"jnp"`` route.
 * ``attention_prefill_paged`` — one request's prompt: causal flash
   attention (the flash-prefill kernel) + the paged cache fill (the encode
   kernel writes the prompt's key groups into their pages).
@@ -10,7 +21,8 @@ paged entries of ``repro/models/attn_block.py``).
   kernel).
 * ``attention_decode_paged`` — one token per slot: append (residual
   write + masked group flush through the encode kernel) and page-native
-  LUT decode attention (the paged-decode kernel).
+  decode attention on ``cfg.decode_backend`` (``"paged_fused"``: the
+  paged-decode kernel walks the pages in place).
 
 Blocks call ``paged_cache`` directly; this slice has no mesh dispatch.
 """
@@ -19,9 +31,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kv_cache as kvc
 from repro_torch.core import paged_cache as pgc
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.utils import torch_dtype
 
 
 def _project(params: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -32,6 +46,49 @@ def _project(params: dict, x: torch.Tensor, cfg: ModelConfig):
     v = L.split_heads(L.linear(x, params["wv"], params.get("bv")),
                       cfg.num_kv_heads)
     return q, k, v
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> kvc.KVCache:
+    """Allocate one layer's dense cache under ``cfg.quant`` on ``device``
+    (the card unless named); the capacity rounds ``max_len`` up to a group
+    multiple, as the residual's ``slot % g`` tiling needs."""
+    g = cfg.quant.group_size
+    cap = -(-max_len // g) * g
+    return kvc.init_cache(cfg.quant, batch, cfg.num_kv_heads, cfg.head_dim,
+                          cap, dtype=torch_dtype(cfg.dtype), device=device)
+
+
+def attention_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                      cache: kvc.KVCache):
+    """Causal attention over the static batch's prompt + bulk cache fill.
+    x: (B, T, D). Returns (y (B, T, D), cache)."""
+    t = x.shape[1]
+    positions = torch.arange(t, dtype=torch.int32, device=x.device)
+    q, k, v = _project(params, x, cfg)
+    q = L.apply_rope(q, positions, cfg.rope_base, cfg.rope_ntk_scale)
+    k = L.apply_rope(k, positions, cfg.rope_base, cfg.rope_ntk_scale)
+    v = v.contiguous()
+    cache = kvc.prefill(cache, k, v)
+    out = ops.flash_prefill(q, k, v, causal=True)
+    return L.linear(L.merge_heads(out), params["wo"]), cache
+
+
+def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                     cache: kvc.KVCache):
+    """Single-token decode of every row at the shared position
+    ``cache.length``. x: (B, 1, D). Returns (y (B, 1, D), cache)."""
+    b = x.shape[0]
+    q, k, v = _project(params, x, cfg)
+    pos = cache.length.reshape(1)
+    q = L.apply_rope(q, pos, cfg.rope_base, cfg.rope_ntk_scale)
+    k = L.apply_rope(k, pos, cfg.rope_base, cfg.rope_ntk_scale)
+    cache = kvc.append(cache, k, v)
+    if cfg.decode_backend != "jnp" and cache.codec.supports_fused_decode:
+        out = kvc.fused_decode_attention(cache, q[:, :, 0])
+    else:
+        out = kvc.decode_attention(cache, q[:, :, 0])
+    return L.linear(out.reshape(b, 1, -1), params["wo"]), cache
 
 
 def attention_prefill_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -87,5 +144,6 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
     q = L.apply_rope(q, pos, cfg.rope_base, cfg.rope_ntk_scale)
     k = L.apply_rope(k, pos, cfg.rope_base, cfg.rope_ntk_scale)
     cache = pgc.paged_append(cache, k, v, page_table, active)
-    out = pgc.paged_decode_attention(cache, q[:, :, 0], page_table)
+    out = pgc.paged_decode_attention(cache, q[:, :, 0], page_table,
+                                     backend=cfg.decode_backend)
     return L.linear(out.reshape(s, 1, -1), params["wo"]), cache

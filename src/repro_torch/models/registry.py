@@ -1,9 +1,13 @@
-"""Model interface over the dense family's paged serving entries (port of
-``repro/models/registry.py:55-68,118-161``; run-ahead and speculative
+"""Model interface over the dense family's serving entries (port of
+``repro/models/registry.py:34-68,118-161``; run-ahead and speculative
 decoding come in later slices).
 
 ``get_model(cfg)`` returns a :class:`Model` bundle:
   init(generator, device) -> params
+  init_decode_state(batch, max_len, device) -> list of per-layer KVCaches
+  prefill(params, {"tokens": (B, T)}, state) -> (last logits (B, V), state)
+  decode(params, state, token (B,)) -> (logits (B, V), state)
+  cache_layer_bytes(state) -> physical cache bytes per layer
   init_paged_state(layout, device) -> list of per-layer PagedKVCaches
   prefill_paged(params, tokens (1,Tp), state, slot, page_row, true_len)
   prefill_paged_chunk(params, tokens (1,Tc), state, slot, page_row, start,
@@ -24,6 +28,10 @@ from repro_torch.models import transformer as TF
 class Model:
     cfg: ModelConfig
     init: Callable[..., dict]
+    init_decode_state: Callable[..., Any]
+    prefill: Callable[..., Any]
+    decode: Callable[..., Any]
+    cache_layer_bytes: Callable[[Any], list[int]]
     init_paged_state: Callable[..., Any]
     prefill_paged: Callable[..., Any]
     prefill_paged_chunk: Callable[..., Any]
@@ -39,6 +47,11 @@ def get_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda generator=None, device=None: init_params(
             cfg, generator=generator, device=device),
+        init_decode_state=lambda batch, max_len, device:
+            TF.init_decode_caches(cfg, batch, max_len, device),
+        prefill=lambda p, b, s: TF.prefill_fn(p, b, cfg, s),
+        decode=lambda p, s, t: TF.decode_fn(p, s, t, cfg),
+        cache_layer_bytes=TF.per_layer_cache_bytes,
         init_paged_state=lambda layout, device: TF.init_paged_caches(
             cfg, layout, device),
         prefill_paged=lambda p, toks, s, slot, row, tl:

@@ -1,9 +1,12 @@
-"""Decoder-only transformer LM over paged caches (port of the
-continuous-batching entries of ``repro/models/transformer.py``).
+"""Decoder-only transformer LM over quantized caches (port of the serving
+entries of ``repro/models/transformer.py``: the static batch's dense
+caches and continuous batching's paged caches).
 
 A Python loop over the layers replaces ``_scan_segments``; the state is
-one :class:`~repro_torch.core.paged_cache.PagedKVCache` per layer, all
-sharing one page-table numbering and updated in place.
+one cache per layer, updated in place: a dense
+:class:`~repro_torch.core.kv_cache.KVCache` (static batch) or a
+:class:`~repro_torch.core.paged_cache.PagedKVCache` (paged caches share
+one page-table numbering).
 
 Params are a dict: ``embed`` (V, D), ``final_norm`` (D,), ``lm_head``
 (D, V) unless embeddings are tied, and ``layers``, a list of
@@ -17,7 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged_cache as pgc
 from repro_torch.models import attn_block as AB
 from repro_torch.models import layers as L
-from repro_torch.utils import torch_dtype
+from repro_torch.utils import torch_dtype, tree_bytes
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor,
@@ -34,37 +37,49 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h @ w.to(h.dtype)
 
 
-def _block_prefill_paged(bp: dict, x: torch.Tensor, cfg: ModelConfig,
-                         cache, *, slot, page_row, true_len):
+def _block(bp: dict, x: torch.Tensor, cfg: ModelConfig, attn, cache, **kw):
+    """Pre-norm residual block around the attention entry ``attn``."""
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-    y, cache = AB.attention_prefill_paged(bp["attn"], h, cfg, cache,
-                                          slot=slot, page_row=page_row,
-                                          true_len=true_len)
+    y, cache = attn(bp["attn"], h, cfg, cache, **kw)
     x = x + y
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
     return x + L.mlp(bp["ffn"], h, cfg.act), cache
 
 
-def _block_prefill_chunk(bp: dict, x: torch.Tensor, cfg: ModelConfig,
-                         cache, *, slot, page_row, start, chunk_len):
-    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-    y, cache = AB.attention_prefill_chunk(bp["attn"], h, cfg, cache,
-                                          slot=slot, page_row=page_row,
-                                          start=start, chunk_len=chunk_len)
-    x = x + y
-    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp(bp["ffn"], h, cfg.act), cache
+def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
+                       device) -> list:
+    """One dense cache per layer for a static batch of ``batch`` rows."""
+    return [AB.make_cache(cfg, batch, max_len, device=device)
+            for _ in range(cfg.num_layers)]
 
 
-def _block_decode_paged(bp: dict, x: torch.Tensor, cfg: ModelConfig, cache,
-                        *, page_table, active):
-    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-    y, cache = AB.attention_decode_paged(bp["attn"], h, cfg, cache,
-                                         page_table=page_table,
-                                         active=active)
-    x = x + y
-    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp(bp["ffn"], h, cfg.act), cache
+def per_layer_cache_bytes(caches: list) -> list[int]:
+    """Physical cache bytes of each layer."""
+    return [tree_bytes(c) for c in caches]
+
+
+@torch.no_grad()
+def prefill_fn(params: dict, batch: dict, cfg: ModelConfig, caches: list):
+    """Prefill the static batch into its dense caches (in place).
+    batch["tokens"]: (B, T) int. Returns (last-token logits (B, V),
+    caches)."""
+    x = embed_tokens(params, batch["tokens"], cfg)
+    for bp, cache in zip(params["layers"], caches):
+        x, _ = _block(bp, x, cfg, AB.attention_prefill, cache)
+    logits = lm_logits(params, x[:, -1:], cfg)
+    return logits[:, 0], caches
+
+
+@torch.no_grad()
+def decode_fn(params: dict, caches: list, token: torch.Tensor,
+              cfg: ModelConfig):
+    """One lock-step decode step over the dense caches (in place).
+    token: (B,) int -> (logits (B, V), caches)."""
+    x = embed_tokens(params, token[:, None], cfg)
+    for bp, cache in zip(params["layers"], caches):
+        x, _ = _block(bp, x, cfg, AB.attention_decode, cache)
+    logits = lm_logits(params, x, cfg)
+    return logits[:, 0], caches
 
 
 def init_paged_caches(cfg: ModelConfig, layout, device) -> list:
@@ -85,8 +100,8 @@ def prefill_paged_fn(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     ``true_len``). Returns (last-real-token logits (1, V), caches)."""
     x = embed_tokens(params, tokens, cfg)
     for bp, cache in zip(params["layers"], caches):
-        x, _ = _block_prefill_paged(bp, x, cfg, cache, slot=slot,
-                                    page_row=page_row, true_len=true_len)
+        x, _ = _block(bp, x, cfg, AB.attention_prefill_paged, cache,
+                      slot=slot, page_row=page_row, true_len=true_len)
     logits = lm_logits(params, x[:, true_len - 1:true_len], cfg)
     return logits[:, 0], caches
 
@@ -103,9 +118,9 @@ def prefill_paged_chunk_fn(params: dict, tokens: torch.Tensor,
     meaningful only on a request's final chunk."""
     x = embed_tokens(params, tokens, cfg)
     for bp, cache in zip(params["layers"], caches):
-        x, _ = _block_prefill_chunk(bp, x, cfg, cache, slot=slot,
-                                    page_row=page_row, start=start,
-                                    chunk_len=chunk_len)
+        x, _ = _block(bp, x, cfg, AB.attention_prefill_chunk, cache,
+                      slot=slot, page_row=page_row, start=start,
+                      chunk_len=chunk_len)
     logits = lm_logits(params, x[:, chunk_len - 1:chunk_len], cfg)
     return logits[:, 0], caches
 
@@ -128,7 +143,7 @@ def decode_paged_fn(params: dict, caches: list, token: torch.Tensor,
     may be width-sliced to the live pages."""
     x = embed_tokens(params, token[:, None], cfg)
     for bp, cache in zip(params["layers"], caches):
-        x, _ = _block_decode_paged(bp, x, cfg, cache, page_table=page_table,
-                                   active=active)
+        x, _ = _block(bp, x, cfg, AB.attention_decode_paged, cache,
+                      page_table=page_table, active=active)
     logits = lm_logits(params, x, cfg)
     return logits[:, 0], caches

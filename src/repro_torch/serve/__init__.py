@@ -1,8 +1,10 @@
-"""Serving over the paged quantized KV cache: ``core.py`` owns every
-device dispatch, ``scheduler.py`` slots and pages host-side, ``engine.py``
-the batch-replay driver and ``api.py`` the streaming front door."""
+"""Serving over the quantized KV caches: ``core.py`` owns every device
+dispatch (the static ``ServeEngine`` over dense caches and the
+continuous-batching ``EngineCore`` over paged caches), ``scheduler.py``
+slots and pages host-side, ``engine.py`` the batch-replay driver and
+``api.py`` the streaming front door."""
 from repro_torch.serve.core import (  # noqa: F401
-    EngineCore, GenerationConfig, TokenEvent,
+    EngineCore, GenerationConfig, ServeEngine, TokenEvent,
 )
 from repro_torch.serve.api import (  # noqa: F401
     StreamingEngine, check_event_stream, stream_latency_stats,

@@ -1,12 +1,19 @@
-"""EngineCore: the step-shaped device-dispatch layer of the serve stack
-(port of the continuous-batching paths of ``repro/serve/core.py``:
-classic whole-prompt prefill, chunked prefill and the shared-prefix page
-cache).
+"""The device-dispatch layer of the serve stack (port of
+``repro/serve/core.py``): :class:`ServeEngine`, the static-batching
+engine over dense caches, and :class:`EngineCore`, the continuous-batching
+core over paged caches (classic whole-prompt prefill, chunked prefill and
+the shared-prefix page cache).
 
-One public :meth:`EngineCore.step` performs exactly one scheduling
-decision + at most one device dispatch (admit — with its whole-prompt
-prefill in classic mode —, one prefill chunk, or one batched decode step)
-and returns structured :class:`TokenEvent`\\ s. Requests move through::
+:class:`ServeEngine` runs one shared prefill and lock-step decode; the
+sampled tokens stay on the device until the loop ends (no host
+synchronisation per step), and prefill and decode are timed with a device
+synchronise at their ends.
+
+In :class:`EngineCore`, one public :meth:`EngineCore.step` performs
+exactly one scheduling decision + at most one device dispatch (admit —
+with its whole-prompt prefill in classic mode —, one prefill chunk, or
+one batched decode step) and returns structured :class:`TokenEvent`\\ s.
+Requests move through::
 
     WAITING -> PREFILLING -> DECODING -> FINISHED
                                   \\-> PREEMPTED (-> WAITING)
@@ -32,7 +39,7 @@ from repro_torch.core.cache_layout import PagedLayout, PrefixIndex
 from repro_torch.models.registry import Model
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.utils import (
-    cdiv, nearest_rank_pct, pow2_bucket, resolve_device,
+    cdiv, nearest_rank_pct, pow2_bucket, resolve_device, tree_bytes,
 )
 
 
@@ -66,6 +73,72 @@ def _sample(logits: torch.Tensor, gen: GenerationConfig,
         noise = -torch.log(-torch.log(u))
     return torch.argmax(logits + noise.to(logits.device), dim=-1).to(
         torch.int32)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    """Static batching: one shared prefill, lock-step decode; the whole
+    batch runs until its last step. Runs on the card unless ``device``
+    names another (``params`` must live there); with no GPU and no device
+    named, construction raises."""
+
+    def __init__(self, model: Model, params: dict, max_len: int,
+                 device=None):
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+        self.device = resolve_device(device)
+
+    def generate(self, batch: dict,
+                 gen: Optional[GenerationConfig] = None) -> dict:
+        """batch: {"tokens": (B, Tp) int}. Returns the generated tokens
+        (B, max_new_tokens) as numpy, prefill and decode seconds, decode
+        tokens/s and the cache's physical bytes (in all and per layer)."""
+        gen = gen if gen is not None else GenerationConfig()
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        b, tp = tokens.shape
+        # linear cache: prompt + appended tokens must fit (the last sampled
+        # token is never appended, hence the -1)
+        if tp + gen.max_new_tokens - 1 > self.max_len:
+            raise ValueError(
+                f"prompt {tp} + max_new_tokens {gen.max_new_tokens} "
+                f"exceeds cache capacity {self.max_len}")
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(gen.seed)
+        state = self.model.init_decode_state(b, self.max_len, self.device)
+        t0 = time.monotonic()
+        logits, state = self.model.prefill(self.params, {"tokens": tokens},
+                                           state)
+        _sync(self.device)
+        t_prefill = time.monotonic() - t0
+
+        tok = _sample(logits, gen, generator)
+        toks = [tok]
+        done = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        t0 = time.monotonic()
+        for _ in range(gen.max_new_tokens - 1):
+            logits, state = self.model.decode(self.params, state, tok)
+            tok = _sample(logits, gen, generator)
+            if gen.eos_id >= 0:
+                done = done | (tok == gen.eos_id)
+                tok = torch.where(done, torch.full_like(tok, gen.eos_id),
+                                  tok)
+            toks.append(tok)
+        _sync(self.device)
+        t_decode = time.monotonic() - t0
+        n_dec = max(gen.max_new_tokens - 1, 1)
+        return {
+            "tokens": torch.stack(toks, dim=1).cpu().numpy(),
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "tokens_per_s": b * n_dec / max(t_decode, 1e-9),
+            "cache_bytes": tree_bytes(state),
+            "cache_bytes_per_layer": self.model.cache_layer_bytes(state),
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -423,8 +496,7 @@ class EngineCore:
             del self._prefilling[slot]
             self.sched.register_prefix(slot)
             return self._take_first_token(slot, tok0, tl)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)   # honest clock
+        _sync(self.device)   # honest clock
         dt = time.monotonic() - t0
         self.clock += dt
         self._prefill_times.append(dt)
@@ -567,10 +639,7 @@ class EngineCore:
         ttfts = sorted((r.t_first_token or 0.0) - r.arrival_time
                        for r in completed)
         step_times = self._step_times
-        cache_bytes = sum(
-            t.numel() * t.element_size() for c in self.state
-            for t in (c.key_codes, *c.key_scales.values(), c.key_residual,
-                      c.value_fp, c.lengths))
+        cache_bytes = tree_bytes(self.state)
         res = {
             "requests": completed,
             "total_tokens": total_tokens,

@@ -8,7 +8,7 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.serve.core import (  # noqa: F401  (re-exports)
-    EngineCore, GenerationConfig, TokenEvent,
+    EngineCore, GenerationConfig, ServeEngine, TokenEvent,
 )
 from repro_torch.serve.scheduler import Request
 

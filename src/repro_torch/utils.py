@@ -1,6 +1,7 @@
 """Shape math and device resolution shared by the port."""
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -26,6 +27,21 @@ def nearest_rank_pct(sorted_vals, p: float) -> float:
         return 0.0
     rank = min(max(math.ceil(p / 100 * n), 1), n)
     return sorted_vals[rank - 1]
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of every tensor in ``tree``: tensors, dataclasses (their
+    fields), dicts, lists and tuples, nested; anything else counts 0."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return sum(tree_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return 0
 
 
 def torch_dtype(name: str | torch.dtype) -> torch.dtype:

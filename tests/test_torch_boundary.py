@@ -22,6 +22,7 @@ from repro_torch.kernels import polar_encode as pek  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ContinuousBatchingEngine, EngineCore, GenerationConfig, Request,
+    ServeEngine,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -78,7 +79,24 @@ def test_engine_without_device_raises_on_cpu_only_host(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousBatchingEngine(m, p)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(m, p, max_len=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         m.init(generator=gen)
+
+
+def test_dense_cache_without_device_raises_on_cpu_only_host(no_card):
+    """``init_cache`` and the model's ``init_decode_state`` are entries
+    like the engine: the card unless a device is named."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.core.quantizers import QuantConfig
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kvc.init_cache(QuantConfig(group_size=32), 1, 2, 32, 64)
+    m = get_model(reduce_for_smoke(get_config("tinyllama-1.1b")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        m.init_decode_state(1, 64, None)
+    c = kvc.init_cache(QuantConfig(group_size=32), 1, 2, 32, 64,
+                       device="cpu")
+    assert c.key_codes.device.type == "cpu"
 
 
 def test_paged_cache_without_device_raises_on_cpu_only_host(no_card):
@@ -113,6 +131,26 @@ def test_cpu_chunked_prefix_serving_leaves_launch_counters_at_zero():
     out = eng.run(reqs, GenerationConfig())
     assert out["prefill_chunk"] == 64 and out["adopted_pages"] == 4
     assert (pek.launches, pdk.launches, fpk.launches, ppk.launches) == before
+
+
+def test_cpu_static_serving_leaves_launch_counters_at_zero():
+    import dataclasses
+    from repro_torch.kernels import paged_prefill as ppk
+    from repro_torch.kernels import polar_attention as pak
+    from repro_torch.kernels import polar_qk as qkk
+    mods = (pek, pdk, fpk, ppk, pak, qkk)
+    before = [mod.launches for mod in mods]
+    base = reduce_for_smoke(get_config("tinyllama-1.1b"))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    p = get_model(base).init(generator=gen, device="cpu")
+    toks = np.random.default_rng(0).integers(0, base.vocab_size, (2, 40))
+    for backend in ("jnp", "paged_fused"):
+        m = get_model(dataclasses.replace(base, decode_backend=backend))
+        out = ServeEngine(m, p, max_len=64, device="cpu").generate(
+            {"tokens": toks}, GenerationConfig(max_new_tokens=4))
+        assert out["tokens"].shape == (2, 4)
+    assert [mod.launches for mod in mods] == before
 
 
 def test_cpu_serving_leaves_launch_counters_at_zero():

@@ -15,7 +15,9 @@ from repro_torch.kernels import flash_prefill as fpk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
 from repro_torch.kernels import paged_prefill as ppk  # noqa: E402
+from repro_torch.kernels import polar_attention as pak  # noqa: E402
 from repro_torch.kernels import polar_encode as pek  # noqa: E402
+from repro_torch.kernels import polar_qk as qkk  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -92,6 +94,111 @@ def test_paged_decode_kernel_matches_plain(dev, vdtype):
     for a, b in zip(got, ref):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _dense_groups(dev, gen, b, hkv, d, g, gc, r=4, t=4):
+    """Dense (B, Hkv, G, g, P) codes and stats from the encode kernel."""
+    k = torch.randn((b, hkv, gc * g, d), generator=gen, device=dev)
+    return list(pek.polar_encode(k, r_bits=r, t_bits=t, group_size=g))
+
+
+# the shapes of tests/test_kernels.py's sweep, and the static serving
+# path's (Hkv 4, Qh 8, d 64, g 128, 9 groups)
+@pytest.mark.parametrize("d,g,gc,qh", [(32, 16, 4, 2), (64, 32, 2, 4),
+                                       (128, 16, 2, 1), (64, 128, 9, 8),
+                                       (128, 32, 3, 12)])
+@pytest.mark.parametrize("r,t", [(4, 4), (3, 3)])
+def test_qk_kernel_matches_plain(dev, d, g, gc, qh, r, t):
+    """Kernel #6 writes every score: the last group holds zero stats (not
+    yet written) and must score to finite zeros, as the plain version."""
+    gen = _gen(dev, 10)
+    b, hkv = 2, 2
+    enc = _dense_groups(dev, gen, b, hkv, d, g, gc, r, t)
+    for x in enc:
+        x[:, :, -1] = 0
+    q = torch.randn((b, hkv, qh, d), generator=gen, device=dev)
+    n = qkk.launches
+    got = qkk.polar_qk_scores(q, *enc, r_bits=r, t_bits=t)
+    assert qkk.launches == n + 1
+    ref = qkk.polar_qk_scores_plain(q, *enc, r_bits=r, t_bits=t)
+    torch.cuda.synchronize()
+    assert got.shape == (b, hkv, qh, gc * g)
+    assert torch.equal(got[..., -g:], torch.zeros_like(got[..., -g:]))
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_bits", [4, 3])
+def test_polar_attention_kernel_matches_plain(dev, vdtype, t_bits):
+    """Kernel #5 over the dense buffers: rows at 0, a partial group, whole
+    groups and the full buffer; value rows and stats past each row's length
+    NaN-poisoned."""
+    b, hkv, qh, d, g, gc = 4, 2, 8, 64, 128, 4
+    gen = _gen(dev, 11)
+    enc = _dense_groups(dev, gen, b, hkv, d, g, gc, 4, t_bits)
+    values = torch.randn((b, hkv, gc * g, d), generator=gen, device=dev).to(
+        vdtype)
+    length = torch.tensor([0, 300, 384, 512], dtype=torch.int32, device=dev)
+    for i, n in enumerate(length.tolist()):
+        values[i, :, n:] = float("nan")
+        for x in enc[1:]:
+            x[i, :, -(-n // g):] = float("nan")
+    q = torch.randn((b, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    n = pak.launches
+    got = pak.polar_decode_attention_grouped(q, *enc, values, length,
+                                             t_bits=t_bits)
+    assert pak.launches == n + 1
+    ref = pak.polar_decode_attention_grouped_plain(q, *enc, values, length,
+                                                   t_bits=t_bits)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+    assert float(got[2][0].max()) == 0.0          # length 0: empty partials
+
+
+def test_dense_full_decode_on_card_matches_plain(dev):
+    """ops.polar_decode_attention_full (kernel #5 + residual merge) against
+    the same entry with the plain version swapped in; bf16 values and
+    residual as the static engine holds them, () and (B,) lengths."""
+    from unittest import mock
+    b, hkv, qh, d, g, gc = 3, 4, 8, 64, 128, 3
+    gen = _gen(dev, 12)
+    enc = _dense_groups(dev, gen, b, hkv, d, g, gc)
+    values = torch.randn((b, hkv, gc * g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    res = torch.randn((b, hkv, g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((b, hkv * qh, d), generator=gen, device=dev)
+    for length in (torch.tensor(200, dtype=torch.int32, device=dev),
+                   torch.tensor([5, 256, 383], dtype=torch.int32,
+                                device=dev)):
+        got = ops.polar_decode_attention_full(q, *enc, res, values, length)
+        with mock.patch.object(pak, "polar_decode_attention_grouped",
+                               pak.polar_decode_attention_grouped_plain):
+            ref = ops.polar_decode_attention_full(q, *enc, res, values,
+                                                  length)
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_new_kernel_wrappers_reject_bad_inputs(dev):
+    gen = _gen(dev, 13)
+    enc = _dense_groups(dev, gen, 1, 2, 64, 16, 2)
+    q = torch.randn((1, 2, 4, 64), generator=gen, device=dev)
+    v = torch.zeros((1, 2, 32, 64), device=dev)
+    ln = torch.tensor([16], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        qkk.polar_qk_scores(q.double(), *enc)
+    with pytest.raises(ValueError, match="stats"):
+        qkk.polar_qk_scores(q, enc[0], *(x.transpose(-1, -2) for x in
+                                         enc[1:]))
+    with pytest.raises(ValueError, match="length"):
+        pak.polar_decode_attention_grouped(q, *enc, v, ln.long())
+    with pytest.raises(ValueError, match="values"):
+        pak.polar_decode_attention_grouped(q, *enc, v[:, :, :16], ln)
+    with pytest.raises(ValueError, match="codes"):
+        pak.polar_decode_attention_grouped(q, enc[0][..., :16], *enc[1:], v,
+                                           ln)
 
 
 @pytest.mark.parametrize("t,d,dtype", [(200, 64, torch.float32),
@@ -264,3 +371,82 @@ def test_chunked_prefix_engine_on_card(dev):
     assert outs[True]["cow_splits"] == 0
     assert {r.rid: r.out_tokens for r in outs[True]["requests"]} == \
         {r.rid: r.out_tokens for r in outs[False]["requests"]}
+
+
+def test_paged_backends_agree_on_card(dev):
+    """One fragmented paged cache with a NaN-poisoned scratch page: the
+    three decode backends (score-only LUT kernel + softmax over the
+    gathered view, the fused dense kernel over it, the page walk) agree
+    within 1e-4 and stay finite."""
+    from repro_torch.core import paged_cache as pgc
+    from repro_torch.core.cache_layout import PagedLayout
+    from repro_torch.core.quantizers import QuantConfig
+    s, h, d, g = 3, 4, 64, 128
+    lay = PagedLayout(page_size=g, num_pages=10, slots=s, pages_per_slot=4)
+    c = pgc.init_paged_cache(QuantConfig(), lay, h, d)
+    gen = _gen(dev, 14)
+    rows = [[6, 1], [3, 8, 0], [9]]
+    table = torch.full((s, 4), lay.scratch_page, dtype=torch.int32,
+                       device=dev)
+    for slot, (row, tl) in enumerate(zip(rows, (200, 300, 77))):
+        table[slot, :len(row)] = torch.tensor(row)
+        tp = len(row) * g
+        k = torch.randn((1, h, tp, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn((1, h, tp, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        pgc.paged_prefill(c, slot, table[slot], k, v, tl)
+    for x in (*c.key_scales.values(), c.value_fp):
+        x[lay.scratch_page] = float("nan")
+    q = torch.randn((s, h * 8, d), generator=gen, device=dev)
+    outs = {}
+    for backend in pgc.DECODE_BACKENDS:
+        before = (qkk.launches, pak.launches, pdk.launches)
+        outs[backend] = pgc.paged_decode_attention(
+            c, q, table[:, :3], backend=backend)
+        ran = [a - b for a, b in zip((qkk.launches, pak.launches,
+                                      pdk.launches), before)]
+        assert ran == {"jnp": [1, 0, 0], "gathered": [0, 1, 0],
+                       "paged_fused": [0, 0, 1]}[backend]
+    torch.cuda.synchronize()
+    for out in outs.values():
+        assert torch.isfinite(out).all()
+    for backend in ("jnp", "gathered"):
+        torch.testing.assert_close(outs[backend], outs["paged_fused"],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "paged_fused"])
+def test_static_engine_runs_on_card_by_default(dev, backend):
+    """``ServeEngine`` on the card without naming it: the dense cache's
+    kernels run (score-only LUT kernel on ``"jnp"``, fused decode on
+    ``"paged_fused"``), the group flush encodes, and the greedy tokens
+    equal those of the same run with every kernel's plain version."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import get_model
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("tinyllama-1.1b")),
+                              decode_backend=backend)
+    m = get_model(cfg)
+    params = m.init(generator=_gen(dev, 15))
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (3, 50))
+    mod = qkk if backend == "jnp" else pak
+    before = (mod.launches, pek.launches, fpk.launches)
+    eng = ServeEngine(m, params, max_len=96)
+    out = eng.generate({"tokens": toks}, GenerationConfig(max_new_tokens=20))
+    nl = cfg.num_layers
+    # 19 decode steps; prefill encodes 1 group, position 63 flushes one
+    assert (mod.launches - before[0], pek.launches - before[1],
+            fpk.launches - before[2]) == (19 * nl, 2 * nl, nl)
+    with mock.patch.multiple(qkk, polar_qk_scores=qkk.polar_qk_scores_plain), \
+            mock.patch.multiple(
+                pak, polar_decode_attention_grouped=pak.
+                polar_decode_attention_grouped_plain), \
+            mock.patch.multiple(pek, polar_encode=pek.polar_encode_plain), \
+            mock.patch.multiple(fpk, flash_prefill=fpk.flash_prefill_plain):
+        plain = eng.generate({"tokens": toks},
+                             GenerationConfig(max_new_tokens=20))
+    assert out["tokens"].shape == (3, 20)
+    assert (out["tokens"] == plain["tokens"]).mean() >= 0.9
