@@ -7,15 +7,19 @@ printing one line (the prefix phase one per run):
 1. env      — the card's name and power limit (``nvidia-smi``), torch and
               CUDA versions, the float32 matmul settings.
 2. build    — compiles the six hand-written kernels (one ``nvcc`` per
-              source, in parallel) from ``src/repro_torch/kernels/csrc``.
+              source, in parallel) from ``src/repro_torch/kernels/csrc``,
+              prints ptxas' registers and spills, and checks the SASS for
+              the designs' instructions (``cuobjdump``: tensor-core HMMA and
+              LDGSTS copies in flash prefill, 16-byte loads and stores in
+              the score-only LUT kernel).
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the serving paths' shapes (encode codes exactly equal,
               attention and scores within the stated tolerances,
               NaN-poisoned scratch pages and dead rows), then times kernel,
-              plain version and — for flash prefill, paged prefill and the
-              two dense-cache kernels — a PyTorch library call; then the
-              paged engine's three decode backends against each other on
-              one fragmented cache.
+              plain version and — for every kernel but encode — a PyTorch
+              library call; flash prefill is also timed at the static
+              phase's 8 x 1000-token shape; then the paged engine's three
+              decode backends against each other on one fragmented cache.
 4. model    — full-width tinyllama-1.1b in bf16 (random weights from a
               seeded generator): a 512-token prefill and 16 teacher-forced
               decode steps through the kernels and through the plain
@@ -47,6 +51,12 @@ Then one JSON line of per-kernel numbers (launches summed over the three
 serving phases), and last the device JSON. Any failure raises (non-zero
 exit). Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
+
+``python3 chip_smoke.py --variants`` runs only the env phase and then
+times the alternatives the two redesigned kernels were chosen against
+(``VARIANTS``: flash prefill's register cap and exponential, the score-only
+LUT kernel's groups per block), each checked against the current source,
+and the timing floor (a 1-element ``add_`` timed as the kernels are).
 """
 from __future__ import annotations
 
@@ -130,18 +140,50 @@ def phase_env(torch) -> dict:
     return {"smi": smi}
 
 
+# SASS opcodes that show a kernel's design: tensor-core products and
+# asynchronous copies in flash prefill, 16-byte code loads and score
+# stores in the score-only LUT kernel
+SASS_OPS = {"flash_prefill": ("HMMA.16816.F32.BF16", "LDGSTS", "LDSM"),
+            "polar_qk": ("LDG.E.128", "STG.E.128")}
+
+
+def sass_counts(name: str) -> tuple[dict, str]:
+    """Counts of the ``SASS_OPS`` opcodes in kernel ``name``'s library
+    (``cuobjdump -sass``), and the first line holding the first opcode."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.lib_path(name))],
+                          capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+    ops = SASS_OPS[name]
+    counts = {op: sum(op in ln for ln in sass) for op in ops}
+    first = next((ln.strip() for ln in sass if ops[0] in ln), "")
+    return counts, first
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """ptxas' verbose report, per kernel instantiation: its mangled name,
+    stack and spills, then registers."""
+    return [ln.split("Function properties for ")[1].strip()
+            if "Function properties for " in ln else
+            ln.split("Used ")[1].strip() if "Used " in ln else ln.strip()
+            for ln in log.splitlines()
+            if "Function properties for " in ln or "Used " in ln
+            or "spill" in ln]
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.monotonic()
     res = _build.build()
-    regs = {}
-    for name, r in res.items():
-        # per kernel instantiation: registers, then stack and spills
-        regs[name] = [ln.split("Used ")[1].strip() if "Used " in ln else
-                      ln.strip() for ln in r["log"].splitlines()
-                      if "Used " in ln or "spill" in ln]
+    regs = {name: ptxas_lines(r["log"]) for name, r in res.items()}
     print(f"build: {time.monotonic() - t0:.1f} s for {sorted(res)}; ptxas "
           f"{json.dumps(regs)}", flush=True)
+    for name in SASS_OPS:
+        counts, first = sass_counts(name)
+        assert all(counts.values()), f"{name}: SASS lacks {counts}"
+        print(f"sass: {name} {json.dumps(counts)}; first: {first}",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +321,27 @@ def check_decode(torch, dev, gen, flush) -> dict:
     plain_ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped_plain(
         q, codes, rs, rz, ts, tz, vb, table_t, fl_t), iters=10, flush=flush,
         lead_cycles=PLAIN_LEAD)
+    # yardstick only (the port never calls it): SDPA over the slots' keys
+    # gathered from their pages and dequantized beforehand (outside the
+    # timed window), fp32, under the length mask
+    from repro_torch.core import quantizers as qz
+    tl = table_t.long()
+    pk = qz.PolarKeys(codes=codes[tl].transpose(1, 2),
+                      rho_scale=rs[tl].transpose(1, 2),
+                      rho_zero=rz[tl].transpose(1, 2),
+                      theta_scale=ts[tl].transpose(1, 2),
+                      theta_zero=tz[tl].transpose(1, 2), rho_bits=4,
+                      theta_bits=4, pairing="half")
+    kf = qz.decode_polar_keys(pk, torch.float32).reshape(
+        s, HKV, n * G, D).repeat_interleave(QH, 1)
+    vf = vb[tl].transpose(1, 2).reshape(s, HKV, n * G, D).float() \
+        .repeat_interleave(QH, 1)
+    qf4 = q.reshape(s, HKV * QH, 1, D)
+    mask = (torch.arange(n * G, device=dev)[None, :] < fl_t[:, None])[
+        :, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(qf4, kf, vf, attn_mask=mask,
+                                         scale=1.0), flush=flush)
     pages = s * n * HKV
     nbytes = q.numel() * 4 + pages * (G * P + 4 * P * 4 + G * D * 2) \
         + table_t.numel() * 4 + s * 4 + s * HKV * QH * (D + 2) * 4
@@ -292,19 +355,26 @@ def check_decode(torch, dev, gen, flush) -> dict:
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/paged_decode.py:104",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": "SDPA over gathered pre-dequantized keys (fp32, "
+                       "length mask)",
             "shape": "8 slots x 4 kv heads x 8 query heads x 8 live pages"}
 
 
 def check_prefill(torch, dev, gen, flush) -> dict:
+    """fp32 inputs run the FMA body (1e-4), bf16 the tensor-core body
+    (2^-7); timed at a 1024-token serve prompt and, on a line of its own,
+    at the static phase's 8 x 1000-token prefill."""
     from repro_torch.kernels import flash_prefill as fpk
     h = 32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     errs = []
-    for t, dt in ((1000, torch.float32), (333, torch.float32),
-                  (1024, torch.bfloat16)):
-        q = torch.randn((1, h, t, D), generator=gen, device=dev).to(dt)
-        k = torch.randn((1, HKV, t, D), generator=gen, device=dev).to(dt)
-        v = torch.randn((1, HKV, t, D), generator=gen, device=dev).to(dt)
+    for b, t, dt in ((1, 1000, torch.float32), (1, 333, torch.float32),
+                     (1, 333, torch.bfloat16), (SB, SPROMPT, torch.bfloat16),
+                     (1, 1024, torch.bfloat16)):
+        q = torch.randn((b, h, t, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, HKV, t, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, HKV, t, D), generator=gen, device=dev).to(dt)
         got = fpk.flash_prefill(q, k, v)
         ref = fpk.flash_prefill_plain(q, k, v)
         torch.cuda.synchronize()
@@ -314,6 +384,20 @@ def check_prefill(torch, dev, gen, flush) -> dict:
             torch.testing.assert_close(got.float(), ref.float(),
                                        rtol=BF16_RTOL, atol=BF16_RTOL)
         errs.append(float((got.float() - ref.float()).abs().max()))
+        if b == SB:
+            # yardstick only: the port never calls SDPA
+            st_ms = time_ms(torch, lambda: fpk.flash_prefill(q, k, v),
+                            flush=flush)
+            ke = k.repeat_interleave(h // HKV, dim=1)
+            ve = v.repeat_interleave(h // HKV, dim=1)
+            st_lib = time_ms(torch, lambda: sdpa(q, ke, ve, is_causal=True),
+                             flush=flush)
+            st_b, _ = bound((2 * h + 2 * HKV) * b * t * D * 2,
+                            4.0 * b * h * D * (t * (t + 1) / 2), "bf16")
+            print(f"prefill[static shape]: flash_prefill {SB} x {h} heads "
+                  f"({HKV} kv) x {t} tokens x {D} bf16, causal: {st_ms:.4f} "
+                  f"ms a layer (SDPA {st_lib:.4f} ms, bound {st_b:.4f} ms "
+                  f"operations); err {errs[-1]:.3g}", flush=True)
     t = 1024
     ms = time_ms(torch, lambda: fpk.flash_prefill(q, k, v), flush=flush)
     plain_ms = time_ms(torch, lambda: fpk.flash_prefill_plain(q, k, v),
@@ -321,7 +405,6 @@ def check_prefill(torch, dev, gen, flush) -> dict:
     # yardstick only: the port never calls it
     ke = k.repeat_interleave(h // HKV, dim=1)
     ve = v.repeat_interleave(h // HKV, dim=1)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(q, ke, ve, is_causal=True),
                      flush=flush)
     nbytes = (2 * h + 2 * HKV) * t * D * 2
@@ -634,6 +717,122 @@ def phase_kernels(torch) -> list[dict]:
           f"{backends_err:.3g} (limit {FP32_TOL}) on a fragmented 8-slot "
           "cache with a NaN scratch page", flush=True)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# --variants: the alternatives the two redesigned kernels were chosen against
+# ---------------------------------------------------------------------------
+
+
+def _qk_groups_per_block(ng: int) -> tuple:
+    """polar_qk with blocks that own ``ng`` groups of one (row, kv head)
+    and stage q once for all of them."""
+    q_stage = ("  for (int i = tid; i < Qh * d; i += kThreads) "
+               "q_s[i] = q[bh * Qh * d + i];\n")
+    return (("const int n = blockIdx.x, h = blockIdx.y, b = blockIdx.z;",
+             "const int h = blockIdx.y, b = blockIdx.z;"),
+            ("  const long long grp = bh * G + n;\n", ""),
+            (q_stage, ""),
+            ("  uint4 cr[kWords];\n",
+             q_stage + f"  for (int n = blockIdx.x * {ng}; "
+             f"n < min(G, (blockIdx.x + 1) * {ng}); ++n) {{\n"
+             "  const long long grp = bh * G + n;\n  __syncthreads();\n"
+             "  uint4 cr[kWords];\n"),
+            ("  }\n}\n\ntemplate <int kP, int kTB>\nint launch(",
+             "  }\n}\n}\n\ntemplate <int kP, int kTB>\nint launch("),
+            ("const dim3 grid(G, Hkv, B);",
+             f"const dim3 grid((G + {ng - 1}) / {ng}, Hkv, B);"))
+
+
+# (kernel, variant, literal replacements in its current source)
+VARIANTS = (
+    ("flash_prefill", "__launch_bounds__(128, 1)",
+     (("__launch_bounds__(kMmaThreads, 2)", "__launch_bounds__(kMmaThreads)"),)),
+    ("flash_prefill", "exp2f for ex2.approx.ftz",
+     ((r'asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));',
+       "y = exp2f(x);"),)),
+    ("polar_qk", "3 groups per block", _qk_groups_per_block(3)),
+    ("polar_qk", "9 groups per block", _qk_groups_per_block(9)),
+)
+
+
+def phase_variants(torch) -> None:
+    """Builds each of ``VARIANTS`` (one parallel ``nvcc`` each), checks it
+    against the current source and times both at the kernel checks'
+    main-path shapes, in the order current, variant, variant, current."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_prefill as fpk
+    from repro_torch.kernels import polar_qk as qkk
+    mods = {"flash_prefill": fpk, "polar_qk": qkk}
+    _build.build(tuple(mods))
+    vdir = _build.BUILD_DIR / "variants"
+    vdir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, (name, label, edits) in enumerate(VARIANTS):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        for old, new in edits:
+            assert src.count(old) == 1, f"{label}: {old!r} not found once"
+            src = src.replace(old, new)
+        cu = vdir / f"{name}-{i}.cu"
+        cu.write_text(src)
+        procs.append(subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
+             str(cu.with_suffix(".so")), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    for proc, (_, label, _) in zip(procs, VARIANTS):
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"{label} does not build:\n{log}"
+        logs.append(log)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def qkv(b, t):
+        return [torch.randn((b, hh, t, D), generator=gen, device=dev).to(
+            torch.bfloat16) for hh in (32, HKV, HKV)]
+    x1, x8 = qkv(1, 1024), qkv(SB, SPROMPT)
+    bufs, _ = _dense_cache(torch, dev, gen)
+    q = torch.randn((SB, HKV, QH, D), generator=gen, device=dev) * D ** -0.5
+    calls = {"flash_prefill": {
+                 "1 x 32 heads x 1024 x 64 bf16": lambda: fpk.flash_prefill(*x1),
+                 f"{SB} x 32 heads x {SPROMPT} x 64 bf16":
+                     lambda: fpk.flash_prefill(*x8)},
+             "polar_qk": {"8 rows x 4 kv heads x 8 query heads x 9 groups":
+                          lambda: qkk.polar_qk_scores(q, *bufs)}}
+    tol = {"flash_prefill": BF16_RTOL, "polar_qk": FP32_TOL}
+    current = {n: _build.library(n, m._bind) for n, m in mods.items()}
+    rows = []
+    for i, (name, label, _) in enumerate(VARIANTS):
+        lib = ctypes.CDLL(str(vdir / f"{name}-{i}.so"))
+        mods[name]._bind(lib)
+        for shape, fn in calls[name].items():
+            ref = fn()
+            ts = []
+            try:
+                _build._LIBS[name] = lib
+                torch.testing.assert_close(fn().float(), ref.float(),
+                                           rtol=tol[name], atol=tol[name])
+                for which in (current[name], lib, lib, current[name]):
+                    _build._LIBS[name] = which
+                    ts.append(time_ms(torch, fn, flush=flush))
+            finally:
+                _build._LIBS[name] = current[name]
+            rows.append({"kernel": name, "variant": label, "shape": shape,
+                         "current_ms": (ts[0] + ts[3]) / 2,
+                         "variant_ms": (ts[1] + ts[2]) / 2,
+                         "ptxas": ptxas_lines(logs[i])})
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(torch, lambda: one.add_(1), flush=flush)
+    for r in rows:
+        print(f"variant: {r['kernel']} {r['variant']} at {r['shape']}: "
+              f"{r['variant_ms']:.4f} ms, current {r['current_ms']:.4f} ms",
+              flush=True)
+    print(json.dumps({"variants": rows, "timing_floor_ms": floor_ms}),
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1060,6 +1259,9 @@ def main() -> int:
     from repro_torch.models import get_model
 
     phase_env(torch)
+    if sys.argv[1:] == ["--variants"]:
+        phase_variants(torch)
+        return 0
     phase_build()
     rows = phase_kernels(torch)
 

@@ -3,17 +3,34 @@
 // JAX serving path computes the same function with the jnp
 // core/attention.flash_attention).
 //
-// One block per (q tile of kBQ rows, head h, batch b); kv head h / (H/Hkv).
-// The block keeps its scaled Q tile, one K/V tile of kBK rows, the score
-// tile and the online-softmax carry in shared memory and its share of
-// the fp32 output accumulator in registers. The k loop stops at the
-// causal bound (tiles wholly above the diagonal are never visited), keys
-// past kv_len are masked, and rows whose every key is masked finish with
-// l == 0 and are written as zeros (the l == 0 guard).
-//
 // Bound: operations — ~4*Tq*Tk/2*d FLOPs per head against O(T*d) bytes.
-// This first version runs them as plain fp32 FMAs from shared memory, far
-// below the tensor cores' rate: mma/wgmma tiles are later work.
+// Two bodies, chosen by dtype:
+//
+// bf16 (every served path): a FlashAttention-2 style tensor-core kernel.
+// One block of 4 warps per (q tile of 64 rows, head h, batch b), 16 rows
+// per warp; kv head h / (H/Hkv). The Q tile comes into shared memory once
+// and into registers with ldmatrix, where it stays for the whole k loop.
+// K/V tiles of 64 keys arrive with 16-byte cp.async copies into two
+// buffers, so tile j+1 loads while tile j is computed; rows are padded by
+// 16 bytes, which makes the 8 rows of every ldmatrix land in distinct
+// banks. S = Q K^T and O += P V are mma.sync m16n8k16 bf16 products with
+// fp32 accumulators in registers, V's fragments from ldmatrix.trans. The
+// online softmax stays in registers (row max and sum over the 4 lanes of
+// a quad, ex2 with log2(e) folded into the scale); P is rounded to bf16
+// in registers and fed straight back as the A operand of P V. Only the
+// diagonal tile and the tile holding kv_len are masked; rows past Tq are
+// computed from zero-filled Q rows and never written. The k loop stops at
+// the causal bound, and a row whose every key is masked ends with l == 0
+// and is written as zeros. The q tiles are launched heaviest (last)
+// first, so the causal imbalance leaves no tail on 132 SMs. Pointers that
+// are not 16-byte aligned (cp.async needs it) take the fp32-FMA body.
+//
+// fp32 (the kernel checks and the fp32 smoke config, held to 1e-4): the
+// first version's body, unchanged — Q tile, K/V tile, score tile and
+// softmax carry in shared memory, plain fp32 FMAs. TF32 tensor cores keep
+// a 10-bit mantissa and would not hold 1e-4, so fp32 stays off them.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -141,6 +158,248 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core body
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+constexpr int kTile = 64;         // query rows per block, keys per K/V tile
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; copies zeros when !pred (src not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 -> one bf16x2 register, lo in the low half (the lower column)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// 2^x on the special-function unit (what exp2f lowers to, without its
+// denormal rescaling): p < 2^-126 flushes to 0, far below a bf16 step
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Grid (H, B, ceil(Tq / 64)); blockIdx.z = 0 is the LAST q tile. Fragment
+// layouts are those of mma.m16n8k16: lane = 4 * gid + tq; an accumulator
+// tile's c[0..1] hold row gid, columns 2tq and 2tq+1, c[2..3] row gid+8.
+// The minimum of 2 blocks per SM and ex2.approx are timed against the
+// default bounds and exp2f by `chip_smoke.py --variants`.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2) flash_prefill_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int H, int Hkv,
+    int Tq, int Tk, int kv_len, float scale_log2, int causal) {
+  constexpr int kS = D + 8;          // padded smem row (elements): +16 B per row
+  constexpr int kRowChunks = D / 8;  // 16-byte chunks per row
+  constexpr int kND = D / 8;         // n tiles of the output (8 columns each)
+  constexpr int kKD = D / 16;        // k steps of Q K^T
+  constexpr int kNK = kTile / 8;     // n tiles of S (8 keys each)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (64, kS)
+  __nv_bfloat16* k_s = q_s + kTile * kS;                     // 2 x (64, kS)
+  __nv_bfloat16* v_s = k_s + 2 * kTile * kS;                 // 2 x (64, kS)
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2, tq = lane & 3;
+  const __nv_bfloat16* qb = q + ((static_cast<long long>(b) * H + h) * Tq) * D;
+  const __nv_bfloat16* kb = k + ((static_cast<long long>(b) * Hkv + hk) * Tk) * D;
+  const __nv_bfloat16* vb = v + ((static_cast<long long>(b) * Hkv + hk) * Tk) * D;
+
+  // Q tile (rows past Tq zero-filled) and K/V tile 0, one copy group
+  for (int c = tid; c < kTile * kRowChunks; c += kMmaThreads) {
+    const int r = c / kRowChunks, col = (c % kRowChunks) * 8;
+    const bool ok = q0 + r < Tq;
+    cp_async16(q_s + r * kS + col, ok ? qb + static_cast<long long>(q0 + r) * D + col : qb, ok);
+  }
+  auto load_kv = [&](int buf, int k0) {
+    __nv_bfloat16* kd = k_s + buf * kTile * kS;
+    __nv_bfloat16* vd = v_s + buf * kTile * kS;
+    for (int c = tid; c < kTile * kRowChunks; c += kMmaThreads) {
+      const int r = c / kRowChunks, col = (c % kRowChunks) * 8;
+      const bool ok = k0 + r < kv_len;
+      const long long off = ok ? static_cast<long long>(k0 + r) * D + col : 0;
+      cp_async16(kd + r * kS + col, kb + off, ok);
+      cp_async16(vd + r * kS + col, vb + off, ok);
+    }
+  };
+  const int k_end = causal ? min(kv_len, q0 + kTile) : kv_len;
+  const int nk = (k_end + kTile - 1) / kTile;
+  load_kv(0, 0);
+  cp_async_commit();
+
+  unsigned qf[kKD][4];
+  float o[kND][4];
+#pragma unroll
+  for (int n = 0; n < kND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m_r[2] = {-INFINITY, -INFINITY};  // raw-score row max, rows gid and gid+8
+  float l_r[2] = {0.0f, 0.0f};            // this thread's share of the row sums
+  const int row0 = q0 + warp * 16;        // the warp's first query row
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kTile;
+    if (j + 1 < nk) {
+      load_kv((j + 1) & 1, k0 + kTile);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKD; ++kk)
+        ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * kS + kk * 16 + (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* kt = k_s + (j & 1) * kTile * kS;
+    const __nv_bfloat16* vt = v_s + (j & 1) * kTile * kS;
+
+    // S = Q K^T: per k step, two key n tiles per ldmatrix.x4
+    float s[kNK][4];
+#pragma unroll
+    for (int n = 0; n < kNK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kKD; ++kk) {
+#pragma unroll
+      for (int n2 = 0; n2 < kNK / 2; ++n2) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, kt + (n2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * kS + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * n2], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * n2 + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+    // masks: keys at or past kv_len, keys above the diagonal
+    if (k0 + kTile > kv_len || (causal && k0 + kTile - 1 > row0)) {
+#pragma unroll
+      for (int n = 0; n < kNK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + n * 8 + 2 * tq + (e & 1);
+          const int qi = row0 + gid + (e >> 1) * 8;
+          if (kj >= kv_len || (causal && kj > qi)) s[n][e] = -INFINITY;
+        }
+    }
+    // online softmax in registers; m stays in raw-score units
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_r[r];
+#pragma unroll
+      for (int n = 0; n < kNK; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = quad_max(mx);
+      const float base = mx == -INFINITY ? 0.0f : mx * scale_log2;
+      const float corr = ex2(m_r[r] * scale_log2 - base);
+      m_r[r] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kNK; ++n) {
+        s[n][2 * r] = ex2(fmaf(s[n][2 * r], scale_log2, -base));
+        s[n][2 * r + 1] = ex2(fmaf(s[n][2 * r + 1], scale_log2, -base));
+        sum += s[n][2 * r] + s[n][2 * r + 1];
+      }
+      l_r[r] = l_r[r] * corr + sum;
+#pragma unroll
+      for (int n = 0; n < kND; ++n) {
+        o[n][2 * r] *= corr;
+        o[n][2 * r + 1] *= corr;
+      }
+    }
+    // O += P V: P (bf16, registers) as the A operand, 16 keys per k step
+#pragma unroll
+    for (int kk = 0; kk < kNK / 2; ++kk) {
+      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n2 = 0; n2 < kND / 2; ++n2) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kS +
+                                  n2 * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * n2], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * n2 + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it refills
+  }
+
+  __nv_bfloat16* ob = out + ((static_cast<long long>(b) * H + h) * Tq) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_r[r]);
+    const float inv = 1.0f / (l == 0.0f ? 1.0f : l);
+    const int qi = row0 + gid + r * 8;
+    if (qi < Tq) {
+      auto* orow = reinterpret_cast<unsigned*>(ob + static_cast<long long>(qi) * D);
+#pragma unroll
+      for (int n = 0; n < kND; ++n)
+        orow[n * 4 + tq] = pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
+               int Tq, int Tk, float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(__nv_bfloat16) * 5 * kTile * (D + 8);
+  cudaError_t err = rt::allow_smem(flash_prefill_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, B, (Tq + kTile - 1) / kTile);
+  constexpr float kLog2e = 1.4426950408889634f;
+  flash_prefill_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, Hkv, Tq, Tk,
+      Tk, scale * kLog2e, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
              int Tq, int Tk, int d, float scale, int causal, cudaStream_t stream) {
@@ -150,16 +409,31 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B, int 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+int launch_mma_d(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
+                 int Tq, int Tk, int d, float scale, int causal, cudaStream_t stream) {
+  if (d == 32) return launch_mma<32>(q, k, v, out, B, H, Hkv, Tq, Tk, scale, causal, stream);
+  if (d == 64) return launch_mma<64>(q, k, v, out, B, H, Hkv, Tq, Tk, scale, causal, stream);
+  if (d == 128) return launch_mma<128>(q, k, v, out, B, H, Hkv, Tq, Tk, scale, causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
 // q (B, H, Tq, d), k/v (B, Hkv, Tk, d), out (B, H, Tq, d), all contiguous,
-// bf16 (is_bf16 = 1) or fp32; d in {32, 64, 128}.
+// bf16 (is_bf16 = 1) or fp32; d in {32, 64, 128}. bf16 with 16-byte
+// aligned pointers (and fewer than 65536 q tiles) runs on the tensor
+// cores, everything else on the FMA body.
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v, void* out,
                                     int is_bf16, int B, int H, int Hkv, int Tq, int Tk, int d,
                                     float scale, int causal, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
+      (Tq + kTile - 1) / kTile <= 65535)
+    return launch_mma_d(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, causal, s);
   if (is_bf16) return launch_d<__nv_bfloat16>(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, causal, s);
   return launch_d<float>(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, causal, s);
 }

@@ -6,11 +6,14 @@ flash_prefill``; the JAX serving path computes the same function with the
 jnp ``core/attention.flash_attention`` (``models/attn_block.py:161``), and
 the port puts this kernel at that spot. Source: ``csrc/flash_prefill.cu``.
 
-One block per (q tile, head, batch row): Q tile, K/V tile, score tile and
-softmax carry in shared memory, output accumulator in registers, the k
-loop stopped at the causal bound, an l == 0 guard. Bound: operations
-(quadratic in the prompt against linear bytes); this first version uses
-fp32 FMAs, not the tensor cores. Its yardstick is
+Bound: operations (quadratic in the prompt against linear bytes). bf16
+inputs run a FlashAttention-2 style tensor-core body: one block of 4 warps
+per (64-row q tile, head, batch row), Q in registers, 64-key K/V tiles
+double-buffered through ``cp.async``, ``mma.sync`` bf16 products with fp32
+accumulators, the online softmax in registers, heaviest q tiles first.
+fp32 inputs (held to 1e-4, which TF32 would not meet) and bf16 pointers
+that are not 16-byte aligned run the fp32-FMA body. Both stop the k loop
+at the causal bound and keep an l == 0 guard. Its yardstick is
 ``torch.nn.functional.scaled_dot_product_attention``, which the port never
 calls.
 """

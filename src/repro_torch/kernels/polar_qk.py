@@ -5,12 +5,17 @@ Replaces the Pallas TPU kernel ``repro/kernels/polar_qk.py::
 polar_qk_scores`` (the paper's Appendix-A kernel). Source:
 ``csrc/polar_qk.cu``.
 
-Per (group, kv head, row) it builds the group's angle LUT in shared
-memory for all query heads, dequantizes ρ̃ once per (token, pair) and
-adds one gathered LUT entry per (query head, token, pair). Every position
-of the ``(B, Hkv, Qh, G*g)`` output is written. Bound: bytes (codes and
-stats in, fp32 scores out); the score spill to memory is what the fused
-decode kernel (``polar_attention``) removes.
+One block per (group, kv head, row): each thread loads its two tokens'
+code rows straight into registers, the block builds the group's angle LUT
+in shared memory while those loads are in flight, then each thread
+dequantizes ρ̃ once per (token, pair), adds one gathered LUT entry per
+(query head, token, pair), and lane pairs write four tokens of a head as
+one ``float4``. That vector path needs d in (32, 64, 128), t_bits in
+(3, 4), g % 4 == 0 and 16-byte aligned codes; other shapes run a generic
+one-token-per-thread path. Every position of the ``(B, Hkv, Qh, G*g)`` output is written.
+Bound: bytes (codes and stats in, fp32 scores out), latency in practice;
+the score spill to memory is what the fused decode kernel
+(``polar_attention``) removes.
 """
 from __future__ import annotations
 

@@ -102,20 +102,31 @@ def _dense_groups(dev, gen, b, hkv, d, g, gc, r=4, t=4):
     return list(pek.polar_encode(k, r_bits=r, t_bits=t, group_size=g))
 
 
-# the shapes of tests/test_kernels.py's sweep, and the static serving
-# path's (Hkv 4, Qh 8, d 64, g 128, 9 groups)
-@pytest.mark.parametrize("d,g,gc,qh", [(32, 16, 4, 2), (64, 32, 2, 4),
-                                       (128, 16, 2, 1), (64, 128, 9, 8),
-                                       (128, 32, 3, 12)])
+# the shapes of tests/test_kernels.py's sweep, the static serving path's
+# (Hkv 4, Qh 8, d 64, g 128, 9 groups), g 16 / 128 with Qh 1, 8, 12, and
+# the kernel's generic path: d outside (32, 64, 128), g % 4 != 0, codes
+# that are not 16-byte aligned (a contiguous view at a 1-byte offset)
+@pytest.mark.parametrize("d,g,gc,qh,offset", [
+    (32, 16, 4, 2, 0), (64, 32, 2, 4, 0), (128, 16, 2, 1, 0),
+    (64, 128, 9, 8, 0), (128, 32, 3, 12, 0), (64, 16, 5, 1, 0),
+    (64, 16, 5, 8, 0), (64, 16, 5, 12, 0), (64, 128, 3, 1, 0),
+    (64, 128, 3, 12, 0), (48, 16, 3, 8, 0), (64, 10, 3, 8, 0),
+    (64, 16, 3, 8, 1)])
 @pytest.mark.parametrize("r,t", [(4, 4), (3, 3)])
-def test_qk_kernel_matches_plain(dev, d, g, gc, qh, r, t):
+def test_qk_kernel_matches_plain(dev, d, g, gc, qh, offset, r, t):
     """Kernel #6 writes every score: the last group holds zero stats (not
-    yet written) and must score to finite zeros, as the plain version."""
+    yet written), and with three or more groups so does one in the middle;
+    both must score to finite zeros, as the plain version."""
     gen = _gen(dev, 10)
     b, hkv = 2, 2
     enc = _dense_groups(dev, gen, b, hkv, d, g, gc, r, t)
+    zero = [gc - 1] + ([gc // 2] if gc >= 3 else [])
     for x in enc:
-        x[:, :, -1] = 0
+        x[:, :, zero] = 0
+    if offset:
+        raw = torch.empty(enc[0].numel() + offset, dtype=torch.uint8,
+                          device=dev)
+        enc[0] = raw[offset:].view(enc[0].shape).copy_(enc[0])
     q = torch.randn((b, hkv, qh, d), generator=gen, device=dev)
     n = qkk.launches
     got = qkk.polar_qk_scores(q, *enc, r_bits=r, t_bits=t)
@@ -123,7 +134,9 @@ def test_qk_kernel_matches_plain(dev, d, g, gc, qh, r, t):
     ref = qkk.polar_qk_scores_plain(q, *enc, r_bits=r, t_bits=t)
     torch.cuda.synchronize()
     assert got.shape == (b, hkv, qh, gc * g)
-    assert torch.equal(got[..., -g:], torch.zeros_like(got[..., -g:]))
+    for z in zero:
+        blk = got[..., z * g:(z + 1) * g]
+        assert torch.equal(blk, torch.zeros_like(blk))
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -201,16 +214,48 @@ def test_new_kernel_wrappers_reject_bad_inputs(dev):
                                            ln)
 
 
-@pytest.mark.parametrize("t,d,dtype", [(200, 64, torch.float32),
-                                       (64, 32, torch.float32),
-                                       (130, 128, torch.bfloat16)])
-def test_flash_prefill_kernel_matches_plain(dev, t, d, dtype):
+# (batch, heads, kv heads, Tq, Tk, d, dtype, causal, offset): fp32 runs
+# the FMA body, bf16 the tensor-core body — the main-path shape (32 heads
+# / 4 kv heads, 1024 tokens), ragged Tq, d 32 / 64 / 128, a batch of 8,
+# Tq != Tk both ways and a non-causal call — except bf16 whose pointers
+# are not 16-byte aligned (contiguous views at a 1-element offset), which
+# takes the FMA body too
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("b,h,hkv,tq,tk,d,dtype,causal,offset", [
+    (2, 8, 2, 200, 200, 64, _F32, True, 0),
+    (2, 8, 2, 64, 64, 32, _F32, True, 0),
+    (2, 8, 2, 130, 130, 128, _BF16, True, 0),
+    (1, 32, 4, 1024, 1024, 64, _BF16, True, 0),
+    (2, 8, 2, 1, 1, 64, _BF16, True, 0), (2, 8, 2, 63, 63, 64, _BF16, True, 0),
+    (2, 8, 2, 65, 65, 64, _BF16, True, 0),
+    (1, 8, 2, 1000, 1000, 64, _BF16, True, 0),
+    (2, 8, 2, 200, 200, 32, _BF16, True, 0),
+    (2, 8, 2, 200, 200, 128, _BF16, True, 0),
+    (8, 8, 2, 130, 130, 64, _BF16, True, 0),
+    (2, 8, 2, 65, 200, 64, _BF16, True, 0),
+    (2, 8, 2, 200, 65, 64, _BF16, True, 0),
+    (2, 8, 2, 100, 150, 64, _BF16, False, 0),
+    (2, 8, 2, 100, 150, 64, _F32, False, 0),
+    (1, 8, 2, 77, 77, 64, _BF16, True, 1)])
+def test_flash_prefill_kernel_matches_plain(dev, b, h, hkv, tq, tk, d, dtype,
+                                            causal, offset):
     gen = _gen(dev, 3)
-    q = torch.randn((2, 8, t, d), generator=gen, device=dev).to(dtype)
-    k = torch.randn((2, 2, t, d), generator=gen, device=dev).to(dtype)
-    v = torch.randn((2, 2, t, d), generator=gen, device=dev).to(dtype)
-    got = fpk.flash_prefill(q, k, v)
-    ref = fpk.flash_prefill_plain(q, k, v)
+
+    def randn(shape):
+        raw = torch.empty(int(np.prod(shape)) + offset, dtype=dtype,
+                          device=dev)
+        x = raw[offset:].view(shape)
+        return x.copy_(torch.randn(shape, generator=gen, device=dev))
+
+    q = randn((b, h, tq, d))
+    k = randn((b, hkv, tk, d))
+    v = randn((b, hkv, tk, d))
+    n = fpk.launches
+    got = fpk.flash_prefill(q, k, v, causal=causal)
+    assert fpk.launches == n + 1
+    ref = fpk.flash_prefill_plain(q, k, v, causal=causal)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
