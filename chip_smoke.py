@@ -9,17 +9,20 @@ printing one line (the prefix phase one per run):
 2. build    — compiles the six hand-written kernels (one ``nvcc`` per
               source, in parallel) from ``src/repro_torch/kernels/csrc``,
               prints ptxas' registers and spills, and checks the SASS for
-              the designs' instructions (``cuobjdump``: tensor-core HMMA and
-              LDGSTS copies in flash prefill, 16-byte loads and stores in
-              the score-only LUT kernel).
+              the designs' instructions (``cuobjdump``: tensor-core HMMA,
+              LDGSTS copies and LDSM fragment loads in flash prefill and
+              paged prefill, LDGSTS copies in paged decode, 16-byte loads
+              and stores in the score-only LUT kernel).
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the serving paths' shapes (encode codes exactly equal,
               attention and scores within the stated tolerances,
               NaN-poisoned scratch pages and dead rows), then times kernel,
               plain version and — for every kernel but encode — a PyTorch
               library call; flash prefill is also timed at the static
-              phase's 8 x 1000-token shape; then the paged engine's three
-              decode backends against each other on one fragmented cache.
+              phase's 8 x 1000-token shape, paged decode at 1 slot x 32
+              pages and paged prefill at start 2048, each on a line of its
+              own; then the paged engine's three decode backends against
+              each other on one fragmented cache.
 4. model    — full-width tinyllama-1.1b in bf16 (random weights from a
               seeded generator): a 512-token prefill and 16 teacher-forced
               decode steps through the kernels and through the plain
@@ -33,8 +36,9 @@ printing one line (the prefix phase one per run):
               width: 8 slots, max_len 2048, 256-token chunks, 12 greedy
               requests sharing one 1024-token system prompt, served with
               and without the prefix cache. The greedy streams must be
-              identical, 11 x 8 pages adopted, no COW split, and every
-              kernel launched the number of times the workload implies.
+              identical, 11 x 8 pages adopted, no COW split, every
+              kernel launched the number of times the workload implies,
+              and every paged prefill launch on the tensor-core body.
 7. static   — the static-batching ``ServeEngine`` over dense caches at
               full width: 8 rows, 1000-token prompts, 64 greedy tokens,
               max_len 1152, on the score-only route (polar ``"jnp"``), the
@@ -53,10 +57,12 @@ exit). Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --variants`` runs only the env phase and then
-times the alternatives the two redesigned kernels were chosen against
+times the alternatives the redesigned kernels were chosen against
 (``VARIANTS``: flash prefill's register cap and exponential, the score-only
-LUT kernel's groups per block), each checked against the current source,
-and the timing floor (a 1-element ``add_`` timed as the kernels are).
+LUT kernel's groups per block, paged decode's pages per split and staging
+buffers, paged prefill's key groups), each checked against the current
+source, and the timing floor (a 1-element ``add_`` timed as the kernels
+are).
 """
 from __future__ import annotations
 
@@ -94,9 +100,14 @@ SB, SPROMPT, SNEW, SMAX = 8, 1000, 64, 1152
 SG = SMAX // G
 
 
-def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
+def bound(nbytes: float, flops: float | dict, kind: str = "fp32"
+          ) -> tuple[float, str]:
+    """Least time (ms) of moving ``nbytes`` once and doing ``flops`` at the
+    ``kind`` peak — or ``flops`` = {kind: operations}, each kind on its own
+    units, which may run side by side — and which of the two bounds it."""
+    ops = flops if isinstance(flops, dict) else {kind: flops}
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / PEAK_FLOPS[kind] * 1e3
+    t_f = max(n / PEAK_FLOPS[k] * 1e3 for k, n in ops.items())
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -140,10 +151,13 @@ def phase_env(torch) -> dict:
     return {"smi": smi}
 
 
-# SASS opcodes that show a kernel's design: tensor-core products and
-# asynchronous copies in flash prefill, 16-byte code loads and score
-# stores in the score-only LUT kernel
+# SASS opcodes that show a kernel's design: tensor-core products,
+# asynchronous copies and ldmatrix fragment loads in flash prefill and
+# paged prefill, asynchronous copies in paged decode, 16-byte code loads
+# and score stores in the score-only LUT kernel
 SASS_OPS = {"flash_prefill": ("HMMA.16816.F32.BF16", "LDGSTS", "LDSM"),
+            "paged_prefill": ("HMMA.16816.F32.BF16", "LDGSTS", "LDSM"),
+            "paged_decode": ("LDGSTS",),
             "polar_qk": ("LDG.E.128", "STG.E.128")}
 
 
@@ -265,8 +279,8 @@ def check_decode(torch, dev, gen, flush) -> dict:
     ts, tz = stat(0.05, 0.4), stat(0.0, 0.5)
     vals = torch.randn((pp, HKV, G, D), generator=gen, device=dev)
     q = torch.randn((s, HKV, QH, D), generator=gen, device=dev) * D ** -0.5
-    perm = torch.randperm(scratch, generator=gen, device=dev)[:s * n]
-    table = perm.reshape(s, n).to(torch.int32)
+    perm = torch.randperm(scratch, generator=gen, device=dev)
+    table = perm[:s * n].reshape(s, n).to(torch.int32)
     flushed = torch.tensor([0, 128, 256, 384, 512, 640, 768, 896],
                            dtype=torch.int32, device=dev)
     # unassigned entries point at the scratch page, poisoned with NaN
@@ -313,8 +327,34 @@ def check_decode(torch, dev, gen, flush) -> dict:
     torch.testing.assert_close(full_k, full_p, rtol=FP32_TOL, atol=FP32_TOL)
     errs.append(float((full_k - full_p).abs().max()))
 
+    # the long-context shape: 1 slot x 32 live pages (4096 tokens), bf16
+    # values, against the plain version and timed on a line of its own
+    n_long = 32
+    q_l = q[:1].contiguous()
+    table_l = perm[:n_long].reshape(1, n_long).to(torch.int32)
+    fl_l = torch.full((1,), n_long * G, dtype=torch.int32, device=dev)
+    got = pd.polar_paged_decode_grouped(q_l, codes, rs, rz, ts, tz, vb,
+                                        table_l, fl_l)
+    ref = pd.polar_paged_decode_grouped_plain(q_l, codes, rs, rz, ts, tz, vb,
+                                              table_l, fl_l)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=FP32_TOL, atol=FP32_TOL)
+    errs.append(float((got[0] - ref[0]).abs().max()))
+    l_ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped(
+        q_l, codes, rs, rz, ts, tz, vb, table_l, fl_l), flush=flush)
+    l_b, l_by = bound(
+        q_l.numel() * 4 + n_long * HKV * (G * P + 4 * P * 4 + G * D * 2)
+        + n_long * 4 + 4 + HKV * QH * (D + 2) * 4,
+        n_long * HKV * (3 * QH * P * 16 + 2 * G * P + 2 * QH * G * P
+                        + 4 * QH * G + 2 * QH * G * D))
+    print(f"decode[long shape]: paged_decode 1 slot x {HKV} kv heads x {QH} "
+          f"query heads x {n_long} live pages ({n_long * G} tokens), bf16 "
+          f"values, nsplit {pd.plan_splits(1, HKV, n_long)}: {l_ms:.4f} ms "
+          f"(bound {l_b:.4f} ms {l_by}); err {errs[-1]:.3g}", flush=True)
+
     # timing: every slot at 8 live pages (1024 tokens), bf16 values
-    table_t = perm.reshape(s, n).to(torch.int32)
+    table_t = perm[:s * n].reshape(s, n).to(torch.int32)
     fl_t = torch.full((s,), n * G, dtype=torch.int32, device=dev)
     ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped(
         q, codes, rs, rz, ts, tz, vb, table_t, fl_t), flush=flush)
@@ -358,7 +398,8 @@ def check_decode(torch, dev, gen, flush) -> dict:
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
             "library": "SDPA over gathered pre-dequantized keys (fp32, "
                        "length mask)",
-            "shape": "8 slots x 4 kv heads x 8 query heads x 8 live pages"}
+            "shape": "8 slots x 4 kv heads x 8 query heads x 8 live pages, "
+                     f"nsplit {pd.plan_splits(s, HKV, n)}"}
 
 
 def check_prefill(torch, dev, gen, flush) -> dict:
@@ -436,17 +477,18 @@ def check_paged_prefill(torch, dev, gen, flush) -> dict:
              stat(0.0, 0.5))
     vals = torch.randn((pp, HKV, G, D), generator=gen, device=dev).to(
         torch.bfloat16)
-    perm = torch.randperm(scratch, generator=gen, device=dev)[:16].to(
+    perm = torch.randperm(scratch, generator=gen, device=dev)[:32].to(
         torch.int32)
     for x in (*stats, vals):
         x[scratch] = float("nan")
     q = torch.randn((HKV, qt, D), generator=gen, device=dev) * D ** -0.5
     errs = []
     # start 0 (no page read), 384 over a fragmented row, 1024 (the system
-    # prompt of the prefix phase); full and ragged chunks; fp32 and bf16
-    # chunk K/V; the value page at `start` and the chunk rows past
-    # chunk_len poisoned, dead table entries on the NaN scratch page
-    for start in (0, 384, 1024):
+    # prompt of the prefix phase), 2048; full and ragged chunks; fp32 chunk
+    # K/V (the FMA body) and bf16 (the tensor-core body, as served); the
+    # value page at `start` and the chunk rows past chunk_len poisoned,
+    # dead table entries on the NaN scratch page
+    for start in (0, 384, 1024, 2048):
         for clen in (TC, 77):
             for kvdt in (torch.float32, torch.bfloat16):
                 n_live = -(-(start + clen) // G)
@@ -461,8 +503,11 @@ def check_paged_prefill(torch, dev, gen, flush) -> dict:
                 kc[:, clen:] = float("nan")
                 vc[:, clen:] = float("nan")
                 width = 1 << (n_live - 1).bit_length()
+                n_mma = ppk.launches_mma
                 got = ppk.polar_paged_prefill_grouped(
                     q, kc, vc, codes, *stats, v, row[:width], start, clen)
+                assert ppk.launches_mma == n_mma + (kvdt == torch.bfloat16), \
+                    "bf16 chunk K/V and values must run the tensor-core body"
                 ref = ppk.polar_paged_prefill_grouped_plain(
                     q, kc, vc, codes, *stats, v, row[:width], start, clen)
                 torch.cuda.synchronize()
@@ -471,8 +516,30 @@ def check_paged_prefill(torch, dev, gen, flush) -> dict:
                                            atol=FP32_TOL)
                 errs.append(float((got - ref).abs().max()))
 
+    def work(start):
+        """(bytes, {kind: operations}, old fp32 operations) of one launch at
+        ``start`` with a full chunk: the q.k~ / q.k products and both p.V
+        at the bf16 tensor-core peak, counted once; per (kv head, page) the
+        dequantization (4 per angle state: theta~ and its sincos, 4 per
+        (token, pair): rho~ and k~) and the softmax (~4 per (row, key)) at
+        the fp32 peak. The old count ran everything as fp32: per
+        (kv head, page) LUT 3*QT*P*2^t, rho~ 2*g*P, one FMA per gathered
+        LUT entry 2*QT*g*P, softmax 4*QT*g, p@V 2*QT*g*d, and (4d + 4) per
+        causal pair of the chunk."""
+        n = start // G
+        nbytes = (HKV * n * (G * P + 4 * P * 4 + G * D * 2) + n * 4
+                  + q.numel() * 4 + 2 * HKV * TC * D * 2 + HKV * qt * D * 4)
+        causal = QH * TC * (TC + 1) // 2      # (row, key) pairs per kv head
+        pairs = HKV * (qt * start + causal)
+        ops = {"bf16": 4.0 * D * pairs,
+               "fp32": HKV * n * (4 * P * 16 + 4 * G * P) + 4.0 * pairs}
+        old = HKV * n * (3 * qt * P * 16 + 2 * G * P + 2 * qt * G * P
+                         + 4 * qt * G + 2 * qt * G * D) \
+            + HKV * causal * (4 * D + 4)
+        return nbytes, ops, old
+
     # timing: start 1024 (8 live pages) + a full 256-token chunk, bf16 as
-    # on the main path
+    # on the main path; then start 2048 (16 pages) on a line of its own
     start, n = 1024, 8
     row = perm[:n].contiguous()
     kc = torch.randn((HKV, TC, D), generator=gen, device=dev).to(
@@ -486,7 +553,8 @@ def check_paged_prefill(torch, dev, gen, flush) -> dict:
         flush=flush, lead_cycles=PLAIN_LEAD)
     # yardstick only (the port never calls it): SDPA over the prefix keys
     # dequantized beforehand (outside the timed window) and concatenated
-    # with the chunk keys, under the same boolean mask, in fp32
+    # with the chunk keys, under the same boolean mask, in fp32 — and, for
+    # context only, the same call in bf16
     rl = row.long()
     pk = qz.PolarKeys(codes=codes[rl].transpose(0, 1), rho_scale=stats[0][rl]
                       .transpose(0, 1), rho_zero=stats[1][rl].transpose(0, 1),
@@ -506,17 +574,22 @@ def check_paged_prefill(torch, dev, gen, flush) -> dict:
     lib_ms = time_ms(torch, lambda: sdpa(q_h[None], k_all[None], v_all[None],
                                          attn_mask=mask, scale=1.0),
                      flush=flush)
-    nbytes = (HKV * n * (G * P + 4 * P * 4 + G * D * 2) + n * 4
-              + q.numel() * 4 + 2 * kc.numel() * 2 + HKV * qt * D * 4)
-    causal = QH * TC * (TC + 1) // 2          # (row, key) pairs per kv head
-    # per (kv head, page): LUT 3*QT*P*2^t, rho~ 2*g*P once for every row,
-    # scores one FMA on a gathered LUT entry 2*QT*g*P, softmax ~4*QT*g,
-    # p@V 2*QT*g*d; the chunk tile: q.k 2d, softmax 4, p@V 2d per causal
-    # pair
-    flops = HKV * n * (3 * qt * P * 16 + 2 * G * P + 2 * qt * G * P
-                       + 4 * qt * G + 2 * qt * G * D) \
-        + HKV * causal * (4 * D + 4)
-    b_ms, by = bound(nbytes, flops, "fp32")
+    qb, kb, vb = (x[None].to(torch.bfloat16) for x in (q_h, k_all, v_all))
+    lib_bf16_ms = time_ms(torch, lambda: sdpa(qb, kb, vb, attn_mask=mask,
+                                              scale=1.0), flush=flush)
+    nbytes, ops, old = work(start)
+    b_ms, by = bound(nbytes, ops)
+    old_ms, _ = bound(nbytes, old, "fp32")
+    # start 2048: 16 prefix pages
+    row2 = perm[:16].contiguous()
+    ms2 = time_ms(torch, lambda: ppk.polar_paged_prefill_grouped(
+        q, kc, vc, codes, *stats, vals, row2, 2048, TC), flush=flush)
+    b2, by2 = bound(*work(2048)[:2])
+    print(f"paged_prefill: tensor-core body at start {start}: {ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms {by} (products at the bf16 peak; the old "
+          f"all-fp32 count gives {old_ms:.4f} ms); SDPA fp32 {lib_ms:.4f} "
+          f"ms, SDPA bf16 (context only) {lib_bf16_ms:.4f} ms; at start 2048 "
+          f"(16 pages): {ms2:.4f} ms, bound {b2:.4f} ms {by2}", flush=True)
     return {"name": "paged_prefill", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_prefill.cu",
             "replaces": "src/repro/kernels/paged_prefill.py:136",
@@ -744,7 +817,13 @@ def _qk_groups_per_block(ng: int) -> tuple:
              f"const dim3 grid((G + {ng - 1}) / {ng}, Hkv, B);"))
 
 
-# (kernel, variant, literal replacements in its current source)
+_PER_SPLIT = ("const int per_split = N > 0 && nsplit > 0 ? (N + nsplit - 1) / "
+              "nsplit : 1;")
+_TWO_PAGES = (_PER_SPLIT, "const int per_split = N > 0 && nsplit > 0 ? "
+              "max(2, (N + nsplit - 1) / nsplit) : 1;")
+
+# (kernel, variant, literal replacements, each made in the one file of the
+# kernel's source and the shared csrc/*.cuh headers that holds it once)
 VARIANTS = (
     ("flash_prefill", "__launch_bounds__(128, 1)",
      (("__launch_bounds__(kMmaThreads, 2)", "__launch_bounds__(kMmaThreads)"),)),
@@ -753,7 +832,53 @@ VARIANTS = (
        "y = exp2f(x);"),)),
     ("polar_qk", "3 groups per block", _qk_groups_per_block(3)),
     ("polar_qk", "9 groups per block", _qk_groups_per_block(9)),
+    ("paged_decode", "2 pages per split", (_TWO_PAGES,)),
+    ("paged_decode", "2 pages per split, single-buffered",
+     (_TWO_PAGES, ("constexpr int kSplitStages = 2;",
+                   "constexpr int kSplitStages = 1;"))),
+    ("paged_decode", "one split per (slot, kv head)",
+     ((_PER_SPLIT, "const int per_split = N > 0 ? N : 1;"),)),
+    ("paged_prefill", "one key group (4 warps, 64-key chunk stages)",
+     (("constexpr int kKeyGroups = 2;", "constexpr int kKeyGroups = 1;"),)),
 )
+
+
+def _prefill_inputs(torch, dev, gen, start):
+    """Arguments of ``paged_prefill.polar_paged_prefill_grouped`` at the
+    main path's shape: a full bf16 256-token chunk over ``start / g``
+    prefix pages of a 65-page pool, bf16 values."""
+    pp = 65
+    codes = torch.randint(0, 256, (pp, HKV, G, P), generator=gen,
+                          device=dev, dtype=torch.int32).to(torch.uint8)
+    stats = [lo + (hi - lo) * torch.rand((pp, HKV, 1, P), generator=gen,
+                                         device=dev)
+             for lo, hi in ((0.01, 0.3), (0.0, 1.0), (0.05, 0.4), (0.0, 0.5))]
+    vals = torch.randn((pp, HKV, G, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((HKV, QH * TC, D), generator=gen, device=dev) * D ** -0.5
+    kc, vc = (torch.randn((HKV, TC, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    row = torch.randperm(pp - 1, generator=gen, device=dev)[:start // G].to(
+        torch.int32)
+    return (q, kc, vc, codes, *stats, vals, row, start, TC)
+
+
+def _decode_inputs(torch, dev, gen, s, n):
+    """Arguments of ``paged_decode.polar_paged_decode_grouped`` with every
+    slot at ``n`` live pages of a 65-page pool, bf16 values."""
+    pp = 65
+    codes = torch.randint(0, 256, (pp, HKV, G, P), generator=gen,
+                          device=dev, dtype=torch.int32).to(torch.uint8)
+    stats = [lo + (hi - lo) * torch.rand((pp, HKV, 1, P), generator=gen,
+                                         device=dev)
+             for lo, hi in ((0.01, 0.3), (0.0, 1.0), (0.05, 0.4), (0.0, 0.5))]
+    vals = torch.randn((pp, HKV, G, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((s, HKV, QH, D), generator=gen, device=dev) * D ** -0.5
+    table = torch.randperm(pp - 1, generator=gen, device=dev)[:s * n] \
+        .reshape(s, n).to(torch.int32)
+    fl = torch.full((s,), n * G, dtype=torch.int32, device=dev)
+    return (q, codes, *stats, vals, table, fl)
 
 
 def phase_variants(torch) -> None:
@@ -763,21 +888,30 @@ def phase_variants(torch) -> None:
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_prefill as fpk
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as ppk
     from repro_torch.kernels import polar_qk as qkk
-    mods = {"flash_prefill": fpk, "polar_qk": qkk}
+    mods = {"flash_prefill": fpk, "polar_qk": qkk, "paged_decode": pd,
+            "paged_prefill": ppk}
     _build.build(tuple(mods))
-    vdir = _build.BUILD_DIR / "variants"
-    vdir.mkdir(parents=True, exist_ok=True)
     procs = []
     for i, (name, label, edits) in enumerate(VARIANTS):
-        src = (_build.CSRC / f"{name}.cu").read_text()
+        # the kernel's source and every shared header, copied and edited;
+        # quoted includes resolve in the copy's own directory first
+        vd = _build.BUILD_DIR / "variants" / str(i)
+        vd.mkdir(parents=True, exist_ok=True)
+        srcs = {f.name: f.read_text() for f in
+                (_build.CSRC / f"{name}.cu", *_build.CSRC.glob("*.cuh"))}
         for old, new in edits:
-            assert src.count(old) == 1, f"{label}: {old!r} not found once"
-            src = src.replace(old, new)
-        cu = vdir / f"{name}-{i}.cu"
-        cu.write_text(src)
+            hits = [f for f, t in srcs.items() if t.count(old)]
+            assert len(hits) == 1 and srcs[hits[0]].count(old) == 1, \
+                f"{label}: {old!r} not found once"
+            srcs[hits[0]] = srcs[hits[0]].replace(old, new)
+        for f, t in srcs.items():
+            (vd / f).write_text(t)
+        cu = vd / f"{name}.cu"
         procs.append(subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
              str(cu.with_suffix(".so")), str(cu)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     logs = []
@@ -797,25 +931,44 @@ def phase_variants(torch) -> None:
     x1, x8 = qkv(1, 1024), qkv(SB, SPROMPT)
     bufs, _ = _dense_cache(torch, dev, gen)
     q = torch.randn((SB, HKV, QH, D), generator=gen, device=dev) * D ** -0.5
+    d8, d1 = (_decode_inputs(torch, dev, gen, s, n)
+              for s, n in ((8, 8), (1, 32)))
+    p1, p2 = (_prefill_inputs(torch, dev, gen, st) for st in (1024, 2048))
     calls = {"flash_prefill": {
                  "1 x 32 heads x 1024 x 64 bf16": lambda: fpk.flash_prefill(*x1),
                  f"{SB} x 32 heads x {SPROMPT} x 64 bf16":
                      lambda: fpk.flash_prefill(*x8)},
              "polar_qk": {"8 rows x 4 kv heads x 8 query heads x 9 groups":
-                          lambda: qkk.polar_qk_scores(q, *bufs)}}
-    tol = {"flash_prefill": BF16_RTOL, "polar_qk": FP32_TOL}
+                          lambda: qkk.polar_qk_scores(q, *bufs)},
+             "paged_decode": {
+                 "8 slots x 4 kv heads x 8 query heads x 8 pages, bf16":
+                     lambda: pd.polar_paged_decode_grouped(*d8),
+                 "1 slot x 4 kv heads x 8 query heads x 32 pages, bf16":
+                     lambda: pd.polar_paged_decode_grouped(*d1)},
+             "paged_prefill": {
+                 "4 kv x 8 query heads x 256-token chunk, start 1024, bf16":
+                     lambda: ppk.polar_paged_prefill_grouped(*p1),
+                 "4 kv x 8 query heads x 256-token chunk, start 2048, bf16":
+                     lambda: ppk.polar_paged_prefill_grouped(*p2)}}
+    tol = {"flash_prefill": BF16_RTOL, "polar_qk": FP32_TOL,
+           "paged_decode": FP32_TOL, "paged_prefill": FP32_TOL}
     current = {n: _build.library(n, m._bind) for n, m in mods.items()}
+
+    def tensors(x):
+        return [t.float() for t in (x if isinstance(x, tuple) else (x,))]
     rows = []
     for i, (name, label, _) in enumerate(VARIANTS):
-        lib = ctypes.CDLL(str(vdir / f"{name}-{i}.so"))
+        lib = ctypes.CDLL(str(_build.BUILD_DIR / "variants" / str(i)
+                              / f"{name}.so"))
         mods[name]._bind(lib)
         for shape, fn in calls[name].items():
             ref = fn()
             ts = []
             try:
                 _build._LIBS[name] = lib
-                torch.testing.assert_close(fn().float(), ref.float(),
-                                           rtol=tol[name], atol=tol[name])
+                for a, b in zip(tensors(fn()), tensors(ref)):
+                    torch.testing.assert_close(a, b, rtol=tol[name],
+                                               atol=tol[name])
                 for which in (current[name], lib, lib, current[name]):
                     _build._LIBS[name] = which
                     ts.append(time_ms(torch, fn, flush=flush))
@@ -993,6 +1146,7 @@ def phase_prefix(torch, model, params, counters) -> dict:
     chunked with the prefix cache, then chunked without it; returns the
     launches of both runs, summed."""
     import numpy as np
+    from repro_torch.kernels import paged_prefill as ppk
     from repro_torch.serve import (
         ContinuousBatchingEngine, GenerationConfig, Request,
     )
@@ -1018,10 +1172,12 @@ def phase_prefix(torch, model, params, counters) -> dict:
         torch.cuda.synchronize()
         for mod in counters:
             mod.launches = 0
+        ppk.launches_mma = 0
         out = eng.run(reqs(), GenerationConfig())
         torch.cuda.synchronize()
         got = {mod.__name__.rsplit(".", 1)[1]: mod.launches
                for mod in counters}
+        mma = ppk.launches_mma
         done = out["requests"]
         assert len(done) == n_req and all(r.done_tokens == new for r in done)
         check_events(out["events"], done)
@@ -1033,6 +1189,8 @@ def phase_prefix(torch, model, params, counters) -> dict:
                   "paged_prefill": nl * chunks, "polar_attention": 0,
                   "polar_qk": 0}
         assert got == expect, (shared, got, expect)
+        assert mma == nl * chunks, ("paged prefill off the tensor cores",
+                                    mma, nl * chunks)
         assert out["prefills"] == chunks
         assert out["cow_splits"] == 0
         runs[shared], launches[shared] = out, got
@@ -1055,7 +1213,8 @@ def phase_prefix(torch, model, params, counters) -> dict:
               f"hit rate {out['prefix_hit_rate']:.3f}, adopted pages "
               f"{out['adopted_pages']}, bytes saved "
               f"{out.get('prefix_pool_bytes_saved', 0)}; launches "
-              f"{json.dumps(launches[name == 'shared'])}", flush=True)
+              f"{json.dumps(launches[name == 'shared'])} (paged_prefill "
+              "all on the tensor-core body)", flush=True)
     return {k: launches[True][k] + launches[False][k] for k in launches[True]}
 
 

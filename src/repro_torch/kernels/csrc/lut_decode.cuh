@@ -1,17 +1,13 @@
-// The LUT flash-decode body shared by the page-walking decode kernel
+// The LUT flash-decode bodies shared by the page-walking decode kernel
 // (paged_decode.cu) and the dense-cache decode kernel (polar_attention.cu),
 // plus the per-group angle LUT that the score-only kernel (polar_qk.cu)
 // builds the same way.
 //
-// One block per (kv head h, row s), covering all Qh query heads of the
-// group. The block walks the row's LIVE quantization groups only
-// (ceil(live[s] / g), capped at the row's group count); a `Groups` policy
-// maps (s, h, n) to the group's index in the code / stat / value buffers,
-// or -1 for an unassigned group. For each group it
-//   1. stages the four stat rows, the (g, P) codes (transposed to (P, g),
-//      so neighbouring threads read neighbouring bytes) and the (g, d)
-//      value rows in shared memory — every load of the group in flight at
-//      once, value rows past live[s] stored as exact zeros, so a
+// A `Groups` policy maps (row s, kv head h, group n) to the group's index
+// in the code / stat / value buffers, or -1 for an unassigned group. Per
+// group, every query head of the kv head
+//   1. stages the four stat rows, the (g, P) codes and the (g, d) value
+//      rows in shared memory, value rows past live[s] as exact zeros, so a
 //      NaN-poisoned row never reaches a sum;
 //   2. builds the LUT A[qh][p][a] = q_x cos(th~ - pi) + q_y sin(th~ - pi)
 //      of the 2^t angle states (a real gather replaces the TPU's 2^t
@@ -20,13 +16,28 @@
 //      masked at pos >= live[s];
 //   4. runs the online-softmax update (one warp per query head);
 //   5. accumulates p @ V from the staged rows.
-// It returns the unnormalized flash partials (acc, m, l) in fp32; the
-// residual merge stays in PyTorch (kernels/ops.py).
+// Both bodies return the unnormalized flash partials (acc, m, l) in fp32;
+// the residual merge stays in PyTorch (kernels/ops.py).
+//
+// Bound: bytes — each live group's codes, stats and value rows are read
+// once per (row, kv head). A group is a short dependent chain (DRAM round
+// trip, sincos of the angle states, scoring, softmax, p @ V), so the time
+// follows how many chains run at once and whether the next group's loads
+// are in flight:
+// - lut_flash_decode_kernel (dense cache, #5): one block per (kv head,
+//   row) walks the row's live groups one after another, all of a group's
+//   16-byte register loads in flight together (codes transposed to (P, g)).
+//   At 8 rows x 4 kv heads that is 32 blocks on 132 SMs.
+// - lut_split_decode_kernel (page walk, #2): the walk is split across
+//   blocks, grid (Hkv, S, nsplit) with the host's nsplit, and a second
+//   small kernel merges the splits exactly; inside a split the groups are
+//   double-buffered (16-byte cp.async), so group n + 1 loads while group n
+//   is scored, and a scoring thread owns one token for 4 query heads.
 #pragma once
 
 #include <cstdint>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace rt {
 
@@ -212,6 +223,282 @@ int launch_lut_flash_decode(const float* q, const unsigned char* codes, const fl
       q, codes, rs, rz, ts, tz, static_cast<const TV*>(values), groups, live, acc, m, l, Hkv,
       Qh, d, g, t_bits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// split, double-buffered body (the page-walking kernel, paged_decode.cu)
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitStages = 2;  // staging buffers per block (1: no prefetch)
+constexpr int kQG = 4;           // query heads a scoring thread carries
+
+// Bytes of lut_split_decode_kernel's shared memory: q (Qh, d), the LUT
+// (Qh, P, 2^t), scores (Qh, g), acc (Qh, d) and m / l / corr (Qh) as fp32,
+// rounded to 16 bytes; then kSplitStages stages of stats (4, P) fp32, value
+// rows (g, d) TV and code rows (g, P) padded to P + 16 bytes (which makes
+// the 16-byte row reads of eight neighbouring tokens conflict-free).
+__host__ __device__ inline size_t lut_split_head_bytes(int Qh, int d, int g, int t_bits) {
+  const int P = d / 2, NT = 1 << t_bits;
+  const size_t f = static_cast<size_t>(Qh) * (2 * d + P * NT + g + 3);
+  return (f * sizeof(float) + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t lut_split_stage_bytes(int d, int g, size_t tv) {
+  const int P = d / 2;
+  return static_cast<size_t>(16 * P) + static_cast<size_t>(g) * d * tv +
+         static_cast<size_t>(g) * (P + 16);
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The same partials as lut_flash_decode_kernel over groups
+// [z * per_split, (z + 1) * per_split) of each row, z = blockIdx.z: grid
+// (Hkv, S, nsplit). Outputs at [(z * S + s) * Hkv + h]: the split
+// partials, merged by merge_splits_kernel, or the final (acc, m, l) when
+// nsplit == 1. A split that holds no live group writes m = kNegInf, l = 0,
+// acc = 0. Inside a split, group n + 1's stats, codes and value rows are
+// in flight (16-byte cp.async into the other stage) while group n is
+// scored; value rows past live[s] are copied with the predicate off, so
+// they land as exact zeros. Needs d % 32 == 0 and 16-byte aligned buffers.
+template <typename TV, typename Groups>
+__global__ void __launch_bounds__(kDecodeThreads) lut_split_decode_kernel(
+    const float* __restrict__ q, const unsigned char* __restrict__ codes,
+    const float* __restrict__ rs, const float* __restrict__ rz, const float* __restrict__ ts,
+    const float* __restrict__ tz, const TV* __restrict__ values, Groups groups,
+    const int* __restrict__ live, float* __restrict__ acc_out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int Hkv, int Qh, int d, int g, int t_bits, int per_split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x, s = blockIdx.y, z = blockIdx.z;
+  const int P = d / 2, NT = 1 << t_bits, CS = P + 16;
+  const unsigned tmask = static_cast<unsigned>(NT - 1);
+  auto* q_s = reinterpret_cast<float*>(smem_raw);  // (Qh, d)
+  float* lut = q_s + Qh * d;                        // (Qh, P, NT)
+  float* sc = lut + Qh * P * NT;                    // scores, then probabilities: (Qh, g)
+  float* acc_s = sc + Qh * g;                       // (Qh, d)
+  float* m_s = acc_s + Qh * d;                      // (Qh,)
+  float* l_s = m_s + Qh;
+  float* corr_s = l_s + Qh;
+  unsigned char* stage0 = smem_raw + lut_split_head_bytes(Qh, d, g, t_bits);
+  const size_t stage_bytes = lut_split_stage_bytes(d, g, sizeof(TV));
+  auto st_of = [&](int b) { return reinterpret_cast<float*>(stage0 + b * stage_bytes); };
+  auto v_of = [&](int b) { return reinterpret_cast<TV*>(stage0 + b * stage_bytes + 16 * P); };
+  auto c_of = [&](int b) {
+    return stage0 + b * stage_bytes + 16 * P + static_cast<size_t>(g) * d * sizeof(TV);
+  };
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, nwarps = nthr / 32;
+  const long long sh = static_cast<long long>(s) * Hkv + h;
+  const long long oi = static_cast<long long>(z) * gridDim.y * Hkv + sh;
+  for (int i = tid; i < Qh * d; i += nthr) {
+    q_s[i] = q[sh * Qh * d + i];
+    acc_s[i] = 0.0f;
+  }
+  for (int i = tid; i < Qh; i += nthr) {
+    m_s[i] = kNegInf;
+    l_s[i] = 0.0f;
+  }
+  const int fl = live[s];
+  const int n_end = min(min((fl + g - 1) / g, groups.count), (z + 1) * per_split);
+  const int n_begin = z * per_split;
+
+  // group n's stats, codes and value rows into stage b (nothing for an
+  // unassigned group, which the walk skips)
+  constexpr int kVec = 16 / sizeof(TV);
+  auto fetch = [&](int n, int b) {
+    const long long grp = groups.index(s, h, n);
+    if (grp < 0) return;
+    float* st = st_of(b);
+    for (int c = tid; c < P; c += nthr) {  // 4 stat rows of P/4 chunks
+      const int which = c / (P / 4), off = (c % (P / 4)) * 4;
+      const float* src = which == 0 ? rs : which == 1 ? rz : which == 2 ? ts : tz;
+      cp_async16(st + which * P + off, src + grp * P + off, true);
+    }
+    unsigned char* cs = c_of(b);
+    const unsigned char* cg = codes + grp * g * P;
+    for (int c = tid; c < g * P / 16; c += nthr) {
+      const int r = c / (P / 16), col = (c % (P / 16)) * 16;
+      cp_async16(cs + r * CS + col, cg + r * P + col, true);
+    }
+    TV* vs = v_of(b);
+    const TV* vg = values + grp * g * d;
+    const int nlive = min(fl - n * g, g);  // rows of this group below live[s]
+    for (int c = tid; c < g * d / kVec; c += nthr)
+      cp_async16(vs + c * kVec, vg + c * kVec, c / (d / kVec) < nlive);
+  };
+
+  const int nn = n_end - n_begin;
+  if (nn > 0) {
+    fetch(n_begin, 0);
+    cp_async_commit();
+  }
+  for (int k = 0; k < nn; ++k) {
+    const int n = n_begin + k, b = k % kSplitStages;
+    if (kSplitStages > 1 && k + 1 < nn) {
+      fetch(n + 1, (k + 1) % kSplitStages);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (groups.index(s, h, n) >= 0) {  // uniform across the block
+      const float* st = st_of(b);
+      const TV* vs = v_of(b);
+      const unsigned char* cs = c_of(b);
+      const int nlive = min(fl - n * g, g);
+      build_angle_lut(q_s, st, lut, Qh, d, t_bits);
+      // scores: a thread owns one token and kQG query heads, so each code
+      // and rho~ is read once for all of them
+      const int nqg = (Qh + kQG - 1) / kQG;
+      for (int i = tid; i < g * nqg; i += nthr) {
+        const int t = i % g, qg = i / g;
+        float a[kQG];
+#pragma unroll
+        for (int u = 0; u < kQG; ++u) a[u] = 0.0f;
+        for (int p0 = 0; p0 < P; p0 += 16) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(cs + t * CS + p0);
+          const auto* e = reinterpret_cast<const unsigned char*>(&raw);
+#pragma unroll
+          for (int k2 = 0; k2 < 16; ++k2) {
+            const int p = p0 + k2;
+            const unsigned c = e[k2];
+            const float rho = (static_cast<float>(c >> t_bits) + 0.5f) * st[p] + st[P + p];
+            const float* lp = lut + (qg * kQG) * P * NT + p * NT + (c & tmask);
+#pragma unroll
+            for (int u = 0; u < kQG; ++u)
+              if (qg * kQG + u < Qh) a[u] += rho * lp[u * P * NT];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kQG; ++u)
+          if (qg * kQG + u < Qh) sc[(qg * kQG + u) * g + t] = t < nlive ? a[u] : kNegInf;
+      }
+      __syncthreads();
+      for (int qh = warp; qh < Qh; qh += nwarps) {
+        float mx = kNegInf;
+        for (int t = lane; t < g; t += 32) mx = fmaxf(mx, sc[qh * g + t]);
+        mx = warp_max(mx);
+        const float m_old = m_s[qh];
+        const float m_new = fmaxf(m_old, mx);
+        float sum = 0.0f;
+        for (int t = lane; t < g; t += 32) {
+          const float pr = t < nlive ? expf(sc[qh * g + t] - m_new) : 0.0f;
+          sc[qh * g + t] = pr;
+          sum += pr;
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          const float corr = expf(m_old - m_new);
+          corr_s[qh] = corr;
+          l_s[qh] = l_s[qh] * corr + sum;
+          m_s[qh] = m_new;
+        }
+      }
+      __syncthreads();
+      // p @ V: a thread owns two neighbouring columns of one query head
+      for (int i = tid; i < Qh * P; i += nthr) {
+        const int qh = i / P, c2 = (i % P) * 2;
+        const float* pr = sc + qh * g;
+        const float corr = corr_s[qh];
+        float a0 = acc_s[qh * d + c2] * corr, a1 = acc_s[qh * d + c2 + 1] * corr;
+        for (int t = 0; t < g; ++t) {
+          const float2 v = load_pair(vs + t * d + c2);
+          a0 += pr[t] * v.x;
+          a1 += pr[t] * v.y;
+        }
+        acc_s[qh * d + c2] = a0;
+        acc_s[qh * d + c2 + 1] = a1;
+      }
+    }
+    __syncthreads();  // every thread is done with stage b before it refills
+    if (kSplitStages == 1 && k + 1 < nn) {
+      fetch(n + 1, 0);
+      cp_async_commit();
+    }
+  }
+  for (int i = tid; i < Qh * d; i += nthr) acc_out[oi * Qh * d + i] = acc_s[i];
+  for (int i = tid; i < Qh; i += nthr) {
+    m_out[oi * Qh + i] = m_s[i];
+    l_out[oi * Qh + i] = l_s[i];
+  }
+}
+
+// Exact merge of nsplit flash partials per (row, kv head, query head) —
+// m = max m_z, l = sum l_z e^(m_z - m), acc = sum acc_z e^(m_z - m), as
+// kernels/ops.py::merge_softmax_partials. Grid (S * Hkv), one thread per
+// (query head, column). A template, so that only a library that launches
+// the split body compiles it.
+template <typename T>
+__global__ void merge_splits_kernel(const T* __restrict__ acc_p, const T* __restrict__ m_p,
+                                    const T* __restrict__ l_p, T* __restrict__ acc,
+                                    T* __restrict__ m, T* __restrict__ l, int nsplit, int SH,
+                                    int Qh, int d) {
+  const long long sh = blockIdx.x;
+  for (int i = threadIdx.x; i < Qh * d; i += blockDim.x) {
+    const int qh = i / d;
+    const long long row = sh * Qh + qh;
+    const long long zs = static_cast<long long>(SH) * Qh;  // row stride of a split
+    T mt = m_p[row];
+    for (int z = 1; z < nsplit; ++z) mt = fmaxf(mt, m_p[z * zs + row]);
+    T a = 0.0f, lt = 0.0f;
+    for (int z = 0; z < nsplit; ++z) {
+      const T w = expf(m_p[z * zs + row] - mt);
+      a += acc_p[(z * zs + row) * d + i % d] * w;
+      lt += l_p[z * zs + row] * w;
+    }
+    acc[row * d + i % d] = a;
+    if (i % d == 0) {
+      m[row] = mt;
+      l[row] = lt;
+    }
+  }
+}
+
+// Launch the split body over grid (Hkv, S, nsplit) and, for nsplit > 1,
+// the merge, both on `stream`. The walk of N table entries splits into
+// ranges of per_split = ceil(N / nsplit) groups, nsplit' = ceil(N /
+// per_split) <= nsplit of them (kernels/paged_decode.py::split_ranges);
+// `partials` holds nsplit' * S * Hkv * Qh * (d + 2) floats.
+template <typename TV, typename Groups>
+int launch_lut_split_decode(const float* q, const unsigned char* codes, const float* rs,
+                            const float* rz, const float* ts, const float* tz,
+                            const void* values, Groups groups, const int* live, float* acc,
+                            float* m, float* l, float* partials, int S, int Hkv, int Qh, int d,
+                            int g, int t_bits, int N, int nsplit, cudaStream_t stream) {
+  const int per_split = N > 0 && nsplit > 0 ? (N + nsplit - 1) / nsplit : 1;
+  nsplit = N > 0 ? (N + per_split - 1) / per_split : 1;
+  if (nsplit > 65535 || (nsplit > 1 && partials == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      lut_split_head_bytes(Qh, d, g, t_bits) + kSplitStages * lut_split_stage_bytes(d, g, sizeof(TV));
+  cudaError_t err = allow_smem(lut_split_decode_kernel<TV, Groups>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(S) * Hkv * Qh;
+  float* pa = nsplit > 1 ? partials : acc;
+  float* pm = nsplit > 1 ? partials + nsplit * rows * d : m;
+  float* pl = nsplit > 1 ? pm + nsplit * rows : l;
+  const dim3 grid(Hkv, S, nsplit);
+  lut_split_decode_kernel<TV, Groups><<<grid, kDecodeThreads, smem, stream>>>(
+      q, codes, rs, rz, ts, tz, static_cast<const TV*>(values), groups, live, pa, pm, pl, Hkv,
+      Qh, d, g, t_bits, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
+  merge_splits_kernel<float><<<S * Hkv, Qh * d < 256 ? Qh * d : 256, 0, stream>>>(
+      pa, pm, pl, acc, m, l, nsplit, S * Hkv, Qh, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether launch_lut_split_decode takes these buffers (else the unsplit
+// lut_flash_decode_kernel runs).
+inline bool lut_split_decode_fits(int d, const void* codes, const void* rs, const void* rz,
+                                  const void* ts, const void* tz, const void* values) {
+  return d % 32 == 0 && aligned16(codes) && aligned16(rs) && aligned16(rz) && aligned16(ts) &&
+         aligned16(tz) && aligned16(values);
 }
 
 }  // namespace rt

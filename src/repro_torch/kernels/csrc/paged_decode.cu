@@ -3,15 +3,22 @@
 // polar_paged_decode_grouped and its LUT tile
 // repro/kernels/polar_attention.py::_lut_scores_block).
 //
-// The LUT flash-decode body lives in lut_decode.cuh (shared with the
-// dense-cache kernel, polar_attention.cu); here group n of slot s is pool
-// page table[s, n], and the block walks the slot's LIVE pages only
-// (ceil(flushed[s] / g)), skipping entries outside the pool.
+// Group n of slot s is pool page table[s, n]; a slot walks its LIVE pages
+// only (ceil(flushed[s] / g)), skipping entries outside the pool. The body
+// is lut_decode.cuh's split, double-buffered one: each (slot, kv head)'s
+// page walk is split into nsplit ranges, one block each, chosen by the
+// host from S, Hkv and the table width N (kernels/paged_decode.py::
+// plan_splits; it never reads `flushed`, so no device sync), and the
+// splits' partials are merged on the device inside this call. Shapes it
+// does not take (d % 32 != 0, unaligned buffers) run the unsplit body.
 //
 // Bound: bytes — each live page's codes (g*P B), stats (4*P*4 B) and
-// value rows (g*d*2 B in bf16) are read once per (slot, kv head). The
-// grid is only S*Hkv blocks (32 at 8 slots x 4 kv heads), far below the
-// 132 SMs: splitting pages across blocks is the first thing to fix.
+// value rows (g*d*2 B in bf16) are read once per (slot, kv head). The time
+// follows the per-page dependent chain (DRAM round trip, angle LUT,
+// scores, softmax, p @ V): splitting runs the chains of one slot side by
+// side (8 slots x 4 kv heads x 8 pages: 256 blocks on 132 SMs), and
+// double-buffering overlaps the next page's loads with the current page
+// inside a split.
 #include "lut_decode.cuh"
 
 namespace {
@@ -34,13 +41,16 @@ struct PagedGroups {
 // q (S, Hkv, Qh, d) fp32 pre-scaled; pools codes (PP, Hkv, g, d/2) uint8,
 // stats (PP, Hkv, 1, d/2) fp32, values (PP, Hkv, g, d) bf16 or fp32;
 // table (S, >=N) int32 with row stride table_stride; flushed (S,) int32.
-// Outputs acc (S, Hkv, Qh, d), m and l (S, Hkv, Qh), all fp32.
+// Outputs acc (S, Hkv, Qh, d), m and l (S, Hkv, Qh), all fp32. nsplit: the
+// host's split count; partials: nsplit * S * Hkv * Qh * (d + 2) fp32 of
+// scratch when nsplit > 1 (else unused, may be null).
 extern "C" int paged_decode_launch(const void* q, const void* codes, const void* rs,
                                    const void* rz, const void* ts, const void* tz,
                                    const void* values, int v_bf16, const void* table,
                                    long long table_stride, int N, const void* flushed,
                                    void* acc, void* m, void* l, int S, int Hkv, int Qh, int d,
-                                   int g, int PP, int t_bits, void* stream) {
+                                   int g, int PP, int t_bits, int nsplit, void* partials,
+                                   void* stream) {
   if (S <= 0 || Hkv <= 0 || Qh <= 0 || d <= 0 || d % 2 || g <= 0 || S > 65535 || t_bits > 8)
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -51,6 +61,16 @@ extern "C" int paged_decode_launch(const void* q, const void* codes, const void*
   auto* a = static_cast<float*>(acc);
   auto* mm = static_cast<float*>(m);
   auto* ll = static_cast<float*>(l);
+  if (rt::lut_split_decode_fits(d, codes, rs, rz, ts, tz, values)) {
+    auto* pt = static_cast<float*>(partials);
+    if (v_bf16)
+      return rt::launch_lut_split_decode<__nv_bfloat16>(f(q), c, f(rs), f(rz), f(ts), f(tz),
+                                                        values, groups, fl, a, mm, ll, pt, S,
+                                                        Hkv, Qh, d, g, t_bits, N, nsplit, st);
+    return rt::launch_lut_split_decode<float>(f(q), c, f(rs), f(rz), f(ts), f(tz), values,
+                                              groups, fl, a, mm, ll, pt, S, Hkv, Qh, d, g,
+                                              t_bits, N, nsplit, st);
+  }
   if (v_bf16)
     return rt::launch_lut_flash_decode<__nv_bfloat16>(f(q), c, f(rs), f(rz), f(ts), f(tz),
                                                       values, groups, fl, a, mm, ll, S, Hkv,

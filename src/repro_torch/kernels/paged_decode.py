@@ -3,21 +3,25 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/paged_decode.py::
 polar_paged_decode_grouped`` (LUT tile ``repro/kernels/polar_attention.py::
-_lut_scores_block``). Source: ``csrc/paged_decode.cu``.
+_lut_scores_block``). Source: ``csrc/paged_decode.cu`` (body in
+``csrc/lut_decode.cuh``).
 
 Per (slot, kv head) it walks the slot's live pages in the page table and,
 per page, stages the page's stats, codes and value rows in shared memory
-(16-byte loads, dead value rows zeroed), builds the angle LUT, scores the
-page's tokens by gather, masks positions >= ``flushed[s]``, and folds them
-into an online softmax and p @ V. The LUT flash-decode body is shared with
-the dense-cache kernel (``csrc/lut_decode.cuh``). Output: the unnormalized
-flash partials (acc, m, l) over the flushed groups; the residual merge
-happens in ``kernels/ops.py``.
+(dead value rows as zeros), builds the angle LUT, scores the page's tokens
+by gather, masks positions >= ``flushed[s]``, and folds them into an
+online softmax and p @ V. Output: the unnormalized flash partials
+(acc, m, l) over the flushed groups; the residual merge happens in
+``kernels/ops.py``.
 
 Bound: bytes — the live pages' codes, stats and value rows are read once
-per (slot, kv head). The grid has only S*Hkv blocks (32 on the serving
-path), which leaves most SMs idle; splitting the page walk across blocks
-is the first known fix.
+per (slot, kv head) — but each page is a short dependent chain, so the
+time follows how many chains run at once. The host splits each walk into
+:func:`plan_splits` ranges, one block each (256 blocks at 8 slots x 4 kv
+heads x 8 pages, where one block per (slot, kv head) gave 32), the kernel
+merges the splits' partials on the device in the same call, and inside a
+split the next page's loads are in flight while the current one is
+scored.
 """
 from __future__ import annotations
 
@@ -29,12 +33,40 @@ from repro_torch.kernels import ref as ref_mod
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
 
+#: blocks the split planner aims at: two resident blocks on each of an
+#: H100's 132 SMs
+SPLIT_TARGET_BLOCKS = 2 * 132
+
+
+def plan_splits(s: int, hkv: int, n: int) -> int:
+    """Splits of each (slot, kv head)'s walk over a table ``n`` pages wide:
+    ``nsplit = ceil(n / pages)`` for the fewest pages per split that keep
+    ``s * hkv * nsplit`` blocks within :data:`SPLIT_TARGET_BLOCKS` (1 when
+    even one split per (slot, kv head) does not). Reads shapes only (never
+    ``flushed``), so it costs no device sync."""
+    if n <= 0:
+        return 1
+    per = max(1, -(-s * hkv * n // SPLIT_TARGET_BLOCKS))
+    while per < n and s * hkv * -(-n // per) > SPLIT_TARGET_BLOCKS:
+        per += 1
+    return -(-n // per)
+
+
+def split_ranges(n: int, nsplit: int) -> list[tuple[int, int]]:
+    """The table-entry ranges ``[lo, hi)`` the kernel's splits walk, as
+    ``csrc/lut_decode.cuh::launch_lut_split_decode`` cuts them: ranges of
+    ``ceil(n / nsplit)`` entries, the last one ragged."""
+    if n <= 0:
+        return [(0, 0)]
+    per = -(-n // max(nsplit, 1))
+    return [(lo, min(lo + per, n)) for lo in range(0, n, per)]
+
 
 def _bind(lib) -> None:
     lib.paged_decode_launch.argtypes = [
         B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
         B.VOIDP, B.LLONG, B.INT, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
-        B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP]
+        B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP, B.VOIDP]
     lib.paged_decode_launch.restype = B.INT
 
 
@@ -92,14 +124,18 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
     acc = torch.empty((s, hkv, qh, d), dtype=torch.float32, device=q.device)
     m = torch.empty((s, hkv, qh), dtype=torch.float32, device=q.device)
     l = torch.empty((s, hkv, qh), dtype=torch.float32, device=q.device)
+    nsplit = plan_splits(s, hkv, n)
+    # the splits' (acc, m, l) partials, merged on the device
+    part = torch.empty(nsplit * s * hkv * qh * (d + 2), dtype=torch.float32,
+                       device=q.device) if nsplit > 1 else None
     lib = B.library("paged_decode", _bind)
     err = lib.paged_decode_launch(
         q.data_ptr(), codes.data_ptr(), rs.data_ptr(), rz.data_ptr(),
         ts.data_ptr(), tz.data_ptr(), values.data_ptr(),
         int(values.dtype == torch.bfloat16), page_table.data_ptr(),
         page_table.stride(0), n, flushed.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), s, hkv, qh, d, g, pp, t_bits,
-        B.stream_ptr(q))
+        m.data_ptr(), l.data_ptr(), s, hkv, qh, d, g, pp, t_bits, nsplit,
+        None if part is None else part.data_ptr(), B.stream_ptr(q))
     B.check(err, "paged_decode")
     launches += 1
     return acc, m, l

@@ -6,14 +6,16 @@ polar_paged_prefill_grouped``. Source: ``csrc/paged_prefill.cu``.
 
 One prefill chunk's queries (folded onto the head axis: QT = (Hq/Hkv)*Tc
 rows per kv head, row = qh*Tc + t, pre-scaled) attend to the slot's
-quantized prefix pages ``[0, start)`` through the angle LUT and,
-causally, to the chunk's own fp keys, under one online softmax. The
-grid tiles the QT rows (64 per block) across kv heads, so the serving
-shapes give 128 blocks; each block walks the ``start/g`` live pages on
-its own, with shared-memory gathers in place of the TPU's select tree.
+quantized prefix pages ``[0, start)`` and, causally, to the chunk's own fp
+keys, under one online softmax; 64 query rows of one kv head per block.
 
-Bound: operations (fp32 LUT scores and p @ V; the first version runs them
-on the CUDA cores, not the tensor cores).
+Bound: operations — the q.k and p.V products, on the tensor cores. With
+bf16 chunk K/V and a bf16 value pool (the served path) each block
+dequantizes every live page once into bf16 hi/lo keys and runs
+``mma.sync`` products with fp32 operands carried as hi + lo bf16 pairs
+(held to the same 1e-4 as the FMA body), pages and chunk tiles
+double-buffered by ``cp.async``; fp32 inputs (the tests') take the
+fp32-FMA body. ``launches_mma`` counts the tensor-core launches.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from repro_torch.kernels import ref as ref_mod
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
+#: of those, the launches that ran the tensor-core body
+launches_mma = 0
 
 
 def _bind(lib) -> None:
@@ -32,6 +36,10 @@ def _bind(lib) -> None:
         B.VOIDP, B.VOIDP, B.INT, B.VOIDP, B.INT, B.INT, B.VOIDP, B.INT, B.INT,
         B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP]
     lib.paged_prefill_launch.restype = B.INT
+    lib.paged_prefill_tensor_core.argtypes = [
+        B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP,
+        B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP]
+    lib.paged_prefill_tensor_core.restype = B.INT
 
 
 def polar_paged_prefill_grouped_plain(q, k_chunk, v_chunk, codes, rs, rz, ts,
@@ -66,7 +74,7 @@ def polar_paged_prefill_grouped(q: torch.Tensor, k_chunk: torch.Tensor,
     ``start`` page-aligned, ``start <= N*g``; ``chunk_len <= Tc`` real
     chunk tokens. Returns (Hkv, QT, d) fp32. The kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    global launches
+    global launches, launches_mma
     start, chunk_len = int(start), int(chunk_len)
     g = codes.shape[2]
     B.require(start % g == 0, f"start {start} is not page-aligned (g={g})")
@@ -109,13 +117,17 @@ def polar_paged_prefill_grouped(q: torch.Tensor, k_chunk: torch.Tensor,
               "page_row must be a contiguous int32 (N,) row")
     out = torch.empty((hkv, qt, d), dtype=torch.float32, device=q.device)
     lib = B.library("paged_prefill", _bind)
+    kv_bf16 = int(k_chunk.dtype == torch.bfloat16)
+    v_bf16 = int(values.dtype == torch.bfloat16)
+    pools = (codes.data_ptr(), rs.data_ptr(), rz.data_ptr(), ts.data_ptr(),
+             tz.data_ptr(), values.data_ptr())
     err = lib.paged_prefill_launch(
-        q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
-        int(k_chunk.dtype == torch.bfloat16), codes.data_ptr(),
-        rs.data_ptr(), rz.data_ptr(), ts.data_ptr(), tz.data_ptr(),
-        values.data_ptr(), int(values.dtype == torch.bfloat16),
-        page_row.data_ptr(), start // g, chunk_len, out.data_ptr(), hkv, qt,
-        tc, d, g, pp, t_bits, B.stream_ptr(q))
+        q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(), kv_bf16,
+        *pools, v_bf16, page_row.data_ptr(), start // g, chunk_len,
+        out.data_ptr(), hkv, qt, tc, d, g, pp, t_bits, B.stream_ptr(q))
     B.check(err, "paged_prefill")
     launches += 1
+    launches_mma += lib.paged_prefill_tensor_core(
+        kv_bf16, v_bf16, d, g, t_bits, k_chunk.data_ptr(), v_chunk.data_ptr(),
+        *pools)
     return out

@@ -69,9 +69,23 @@ def test_encode_pages_kernel_skips_negative_pages(dev):
     assert not a[0][[0, 1, 3, 4, 5, 6, 8, 9]].any()
 
 
+# (slots, kv heads, query heads, flushed per slot, table width, pool
+# pages): a small mixed case; the long-context shape, 1 slot x 32 pages
+# (4096 tokens); 8 slots flushed 0..896, so that some splits hold no live
+# page. Tables are width slices of a wider table, dead entries point at a
+# NaN-poisoned scratch page.
+_DECODE_CASES = {
+    "mixed": (4, 2, 8, [0, 128, 384, 256], 3, 12),
+    "long": (1, 4, 8, [4096], 32, 40),
+    "ragged8": (8, 4, 8, [0, 128, 256, 384, 512, 640, 768, 896], 8, 65),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DECODE_CASES))
 @pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
-def test_paged_decode_kernel_matches_plain(dev, vdtype):
-    s, hkv, qh, d, g, pp, n = 4, 2, 8, 64, 128, 12, 3
+def test_paged_decode_kernel_matches_plain(dev, vdtype, case):
+    s, hkv, qh, fl, n, pp = _DECODE_CASES[case]
+    d, g = 64, 128
     gen = _gen(dev, 2)
     k = torch.randn((1, pp * hkv, g, d), generator=gen, device=dev)
     enc = ops.polar_encode(k, group_size=g)
@@ -82,12 +96,16 @@ def test_paged_decode_kernel_matches_plain(dev, vdtype):
         x[scratch] = float("nan")
     values[scratch] = float("nan")
     table = torch.full((s, n + 1), scratch, dtype=torch.int32, device=dev)
-    table[1, :1] = torch.tensor([5])
-    table[2, :3] = torch.tensor([8, 0, 3])
-    table[3, :2] = torch.tensor([1, 9])
-    flushed = torch.tensor([0, 128, 384, 256], dtype=torch.int32, device=dev)
+    perm = torch.randperm(scratch, generator=gen, device=dev).to(torch.int32)
+    used = 0
+    for sl, f in enumerate(fl):
+        table[sl, :f // g] = perm[used:used + f // g]
+        used += f // g
+    flushed = torch.tensor(fl, dtype=torch.int32, device=dev)
     q = torch.randn((s, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
     sliced = table[:, :n]                 # a non-contiguous width slice
+    if s * hkv < 132:                     # the host splits the page walk
+        assert pdk.plan_splits(s, hkv, n) > 1
     got = pdk.polar_paged_decode_grouped(q, *pool, values, sliced, flushed)
     ref = pdk.polar_paged_decode_grouped_plain(q, *pool, values, sliced,
                                                flushed)
@@ -268,40 +286,52 @@ def _prefill_pools(dev, gen, pp, hkv, g, d):
     return pool, values
 
 
-# (start, chunk_len, row width): first chunk, fragmented prefix, ragged
-# chunk on a width-sliced row
-@pytest.mark.parametrize("start,clen,width", [(0, 256, 6), (384, 256, 6),
-                                              (384, 77, 4), (512, 1, 6)])
+# (start, chunk_len, row width, head_dim): first chunk, fragmented prefix,
+# ragged chunks on width-sliced rows, the prefix phase's start 1024 on an
+# 8-page row and start 2048 on a 16-page row, chunk_len 1 / 77 / 255, and
+# d 32 / 128; each with fp32 and bf16 chunk K/V and value pool (bf16 with
+# bf16 runs the tensor-core body, anything fp32 the FMA body)
+@pytest.mark.parametrize("start,clen,width,d", [
+    (0, 256, 6, 64), (384, 256, 6, 64), (384, 77, 4, 64), (512, 1, 6, 64),
+    (1024, 255, 8, 64), (1024, 77, 8, 64), (2048, 1, 16, 64),
+    (2048, 255, 16, 64), (1024, 77, 8, 32), (1024, 255, 8, 128)])
 @pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16])
-def test_paged_prefill_kernel_matches_plain(dev, start, clen, width,
-                                            kvdtype):
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_kernel_matches_plain(dev, start, clen, width, d,
+                                            kvdtype, vdtype):
     """Kernel #4 against its plain version at the serving shapes (Hkv 4,
-    Qh 8, d 64, g 128, Tc 256), NaN on the scratch page behind every dead
-    entry, on live value rows past ``start`` and on chunk K/V rows past
-    ``chunk_len``. fp32 chunk K/V: 1e-4; bf16 chunk K/V (both sides read
-    the same bf16 values, so only the summation order differs): 1e-4."""
-    hkv, qh, d, g, tc, pp = 4, 8, 64, 128, 256, 12
+    Qh 8, g 128, Tc 256), NaN on the scratch page behind every dead entry,
+    on live value rows past ``start`` and on chunk K/V rows past
+    ``chunk_len``. Both bodies at 1e-4: the FMA body sums fp32 products;
+    the tensor-core body carries fp32 q, k~ and p as bf16 hi + lo pairs
+    (relative error per product below ~1.1e-5) and both sides read the same
+    bf16 values. bf16 inputs must take the tensor-core body."""
+    hkv, qh, g, tc, pp = 4, 8, 128, 256, 20
     scratch = pp - 1
     gen = _gen(dev, 5)
     pool, values = _prefill_pools(dev, gen, pp, hkv, g, d)
-    row = torch.tensor([7, 2, 9, 0, 5, 3], dtype=torch.int32, device=dev)
+    values = values.to(vdtype)
+    row = torch.randperm(scratch, generator=gen, device=dev)[:width].to(
+        torch.int32)
     row[start // g + (clen + g - 1) // g:] = scratch
     for x in pool[1:]:
         x[scratch] = float("nan")
     values[scratch] = float("nan")
-    values[int(row[start // g])] = float("nan")   # dead: at/past start
+    if start // g < width:
+        values[int(row[start // g])] = float("nan")   # dead: at/past start
     q = torch.randn((hkv, qh * tc, d), generator=gen, device=dev) * d ** -0.5
     kc = torch.randn((hkv, tc, d), generator=gen, device=dev).to(kvdtype)
     vc = torch.randn((hkv, tc, d), generator=gen, device=dev).to(kvdtype)
     kc[:, clen:] = float("nan")
     vc[:, clen:] = float("nan")
-    sliced = row[:width]
-    n = ppk.launches
-    got = ppk.polar_paged_prefill_grouped(q, kc, vc, *pool, values, sliced,
+    n, n_mma = ppk.launches, ppk.launches_mma
+    got = ppk.polar_paged_prefill_grouped(q, kc, vc, *pool, values, row,
                                           start, clen)
     assert ppk.launches == n + 1
+    bf16 = kvdtype == vdtype == torch.bfloat16
+    assert ppk.launches_mma == n_mma + int(bf16)
     ref = ppk.polar_paged_prefill_grouped_plain(q, kc, vc, *pool, values,
-                                                sliced, start, clen)
+                                                row, start, clen)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
