@@ -21,8 +21,11 @@ printing one line (the prefix phase one per run):
               library call; flash prefill is also timed at the static
               phase's 8 x 1000-token shape, paged decode at 1 slot x 32
               pages and paged prefill at start 2048, each on a line of its
-              own; then the paged engine's three decode backends against
-              each other on one fragmented cache.
+              own; the uint8-value forms of paged decode, paged prefill
+              (both bodies) and dense decode at value_bits 4 and 8, each
+              timed on a row of its own (``name[u8]``); then the paged
+              engine's three decode backends against each other on one
+              fragmented cache, with bf16 and with 4-bit values.
 4. model    — full-width tinyllama-1.1b in bf16 (random weights from a
               seeded generator): a 512-token prefill and 16 teacher-forced
               decode steps through the kernels and through the plain
@@ -47,12 +50,21 @@ printing one line (the prefix phase one per run):
               within rel. L2 5e-2 of its plain path, cache bytes per layer
               and their polar / fp ratio, and the two polar routes' greedy
               agreement (reported, not gated).
-8. profile  — wall time of 8-slot decode steps against the device time of
+8. values   — ``QuantConfig(value_bits=4)`` at full width on the same
+              weights: a logit gate (chunked prefill + decode, kernels vs
+              plain versions, rel. L2 5e-2), classic paged serving (8
+              requests), chunked prefill with the prefix cache (6
+              requests, every uint8 paged prefill launch on the
+              tensor-core body), ``ServeEngine`` on the fused and the
+              score-only routes (gated, cache bytes per layer); every
+              uint8 kernel form must have run.
+9. profile  — wall time of 8-slot decode steps against the device time of
               their kernels (torch.profiler): the device's idle share and
               the largest kernels.
 
-Then one JSON line of per-kernel numbers (launches summed over the three
-serving phases), and last the device JSON. Any failure raises (non-zero
+Then one JSON line of per-kernel numbers (launches summed over the four
+serving phases; the uint8 forms on rows of their own), and last the device
+JSON. Any failure raises (non-zero
 exit). Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 
@@ -198,6 +210,38 @@ def phase_build() -> None:
         assert all(counts.values()), f"{name}: SASS lacks {counts}"
         print(f"sass: {name} {json.dumps(counts)}; first: {first}",
               flush=True)
+
+
+# ---------------------------------------------------------------------------
+# launch counters
+# ---------------------------------------------------------------------------
+
+def reset_counts(counters) -> None:
+    """Set every launch counter of the kernel wrappers to 0."""
+    for mod in counters:
+        for attr in ("launches", "launches_u8", "launches_mma"):
+            if hasattr(mod, attr):
+                setattr(mod, attr, 0)
+
+
+def read_counts(counters) -> dict:
+    """Launches since the last reset, per kernel form: ``name`` counts
+    the launches on fp value rows (every launch of a kernel without value
+    rows), ``name[u8]`` those on uint8 value rows."""
+    out = {}
+    for mod in counters:
+        name = mod.__name__.rsplit(".", 1)[1]
+        u8 = getattr(mod, "launches_u8", None)
+        out[name] = mod.launches - (u8 or 0)
+        if u8 is not None:
+            out[f"{name}[u8]"] = u8
+    return out
+
+
+def value_form(cfg) -> str:
+    """The suffix of the kernel forms a model's cache reads: ``"[u8]"``
+    under quantized values, else ``""``."""
+    return "[u8]" if cfg.quant.value_bits else ""
 
 
 # ---------------------------------------------------------------------------
@@ -364,16 +408,9 @@ def check_decode(torch, dev, gen, flush) -> dict:
     # yardstick only (the port never calls it): SDPA over the slots' keys
     # gathered from their pages and dequantized beforehand (outside the
     # timed window), fp32, under the length mask
-    from repro_torch.core import quantizers as qz
     tl = table_t.long()
-    pk = qz.PolarKeys(codes=codes[tl].transpose(1, 2),
-                      rho_scale=rs[tl].transpose(1, 2),
-                      rho_zero=rz[tl].transpose(1, 2),
-                      theta_scale=ts[tl].transpose(1, 2),
-                      theta_zero=tz[tl].transpose(1, 2), rho_bits=4,
-                      theta_bits=4, pairing="half")
-    kf = qz.decode_polar_keys(pk, torch.float32).reshape(
-        s, HKV, n * G, D).repeat_interleave(QH, 1)
+    kf = _paged_keys(torch, codes, (rs, rz, ts, tz), tl).repeat_interleave(
+        QH, 1)
     vf = vb[tl].transpose(1, 2).reshape(s, HKV, n * G, D).float() \
         .repeat_interleave(QH, 1)
     qf4 = q.reshape(s, HKV * QH, 1, D)
@@ -461,7 +498,6 @@ def check_prefill(torch, dev, gen, flush) -> dict:
 
 
 def check_paged_prefill(torch, dev, gen, flush) -> dict:
-    from repro_torch.core import quantizers as qz
     from repro_torch.kernels import paged_prefill as ppk
     pp = 65
     scratch = pp - 1
@@ -556,12 +592,7 @@ def check_paged_prefill(torch, dev, gen, flush) -> dict:
     # with the chunk keys, under the same boolean mask, in fp32 — and, for
     # context only, the same call in bf16
     rl = row.long()
-    pk = qz.PolarKeys(codes=codes[rl].transpose(0, 1), rho_scale=stats[0][rl]
-                      .transpose(0, 1), rho_zero=stats[1][rl].transpose(0, 1),
-                      theta_scale=stats[2][rl].transpose(0, 1),
-                      theta_zero=stats[3][rl].transpose(0, 1), rho_bits=4,
-                      theta_bits=4, pairing="half")
-    k_pre = qz.decode_polar_keys(pk, torch.float32).reshape(HKV, start, D)
+    k_pre = _paged_keys(torch, codes, stats, rl[None])[0]
     v_pre = vals[rl].transpose(0, 1).reshape(HKV, start, D).float()
     rep = QH
     k_all = torch.cat([k_pre, kc.float()], 1).repeat_interleave(rep, 0)
@@ -625,6 +656,20 @@ def _dequant(torch, bufs):
                       theta_scale=bufs[3], theta_zero=bufs[4], rho_bits=4,
                       theta_bits=4, pairing="half")
     return qz.decode_polar_keys(pk, torch.float32).reshape(SB, HKV, SMAX, D)
+
+
+def _paged_keys(torch, codes, stats, tl):
+    """fp32 keys of pool pages ``tl`` (S, N) -> (S, Hkv, N*g, d), for the
+    library yardsticks (computed outside the timed window)."""
+    from repro_torch.core import quantizers as qz
+    pk = qz.PolarKeys(codes=codes[tl].transpose(1, 2),
+                      rho_scale=stats[0][tl].transpose(1, 2),
+                      rho_zero=stats[1][tl].transpose(1, 2),
+                      theta_scale=stats[2][tl].transpose(1, 2),
+                      theta_zero=stats[3][tl].transpose(1, 2), rho_bits=4,
+                      theta_bits=4, pairing="half")
+    k = qz.decode_polar_keys(pk, torch.float32)
+    return k.reshape(tl.shape[0], HKV, tl.shape[1] * G, D)
 
 
 def _dense_flops(groups, with_attention=True):
@@ -731,16 +776,18 @@ def check_qk_scores(torch, dev, gen, flush) -> dict:
                      "(1152 tokens)"}
 
 
-def check_paged_backends(torch, dev, gen) -> float:
-    """One fragmented paged cache with a NaN-poisoned scratch page: the
-    paged engine's three decode backends agree within 1e-4 (fp32 q)."""
+def check_paged_backends(torch, dev, gen, value_bits=0) -> float:
+    """One fragmented paged cache with a NaN-poisoned scratch page, bf16
+    or ``value_bits``-bit values: the paged engine's three decode backends
+    agree within 1e-4 (fp32 q)."""
     from repro_torch.core import paged_cache as pgc
     from repro_torch.core.cache_layout import PagedLayout
     from repro_torch.core.quantizers import QuantConfig
     s, n = 8, 8
     lay = PagedLayout(page_size=G, num_pages=s * n, slots=s,
                       pages_per_slot=n)
-    c = pgc.init_paged_cache(QuantConfig(), lay, HKV, D, device=dev)
+    c = pgc.init_paged_cache(QuantConfig(value_bits=value_bits), lay, HKV,
+                             D, device=dev)
     perm = torch.randperm(lay.num_pages, generator=gen, device=dev)
     table = torch.full((s, n), lay.scratch_page, dtype=torch.int32,
                        device=dev)
@@ -752,7 +799,9 @@ def check_paged_backends(torch, dev, gen) -> float:
         v = torch.randn((1, HKV, npg * G, D), generator=gen, device=dev).to(
             torch.bfloat16)
         pgc.paged_prefill(c, sl, table[sl], k, v, tl)
-    for x in (*c.key_scales.values(), c.value_fp):
+    values = (c.value_fp,) if c.value_fp is not None else (c.value_scale,
+                                                            c.value_zero)
+    for x in (*c.key_scales.values(), *values):
         x[lay.scratch_page] = float("nan")
     q = torch.randn((s, HKV * QH, D), generator=gen, device=dev)
     outs = {b: pgc.paged_decode_attention(c, q, table, backend=b)
@@ -767,6 +816,288 @@ def check_paged_backends(torch, dev, gen) -> float:
     return err
 
 
+# uint8 value rows (QuantConfig.value_bits > 0): mid-tread codes with one
+# fp32 scale and zero per (token, kv head) row, in kernels #2, #4 and #5
+
+
+def _u8_values(torch, dev, gen, shape, bits=4):
+    """uint8 mid-tread codes of random value rows of ``shape`` and their
+    (…, 1) fp32 scale and zero (``quantizers.encode_values``)."""
+    from repro_torch.core import quantizers as qz
+    qv = qz.encode_values(torch.randn(shape, generator=gen, device=dev), bits)
+    return qv.codes, qv.scale, qv.zero
+
+
+def _poison_u8(vals, page):
+    """NaN scales and zeros, and the largest code, on ``page``."""
+    vc, vs, vz = vals
+    vc[page] = 255
+    vs[page] = float("nan")
+    vz[page] = float("nan")
+
+
+def _u8_row_bytes(rows: int) -> int:
+    """Bytes of ``rows`` uint8 value rows with their scales and zeros."""
+    return rows * (D + 8)
+
+
+def check_decode_u8(torch, dev, gen, flush) -> dict:
+    """Paged decode (#2) on uint8 value rows, at value_bits 4 and 8: slots
+    flushed 0 ... 896 over a fragmented table whose dead entries hit a
+    scratch page with NaN stats, scales and zeros; then the ``ops`` entry
+    with ragged lengths (the residual's rows dequantized in PyTorch) on a
+    width-sliced table; timed at 8 slots x 8 live pages."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode as pd
+    s, n, pp = 8, 8, 65
+    scratch = pp - 1
+    q, codes, *stats, _, table_t, fl_t = _decode_inputs(torch, dev, gen, s, n)
+    for x in stats:
+        x[scratch] = float("nan")
+    flushed = torch.arange(0, s * G, G, dtype=torch.int32, device=dev)
+    table = table_t.clone()
+    for sl in range(s):
+        table[sl, int(flushed[sl]) // G:] = scratch
+    errs = []
+    for bits in (4, 8):
+        vals = _u8_values(torch, dev, gen, (pp, HKV, G, D), bits)
+        _poison_u8(vals, scratch)
+        kw = {"vscale": vals[1], "vzero": vals[2]}
+        got = pd.polar_paged_decode_grouped(q, codes, *stats, vals[0], table,
+                                            flushed, **kw)
+        ref = pd.polar_paged_decode_grouped_plain(q, codes, *stats, vals[0],
+                                                  table, flushed, **kw)
+        torch.cuda.synchronize()
+        for a in got:
+            assert torch.isfinite(a).all(), "NaN leaked from the scratch page"
+        live = ref[2] > 0
+        o_k = got[0] / torch.where(live, got[2], 1.0)[..., None]
+        o_r = ref[0] / torch.where(live, ref[2], 1.0)[..., None]
+        for a, b in ((o_k, o_r), (got[1], ref[1]), (got[2], ref[2])):
+            torch.testing.assert_close(a, b, rtol=FP32_TOL, atol=FP32_TOL)
+        errs.append(float((o_k - o_r).abs().max()))
+    # end to end through ops: ragged lengths, the page being filled real
+    lengths = flushed + torch.tensor([5, 0, 127, 64, 1, 30, 100, 9],
+                                     dtype=torch.int32, device=dev)
+    for sl in range(s):
+        table[sl, int(flushed[sl]) // G] = table_t[sl, int(flushed[sl]) // G]
+    res = torch.randn((s, HKV, G, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    qf = torch.randn((s, HKV * QH, D), generator=gen, device=dev)
+    full_k = ops.polar_paged_decode_attention_full(
+        qf, codes, *stats, res, vals[0], table[:, :8], lengths, **kw)
+    with mock.patch.object(pd, "polar_paged_decode_grouped",
+                           pd.polar_paged_decode_grouped_plain):
+        full_p = ops.polar_paged_decode_attention_full(
+            qf, codes, *stats, res, vals[0], table[:, :8], lengths, **kw)
+    torch.testing.assert_close(full_k, full_p, rtol=FP32_TOL, atol=FP32_TOL)
+    errs.append(float((full_k - full_p).abs().max()))
+
+    # timing: every slot at 8 live pages (1024 tokens), 4-bit value codes
+    vc, vs, vz = _u8_values(torch, dev, gen, (pp, HKV, G, D), 4)
+    args = (q, codes, *stats, vc, table_t, fl_t)
+    kw = {"vscale": vs, "vzero": vz}
+    ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped(*args, **kw),
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped_plain(
+        *args, **kw), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    # yardstick only (the port never calls it): SDPA over the slots' keys
+    # and values gathered and dequantized beforehand, fp32, length mask
+    tl = table_t.long()
+    kf = _paged_keys(torch, codes, stats, tl).repeat_interleave(QH, 1)
+    vf = (vc[tl].float() * vs[tl] + vz[tl]).transpose(1, 2).reshape(
+        s, HKV, n * G, D).repeat_interleave(QH, 1)
+    mask = (torch.arange(n * G, device=dev)[None, :] < fl_t[:, None])[
+        :, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(q.reshape(s, HKV * QH, 1, D), kf,
+                                         vf, attn_mask=mask, scale=1.0),
+                     flush=flush)
+    pages = s * n * HKV
+    nbytes = q.numel() * 4 + pages * (G * P + 4 * P * 4 + _u8_row_bytes(G)) \
+        + table_t.numel() * 4 + s * 4 + s * HKV * QH * (D + 2) * 4
+    # as the bf16 form, plus p_t s_t and p_t z_t (4 per (query head, token))
+    flops = pages * (3 * QH * P * 16 + 2 * G * P + 2 * QH * G * P
+                     + 8 * QH * G + 2 * QH * G * D)
+    b_ms, by = bound(nbytes, flops, "fp32")
+    return {"name": "paged_decode[u8]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+            "replaces": "src/repro/kernels/paged_decode.py:81",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": "SDPA over gathered pre-dequantized keys and values "
+                       "(fp32, length mask)",
+            "shape": "8 slots x 4 kv heads x 8 query heads x 8 live pages, "
+                     "4-bit value codes"}
+
+
+def check_paged_prefill_u8(torch, dev, gen, flush) -> dict:
+    """Paged prefill (#4) on uint8 prefix values at value_bits 4 and 8:
+    start 0 ... 2048, full and ragged chunks, fp32 chunk K/V (the FMA
+    body) and bf16 (the tensor-core body, as served: it must take every
+    bf16 launch); NaN stats, scales and zeros on the scratch page behind
+    the dead entries and on the value page at ``start``, NaN chunk rows
+    past ``chunk_len``. Timed at start 1024 with a full bf16 chunk."""
+    from repro_torch.kernels import paged_prefill as ppk
+    pp = 65
+    scratch = pp - 1
+    qt = QH * TC
+    q, _, _, codes, *stats, _, _, _, _ = _prefill_inputs(torch, dev, gen, 0)
+    for x in stats:
+        x[scratch] = float("nan")
+    perm = torch.randperm(scratch, generator=gen, device=dev)[:32].to(
+        torch.int32)
+    errs = []
+    for bits in (4, 8):
+        vals = _u8_values(torch, dev, gen, (pp, HKV, G, D), bits)
+        _poison_u8(vals, scratch)
+        for start in (0, 384, 1024, 2048):
+            for clen in (TC, 77):
+                for kvdt in (torch.float32, torch.bfloat16):
+                    n_live = -(-(start + clen) // G)
+                    row = perm.clone()
+                    row[n_live:] = scratch
+                    v = [x.clone() for x in vals]
+                    _poison_u8(v, int(row[start // G]))
+                    kc, vc = (torch.randn((HKV, TC, D), generator=gen,
+                                          device=dev).to(kvdt)
+                              for _ in range(2))
+                    kc[:, clen:] = float("nan")
+                    vc[:, clen:] = float("nan")
+                    width = 1 << (n_live - 1).bit_length()
+                    args = (q, kc, vc, codes, *stats, v[0], row[:width],
+                            start, clen)
+                    kw = {"vscale": v[1], "vzero": v[2]}
+                    n_mma = ppk.launches_mma
+                    got = ppk.polar_paged_prefill_grouped(*args, **kw)
+                    assert ppk.launches_mma == n_mma + \
+                        (kvdt == torch.bfloat16), \
+                        "uint8 values with bf16 chunk K/V must run the " \
+                        "tensor-core body"
+                    ref = ppk.polar_paged_prefill_grouped_plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    assert torch.isfinite(got).all(), "NaN leaked"
+                    torch.testing.assert_close(got, ref, rtol=FP32_TOL,
+                                               atol=FP32_TOL)
+                    errs.append(float((got - ref).abs().max()))
+
+    # timing: start 1024 (8 live pages), a full bf16 chunk, 4-bit codes
+    start, n = 1024, 8
+    row = perm[:n].contiguous()
+    vc_p, vs, vz = _u8_values(torch, dev, gen, (pp, HKV, G, D), 4)
+    kc, vc = (torch.randn((HKV, TC, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    args = (q, kc, vc, codes, *stats, vc_p, row, start, TC)
+    kw = {"vscale": vs, "vzero": vz}
+    n_mma = ppk.launches_mma
+    ms = time_ms(torch, lambda: ppk.polar_paged_prefill_grouped(*args, **kw),
+                 flush=flush)
+    assert ppk.launches_mma > n_mma
+    plain_ms = time_ms(torch, lambda: ppk.polar_paged_prefill_grouped_plain(
+        *args, **kw), iters=5, flush=flush, lead_cycles=PLAIN_LEAD)
+    # yardstick only (the port never calls it): SDPA over the prefix keys
+    # and values dequantized beforehand, concatenated with the chunk's,
+    # under the same boolean mask, fp32
+    rl = row.long()
+    k_pre = _paged_keys(torch, codes, stats, rl[None])[0]
+    v_pre = (vc_p[rl].float() * vs[rl] + vz[rl]).transpose(0, 1).reshape(
+        HKV, start, D)
+    k_all = torch.cat([k_pre, kc.float()], 1).repeat_interleave(QH, 0)
+    v_all = torch.cat([v_pre, vc.float()], 1).repeat_interleave(QH, 0)
+    i = torch.arange(TC, device=dev)
+    mask = torch.cat([torch.ones((TC, start), dtype=torch.bool, device=dev),
+                      i[:, None] >= i[None, :]], 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(
+        q.reshape(HKV * QH, TC, D)[None], k_all[None], v_all[None],
+        attn_mask=mask, scale=1.0), flush=flush)
+    # the bf16 form's work (check_paged_prefill), with uint8 value rows:
+    # codes + 8 bytes of scale and zero per row, and per (kv head, page)
+    # the codes widened once (g*d) and per prefix (row, key) pair p_t s_t
+    # and p_t z_t (4) in fp32
+    causal = QH * TC * (TC + 1) // 2
+    pairs = HKV * (qt * start + causal)
+    nbytes = (HKV * n * (G * P + 4 * P * 4 + _u8_row_bytes(G)) + n * 4
+              + q.numel() * 4 + 2 * HKV * TC * D * 2 + HKV * qt * D * 4)
+    ops = {"bf16": 4.0 * D * pairs,
+           "fp32": HKV * n * (4 * P * 16 + 4 * G * P + G * D) + 4.0 * pairs
+           + 4.0 * HKV * qt * start}
+    b_ms, by = bound(nbytes, ops)
+    return {"name": "paged_prefill[u8]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_prefill.cu",
+            "replaces": "src/repro/kernels/paged_prefill.py:103",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": "SDPA over pre-dequantized keys and values (fp32, "
+                       "bool mask)",
+            "shape": "4 kv heads x 8 query heads x 256-token bf16 chunk "
+                     "over 8 prefix pages (1024 tokens), 4-bit value codes"}
+
+
+def check_polar_attention_u8(torch, dev, gen, flush) -> dict:
+    """Dense fused decode (#5) on uint8 value rows at value_bits 4 and 8:
+    per-row lengths (1024 and ragged: empty, partial and whole groups)
+    with every scale and zero past a row's length NaN; timed at the static
+    phase's decode shape (8 flushed groups) with 4-bit codes."""
+    from repro_torch.kernels import polar_attention as pak
+    bufs, _ = _dense_cache(torch, dev, gen)
+    q = torch.randn((SB, HKV, QH, D), generator=gen, device=dev) * D ** -0.5
+    errs = []
+    for bits in (4, 8):
+        for lens in ([1024] * SB, [1024, 900, 0, 128, 1, 513, 640, 1023]):
+            length = torch.tensor(lens, dtype=torch.int32, device=dev)
+            vc, vs, vz = _u8_values(torch, dev, gen, (SB, HKV, SMAX, D), bits)
+            st = [x.clone() for x in bufs[1:]]
+            for i, n in enumerate(lens):
+                vs[i, :, n:] = float("nan")
+                vz[i, :, n:] = float("nan")
+                for x in st:
+                    x[i, :, -(-n // G):] = float("nan")
+            kw = {"vscale": vs, "vzero": vz}
+            got = pak.polar_decode_attention_grouped(q, bufs[0], *st, vc,
+                                                     length, **kw)
+            ref = pak.polar_decode_attention_grouped_plain(q, bufs[0], *st,
+                                                           vc, length, **kw)
+            torch.cuda.synchronize()
+            for a, r in zip(got, ref):
+                assert torch.isfinite(a).all(), "NaN leaked from a dead row"
+                torch.testing.assert_close(a, r, rtol=FP32_TOL,
+                                           atol=FP32_TOL)
+                errs.append(float((a - r).abs().max()))
+    length = torch.full((SB,), 8 * G, dtype=torch.int32, device=dev)
+    vc, vs, vz = _u8_values(torch, dev, gen, (SB, HKV, SMAX, D), 4)
+    kw = {"vscale": vs, "vzero": vz}
+    ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped(
+        q, *bufs, vc, length, **kw), flush=flush)
+    plain_ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped_plain(
+        q, *bufs, vc, length, **kw), iters=10, flush=flush,
+        lead_cycles=PLAIN_LEAD)
+    # yardstick only (the port never calls it): SDPA over the keys and
+    # values dequantized beforehand, fp32, under the length mask
+    kf = _dequant(torch, bufs).repeat_interleave(QH, 1)
+    vf = (vc.float() * vs + vz).repeat_interleave(QH, 1)
+    mask = (torch.arange(SMAX, device=dev) < 8 * G)[None, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(q.reshape(SB, HKV * QH, 1, D), kf,
+                                         vf, attn_mask=mask, scale=1.0),
+                     flush=flush)
+    groups = SB * HKV * 8
+    nbytes = q.numel() * 4 + groups * (G * P + 4 * P * 4 + _u8_row_bytes(G)) \
+        + SB * 4 + SB * HKV * QH * (D + 2) * 4
+    # the bf16 form's work plus one FMA per staged code (c * s + z)
+    b_ms, by = bound(nbytes, _dense_flops(groups) + groups * 2 * G * D,
+                     "fp32")
+    return {"name": "polar_attention[u8]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/polar_attention.cu",
+            "replaces": "src/repro/kernels/polar_attention.py:84",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": "SDPA over pre-dequantized keys and values (fp32, "
+                       "length mask)",
+            "shape": "8 rows x 4 kv heads x 8 query heads x 8 flushed "
+                     "groups of a 1152-token buffer, 4-bit value codes"}
+
+
 def phase_kernels(torch) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -777,8 +1108,12 @@ def phase_kernels(torch) -> list[dict]:
             check_prefill(torch, dev, gen, flush),
             check_paged_prefill(torch, dev, gen, flush),
             check_polar_attention(torch, dev, gen, flush),
-            check_qk_scores(torch, dev, gen, flush)]
-    backends_err = check_paged_backends(torch, dev, gen)
+            check_qk_scores(torch, dev, gen, flush),
+            check_decode_u8(torch, dev, gen, flush),
+            check_paged_prefill_u8(torch, dev, gen, flush),
+            check_polar_attention_u8(torch, dev, gen, flush)]
+    backends_err = max(check_paged_backends(torch, dev, gen, vb)
+                       for vb in (0, 4))
     print("kernels: " + "; ".join(
         f"{r['name']} err {r['max_abs_err']:.3g} {r['ms']:.4f} ms "
         f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -787,8 +1122,9 @@ def phase_kernels(torch) -> list[dict]:
                               if r["library_ms"] is not None else "") + ")"
         for r in rows), flush=True)
     print(f"paged backends: jnp, gathered and paged_fused agree to "
-          f"{backends_err:.3g} (limit {FP32_TOL}) on a fragmented 8-slot "
-          "cache with a NaN scratch page", flush=True)
+          f"{backends_err:.3g} (limit {FP32_TOL}) on fragmented 8-slot "
+          "caches with a NaN scratch page, bf16 and 4-bit values",
+          flush=True)
     return rows
 
 
@@ -999,6 +1335,7 @@ def plain_kernels():
     (the reference runs of the model and static phases)."""
     from repro_torch.kernels import flash_prefill as fpk
     from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as ppk
     from repro_torch.kernels import polar_attention as pak
     from repro_torch.kernels import polar_encode as pe
     from repro_torch.kernels import polar_qk as qkk
@@ -1007,6 +1344,8 @@ def plain_kernels():
                polar_encode=pe.polar_encode_plain), \
             stack(pd, polar_paged_decode_grouped=
                   pd.polar_paged_decode_grouped_plain), \
+            stack(ppk, polar_paged_prefill_grouped=
+                  ppk.polar_paged_prefill_grouped_plain), \
             stack(fpk, flash_prefill=fpk.flash_prefill_plain), \
             stack(pak, polar_decode_attention_grouped=
                   pak.polar_decode_attention_grouped_plain), \
@@ -1077,14 +1416,17 @@ def check_events(events, reqs) -> None:
         assert ts == sorted(ts)
 
 
-def phase_serve(torch, model, params, counters) -> dict:
+def phase_serve(torch, model, params, counters, n_req=16, new=64, seed=0,
+                label="serve") -> dict:
+    """``n_req`` greedy requests (prompts 100-900 tokens, ``new`` tokens,
+    20 ms apart) through the classic paged engine: 8 slots, max_len
+    1024."""
     import numpy as np
     from repro_torch.serve import (
         ContinuousBatchingEngine, GenerationConfig, Request,
     )
     cfg = model.cfg
-    rng = np.random.default_rng(0)
-    n_req, new = 16, 64
+    rng = np.random.default_rng(seed)
     lens = rng.integers(100, 901, n_req)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (int(t),))
                     .astype(np.int32), max_new_tokens=new,
@@ -1092,12 +1434,10 @@ def phase_serve(torch, model, params, counters) -> dict:
     eng = ContinuousBatchingEngine(model, params, max_slots=8, max_len=1024)
     eng.warmup([int(t) for t in lens])
     torch.cuda.synchronize()
-    for mod in counters:
-        mod.launches = 0
+    reset_counts(counters)
     out = eng.run(reqs, GenerationConfig())
     torch.cuda.synchronize()
-    launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches
-                for mod in counters}
+    launches = read_counts(counters)
     done = out["requests"]
     assert len(done) == n_req and all(r.done_tokens == new for r in done)
     check_events(out["events"], done)
@@ -1105,12 +1445,13 @@ def phase_serve(torch, model, params, counters) -> dict:
     # a prefill encodes only when the prompt fills at least one group;
     # every decode step launches the (masked) flush encode
     full = sum(int(t) >= G for t in lens)
-    expect = {"polar_encode": nl * (full + steps),
-              "paged_decode": nl * steps, "flash_prefill": nl * pre,
-              "paged_prefill": 0, "polar_attention": 0, "polar_qk": 0}
+    expect = {**dict.fromkeys(launches, 0),
+              "polar_encode": nl * (full + steps),
+              f"paged_decode{value_form(cfg)}": nl * steps,
+              "flash_prefill": nl * pre}
     assert launches == expect, (launches, expect)
     assert pre == n_req
-    print(f"serve: {n_req} requests x {new} tokens, 8 slots, max_len 1024, "
+    print(f"{label}: {n_req} requests x {new} tokens, 8 slots, max_len 1024, "
           f"{out['total_tokens']} tokens in {out['wall_s']:.3f} s = "
           f"{out['tokens_per_s']:.1f} tok/s; TTFT p50 "
           f"{out['p50_ttft_s'] * 1e3:.1f} ms p99 "
@@ -1139,20 +1480,22 @@ def _chunk_plan(ctx_lens, hits, c):
     return n, full
 
 
-def phase_prefix(torch, model, params, counters) -> dict:
-    """12 greedy requests that share one 1024-token system prompt: rid 0
-    at t = 0, the rest at t = 5 s (the idle clock jumps there, so rid 0's
-    prompt pages are registered before any later admission). Served
-    chunked with the prefix cache, then chunked without it; returns the
-    launches of both runs, summed."""
+def phase_prefix(torch, model, params, counters, n_req=12, new=32, seed=3,
+                 arms=(True, False), label="prefix") -> dict:
+    """``n_req`` greedy requests that share one 1024-token system prompt:
+    rid 0 at t = 0, the rest at t = 5 s (the idle clock jumps there, so
+    rid 0's prompt pages are registered before any later admission).
+    Served chunked with the prefix cache and/or without it (``arms``: the
+    streams of the two must be equal); returns the launches of the runs,
+    summed."""
     import numpy as np
     from repro_torch.kernels import paged_prefill as ppk
     from repro_torch.serve import (
         ContinuousBatchingEngine, GenerationConfig, Request,
     )
     cfg = model.cfg
-    rng = np.random.default_rng(3)
-    n_req, new, sys_len = 12, 32, 1024
+    rng = np.random.default_rng(seed)
+    sys_len = 1024
     system = rng.integers(0, cfg.vocab_size, (sys_len,)).astype(np.int32)
     suffixes = [rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32)
                 for t in rng.integers(32, 401, n_req)]
@@ -1164,19 +1507,17 @@ def phase_prefix(torch, model, params, counters) -> dict:
                 for i, p in enumerate(prompts)]
 
     runs, launches = {}, {}
-    for shared in (True, False):
+    form = value_form(cfg)
+    for shared in arms:
         eng = ContinuousBatchingEngine(model, params, max_slots=8,
                                        max_len=2048, prefill_chunk=TC,
                                        prefix_cache=shared)
         eng.warmup([len(p) for p in prompts])
         torch.cuda.synchronize()
-        for mod in counters:
-            mod.launches = 0
-        ppk.launches_mma = 0
+        reset_counts(counters)
         out = eng.run(reqs(), GenerationConfig())
         torch.cuda.synchronize()
-        got = {mod.__name__.rsplit(".", 1)[1]: mod.launches
-               for mod in counters}
+        got = read_counts(counters)
         mma = ppk.launches_mma
         done = out["requests"]
         assert len(done) == n_req and all(r.done_tokens == new for r in done)
@@ -1184,25 +1525,26 @@ def phase_prefix(torch, model, params, counters) -> dict:
         hits = [0] + [sys_len] * (n_req - 1) if shared else [0] * n_req
         chunks, full = _chunk_plan([len(p) for p in prompts], hits, TC)
         nl, steps = cfg.num_layers, out["decode_steps"]
-        expect = {"polar_encode": nl * (full + steps),
-                  "paged_decode": nl * steps, "flash_prefill": 0,
-                  "paged_prefill": nl * chunks, "polar_attention": 0,
-                  "polar_qk": 0}
+        expect = {**dict.fromkeys(got, 0),
+                  "polar_encode": nl * (full + steps),
+                  f"paged_decode{form}": nl * steps,
+                  f"paged_prefill{form}": nl * chunks}
         assert got == expect, (shared, got, expect)
         assert mma == nl * chunks, ("paged prefill off the tensor cores",
                                     mma, nl * chunks)
         assert out["prefills"] == chunks
         assert out["cow_splits"] == 0
         runs[shared], launches[shared] = out, got
-    sh, un = runs[True], runs[False]
-    tok = {r.rid: r.out_tokens for r in sh["requests"]}
-    assert tok == {r.rid: r.out_tokens for r in un["requests"]}, \
+    streams = [{r.rid: r.out_tokens for r in out["requests"]}
+               for out in runs.values()]
+    assert all(x == streams[0] for x in streams), \
         "greedy streams differ with and without the prefix cache"
-    assert sh["adopted_pages"] == (n_req - 1) * (sys_len // G), \
-        sh["adopted_pages"]
-    assert un["adopted_pages"] == 0
-    for name, out in (("shared", sh), ("unshared", un)):
-        print(f"prefix[{name}]: {n_req} requests x {new} tokens (1024-token "
+    for shared, out in runs.items():
+        assert out["adopted_pages"] == \
+            (n_req - 1) * (sys_len // G) * shared, out["adopted_pages"]
+    for shared, out in runs.items():
+        name = "shared" if shared else "unshared"
+        print(f"{label}[{name}]: {n_req} requests x {new} tokens (1024-token "
               f"system prompt + 32-400-token suffixes), 8 slots, max_len "
               f"2048, chunk {TC}: {out['total_tokens']} tokens in "
               f"{out['wall_s']:.3f} s = {out['tokens_per_s']:.1f} tok/s; "
@@ -1213,9 +1555,9 @@ def phase_prefix(torch, model, params, counters) -> dict:
               f"hit rate {out['prefix_hit_rate']:.3f}, adopted pages "
               f"{out['adopted_pages']}, bytes saved "
               f"{out.get('prefix_pool_bytes_saved', 0)}; launches "
-              f"{json.dumps(launches[name == 'shared'])} (paged_prefill "
-              "all on the tensor-core body)", flush=True)
-    return {k: launches[True][k] + launches[False][k] for k in launches[True]}
+              f"{json.dumps(launches[shared])} (paged_prefill all on the "
+              "tensor-core body)", flush=True)
+    return {k: sum(x[k] for x in launches.values()) for k in launches[arms[0]]}
 
 
 # ---------------------------------------------------------------------------
@@ -1235,13 +1577,30 @@ def _teacher_logits(torch, model, params, prompts, tokens, steps):
     return torch.stack(out), state
 
 
-def phase_static(torch, cfg, params, counters) -> dict:
+def _static_layer_bytes(method: str, value_bits: int) -> int:
+    """Bytes of one layer's dense cache at the static shape (8 rows, 4 kv
+    heads, 1152 tokens, d 64, g 128): polar keys as one code byte per pair,
+    four fp32 stat rows per group and the bf16 residual group, or bf16
+    keys for ``"none"``; values as bf16 rows, or uint8 codes with an fp32
+    scale and zero per row; the int32 length."""
+    rows = SB * HKV * SMAX
+    keys = rows * P + 4 * SB * HKV * SG * P * 4 + SB * HKV * G * D * 2 \
+        if method == "polar" else rows * D * 2
+    return keys + (rows * (D + 8) if value_bits else rows * D * 2) + 4
+
+
+STATIC_RUNS = (("polar", "jnp"), ("polar", "paged_fused"), ("none", "jnp"))
+
+
+def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
+                 label="static") -> dict:
     """``ServeEngine`` at full width: 8 rows, 1000-token prompts (one group
     flush, at position 1023, falls inside the decode loop), 64 greedy new
-    tokens, max_len 1152; polar on the score-only route (``"jnp"``), polar
-    on the fused route (``"paged_fused"``) and the fp ``"none"`` cache.
-    Counters are set to 0 just before each generate and read just after;
-    returns the launches of the three runs, summed."""
+    tokens, max_len 1152; ``runs`` of (codec, decode route): polar on the
+    score-only route (``"jnp"``), polar on the fused route
+    (``"paged_fused"``) and the fp ``"none"`` cache. Counters are set to 0
+    just before each generate and read just after; returns the launches of
+    the runs, summed."""
     import dataclasses
     import numpy as np
     from repro_torch.core import kv_cache as kvc
@@ -1254,8 +1613,8 @@ def phase_static(torch, cfg, params, counters) -> dict:
     nl, steps = cfg.num_layers, SNEW - 1
     total: dict = {}
     models, toks, per_layer = {}, {}, {}
-    for method, backend in (("polar", "jnp"), ("polar", "paged_fused"),
-                            ("none", "jnp")):
+    vb = cfg.quant.value_bits
+    for method, backend in runs:
         name = f"{method}/{backend}"
         model = get_model(dataclasses.replace(
             cfg, decode_backend=backend,
@@ -1263,31 +1622,29 @@ def phase_static(torch, cfg, params, counters) -> dict:
         eng = ServeEngine(model, params, max_len=SMAX)
         eng.generate({"tokens": prompts}, GenerationConfig(max_new_tokens=2))
         torch.cuda.synchronize()
-        for mod in counters:
-            mod.launches = 0
+        reset_counts(counters)
         out = eng.generate({"tokens": prompts},
                            GenerationConfig(max_new_tokens=SNEW))
         torch.cuda.synchronize()
-        got = {mod.__name__.rsplit(".", 1)[1]: mod.launches
-               for mod in counters}
+        got = read_counts(counters)
         polar = method == "polar"
         # prefill encodes its 7 full groups in one launch per layer, the
         # append at position 1023 flushes once; one attention launch per
         # layer and decode step on the run's route
-        expect = {"polar_encode": 2 * nl if polar else 0, "paged_decode": 0,
-                  "flash_prefill": nl, "paged_prefill": 0,
-                  "polar_attention": nl * steps if polar and
-                  backend == "paged_fused" else 0,
-                  "polar_qk": nl * steps if polar and backend == "jnp"
-                  else 0}
+        route = ("polar_attention" + value_form(cfg)
+                 if backend == "paged_fused" else "polar_qk")
+        expect = {**dict.fromkeys(got, 0), "polar_encode": 2 * nl * polar,
+                  "flash_prefill": nl}
+        if polar:
+            expect[route] = nl * steps
         assert got == expect, (name, got, expect)
         assert out["tokens"].shape == (SB, SNEW)
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
         models[name], toks[name] = model, out["tokens"]
         per_layer[name] = out["cache_bytes_per_layer"]
-        assert len(set(per_layer[name])) == 1 and \
-            out["cache_bytes"] == nl * per_layer[name][0]
+        assert per_layer[name] == [_static_layer_bytes(method, vb)] * nl \
+            and out["cache_bytes"] == nl * per_layer[name][0], per_layer[name]
         gate = ""
         if polar:
             # gate 1: the logits after prefill and over the first 8 decode
@@ -1306,7 +1663,7 @@ def phase_static(torch, cfg, params, counters) -> dict:
                     f"(prefill {float(rel[0].max()):.3e}, limit "
                     f"{MODEL_REL_L2})")
         bits = kvc.cache_logical_bits(model.init_decode_state(1, G, dev)[0])
-        print(f"static[{name}]: {SB} rows x {SPROMPT}-token prompts, "
+        print(f"{label}[{name}]: {SB} rows x {SPROMPT}-token prompts, "
               f"{SNEW} greedy tokens, max_len {SMAX}: prefill "
               f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s = "
               f"{out['tokens_per_s']:.1f} tok/s; cache "
@@ -1314,12 +1671,14 @@ def phase_static(torch, cfg, params, counters) -> dict:
               f"({bits:.2f} logical key "
               f"bits/element){gate}; launches {json.dumps(got)}",
               flush=True)
-    ratio = per_layer["polar/jnp"][0] / per_layer["none/jnp"][0]
-    assert per_layer["polar/jnp"] == per_layer["polar/paged_fused"]
+    polar_bytes = per_layer["polar/jnp"][0]
     a, b = toks["polar/jnp"], toks["polar/paged_fused"]
     same = a == b
-    line = (f"static: cache bytes per layer polar / fp = {ratio:.4f}; "
-            f"greedy tokens of the score-only and fused routes agree on "
+    line = (f"{label}: cache bytes per layer polar / fp = "
+            f"{polar_bytes / _static_layer_bytes('none', 0):.4f}, polar / "
+            f"polar with bf16 values = "
+            f"{polar_bytes / _static_layer_bytes('polar', 0):.4f}; greedy "
+            f"tokens of the score-only and fused routes agree on "
             f"{float(same.mean()):.4f} of {same.size}")
     if not same.all():
         # the earliest step at which any row differs: every row fed both
@@ -1339,6 +1698,84 @@ def phase_static(torch, cfg, params, counters) -> dict:
                  f"{margins[1]:.4f} (fused route)")
     print(line + f"; phase {time.monotonic() - t_phase:.1f} s", flush=True)
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 8: quantized values (QuantConfig(value_bits=4)) at full width
+# ---------------------------------------------------------------------------
+
+
+def _values_gate(torch, model, params) -> tuple[float, float]:
+    """Max rel. L2 of the logits, kernels vs plain versions, over a
+    1100-token prompt prefilled in 256-token chunks (kernel #4 on uint8
+    prefix values from the second chunk on) and 16 teacher-forced decode
+    steps (kernel #2); and the prefill's own."""
+    from repro_torch.core.cache_layout import PagedLayout
+    dev = torch.device("cuda")
+    rng = torch.Generator(device="cpu")
+    rng.manual_seed(5)
+    t0, steps, pages = 1100, 16, 16
+    toks = torch.randint(0, model.cfg.vocab_size, (t0 + steps,),
+                         generator=rng)
+    layout = PagedLayout(page_size=G, num_pages=pages, slots=1,
+                         pages_per_slot=pages)
+    table = torch.arange(pages, dtype=torch.int32, device=dev)[None]
+
+    def run():
+        state = model.init_paged_state(layout, dev)
+        for start in range(0, t0, TC):
+            n = min(TC, t0 - start)
+            chunk = torch.zeros((1, TC), dtype=torch.long)
+            chunk[0, :n] = toks[start:start + n]
+            lg, _ = model.prefill_paged_chunk(params, chunk.to(dev), state, 0,
+                                              table[0], start, n)
+        out = [lg.float()]
+        active = torch.ones((1,), dtype=torch.bool, device=dev)
+        for i in range(steps):
+            lg, _ = model.decode_paged(params, state,
+                                       toks[t0 + i:t0 + i + 1].to(dev),
+                                       table, active)
+            out.append(lg.float())
+        return torch.stack(out)
+
+    kern = run()
+    with plain_kernels():
+        plain = run()
+    rel = ((kern - plain).norm(dim=-1) / plain.norm(dim=-1)).flatten()
+    assert torch.isfinite(kern).all()
+    assert float(rel.max()) <= MODEL_REL_L2, f"logits drift {rel.tolist()}"
+    return float(rel.max()), float(rel[0])
+
+
+def phase_values(torch, cfg, params, counters) -> dict:
+    """Full-width tinyllama-1.1b with ``QuantConfig(value_bits=4)`` on the
+    same weights: a logit gate on the paged path (chunked prefill + decode,
+    kernels vs plain versions); the ``serve`` phase's classic paged serving
+    with 8 requests of 32 tokens; the ``prefix`` phase's chunked prefill
+    with the shared-prefix cache, 6 requests of 16 tokens, shared arm only
+    (every uint8 paged prefill launch on the tensor-core body); the
+    ``static`` phase's two polar routes, gated against their plain paths,
+    with their cache bytes per layer. Returns the launches of the serving
+    runs, summed."""
+    import dataclasses
+    from repro_torch.models import get_model
+    t_phase = time.monotonic()
+    vcfg = dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, value_bits=4))
+    model = get_model(vcfg)
+    gate, gate_pre = _values_gate(torch, model, params)
+    print(f"values[gate]: 4-bit values, 1100-token prompt in {TC}-token "
+          f"chunks + 16 teacher-forced decode steps; relative L2 logit error "
+          f"kernel vs plain per step max {gate:.3e} (prefill {gate_pre:.3e}, "
+          f"limit {MODEL_REL_L2})", flush=True)
+    runs = [phase_serve(torch, model, params, counters, n_req=8, new=32,
+                        seed=6, label="values:serve"),
+            phase_prefix(torch, model, params, counters, n_req=6, new=16,
+                         seed=7, arms=(True,), label="values:prefix"),
+            phase_static(torch, vcfg, params, counters, runs=STATIC_RUNS[:2],
+                         label="values:static")]
+    print(f"values: phase {time.monotonic() - t_phase:.1f} s", flush=True)
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
 def phase_profile(torch, model, params) -> None:
@@ -1434,13 +1871,14 @@ def main() -> int:
     serve = phase_serve(torch, model, params, counters)
     prefix = phase_prefix(torch, model, params, counters)
     static = phase_static(torch, cfg, params, counters)
+    values = phase_values(torch, cfg, params, counters)
     phase_profile(torch, model, params)
 
-    print("launches per serving phase: " + json.dumps(
-        {"serve": serve, "prefix": prefix, "static": static}), flush=True)
+    phases = {"serve": serve, "prefix": prefix, "static": static,
+              "values": values}
+    print("launches per serving phase: " + json.dumps(phases), flush=True)
     for r in rows:
-        r["launches"] = serve[r["name"]] + prefix[r["name"]] \
-            + static[r["name"]]
+        r["launches"] = sum(p[r["name"]] for p in phases.values())
         assert r["launches"] > 0, f"{r['name']} never ran on the main path"
     print(f"total: {time.monotonic() - t_start:.1f} s, kernel builds "
           "included", flush=True)

@@ -202,15 +202,18 @@ class PolarCodec(KeyCodec):
 
     def fused_decode(self, cache, q, *, scale):
         # LUT scores fused with the value matmul over the flushed groups,
-        # merged exactly with the fp residual segment
+        # merged exactly with the fp residual segment; uint8 value rows
+        # travel with their row scale and zero
+        from repro_torch.core.kv_cache import value_buffers
         from repro_torch.kernels import ops
         cfg = cache.cfg
         sc = cache.key_scales
+        values, vscale, vzero = value_buffers(cache)
         return ops.polar_decode_attention_full(
             q, cache.key_codes, sc["rho_scale"], sc["rho_zero"],
             sc["theta_scale"], sc["theta_zero"], cache.key_residual,
-            cache.value_fp, cache.length, r_bits=cfg.rho_bits,
-            t_bits=cfg.theta_bits, softmax_scale=scale)
+            values, cache.length, vscale=vscale, vzero=vzero,
+            r_bits=cfg.rho_bits, t_bits=cfg.theta_bits, softmax_scale=scale)
 
     def encode_pages(self, cfg, k, pages, codes_pool, scale_pools):
         # the hand-written encode kernel writes codes and stats straight
@@ -226,28 +229,32 @@ class PolarCodec(KeyCodec):
     def paged_decode(self, cache, q, page_table, *, scale):
         # page-native hot path: the kernel walks the page table and reads
         # codes/stats/values in place — no gathered dense copy
+        from repro_torch.core.kv_cache import value_buffers
         from repro_torch.kernels import ops
         cfg = cache.cfg
         sc = cache.key_scales
+        values, vscale, vzero = value_buffers(cache)
         return ops.polar_paged_decode_attention_full(
             q, cache.key_codes, sc["rho_scale"], sc["rho_zero"],
             sc["theta_scale"], sc["theta_zero"], cache.key_residual,
-            cache.value_fp, page_table, cache.lengths, r_bits=cfg.rho_bits,
-            t_bits=cfg.theta_bits, softmax_scale=scale)
+            values, page_table, cache.lengths, vscale=vscale, vzero=vzero,
+            r_bits=cfg.rho_bits, t_bits=cfg.theta_bits, softmax_scale=scale)
 
     def paged_prefill(self, cache, q, k_chunk, v_chunk, page_row, start,
                       chunk_len, *, scale):
         # page-native chunk prefill: LUT scores + online softmax walk the
         # prefix pages in place; the chunk's fp causal tile shares the same
         # flash carry — no full-row gather, no dense score spill
+        from repro_torch.core.kv_cache import value_buffers
         from repro_torch.kernels import ops
         cfg = cache.cfg
         sc = cache.key_scales
+        values, vscale, vzero = value_buffers(cache)
         return ops.polar_paged_prefill_attention(
             q, k_chunk, v_chunk, cache.key_codes, sc["rho_scale"],
-            sc["rho_zero"], sc["theta_scale"], sc["theta_zero"],
-            cache.value_fp, page_row, start, chunk_len, r_bits=cfg.rho_bits,
-            t_bits=cfg.theta_bits, softmax_scale=scale)
+            sc["rho_zero"], sc["theta_scale"], sc["theta_zero"], values,
+            page_row, start, chunk_len, vscale=vscale, vzero=vzero,
+            r_bits=cfg.rho_bits, t_bits=cfg.theta_bits, softmax_scale=scale)
 
 
 register_codec(NoneCodec())

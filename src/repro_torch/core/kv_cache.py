@@ -11,7 +11,11 @@ encode/decode and the score path. Buffers:
   in ``cfg.residual_dtype`` — the tokens of the not-yet-full group;
 * token-wise codecs (the fp passthrough ``"none"``): ``key_codes``
   (B, Hkv, T, ·) and per-token ``key_scales`` (``{}`` for ``"none"``);
-* ``value_fp`` (B, Hkv, T, d) token-major values in the model dtype.
+* values, token-major: ``value_fp`` (B, Hkv, T, d) in the model dtype,
+  or, under ``cfg.value_bits > 0``, ``value_codes`` (B, Hkv, T, d) uint8
+  mid-tread codes with one ``value_scale`` / ``value_zero`` (B, Hkv, T, 1)
+  in ``cfg.scale_dtype`` per (token, kv head) row; the other form is
+  ``None``.
 
 ``flushed = (length // g) * g`` tokens live in quantized groups; positions
 ``[flushed, length)`` live in the residual at row ``pos % g`` (which is
@@ -35,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import quantizers as qz
 from repro_torch.core.cache_layout import LinearLayout
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.utils import resolve_device, torch_dtype
@@ -47,7 +52,10 @@ class KVCache:
     key_codes: torch.Tensor          # codec codes (fp keys for "none")
     key_scales: dict                 # codec stat arrays (may be {})
     key_residual: Optional[torch.Tensor]   # grouped codecs only
-    value_fp: torch.Tensor           # (B, Hkv, T, d)
+    value_codes: Optional[torch.Tensor]    # (B, Hkv, T, d) uint8
+    value_scale: Optional[torch.Tensor]    # (B, Hkv, T, 1)
+    value_zero: Optional[torch.Tensor]     # (B, Hkv, T, 1)
+    value_fp: Optional[torch.Tensor]       # (B, Hkv, T, d)
     length: torch.Tensor             # () or (B,) int32
     cfg: QuantConfig
     max_len: int
@@ -60,7 +68,7 @@ class KVCache:
 
     @property
     def head_dim(self) -> int:
-        return self.value_fp.shape[-1]
+        return value_buffers(self)[0].shape[-1]
 
     @property
     def codec(self):
@@ -77,9 +85,6 @@ def init_cache(cfg: QuantConfig, batch: int, num_kv_heads: int,
     """Allocate an empty linear cache of ``max_len`` tokens on ``device``
     (the card unless named)."""
     device = resolve_device(device)
-    if cfg.value_bits:
-        raise ValueError("quantized values come in a later slice of the "
-                         "port (value_bits must be 0)")
     b, h, d = batch, num_kv_heads, head_dim
     codec = cfg.codec
     key_codes, key_scales = codec.init_buffers(cfg, (b, h), max_len, d,
@@ -92,9 +97,54 @@ def init_cache(cfg: QuantConfig, batch: int, num_kv_heads: int,
     return KVCache(
         key_codes=key_codes, key_scales=key_scales,
         key_residual=key_residual,
-        value_fp=torch.zeros((b, h, max_len, d), dtype=dtype, device=device),
+        **init_values(cfg, (b, h, max_len), d, dtype, device),
         length=torch.zeros((), dtype=torch.int32, device=device), cfg=cfg,
         max_len=max_len, layout=LinearLayout(max_len), host_length=0)
+
+
+def init_values(cfg: QuantConfig, lead: tuple, head_dim: int, dtype,
+                device) -> dict:
+    """Zeroed value buffers of token-major shape ``(*lead, head_dim)``:
+    uint8 codes + (…, 1) scale and zero under ``cfg.value_bits > 0``, else
+    fp rows in ``dtype``; as the four ``value_*`` fields."""
+    if not cfg.value_bits:
+        return {"value_codes": None, "value_scale": None, "value_zero": None,
+                "value_fp": torch.zeros((*lead, head_dim), dtype=dtype,
+                                        device=device)}
+    sdt = torch_dtype(cfg.scale_dtype)
+    return {"value_codes": torch.zeros((*lead, head_dim), dtype=torch.uint8,
+                                       device=device),
+            "value_scale": torch.zeros((*lead, 1), dtype=sdt, device=device),
+            "value_zero": torch.zeros((*lead, 1), dtype=sdt, device=device),
+            "value_fp": None}
+
+
+def value_buffers(cache):
+    """(values, vscale, vzero) of a dense or paged cache: the uint8 codes
+    with their row scale and zero, or the fp rows with ``None, None``."""
+    if cache.value_codes is not None:
+        return cache.value_codes, cache.value_scale, cache.value_zero
+    return cache.value_fp, None, None
+
+
+def value_fields(cfg: QuantConfig, v: torch.Tensor) -> dict:
+    """What the value buffers store for rows ``v`` (…, T, d) under
+    ``cfg``: ``{"value_fp": v}``, or the token-wise mid-tread encode
+    ``{"value_codes", "value_scale", "value_zero"}``."""
+    if not cfg.value_bits:
+        return {"value_fp": v}
+    qv = qz.encode_values(v, cfg.value_bits, cfg.scale_dtype)
+    return {"value_codes": qv.codes, "value_scale": qv.scale,
+            "value_zero": qv.zero}
+
+
+def dequant_rows(values: torch.Tensor, vscale=None,
+                 vzero=None) -> torch.Tensor:
+    """fp32 value rows: uint8 mid-tread codes · ``vscale`` + ``vzero`` (one
+    per row, last dim 1), or the fp rows cast when ``vscale`` is None."""
+    if vscale is None:
+        return values.float()
+    return qz.affine_decode(values, vscale, vzero, "midtread")
 
 
 def append(cache: KVCache, k_new: torch.Tensor,
@@ -110,7 +160,9 @@ def append(cache: KVCache, k_new: torch.Tensor,
         raise ValueError("append needs a lock-step () length")
     if pos >= cache.max_len:
         raise ValueError(f"linear cache of capacity {cache.max_len} is full")
-    cache.value_fp[:, :, pos] = v_new[:, :, 0].to(cache.value_fp.dtype)
+    for key, rows in value_fields(cfg, v_new).items():
+        buf = getattr(cache, key)
+        buf[:, :, pos] = rows[:, :, 0].to(buf.dtype)
     if not codec.grouped:
         codes, scales = codec.encode(cfg, k_new)
         cache.key_codes[:, :, pos] = codes[:, :, 0].to(cache.key_codes.dtype)
@@ -139,7 +191,9 @@ def prefill(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
     codec = cache.codec
     t = k.shape[2]
     cache.layout.prefill_offset(t)          # capacity check
-    cache.value_fp[:, :, :t] = v.to(cache.value_fp.dtype)
+    for key, rows in value_fields(cfg, v).items():
+        buf = getattr(cache, key)
+        buf[:, :, :t] = rows.to(buf.dtype)
     if not codec.grouped:
         codes, scales = codec.encode(cfg, k)
         cache.key_codes[:, :, :t] = codes.to(cache.key_codes.dtype)
@@ -216,7 +270,8 @@ def decode_attention(cache: KVCache, q: torch.Tensor,
         scores = torch.where(bc(valid_g | in_res), key_scores(cache, q4),
                              neg)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqt,bhtd->bhqd", probs, cache.value_fp.float())
+    out = torch.einsum("bhqt,bhtd->bhqd", probs,
+                       dequant_rows(*value_buffers(cache)))
     return out.reshape(b, hq, d).to(q.dtype)
 
 

@@ -13,7 +13,10 @@ masked-write scratch page, ``S`` = slots, ``g`` = page size):
 * ``key_scales``   dict of four (PP, H, 1, P) fp32 stat pools
 * ``key_residual`` (S, H, g, d) per-slot not-yet-full group
   (``cfg.residual_dtype``)
-* ``value_fp``     (PP, H, g, d) token-major value rows (model dtype)
+* ``value_fp``     (PP, H, g, d) token-major value rows (model dtype), or
+  under ``cfg.value_bits > 0`` ``value_codes`` (PP, H, g, d) uint8 with
+  ``value_scale`` / ``value_zero`` (PP, H, g, 1) (``cfg.scale_dtype``),
+  one per (token, kv head) row; the other form is ``None``
 * ``lengths``      (S,) int32 per-slot token counts
 
 Value rows for positions ``[0, len)`` live in pages (row ``pos % g`` of
@@ -47,7 +50,10 @@ class PagedKVCache:
     key_codes: torch.Tensor          # (PP, H, g, P) uint8
     key_scales: dict                 # four (PP, H, 1, P) stat pools
     key_residual: torch.Tensor       # (S, H, g, d)
-    value_fp: torch.Tensor           # (PP, H, g, d)
+    value_codes: torch.Tensor | None     # (PP, H, g, d) uint8
+    value_scale: torch.Tensor | None     # (PP, H, g, 1)
+    value_zero: torch.Tensor | None      # (PP, H, g, 1)
+    value_fp: torch.Tensor | None        # (PP, H, g, d)
     lengths: torch.Tensor            # (S,) int32
     cfg: QuantConfig
     layout: PagedLayout
@@ -67,9 +73,6 @@ def init_paged_cache(cfg: QuantConfig, layout: PagedLayout, num_kv_heads: int,
     if not codec.grouped or not codec.supports_paged_decode:
         raise ValueError(f"codec {cfg.method!r} has no paged path in this "
                          "port")
-    if cfg.value_bits:
-        raise ValueError("quantized values come in a later slice of the "
-                         "port (value_bits must be 0)")
     if layout.page_size != cfg.group_size:
         raise ValueError(
             f"page_size {layout.page_size} must equal group_size "
@@ -86,7 +89,7 @@ def init_paged_cache(cfg: QuantConfig, layout: PagedLayout, num_kv_heads: int,
         key_residual=torch.zeros((s, h, g, d),
                                  dtype=torch_dtype(cfg.residual_dtype),
                                  device=device),
-        value_fp=torch.zeros((pp, h, g, d), dtype=dtype, device=device),
+        **kvc.init_values(cfg, (pp, h, g), d, dtype, device),
         lengths=torch.zeros((s,), dtype=torch.int32, device=device),
         cfg=cfg, layout=layout)
 
@@ -124,9 +127,11 @@ def paged_prefill(cache: PagedKVCache, slot: int, page_row: torch.Tensor,
 
     # --- values: token-major rows of every touched page ---
     if ntouch:
-        vp = v[0, :, :ntouch * g].reshape(h, ntouch, g, d).transpose(0, 1)
-        cache.value_fp.index_copy_(0, page_row[p0:p0 + ntouch].long(),
-                                   vp.to(cache.value_fp.dtype))
+        pages = page_row[p0:p0 + ntouch].long()
+        for key, x in kvc.value_fields(cfg, v[:, :, :ntouch * g]).items():
+            buf = getattr(cache, key)
+            xp = x[0].reshape(h, ntouch, g, x.shape[-1]).transpose(0, 1)
+            buf.index_copy_(0, pages, xp.to(buf.dtype))
 
     # --- keys: full groups encoded straight into their pages ---
     k_rdt = k.to(torch_dtype(cfg.residual_dtype))
@@ -171,7 +176,8 @@ def paged_prefill_attention(cache: PagedKVCache, q: torch.Tensor,
 
 
 def _pool_buffers(cache: PagedKVCache) -> list[torch.Tensor]:
-    return [cache.key_codes, *cache.key_scales.values(), cache.value_fp]
+    values = [x for x in kvc.value_buffers(cache) if x is not None]
+    return [cache.key_codes, *cache.key_scales.values(), *values]
 
 
 def copy_pool_pages(cache: PagedKVCache, src: int, dst: int
@@ -220,7 +226,9 @@ def paged_append(cache: PagedKVCache, k_new: torch.Tensor,
     sid = torch.arange(s, device=pos.device)
 
     # --- values (token-major page rows) ---
-    cache.value_fp[page, :, row] = v_new[:, :, 0].to(cache.value_fp.dtype)
+    for key, x in kvc.value_fields(cache.cfg, v_new).items():
+        buf = getattr(cache, key)
+        buf[page, :, row] = x[:, :, 0].to(buf.dtype)
 
     # --- keys: residual row write, then the masked flush ---
     res = cache.key_residual
@@ -263,13 +271,18 @@ def gather_view(cache: PagedKVCache,
         return torch.where(pvalid[:, None, :, None, None],
                            x[idx].transpose(1, 2), zero).contiguous()
 
-    value_fp = masked(cache.value_fp)
+    def tokens(x):  # (PP, H, g, b) -> (S, H, N*g, b), dead pages zeroed
+        if x is None:
+            return None
+        x = masked(x)
+        return x.reshape(s, x.shape[1], t_cap, x.shape[-1])
+
     return kvc.KVCache(
         key_codes=masked(cache.key_codes),
         key_scales={k: masked(v) for k, v in cache.key_scales.items()},
         key_residual=cache.key_residual,
-        value_fp=value_fp.reshape(s, value_fp.shape[1], t_cap,
-                                  value_fp.shape[-1]),
+        **{f: tokens(getattr(cache, f)) for f in
+           ("value_codes", "value_scale", "value_zero", "value_fp")},
         length=cache.lengths, cfg=cache.cfg, max_len=t_cap,
         layout=LinearLayout(t_cap))
 

@@ -127,6 +127,34 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+#: the C entries' value-row kinds
+VALUE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+
+
+def value_rows(values: torch.Tensor, vscale, vzero,
+               shape: tuple) -> tuple[int, int | None, int | None]:
+    """Check the value rows a decode or prefill kernel reads: fp32 or bf16
+    rows of ``shape``, or uint8 mid-tread codes of ``shape`` (last dim a
+    multiple of 16) with float32 ``vscale`` / ``vzero`` of ``shape[:-1] +
+    (1,)``, all contiguous. Returns (kind for the C entry, vscale and
+    vzero pointers or None)."""
+    require(values.dtype in VALUE_KINDS and values.is_contiguous()
+            and tuple(values.shape) == tuple(shape),
+            f"values must be contiguous fp32, bf16 or uint8 {tuple(shape)}")
+    kind = VALUE_KINDS[values.dtype]
+    require((kind == 2) == (vscale is not None) == (vzero is not None),
+            "uint8 values need vscale and vzero; fp values take neither")
+    if kind != 2:
+        return kind, None, None
+    require(shape[-1] % 16 == 0, "uint8 value rows need head_dim % 16 == 0")
+    for x in (vscale, vzero):
+        require(x.dtype == torch.float32 and x.is_contiguous()
+                and tuple(x.shape) == (*shape[:-1], 1),
+                f"vscale/vzero must be contiguous float32 "
+                f"{(*shape[:-1], 1)} (other scale dtypes have no kernel)")
+    return kind, vscale.data_ptr(), vzero.data_ptr()
+
+
 # argtypes shorthands: pointers and the stream MUST be c_void_p, or ctypes
 # passes them as 32-bit ints and cuts them
 VOIDP = ctypes.c_void_p

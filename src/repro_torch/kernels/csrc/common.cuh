@@ -19,6 +19,26 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(unsigned char x) { return static_cast<float>(x); }
+
+// Value rows come as fp32, bf16, or uint8 mid-tread codes that dequantize
+// as code * scale + zero with one fp32 scale and zero per (token, kv head)
+// row (QuantConfig.value_bits > 0). The C entries take the kind as an int.
+enum ValueKind { kValueF32 = 0, kValueBF16 = 1, kValueU8 = 2 };
+template <typename TV>
+inline constexpr bool kQuantV = false;
+template <>
+inline constexpr bool kQuantV<unsigned char> = true;
+
+// f(TV{}) with TV the value type of `kind`; cudaErrorInvalidValue for an
+// unknown kind.
+template <typename F>
+inline int with_value_type(int kind, F&& f) {
+  if (kind == kValueF32) return f(0.0f);
+  if (kind == kValueBF16) return f(__nv_bfloat16{});
+  if (kind == kValueU8) return f(static_cast<unsigned char>(0));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);

@@ -8,14 +8,19 @@
 // group, every query head of the kv head
 //   1. stages the four stat rows, the (g, P) codes and the (g, d) value
 //      rows in shared memory, value rows past live[s] as exact zeros, so a
-//      NaN-poisoned row never reaches a sum;
+//      NaN-poisoned row never reaches a sum (uint8 value codes with their
+//      row scale and zero: the TPU kernels' uint8 branch);
 //   2. builds the LUT A[qh][p][a] = q_x cos(th~ - pi) + q_y sin(th~ - pi)
 //      of the 2^t angle states (a real gather replaces the TPU's 2^t
 //      select tree);
 //   3. scores every (query head, token): sum_p rho~[t,p] A[qh][p][code],
 //      masked at pos >= live[s];
 //   4. runs the online-softmax update (one warp per query head);
-//   5. accumulates p @ V from the staged rows.
+//   5. accumulates p @ V from the staged rows. uint8 rows dequantize as
+//      c * scale + zero: the unsplit body while it stages them (fp32 rows
+//      in shared memory), the split body by folding the scale into the
+//      probability, sum_t p_t (c_t s_t + z_t) = sum_t (p_t s_t) c_t +
+//      sum_t p_t z_t, which keeps p @ V at one FMA per element.
 // Both bodies return the unnormalized flash partials (acc, m, l) in fp32;
 // the residual merge stays in PyTorch (kernels/ops.py).
 //
@@ -85,14 +90,16 @@ inline size_t lut_decode_smem_bytes(int Qh, int d, int g, int t_bits) {
 
 // q (S, Hkv, Qh, d) fp32 pre-scaled; codes: one (g, P) uint8 tile per group
 // index; stats: P floats per group index; values: one (g, d) tile per group
-// index; live (S,) int32 valid tokens per row. Outputs acc (S, Hkv, Qh, d),
+// index (uint8: vscale / vzero hold g floats per group index, else unused);
+// live (S,) int32 valid tokens per row. Outputs acc (S, Hkv, Qh, d),
 // m and l (S, Hkv, Qh). Grid (Hkv, S), kDecodeThreads threads,
 // lut_decode_smem_bytes of dynamic shared memory.
 template <typename TV, typename Groups>
 __global__ void __launch_bounds__(kDecodeThreads) lut_flash_decode_kernel(
     const float* __restrict__ q, const unsigned char* __restrict__ codes,
     const float* __restrict__ rs, const float* __restrict__ rz, const float* __restrict__ ts,
-    const float* __restrict__ tz, const TV* __restrict__ values, Groups groups,
+    const float* __restrict__ tz, const TV* __restrict__ values,
+    const float* __restrict__ vscale, const float* __restrict__ vzero, Groups groups,
     const int* __restrict__ live, float* __restrict__ acc_out, float* __restrict__ m_out,
     float* __restrict__ l_out, int Hkv, int Qh, int d, int g, int t_bits) {
   extern __shared__ float smem[];
@@ -146,11 +153,22 @@ __global__ void __launch_bounds__(kDecodeThreads) lut_flash_decode_kernel(
     for (int j = tid; j < g * d / kVec; j += nthr) {
       const uint4 raw = vgrp[j];
       const auto* e = reinterpret_cast<const TV*>(&raw);
+      if constexpr (kQuantV<TV>) {
+        // d % 16 == 0 (checked at launch): the 16 codes share one row
+        const int r = j * kVec / d;
+        const bool row_live = r < nlive;
+        const float vs = row_live ? vscale[grp * g + r] : 0.0f;
+        const float vz = row_live ? vzero[grp * g + r] : 0.0f;
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        // dead rows read as exact zeros: 0 * NaN never enters the sum
-        const int i = j * kVec + k;
-        v_s[i] = i < nlive * d ? to_f32(e[k]) : 0.0f;
+        for (int k = 0; k < kVec; ++k)
+          v_s[j * kVec + k] = row_live ? fmaf(to_f32(e[k]), vs, vz) : 0.0f;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          // dead rows read as exact zeros: 0 * NaN never enters the sum
+          const int i = j * kVec + k;
+          v_s[i] = i < nlive * d ? to_f32(e[k]) : 0.0f;
+        }
       }
     }
     __syncthreads();
@@ -208,9 +226,12 @@ __global__ void __launch_bounds__(kDecodeThreads) lut_flash_decode_kernel(
 template <typename TV, typename Groups>
 int launch_lut_flash_decode(const float* q, const unsigned char* codes, const float* rs,
                             const float* rz, const float* ts, const float* tz,
-                            const void* values, Groups groups, const int* live, float* acc,
-                            float* m, float* l, int S, int Hkv, int Qh, int d, int g,
-                            int t_bits, cudaStream_t stream) {
+                            const void* values, const float* vscale, const float* vzero,
+                            Groups groups, const int* live, float* acc, float* m, float* l,
+                            int S, int Hkv, int Qh, int d, int g, int t_bits,
+                            cudaStream_t stream) {
+  if (kQuantV<TV> && (d % 16 || vscale == nullptr || vzero == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   // the staging loads read 16-byte vectors of codes and value rows
   if ((g * (d / 2)) % 16 || (g * d * sizeof(TV)) % 16 ||
       reinterpret_cast<uintptr_t>(codes) % 16 || reinterpret_cast<uintptr_t>(values) % 16)
@@ -220,8 +241,8 @@ int launch_lut_flash_decode(const float* q, const unsigned char* codes, const fl
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(Hkv, S);
   lut_flash_decode_kernel<TV, Groups><<<grid, kDecodeThreads, smem, stream>>>(
-      q, codes, rs, rz, ts, tz, static_cast<const TV*>(values), groups, live, acc, m, l, Hkv,
-      Qh, d, g, t_bits);
+      q, codes, rs, rz, ts, tz, static_cast<const TV*>(values), vscale, vzero, groups, live,
+      acc, m, l, Hkv, Qh, d, g, t_bits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,19 +254,20 @@ constexpr int kSplitStages = 2;  // staging buffers per block (1: no prefetch)
 constexpr int kQG = 4;           // query heads a scoring thread carries
 
 // Bytes of lut_split_decode_kernel's shared memory: q (Qh, d), the LUT
-// (Qh, P, 2^t), scores (Qh, g), acc (Qh, d) and m / l / corr (Qh) as fp32,
-// rounded to 16 bytes; then kSplitStages stages of stats (4, P) fp32, value
-// rows (g, d) TV and code rows (g, P) padded to P + 16 bytes (which makes
-// the 16-byte row reads of eight neighbouring tokens conflict-free).
+// (Qh, P, 2^t), scores (Qh, g), acc (Qh, d) and m / l / corr / sum_t p_t z_t
+// (Qh) as fp32, rounded to 16 bytes; then kSplitStages stages of stats
+// (4, P) fp32, value rows (g, d) TV, for uint8 rows their scales and zeros
+// (2, g) fp32, and code rows (g, P) padded to P + 16 bytes (which makes the
+// 16-byte row reads of eight neighbouring tokens conflict-free).
 __host__ __device__ inline size_t lut_split_head_bytes(int Qh, int d, int g, int t_bits) {
   const int P = d / 2, NT = 1 << t_bits;
-  const size_t f = static_cast<size_t>(Qh) * (2 * d + P * NT + g + 3);
+  const size_t f = static_cast<size_t>(Qh) * (2 * d + P * NT + g + 4);
   return (f * sizeof(float) + 15) / 16 * 16;
 }
-__host__ __device__ inline size_t lut_split_stage_bytes(int d, int g, size_t tv) {
+__host__ __device__ inline size_t lut_split_stage_bytes(int d, int g, size_t tv, bool quant) {
   const int P = d / 2;
   return static_cast<size_t>(16 * P) + static_cast<size_t>(g) * d * tv +
-         static_cast<size_t>(g) * (P + 16);
+         (quant ? static_cast<size_t>(8) * g : 0) + static_cast<size_t>(g) * (P + 16);
 }
 
 __device__ __forceinline__ float2 load_pair(const float* p) {
@@ -253,6 +275,13 @@ __device__ __forceinline__ float2 load_pair(const float* p) {
 }
 __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+// two uint8 codes as exact floats: 2^23 + c has c in its low mantissa bits,
+// so an OR and an FADD replace the slower integer-to-float conversion
+__device__ __forceinline__ float2 load_pair(const unsigned char* p) {
+  const unsigned w = *reinterpret_cast<const unsigned short*>(p);
+  return make_float2(__uint_as_float(0x4B000000u | (w & 0xffu)) - 8388608.0f,
+                     __uint_as_float(0x4B000000u | (w >> 8)) - 8388608.0f);
 }
 
 // The same partials as lut_flash_decode_kernel over groups
@@ -263,12 +292,14 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
 // acc = 0. Inside a split, group n + 1's stats, codes and value rows are
 // in flight (16-byte cp.async into the other stage) while group n is
 // scored; value rows past live[s] are copied with the predicate off, so
-// they land as exact zeros. Needs d % 32 == 0 and 16-byte aligned buffers.
+// they land as exact zeros (uint8 rows: codes, scale and zero all zero).
+// Needs d % 32 == 0 and 16-byte aligned buffers.
 template <typename TV, typename Groups>
 __global__ void __launch_bounds__(kDecodeThreads) lut_split_decode_kernel(
     const float* __restrict__ q, const unsigned char* __restrict__ codes,
     const float* __restrict__ rs, const float* __restrict__ rz, const float* __restrict__ ts,
-    const float* __restrict__ tz, const TV* __restrict__ values, Groups groups,
+    const float* __restrict__ tz, const TV* __restrict__ values,
+    const float* __restrict__ vscale, const float* __restrict__ vzero, Groups groups,
     const int* __restrict__ live, float* __restrict__ acc_out, float* __restrict__ m_out,
     float* __restrict__ l_out, int Hkv, int Qh, int d, int g, int t_bits, int per_split) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -282,13 +313,18 @@ __global__ void __launch_bounds__(kDecodeThreads) lut_split_decode_kernel(
   float* m_s = acc_s + Qh * d;                      // (Qh,)
   float* l_s = m_s + Qh;
   float* corr_s = l_s + Qh;
+  float* pz_s = corr_s + Qh;                        // uint8 rows: sum_t p_t z_t (Qh,)
+  constexpr bool kQ = kQuantV<TV>;
   unsigned char* stage0 = smem_raw + lut_split_head_bytes(Qh, d, g, t_bits);
-  const size_t stage_bytes = lut_split_stage_bytes(d, g, sizeof(TV));
+  const size_t stage_bytes = lut_split_stage_bytes(d, g, sizeof(TV), kQ);
+  const size_t vbytes = static_cast<size_t>(g) * d * sizeof(TV) + (kQ ? 8 * g : 0);
   auto st_of = [&](int b) { return reinterpret_cast<float*>(stage0 + b * stage_bytes); };
   auto v_of = [&](int b) { return reinterpret_cast<TV*>(stage0 + b * stage_bytes + 16 * P); };
-  auto c_of = [&](int b) {
-    return stage0 + b * stage_bytes + 16 * P + static_cast<size_t>(g) * d * sizeof(TV);
+  auto sz_of = [&](int b) {  // uint8 rows: scales (g), then zeros (g)
+    return reinterpret_cast<float*>(stage0 + b * stage_bytes + 16 * P +
+                                    static_cast<size_t>(g) * d * sizeof(TV));
   };
+  auto c_of = [&](int b) { return stage0 + b * stage_bytes + 16 * P + vbytes; };
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid / 32, lane = tid % 32, nwarps = nthr / 32;
@@ -329,6 +365,13 @@ __global__ void __launch_bounds__(kDecodeThreads) lut_split_decode_kernel(
     const int nlive = min(fl - n * g, g);  // rows of this group below live[s]
     for (int c = tid; c < g * d / kVec; c += nthr)
       cp_async16(vs + c * kVec, vg + c * kVec, c / (d / kVec) < nlive);
+    if constexpr (kQ) {  // the rows' scales then zeros, dead rows as zeros
+      float* sz = sz_of(b);
+      for (int c = tid; c < 2 * g; c += nthr) {
+        const int r = c % g;
+        cp_async4(sz + c, (c < g ? vscale : vzero) + grp * g + r, r < nlive);
+      }
+    }
   };
 
   const int nn = n_end - n_begin;
@@ -349,6 +392,7 @@ __global__ void __launch_bounds__(kDecodeThreads) lut_split_decode_kernel(
     if (groups.index(s, h, n) >= 0) {  // uniform across the block
       const float* st = st_of(b);
       const TV* vs = v_of(b);
+      const float* sz = sz_of(b);
       const unsigned char* cs = c_of(b);
       const int nlive = min(fl - n * g, g);
       build_angle_lut(q_s, st, lut, Qh, d, t_bits);
@@ -385,27 +429,35 @@ __global__ void __launch_bounds__(kDecodeThreads) lut_split_decode_kernel(
         mx = warp_max(mx);
         const float m_old = m_s[qh];
         const float m_new = fmaxf(m_old, mx);
-        float sum = 0.0f;
+        float sum = 0.0f, zsum = 0.0f;
         for (int t = lane; t < g; t += 32) {
           const float pr = t < nlive ? expf(sc[qh * g + t] - m_new) : 0.0f;
-          sc[qh * g + t] = pr;
           sum += pr;
+          if constexpr (kQ) {  // p_t s_t for p @ codes, sum_t p_t z_t aside
+            zsum += pr * sz[g + t];
+            sc[qh * g + t] = pr * sz[t];
+          } else {
+            sc[qh * g + t] = pr;
+          }
         }
         sum = warp_sum(sum);
+        if (kQ) zsum = warp_sum(zsum);
         if (lane == 0) {
           const float corr = expf(m_old - m_new);
           corr_s[qh] = corr;
+          pz_s[qh] = zsum;
           l_s[qh] = l_s[qh] * corr + sum;
           m_s[qh] = m_new;
         }
       }
       __syncthreads();
       // p @ V: a thread owns two neighbouring columns of one query head
+      // (uint8 rows: codes weighted by p_t s_t, plus sum_t p_t z_t)
       for (int i = tid; i < Qh * P; i += nthr) {
         const int qh = i / P, c2 = (i % P) * 2;
         const float* pr = sc + qh * g;
-        const float corr = corr_s[qh];
-        float a0 = acc_s[qh * d + c2] * corr, a1 = acc_s[qh * d + c2 + 1] * corr;
+        const float corr = corr_s[qh], pz = kQ ? pz_s[qh] : 0.0f;
+        float a0 = acc_s[qh * d + c2] * corr + pz, a1 = acc_s[qh * d + c2 + 1] * corr + pz;
         for (int t = 0; t < g; ++t) {
           const float2 v = load_pair(vs + t * d + c2);
           a0 += pr[t] * v.x;
@@ -467,15 +519,17 @@ __global__ void merge_splits_kernel(const T* __restrict__ acc_p, const T* __rest
 template <typename TV, typename Groups>
 int launch_lut_split_decode(const float* q, const unsigned char* codes, const float* rs,
                             const float* rz, const float* ts, const float* tz,
-                            const void* values, Groups groups, const int* live, float* acc,
-                            float* m, float* l, float* partials, int S, int Hkv, int Qh, int d,
-                            int g, int t_bits, int N, int nsplit, cudaStream_t stream) {
+                            const void* values, const float* vscale, const float* vzero,
+                            Groups groups, const int* live, float* acc, float* m, float* l,
+                            float* partials, int S, int Hkv, int Qh, int d, int g, int t_bits,
+                            int N, int nsplit, cudaStream_t stream) {
   const int per_split = N > 0 && nsplit > 0 ? (N + nsplit - 1) / nsplit : 1;
   nsplit = N > 0 ? (N + per_split - 1) / per_split : 1;
-  if (nsplit > 65535 || (nsplit > 1 && partials == nullptr))
+  if (nsplit > 65535 || (nsplit > 1 && partials == nullptr) ||
+      (kQuantV<TV> && (g % 4 || vscale == nullptr || vzero == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      lut_split_head_bytes(Qh, d, g, t_bits) + kSplitStages * lut_split_stage_bytes(d, g, sizeof(TV));
+  const size_t smem = lut_split_head_bytes(Qh, d, g, t_bits) +
+                      kSplitStages * lut_split_stage_bytes(d, g, sizeof(TV), kQuantV<TV>);
   cudaError_t err = allow_smem(lut_split_decode_kernel<TV, Groups>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(S) * Hkv * Qh;
@@ -484,8 +538,8 @@ int launch_lut_split_decode(const float* q, const unsigned char* codes, const fl
   float* pl = nsplit > 1 ? pm + nsplit * rows : l;
   const dim3 grid(Hkv, S, nsplit);
   lut_split_decode_kernel<TV, Groups><<<grid, kDecodeThreads, smem, stream>>>(
-      q, codes, rs, rz, ts, tz, static_cast<const TV*>(values), groups, live, pa, pm, pl, Hkv,
-      Qh, d, g, t_bits, per_split);
+      q, codes, rs, rz, ts, tz, static_cast<const TV*>(values), vscale, vzero, groups, live,
+      pa, pm, pl, Hkv, Qh, d, g, t_bits, per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
   merge_splits_kernel<float><<<S * Hkv, Qh * d < 256 ? Qh * d : 256, 0, stream>>>(

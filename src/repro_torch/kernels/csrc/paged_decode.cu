@@ -12,8 +12,14 @@
 // splits' partials are merged on the device inside this call. Shapes it
 // does not take (d % 32 != 0, unaligned buffers) run the unsplit body.
 //
+// Value rows are bf16, fp32 or uint8 mid-tread codes with one fp32 scale
+// and zero per row (the TPU kernel's uint8 branch, repro/kernels/
+// paged_decode.py:81); the split body folds the scale into p (see
+// lut_decode.cuh).
+//
 // Bound: bytes — each live page's codes (g*P B), stats (4*P*4 B) and
-// value rows (g*d*2 B in bf16) are read once per (slot, kv head). The time
+// value rows (g*d*2 B in bf16; g*d + 8*g B as uint8 codes with their
+// scales and zeros) are read once per (slot, kv head). The time
 // follows the per-page dependent chain (DRAM round trip, angle LUT,
 // scores, softmax, p @ V): splitting runs the chains of one slot side by
 // side (8 slots x 4 kv heads x 8 pages: 256 blocks on 132 SMs), and
@@ -39,14 +45,17 @@ struct PagedGroups {
 }  // namespace
 
 // q (S, Hkv, Qh, d) fp32 pre-scaled; pools codes (PP, Hkv, g, d/2) uint8,
-// stats (PP, Hkv, 1, d/2) fp32, values (PP, Hkv, g, d) bf16 or fp32;
+// stats (PP, Hkv, 1, d/2) fp32, values (PP, Hkv, g, d) of v_kind
+// (rt::ValueKind: fp32, bf16, or uint8 with vscale / vzero (PP, Hkv, g, 1)
+// fp32; null otherwise);
 // table (S, >=N) int32 with row stride table_stride; flushed (S,) int32.
 // Outputs acc (S, Hkv, Qh, d), m and l (S, Hkv, Qh), all fp32. nsplit: the
 // host's split count; partials: nsplit * S * Hkv * Qh * (d + 2) fp32 of
 // scratch when nsplit > 1 (else unused, may be null).
 extern "C" int paged_decode_launch(const void* q, const void* codes, const void* rs,
                                    const void* rz, const void* ts, const void* tz,
-                                   const void* values, int v_bf16, const void* table,
+                                   const void* values, int v_kind, const void* vscale,
+                                   const void* vzero, const void* table,
                                    long long table_stride, int N, const void* flushed,
                                    void* acc, void* m, void* l, int S, int Hkv, int Qh, int d,
                                    int g, int PP, int t_bits, int nsplit, void* partials,
@@ -61,21 +70,16 @@ extern "C" int paged_decode_launch(const void* q, const void* codes, const void*
   auto* a = static_cast<float*>(acc);
   auto* mm = static_cast<float*>(m);
   auto* ll = static_cast<float*>(l);
-  if (rt::lut_split_decode_fits(d, codes, rs, rz, ts, tz, values)) {
-    auto* pt = static_cast<float*>(partials);
-    if (v_bf16)
-      return rt::launch_lut_split_decode<__nv_bfloat16>(f(q), c, f(rs), f(rz), f(ts), f(tz),
-                                                        values, groups, fl, a, mm, ll, pt, S,
-                                                        Hkv, Qh, d, g, t_bits, N, nsplit, st);
-    return rt::launch_lut_split_decode<float>(f(q), c, f(rs), f(rz), f(ts), f(tz), values,
-                                              groups, fl, a, mm, ll, pt, S, Hkv, Qh, d, g,
-                                              t_bits, N, nsplit, st);
-  }
-  if (v_bf16)
-    return rt::launch_lut_flash_decode<__nv_bfloat16>(f(q), c, f(rs), f(rz), f(ts), f(tz),
-                                                      values, groups, fl, a, mm, ll, S, Hkv,
-                                                      Qh, d, g, t_bits, st);
-  return rt::launch_lut_flash_decode<float>(f(q), c, f(rs), f(rz), f(ts), f(tz), values,
-                                            groups, fl, a, mm, ll, S, Hkv, Qh, d, g, t_bits,
-                                            st);
+  const bool split = rt::lut_split_decode_fits(d, codes, rs, rz, ts, tz, values);
+  return rt::with_value_type(v_kind, [&](auto tv) {
+    using TV = decltype(tv);
+    if (split)
+      return rt::launch_lut_split_decode<TV>(f(q), c, f(rs), f(rz), f(ts), f(tz), values,
+                                             f(vscale), f(vzero), groups, fl, a, mm, ll,
+                                             static_cast<float*>(partials), S, Hkv, Qh, d, g,
+                                             t_bits, N, nsplit, st);
+    return rt::launch_lut_flash_decode<TV>(f(q), c, f(rs), f(rz), f(ts), f(tz), values,
+                                           f(vscale), f(vzero), groups, fl, a, mm, ll, S, Hkv,
+                                           Qh, d, g, t_bits, st);
+  });
 }

@@ -47,13 +47,25 @@
 // relative error below ~3 * 2^-18 ~ 1.1e-5, summed in fp32: the 1e-4
 // checks of the FMA body hold unchanged.
 //
+// uint8 value pools (codes with one fp32 scale and zero per row: the TPU
+// kernel's uint8 branch, repro/kernels/paged_prefill.py:103) take the
+// tensor-core body under the same conditions. A page's codes arrive by
+// cp.async with its scales and zeros and are widened to bf16 (codes up to
+// 255 are exact in bf16) as the B operand of P.V; P's columns are scaled
+// by the rows' scales before the hi/lo split, and each query row adds
+// sum_t p_t z_t: sum_t p_t (c_t s_t + z_t) = sum_t (p_t s_t) c_t +
+// sum_t p_t z_t. The chunk's own K/V rows stay bf16.
+//
 // FMA body (fp32 chunk K/V or fp32 value pool — the tests' fp32 inputs —
-// and any shape outside the above): the first version, unchanged. Thread
+// and any shape outside the above): the first version; uint8 value rows
+// are dequantized as a page is staged. Thread
 // tid owns query row tid % 64 (q in registers) and a quarter of the tokens
 // or of the d columns; per page it stages stats, codes and values in
 // shared memory, builds cos/sin of the angle states and rho~, and scores
 // by gather; the chunk tile in 64-key steps; plain fp32 FMAs throughout.
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma.cuh"
 
@@ -98,7 +110,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const float* __restrict__ q, const TKV* __restrict__ kc, const TKV* __restrict__ vc,
     const unsigned char* __restrict__ codes, const float* __restrict__ rs,
     const float* __restrict__ rz, const float* __restrict__ ts, const float* __restrict__ tz,
-    const TV* __restrict__ values, const int* __restrict__ page_row, int n_prefix,
+    const TV* __restrict__ values, const float* __restrict__ vscale,
+    const float* __restrict__ vzero, const int* __restrict__ page_row, int n_prefix,
     int chunk_len, float* __restrict__ out, int Hkv, int QT, int Tc, int g, int PP,
     int t_bits) {
   constexpr int P = D / 2;
@@ -171,7 +184,14 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     for (int i = tid; i < g * P / 4; i += kThreads)
       reinterpret_cast<uint32_t*>(code_s)[i] = valid ? cpage[i] : 0u;
     const TV* vpage = values + ph * g * D;
-    for (int i = tid; i < g * D; i += kThreads) v_s[i] = valid ? rt::to_f32(vpage[i]) : 0.0f;
+    for (int i = tid; i < g * D; i += kThreads) {
+      float v = 0.0f;
+      if (valid) {
+        v = rt::to_f32(vpage[i]);
+        if constexpr (rt::kQuantV<TV>) v = fmaf(v, vscale[ph * g + i / D], vzero[ph * g + i / D]);
+      }
+      v_s[i] = v;
+    }
     __syncthreads();
     for (int i = tid; i < P * NT; i += kThreads) {
       const int p = i / NT, a = i % NT;
@@ -253,8 +273,9 @@ size_t smem_bytes(int d, int g, int t_bits) {
 template <typename TKV, typename TV, int D>
 int launch(const void* q, const void* kc, const void* vc, const void* codes, const void* rs,
            const void* rz, const void* ts, const void* tz, const void* values,
-           const void* page_row, int n_prefix, int chunk_len, void* out, int Hkv, int QT, int Tc,
-           int g, int PP, int t_bits, cudaStream_t stream) {
+           const void* vscale, const void* vzero, const void* page_row, int n_prefix,
+           int chunk_len, void* out, int Hkv, int QT, int Tc, int g, int PP, int t_bits,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes(D, g, t_bits);
   cudaError_t err = rt::allow_smem(paged_prefill_kernel<TKV, TV, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -263,25 +284,29 @@ int launch(const void* q, const void* kc, const void* vc, const void* codes, con
   paged_prefill_kernel<TKV, TV, D><<<grid, kThreads, smem, stream>>>(
       f(q), static_cast<const TKV*>(kc), static_cast<const TKV*>(vc),
       static_cast<const unsigned char*>(codes), f(rs), f(rz), f(ts), f(tz),
-      static_cast<const TV*>(values), static_cast<const int*>(page_row), n_prefix, chunk_len,
-      static_cast<float*>(out), Hkv, QT, Tc, g, PP, t_bits);
+      static_cast<const TV*>(values), f(vscale), f(vzero), static_cast<const int*>(page_row),
+      n_prefix, chunk_len, static_cast<float*>(out), Hkv, QT, Tc, g, PP, t_bits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TKV, typename TV>
 int launch_d(int d, const void* q, const void* kc, const void* vc, const void* codes,
              const void* rs, const void* rz, const void* ts, const void* tz, const void* values,
-             const void* page_row, int n_prefix, int chunk_len, void* out, int Hkv, int QT,
-             int Tc, int g, int PP, int t_bits, cudaStream_t s) {
+             const void* vscale, const void* vzero, const void* page_row, int n_prefix,
+             int chunk_len, void* out, int Hkv, int QT, int Tc, int g, int PP, int t_bits,
+             cudaStream_t s) {
   if (d == 32)
-    return launch<TKV, TV, 32>(q, kc, vc, codes, rs, rz, ts, tz, values, page_row, n_prefix,
-                               chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
+    return launch<TKV, TV, 32>(q, kc, vc, codes, rs, rz, ts, tz, values, vscale, vzero,
+                               page_row, n_prefix, chunk_len, out, Hkv, QT, Tc, g, PP, t_bits,
+                               s);
   if (d == 64)
-    return launch<TKV, TV, 64>(q, kc, vc, codes, rs, rz, ts, tz, values, page_row, n_prefix,
-                               chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
+    return launch<TKV, TV, 64>(q, kc, vc, codes, rs, rz, ts, tz, values, vscale, vzero,
+                               page_row, n_prefix, chunk_len, out, Hkv, QT, Tc, g, PP, t_bits,
+                               s);
   if (d == 128)
-    return launch<TKV, TV, 128>(q, kc, vc, codes, rs, rz, ts, tz, values, page_row, n_prefix,
-                                chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
+    return launch<TKV, TV, 128>(q, kc, vc, codes, rs, rz, ts, tz, values, vscale, vzero,
+                                page_row, n_prefix, chunk_len, out, Hkv, QT, Tc, g, PP, t_bits,
+                                s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -299,17 +324,20 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Shared memory of the tensor-core body, in bytes: k~ hi and lo
 // (g, d + 8) bf16, the (P, 2^t) cos/sin table as float2, then two stage
 // buffers, each the value or chunk-V rows (max(g, kStageKeys), d + 8)
-// bf16 and a raw area holding a page's codes (g, P) and stats (4, P) or a
-// chunk stage's K rows (kStageKeys, d + 8) bf16. Rows are padded by 16
-// bytes, so the 8 rows of an ldmatrix land in distinct banks. After the
-// walk the stage buffers carry the key groups' partials to group 0.
+// bf16 and a raw area holding a page's codes (g, P) and stats (4, P) —
+// with uint8 values also the page's value codes (g, d) and their scales
+// and zeros (2, g) fp32 — or a chunk stage's K rows (kStageKeys, d + 8)
+// bf16. Rows are padded by 16 bytes, so the 8 rows of an ldmatrix land in
+// distinct banks. After the walk the stage buffers carry the key groups'
+// partials to group 0.
 struct MmaSmem {
   int kpad, vbytes, rawbytes, lut, stages;
-  __host__ __device__ MmaSmem(int d, int g, int t_bits) {
+  __host__ __device__ MmaSmem(int d, int g, int t_bits, bool quant) {
     const int P = d / 2;
     kpad = d + 8;
     vbytes = (g > kStageKeys ? g : kStageKeys) * kpad * 2;
-    rawbytes = g * P + 16 * P > kStageKeys * kpad * 2 ? g * P + 16 * P : kStageKeys * kpad * 2;
+    const int page = g * P + 16 * P + (quant ? g * d + 8 * g : 0);
+    rawbytes = page > kStageKeys * kpad * 2 ? page : kStageKeys * kpad * 2;
     lut = 2 * g * kpad * 2;
     stages = lut + P * (1 << t_bits) * 8;
   }
@@ -321,13 +349,17 @@ struct MmaSmem {
 // when kMask, the online softmax in registers (m in raw-score units,
 // exponentials in base 2) and O += P V with P split into hi and lo.
 // kt / klt / vt point at the tile's first key row (row stride D + 8).
-template <int D, bool kLo, bool kMask>
+// kQuant: vt holds uint8 value codes as bf16 and vsc / vze the tile's row
+// scales and zeros; P's columns are scaled by vsc before the split and
+// every row adds sum_t p_t vze_t.
+template <int D, bool kLo, bool kMask, bool kQuant = false>
 __device__ __forceinline__ void mma_tile(const unsigned (&qh)[D / 16][4],
                                          const unsigned (&ql)[D / 16][4],
                                          const __nv_bfloat16* kt, const __nv_bfloat16* klt,
                                          const __nv_bfloat16* vt, float (&o)[D / 8][4],
                                          float (&m_r)[2], float (&l_r)[2], int k0, int chunk_len,
-                                         const int (&tq_r)[2]) {
+                                         const int (&tq_r)[2], const float* vsc = nullptr,
+                                         const float* vze = nullptr) {
   constexpr int kS = D + 8, kKD = D / 16, kND = D / 8, kNK = kKeys / 8;
   const int lane = threadIdx.x % 32, tq = lane & 3;
   float s[kNK][4];
@@ -385,6 +417,23 @@ __device__ __forceinline__ void mma_tile(const unsigned (&qh)[D / 16][4],
       o[n][2 * r] *= corr;
       o[n][2 * r + 1] *= corr;
     }
+    if constexpr (kQuant) {  // p_t s_t for P.codes; the row's sum_t p_t z_t into O
+      float pz = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kNK; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = n * 8 + 2 * tq + e;
+          pz += s[n][2 * r + e] * vze[kj];
+          s[n][2 * r + e] *= vsc[kj];
+        }
+      pz = quad_sum(pz);
+#pragma unroll
+      for (int n = 0; n < kND; ++n) {
+        o[n][2 * r] += pz;
+        o[n][2 * r + 1] += pz;
+      }
+    }
   }
   // O += P V: P hi and lo (registers) as A operands, 16 keys per k step
 #pragma unroll
@@ -420,17 +469,20 @@ __device__ __forceinline__ int max_tq(int r0, int n, int QT, int Tc) {
 // [64 k, 64 k + 64) with its own softmax carry, and group 0 merges the
 // carries at the end (128 blocks of 8 warps, where one group of 4 warps
 // left most of each SM's warp slots empty).
-template <int D>
+// TV: the value pool's rows, bf16 or uint8 codes (with vscale / vzero).
+template <int D, typename TV>
 __global__ void __launch_bounds__(kMmaThreads, 2 / kKeyGroups) paged_prefill_mma_kernel(
     const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const unsigned char* __restrict__ codes,
     const float* __restrict__ rs, const float* __restrict__ rz, const float* __restrict__ ts,
-    const float* __restrict__ tz, const __nv_bfloat16* __restrict__ values,
+    const float* __restrict__ tz, const TV* __restrict__ values,
+    const float* __restrict__ vscale, const float* __restrict__ vzero,
     const int* __restrict__ page_row, int n_prefix, int chunk_len, float* __restrict__ out,
     int Hkv, int QT, int Tc, int g, int PP, int t_bits) {
   constexpr int P = D / 2, kS = D + 8, kKD = D / 16, kND = D / 8, kRowChunks = D / 8;
+  constexpr bool kQ = rt::kQuantV<TV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const MmaSmem lay(D, g, t_bits);
+  const MmaSmem lay(D, g, t_bits, kQ);
   const int NT = 1 << t_bits;
   const unsigned tmask = static_cast<unsigned>(NT - 1);
   auto* khi = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -441,6 +493,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2 / kKeyGroups) paged_prefill_mma
     return reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.stages + b * stage_bytes);
   };
   auto raw = [&](int b) { return smem_raw + lay.stages + b * stage_bytes + lay.vbytes; };
+  // uint8 values: a page's value codes (g, D) and scales / zeros (2, g) in
+  // the raw area, after its key codes and stats
+  auto vcodes = [&](int b) { return raw(b) + g * P + 16 * P; };
+  auto vsz = [&](int b) { return reinterpret_cast<float*>(vcodes(b) + g * D); };
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane >> 2, tq = lane & 3;
@@ -491,10 +547,22 @@ __global__ void __launch_bounds__(kMmaThreads, 2 / kKeyGroups) paged_prefill_mma
         const float* src = which == 0 ? rs : which == 1 ? rz : which == 2 ? ts : tz;
         cp_async16(st + which * P + off, src + ph * P + off, valid);
       }
-      const __nv_bfloat16* vs = values + ph * g * D;
-      for (int c = tid; c < g * kRowChunks; c += kMmaThreads) {
-        const int r = c / kRowChunks, col = (c % kRowChunks) * 8;
-        cp_async16(vd + r * kS + col, vs + r * D + col, valid);
+      if constexpr (kQ) {
+        const unsigned char* vs = values + ph * g * D;
+        unsigned char* vq = vcodes(b);
+        for (int c = tid; c < g * D / 16; c += kMmaThreads)
+          cp_async16(vq + c * 16, vs + c * 16, valid);
+        float* sz = vsz(b);
+        for (int c = tid; c < g / 2; c += kMmaThreads) {  // g/4 chunks each
+          const int which = c / (g / 4), off = (c % (g / 4)) * 4;
+          cp_async16(sz + which * g + off, (which ? vzero : vscale) + ph * g + off, valid);
+        }
+      } else {
+        const __nv_bfloat16* vs = values + ph * g * D;
+        for (int c = tid; c < g * kRowChunks; c += kMmaThreads) {
+          const int r = c / kRowChunks, col = (c % kRowChunks) * 8;
+          cp_async16(vd + r * kS + col, vs + r * D + col, valid);
+        }
       }
     } else {
       const int k0 = (i - n_prefix) * kStageKeys;
@@ -562,10 +630,24 @@ __global__ void __launch_bounds__(kMmaThreads, 2 / kKeyGroups) paged_prefill_mma
         *reinterpret_cast<unsigned*>(khi + t * kS + P + p) = hi;
         *reinterpret_cast<unsigned*>(klo + t * kS + P + p) = lo;
       }
+      if constexpr (kQ) {  // value codes -> bf16 rows (exact: codes <= 255)
+        const unsigned char* vq = vcodes(b);
+        __nv_bfloat16* vd = vrows(b);
+        for (int e = tid; e < g * (D / 4); e += kMmaThreads) {
+          const int t = e / (D / 4), c = (e % (D / 4)) * 4;
+          const unsigned w = *reinterpret_cast<const unsigned*>(vq + t * D + c);
+          *reinterpret_cast<uint2*>(vd + t * kS + c) =
+              make_uint2(pack_bf16(static_cast<float>(w & 0xffu),
+                                   static_cast<float>((w >> 8) & 0xffu)),
+                         pack_bf16(static_cast<float>((w >> 16) & 0xffu),
+                                   static_cast<float>(w >> 24)));
+        }
+      }
       __syncthreads();
+      const float* sz = vsz(b);
       for (int k0 = kg * kKeys; k0 < g; k0 += kStageKeys)
-        mma_tile<D, true, false>(qh, ql, khi + k0 * kS, klo + k0 * kS, vrows(b) + k0 * kS, o,
-                                 m_r, l_r, 0, 0, tq_r);
+        mma_tile<D, true, false, kQ>(qh, ql, khi + k0 * kS, klo + k0 * kS, vrows(b) + k0 * kS,
+                                     o, m_r, l_r, 0, 0, tq_r, sz + k0, sz + g + k0);
     } else {
       const int k0 = (i - n_prefix) * kStageKeys + kg * kKeys;
       // a tile past chunk_len or wholly above the warp's diagonal is skipped
@@ -628,77 +710,96 @@ __global__ void __launch_bounds__(kMmaThreads, 2 / kKeyGroups) paged_prefill_mma
   }
 }
 
-template <int D>
+template <int D, typename TV>
 int launch_mma(const void* q, const void* kc, const void* vc, const void* codes, const void* rs,
                const void* rz, const void* ts, const void* tz, const void* values,
-               const void* page_row, int n_prefix, int chunk_len, void* out, int Hkv, int QT,
-               int Tc, int g, int PP, int t_bits, cudaStream_t stream) {
-  const size_t smem = MmaSmem(D, g, t_bits).bytes();
-  cudaError_t err = rt::allow_smem(paged_prefill_mma_kernel<D>, smem);
+               const void* vscale, const void* vzero, const void* page_row, int n_prefix,
+               int chunk_len, void* out, int Hkv, int QT, int Tc, int g, int PP, int t_bits,
+               cudaStream_t stream) {
+  const size_t smem = MmaSmem(D, g, t_bits, rt::kQuantV<TV>).bytes();
+  cudaError_t err = rt::allow_smem(paged_prefill_mma_kernel<D, TV>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(Hkv, (QT + kMmaRows - 1) / kMmaRows);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto bf = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
-  paged_prefill_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+  paged_prefill_mma_kernel<D, TV><<<grid, kMmaThreads, smem, stream>>>(
       f(q), bf(kc), bf(vc), static_cast<const unsigned char*>(codes), f(rs), f(rz), f(ts),
-      f(tz), bf(values), static_cast<const int*>(page_row), n_prefix, chunk_len,
-      static_cast<float*>(out), Hkv, QT, Tc, g, PP, t_bits);
+      f(tz), static_cast<const TV*>(values), f(vscale), f(vzero),
+      static_cast<const int*>(page_row), n_prefix, chunk_len, static_cast<float*>(out), Hkv,
+      QT, Tc, g, PP, t_bits);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TV>
+int launch_mma_d(int d, const void* q, const void* kc, const void* vc, const void* codes,
+                 const void* rs, const void* rz, const void* ts, const void* tz,
+                 const void* values, const void* vscale, const void* vzero,
+                 const void* page_row, int n_prefix, int chunk_len, void* out, int Hkv, int QT,
+                 int Tc, int g, int PP, int t_bits, cudaStream_t s) {
+  if (d == 32)
+    return launch_mma<32, TV>(q, kc, vc, codes, rs, rz, ts, tz, values, vscale, vzero,
+                              page_row, n_prefix, chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
+  if (d == 64)
+    return launch_mma<64, TV>(q, kc, vc, codes, rs, rz, ts, tz, values, vscale, vzero,
+                              page_row, n_prefix, chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
+  return launch_mma<128, TV>(q, kc, vc, codes, rs, rz, ts, tz, values, vscale, vzero, page_row,
+                             n_prefix, chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
 }
 
 }  // namespace
 
 // 1 when paged_prefill_launch runs the tensor-core body for these inputs —
-// bf16 chunk K/V and value pool, d in {32, 64, 128}, g in {64, 128},
-// t_bits <= 4, every buffer that cp.async reads 16-byte aligned — else 0
-// (the FMA body).
-extern "C" int paged_prefill_tensor_core(int kv_bf16, int v_bf16, int d, int g, int t_bits,
+// bf16 chunk K/V, a bf16 or uint8 value pool, d in {32, 64, 128}, g in
+// {64, 128}, t_bits <= 4, every buffer that cp.async reads 16-byte
+// aligned — else 0 (the FMA body).
+extern "C" int paged_prefill_tensor_core(int kv_bf16, int v_kind, int d, int g, int t_bits,
                                          const void* kc, const void* vc, const void* codes,
                                          const void* rs, const void* rz, const void* ts,
-                                         const void* tz, const void* values) {
-  return kv_bf16 && v_bf16 && (d == 32 || d == 64 || d == 128) && (g == 64 || g == 128) &&
-         t_bits <= 4 && aligned16(kc) && aligned16(vc) && aligned16(codes) && aligned16(rs) &&
-         aligned16(rz) && aligned16(ts) && aligned16(tz) && aligned16(values);
+                                         const void* tz, const void* values,
+                                         const void* vscale, const void* vzero) {
+  const bool quant = v_kind == rt::kValueU8;
+  return kv_bf16 && (v_kind == rt::kValueBF16 || quant) && (d == 32 || d == 64 || d == 128) &&
+         (g == 64 || g == 128) && t_bits <= 4 && aligned16(kc) && aligned16(vc) &&
+         aligned16(codes) && aligned16(rs) && aligned16(rz) && aligned16(ts) &&
+         aligned16(tz) && aligned16(values) &&
+         (!quant || (aligned16(vscale) && aligned16(vzero)));
 }
 
 // q (Hkv, QT, d) fp32 pre-scaled, QT = (Hq/Hkv)*Tc; k_chunk/v_chunk
 // (Hkv, Tc, d) bf16 (kv_bf16 = 1) or fp32; pools codes (PP, Hkv, g, d/2)
-// uint8, stats (PP, Hkv, 1, d/2) fp32, values (PP, Hkv, g, d) bf16
-// (v_bf16 = 1) or fp32; page_row: the first n_prefix = start/g entries of
+// uint8, stats (PP, Hkv, 1, d/2) fp32, values (PP, Hkv, g, d) of v_kind
+// (rt::ValueKind: fp32, bf16, or uint8 with vscale / vzero (PP, Hkv, g, 1)
+// fp32; null otherwise); page_row: the first n_prefix = start/g entries of
 // the slot's table row. Output (Hkv, QT, d) fp32. d in {32, 64, 128}; the
 // body is the tensor-core one where paged_prefill_tensor_core says so.
 extern "C" int paged_prefill_launch(const void* q, const void* kc, const void* vc, int kv_bf16,
                                     const void* codes, const void* rs, const void* rz,
                                     const void* ts, const void* tz, const void* values,
-                                    int v_bf16, const void* page_row, int n_prefix,
+                                    int v_kind, const void* vscale, const void* vzero,
+                                    const void* page_row, int n_prefix,
                                     int chunk_len, void* out, int Hkv, int QT, int Tc, int d,
                                     int g, int PP, int t_bits, void* stream) {
   if (Hkv <= 0 || Hkv > 65535 || QT <= 0 || Tc <= 0 || QT % Tc || g <= 0 || n_prefix < 0 ||
       chunk_len < 0 || chunk_len > Tc || PP <= 0 || t_bits < 1 || t_bits > 8 ||
-      (g * (d / 2)) % 4)
+      (g * (d / 2)) % 4 ||
+      (v_kind == rt::kValueU8 && (vscale == nullptr || vzero == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
-  if (paged_prefill_tensor_core(kv_bf16, v_bf16, d, g, t_bits, kc, vc, codes, rs, rz, ts, tz,
-                                values)) {
-    if (d == 32)
-      return launch_mma<32>(q, kc, vc, codes, rs, rz, ts, tz, values, page_row, n_prefix,
-                            chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
-    if (d == 64)
-      return launch_mma<64>(q, kc, vc, codes, rs, rz, ts, tz, values, page_row, n_prefix,
-                            chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
-    return launch_mma<128>(q, kc, vc, codes, rs, rz, ts, tz, values, page_row, n_prefix,
-                           chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
-  }
-  if (kv_bf16 && v_bf16)
-    return launch_d<bf, bf>(d, q, kc, vc, codes, rs, rz, ts, tz, values, page_row, n_prefix,
-                            chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
-  if (kv_bf16)
-    return launch_d<bf, float>(d, q, kc, vc, codes, rs, rz, ts, tz, values, page_row, n_prefix,
-                               chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
-  if (v_bf16)
-    return launch_d<float, bf>(d, q, kc, vc, codes, rs, rz, ts, tz, values, page_row, n_prefix,
-                               chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
-  return launch_d<float, float>(d, q, kc, vc, codes, rs, rz, ts, tz, values, page_row, n_prefix,
-                                chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
+  const bool mma = paged_prefill_tensor_core(kv_bf16, v_kind, d, g, t_bits, kc, vc, codes, rs,
+                                             rz, ts, tz, values, vscale, vzero);
+  return rt::with_value_type(v_kind, [&](auto tv) {
+    using TV = decltype(tv);
+    if constexpr (!std::is_same_v<TV, float>) {
+      if (mma)
+        return launch_mma_d<TV>(d, q, kc, vc, codes, rs, rz, ts, tz, values, vscale, vzero,
+                                page_row, n_prefix, chunk_len, out, Hkv, QT, Tc, g, PP, t_bits,
+                                s);
+    }
+    if (kv_bf16)
+      return launch_d<bf, TV>(d, q, kc, vc, codes, rs, rz, ts, tz, values, vscale, vzero,
+                              page_row, n_prefix, chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
+    return launch_d<float, TV>(d, q, kc, vc, codes, rs, rz, ts, tz, values, vscale, vzero,
+                               page_row, n_prefix, chunk_len, out, Hkv, QT, Tc, g, PP, t_bits, s);
+  });
 }

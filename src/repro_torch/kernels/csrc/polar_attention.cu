@@ -12,8 +12,13 @@
 // value rows are read with 16-byte loads, so the pointers must be
 // 16-byte aligned (the launch returns cudaErrorMisalignedAddress).
 //
+// Value rows are bf16, fp32 or uint8 mid-tread codes with one fp32 scale
+// and zero per row (the TPU kernel's uint8 branch, repro/kernels/
+// polar_attention.py:84), dequantized while they are staged.
+//
 // Bound: bytes — each live group's codes (g*P B), stats (4*P*4 B) and
-// value rows (g*d*2 B in bf16) are read once per (row, kv head). The grid
+// value rows (g*d*2 B in bf16; g*d + 8*g B as uint8 codes with their
+// scales and zeros) are read once per (row, kv head). The grid
 // is only B*Hkv blocks (32 at 8 rows x 4 kv heads), far below the 132
 // SMs: splitting groups across blocks is the first thing to fix.
 #include "lut_decode.cuh"
@@ -32,12 +37,14 @@ struct DenseGroups {
 }  // namespace
 
 // q (B, Hkv, Qh, d) fp32 pre-scaled; codes (B, Hkv, G, g, d/2) uint8; stats
-// (B, Hkv, G, 1, d/2) fp32; values (B, Hkv, G*g, d) bf16 or fp32; length (B,)
-// int32 valid grouped tokens per row. Outputs acc (B, Hkv, Qh, d), m and l
+// (B, Hkv, G, 1, d/2) fp32; values (B, Hkv, G*g, d) of v_kind (rt::ValueKind:
+// fp32, bf16, or uint8 with vscale / vzero (B, Hkv, G*g, 1) fp32; null
+// otherwise); length (B,) int32 valid grouped tokens per row. Outputs acc (B, Hkv, Qh, d), m and l
 // (B, Hkv, Qh), all fp32.
 extern "C" int polar_attention_launch(const void* q, const void* codes, const void* rs,
                                       const void* rz, const void* ts, const void* tz,
-                                      const void* values, int v_bf16, const void* length,
+                                      const void* values, int v_kind, const void* vscale,
+                                      const void* vzero, const void* length,
                                       void* acc, void* m, void* l, int B, int Hkv, int Qh,
                                       int d, int G, int g, int t_bits, void* stream) {
   if (B <= 0 || Hkv <= 0 || Qh <= 0 || d <= 0 || d % 2 || G <= 0 || g <= 0 || B > 65535 ||
@@ -51,11 +58,9 @@ extern "C" int polar_attention_launch(const void* q, const void* codes, const vo
   auto* a = static_cast<float*>(acc);
   auto* mm = static_cast<float*>(m);
   auto* ll = static_cast<float*>(l);
-  if (v_bf16)
-    return rt::launch_lut_flash_decode<__nv_bfloat16>(f(q), c, f(rs), f(rz), f(ts), f(tz),
-                                                      values, groups, len, a, mm, ll, B, Hkv,
-                                                      Qh, d, g, t_bits, st);
-  return rt::launch_lut_flash_decode<float>(f(q), c, f(rs), f(rz), f(ts), f(tz), values,
-                                            groups, len, a, mm, ll, B, Hkv, Qh, d, g, t_bits,
-                                            st);
+  return rt::with_value_type(v_kind, [&](auto tv) {
+    return rt::launch_lut_flash_decode<decltype(tv)>(f(q), c, f(rs), f(rz), f(ts), f(tz),
+                                                     values, f(vscale), f(vzero), groups, len,
+                                                     a, mm, ll, B, Hkv, Qh, d, g, t_bits, st);
+  });
 }

@@ -8,11 +8,17 @@ kernel for CUDA tensors and runs its plain version for CPU tensors.
 decode-attention entries: kernel partials over the flushed groups merged
 exactly with the fp residual segment (associative online-softmax merge,
 plain PyTorch).
+
+Values are fp rows, or uint8 mid-tread codes passed with ``vscale`` /
+``vzero`` (one fp32 scale and zero per (token, kv head) row, shaped like
+the values with a last dim of 1): the kernels dequantize code · scale +
+zero on the fly, and the residual segment's rows are dequantized here.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.kv_cache import dequant_rows
 from repro_torch.kernels import flash_prefill as fp_mod
 from repro_torch.kernels import paged_decode as pd_mod
 from repro_torch.kernels import paged_prefill as pp_mod
@@ -44,22 +50,23 @@ def polar_encode_pages(k, pages, codes, rs, rz, ts, tz, *, r_bits=4,
 
 
 def polar_decode_attention_grouped(q, codes, rs, rz, ts, tz, values, length,
-                                   *, r_bits=4, t_bits=4):
+                                   *, vscale=None, vzero=None, r_bits=4,
+                                   t_bits=4):
     """Fused flash decode over the dense grouped segment: q (B, Hkv, Qh, d)
     pre-scaled, dense buffers, length (B,) int32 -> flash partials."""
     return pa_mod.polar_decode_attention_grouped(
-        q, codes, rs, rz, ts, tz, values, length, r_bits=r_bits,
-        t_bits=t_bits)
+        q, codes, rs, rz, ts, tz, values, length, vscale=vscale,
+        vzero=vzero, r_bits=r_bits, t_bits=t_bits)
 
 
 def polar_paged_decode_attention_grouped(q, codes, rs, rz, ts, tz, values,
-                                         page_table, flushed, *, r_bits=4,
-                                         t_bits=4):
+                                         page_table, flushed, *, vscale=None,
+                                         vzero=None, r_bits=4, t_bits=4):
     """Page-native fused flash decode over the grouped segment: pool
     buffers + page table in, flash partials out (no dense gather copy)."""
     return pd_mod.polar_paged_decode_grouped(
-        q, codes, rs, rz, ts, tz, values, page_table, flushed,
-        r_bits=r_bits, t_bits=t_bits)
+        q, codes, rs, rz, ts, tz, values, page_table, flushed, vscale=vscale,
+        vzero=vzero, r_bits=r_bits, t_bits=t_bits)
 
 
 def flash_prefill(q, k, v, *, causal=True, scale=None):
@@ -69,15 +76,17 @@ def flash_prefill(q, k, v, *, causal=True, scale=None):
 
 def polar_paged_prefill_attention(q, k_chunk, v_chunk, codes, rs, rz, ts,
                                   tz, values, page_row, start, chunk_len, *,
-                                  r_bits=4, t_bits=4, softmax_scale=None):
+                                  vscale=None, vzero=None, r_bits=4, t_bits=4,
+                                  softmax_scale=None):
     """Page-native fused chunk-prefill attention: one chunk's queries
     against the slot's quantized prefix pages (LUT scores, in-place page
     walk) + the chunk's own fp causal tile, one online softmax.
 
     q (1, Hq, Tc, d) UNscaled post-RoPE queries; k_chunk/v_chunk
-    (1, Hkv, Tc, d); pools as in :func:`polar_paged_decode_attention_grouped`;
-    page_row (N,) int32; ``start`` (page-aligned) and ``chunk_len`` ints.
-    Returns (1, Hq, Tc, d) in q.dtype."""
+    (1, Hkv, Tc, d) fp (the chunk's own rows are never quantized here);
+    pools as in :func:`polar_paged_decode_attention_grouped`; page_row (N,)
+    int32; ``start`` (page-aligned) and ``chunk_len`` ints. Returns
+    (1, Hq, Tc, d) in q.dtype."""
     _, hq, tc, d = q.shape
     hkv = codes.shape[1]
     qpk = hq // hkv
@@ -88,7 +97,7 @@ def polar_paged_prefill_attention(q, k_chunk, v_chunk, codes, rs, rz, ts,
     out = pp_mod.polar_paged_prefill_grouped(
         qf, k_chunk[0].contiguous(), v_chunk[0].contiguous(), codes, rs, rz,
         ts, tz, values, page_row.contiguous(), start, chunk_len,
-        r_bits=r_bits, t_bits=t_bits)
+        vscale=vscale, vzero=vzero, r_bits=r_bits, t_bits=t_bits)
     return out.reshape(1, hq, tc, d).to(q.dtype)
 
 
@@ -133,14 +142,14 @@ def _residual_flash_partials(q4, key_residual, n_res, v_res):
 
 
 def polar_decode_attention_full(q, codes, rs, rz, ts, tz, key_residual,
-                                values, length, *, r_bits=4, t_bits=4,
-                                softmax_scale=None):
+                                values, length, *, vscale=None, vzero=None,
+                                r_bits=4, t_bits=4, softmax_scale=None):
     """End-to-end decode attention over the dense cache: flushed groups
     through the fused kernel + the fp residual segment, merged exactly.
 
     q (B, Hq, d); codes (B, Hkv, G, g, P) with stats (B, Hkv, G, 1, P);
-    key_residual (B, Hkv, g, d); values (B, Hkv, T, d) token-major rows;
-    length () or (B,) int32 total tokens (per-row lengths mask gathered
+    key_residual (B, Hkv, g, d); values (B, Hkv, T, d) token-major rows
+    (fp, or uint8 with vscale/vzero (B, Hkv, T, 1)); length () or (B,) int32 total tokens (per-row lengths mask gathered
     continuous-batching slots at their own positions). Returns (B, Hq, d)
     in q.dtype."""
     b, hq, d = q.shape
@@ -153,8 +162,8 @@ def polar_decode_attention_full(q, codes, rs, rz, ts, tz, key_residual,
     flushed = (len_b // g) * g                                   # (B,)
 
     acc_g, m_g, l_g = polar_decode_attention_grouped(
-        q4, codes, rs, rz, ts, tz, values, flushed, r_bits=r_bits,
-        t_bits=t_bits)
+        q4, codes, rs, rz, ts, tz, values, flushed, vscale=vscale,
+        vzero=vzero, r_bits=r_bits, t_bits=t_bits)
 
     # residual V rows live token-major at [flushed, flushed + g), gathered
     # per row (flushed differs across slots; the clamp keeps the gather in
@@ -162,8 +171,12 @@ def polar_decode_attention_full(q, codes, rs, rz, ts, tz, key_residual,
     t_cap = values.shape[2]
     slot = torch.arange(g, dtype=torch.int32, device=q.device)
     rows = torch.clamp(flushed[:, None] + slot[None, :], max=t_cap - 1)
-    idx = rows[:, None, :, None].long().expand(b, hkv, g, d)
-    v_res = torch.gather(values, 2, idx).float()                 # (B,H,g,d)
+    idx = rows[:, None, :, None].long()
+    v_res = torch.gather(values, 2, idx.expand(b, hkv, g, d))    # (B,H,g,d)
+    if vscale is not None:
+        one = idx.expand(b, hkv, g, 1)
+        vscale, vzero = (torch.gather(x, 2, one) for x in (vscale, vzero))
+    v_res = dequant_rows(v_res, vscale, vzero)
     acc_r, m_r, l_r = _residual_flash_partials(q4, key_residual,
                                                len_b - flushed, v_res)
     out = merge_softmax_partials([(acc_g, m_g, l_g), (acc_r, m_r, l_r)])
@@ -172,7 +185,7 @@ def polar_decode_attention_full(q, codes, rs, rz, ts, tz, key_residual,
 
 def polar_paged_decode_attention_full(
         q, codes, rs, rz, ts, tz, key_residual, values, page_table, lengths,
-        *, r_bits=4, t_bits=4, softmax_scale=None):
+        *, vscale=None, vzero=None, r_bits=4, t_bits=4, softmax_scale=None):
     """End-to-end page-native decode attention: flushed pages through the
     page-walking kernel + the fp residual segment, merged exactly.
 
@@ -192,13 +205,15 @@ def polar_paged_decode_attention_full(
 
     acc_g, m_g, l_g = polar_paged_decode_attention_grouped(
         q4, codes, rs, rz, ts, tz, values, page_table, flushed,
-        r_bits=r_bits, t_bits=t_bits)
+        vscale=vscale, vzero=vzero, r_bits=r_bits, t_bits=t_bits)
 
     # residual V rows sit in the page being filled; empty slots clamp to
     # table entry 0 (possibly scratch) and every row is masked below
     gidx = torch.clamp(flushed // g, max=page_table.shape[1] - 1)
-    pv = torch.gather(page_table, 1, gidx[:, None].long())[:, 0]  # (S,)
-    v_res = values[pv.long()].float()                            # (S,H,g,d)
+    pv = torch.gather(page_table, 1, gidx[:, None].long())[:, 0].long()
+    if vscale is not None:
+        vscale, vzero = vscale[pv], vzero[pv]
+    v_res = dequant_rows(values[pv], vscale, vzero)              # (S,H,g,d)
     acc_r, m_r, l_r = _residual_flash_partials(q4, key_residual,
                                                len_b - flushed, v_res)
     out = merge_softmax_partials([(acc_g, m_g, l_g), (acc_r, m_r, l_r)])

@@ -12,7 +12,12 @@ per page, stages the page's stats, codes and value rows in shared memory
 by gather, masks positions >= ``flushed[s]``, and folds them into an
 online softmax and p @ V. Output: the unnormalized flash partials
 (acc, m, l) over the flushed groups; the residual merge happens in
-``kernels/ops.py``.
+``kernels/ops.py``. Value rows are bf16/fp32, or uint8 mid-tread codes
+with one fp32 scale and zero per row (the TPU kernel's uint8 branch,
+``repro/kernels/paged_decode.py:81``): the split body stages the codes
+and the page's scales and zeros and folds the scale into the
+probability, sum_t p_t (c_t s_t + z_t) = sum_t (p_t s_t) c_t +
+sum_t p_t z_t, so p @ V stays one FMA per element.
 
 Bound: bytes — the live pages' codes, stats and value rows are read once
 per (slot, kv head) — but each page is a short dependent chain, so the
@@ -32,6 +37,8 @@ from repro_torch.kernels import ref as ref_mod
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
+#: of those, the launches that read uint8 value rows
+launches_u8 = 0
 
 #: blocks the split planner aims at: two resident blocks on each of an
 #: H100's 132 SMs
@@ -65,41 +72,43 @@ def split_ranges(n: int, nsplit: int) -> list[tuple[int, int]]:
 def _bind(lib) -> None:
     lib.paged_decode_launch.argtypes = [
         B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
-        B.VOIDP, B.LLONG, B.INT, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
+        B.VOIDP, B.VOIDP, B.VOIDP, B.LLONG, B.INT, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
         B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP, B.VOIDP]
     lib.paged_decode_launch.restype = B.INT
 
 
 def polar_paged_decode_grouped_plain(q, codes, rs, rz, ts, tz, values,
-                                     page_table, flushed, *, r_bits: int = 4,
+                                     page_table, flushed, *, vscale=None,
+                                     vzero=None, r_bits: int = 4,
                                      t_bits: int = 4):
     """Plain version: gather the table's pages, LUT scores, masked softmax
     partials (``ref.ref_polar_paged_decode_attention``)."""
     return ref_mod.ref_polar_paged_decode_attention(
         q, codes, rs, rz, ts, tz, values, page_table, flushed,
-        r_bits=r_bits, t_bits=t_bits)
+        r_bits=r_bits, t_bits=t_bits, vscale=vscale, vzero=vzero)
 
 
 def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
                                rs: torch.Tensor, rz: torch.Tensor,
                                ts: torch.Tensor, tz: torch.Tensor,
                                values: torch.Tensor, page_table: torch.Tensor,
-                               flushed: torch.Tensor, *, r_bits: int = 4,
-                               t_bits: int = 4):
+                               flushed: torch.Tensor, *, vscale=None,
+                               vzero=None, r_bits: int = 4, t_bits: int = 4):
     """Fused flash decode over the grouped segment, straight off the pools.
 
     q (S, Hkv, Qh, d) fp32, ALREADY scaled; codes (PP, Hkv, g, P) uint8;
-    stats (PP, Hkv, 1, P) fp32; values (PP, Hkv, g, d) bf16/fp32 rows;
-    page_table (S, N) int32 (may be a width slice of a wider table);
+    stats (PP, Hkv, 1, P) fp32; values (PP, Hkv, g, d) bf16/fp32 rows, or
+    uint8 codes with fp32 vscale/vzero (PP, Hkv, g, 1); page_table (S, N) int32 (may be a width slice of a wider table);
     flushed (S,) int32. Returns (acc (S,Hkv,Qh,d), m (S,Hkv,Qh),
     l (S,Hkv,Qh)) fp32. The kernel for CUDA tensors, the plain version
     for CPU tensors."""
-    global launches
+    global launches, launches_u8
     tensors = (q, codes, rs, rz, ts, tz, values, page_table, flushed)
-    if not B.on_card(*tensors):
+    quant = tuple(x for x in (vscale, vzero) if x is not None)
+    if not B.on_card(*tensors, *quant):
         return polar_paged_decode_grouped_plain(
             q, codes, rs, rz, ts, tz, values, page_table, flushed,
-            r_bits=r_bits, t_bits=t_bits)
+            vscale=vscale, vzero=vzero, r_bits=r_bits, t_bits=t_bits)
     s, hkv, qh, d = q.shape
     pp, _, g, p = codes.shape
     n = page_table.shape[1]
@@ -112,10 +121,8 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
         B.require(st.dtype == torch.float32 and st.is_contiguous()
                   and tuple(st.shape) == (pp, hkv, 1, p),
                   "stat pools must be contiguous float32 (PP, Hkv, 1, d/2)")
-    B.require(values.dtype in (torch.float32, torch.bfloat16)
-              and values.is_contiguous()
-              and tuple(values.shape) == (pp, hkv, g, d),
-              "values must be contiguous bf16/fp32 (PP, Hkv, g, d)")
+    v_kind, vs_ptr, vz_ptr = B.value_rows(values, vscale, vzero,
+                                          (pp, hkv, g, d))
     B.require(page_table.dtype == torch.int32 and page_table.dim() == 2
               and page_table.shape[0] == s and page_table.stride(1) == 1,
               "page_table must be int32 (S, N) with unit column stride")
@@ -131,11 +138,12 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
     lib = B.library("paged_decode", _bind)
     err = lib.paged_decode_launch(
         q.data_ptr(), codes.data_ptr(), rs.data_ptr(), rz.data_ptr(),
-        ts.data_ptr(), tz.data_ptr(), values.data_ptr(),
-        int(values.dtype == torch.bfloat16), page_table.data_ptr(),
+        ts.data_ptr(), tz.data_ptr(), values.data_ptr(), v_kind, vs_ptr,
+        vz_ptr, page_table.data_ptr(),
         page_table.stride(0), n, flushed.data_ptr(), acc.data_ptr(),
         m.data_ptr(), l.data_ptr(), s, hkv, qh, d, g, pp, t_bits, nsplit,
         None if part is None else part.data_ptr(), B.stream_ptr(q))
     B.check(err, "paged_decode")
     launches += 1
+    launches_u8 += int(values.dtype == torch.uint8)
     return acc, m, l

@@ -16,6 +16,14 @@ dequantizes every live page once into bf16 hi/lo keys and runs
 (held to the same 1e-4 as the FMA body), pages and chunk tiles
 double-buffered by ``cp.async``; fp32 inputs (the tests') take the
 fp32-FMA body. ``launches_mma`` counts the tensor-core launches.
+
+Value pools are bf16/fp32 rows, or uint8 mid-tread codes with one fp32
+scale and zero per row (the TPU kernel's uint8 branch,
+``repro/kernels/paged_prefill.py:103``). The tensor-core body takes uint8
+pools with bf16 chunk K/V: codes (at most 255, exact in bf16) are the B
+operand of P.V, P's columns are scaled by the rows' scales before the
+hi/lo split, and each query row adds sum_t p_t z_t. The FMA body
+dequantizes them as it stages a page. The chunk's own rows stay fp.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from repro_torch.kernels import ref as ref_mod
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
+#: of those, the launches that read uint8 value rows
+launches_u8 = 0
 #: of those, the launches that ran the tensor-core body
 launches_mma = 0
 
@@ -33,18 +43,19 @@ launches_mma = 0
 def _bind(lib) -> None:
     lib.paged_prefill_launch.argtypes = [
         B.VOIDP, B.VOIDP, B.VOIDP, B.INT, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP,
-        B.VOIDP, B.VOIDP, B.INT, B.VOIDP, B.INT, B.INT, B.VOIDP, B.INT, B.INT,
-        B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP]
+        B.VOIDP, B.VOIDP, B.INT, B.VOIDP, B.VOIDP, B.VOIDP, B.INT, B.INT,
+        B.VOIDP, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP]
     lib.paged_prefill_launch.restype = B.INT
     lib.paged_prefill_tensor_core.argtypes = [
         B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP,
-        B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP]
+        B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP]
     lib.paged_prefill_tensor_core.restype = B.INT
 
 
 def polar_paged_prefill_grouped_plain(q, k_chunk, v_chunk, codes, rs, rz, ts,
                                       tz, values, page_row, start: int,
-                                      chunk_len: int, *, r_bits: int = 4,
+                                      chunk_len: int, *, vscale=None,
+                                      vzero=None, r_bits: int = 4,
                                       t_bits: int = 4) -> torch.Tensor:
     """Plain version: unfold the rows and run the gathering oracle
     (``ref.ref_polar_paged_prefill_attention``) at softmax scale 1."""
@@ -53,7 +64,8 @@ def polar_paged_prefill_grouped_plain(q, k_chunk, v_chunk, codes, rs, rz, ts,
     out = ref_mod.ref_polar_paged_prefill_attention(
         q.reshape(1, qt // tc * hkv, tc, d), k_chunk[None], v_chunk[None],
         codes, rs, rz, ts, tz, values, page_row, start, chunk_len,
-        r_bits=r_bits, t_bits=t_bits, softmax_scale=1.0)
+        r_bits=r_bits, t_bits=t_bits, softmax_scale=1.0, vscale=vscale,
+        vzero=vzero)
     return out.float().reshape(hkv, qt, d)
 
 
@@ -62,19 +74,19 @@ def polar_paged_prefill_grouped(q: torch.Tensor, k_chunk: torch.Tensor,
                                 rs: torch.Tensor, rz: torch.Tensor,
                                 ts: torch.Tensor, tz: torch.Tensor,
                                 values: torch.Tensor, page_row: torch.Tensor,
-                                start: int, chunk_len: int, *,
-                                r_bits: int = 4,
+                                start: int, chunk_len: int, *, vscale=None,
+                                vzero=None, r_bits: int = 4,
                                 t_bits: int = 4) -> torch.Tensor:
     """One prefill chunk's fused attention, straight off the pools.
 
     q (Hkv, QT, d) fp32, folded and ALREADY scaled; k_chunk/v_chunk
     (Hkv, Tc, d) bf16/fp32; codes (PP, Hkv, g, d/2) uint8; stats
-    (PP, Hkv, 1, d/2) fp32; values (PP, Hkv, g, d) bf16/fp32 rows;
-    page_row (N,) int32, the slot's table row (may be width-sliced);
+    (PP, Hkv, 1, d/2) fp32; values (PP, Hkv, g, d) bf16/fp32 rows, or
+    uint8 codes with fp32 vscale/vzero (PP, Hkv, g, 1); page_row (N,) int32, the slot's table row (may be width-sliced);
     ``start`` page-aligned, ``start <= N*g``; ``chunk_len <= Tc`` real
     chunk tokens. Returns (Hkv, QT, d) fp32. The kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    global launches, launches_mma
+    global launches, launches_u8, launches_mma
     start, chunk_len = int(start), int(chunk_len)
     g = codes.shape[2]
     B.require(start % g == 0, f"start {start} is not page-aligned (g={g})")
@@ -82,10 +94,12 @@ def polar_paged_prefill_grouped(q: torch.Tensor, k_chunk: torch.Tensor,
               f"start {start} beyond the table row's {page_row.shape[0]} "
               "pages")
     tensors = (q, k_chunk, v_chunk, codes, rs, rz, ts, tz, values, page_row)
-    if not B.on_card(*tensors):
+    quant = tuple(x for x in (vscale, vzero) if x is not None)
+    if not B.on_card(*tensors, *quant):
         return polar_paged_prefill_grouped_plain(
             q, k_chunk, v_chunk, codes, rs, rz, ts, tz, values, page_row,
-            start, chunk_len, r_bits=r_bits, t_bits=t_bits)
+            start, chunk_len, vscale=vscale, vzero=vzero, r_bits=r_bits,
+            t_bits=t_bits)
     hkv, qt, d = q.shape
     pp, _, _, p = codes.shape
     tc = k_chunk.shape[1]
@@ -108,26 +122,25 @@ def polar_paged_prefill_grouped(q: torch.Tensor, k_chunk: torch.Tensor,
         B.require(st.dtype == torch.float32 and st.is_contiguous()
                   and tuple(st.shape) == (pp, hkv, 1, p),
                   "stat pools must be contiguous float32 (PP, Hkv, 1, d/2)")
-    B.require(values.dtype in (torch.float32, torch.bfloat16)
-              and values.is_contiguous()
-              and tuple(values.shape) == (pp, hkv, g, d),
-              "values must be contiguous bf16/fp32 (PP, Hkv, g, d)")
+    v_kind, vs_ptr, vz_ptr = B.value_rows(values, vscale, vzero,
+                                          (pp, hkv, g, d))
     B.require(page_row.dtype == torch.int32 and page_row.dim() == 1
               and page_row.is_contiguous(),
               "page_row must be a contiguous int32 (N,) row")
     out = torch.empty((hkv, qt, d), dtype=torch.float32, device=q.device)
     lib = B.library("paged_prefill", _bind)
     kv_bf16 = int(k_chunk.dtype == torch.bfloat16)
-    v_bf16 = int(values.dtype == torch.bfloat16)
     pools = (codes.data_ptr(), rs.data_ptr(), rz.data_ptr(), ts.data_ptr(),
              tz.data_ptr(), values.data_ptr())
     err = lib.paged_prefill_launch(
         q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(), kv_bf16,
-        *pools, v_bf16, page_row.data_ptr(), start // g, chunk_len,
-        out.data_ptr(), hkv, qt, tc, d, g, pp, t_bits, B.stream_ptr(q))
+        *pools, v_kind, vs_ptr, vz_ptr, page_row.data_ptr(), start // g,
+        chunk_len, out.data_ptr(), hkv, qt, tc, d, g, pp, t_bits,
+        B.stream_ptr(q))
     B.check(err, "paged_prefill")
     launches += 1
+    launches_u8 += int(values.dtype == torch.uint8)
     launches_mma += lib.paged_prefill_tensor_core(
-        kv_bf16, v_bf16, d, g, t_bits, k_chunk.data_ptr(), v_chunk.data_ptr(),
-        *pools)
+        kv_bf16, v_kind, d, g, t_bits, k_chunk.data_ptr(), v_chunk.data_ptr(),
+        *pools, vs_ptr, vz_ptr)
     return out

@@ -12,7 +12,10 @@ codes and value rows in shared memory (16-byte loads, dead value rows
 zeroed), builds the angle LUT, scores the group's tokens by gather, masks
 positions >= ``length[b]``, and folds them into an online softmax and
 p @ V. Output: the unnormalized flash partials (acc, m, l); the residual
-merge happens in ``kernels/ops.py``.
+merge happens in ``kernels/ops.py``. Value rows are bf16/fp32, or uint8
+mid-tread codes with one fp32 scale and zero per row (the TPU kernel's
+uint8 branch, ``repro/kernels/polar_attention.py:84``), dequantized as
+code * scale + zero while they are staged.
 
 Bound: bytes — the live groups' codes, stats and value rows are read once
 per (row, kv head). The grid has only B*Hkv blocks (32 on the static
@@ -27,44 +30,49 @@ from repro_torch.kernels import ref as ref_mod
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
+#: of those, the launches that read uint8 value rows
+launches_u8 = 0
 
 
 def _bind(lib) -> None:
     lib.polar_attention_launch.argtypes = [
         B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
-        B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT, B.INT, B.INT, B.INT, B.INT,
+        B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT, B.INT, B.INT, B.INT, B.INT,
         B.INT, B.INT, B.VOIDP]
     lib.polar_attention_launch.restype = B.INT
 
 
 def polar_decode_attention_grouped_plain(q, codes, rs, rz, ts, tz, values,
-                                         length, *, r_bits: int = 4,
-                                         t_bits: int = 4):
+                                         length, *, vscale=None, vzero=None,
+                                         r_bits: int = 4, t_bits: int = 4):
     """Plain version: LUT scores, masked softmax partials, dead value rows
     zeroed (``ref.ref_polar_decode_attention`` with q already scaled)."""
     return ref_mod.ref_polar_decode_attention(
         q, codes, rs, rz, ts, tz, values, length, r_bits=r_bits,
-        t_bits=t_bits, softmax_scale=1.0)
+        t_bits=t_bits, softmax_scale=1.0, vscale=vscale, vzero=vzero)
 
 
 def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
                                    rs: torch.Tensor, rz: torch.Tensor,
                                    ts: torch.Tensor, tz: torch.Tensor,
                                    values: torch.Tensor, length: torch.Tensor,
-                                   *, r_bits: int = 4, t_bits: int = 4):
+                                   *, vscale=None, vzero=None,
+                                   r_bits: int = 4, t_bits: int = 4):
     """Fused flash decode over the dense grouped segment.
 
     q (B, Hkv, Qh, d) fp32, ALREADY scaled; codes (B, Hkv, G, g, P) uint8;
     stats (B, Hkv, G, 1, P) fp32; values (B, Hkv, G*g, d) bf16/fp32
-    token-major rows; length (B,) int32 valid grouped tokens per row.
+    token-major rows, or uint8 codes with fp32 vscale/vzero
+    (B, Hkv, G*g, 1); length (B,) int32 valid grouped tokens per row.
     Returns (acc (B,Hkv,Qh,d), m (B,Hkv,Qh), l (B,Hkv,Qh)) fp32. The kernel
     for CUDA tensors, the plain version for CPU tensors."""
-    global launches
+    global launches, launches_u8
     tensors = (q, codes, rs, rz, ts, tz, values, length)
-    if not B.on_card(*tensors):
+    quant = tuple(x for x in (vscale, vzero) if x is not None)
+    if not B.on_card(*tensors, *quant):
         return polar_decode_attention_grouped_plain(
-            q, codes, rs, rz, ts, tz, values, length, r_bits=r_bits,
-            t_bits=t_bits)
+            q, codes, rs, rz, ts, tz, values, length, vscale=vscale,
+            vzero=vzero, r_bits=r_bits, t_bits=t_bits)
     b, hkv, qh, d = q.shape
     B.require(codes.dim() == 5, "codes must be (B, Hkv, G, g, d/2)")
     _, _, gc, g, p = codes.shape
@@ -77,10 +85,8 @@ def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
         B.require(st.dtype == torch.float32 and st.is_contiguous()
                   and tuple(st.shape) == (b, hkv, gc, 1, p),
                   "stats must be contiguous float32 (B, Hkv, G, 1, d/2)")
-    B.require(values.dtype in (torch.float32, torch.bfloat16)
-              and values.is_contiguous()
-              and tuple(values.shape) == (b, hkv, gc * g, d),
-              "values must be contiguous bf16/fp32 (B, Hkv, G*g, d)")
+    v_kind, vs_ptr, vz_ptr = B.value_rows(values, vscale, vzero,
+                                          (b, hkv, gc * g, d))
     B.require(length.dtype == torch.int32 and length.is_contiguous()
               and tuple(length.shape) == (b,), "length must be int32 (B,)")
     B.require(r_bits + t_bits <= 8, "r_bits + t_bits must fit one byte")
@@ -90,10 +96,11 @@ def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
     lib = B.library("polar_attention", _bind)
     err = lib.polar_attention_launch(
         q.data_ptr(), codes.data_ptr(), rs.data_ptr(), rz.data_ptr(),
-        ts.data_ptr(), tz.data_ptr(), values.data_ptr(),
-        int(values.dtype == torch.bfloat16), length.data_ptr(),
+        ts.data_ptr(), tz.data_ptr(), values.data_ptr(), v_kind, vs_ptr,
+        vz_ptr, length.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, qh, d, gc, g,
         t_bits, B.stream_ptr(q))
     B.check(err, "polar_attention")
     launches += 1
+    launches_u8 += int(values.dtype == torch.uint8)
     return acc, m, l

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.core import lut as lut_mod
 from repro_torch.core import quantizers as qz
+from repro_torch.core.kv_cache import dequant_rows
 from repro_torch.core.quantizers import PolarKeys, QuantConfig
 
 NEG_INF = -1e30
@@ -42,10 +43,12 @@ def ref_polar_encode(k, *, r_bits: int, t_bits: int, group_size: int,
 
 def ref_polar_decode_attention(q, codes, rs, rz, ts, tz, values, length, *,
                                r_bits: int, t_bits: int,
-                               softmax_scale: float | None = None):
+                               softmax_scale: float | None = None,
+                               vscale=None, vzero=None):
     """Fused decode attention over the grouped part of the cache.
 
-    q (B, Hkv, Qh, d); values (B, Hkv, T, d) fp; length (B,) int32 valid
+    q (B, Hkv, Qh, d); values (B, Hkv, T, d) fp, or uint8 codes with
+    vscale/vzero (B, Hkv, T, 1); length (B,) int32 valid
     grouped tokens per sequence. Returns the unnormalized flash partials
     (out (B, Hkv, Qh, d), m (B, Hkv, Qh), l (B, Hkv, Qh))."""
     b, hkv, qh, d = q.shape
@@ -66,44 +69,52 @@ def ref_polar_decode_attention(q, codes, rs, rz, ts, tz, values, length, *,
     # zero dead value rows too: p is exactly 0 there, but 0 * NaN (stale
     # scratch-page garbage) would poison the product
     vmask = pos[None, :] < len_b[:, None]
-    values = torch.where(vmask[:, None, :, None], values.float(), zero)
+    values = torch.where(vmask[:, None, :, None],
+                         dequant_rows(values, vscale, vzero), zero)
     out = torch.einsum("bhqt,bhtd->bhqd", p, values)
     return out, m, l
 
 
 def ref_polar_paged_decode_attention(q, codes, rs, rz, ts, tz, values,
                                      page_table, flushed, *, r_bits: int,
-                                     t_bits: int):
+                                     t_bits: int, vscale=None, vzero=None):
     """Page-native decode oracle: pool buffers + page table in, flash
     partials out. q (S, Hkv, Qh, d) ALREADY scaled; codes (PP, Hkv, g, P)
-    with stats (PP, Hkv, 1, P); values (PP, Hkv, g, d) fp rows;
-    page_table (S, N) int32; flushed (S,) int32."""
+    with stats (PP, Hkv, 1, P); values (PP, Hkv, g, d) fp rows, or uint8
+    codes with vscale/vzero (PP, Hkv, g, 1); page_table (S, N) int32;
+    flushed (S,) int32."""
     table = page_table.long()
 
-    def pages(x):  # (PP, H, a, b) -> (S, H, N, a, b)
+    def pages(x):  # (PP, H, a, b) -> (S, H, N*a, b)
+        x = x[table].transpose(1, 2)
+        return x.reshape(*x.shape[:2], -1, x.shape[-1])
+
+    def groups(x):  # (PP, H, a, b) -> (S, H, N, a, b)
         return x[table].transpose(1, 2)
 
-    v = pages(values).float()
-    s_, h = v.shape[:2]
-    v = v.reshape(s_, h, -1, v.shape[-1])                # (S, H, N*g, d)
+    if vscale is not None:
+        vscale, vzero = pages(vscale), pages(vzero)
     return ref_polar_decode_attention(
-        q, pages(codes), pages(rs), pages(rz), pages(ts), pages(tz), v,
-        flushed, r_bits=r_bits, t_bits=t_bits, softmax_scale=1.0)
+        q, groups(codes), groups(rs), groups(rz), groups(ts), groups(tz),
+        pages(values), flushed, r_bits=r_bits, t_bits=t_bits,
+        softmax_scale=1.0, vscale=vscale, vzero=vzero)
 
 
 def ref_polar_paged_prefill_attention(q, k_chunk, v_chunk, codes, rs, rz,
                                       ts, tz, values, page_row, start,
                                       chunk_len, *, r_bits: int, t_bits: int,
-                                      softmax_scale: float | None = None):
+                                      softmax_scale: float | None = None,
+                                      vscale=None, vzero=None):
     """Page-native chunk-prefill oracle: one prefill chunk's attention over
     the slot's quantized prefix pages + its own fp causal tile (port of
     ``repro/kernels/ref.py:86``).
 
     q (1, Hq, Tc, d) post-RoPE at absolute positions ``start + [0, Tc)``
     (UNscaled); k_chunk/v_chunk (1, Hkv, Tc, d); codes (PP, Hkv, g, P) page
-    pool with stats (PP, Hkv, 1, P); values (PP, Hkv, g, d) fp rows;
-    page_row (N,) int32; ``start`` page-aligned; ``chunk_len`` real chunk
-    tokens. Pages outside ``[0, PP - 1)`` (the scratch page) read as
+    pool with stats (PP, Hkv, 1, P); values (PP, Hkv, g, d) fp rows, or
+    uint8 codes with vscale/vzero (PP, Hkv, g, 1) (the chunk's own rows
+    stay fp); page_row (N,) int32; ``start`` page-aligned; ``chunk_len``
+    real chunk tokens. Pages outside ``[0, PP - 1)`` (the scratch page) read as
     zeros, and value rows at or past ``start`` (prefix pool) or
     ``chunk_len`` (chunk) are zeroed as the kernel zeroes them: their
     probabilities are exactly 0, but 0 * NaN garbage would poison the
@@ -144,7 +155,10 @@ def ref_polar_paged_prefill_attention(q, k_chunk, v_chunk, codes, rs, rz,
     probs = torch.softmax(torch.cat([s_prefix, s_chunk], dim=-1), dim=-1)
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    v_tilde = gat(values).reshape(1, hkv, t_cap, d).float()
+    if vscale is not None:
+        vscale, vzero = gat(vscale), gat(vzero)
+    v_tilde = dequant_rows(gat(values), vscale, vzero).reshape(
+        1, hkv, t_cap, d)
     v_tilde = torch.where((pos < start)[:, None], v_tilde, zero)
     v_c = torch.where((i < chunk_len)[:, None], v_chunk.float(), zero)
     v_all = torch.cat([v_tilde, v_c], dim=2)

@@ -525,3 +525,236 @@ def test_static_engine_runs_on_card_by_default(dev, backend):
                              GenerationConfig(max_new_tokens=20))
     assert out["tokens"].shape == (3, 20)
     assert (out["tokens"] == plain["tokens"]).mean() >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# uint8 values (QuantConfig.value_bits > 0): codes + one fp32 scale and
+# zero per row, in every kernel that reads value rows
+# ---------------------------------------------------------------------------
+
+
+def _u8_values(dev, gen, shape, bits):
+    """uint8 mid-tread value codes of random rows with their (…, 1) fp32
+    scale and zero (``quantizers.encode_values``)."""
+    from repro_torch.core import quantizers as qz
+    qv = qz.encode_values(torch.randn(shape, generator=gen, device=dev), bits)
+    return qv.codes, qv.scale, qv.zero
+
+
+# body: "split" (d 64, the served shape) or "unsplit" (d 48: d % 32 != 0
+# sends the page walk to the unsplit body)
+@pytest.mark.parametrize("body", ["split", "unsplit"])
+@pytest.mark.parametrize("case", sorted(_DECODE_CASES))
+@pytest.mark.parametrize("bits", [4, 8])
+def test_paged_decode_kernel_u8_values_match_plain(dev, bits, case, body):
+    """Kernel #2's uint8 branch against its plain version at 1e-4: codes,
+    scales and zeros of the NaN-poisoned scratch page behind every dead
+    table entry never reach a sum."""
+    s, hkv, qh, fl, n, pp = _DECODE_CASES[case]
+    d, g = (64 if body == "split" else 48), 128
+    gen = _gen(dev, 20)
+    k = torch.randn((1, pp * hkv, g, d), generator=gen, device=dev)
+    enc = ops.polar_encode(k, group_size=g)
+    pool = [x.reshape(pp, hkv, *x.shape[-2:]).contiguous() for x in enc]
+    vc, vs, vz = _u8_values(dev, gen, (pp, hkv, g, d), bits)
+    scratch = pp - 1
+    for x in (*pool[1:], vs, vz):
+        x[scratch] = float("nan")
+    vc[scratch] = 255
+    table = torch.full((s, n + 1), scratch, dtype=torch.int32, device=dev)
+    perm = torch.randperm(scratch, generator=gen, device=dev).to(torch.int32)
+    used = 0
+    for sl, f in enumerate(fl):
+        table[sl, :f // g] = perm[used:used + f // g]
+        used += f // g
+    flushed = torch.tensor(fl, dtype=torch.int32, device=dev)
+    q = torch.randn((s, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    launches = pdk.launches
+    got = pdk.polar_paged_decode_grouped(q, *pool, vc, table[:, :n], flushed,
+                                         vscale=vs, vzero=vz)
+    assert pdk.launches == launches + 1
+    ref = pdk.polar_paged_decode_grouped_plain(q, *pool, vc, table[:, :n],
+                                               flushed, vscale=vs, vzero=vz)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("t_bits", [4, 3])
+def test_polar_attention_kernel_u8_values_match_plain(dev, bits, t_bits):
+    """Kernel #5's uint8 branch: ragged row lengths (0, a partial group,
+    whole groups), every value scale and zero past a row's length NaN."""
+    b, hkv, qh, d, g, gc = 4, 2, 8, 64, 128, 4
+    gen = _gen(dev, 21)
+    enc = _dense_groups(dev, gen, b, hkv, d, g, gc, 4, t_bits)
+    vc, vs, vz = _u8_values(dev, gen, (b, hkv, gc * g, d), bits)
+    length = torch.tensor([0, 300, 384, 511], dtype=torch.int32, device=dev)
+    for i, n in enumerate(length.tolist()):
+        vs[i, :, n:] = float("nan")
+        vz[i, :, n:] = float("nan")
+        for x in enc[1:]:
+            x[i, :, -(-n // g):] = float("nan")
+    q = torch.randn((b, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    n = pak.launches
+    got = pak.polar_decode_attention_grouped(q, *enc, vc, length, vscale=vs,
+                                             vzero=vz, t_bits=t_bits)
+    assert pak.launches == n + 1
+    ref = pak.polar_decode_attention_grouped_plain(
+        q, *enc, vc, length, vscale=vs, vzero=vz, t_bits=t_bits)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("start,clen,width,d", [
+    (0, 256, 6, 64), (384, 77, 4, 64), (1024, 255, 8, 64), (2048, 1, 16, 64),
+    (1024, 77, 8, 32), (1024, 255, 8, 128)])
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_paged_prefill_kernel_u8_values_match_plain(dev, start, clen, width,
+                                                    d, kvdtype, bits):
+    """Kernel #4's uint8 branch on both bodies at 1e-4: bf16 chunk K/V take
+    the tensor-core body (codes as the bf16 B operand, P scaled by the row
+    scales, sum_t p_t z_t per row), fp32 the FMA body. NaN scales and zeros
+    on the scratch page and on the value page at ``start``."""
+    hkv, qh, g, tc, pp = 4, 8, 128, 256, 20
+    scratch = pp - 1
+    gen = _gen(dev, 22)
+    pool, _ = _prefill_pools(dev, gen, pp, hkv, g, d)
+    vc_pool, vs, vz = _u8_values(dev, gen, (pp, hkv, g, d), bits)
+    row = torch.randperm(scratch, generator=gen, device=dev)[:width].to(
+        torch.int32)
+    row[start // g + (clen + g - 1) // g:] = scratch
+    for x in (*pool[1:], vs, vz):
+        x[scratch] = float("nan")
+    if start // g < width:
+        vs[int(row[start // g])] = float("nan")       # dead: at/past start
+        vz[int(row[start // g])] = float("nan")
+    q = torch.randn((hkv, qh * tc, d), generator=gen, device=dev) * d ** -0.5
+    kc = torch.randn((hkv, tc, d), generator=gen, device=dev).to(kvdtype)
+    vc = torch.randn((hkv, tc, d), generator=gen, device=dev).to(kvdtype)
+    kc[:, clen:] = float("nan")
+    vc[:, clen:] = float("nan")
+    n, n_mma = ppk.launches, ppk.launches_mma
+    got = ppk.polar_paged_prefill_grouped(q, kc, vc, *pool, vc_pool, row,
+                                          start, clen, vscale=vs, vzero=vz)
+    assert ppk.launches == n + 1
+    assert ppk.launches_mma == n_mma + int(kvdtype == torch.bfloat16)
+    ref = ppk.polar_paged_prefill_grouped_plain(
+        q, kc, vc, *pool, vc_pool, row, start, clen, vscale=vs, vzero=vz)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_full_decode_entries_u8_values_on_card_match_plain(dev):
+    """Both ``ops`` decode entries with uint8 values (kernel partials +
+    the residual rows dequantized in PyTorch), ragged lengths, against the
+    same entries with the plain versions swapped in."""
+    from unittest import mock
+    b, hkv, qh, d, g, gc = 3, 4, 8, 64, 128, 3
+    gen = _gen(dev, 23)
+    enc = _dense_groups(dev, gen, b, hkv, d, g, gc)
+    vc, vs, vz = _u8_values(dev, gen, (b, hkv, gc * g, d), 4)
+    res = torch.randn((b, hkv, g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((b, hkv * qh, d), generator=gen, device=dev)
+    length = torch.tensor([5, 256, 383], dtype=torch.int32, device=dev)
+    got = ops.polar_decode_attention_full(q, *enc, res, vc, length,
+                                          vscale=vs, vzero=vz)
+    with mock.patch.object(pak, "polar_decode_attention_grouped",
+                           pak.polar_decode_attention_grouped_plain):
+        ref = ops.polar_decode_attention_full(q, *enc, res, vc, length,
+                                              vscale=vs, vzero=vz)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    # the page pools: the same rows as pages 0..8 of a 10-page pool
+    pool = [x.transpose(1, 2).reshape(b * gc, hkv, *x.shape[3:]).contiguous()
+            for x in enc]
+    vpool = [x.reshape(b, hkv, gc, g, -1).transpose(1, 2)
+             .reshape(b * gc, hkv, g, x.shape[-1]).contiguous()
+             for x in (vc, vs, vz)]
+    table = torch.arange(b * gc, dtype=torch.int32, device=dev).reshape(b, gc)
+    got = ops.polar_paged_decode_attention_full(
+        q, *pool, res, vpool[0], table, length, vscale=vpool[1],
+        vzero=vpool[2])
+    with mock.patch.object(pdk, "polar_paged_decode_grouped",
+                           pdk.polar_paged_decode_grouped_plain):
+        ref_p = ops.polar_paged_decode_attention_full(
+            q, *pool, res, vpool[0], table, length, vscale=vpool[1],
+            vzero=vpool[2])
+    torch.testing.assert_close(got, ref_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_u8_value_wrappers_reject_bad_inputs(dev):
+    gen = _gen(dev, 24)
+    enc = _dense_groups(dev, gen, 1, 2, 64, 16, 2)
+    q = torch.randn((1, 2, 4, 64), generator=gen, device=dev)
+    vc, vs, vz = _u8_values(dev, gen, (1, 2, 32, 64), 4)
+    ln = torch.tensor([16], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="vscale and vzero"):
+        pak.polar_decode_attention_grouped(q, *enc, vc, ln)
+    with pytest.raises(ValueError, match="float32"):
+        pak.polar_decode_attention_grouped(q, *enc, vc, ln,
+                                           vscale=vs.half(), vzero=vz)
+    with pytest.raises(ValueError, match="vscale/vzero"):
+        pak.polar_decode_attention_grouped(q, *enc, vc, ln,
+                                           vscale=vs[:, :, :16], vzero=vz)
+
+
+def test_value_quantized_engines_on_card(dev):
+    """``QuantConfig(value_bits=4)`` through every engine on the card:
+    classic and chunked prefix-cache paged serving launch the uint8
+    branches of kernels #2 and #4 (every chunk on the tensor-core body),
+    ``ServeEngine``'s fused route kernel #5; greedy tokens agree with the
+    same runs on the plain versions. Pages of 64 tokens, a size the
+    tensor-core body takes (the smoke config's 32 is not)."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import get_model
+    from repro_torch.serve import (
+        ContinuousBatchingEngine, GenerationConfig, Request, ServeEngine,
+    )
+    base = reduce_for_smoke(get_config("tinyllama-1.1b"), dtype="bfloat16")
+    cfg = dataclasses.replace(base, quant=dataclasses.replace(
+        base.quant, value_bits=4, group_size=64))
+    m = get_model(cfg)
+    params = m.init(generator=_gen(dev, 25))
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, cfg.vocab_size, (128,)).astype(np.int32)
+    tails = [rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32)
+             for t in rng.integers(8, 40, 4)]
+
+    def reqs():
+        return [Request(rid=i, prompt=np.concatenate([shared, t]),
+                        max_new_tokens=6,
+                        arrival_time=0.0 if i == 0 else 1000.0)
+                for i, t in enumerate(tails)]
+
+    before = (pdk.launches, ppk.launches, ppk.launches_mma)
+    out = ContinuousBatchingEngine(m, params, max_slots=2, max_len=256).run(
+        reqs(), GenerationConfig())
+    assert all(r.done_tokens == 6 for r in out["requests"])
+    assert pdk.launches > before[0] and ppk.launches == before[1]
+    chunked = ContinuousBatchingEngine(m, params, max_slots=2, max_len=256,
+                                       prefill_chunk=64, prefix_cache=True)
+    out_c = chunked.run(reqs(), GenerationConfig())
+    n_pp = ppk.launches - before[1]
+    assert n_pp > 0 and ppk.launches_mma - before[2] == n_pp
+    assert out_c["adopted_pages"] > 0
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (3, 50))
+    fused = get_model(dataclasses.replace(cfg, decode_backend="paged_fused"))
+    n = pak.launches
+    eng = ServeEngine(fused, params, max_len=96)
+    got = eng.generate({"tokens": toks}, GenerationConfig(max_new_tokens=12))
+    assert pak.launches - n == 11 * cfg.num_layers
+    with mock.patch.multiple(
+            pak, polar_decode_attention_grouped=pak.
+            polar_decode_attention_grouped_plain):
+        plain = eng.generate({"tokens": toks},
+                             GenerationConfig(max_new_tokens=12))
+    assert (got["tokens"] == plain["tokens"]).mean() >= 0.9
