@@ -11,14 +11,18 @@ printing one line (the prefix phase one per run):
               prints ptxas' registers and spills, and checks the SASS for
               the designs' instructions (``cuobjdump``: tensor-core HMMA,
               LDGSTS copies and LDSM fragment loads in flash prefill and
-              paged prefill, LDGSTS copies in paged decode, 16-byte loads
-              and stores in the score-only LUT kernel).
+              paged prefill, LDGSTS copies in paged decode and the dense
+              decode kernel's split body, 16-byte loads and stores in the
+              score-only LUT kernel, the cluster barrier and distributed
+              shared memory loads in encode).
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the serving paths' shapes (encode codes exactly equal,
               attention and scores within the stated tolerances,
               NaN-poisoned scratch pages and dead rows), then times kernel,
               plain version and — for every kernel but encode — a PyTorch
-              library call; flash prefill is also timed at the static
+              library call; encode in its prefill form and its decode form
+              (8 slots' residual groups, none and one flushing, on a line
+              of its own), flash prefill also at the static
               phase's 8 x 1000-token shape, paged decode at 1 slot x 32
               pages and paged prefill at start 2048, each on a line of its
               own; the uint8-value forms of paged decode, paged prefill
@@ -63,7 +67,8 @@ printing one line (the prefix phase one per run):
               the largest kernels.
 
 Then one JSON line of per-kernel numbers (launches summed over the four
-serving phases; the uint8 forms on rows of their own), and last the device
+serving phases; the uint8 forms on rows of their own, encode's decode
+form — a decode step's flush — on a row of its own), and last the device
 JSON. Any failure raises (non-zero
 exit). Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -72,9 +77,11 @@ checkout of the repository, it exits non-zero and prints no result.
 times the alternatives the redesigned kernels were chosen against
 (``VARIANTS``: flash prefill's register cap and exponential, the score-only
 LUT kernel's groups per block, paged decode's pages per split and staging
-buffers, paged prefill's key groups), each checked against the current
+buffers, paged prefill's key groups, the dense decode kernel's unsplit
+body, encode's cluster of 1 or 2 blocks), each checked against the current
 source, and the timing floor (a 1-element ``add_`` timed as the kernels
-are).
+are). ``--variants --before DIR`` also times the encode kernel of the
+checkout at DIR (same C entry) against the current one.
 """
 from __future__ import annotations
 
@@ -165,12 +172,18 @@ def phase_env(torch) -> dict:
 
 # SASS opcodes that show a kernel's design: tensor-core products,
 # asynchronous copies and ldmatrix fragment loads in flash prefill and
-# paged prefill, asynchronous copies in paged decode, 16-byte code loads
-# and score stores in the score-only LUT kernel
+# paged prefill, asynchronous copies in paged decode and in the dense
+# decode kernel's split body, 16-byte code loads and score stores in the
+# score-only LUT kernel, and in encode the cluster barrier's arrive and
+# wait, the generic loads of the peers' shared rows (distributed shared
+# memory) and the vector key loads (8 bytes of bf16, 16 of fp32)
 SASS_OPS = {"flash_prefill": ("HMMA.16816.F32.BF16", "LDGSTS", "LDSM"),
             "paged_prefill": ("HMMA.16816.F32.BF16", "LDGSTS", "LDSM"),
             "paged_decode": ("LDGSTS",),
-            "polar_qk": ("LDG.E.128", "STG.E.128")}
+            "polar_attention": ("LDGSTS",),
+            "polar_qk": ("LDG.E.128", "STG.E.128"),
+            "polar_encode": ("UCGABAR_ARV", "UCGABAR_WAIT", "LD.E ",
+                             "LDG.E.64", "LDG.E.128")}
 
 
 def sass_counts(name: str) -> tuple[dict, str]:
@@ -219,7 +232,8 @@ def phase_build() -> None:
 def reset_counts(counters) -> None:
     """Set every launch counter of the kernel wrappers to 0."""
     for mod in counters:
-        for attr in ("launches", "launches_u8", "launches_mma"):
+        for attr in ("launches", "launches_u8", "launches_mma",
+                     "launches_split"):
             if hasattr(mod, attr):
                 setattr(mod, attr, 0)
 
@@ -238,6 +252,16 @@ def read_counts(counters) -> dict:
     return out
 
 
+def encode_forms(launches: dict, flushes: int) -> dict:
+    """``launches`` with the encode launches split by form, from the exact
+    count a phase has asserted: ``flushes`` launches of the decode form
+    (``polar_encode[decode]``: a decode step's flush of the residual
+    groups), the rest of the prefill form (``polar_encode``)."""
+    assert 0 <= flushes <= launches["polar_encode"], (launches, flushes)
+    return {**launches, "polar_encode": launches["polar_encode"] - flushes,
+            "polar_encode[decode]": flushes}
+
+
 def value_form(cfg) -> str:
     """The suffix of the kernel forms a model's cache reads: ``"[u8]"``
     under quantized values, else ``""``."""
@@ -249,31 +273,53 @@ def value_form(cfg) -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_encode(torch, dev, gen, flush) -> dict:
-    from repro_torch.kernels import polar_encode as pe
-    pp = 65
-    # prefill form: one 1024-token prompt, 8 pages, fragmented order
+def _encode_pools(torch, dev, pp=65):
+    """Zeroed code and stat pools of ``pp`` pages."""
+    return (torch.zeros((pp, HKV, G, P), dtype=torch.uint8, device=dev),
+            *(torch.zeros((pp, HKV, 1, P), device=dev) for _ in range(4)))
+
+
+def _encode_inputs(torch, dev, gen):
+    """The two serving forms of the encode at the main path's shapes: the
+    prefill form (one 1024-token bf16 prompt into 8 pages, fragmented) and
+    the decode form (8 slots' bf16 residual groups, page ids of the
+    flushing slots, -1 for the others) with no slot and with one slot
+    flushing. Returns (k, pages, residual, {label: decode pages})."""
     k = torch.randn((1, HKV, 1024, D), generator=gen, device=dev).to(
         torch.bfloat16)
-    k[0, 0, :5, :3] = 0.0           # zero pairs: the theta pin
-    k[0, 1, 7, 4] = 1e-39           # denormal: the flush
     pages = torch.tensor([[9, 3, 40, 0, 63, 17, 5, 28]], dtype=torch.int32,
                          device=dev)
+    res = torch.randn((8, HKV, G, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    flushing = {"no slot flushing": [-1] * 8,
+                "one slot flushing": [-1, -1, 11, -1, -1, -1, -1, -1]}
+    return k, pages, res, {lb: torch.tensor(x, dtype=torch.int32,
+                                            device=dev)[:, None]
+                           for lb, x in flushing.items()}
 
-    def pools():
-        return (torch.zeros((pp, HKV, G, P), dtype=torch.uint8, device=dev),
-                *(torch.zeros((pp, HKV, 1, P), device=dev) for _ in range(4)))
 
-    pk, pp_ = pools(), pools()
+def check_encode(torch, dev, gen, flush) -> list[dict]:
+    """Encode (#1) in its three forms — paged prefill, paged decode with
+    none, one and some slots flushing, dense — codes and stats exactly
+    equal to the plain version, skipped pages untouched; timed in the
+    prefill form and in the decode form with no slot and one slot
+    flushing. Returns the prefill form's row and the decode form's (whose
+    time is the one-slot flush)."""
+    from repro_torch.kernels import polar_encode as pe
+    k, pages, res, dforms = _encode_inputs(torch, dev, gen)
+    k[0, 0, :5, :3] = 0.0           # zero pairs: the theta pin
+    k[0, 1, 7, 4] = 1e-39           # denormal: the flush
+    res[3, 2, :2, :5] = 0.0
+    res[2, 0, 9, 7] = -1e-40
+    pk, pp_ = _encode_pools(torch, dev), _encode_pools(torch, dev)
     pe.polar_encode_pages(k, pages, *pk)
     pe.polar_encode_pages_plain(k, pages, *pp_)
     # decode form: every slot's residual, only flushing slots write
-    res = torch.randn((8, HKV, G, D), generator=gen, device=dev).to(
-        torch.bfloat16)
-    fpages = torch.tensor([[11], [-1], [12], [-1], [-1], [13], [-1], [64]],
-                          dtype=torch.int32, device=dev)
-    pe.polar_encode_pages(res, fpages, *pk)
-    pe.polar_encode_pages_plain(res, fpages, *pp_)
+    some = torch.tensor([[12], [-1], [13], [-1], [-1], [14], [-1], [64]],
+                        dtype=torch.int32, device=dev)
+    for fpages in (*dforms.values(), some):
+        pe.polar_encode_pages(res, fpages, *pk)
+        pe.polar_encode_pages_plain(res, fpages, *pp_)
     # dense form (ops.polar_encode)
     dk = pe.polar_encode(k)
     dp = pe.polar_encode_plain(k)
@@ -285,26 +331,47 @@ def check_encode(torch, dev, gen, flush) -> dict:
     assert code_err == 0, f"encode codes differ from the plain version "\
         f"(max step {code_err})"
     assert stat_err == 0.0, f"encode stats differ ({stat_err})"
-    untouched = [i for i in range(pp) if i not in
-                 {9, 3, 40, 0, 63, 17, 5, 28, 11, 12, 13, 64}]
-    assert int(pk[0][untouched].abs().sum()) == 0, "skipped pages written"
+    written = {*pages.flatten().tolist(), 11, 12, 13, 14, 64}
+    untouched = [i for i in range(pk[0].shape[0]) if i not in written]
+    assert all(int(x[untouched].abs().sum()) == 0 for x in pk), \
+        "skipped pages written"
 
-    ms = time_ms(torch, lambda: pe.polar_encode_pages(k, pages, *pk),
-                 flush=flush)
-    plain_ms = time_ms(torch, lambda: pe.polar_encode_pages_plain(
-        k, pages, *pp_), iters=10, flush=flush,
-                        lead_cycles=PLAIN_LEAD)
-    nbytes = k.numel() * 2 + pages.numel() * 4 + 1024 * HKV * P \
-        + 4 * 8 * HKV * P * 4
-    flops = 22 * 1024 * HKV * P      # ~22 fp32 ops per pair (see PERF.md)
-    b_ms, by = bound(nbytes, flops, "fp32")
-    return {"name": "polar_encode", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/polar_encode.cu",
-            "replaces": "src/repro/kernels/polar_encode.py:51",
-            "max_abs_err": float(max(code_err, stat_err)), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None,
-            "shape": "prefill form, 1 x 4 kv heads x 1024 tokens x 64 bf16"}
+    def timed(kk, pg):
+        return (time_ms(torch, lambda: pe.polar_encode_pages(kk, pg, *pk),
+                        flush=flush),
+                time_ms(torch, lambda: pe.polar_encode_pages_plain(
+                    kk, pg, *pp_), iters=10, flush=flush,
+                    lead_cycles=PLAIN_LEAD))
+
+    def enc_bound(tokens, pg):
+        # bytes: the page list, the flushing groups' keys, codes and stats;
+        # ~22 fp32 operations per pair (see PERF.md)
+        nbytes = pg.numel() * 4 + tokens * HKV * (D * 2 + P) \
+            + 4 * (tokens // G) * HKV * P * 4
+        return bound(nbytes, 22 * tokens * HKV * P, "fp32")
+
+    def row(form, ms, plain_ms, tokens, pg, shape):
+        b_ms, by = enc_bound(tokens, pg)
+        return {"name": f"polar_encode{form}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/polar_encode.cu",
+                "replaces": "src/repro/kernels/polar_encode.py:51",
+                "max_abs_err": float(max(code_err, stat_err)), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                "library_ms": None, "shape": shape}
+
+    rows = [row("", *timed(k, pages), 1024, pages,
+                "prefill form, 1 x 4 kv heads x 1024 tokens x 64 bf16")]
+    decode = {lb: (*timed(res, pg), G * int((pg >= 0).sum()), pg)
+              for lb, pg in dforms.items()}
+    rows.append(row("[decode]", *decode["one slot flushing"],
+                    "decode form, 8 slots x 4 kv heads x one 128-token "
+                    "bf16 residual group, one slot flushing"))
+    print("encode[decode]: 8 slots x 4 kv heads x one 128-token residual "
+          "group, bf16: " + "; ".join(
+              f"{lb} {ms:.4f} ms (plain {plain:.4f} ms, bound "
+              f"{enc_bound(tok, pg)[0]:.4f} ms)"
+              for lb, (ms, plain, tok, pg) in decode.items()), flush=True)
+    return rows
 
 
 def check_decode(torch, dev, gen, flush) -> dict:
@@ -683,6 +750,23 @@ def _dense_flops(groups, with_attention=True):
     return groups * per
 
 
+def _partials_err(torch, got, ref) -> tuple[float, float]:
+    """Flash partials (acc, m, l) of a decode kernel against its plain
+    version: each finite and within rtol = atol = 1e-4; returns the max
+    abs error of the normalized output acc / l (what the partials stand
+    for, as ``check_decode`` reports it) and of the raw partials."""
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert torch.isfinite(a).all(), "NaN leaked from a dead row"
+        torch.testing.assert_close(a, r, rtol=FP32_TOL, atol=FP32_TOL)
+    live = ref[2] > 0
+    o_k = got[0] / torch.where(live, got[2], 1.0)[..., None]
+    o_r = ref[0] / torch.where(live, ref[2], 1.0)[..., None]
+    torch.testing.assert_close(o_k, o_r, rtol=FP32_TOL, atol=FP32_TOL)
+    return (float((o_k - o_r).abs().max()),
+            max(float((a - r).abs().max()) for a, r in zip(got, ref)))
+
+
 def check_polar_attention(torch, dev, gen, flush) -> dict:
     from repro_torch.kernels import polar_attention as pak
     bufs, vals = _dense_cache(torch, dev, gen)
@@ -702,11 +786,7 @@ def check_polar_attention(torch, dev, gen, flush) -> dict:
         got = pak.polar_decode_attention_grouped(q, bufs[0], *st, v, length)
         ref = pak.polar_decode_attention_grouped_plain(q, bufs[0], *st, v,
                                                        length)
-        torch.cuda.synchronize()
-        for a, r in zip(got, ref):
-            assert torch.isfinite(a).all(), "NaN leaked from a dead row"
-            torch.testing.assert_close(a, r, rtol=FP32_TOL, atol=FP32_TOL)
-            errs.append(float((a - r).abs().max()))
+        errs.append(_partials_err(torch, got, ref))
     # timing: every row at 8 flushed groups, bf16 values (the static phase)
     length = torch.full((SB,), 8 * G, dtype=torch.int32, device=dev)
     ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped(
@@ -730,7 +810,9 @@ def check_polar_attention(torch, dev, gen, flush) -> dict:
     return {"name": "polar_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/polar_attention.cu",
             "replaces": "src/repro/kernels/polar_attention.py:104",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(e[0] for e in errs),
+            "partials_err": max(e[1] for e in errs), "ms": ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
             "library": "SDPA over pre-dequantized keys (fp32, length mask)",
             "shape": "8 rows x 4 kv heads x 8 query heads x 8 flushed "
@@ -1058,12 +1140,7 @@ def check_polar_attention_u8(torch, dev, gen, flush) -> dict:
                                                      length, **kw)
             ref = pak.polar_decode_attention_grouped_plain(q, bufs[0], *st,
                                                            vc, length, **kw)
-            torch.cuda.synchronize()
-            for a, r in zip(got, ref):
-                assert torch.isfinite(a).all(), "NaN leaked from a dead row"
-                torch.testing.assert_close(a, r, rtol=FP32_TOL,
-                                           atol=FP32_TOL)
-                errs.append(float((a - r).abs().max()))
+            errs.append(_partials_err(torch, got, ref))
     length = torch.full((SB,), 8 * G, dtype=torch.int32, device=dev)
     vc, vs, vz = _u8_values(torch, dev, gen, (SB, HKV, SMAX, D), 4)
     kw = {"vscale": vs, "vzero": vz}
@@ -1090,7 +1167,9 @@ def check_polar_attention_u8(torch, dev, gen, flush) -> dict:
     return {"name": "polar_attention[u8]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/polar_attention.cu",
             "replaces": "src/repro/kernels/polar_attention.py:84",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(e[0] for e in errs),
+            "partials_err": max(e[1] for e in errs), "ms": ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
             "library": "SDPA over pre-dequantized keys and values (fp32, "
                        "length mask)",
@@ -1103,7 +1182,7 @@ def phase_kernels(torch) -> list[dict]:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    rows = [check_encode(torch, dev, gen, flush),
+    rows = [*check_encode(torch, dev, gen, flush),
             check_decode(torch, dev, gen, flush),
             check_prefill(torch, dev, gen, flush),
             check_paged_prefill(torch, dev, gen, flush),
@@ -1115,7 +1194,9 @@ def phase_kernels(torch) -> list[dict]:
     backends_err = max(check_paged_backends(torch, dev, gen, vb)
                        for vb in (0, 4))
     print("kernels: " + "; ".join(
-        f"{r['name']} err {r['max_abs_err']:.3g} {r['ms']:.4f} ms "
+        f"{r['name']} err {r['max_abs_err']:.3g}"
+        + (f" (partials {r['partials_err']:.3g})" if "partials_err" in r
+           else "") + f" {r['ms']:.4f} ms "
         f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
         f"{r['bound_by']}" + (f", {r.get('library', 'library')} "
                               f"{r['library_ms']:.4f} ms"
@@ -1176,7 +1257,35 @@ VARIANTS = (
      ((_PER_SPLIT, "const int per_split = N > 0 ? N : 1;"),)),
     ("paged_prefill", "one key group (4 warps, 64-key chunk stages)",
      (("constexpr int kKeyGroups = 2;", "constexpr int kKeyGroups = 1;"),)),
+    ("polar_attention", "the unsplit body (one block per row and kv head)",
+     (("const bool split = rt::lut_split_decode_fits(",
+       "const bool split = false && rt::lut_split_decode_fits("),)),
+    ("polar_encode", "cluster of 1 (one block per group)",
+     (("constexpr int kCluster = 4;", "constexpr int kCluster = 1;"),)),
+    ("polar_encode", "cluster of 2",
+     (("constexpr int kCluster = 4;", "constexpr int kCluster = 2;"),)),
+    ("polar_encode", "cluster of 8",
+     (("constexpr int kCluster = 4;", "constexpr int kCluster = 8;"),)),
+    ("polar_encode", "8 pairs a thread (16-byte bf16 loads, half the threads)",
+     (("constexpr int kVec = 4;", "constexpr int kVec = 8;"),)),
+    ("polar_encode", "2 pairs a thread (twice the threads)",
+     (("constexpr int kVec = 4;", "constexpr int kVec = 2;"),
+      ("constexpr int kWideThreads = 256;",
+       "constexpr int kWideThreads = 512;"))),
+    ("polar_encode", "last cluster barrier split: arrive after the peers' "
+     "reads, wait before exit",
+     (("    red[i] = x;\n  }\n  __syncthreads();",
+       "    red[i] = x;\n  }\n  asm volatile(\"barrier.cluster.arrive."
+       "relaxed.aligned;\\n\" ::: \"memory\");\n  __syncthreads();"),
+      ("  // no block leaves while a peer may still read its rows\n"
+       "  cluster.sync();",
+       "  asm volatile(\"barrier.cluster.wait.aligned;\\n\" ::: "
+       "\"memory\");"))),
 )
+
+# kernels whose C entry another checkout's source may replace as it is
+# (``--variants --before DIR``): their signature has not changed
+BEFORE_KERNELS = ("polar_encode",)
 
 
 def _prefill_inputs(torch, dev, gen, start):
@@ -1217,25 +1326,14 @@ def _decode_inputs(torch, dev, gen, s, n):
     return (q, codes, *stats, vals, table, fl)
 
 
-def phase_variants(torch) -> None:
-    """Builds each of ``VARIANTS`` (one parallel ``nvcc`` each), checks it
-    against the current source and times both at the kernel checks'
-    main-path shapes, in the order current, variant, variant, current."""
-    import ctypes
+def _variant_sources(before=None) -> list[tuple[str, str, dict]]:
+    """(kernel, label, {file name: text}) of each variant: ``VARIANTS``'
+    edits of the current sources (the kernel's ``.cu`` and every shared
+    ``.cuh``), then, with ``before`` (the root of another checkout), that
+    checkout's sources of ``BEFORE_KERNELS``."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_prefill as fpk
-    from repro_torch.kernels import paged_decode as pd
-    from repro_torch.kernels import paged_prefill as ppk
-    from repro_torch.kernels import polar_qk as qkk
-    mods = {"flash_prefill": fpk, "polar_qk": qkk, "paged_decode": pd,
-            "paged_prefill": ppk}
-    _build.build(tuple(mods))
-    procs = []
-    for i, (name, label, edits) in enumerate(VARIANTS):
-        # the kernel's source and every shared header, copied and edited;
-        # quoted includes resolve in the copy's own directory first
-        vd = _build.BUILD_DIR / "variants" / str(i)
-        vd.mkdir(parents=True, exist_ok=True)
+    out = []
+    for name, label, edits in VARIANTS:
         srcs = {f.name: f.read_text() for f in
                 (_build.CSRC / f"{name}.cu", *_build.CSRC.glob("*.cuh"))}
         for old, new in edits:
@@ -1243,6 +1341,39 @@ def phase_variants(torch) -> None:
             assert len(hits) == 1 and srcs[hits[0]].count(old) == 1, \
                 f"{label}: {old!r} not found once"
             srcs[hits[0]] = srcs[hits[0]].replace(old, new)
+        out.append((name, label, srcs))
+    if before is not None:
+        csrc = Path(before).resolve() / "src/repro_torch/kernels/csrc"
+        for name in BEFORE_KERNELS:
+            out.append((name, f"the kernel of {before}",
+                        {f.name: f.read_text() for f in
+                         (csrc / f"{name}.cu", *csrc.glob("*.cuh"))}))
+    return out
+
+
+def phase_variants(torch, before=None) -> None:
+    """Builds each variant of :func:`_variant_sources` (one parallel
+    ``nvcc`` each), checks it against the current source and times both at
+    the kernel checks' main-path shapes, in the order current, variant,
+    variant, current."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_prefill as fpk
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as ppk
+    from repro_torch.kernels import polar_attention as pak
+    from repro_torch.kernels import polar_encode as pe
+    from repro_torch.kernels import polar_qk as qkk
+    mods = {"flash_prefill": fpk, "polar_qk": qkk, "paged_decode": pd,
+            "paged_prefill": ppk, "polar_attention": pak,
+            "polar_encode": pe}
+    _build.build(tuple(mods))
+    variants = _variant_sources(before)
+    procs = []
+    for i, (name, label, srcs) in enumerate(variants):
+        # quoted includes resolve in the copy's own directory first
+        vd = _build.BUILD_DIR / "variants" / str(i)
+        vd.mkdir(parents=True, exist_ok=True)
         for f, t in srcs.items():
             (vd / f).write_text(t)
         cu = vd / f"{name}.cu"
@@ -1251,7 +1382,7 @@ def phase_variants(torch) -> None:
              str(cu.with_suffix(".so")), str(cu)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     logs = []
-    for proc, (_, label, _) in zip(procs, VARIANTS):
+    for proc, (_, label, _) in zip(procs, variants):
         log, _ = proc.communicate()
         assert proc.returncode == 0, f"{label} does not build:\n{log}"
         logs.append(log)
@@ -1270,6 +1401,17 @@ def phase_variants(torch) -> None:
     d8, d1 = (_decode_inputs(torch, dev, gen, s, n)
               for s, n in ((8, 8), (1, 32)))
     p1, p2 = (_prefill_inputs(torch, dev, gen, st) for st in (1024, 2048))
+    length = torch.full((SB,), 8 * G, dtype=torch.int32, device=dev)
+    vals = torch.randn((SB, HKV, SMAX, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    vc, vs, vz = _u8_values(torch, dev, gen, (SB, HKV, SMAX, D), 4)
+    ek, epages, eres, eforms = _encode_inputs(torch, dev, gen)
+    epools = _encode_pools(torch, dev)
+
+    def encode(k, pages):
+        pe.polar_encode_pages(k, pages, *epools)
+        return epools
+
     calls = {"flash_prefill": {
                  "1 x 32 heads x 1024 x 64 bf16": lambda: fpk.flash_prefill(*x1),
                  f"{SB} x 32 heads x {SPROMPT} x 64 bf16":
@@ -1285,24 +1427,49 @@ def phase_variants(torch) -> None:
                  "4 kv x 8 query heads x 256-token chunk, start 1024, bf16":
                      lambda: ppk.polar_paged_prefill_grouped(*p1),
                  "4 kv x 8 query heads x 256-token chunk, start 2048, bf16":
-                     lambda: ppk.polar_paged_prefill_grouped(*p2)}}
+                     lambda: ppk.polar_paged_prefill_grouped(*p2)},
+             "polar_attention": {
+                 "8 rows x 4 kv heads x 8 query heads x 8 of 9 groups, bf16":
+                     lambda: pak.polar_decode_attention_grouped(
+                         q, *bufs, vals, length),
+                 "8 rows x 4 kv heads x 8 query heads x 8 of 9 groups, "
+                 "4-bit value codes":
+                     lambda: pak.polar_decode_attention_grouped(
+                         q, *bufs, vc, length, vscale=vs, vzero=vz)},
+             "polar_encode": {
+                 "prefill form, 4 kv heads x 1024 tokens, bf16":
+                     lambda: encode(ek, epages),
+                 **{f"decode form, 8 slots x 4 kv heads x 128 tokens, {lb}":
+                    (lambda pg=pg: encode(eres, pg))
+                    for lb, pg in eforms.items()}}}
     tol = {"flash_prefill": BF16_RTOL, "polar_qk": FP32_TOL,
-           "paged_decode": FP32_TOL, "paged_prefill": FP32_TOL}
+           "paged_decode": FP32_TOL, "paged_prefill": FP32_TOL,
+           "polar_attention": FP32_TOL, "polar_encode": 0.0}
     current = {n: _build.library(n, m._bind) for n, m in mods.items()}
 
     def tensors(x):
-        return [t.float() for t in (x if isinstance(x, tuple) else (x,))]
+        # copies: the encode's outputs are pools that the next call rewrites
+        return [t.float().clone()
+                for t in (x if isinstance(x, tuple) else (x,))]
+
+    def fresh():
+        # zeroed pools before a checked encode, so that a page the variant
+        # skips cannot pass on the current kernel's codes
+        for x in epools:
+            x.zero_()
     rows = []
-    for i, (name, label, _) in enumerate(VARIANTS):
+    for i, (name, label, _) in enumerate(variants):
         lib = ctypes.CDLL(str(_build.BUILD_DIR / "variants" / str(i)
                               / f"{name}.so"))
         mods[name]._bind(lib)
         for shape, fn in calls[name].items():
-            ref = fn()
+            fresh()
+            ref = tensors(fn())
             ts = []
             try:
                 _build._LIBS[name] = lib
-                for a, b in zip(tensors(fn()), tensors(ref)):
+                fresh()
+                for a, b in zip(tensors(fn()), ref):
                     torch.testing.assert_close(a, b, rtol=tol[name],
                                                atol=tol[name])
                 for which in (current[name], lib, lib, current[name]):
@@ -1451,6 +1618,7 @@ def phase_serve(torch, model, params, counters, n_req=16, new=64, seed=0,
               "flash_prefill": nl * pre}
     assert launches == expect, (launches, expect)
     assert pre == n_req
+    launches = encode_forms(launches, nl * steps)
     print(f"{label}: {n_req} requests x {new} tokens, 8 slots, max_len 1024, "
           f"{out['total_tokens']} tokens in {out['wall_s']:.3f} s = "
           f"{out['tokens_per_s']:.1f} tok/s; TTFT p50 "
@@ -1534,7 +1702,8 @@ def phase_prefix(torch, model, params, counters, n_req=12, new=32, seed=3,
                                     mma, nl * chunks)
         assert out["prefills"] == chunks
         assert out["cow_splits"] == 0
-        runs[shared], launches[shared] = out, got
+        runs[shared] = out
+        launches[shared] = encode_forms(got, nl * steps)
     streams = [{r.rid: r.out_tokens for r in out["requests"]}
                for out in runs.values()]
     assert all(x == streams[0] for x in streams), \
@@ -1604,6 +1773,7 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
     import dataclasses
     import numpy as np
     from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import polar_attention as pak
     from repro_torch.models import get_model
     from repro_torch.serve import GenerationConfig, ServeEngine
     t_phase = time.monotonic()
@@ -1629,8 +1799,8 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
         got = read_counts(counters)
         polar = method == "polar"
         # prefill encodes its 7 full groups in one launch per layer, the
-        # append at position 1023 flushes once; one attention launch per
-        # layer and decode step on the run's route
+        # append at position 1023 flushes once (the decode form); one
+        # attention launch per layer and decode step on the run's route
         route = ("polar_attention" + value_form(cfg)
                  if backend == "paged_fused" else "polar_qk")
         expect = {**dict.fromkeys(got, 0), "polar_encode": 2 * nl * polar,
@@ -1638,6 +1808,12 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
         if polar:
             expect[route] = nl * steps
         assert got == expect, (name, got, expect)
+        # every fused-route launch on the split body
+        fused = got["polar_attention" + value_form(cfg)]
+        assert pak.launches_split == fused, \
+            (name, "polar_attention off the split body", pak.launches_split)
+        # the decode form: the flush at position 1023, once per layer
+        got = encode_forms(got, nl * polar)
         assert out["tokens"].shape == (SB, SNEW)
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
@@ -1855,8 +2031,11 @@ def main() -> int:
     from repro_torch.models import get_model
 
     phase_env(torch)
-    if sys.argv[1:] == ["--variants"]:
-        phase_variants(torch)
+    if sys.argv[1:2] == ["--variants"]:
+        args = sys.argv[2:]
+        assert args in ([], ["--before", *args[1:2]]) and len(args) != 1, \
+            "usage: chip_smoke.py --variants [--before DIR]"
+        phase_variants(torch, before=args[1] if args else None)
         return 0
     phase_build()
     rows = phase_kernels(torch)

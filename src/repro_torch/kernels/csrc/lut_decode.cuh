@@ -29,15 +29,18 @@
 // trip, sincos of the angle states, scoring, softmax, p @ V), so the time
 // follows how many chains run at once and whether the next group's loads
 // are in flight:
-// - lut_flash_decode_kernel (dense cache, #5): one block per (kv head,
-//   row) walks the row's live groups one after another, all of a group's
-//   16-byte register loads in flight together (codes transposed to (P, g)).
-//   At 8 rows x 4 kv heads that is 32 blocks on 132 SMs.
-// - lut_split_decode_kernel (page walk, #2): the walk is split across
-//   blocks, grid (Hkv, S, nsplit) with the host's nsplit, and a second
-//   small kernel merges the splits exactly; inside a split the groups are
-//   double-buffered (16-byte cp.async), so group n + 1 loads while group n
-//   is scored, and a scoring thread owns one token for 4 query heads.
+// - lut_split_decode_kernel (page walk, #2, and dense cache, #5): the walk
+//   is split across blocks, grid (Hkv, S, nsplit) with the host's nsplit
+//   (8 slots x 4 kv heads x 8 pages: 256 blocks; 8 rows x 4 kv heads x 9
+//   dense groups: 160), and a second small kernel merges the splits
+//   exactly; inside a split the groups are double-buffered (16-byte
+//   cp.async), so group n + 1 loads while group n is scored, and a scoring
+//   thread owns one token for 4 query heads.
+// - lut_flash_decode_kernel (both kernels, for the shapes the split body
+//   does not take: d % 32 != 0, unaligned buffers): one block per (kv
+//   head, row) walks the row's live groups one after another, all of a
+//   group's 16-byte register loads in flight together (codes transposed
+//   to (P, g)).
 #pragma once
 
 #include <cstdint>
@@ -247,7 +250,7 @@ int launch_lut_flash_decode(const float* q, const unsigned char* codes, const fl
 }
 
 // ---------------------------------------------------------------------------
-// split, double-buffered body (the page-walking kernel, paged_decode.cu)
+// split, double-buffered body (paged_decode.cu and polar_attention.cu)
 // ---------------------------------------------------------------------------
 
 constexpr int kSplitStages = 2;  // staging buffers per block (1: no prefetch)

@@ -3,7 +3,7 @@ CUDA kernel + its plain version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/polar_attention.py::
 polar_decode_attention_grouped``. Source: ``csrc/polar_attention.cu``
-(the LUT flash-decode body is shared with the page-walking kernel in
+(the LUT flash-decode bodies are shared with the page-walking kernel in
 ``csrc/lut_decode.cuh``).
 
 Per (row, kv head) it walks the row's live groups of the dense
@@ -14,31 +14,42 @@ positions >= ``length[b]``, and folds them into an online softmax and
 p @ V. Output: the unnormalized flash partials (acc, m, l); the residual
 merge happens in ``kernels/ops.py``. Value rows are bf16/fp32, or uint8
 mid-tread codes with one fp32 scale and zero per row (the TPU kernel's
-uint8 branch, ``repro/kernels/polar_attention.py:84``), dequantized as
-code * scale + zero while they are staged.
+uint8 branch, ``repro/kernels/polar_attention.py:84``).
 
 Bound: bytes — the live groups' codes, stats and value rows are read once
-per (row, kv head). The grid has only B*Hkv blocks (32 on the static
-serving path), as for the paged kernel.
+per (row, kv head) — but each group is a short dependent chain, so the
+time follows how many chains run at once. As for the page-walking kernel,
+the host splits each row's walk over the G groups into
+:func:`paged_decode.plan_splits` ranges, one block each (160 blocks at
+8 rows x 4 kv heads x 9 groups, where one block per (row, kv head) gave
+32), and the kernel merges the splits' partials on the device in the same
+call. Shapes the split body does not take (d % 32 != 0, unaligned
+buffers) run the unsplit body; ``launches_split`` counts the launches
+that took the split body.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels import ref as ref_mod
+from repro_torch.kernels.paged_decode import plan_splits
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
 #: of those, the launches that read uint8 value rows
 launches_u8 = 0
+#: of those, the launches that ran the split body
+launches_split = 0
 
 
 def _bind(lib) -> None:
     lib.polar_attention_launch.argtypes = [
         B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
         B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT, B.INT, B.INT, B.INT, B.INT,
-        B.INT, B.INT, B.VOIDP]
+        B.INT, B.INT, B.INT, B.VOIDP, ctypes.POINTER(B.INT), B.VOIDP]
     lib.polar_attention_launch.restype = B.INT
 
 
@@ -66,7 +77,7 @@ def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
     (B, Hkv, G*g, 1); length (B,) int32 valid grouped tokens per row.
     Returns (acc (B,Hkv,Qh,d), m (B,Hkv,Qh), l (B,Hkv,Qh)) fp32. The kernel
     for CUDA tensors, the plain version for CPU tensors."""
-    global launches, launches_u8
+    global launches, launches_u8, launches_split
     tensors = (q, codes, rs, rz, ts, tz, values, length)
     quant = tuple(x for x in (vscale, vzero) if x is not None)
     if not B.on_card(*tensors, *quant):
@@ -93,14 +104,21 @@ def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
     acc = torch.empty((b, hkv, qh, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, qh), dtype=torch.float32, device=q.device)
     l = torch.empty((b, hkv, qh), dtype=torch.float32, device=q.device)
+    nsplit = plan_splits(b, hkv, gc)
+    # the splits' (acc, m, l) partials, merged on the device
+    part = torch.empty(nsplit * b * hkv * qh * (d + 2), dtype=torch.float32,
+                       device=q.device) if nsplit > 1 else None
+    split_body = B.INT(0)
     lib = B.library("polar_attention", _bind)
     err = lib.polar_attention_launch(
         q.data_ptr(), codes.data_ptr(), rs.data_ptr(), rz.data_ptr(),
         ts.data_ptr(), tz.data_ptr(), values.data_ptr(), v_kind, vs_ptr,
         vz_ptr, length.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, qh, d, gc, g,
-        t_bits, B.stream_ptr(q))
+        t_bits, nsplit, None if part is None else part.data_ptr(),
+        ctypes.byref(split_body), B.stream_ptr(q))
     B.check(err, "polar_attention")
     launches += 1
     launches_u8 += int(values.dtype == torch.uint8)
+    launches_split += split_body.value
     return acc, m, l

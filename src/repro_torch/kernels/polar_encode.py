@@ -8,12 +8,17 @@ page scatter of ``repro/core/paged_cache.py``). Source:
 Per (row, kv head, group) it computes rho/theta over the "half" pairs,
 the per-pair min/max over the group's g tokens, and the packed mid-rise
 codes plus four stat rows. Bound: bytes (read g*d keys, write g*d/2 code
-bytes and 4*d/2 stats per group); the design reads each tile twice and
-keeps everything else in registers and shared memory.
+bytes and 4*d/2 stats per group). The kernel reads each key once: a group's
+tokens are split across the blocks of a thread block cluster (4 on one
+group), a thread keeps its tokens' rho/theta (4 pairs of a token) in
+registers from the vector loads to the code write, and the blocks combine
+their per-pair min/max through distributed shared memory.
 
 Two wrappers share the kernel: :func:`polar_encode` (dense outputs, the
 ``ops.polar_encode`` form) and :func:`polar_encode_pages` (codes and
-stats written straight into page-pool pages — the serving form).
+stats written straight into page-pool pages — the serving form; a decode
+step passes every slot's residual group and skips the slots that do not
+flush).
 """
 from __future__ import annotations
 

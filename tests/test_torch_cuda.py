@@ -35,12 +35,32 @@ def _gen(dev, seed=0):
     return g
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,g", [(64, 128), (32, 16), (128, 32)])
-def test_encode_kernel_codes_exact(dev, dtype, d, g):
-    k = torch.randn((2, 3, 4 * g, d), generator=_gen(dev), device=dev).to(
-        dtype)
+def _encode_keys(dev, gen, shape, dtype, offset=0):
+    """Random keys with zero pairs (the theta pin) and denormals (the
+    flush) in the first group; ``offset`` elements into a raw buffer makes
+    them unaligned (the kernel's one-pair-a-thread body)."""
+    k = torch.randn(shape, generator=gen, device=dev).to(dtype)
     k[0, 0, :3, :2] = 0.0
+    k[0, 0, 3, 0] = 1e-39
+    k[0, -1, 5, shape[-1] // 2] = -1e-40
+    k[-1, 0, 1, :] = 0.0
+    if offset:
+        raw = torch.empty(k.numel() + offset, dtype=dtype, device=dev)
+        k = raw[offset:].view(shape).copy_(k)
+    return k
+
+
+# d, g and offset: the served d 64 at every group size the cluster splits
+# (g 16 leaves 4 tokens a block), d 32 / 40 / 48 / 128 (d 40: 5 threads a
+# token), a group size that is not a multiple of the cluster, and the
+# one-pair-a-thread body: d 36 (P % 4 != 0) and keys at a 1-element offset
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,g,offset", [
+    (64, 16, 0), (64, 32, 0), (64, 64, 0), (64, 128, 0), (32, 16, 0),
+    (128, 32, 0), (128, 128, 0), (48, 64, 0), (64, 10, 0), (40, 32, 0),
+    (36, 32, 0), (64, 128, 1)])
+def test_encode_kernel_codes_exact(dev, dtype, d, g, offset):
+    k = _encode_keys(dev, _gen(dev), (2, 3, 4 * g, d), dtype, offset)
     n = pek.launches
     got = pek.polar_encode(k, group_size=g)
     ref = pek.polar_encode_plain(k, group_size=g)
@@ -50,11 +70,20 @@ def test_encode_kernel_codes_exact(dev, dtype, d, g):
         assert torch.equal(a, b)
 
 
-def test_encode_pages_kernel_skips_negative_pages(dev):
-    g, d, h, pp = 128, 64, 4, 10
-    k = torch.randn((3, h, g, d), generator=_gen(dev, 1), device=dev).to(
-        torch.bfloat16)
-    pages = torch.tensor([[2], [-1], [7]], dtype=torch.int32, device=dev)
+# the decode form: every slot's residual group, pages of the flushing slots
+_FLUSH = {"none": [-1] * 8, "one": [-1, -1, 5, -1, -1, -1, -1, -1],
+          "some": [2, -1, 7, -1, -1, 0, -1, 9],
+          "all": [3, 8, 1, 6, 0, 4, 9, 2]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("flush", sorted(_FLUSH))
+@pytest.mark.parametrize("g", [16, 32, 64, 128])
+def test_encode_pages_kernel_skips_negative_pages(dev, g, flush, dtype):
+    d, h, pp = 64, 4, 10
+    k = _encode_keys(dev, _gen(dev, 1), (8, h, g, d), dtype)
+    pages = torch.tensor(_FLUSH[flush], dtype=torch.int32,
+                         device=dev)[:, None]
 
     def pools():
         return [torch.zeros((pp, h, g, d // 2), dtype=torch.uint8,
@@ -62,11 +91,15 @@ def test_encode_pages_kernel_skips_negative_pages(dev):
             [torch.zeros((pp, h, 1, d // 2), device=dev) for _ in range(4)]
 
     a, b = pools(), pools()
+    n = pek.launches
     pek.polar_encode_pages(k, pages, *a)
+    assert pek.launches == n + 1
     pek.polar_encode_pages_plain(k, pages, *b)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert not a[0][[0, 1, 3, 4, 5, 6, 8, 9]].any()
+    skipped = [i for i in range(pp) if i not in _FLUSH[flush]]
+    for x in a:
+        assert not x[skipped].any()
 
 
 # (slots, kv heads, query heads, flushed per slot, table width, pool
@@ -158,34 +191,76 @@ def test_qk_kernel_matches_plain(dev, d, g, gc, qh, offset, r, t):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t_bits", [4, 3])
-def test_polar_attention_kernel_matches_plain(dev, vdtype, t_bits):
-    """Kernel #5 over the dense buffers: rows at 0, a partial group, whole
-    groups and the full buffer; value rows and stats past each row's length
-    NaN-poisoned."""
-    b, hkv, qh, d, g, gc = 4, 2, 8, 64, 128, 4
-    gen = _gen(dev, 11)
+# (rows, kv heads, d, groups, row lengths): a small case (4 splits); the
+# static serving shape, 8 rows x 4 kv heads x 9 groups (5 splits, some
+# holding no live group); 66 rows x 4 kv heads, enough blocks unsplit
+# (one split, still the split body); d 48, which the split body does not
+# take. Every case has a row of length 0 and a partial group.
+_DENSE_CASES = {
+    "small": (4, 2, 64, 4, [0, 300, 384, 512]),
+    "static": (8, 4, 64, 9, [1024, 900, 0, 128, 1, 513, 640, 1152]),
+    "wide": (66, 4, 64, 3, [(37 * i) % 385 for i in range(66)]),
+    "d48": (4, 2, 48, 4, [0, 300, 384, 511]),
+}
+
+
+def _dense_case(dev, gen, case, t_bits):
+    """q, codes and stats of a ``_DENSE_CASES`` entry (stats past each
+    row's length NaN-poisoned) and its int32 lengths."""
+    b, hkv, d, gc, lens = _DENSE_CASES[case]
+    g, qh = 128, 8
     enc = _dense_groups(dev, gen, b, hkv, d, g, gc, 4, t_bits)
-    values = torch.randn((b, hkv, gc * g, d), generator=gen, device=dev).to(
-        vdtype)
-    length = torch.tensor([0, 300, 384, 512], dtype=torch.int32, device=dev)
-    for i, n in enumerate(length.tolist()):
-        values[i, :, n:] = float("nan")
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for i, n in enumerate(lens):
         for x in enc[1:]:
             x[i, :, -(-n // g):] = float("nan")
     q = torch.randn((b, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
-    n = pak.launches
-    got = pak.polar_decode_attention_grouped(q, *enc, values, length,
-                                             t_bits=t_bits)
+    return q, enc, length
+
+
+def _dense_launch(case, fn):
+    """``fn()``: one launch of kernel #5, on the split body unless
+    d % 32 != 0, with the host's split count of the case."""
+    b, hkv, d, gc, _ = _DENSE_CASES[case]
+    n, n_split = pak.launches, pak.launches_split
+    out = fn()
     assert pak.launches == n + 1
-    ref = pak.polar_decode_attention_grouped_plain(q, *enc, values, length,
-                                                   t_bits=t_bits)
+    assert pak.launches_split == n_split + (d % 32 == 0)
+    want = {"small": 4, "static": 5, "wide": 1}.get(case)
+    assert want is None or pdk.plan_splits(b, hkv, gc) == want
+    return out
+
+
+def _check_dense(got, ref, length):
     torch.cuda.synchronize()
     for a, r in zip(got, ref):
-        assert torch.isfinite(a).all()
+        assert torch.isfinite(a).all(), "NaN leaked from a dead row"
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
-    assert float(got[2][0].max()) == 0.0          # length 0: empty partials
+    empty = length == 0                            # length 0: empty partials
+    assert float(got[0][empty].abs().max()) == 0.0
+    assert float(got[2][empty].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", sorted(_DENSE_CASES))
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_bits", [4, 3])
+def test_polar_attention_kernel_matches_plain(dev, vdtype, t_bits, case):
+    """Kernel #5 over the dense buffers: rows at 0, a partial group, whole
+    groups and the full buffer; value rows and stats past each row's length
+    NaN-poisoned."""
+    gen = _gen(dev, 11)
+    q, enc, length = _dense_case(dev, gen, case, t_bits)
+    b, hkv, _, d = q.shape
+    t_cap = enc[0].shape[2] * enc[0].shape[3]
+    values = torch.randn((b, hkv, t_cap, d), generator=gen, device=dev).to(
+        vdtype)
+    for i, n in enumerate(length.tolist()):
+        values[i, :, n:] = float("nan")
+    got = _dense_launch(case, lambda: pak.polar_decode_attention_grouped(
+        q, *enc, values, length, t_bits=t_bits))
+    ref = pak.polar_decode_attention_grouped_plain(q, *enc, values, length,
+                                                   t_bits=t_bits)
+    _check_dense(got, ref, length)
 
 
 def test_dense_full_decode_on_card_matches_plain(dev):
@@ -581,32 +656,28 @@ def test_paged_decode_kernel_u8_values_match_plain(dev, bits, case, body):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("case", sorted(_DENSE_CASES))
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("t_bits", [4, 3])
-def test_polar_attention_kernel_u8_values_match_plain(dev, bits, t_bits):
+def test_polar_attention_kernel_u8_values_match_plain(dev, bits, t_bits,
+                                                      case):
     """Kernel #5's uint8 branch: ragged row lengths (0, a partial group,
-    whole groups), every value scale and zero past a row's length NaN."""
-    b, hkv, qh, d, g, gc = 4, 2, 8, 64, 128, 4
+    whole groups), every value scale and zero past a row's length NaN and
+    every code there the largest."""
     gen = _gen(dev, 21)
-    enc = _dense_groups(dev, gen, b, hkv, d, g, gc, 4, t_bits)
-    vc, vs, vz = _u8_values(dev, gen, (b, hkv, gc * g, d), bits)
-    length = torch.tensor([0, 300, 384, 511], dtype=torch.int32, device=dev)
+    q, enc, length = _dense_case(dev, gen, case, t_bits)
+    b, hkv, _, d = q.shape
+    t_cap = enc[0].shape[2] * enc[0].shape[3]
+    vc, vs, vz = _u8_values(dev, gen, (b, hkv, t_cap, d), bits)
     for i, n in enumerate(length.tolist()):
+        vc[i, :, n:] = 255
         vs[i, :, n:] = float("nan")
         vz[i, :, n:] = float("nan")
-        for x in enc[1:]:
-            x[i, :, -(-n // g):] = float("nan")
-    q = torch.randn((b, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
-    n = pak.launches
-    got = pak.polar_decode_attention_grouped(q, *enc, vc, length, vscale=vs,
-                                             vzero=vz, t_bits=t_bits)
-    assert pak.launches == n + 1
+    got = _dense_launch(case, lambda: pak.polar_decode_attention_grouped(
+        q, *enc, vc, length, vscale=vs, vzero=vz, t_bits=t_bits))
     ref = pak.polar_decode_attention_grouped_plain(
         q, *enc, vc, length, vscale=vs, vzero=vz, t_bits=t_bits)
-    torch.cuda.synchronize()
-    for a, r in zip(got, ref):
-        assert torch.isfinite(a).all()
-        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+    _check_dense(got, ref, length)
 
 
 @pytest.mark.parametrize("start,clen,width,d", [

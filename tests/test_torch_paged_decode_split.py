@@ -17,10 +17,13 @@ from repro_torch.kernels import paged_decode as pdk  # noqa: E402
 # pages), the prefix phase's 16-page rows (2 pages a split), a tiny test
 # shape, a batch wide enough to fill the card unsplit, one where the
 # first estimate of pages per split would overshoot the target, an empty
-# table
+# table; the dense decode kernel's walks over G groups: the static
+# serving shape (8 rows x 4 kv heads x 9 groups -> 5 splits, 160 blocks),
+# one row of 9 groups (a split a group), 66 rows (264 blocks unsplit)
 @pytest.mark.parametrize("s,hkv,n,nsplit", [
     (8, 4, 8, 8), (1, 4, 32, 32), (8, 4, 16, 8), (4, 2, 3, 3),
-    (64, 4, 16, 1), (25, 4, 5, 2), (8, 4, 0, 1), (1, 1, 1, 1)])
+    (64, 4, 16, 1), (25, 4, 5, 2), (8, 4, 0, 1), (1, 1, 1, 1),
+    (8, 4, 9, 5), (1, 4, 9, 9), (66, 4, 3, 1)])
 def test_plan_splits(s, hkv, n, nsplit):
     got = pdk.plan_splits(s, hkv, n)
     assert got == nsplit

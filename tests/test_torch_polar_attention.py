@@ -3,8 +3,9 @@
 decode attention, kernel #5) — against the JAX package's interpret-mode
 Pallas kernels and its ``"ref"`` oracles, at the shapes of
 ``tests/test_kernels.py:53-90`` with fp values, for r,t in {(4,4),
-(3,3)}, to rtol = atol = 1e-4. Inputs come from numpy; codes and stats
-from JAX's encode, handed to both."""
+(3,3)}, to rtol = atol = 1e-4; and the plain model of kernel #5's split
+walk (per-range partials, exact merge) against both. Inputs come from
+numpy; codes and stats from JAX's encode, handed to both."""
 import numpy as np
 import pytest
 
@@ -16,7 +17,9 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.core import quantizers as tqz  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_decode as pdk  # noqa: E402
 from repro_torch.kernels import polar_attention as pak  # noqa: E402
 from repro_torch.kernels import polar_qk as qkk  # noqa: E402
 
@@ -128,8 +131,87 @@ def test_decode_attention_per_row_lengths_and_poisoned_dead_rows():
     assert np.isnan(np.asarray(poisoned[0])[1]).any()
 
 
+def _dense_split_partials(q, enc, values, length, nsplit, **vq):
+    """The plain model of kernel #5's split walk: per range of
+    ``paged_decode.split_ranges(G, nsplit)``, the plain version over that
+    range's groups and value rows alone (the groups outside it masked out),
+    with each row's length cut to the range."""
+    g, gc = enc[0].shape[3], enc[0].shape[2]
+    parts = []
+    for lo, hi in pdk.split_ranges(gc, nsplit):
+        rows = slice(lo * g, hi * g)
+        ln = torch.clamp(length - lo * g, 0, (hi - lo) * g).to(torch.int32)
+        kw = {k: v[:, :, rows].contiguous() for k, v in vq.items()}
+        parts.append(pak.polar_decode_attention_grouped_plain(
+            q, *(x[:, :, lo:hi].contiguous() for x in enc),
+            values[:, :, rows].contiguous(), ln, **kw))
+    return parts
+
+
+def _normalized(acc, l):
+    return acc / torch.where(l == 0, 1.0, l)[..., None]
+
+
+# nsplit 5 is the static serving shape's plan (8 rows x 4 kv heads x 9
+# groups); 3 and 9 cut 9 groups into 3-group and 1-group ranges
+@pytest.mark.parametrize("nsplit", [3, 5, 9])
+@pytest.mark.parametrize("vkind", ["bf16", "u8"])
+def test_dense_split_then_merge_matches_unsplit_and_jax(vkind, nsplit):
+    """Kernel #5's split-then-merge, in plain PyTorch: each range's
+    partials merged by ``ops.merge_softmax_partials`` equal the unsplit
+    plain version and JAX's interpret-mode kernel (clean rows) to 1e-4,
+    with NaN in every value row (uint8: scale and zero) and stat row past
+    each row's length, a row of length 0 and partial groups; a range that
+    holds no live group gives m = -1e30, l = 0 and leaves the merge
+    finite."""
+    b, hkv, qh, d, g, gc = 4, 2, 4, 32, 16, 9
+    q, enc, v = _inputs(6, b, hkv, qh, d, g, gc, 4, 4)
+    q = q * d ** -0.5
+    length = np.array([0, 23, 80, gc * g], np.int32)
+    if vkind == "bf16":
+        vt = t(v).to(torch.bfloat16)
+        clean = [vt]
+        jv = [jnp.asarray(vt.float().numpy()).astype(jnp.bfloat16), None,
+              None]
+    else:
+        qv = tqz.encode_values(t(v), 4)
+        clean = [qv.codes, qv.scale, qv.zero]
+        jv = [jnp.asarray(x.numpy()) for x in clean]
+    want = _j_attn(jnp.asarray(q), *(jnp.asarray(x) for x in enc), *jv,
+                   jnp.asarray(length), backend="interpret", block_groups=3)
+    want = [t(x) for x in want]
+    poisoned = [x.clone() for x in clean]
+    encp = [x.copy() for x in enc]
+    for i, n in enumerate(length):
+        for x in poisoned[-2:] if vkind == "u8" else poisoned:
+            x[i, :, n:] = float("nan")
+        for x in encp[1:]:
+            x[i, :, -(-n // g):] = np.nan
+    vq = ({"vscale": poisoned[1], "vzero": poisoned[2]} if vkind == "u8"
+          else {})
+    qt, enct = t(q), [t(x) for x in encp]
+    acc, m, l = pak.polar_decode_attention_grouped_plain(
+        qt, *enct, poisoned[0], t(length), **vq)
+    parts = _dense_split_partials(qt, enct, poisoned[0], t(length), nsplit,
+                                  **vq)
+    assert len(parts) == min(nsplit, gc)
+    for pa, pm, pl in parts:
+        assert torch.isfinite(pa).all() and torch.isfinite(pm).all()
+    got = ops.merge_softmax_partials(parts)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, _normalized(acc, l), **TOL)
+    torch.testing.assert_close(got, _normalized(want[0], want[2]), **TOL)
+    assert float(got[0].abs().max()) == 0.0       # length 0: empty output
+    # the merged softmax stats too: max of the m's, rescaled sum of the l's
+    m_tot = torch.stack([x[1] for x in parts]).amax(0)
+    l_tot = sum(x[2] * torch.exp(x[1] - m_tot) for x in parts)
+    for a, w in ((m_tot, m), (l_tot, l), (m_tot, want[1]), (l_tot, want[2])):
+        torch.testing.assert_close(a, w, **TOL)
+
+
 def test_cpu_tensors_never_count_launches():
-    before = (qkk.launches, pak.launches)
+    before = (qkk.launches, pak.launches, pak.launches_split)
     test_qk_scores_of_unwritten_groups_are_zero()
     test_decode_attention_plain_matches_jax(1.0, 4, 4)
-    assert (qkk.launches, pak.launches) == before
+    test_dense_split_then_merge_matches_unsplit_and_jax("u8", 5)
+    assert (qkk.launches, pak.launches, pak.launches_split) == before
