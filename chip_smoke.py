@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each
-printing one line (the prefix phase one per run):
+printing one line (the serve, runahead and prefix phases one per
+run):
 
 1. env      — the card's name and power limit (``nvidia-smi``), torch and
               CUDA versions, the float32 matmul settings.
@@ -36,9 +37,24 @@ printing one line (the prefix phase one per run):
               versions; per-step relative logit error.
 5. serve    — ``ContinuousBatchingEngine`` at full width: 8 slots,
               max_len 1024, 16 greedy requests (prompts 100-900 tokens,
-              64 new tokens, staggered arrivals). Launch counters are set
-              to 0 just before and read just after; every kernel must have
-              run the expected number of times.
+              64 new tokens, staggered arrivals), its decode steps
+              replayed CUDA graphs (one per table width, captured in the
+              warmup); then the same workload with the graph cache patched
+              out (every step issued eagerly): each request's tokens and
+              events must be identical. Launch counters are set to 0 just
+              before each run and read just after; every kernel must have
+              run the expected number of times (the graphed run's counts
+              are the phase's).
+   graphs   — per width bucket, a replayed step against the eager step
+              on a copy of the same state (8 slots prefilled to 1-8
+              pages): logits bit-equal, tokens, every buffer; an
+              all-inactive replay writes only the scratch page.
+   runahead — run-ahead decode (DESIGN.md §18): 8 greedy requests, 128
+              new tokens, all at t = 0, at ``runahead`` 0, 4 and 8 —
+              identical streams and per-request events, horizons > 0,
+              exact launch counts — and a sampled case (temperature 0.8,
+              top_k 8, seed 7, staggered budgets) identical at H 1 and 4;
+              tok/s, per-token step, sync wait and dispatch gap per H.
 6. prefix   — chunked prefill with the shared-prefix page cache at full
               width: 8 slots, max_len 2048, 256-token chunks, 12 greedy
               requests sharing one 1024-token system prompt, served with
@@ -63,10 +79,11 @@ printing one line (the prefix phase one per run):
               score-only routes (gated, cache bytes per layer); every
               uint8 kernel form must have run.
 9. profile  — wall time of 8-slot decode steps against the device time of
-              their kernels (torch.profiler): the device's idle share and
-              the largest kernels.
+              their kernels (torch.profiler), eager and as a graph replay,
+              and of one H = 8 horizon replay per token: the device's idle
+              share and the largest kernels.
 
-Then one JSON line of per-kernel numbers (launches summed over the four
+Then one JSON line of per-kernel numbers (launches summed over the five
 serving phases; the uint8 forms on rows of their own, encode's decode
 form — a decode step's flush — on a row of its own), and last the device
 JSON. Any failure raises (non-zero
@@ -231,9 +248,9 @@ def phase_build() -> None:
 
 def reset_counts(counters) -> None:
     """Set every launch counter of the kernel wrappers to 0."""
+    from repro_torch.serve.graphs import COUNTERS
     for mod in counters:
-        for attr in ("launches", "launches_u8", "launches_mma",
-                     "launches_split"):
+        for attr in COUNTERS:
             if hasattr(mod, attr):
                 setattr(mod, attr, 0)
 
@@ -1583,11 +1600,53 @@ def check_events(events, reqs) -> None:
         assert ts == sorted(ts)
 
 
+def serve_expect(launches: dict, cfg, out, prompt_lens) -> dict:
+    """The exact launches of a classic paged serving run: a prefill
+    encodes only when the prompt fills at least one group; every decode
+    step (each micro-step of a run-ahead horizon, frozen lanes included)
+    launches the paged decode and the (masked) flush encode once a
+    layer."""
+    nl, steps = cfg.num_layers, out["decode_steps"]
+    full = sum(int(t) >= G for t in prompt_lens)
+    return {**dict.fromkeys(launches, 0),
+            "polar_encode": nl * (full + steps),
+            f"paged_decode{value_form(cfg)}": nl * steps,
+            "flash_prefill": nl * out["prefills"]}
+
+
+def rid_events(out) -> dict:
+    """Each request's (kind, ordinal, token) sequence: what a client of the
+    rid sees, whatever the order across requests (which follows the
+    engine clock)."""
+    by_rid: dict = {}
+    for e in out["events"]:
+        by_rid.setdefault(e.rid, []).append((e.kind, e.ordinal, e.token))
+    return by_rid
+
+
+def serve_line(out) -> str:
+    """tok/s, TTFT and decode-step numbers of a serving run."""
+    return (f"{out['total_tokens']} tokens in {out['wall_s']:.3f} s = "
+            f"{out['tokens_per_s']:.1f} tok/s; TTFT p50 "
+            f"{out['p50_ttft_s'] * 1e3:.1f} ms p99 "
+            f"{out['p99_ttft_s'] * 1e3:.1f} ms; decode "
+            f"{out['decode_steps']} steps mean "
+            f"{out['decode_step_s_mean'] * 1e3:.3f} ms p50 "
+            f"{out['decode_step_s_p50'] * 1e3:.3f} ms; "
+            f"{out['prefills']} prefills {out['prefill_s_total']:.3f} s; "
+            f"mean active slots {out['mean_active_slots']:.2f}")
+
+
 def phase_serve(torch, model, params, counters, n_req=16, new=64, seed=0,
-                label="serve") -> dict:
+                label="serve", eager_arm=True) -> dict:
     """``n_req`` greedy requests (prompts 100-900 tokens, ``new`` tokens,
     20 ms apart) through the classic paged engine: 8 slots, max_len
-    1024."""
+    1024, its decode steps replayed CUDA graphs (captured in the warmup).
+    With ``eager_arm``, the same workload again with the graph cache
+    patched to its eager route (every decode step issued eagerly, as on
+    the CPU): each request's tokens
+    and events must equal the graphed run's (the order across requests
+    follows the engine clock, so it may differ)."""
     import numpy as np
     from repro_torch.serve import (
         ContinuousBatchingEngine, GenerationConfig, Request,
@@ -1595,41 +1654,281 @@ def phase_serve(torch, model, params, counters, n_req=16, new=64, seed=0,
     cfg = model.cfg
     rng = np.random.default_rng(seed)
     lens = rng.integers(100, 901, n_req)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (int(t),))
-                    .astype(np.int32), max_new_tokens=new,
-                    arrival_time=0.02 * i) for i, t in enumerate(lens)]
+    prompts = [rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32)
+               for t in lens]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=new,
+                        arrival_time=0.02 * i) for i, p in enumerate(prompts)]
+
     eng = ContinuousBatchingEngine(model, params, max_slots=8, max_len=1024)
     eng.warmup([int(t) for t in lens])
+    widths = eng.core._decode_widths()
+    assert eng.core.result()["decode_graphs"] == len(widths)
+    outs, counts = {}, {}
+    for arm in ("graph", "eager") if eager_arm else ("graph",):
+        patch = (mock.patch.object(eng.core._graphs, "eager", True)
+                 if arm == "eager" else contextlib.nullcontext())
+        with patch:
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            out = eng.run(reqs(), GenerationConfig())
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+        done = out["requests"]
+        assert len(done) == n_req and all(r.done_tokens == new for r in done)
+        check_events(out["events"], done)
+        expect = serve_expect(launches, cfg, out, lens)
+        assert launches == expect, (arm, launches, expect)
+        assert out["prefills"] == n_req
+        outs[arm] = out
+        counts[arm] = encode_forms(launches, cfg.num_layers
+                                   * out["decode_steps"])
+    assert outs["graph"]["decode_graphs"] == len(widths)   # none recaptured
+    if eager_arm:
+        assert rid_events(outs["eager"]) == rid_events(outs["graph"]), \
+            "graphed and eager decode steps gave different streams"
+    for arm, out in outs.items():
+        print(f"{label}[{arm}]: {n_req} requests x {new} tokens, 8 slots, "
+              f"max_len 1024, {serve_line(out)}; launches "
+              f"{json.dumps(counts[arm])}", flush=True)
+    if eager_arm:
+        g, e = outs["graph"], outs["eager"]
+        print(f"{label}: tok/s graphed / eager "
+              f"{g['tokens_per_s'] / e['tokens_per_s']:.2f}x, mean decode "
+              f"step eager / graphed "
+              f"{e['decode_step_s_mean'] / g['decode_step_s_mean']:.2f}x; "
+              "each request's tokens and events identical", flush=True)
+    return counts["graph"]
+
+
+#: each counted kernel wrapper's CUDA kernel functions, as a profile names
+#: them (a split paged_decode launch also runs merge_splits_kernel;
+#: polar_attention shares paged_decode's functions and is left out)
+KERNEL_FNS = {"polar_encode": ("polar_encode_kernel",),
+              "paged_decode": ("lut_split_decode_kernel",
+                               "lut_flash_decode_kernel"),
+              "flash_prefill": ("flash_prefill_kernel",
+                                "flash_prefill_mma_kernel"),
+              "paged_prefill": ("paged_prefill_kernel",
+                                "paged_prefill_mma_kernel"),
+              "polar_qk": ("polar_qk_kernel",)}
+
+
+def profiled_kernels(torch, fn) -> dict:
+    """Kernel launches per CUDA kernel function (``KERNEL_FNS``' names and
+    ``merge_splits_kernel``) that the device ran in one call of ``fn``,
+    read from torch.profiler."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = [f for fns in KERNEL_FNS.values() for f in fns]
+    names.append("merge_splits_kernel")
     torch.cuda.synchronize()
-    reset_counts(counters)
-    out = eng.run(reqs, GenerationConfig())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ran = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for f in names:
+            if re.search(rf"\b{f}\b", e.key):
+                ran[f] += e.count
+    return ran
+
+
+def check_replay_kernels(torch, graphs, table, slots: int,
+                         hkv: int) -> list[str]:
+    """Profile one replay of each graph in ``graphs``' cache, every lane
+    inactive, and hold the kernels it ran to the launch counts its
+    capture recorded (which each replay adds to the wrappers' counters):
+    each counted wrapper's kernel functions ran exactly that often, every
+    paged_decode launch that splits also ran its merge, and no other
+    hand-written kernel ran. Returns one summary per graph."""
+    import numpy as np
+    from repro_torch.kernels import paged_decode as pd
+    lines = []
+    for key, cap in graphs._cache.items():
+        w, h = key[:2]
+        values = {"token": np.zeros(slots, np.int64), "table": table[:, :w],
+                  "active": np.zeros(slots, bool)}
+        if h > 1:
+            values |= {"remaining": np.zeros(slots, np.int32),
+                       "done": np.ones(slots, bool)}
+        ran = profiled_kernels(torch, lambda: graphs._replay(cap, values))
+        want = {mod.__name__.rsplit(".", 1)[1]: n
+                for (mod, attr), n in cap.counts.items()
+                if attr == "launches"}
+        got = {name: sum(ran[f] for f in fns)
+               for name, fns in KERNEL_FNS.items()}
+        assert got == {name: want.get(name, 0) for name in KERNEL_FNS}, \
+            (key, got, want)
+        split = ran["lut_split_decode_kernel"]
+        merges = split if pd.plan_splits(slots, hkv, w) > 1 else 0
+        assert ran["merge_splits_kernel"] == merges, (key, ran)
+        lines.append(f"(w {w}, H {h}): {got['polar_encode']} encode + "
+                     f"{split} split decode + {merges} merge")
+    return lines
+
+
+def phase_graphs(torch, model, params) -> None:
+    """Each width bucket's decode graph against the eager step at full
+    width: 8 slots prefilled to 60-1000 tokens (1-8 live pages), then per
+    width a replayed one-token step on the engine's state and the eager
+    ``decode_paged`` + sampling on a copy of it, over the slots the width
+    covers — logits bit-equal, tokens equal, every buffer equal — and a
+    replay with every lane inactive, which must leave the state untouched
+    outside the scratch page. Then an H = 8 horizon graph is captured at
+    the widest width, and one replay of every captured graph is profiled:
+    the kernels it ran must be the launches its capture recorded, which
+    is what a replay adds to the wrappers' counters in every serving
+    phase (``check_replay_kernels``). Its launches are not part of the
+    main path's counts."""
+    import copy
+    import numpy as np
+    from repro_torch.serve import EngineCore, GenerationConfig, Request
+    from repro_torch.serve.core import _sample
+    cfg = model.cfg
+    lens = (60, 200, 300, 500, 700, 900, 130, 1000)
+    rng = np.random.default_rng(11)
+    core = EngineCore(model, params, max_slots=8, max_len=1024)
+    core.reset(GenerationConfig())
+    for i, t in enumerate(lens):
+        core.add_request(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, (t,)).astype(np.int32), max_new_tokens=8))
+    for _ in lens:
+        core.step()   # one admission + whole-prompt prefill each
+    assert len(core.sched.active) == 8 and not core._prefilling
+    dev = core.device
+
+    def tensors(state, drop=None):
+        out = []
+        for c in state:
+            for x in (c.key_codes, *c.key_scales.values(), c.value_codes,
+                      c.value_scale, c.value_zero, c.value_fp):
+                if x is not None:
+                    out.append(x if drop is None else
+                               torch.cat([x[:drop], x[drop + 1:]]))
+            out += [c.key_residual, c.lengths]
+        return out
+
+    def same(a, b, drop=None):
+        return all(torch.equal(x, y) for x, y in
+                   zip(tensors(a, drop), tensors(b, drop), strict=True))
+
+    scratch = core.layout.scratch_page
+    covered = []
+    t0 = time.monotonic()
+    for w in core._decode_widths():
+        lengths = core.state[0].lengths.cpu().numpy()
+        mask = lengths // G + 1 <= w
+        covered.append(int(mask.sum()))
+        assert mask.any()
+        tok = rng.integers(0, cfg.vocab_size, 8).astype(np.int64)
+        table = core.sched.alloc.table()[:, :w]
+        # capture first: its eager run writes the scratch page
+        core._graphs.capture(w, 1, 0.0, 0, -1)
+        ref = copy.deepcopy(core.state)
+        lg, _ = model.decode_paged(params, ref, torch.from_numpy(tok).to(dev),
+                                   table.to(dev),
+                                   torch.from_numpy(mask).to(dev))
+        want = _sample(lg, core.gen)
+        logits, nxt = core._graphs.step(w, 0.0, 0, tok, table, mask)
+        assert torch.equal(logits, lg), f"width {w}: logits differ"
+        assert torch.equal(nxt, want), f"width {w}: tokens differ"
+        assert same(core.state, ref), f"width {w}: state differs"
+        before = copy.deepcopy(core.state)
+        core._graphs.step(w, 0.0, 0, tok, table, np.zeros(8, bool))
+        assert same(core.state, before, scratch), \
+            f"width {w}: an inactive replay wrote outside the scratch page"
     torch.cuda.synchronize()
-    launches = read_counts(counters)
-    done = out["requests"]
-    assert len(done) == n_req and all(r.done_tokens == new for r in done)
-    check_events(out["events"], done)
-    nl, steps, pre = cfg.num_layers, out["decode_steps"], out["prefills"]
-    # a prefill encodes only when the prompt fills at least one group;
-    # every decode step launches the (masked) flush encode
-    full = sum(int(t) >= G for t in lens)
-    expect = {**dict.fromkeys(launches, 0),
-              "polar_encode": nl * (full + steps),
-              f"paged_decode{value_form(cfg)}": nl * steps,
-              "flash_prefill": nl * pre}
-    assert launches == expect, (launches, expect)
-    assert pre == n_req
-    launches = encode_forms(launches, nl * steps)
-    print(f"{label}: {n_req} requests x {new} tokens, 8 slots, max_len 1024, "
-          f"{out['total_tokens']} tokens in {out['wall_s']:.3f} s = "
-          f"{out['tokens_per_s']:.1f} tok/s; TTFT p50 "
-          f"{out['p50_ttft_s'] * 1e3:.1f} ms p99 "
-          f"{out['p99_ttft_s'] * 1e3:.1f} ms; decode {steps} steps "
-          f"mean {out['decode_step_s_mean'] * 1e3:.2f} ms p50 "
-          f"{out['decode_step_s_p50'] * 1e3:.2f} ms; {pre} prefills "
-          f"{out['prefill_s_total']:.3f} s; mean active slots "
-          f"{out['mean_active_slots']:.2f}; launches {json.dumps(launches)}",
-          flush=True)
-    return launches
+    print(f"graphs: widths {core._decode_widths()} covering {covered} of 8 "
+          f"prefilled slots: replayed step == eager step on a copy (logits "
+          f"bit-equal, tokens, every buffer of {cfg.num_layers} layers); "
+          f"inactive replays wrote only the scratch page; "
+          f"{time.monotonic() - t0:.1f} s with captures", flush=True)
+    core._graphs.capture(core._decode_widths()[-1], 8, 0.0, 0, -1)
+    lines = check_replay_kernels(torch, core._graphs,
+                                 core.sched.alloc.table(), 8,
+                                 cfg.num_kv_heads)
+    print(f"graphs: a profiled replay of each of {len(lines)} graphs ran "
+          f"exactly the launches its capture recorded ({cfg.num_layers} "
+          f"layers; per H = 1 step, H = 8 per horizon): "
+          + "; ".join(lines), flush=True)
+
+
+def phase_runahead(torch, model, params, counters) -> dict:
+    """Run-ahead decode (DESIGN.md §18) at full width: 8 greedy requests
+    (prompts 100-900 tokens, 128 new tokens, all at t = 0), 8 slots,
+    max_len 1024,
+    at ``runahead`` 0, 4 and 8: identical streams and per-request events
+    (span metadata aside), horizons > 0 at H > 1, exact launches (every
+    micro-step of a horizon, frozen lanes included). Then a sampled case
+    (temperature 0.8, top_k 8, seed 7, budgets 128 down to 65) at H 1 and
+    4: bit-identical streams. Returns the launches of every run,
+    summed."""
+    import numpy as np
+    from repro_torch.serve import (
+        ContinuousBatchingEngine, GenerationConfig, Request,
+    )
+    cfg = model.cfg
+    rng = np.random.default_rng(21)
+    lens = rng.integers(100, 901, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32)
+               for t in lens]
+    sampled = GenerationConfig(temperature=0.8, top_k=8, seed=7)
+    cases = [(h, GenerationConfig(), [128] * 8) for h in (0, 4, 8)] + \
+        [(h, sampled, [128 - 9 * i for i in range(8)]) for h in (0, 4)]
+    total: dict = {}
+    greedy, streams = {}, {}
+    for h, gen, budgets in cases:
+        eng = ContinuousBatchingEngine(model, params, max_slots=8,
+                                       max_len=1024, runahead=h)
+        eng.warmup([int(t) for t in lens], gen)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        out = eng.run([Request(rid=i, prompt=p, max_new_tokens=b)
+                       for i, (p, b) in enumerate(zip(prompts, budgets))],
+                      gen)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        done = out["requests"]
+        assert len(done) == 8
+        for r in done:
+            assert r.done_tokens == min(budgets[r.rid],
+                                        1024 - len(prompts[r.rid]) + 1)
+        check_events(out["events"], done)
+        expect = serve_expect(launches, cfg, out, lens)
+        assert launches == expect, (h, launches, expect)
+        ra = out.get("runahead", {})
+        if h > 1:
+            assert ra["horizons"] > 0, f"H={h}: the planner never engaged"
+        kind = "sampled" if gen.temperature > 0 else "greedy"
+        streams.setdefault(kind, []).append(
+            {r.rid: r.out_tokens for r in done})
+        if kind == "greedy":
+            greedy[h] = rid_events(out)
+        launches = encode_forms(launches, cfg.num_layers
+                                * out["decode_steps"])
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        print(f"runahead[H={h}, {kind}]: 8 requests, 8 slots, max_len 1024, "
+              f"{serve_line(out)}; horizons {ra.get('horizons', 0)} "
+              f"({ra.get('tokens', 0)} tokens), sync wait "
+              f"{ra.get('sync_wait_s', 0.0) * 1e3:.2f} ms, dispatch gap "
+              f"EWMA {ra.get('dispatch_gap_ewma_s', 0.0) * 1e3:.3f} ms, "
+              f"host overlap {ra.get('host_overlap_s', 0.0) * 1e3:.1f} ms; "
+              f"graphs {out['decode_graphs']}; launches "
+              f"{json.dumps(launches)}", flush=True)
+    for kind, runs in streams.items():
+        assert all(x == runs[0] for x in runs), f"{kind} streams differ"
+    assert greedy[4] == greedy[0] and greedy[8] == greedy[0], \
+        "per-request events differ across horizons"
+    print("runahead: greedy streams and per-request events identical at H "
+          "0, 4 and 8; sampled streams identical at H 1 and 4", flush=True)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1945,7 +2244,7 @@ def phase_values(torch, cfg, params, counters) -> dict:
           f"kernel vs plain per step max {gate:.3e} (prefill {gate_pre:.3e}, "
           f"limit {MODEL_REL_L2})", flush=True)
     runs = [phase_serve(torch, model, params, counters, n_req=8, new=32,
-                        seed=6, label="values:serve"),
+                        seed=6, label="values:serve", eager_arm=False),
             phase_prefix(torch, model, params, counters, n_req=6, new=16,
                          seed=7, arms=(True,), label="values:prefix"),
             phase_static(torch, vcfg, params, counters, runs=STATIC_RUNS[:2],
@@ -1956,58 +2255,147 @@ def phase_values(torch, cfg, params, counters) -> dict:
 
 def phase_profile(torch, model, params) -> None:
     """Where a full-batch decode step's time goes: wall time of 8-slot
-    decode steps (host clock around steps that end in the token fetch)
-    against the device time of the kernels they launch (torch.profiler),
-    and the largest kernels. Runs after the serve phase; its launches are
-    not part of the main path's counts."""
+    decode steps at 512 tokens (host clock around steps that end in the
+    token fetch) against the device time of the kernels they launch
+    (torch.profiler), issued eagerly and as a replayed graph of the same
+    step (``serve/graphs.py``); then H = 8 run-ahead horizon replays,
+    wall per micro-step against device busy per micro-step; the largest
+    kernels of the eager step; and two chained horizons, timing the
+    second's dispatch and the first block's landing with the engine's
+    pinned inputs and per-block event against pageable inputs and a
+    blocking ``.cpu()``. Runs after the serving phases; its
+    launches are not part of the main path's counts."""
+    import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.cache_layout import PagedLayout
+    from repro_torch.serve.graphs import DecodeGraphs
     dev = torch.device("cuda")
-    s, t0, n = 8, 512, 5
+    s, t0, n, h = 8, 512, 5, 8
     layout = PagedLayout(page_size=G, num_pages=s * 8, slots=s,
                          pages_per_slot=8)
     state = model.init_paged_state(layout, dev)
     table = torch.arange(s * 8, dtype=torch.int32, device=dev).reshape(s, 8)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(2)
-    toks = torch.randint(0, model.cfg.vocab_size, (s, t0 + 2 * n + 2),
+    toks = torch.randint(0, model.cfg.vocab_size, (s, t0 + 8 * n),
                          generator=gen).to(dev)
     for sl in range(s):
         model.prefill_paged(params, toks[sl:sl + 1, :t0], state, sl,
                             table[sl], t0)
     active = torch.ones((s,), dtype=torch.bool, device=dev)
+    graphs = DecodeGraphs(model, params, state,
+                          torch.Generator(device=dev))
+    host_table, mask = table.cpu(), np.ones(s, bool)
+    budget, fresh = np.full(s, 10 ** 6, np.int32), np.zeros(s, bool)
 
-    def step(i):
+    def eager(i):
         lg, _ = model.decode_paged(params, state, toks[:, t0 + i], table,
                                    active)
         return lg.argmax(-1).cpu()
 
-    step(0)
-    torch.cuda.synchronize()
-    w0 = time.monotonic()
-    for i in range(1, n + 1):
-        step(i)
-    wall = (time.monotonic() - w0) / n
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(n + 1, 2 * n + 1):
-            step(i)
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in kern) / 1e3 / n
-    if busy <= 0.0:
-        print(f"profile: 8-slot decode step wall {wall * 1e3:.2f} ms; "
-              "device time not measured (the profiler saw no kernels)",
-              flush=True)
-        return
-    top = sorted(kern, key=lambda e: -e.device_time_total)[:6]
+    def replay(i):
+        _, nxt = graphs.step(8, 0.0, 0, toks[:, t0 + i], host_table, mask)
+        return nxt.cpu()
+
+    def horizon(i):
+        block = graphs.horizon(8, h, 0.0, 0, -1, toks[:, t0 + i],
+                               host_table, mask, budget, fresh)[0]
+        return block.cpu()
+
+    def measure(fn, first):
+        """(wall ms, device busy ms, top kernels) per call of ``fn``."""
+        fn(first)
+        torch.cuda.synchronize()
+        w0 = time.monotonic()
+        for i in range(first + 1, first + n + 1):
+            fn(i)
+        wall = (time.monotonic() - w0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(first + n + 1, first + 2 * n + 1):
+                fn(i)
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in kern) / 1e3 / n
+        count = sum(e.count for e in kern) / n
+        return (wall, busy, count,
+                sorted(kern, key=lambda e: -e.device_time_total))
+
+    def share(wall, busy, count):
+        return (f"device busy {busy:.3f} ms in {count:.0f} kernels (idle "
+                f"{1 - busy / wall:.1%})" if busy > 0.0 else
+                "device time not measured (the profiler saw no kernels)")
+
+    def pageable(cap, values):
+        """A replay whose host inputs are copied from pageable memory."""
+        for name, x in values.items():
+            x = torch.as_tensor(x)
+            cap.inputs[name].copy_(x, non_blocking=True)
+        cap.graph.replay()
+
+    def chained(i, pinned, event):
+        """Horizon A, then B chained off A's device carries, then A's
+        block landed: (ms the host spent dispatching B, ms from A's
+        dispatch until A's block is on the host, ms until both ran)."""
+        cap = graphs.capture(8, h, 0.0, 0, -1)
+        run = graphs._replay if pinned else pageable
+        torch.cuda.synchronize()
+        w0 = time.monotonic()
+        run(cap, {"token": toks[:, t0 + i], "table": host_table,
+                  "active": mask, "remaining": budget, "done": fresh})
+        out = cap.outputs
+        if event:
+            block = torch.empty(out[0].shape, dtype=out[0].dtype,
+                                pin_memory=True)
+            block.copy_(out[0], non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        else:
+            block = out[0].clone()
+        w1 = time.monotonic()
+        run(cap, {"token": out[1], "table": host_table, "active": mask,
+                  "remaining": out[3], "done": out[2]})
+        w2 = time.monotonic()
+        if event:
+            ready.synchronize()
+        else:
+            block = block.cpu()
+        w3 = time.monotonic()
+        torch.cuda.synchronize()
+        w4 = time.monotonic()
+        return (w2 - w1) * 1e3, (w3 - w0) * 1e3, (w4 - w0) * 1e3
+
+    e_wall, e_busy, e_n, top = measure(eager, 0)
+    g_wall, g_busy, g_n, _ = measure(replay, 0)
+    h_wall, h_busy, h_n, _ = measure(horizon, 0)
+    # landing a block with a successor chained behind it: the engine's
+    # route (pinned inputs, the block's own event) against pageable
+    # inputs and a blocking .cpu() of the block, alternated
+    arms = {"pinned+event": (True, True), "pageable+cpu": (False, False),
+            "pinned+cpu": (True, False), "pageable+event": (False, True)}
+    lands: dict = {k: [] for k in arms}
+    first = 2 * n + 2
+    for rep in range(4):
+        for k, (pinned, event) in arms.items():
+            lands[k].append(chained(first, pinned, event))
+            first += 1
+    lands = {k: np.median(np.array(v[1:]), axis=0) for k, v in lands.items()}
     tops = ", ".join(f"{e.key[:40]} {e.device_time_total / 1e3 / n:.3f} ms"
-                     for e in top)
-    print(f"profile: 8-slot decode step at {t0} tokens: wall "
-          f"{wall * 1e3:.2f} ms, device busy {busy:.3f} ms "
-          f"(idle {1 - busy / (wall * 1e3):.1%}); per step: {tops}",
+                     for e in top[:6])
+    print(f"profile: 8-slot decode step at {t0} tokens: eager wall "
+          f"{e_wall:.2f} ms, {share(e_wall, e_busy, e_n)}; graph replay "
+          f"wall {g_wall:.2f} ms, {share(g_wall, g_busy, g_n)}; H={h} "
+          f"horizon replay per micro-step (a token for each of the {s} "
+          f"slots) wall {h_wall / h:.3f} ms, "
+          f"{share(h_wall / h, h_busy / h, h_n / h)}; eager per step: "
+          f"{tops}",
           flush=True)
+    print(f"profile: two chained H={h} horizons, median of 3 (host ms "
+          "dispatching the second / until the first block is on the host "
+          "/ until both ran): " + "; ".join(
+              f"{k} {d:.3f} / {land:.2f} / {tot:.2f}"
+              for k, (d, land, tot) in lands.items()), flush=True)
 
 
 def main() -> int:
@@ -2048,13 +2436,15 @@ def main() -> int:
     phase_model(torch, model, params)
     counters = (pe, pd, fpk, ppk, pak, qkk)
     serve = phase_serve(torch, model, params, counters)
+    phase_graphs(torch, model, params)
+    runahead = phase_runahead(torch, model, params, counters)
     prefix = phase_prefix(torch, model, params, counters)
     static = phase_static(torch, cfg, params, counters)
     values = phase_values(torch, cfg, params, counters)
     phase_profile(torch, model, params)
 
-    phases = {"serve": serve, "prefix": prefix, "static": static,
-              "values": values}
+    phases = {"serve": serve, "runahead": runahead, "prefix": prefix,
+              "static": static, "values": values}
     print("launches per serving phase: " + json.dumps(phases), flush=True)
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in phases.values())

@@ -94,6 +94,17 @@ def init_paged_cache(cfg: QuantConfig, layout: PagedLayout, num_kv_heads: int,
         cfg=cfg, layout=layout)
 
 
+def zero_cache(cache: PagedKVCache) -> PagedKVCache:
+    """Zero every buffer in place: the state :func:`init_paged_cache`
+    returns, at the same addresses (captured decode graphs bind them)."""
+    for buf in (cache.key_codes, *cache.key_scales.values(),
+                cache.key_residual, cache.value_codes, cache.value_scale,
+                cache.value_zero, cache.value_fp, cache.lengths):
+        if buf is not None:
+            buf.zero_()
+    return cache
+
+
 def paged_prefill(cache: PagedKVCache, slot: int, page_row: torch.Tensor,
                   k: torch.Tensor, v: torch.Tensor, true_len: int,
                   start: int = 0) -> PagedKVCache:

@@ -1,6 +1,6 @@
 """Model interface over the dense family's serving entries (port of
-``repro/models/registry.py:34-68,118-161``; run-ahead and speculative
-decoding come in later slices).
+``repro/models/registry.py:34-68,118-161``; speculative decoding comes in
+a later slice).
 
 ``get_model(cfg)`` returns a :class:`Model` bundle:
   init(generator, device) -> params
@@ -13,6 +13,11 @@ decoding come in later slices).
   prefill_paged_chunk(params, tokens (1,Tc), state, slot, page_row, start,
                       chunk_len)
   decode_paged(params, state, token (S,), page_table, active)
+  decode_runahead(params, state, token (S,), page_table, active, generator,
+                  remaining, done, *, horizon, temperature, top_k, eos_id)
+      — H decode micro-steps with on-device sampling + EOS/budget masking
+      and no host sync (DESIGN.md §18); returns the (H, S) token block
+      plus the carries that seed the next horizon
   copy_pages(state, src, dst) — COW page copy across every layer's pools
 """
 from __future__ import annotations
@@ -36,6 +41,7 @@ class Model:
     prefill_paged: Callable[..., Any]
     prefill_paged_chunk: Callable[..., Any]
     decode_paged: Callable[..., Any]
+    decode_runahead: Callable[..., Any]
     copy_pages: Callable[..., Any]
 
 
@@ -60,5 +66,10 @@ def get_model(cfg: ModelConfig) -> Model:
             TF.prefill_paged_chunk_fn(p, toks, cfg, s, slot, row, start, cl),
         decode_paged=lambda p, s, t, table, active:
             TF.decode_paged_fn(p, s, t, table, active, cfg),
+        decode_runahead=lambda p, s, t, table, active, generator, rem, done,
+            horizon, temperature, top_k, eos_id: TF.decode_runahead_fn(
+                p, s, t, table, active, generator, rem, done, cfg,
+                horizon=horizon, temperature=temperature, top_k=top_k,
+                eos_id=eos_id),
         copy_pages=TF.copy_state_pages,
     )

@@ -8,11 +8,17 @@ one cache per layer, updated in place: a dense
 :class:`~repro_torch.core.paged_cache.PagedKVCache` (paged caches share
 one page-table numbering).
 
+:func:`sample_tokens` is the engine's sampling math (greedy argmax, or
+temperature, top-k and Gumbel-max), and :func:`decode_runahead_fn` runs
+``horizon`` decode micro-steps with it on the device (DESIGN.md §18).
+
 Params are a dict: ``embed`` (V, D), ``final_norm`` (D,), ``lm_head``
 (D, V) unless embeddings are tied, and ``layers``, a list of
 ``{"ln1", "ln2", "attn": {wq, wk, wv, wo}, "ffn": {wg, wu, wd}}``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -147,3 +153,74 @@ def decode_paged_fn(params: dict, caches: list, token: torch.Tensor,
                       page_table=page_table, active=active)
     logits = lm_logits(params, x, cfg)
     return logits[:, 0], caches
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float, top_k: int,
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy argmax at temperature <= 0; otherwise temperature scaling,
+    top-k masking and Gumbel-max sampling (the categorical draw of the JAX
+    engine). ``noise`` injects the Gumbel noise (tests feed both packages
+    the same draws); else one ``torch.rand`` of ``logits.shape`` is drawn
+    from ``generator``. Returns (…,) int32."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = logits.float() / temperature
+    if top_k > 0:
+        vals = torch.topk(logits, top_k, dim=-1).values
+        logits = torch.where(logits < vals[..., -1:],
+                             torch.full_like(logits, -1e30), logits)
+    if noise is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+        u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
+        noise = -torch.log(-torch.log(u))
+    return torch.argmax(logits + noise.to(logits.device), dim=-1).to(
+        torch.int32)
+
+
+@torch.no_grad()
+def decode_runahead_fn(params: dict, caches: list, token: torch.Tensor,
+                       page_table: torch.Tensor, active: torch.Tensor,
+                       generator: Optional[torch.Generator],
+                       remaining: torch.Tensor, done: torch.Tensor,
+                       cfg: ModelConfig, *, horizon: int, temperature: float,
+                       top_k: int, eos_id: int):
+    """Run-ahead decode (DESIGN.md §18): ``horizon`` micro-steps, each
+    exactly one :func:`decode_paged_fn` step followed by on-device
+    sampling (:func:`sample_tokens`) and EOS/budget masking, with no host
+    synchronisation in between (port of
+    ``repro/models/transformer.py::decode_runahead_fn``; a Python loop
+    replaces the ``lax.scan``).
+
+    Carries: ``token (S,)`` the last sampled token per slot (fed at
+    micro-step 0), ``remaining (S,)`` int32 per-slot budget left,
+    ``done (S,)`` bool slots frozen by an earlier horizon. A slot freezes
+    when it samples EOS or exhausts ``remaining``: it leaves the active
+    mask, so its cache stops advancing (``paged_append`` routes inactive
+    lanes to the scratch page) and its token lane holds its last token.
+
+    Sampling draws one ``torch.rand`` from ``generator`` at EVERY
+    micro-step (a captured graph cannot branch on "any lane live"); the
+    JAX scan splits its key only in micro-steps in which some lane is
+    live. Live micro-steps are a prefix of the horizon, so the engine
+    restores the generator to the state after the live ones when the
+    block lands (``EngineCore._reconcile_block``).
+
+    The caches are updated in place. Returns ``(tokens (horizon, S),
+    token, done, remaining)``; the trailing carries seed the next
+    pipelined horizon with no host round trip."""
+    toks = []
+    for _ in range(horizon):
+        act = active & ~done
+        logits, caches = decode_paged_fn(params, caches, token, page_table,
+                                         act, cfg)
+        nxt = sample_tokens(logits, temperature, top_k, generator)
+        nxt = torch.where(act, nxt.to(token.dtype), token)
+        remaining = remaining - act.to(remaining.dtype)
+        done = done | (act & (remaining <= 0))
+        if eos_id >= 0:
+            done = done | (act & (nxt == eos_id))
+        toks.append(nxt)
+        token = nxt
+    return torch.stack(toks), token, done, remaining

@@ -28,6 +28,19 @@ Typical interactive use::
 ``events()`` ends when the engine runs out of work; calling it again
 after more ``add_request()`` calls resumes the same session (same cache,
 same prefix index, same clock).
+
+**Run-ahead stream semantics** (``EngineCore(runahead=H)``, DESIGN.md
+§18): in decode-bound stretches the core runs H decode micro-steps per
+dispatch and emits that horizon's tokens when the block lands —
+typically on the *next* ``step()`` call, so a single step may yield zero
+events (the dispatch step) and the following one a burst. Horizon tokens
+take the shape of a speculative span: per-token ordinals stay dense,
+every token of a horizon shares one clock stamp with ``(span, span_ix)``
+marking its position, and EOS/budget truncation happens before emission
+— so ``check_event_stream`` and ``stream_latency_stats`` apply
+unchanged. A ``cancel()`` arriving while a horizon is in flight lands
+the block first: its token events are delivered ahead of the ``cancel``
+event, never after it.
 """
 from __future__ import annotations
 
@@ -128,7 +141,11 @@ def stream_latency_stats(events: Iterable[TokenEvent],
       everything the client was shown, TTFT restarts at the post-resume
       token.
     * **ITL** — gaps between consecutive token-bearing events of the same
-      request, clamped at zero.
+      request. Every token of a span (``TokenEvent.span``/``span_ix``: a
+      run-ahead horizon retires several tokens from one dispatch) carries
+      the same timestamp, so the intra-span gaps count as 0 — the client
+      receives them together — and the gap to the *next* span carries
+      the full dispatch latency. Gaps are clamped at zero.
 
     Returns ``{"ttft_s": {p50,p95,p99,mean,n}, "itl_s": {...}}`` (zeros
     when the stream is empty)."""
@@ -181,13 +198,16 @@ def check_event_stream(events: Iterable[TokenEvent]) -> dict:
     * at most one **terminal** event per rid (``finish`` or ``cancel``),
       with no event for that rid after it;
     * ``first_token`` happens once per rid;
-    * timestamps are non-decreasing stream-wide.
+    * timestamps are non-decreasing stream-wide;
+    * the tokens of one span (``span > 1``) are consecutive events of
+      their rid, ``span_ix`` running 0..span-1, all with one timestamp.
 
     Returns per-rid terminal kinds (``{rid: kind}``); raises
     AssertionError on any violation."""
     ntoks: dict[int, int] = {}
     seen_first: set[int] = set()
     terminal: dict[int, str] = {}
+    open_span: dict[int, tuple[int, int, float]] = {}  # rid -> (span, ix, t)
     last_t = float("-inf")
     for ev in events:
         assert ev.t >= last_t, \
@@ -206,7 +226,22 @@ def check_event_stream(events: Iterable[TokenEvent]) -> dict:
             assert ev.ordinal == n, \
                 f"rid {ev.rid}: ordinal {ev.ordinal} != dense {n}"
             ntoks[ev.rid] = n + 1
-        elif ev.kind == "preempt":
+            assert 0 <= ev.span_ix < ev.span, \
+                f"rid {ev.rid}: span_ix {ev.span_ix} outside span {ev.span}"
+            if ev.span_ix == 0:
+                open_span[ev.rid] = (ev.span, 0, ev.t)
+            else:
+                assert open_span.get(ev.rid) == (ev.span, ev.span_ix - 1,
+                                                 ev.t), \
+                    f"rid {ev.rid}: span token {ev.span_ix} of {ev.span} " \
+                    "out of order or off its span's timestamp"
+                open_span[ev.rid] = (ev.span, ev.span_ix, ev.t)
+            if ev.span_ix == ev.span - 1:
+                del open_span[ev.rid]
+            continue
+        assert ev.rid not in open_span, \
+            f"rid {ev.rid}: {ev.kind!r} inside an unfinished span"
+        if ev.kind == "preempt":
             if ntoks.get(ev.rid, 0) > 0:
                 ntoks[ev.rid] -= 1   # the retracted token re-samples
         elif ev.kind in ("finish", "cancel"):

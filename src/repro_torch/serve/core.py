@@ -22,8 +22,18 @@ Requests move through::
 The device state (one paged cache per layer) is updated in place by each
 dispatch. The engine clock advances by measured wall time around each
 dispatch, which ends in the host fetch of the sampled tokens — the fetch
-waits for the device, so the clock counts device time. Run-ahead,
-speculative decoding, QoS, chaos and the mesh come in later slices.
+waits for the device, so the clock counts device time.
+
+On the card the decode dispatch is a replayed CUDA graph
+(:mod:`repro_torch.serve.graphs`): one graph per page-table width for the
+one-token step, one per width for the run-ahead horizon (DESIGN.md §18:
+H decode micro-steps with on-device sampling, one host sync per (H,
+slots) token block, the next horizon chained off the device-resident
+carries while the host reconciles the previous block). On the CPU the
+same dispatches run eagerly. Prefill and chunk prefill are eager on both.
+Every host synchronisation of ``repro_torch.serve`` is in this file and
+marked ``# sync:``. Speculative decoding, QoS, chaos and the mesh come in
+later slices.
 """
 from __future__ import annotations
 
@@ -36,7 +46,9 @@ import torch
 
 from repro_torch.core import paged_cache as pgc
 from repro_torch.core.cache_layout import PagedLayout, PrefixIndex
+from repro_torch.models import transformer as TF
 from repro_torch.models.registry import Model
+from repro_torch.serve.graphs import DecodeGraphs
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.utils import (
     cdiv, nearest_rank_pct, pow2_bucket, resolve_device, tree_bytes,
@@ -57,27 +69,17 @@ def _sample(logits: torch.Tensor, gen: GenerationConfig,
             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy argmax at temperature <= 0; otherwise temperature scaling,
     top-k masking and Gumbel-max sampling (the categorical draw of the JAX
-    engine). ``noise`` injects the Gumbel noise (tests feed both engines
-    the same draws); else it is drawn from ``generator``."""
-    if gen.temperature <= 0.0:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    logits = logits.float() / gen.temperature
-    if gen.top_k > 0:
-        vals = torch.topk(logits, gen.top_k, dim=-1).values
-        logits = torch.where(logits < vals[..., -1:],
-                             torch.full_like(logits, -1e30), logits)
-    if noise is None:
-        u = torch.rand(logits.shape, generator=generator,
-                       device=logits.device)
-        u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
-        noise = -torch.log(-torch.log(u))
-    return torch.argmax(logits + noise.to(logits.device), dim=-1).to(
-        torch.int32)
+    engine; :func:`repro_torch.models.transformer.sample_tokens`, which
+    the decode graphs capture). ``noise`` injects the Gumbel noise (tests
+    feed both engines the same draws); else it is drawn from
+    ``generator``."""
+    return TF.sample_tokens(logits, gen.temperature, gen.top_k, generator,
+                            noise)
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.synchronize(device)  # sync: honest clock after a dispatch
 
 
 class ServeEngine:
@@ -132,7 +134,7 @@ class ServeEngine:
         t_decode = time.monotonic() - t0
         n_dec = max(gen.max_new_tokens - 1, 1)
         return {
-            "tokens": torch.stack(toks, dim=1).cpu().numpy(),
+            "tokens": torch.stack(toks, dim=1).cpu().numpy(),  # sync: out
             "prefill_s": t_prefill,
             "decode_s": t_decode,
             "tokens_per_s": b * n_dec / max(t_decode, 1e-9),
@@ -160,7 +162,13 @@ class TokenEvent:
     ``token`` is the sampled token for ``first_token``/``token`` events;
     for ``preempt`` it is the *retracted* token (never fed to the model,
     re-sampled on resume). ``ordinal`` is the token's 0-based index in
-    the request's output stream."""
+    the request's output stream.
+
+    A run-ahead horizon retires several tokens of a request from one
+    dispatch: each gets its own event sharing one clock stamp, with
+    ``span`` the tokens that dispatch retired for the rid and ``span_ix``
+    the event's position inside the span — a one-token step is the
+    degenerate ``span=1, span_ix=0``."""
 
     kind: str
     rid: int
@@ -168,6 +176,8 @@ class TokenEvent:
     token: Optional[int] = None
     slot: int = -1
     ordinal: int = -1
+    span: int = 1
+    span_ix: int = 0
 
 
 class EngineCore:
@@ -184,12 +194,27 @@ class EngineCore:
     given) registers completed prompts' full-chunk pages in a
     :class:`PrefixIndex`; admissions that match adopt those pages and
     prefill only the tail (DESIGN.md §12). Page tables are width-sliced to
-    pow2 live-page buckets."""
+    pow2 live-page buckets.
+
+    ``runahead = H > 1`` (DESIGN.md §18): when the horizon planner sees no
+    scheduling event in the next H steps (nothing queued, no prefill due,
+    no prefix cache), one dispatch runs H decode micro-steps with
+    on-device sampling and EOS/budget masking, and the host syncs once
+    per (H, slots) token block; the next horizon is chained off the
+    device-resident carries before the previous block lands. Streams are
+    those of ``runahead=0``, greedy and sampled. 0 and 1 disable it.
+
+    Every decode dispatch goes through
+    :class:`~repro_torch.serve.graphs.DecodeGraphs`: on the card a
+    replayed CUDA graph (one per width and horizon, bound to this
+    engine's state), on the CPU the same calls eagerly.
+    The device state is allocated once: :meth:`reset` zeroes it in place,
+    so the graphs survive across sessions."""
 
     def __init__(self, model: Model, params: dict, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
                  prefix_cache: bool = False, prefill_chunk: int = 0,
-                 device=None):
+                 runahead: int = 0, device=None):
         self.model = model
         self.params = params
         self.device = resolve_device(device)
@@ -213,22 +238,32 @@ class EngineCore:
                     f"codec {model.cfg.quant.method!r} has no page-native "
                     "chunk prefill in this port")
         self.prefill_chunk = chunk
+        self.runahead = int(runahead)
+        if self.runahead < 0:
+            raise ValueError(f"runahead must be >= 0, got {runahead}")
+        # the session state and generator live as long as the engine: the
+        # decode graphs bind their addresses
+        self.state = self.model.init_paged_state(self.layout, self.device)
+        self._generator = torch.Generator(device=self.device)
+        self._graphs = DecodeGraphs(model, params, self.state,
+                                    self._generator)
         self.reset()
 
     # --- session lifecycle ------------------------------------------------
 
     def reset(self, gen: Optional[GenerationConfig] = None) -> None:
-        """Start a fresh session: new device state, scheduler, clock, RNG
-        and metrics."""
+        """Start a fresh session: zeroed device state (in place — the
+        buffers, and the decode graphs bound to them, are kept), new
+        scheduler, clock, RNG seed and metrics."""
         self.gen = gen if gen is not None else GenerationConfig()
         self.prefix = (PrefixIndex(self.layout, self.prefill_chunk)
                        if self.prefix_cache else None)
         self.sched = Scheduler(self.layout, prefix_index=self.prefix,
                                chunk_tokens=self.prefill_chunk)
-        self.state = self.model.init_paged_state(self.layout, self.device)
+        for cache in self.state:
+            pgc.zero_cache(cache)
         s = self.layout.slots
         self.clock = 0.0
-        self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.gen.seed)
         self._next_tok = np.zeros((s,), np.int32)
         self._lengths = np.zeros((s,), np.int64)
@@ -254,6 +289,16 @@ class EngineCore:
         self.prefill_computed = 0   # prefill tokens run through the model
         self.prefill_skipped = 0    # prefill tokens served from adoption
         self.cow_splits = 0
+        # run-ahead pipeline state (DESIGN.md §18): the in-flight horizon
+        # record (which carries its own optimistic per-slot budgets) and
+        # the host-vs-device attribution metrics
+        self._inflight: Optional[dict] = None
+        self._land_t = 0.0          # wall time the last horizon landed
+        self.runahead_horizons = 0
+        self.runahead_tokens = 0
+        self._gap_ewma: Optional[float] = None  # host overlap per horizon
+        self._sync_wait_s = 0.0     # host time blocked on landing blocks
+        self._overlap_s = 0.0       # host time overlapped w/ device work
 
     # --- request intake ---------------------------------------------------
 
@@ -278,18 +323,24 @@ class EngineCore:
     def cancel(self, rid: int) -> list[TokenEvent]:
         """Cancel a request wherever it is; returns the ``cancel`` event
         ([] when ``rid`` is unknown or already finished). Host-side only:
-        the slot's pages are decref'd and the slot is free at once."""
+        the slot's pages are decref'd and the slot is free at once. An
+        in-flight run-ahead horizon is landed first (its token events
+        precede the cancel in the returned list), so a cancelled rid never
+        emits tokens after its terminal event and its pages are released
+        only once the device is done writing them."""
+        pre = self._reconcile_horizon() if self._inflight is not None \
+            else []
         for i, r in enumerate(self._arrivals):
             if r.rid == rid:
                 del self._arrivals[i]
-                return self._cancelled(r)
+                return pre + self._cancelled(r)
         summary = self.sched.cancel(rid)
         if summary is None:
-            return []
+            return pre
         if summary.slot >= 0:
             self._prefilling.pop(summary.slot, None)
             self._eff_max.pop(rid, None)
-        return self._cancelled(summary.req, summary.slot)
+        return pre + self._cancelled(summary.req, summary.slot)
 
     def _cancelled(self, req: Request, slot: int = -1) -> list[TokenEvent]:
         req.state = CANCELLED
@@ -299,7 +350,8 @@ class EngineCore:
 
     @property
     def has_work(self) -> bool:
-        return bool(self._arrivals) or self.sched.has_work
+        return bool(self._arrivals) or self.sched.has_work or \
+            self._inflight is not None
 
     # --- width buckets ----------------------------------------------------
 
@@ -339,13 +391,21 @@ class EngineCore:
         t = self.sched.alloc.table(self.device)
         return t if width is None else t[:, :width]
 
-    def warmup(self, prompt_lens: list[int]) -> None:
-        """Run every prefill bucket (or chunk width) of ``prompt_lens`` and
-        every decode width once against throwaway state (kernel builds and
-        library initialisation stay out of the measurements)."""
+    def warmup(self, prompt_lens: list[int],
+               gen: Optional[GenerationConfig] = None) -> None:
+        """Run every prefill bucket (or chunk width) of ``prompt_lens``
+        once against throwaway state (kernel builds and library
+        initialisation stay out of the measurements), sampling with a
+        throwaway generator — the session's is left alone, as the JAX
+        engine's warmup leaves its key. Then capture the decode graph of
+        every width (and the run-ahead horizon's) under ``gen``'s
+        sampling (default: the session's) against the session state,
+        every lane inactive (nothing to capture on the CPU)."""
+        gen = gen if gen is not None else self.gen
         state = self.model.init_paged_state(self.layout, self.device)
+        rng = torch.Generator(device=self.device)
+        rng.manual_seed(0)
         row = self._table()[0]
-        s = self.layout.slots
         if self.prefill_chunk:
             c = self.prefill_chunk
             toks = torch.zeros((1, c), dtype=torch.int64, device=self.device)
@@ -354,21 +414,20 @@ class EngineCore:
                 logits, _ = self.model.prefill_paged_chunk(
                     self.params, toks, state, 0, row[:w], 0,
                     min(c, w * self.layout.page_size))
-                _sample(logits, self.gen, self._generator).cpu()
+                _sample(logits, gen, rng).cpu()  # sync: warmup barrier
         else:
             for tp in sorted({self._bucket(t) for t in prompt_lens}):
                 toks = torch.zeros((1, tp), dtype=torch.int64,
                                    device=self.device)
                 logits, _ = self.model.prefill_paged(self.params, toks, state,
                                                      0, row, tp)
-                _sample(logits, self.gen, self._generator).cpu()
+                _sample(logits, gen, rng).cpu()  # sync: warmup barrier
+        del state
+        horizons = [1] + ([self.runahead] if self.runahead > 1 else [])
         for w in self._decode_widths():
-            logits, _ = self.model.decode_paged(
-                self.params, state,
-                torch.zeros((s,), dtype=torch.int64, device=self.device),
-                self._table(w),
-                torch.zeros((s,), dtype=torch.bool, device=self.device))
-            _sample(logits, self.gen, self._generator).cpu()
+            for h in horizons:
+                self._graphs.capture(w, h, gen.temperature, gen.top_k,
+                                     gen.eos_id)
 
     # --- the step loop ----------------------------------------------------
 
@@ -377,10 +436,18 @@ class EngineCore:
         priority order: admit the next admissible request (adopting prefix
         pages; classic mode also runs its whole-prompt prefill here), run
         one prefill chunk (chunked mode, under the cycle budget), or run
-        one batched decode step over all decode-ready slots — or
-        recompute-preempt the youngest admission when every slot stalls on
-        a dry pool. Idle with scheduled arrivals jumps the clock; idle with
-        no work returns ``[]``."""
+        one batched decode step (or run-ahead horizon) over all
+        decode-ready slots — or recompute-preempt the youngest admission
+        when every slot stalls on a dry pool. While a horizon is in
+        flight, the step chains the next one and lands the block instead.
+        Idle with scheduled arrivals jumps the clock; idle with no work
+        returns ``[]``."""
+        if self._inflight is not None:
+            # a run-ahead horizon is in flight: chain the next horizon off
+            # its device-resident carries while it computes, then land it
+            # and reconcile its events (DESIGN.md §18). The phase machine
+            # only runs once the pipeline drains.
+            return self._advance_runahead()
         if self._phase == "begin":
             self._pump_arrivals()
             if not self.sched.has_work:
@@ -455,7 +522,8 @@ class EngineCore:
             self.params, torch.as_tensor(toks, device=self.device),
             self.state, slot, self._table()[slot], tl)
         # the host fetch waits for the device: the clock counts its time
-        tok0 = int(_sample(logits, self.gen, self._generator).cpu()[0])
+        tok = _sample(logits, self.gen, self._generator)
+        tok0 = int(tok.cpu()[0])  # sync: classic prefill's first token
         dt = time.monotonic() - t0
         self.clock += dt
         self._prefill_times.append(dt)
@@ -489,7 +557,8 @@ class EngineCore:
         if cur["off"] >= tl:
             # final chunk: its last-token logits seed decode; the host
             # fetch waits for the device
-            tok0 = int(_sample(logits, self.gen, self._generator).cpu()[0])
+            tok = _sample(logits, self.gen, self._generator)
+            tok0 = int(tok.cpu()[0])  # sync: final chunk's first token
             dt = time.monotonic() - t0
             self.clock += dt
             self._prefill_times.append(dt)
@@ -531,14 +600,22 @@ class EngineCore:
         return [TokenEvent("finish", req.rid, self.clock, slot=slot)]
 
     def _decode_step(self) -> list[TokenEvent]:
-        """Batched decode over the non-stalled, fully prefilled slots;
-        recompute-preemption when nothing can run and no chunk progressed
-        this cycle."""
+        """Batched decode over the non-stalled, fully prefilled slots — a
+        run-ahead horizon when the planner allows one; recompute-
+        preemption when nothing can run and no chunk progressed this
+        cycle."""
         sched, g = self.sched, self.layout.page_size
         if not sched.active:
             return []   # cancellation emptied the cycle mid-flight
+        want_runahead = self._runahead_want()
+        # a horizon reserves its whole span's pages up front; a shortfall
+        # (pool pressure) drops this step back to the one-token dispatch,
+        # which knows how to stall and preempt
+        spans = ({sl: self.runahead for sl in sched.active}
+                 if want_runahead else None)
         stalled = set(sched.ensure_pages(self._lengths,
-                                         skip=self._prefilling.keys()))
+                                         skip=self._prefilling.keys(),
+                                         spans=spans))
         step_slots = [sl for sl in sched.active
                       if sl not in stalled and sl not in self._prefilling]
 
@@ -582,10 +659,14 @@ class EngineCore:
             vreq.state = PREEMPTED
             return [TokenEvent("preempt", vreq.rid, self.clock,
                                token=retracted, slot=victim)]
+        if want_runahead and self._runahead_ready(step_slots):
+            return self._runahead_dispatch(step_slots)
         return self._decode_dispatch(step_slots)
 
     def _decode_dispatch(self, step_slots: list[int]) -> list[TokenEvent]:
-        """The one-token decode dispatch over ``step_slots``."""
+        """The one-token decode dispatch over ``step_slots``: a replay of
+        the width's step graph (``decode_paged`` and the sampling; the
+        same two calls eagerly on the CPU)."""
         sched, g = self.sched, self.layout.page_size
         s = self.layout.slots
         mask = np.zeros((s,), bool)
@@ -594,14 +675,12 @@ class EngineCore:
         # batch: the decode step then reads O(live tokens)
         w = self._step_width(
             max(int(self._lengths[sl]) // g + 1 for sl in step_slots))
+        tok = self._next_tok.astype(np.int64)
         t0 = time.monotonic()
-        logits, self.state = self.model.decode_paged(
-            self.params, self.state,
-            torch.as_tensor(self._next_tok.astype(np.int64),
-                            device=self.device),
-            self._table(w), torch.as_tensor(mask, device=self.device))
+        _, nxt = self._graphs.step(w, self.gen.temperature, self.gen.top_k,
+                                   tok, sched.alloc.table()[:, :w], mask)
         # one host fetch per step; it waits for the device
-        toks = _sample(logits, self.gen, self._generator).cpu().numpy()
+        toks = nxt.cpu().numpy()  # sync: one-token step's token fetch
         step_s = time.monotonic() - t0
         self.clock += step_s
         self.decode_steps += 1
@@ -622,6 +701,232 @@ class EngineCore:
                     req.done_tokens >= self._eff_max[req.rid]:
                 events += self._finish(sl)
         return events
+
+    # --- run-ahead decode (DESIGN.md §18) ---------------------------------
+
+    def _runahead_want(self) -> bool:
+        """Horizon-planner gate: run-ahead engages only when the next H
+        step boundaries are provably event-free — nothing queued to
+        admit, no prefill chunk due, and no prefix sharing (its COW guard
+        decides per step). Every other configuration takes the one-token
+        dispatch unchanged."""
+        return (self.runahead > 1 and not self.prefix_cache
+                and not self._prefilling and not self._arrivals
+                and not self.sched.pending)
+
+    def _runahead_ready(self, step_slots: list[int]) -> bool:
+        """Per-slot hazard check after page reservation: every active
+        slot decodes this step and holds pages covering the tokens its
+        horizon can append (EOS and budget hazards are masked on the
+        device; a page shortfall means pool pressure, so fall back to the
+        one-token path, which can stall and preempt)."""
+        sched, g = self.sched, self.layout.page_size
+        if len(step_slots) != len(sched.active):
+            return False
+        for sl in step_slots:
+            req = sched.active[sl]
+            need = int(self._lengths[sl]) + min(
+                self.runahead, self._eff_max[req.rid] - req.done_tokens)
+            if sched.alloc.slot_pages(sl) * g < need:
+                return False
+        return True
+
+    def _runahead_dispatch(self, step_slots: list[int]) -> list[TokenEvent]:
+        """Dispatch one fresh horizon from host-known carries (next
+        tokens, per-slot budgets). Returns no events: the host does not
+        wait for the block — its tokens reconcile when it lands (the next
+        step, or a cancel arriving mid-flight)."""
+        s = self.layout.slots
+        mask = np.zeros((s,), bool)
+        mask[step_slots] = True
+        rem = np.zeros((s,), np.int32)
+        for sl in step_slots:
+            req = self.sched.active[sl]
+            rem[sl] = self._eff_max[req.rid] - req.done_tokens
+        self._dispatch_horizon(
+            step_slots, self._next_tok.astype(np.int64),
+            np.zeros((s,), bool), rem, mask,
+            {sl: int(rem[sl]) for sl in step_slots},
+            {sl: int(self._lengths[sl]) for sl in step_slots})
+        return []
+
+    def _chain_dispatch(self, live: list[int]) -> None:
+        """Dispatch the next horizon straight off the in-flight one's
+        device-resident carries (final token, done mask, budgets) — no
+        host sync in between, so the device stays busy while the host
+        reconciles the previous block's events."""
+        blk = self._inflight
+        tok, done, rem = blk["carry"]
+        self._dispatch_horizon(live, tok, done, rem, blk["mask"],
+                               {sl: blk["ahead_rem"][sl] for sl in live},
+                               {sl: blk["opt_len"][sl] for sl in live})
+
+    def _dispatch_horizon(self, slots, tok, done, rem, mask,
+                          host_rem: dict, host_len: dict) -> None:
+        g, h = self.layout.page_size, self.runahead
+        cap = self.layout.tokens_per_slot
+        gen = self.gen
+        # the width covers every page the horizon can touch (appends and
+        # attention reads up to len + H, clamped to the slot capacity)
+        w = self._step_width(max(
+            (min(host_len[sl] + h, cap) - 1) // g + 1 for sl in slots))
+        # the generator state before the horizon's draws: a block whose
+        # lanes all freeze early rewinds to it (_reconcile_block)
+        rng = self._generator.get_state() if gen.temperature > 0.0 else None
+        t0 = time.monotonic()
+        toks, tok, done, rem = self._graphs.horizon(
+            w, h, gen.temperature, gen.top_k, gen.eos_id, tok,
+            self.sched.alloc.table()[:, :w], mask, rem, done)
+        # start the block's copy to the host now: landing it then waits
+        # for this horizon alone, not for a successor chained behind it
+        host, ready = self._fetch_async(toks)
+        self._inflight = {
+            "host": host, "ready": ready, "slots": list(slots),
+            "rem": host_rem, "len": host_len,
+            # optimistic carries for chaining: a slot that survives its
+            # horizon advanced exactly min(h, rem) tokens; one that
+            # finished is excluded from the next chain (budget) or
+            # skipped at reconcile (EOS — its device lane froze)
+            "ahead_rem": {sl: max(host_rem[sl] - h, 0) for sl in slots},
+            "opt_len": {sl: host_len[sl] + min(h, host_rem[sl])
+                        for sl in slots},
+            "carry": (tok, done, rem), "mask": mask, "rng": rng,
+            "rng_set": False, "t0": t0, "t_disp": time.monotonic(),
+        }
+
+    def _advance_runahead(self) -> list[TokenEvent]:
+        """The pipeline's per-step beat: chain the next horizon off the
+        in-flight one's device carries when the planner still allows it,
+        then land the in-flight block and reconcile its events. Chaining
+        happens *before* the landing sync, so host reconciliation
+        overlaps the next horizon's device compute."""
+        old = self._inflight
+        chained = False
+        if self._runahead_want():
+            live = [sl for sl in old["slots"]
+                    if old["ahead_rem"][sl] > 0 and sl in self.sched.active]
+            if live:
+                g = self.layout.page_size
+                opt = self._lengths.copy()
+                for sl in live:
+                    opt[sl] = old["opt_len"][sl]
+                dead = [sl for sl in self.sched.active if sl not in live]
+                stalled = set(self.sched.ensure_pages(
+                    opt, skip=dead,
+                    spans={sl: self.runahead for sl in live}))
+                ok = not stalled and all(
+                    self.sched.alloc.slot_pages(sl) * g >=
+                    old["opt_len"][sl] + min(self.runahead,
+                                             old["ahead_rem"][sl])
+                    for sl in live)
+                if ok:
+                    self._chain_dispatch(live)
+                    chained = True
+        if not chained:
+            self._inflight = None
+        return self._reconcile_block(old)
+
+    def _reconcile_horizon(self) -> list[TokenEvent]:
+        """Land the in-flight horizon now (a cancel arriving mid-flight):
+        sync, emit its events, drain the pipeline."""
+        blk, self._inflight = self._inflight, None
+        return self._reconcile_block(blk)
+
+    def _reconcile_block(self, blk: dict) -> list[TokenEvent]:
+        """Land one horizon's (H, S) token block — the single host sync
+        for its H micro-steps — and replay the host-side bookkeeping the
+        one-token loop does per step: per-token ordinals, horizon-shared
+        clock stamps with (span, span_ix), truncation at EOS or budget,
+        finish and page reclamation. Under sampling, rewind the generator
+        to the state after the block's live micro-steps when its lanes
+        all froze early (the one-token loop stops drawing there)."""
+        sched, h = self.sched, self.runahead
+        t_sync = time.monotonic()
+        gap = t_sync - blk["t_disp"]   # host work overlapped with device
+        self._overlap_s += gap
+        self._gap_ewma = gap if self._gap_ewma is None else \
+            0.8 * self._gap_ewma + 0.2 * gap
+        # the one fetch per H tokens
+        if blk["ready"] is not None:
+            blk["ready"].synchronize()  # sync: a horizon block lands
+        toks = blk["host"].numpy()  # sync: none left, the copy has landed
+        now = time.monotonic()
+        self._sync_wait_s += now - t_sync
+        # wall time is partitioned across pipelined horizons: each bills
+        # from the later of its dispatch and the previous landing
+        step_s = now - max(blk["t0"], self._land_t)
+        self._land_t = now
+        self.clock += step_s
+        events: list[TokenEvent] = []
+        live = n_live = 0
+        for sl in blk["slots"]:
+            req = sched.active.get(sl)
+            if req is None or req.state != DECODING:
+                continue   # finished/cancelled before this block landed
+            live += 1
+            rem = blk["rem"][sl]
+            emit: list[int] = []
+            finished = False
+            for j in range(min(h, rem)):
+                t = int(toks[j, sl])
+                emit.append(t)
+                if self.gen.eos_id >= 0 and t == self.gen.eos_id:
+                    finished = True
+                    break
+            if len(emit) >= rem:
+                finished = True   # budget bound inside the horizon
+            span = len(emit)
+            # the lane was live for exactly ``span`` micro-steps
+            n_live = max(n_live, span)
+            # device lengths advanced once per live micro-step, so host
+            # and device lengths agree for every surviving slot; a
+            # finishing slot's pages are reclaimed here, the first host
+            # step after the block lands
+            self._lengths[sl] += span
+            for j, t in enumerate(emit):
+                req.out_tokens.append(t)
+                events.append(TokenEvent(
+                    "token", req.rid, self.clock, token=t, slot=sl,
+                    ordinal=req.done_tokens - 1, span=span, span_ix=j))
+            self._next_tok[sl] = emit[-1]
+            self.runahead_tokens += span
+            if finished:
+                events += self._finish(sl)
+        if blk["rng"] is not None and n_live < h and not blk["rng_set"]:
+            # every lane froze after n_live micro-steps: the one-token
+            # loop drew n_live times; a chained successor is all frozen
+            # and must not move the generator again
+            self._rewind_generator(blk["rng"], n_live)
+            if self._inflight is not None:
+                self._inflight["rng_set"] = True
+        self.runahead_horizons += 1
+        self.decode_steps += h
+        self._step_times.append(step_s / h)
+        self._util.append(sched.utilization())
+        self._active_hist.append(live)
+        return events
+
+    def _fetch_async(self, x: torch.Tensor
+                     ) -> tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """Start copying ``x`` to the host: (the host tensor, the event
+        that marks the copy done — None on the CPU, where ``x`` is the
+        host tensor). The pinned block comes from the caching host
+        allocator, which does not reuse it before the copy has run."""
+        if x.device.type != "cuda":
+            return x, None
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
+    def _rewind_generator(self, state: torch.Tensor, draws: int) -> None:
+        """Set the session generator to ``state`` advanced by ``draws``
+        sampling draws (one ``torch.rand`` of the logits' shape each)."""
+        self._generator.set_state(state)
+        shape = (self.layout.slots, self.model.cfg.vocab_size)
+        for _ in range(draws):
+            torch.rand(shape, generator=self._generator, device=self.device)
 
     # --- session results --------------------------------------------------
 
@@ -650,6 +955,7 @@ class EngineCore:
             "p50_ttft_s": nearest_rank_pct(ttfts, 50),
             "p99_ttft_s": nearest_rank_pct(ttfts, 99),
             "decode_steps": self.decode_steps,
+            # per token step: a horizon bills its wall time / H
             "decode_step_s_mean": float(np.mean(step_times)) if step_times
             else 0.0,
             "decode_step_s_p50": float(np.median(step_times)) if step_times
@@ -673,7 +979,22 @@ class EngineCore:
             "cow_splits": self.cow_splits,
             "cancelled_requests": self.cancelled,
             "n_cancelled": len(self.cancelled),
+            "decode_graphs": len(self._graphs) if self._graphs is not None
+            else 0,
         }
+        if self.runahead > 1:
+            # host-vs-device attribution of the pipeline: the dispatch-gap
+            # EWMA is host time per horizon overlapped with device work;
+            # sync_wait is what the host still spends blocked on landing
+            # blocks
+            res["runahead"] = {
+                "h": self.runahead,
+                "horizons": self.runahead_horizons,
+                "tokens": self.runahead_tokens,
+                "dispatch_gap_ewma_s": self._gap_ewma or 0.0,
+                "host_overlap_s": self._overlap_s,
+                "sync_wait_s": self._sync_wait_s,
+            }
         if self.prefix is not None:
             page_bytes = sum(pgc.pool_page_bytes(c) for c in self.state)
             res["pool_page_bytes"] = page_bytes

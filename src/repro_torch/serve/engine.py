@@ -32,16 +32,29 @@ class ContinuousBatchingEngine:
     content-hash :class:`~repro_torch.core.cache_layout.PrefixIndex`;
     admissions matching an indexed prefix adopt those pages at refcount+1
     and prefill only the tail — the same greedy streams as the unshared
-    chunked run (DESIGN.md §12)."""
+    chunked run (DESIGN.md §12).
+
+    **Run-ahead decode** (``runahead=H > 1``, DESIGN.md §18): in
+    decode-bound stretches where the horizon planner predicts no
+    scheduling event, the core dispatches H decode micro-steps —
+    on-device sampling and EOS/budget masking — per device call,
+    pipelines the next horizon while a block is in flight, and reconciles
+    TokenEvents when each (H, slots) block lands. Streams equal those of
+    ``runahead=0``, greedy and sampled; prefix-cache sessions keep the
+    one-token dispatch.
+
+    On the card each decode dispatch (one-token step or horizon) is a
+    replayed CUDA graph, one per page-table width; :meth:`warmup`
+    captures them up front."""
 
     def __init__(self, model, params, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
                  prefix_cache: bool = False, prefill_chunk: int = 0,
-                 device=None):
+                 runahead: int = 0, device=None):
         self.core = EngineCore(
             model, params, max_slots=max_slots, max_len=max_len,
             num_pages=num_pages, prefix_cache=prefix_cache,
-            prefill_chunk=prefill_chunk, device=device)
+            prefill_chunk=prefill_chunk, runahead=runahead, device=device)
 
     @property
     def prefill_chunk(self) -> int:
@@ -51,10 +64,16 @@ class ContinuousBatchingEngine:
     def prefix_cache(self) -> bool:
         return self.core.prefix_cache
 
-    def warmup(self, prompt_lens: list[int]) -> None:
-        """Run the prefill buckets (or chunk widths) and decode widths once
-        on throwaway state."""
-        self.core.warmup(prompt_lens)
+    @property
+    def runahead(self) -> int:
+        return self.core.runahead
+
+    def warmup(self, prompt_lens: list[int],
+               gen: Optional[GenerationConfig] = None) -> None:
+        """Run the prefill buckets (or chunk widths) once on throwaway
+        state and prepare every decode width (on the card: capture its
+        graphs under ``gen``'s sampling, default the session's)."""
+        self.core.warmup(prompt_lens, gen)
 
     def run(self, requests: list[Request],
             gen: Optional[GenerationConfig] = None) -> dict:

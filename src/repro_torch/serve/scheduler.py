@@ -1,6 +1,6 @@
 """Continuous-batching scheduler state: requests, slots, page accounting
-(port of ``repro/serve/scheduler.py`` with prefix adoption; QoS and
-speculative spans come in later slices).
+(port of ``repro/serve/scheduler.py`` with prefix adoption and the
+multi-token spans of run-ahead decode; QoS comes in a later slice).
 
 Host-side only. Policies (vLLM-style FCFS):
 
@@ -14,7 +14,8 @@ Host-side only. Policies (vLLM-style FCFS):
 * **Decode paging**: when a slot's next token starts a new page, one page
   is allocated on demand; with the pool dry the slot *stalls* (left out
   of the step's active mask). If every slot stalls, the engine
-  recompute-preempts the most recent admission.
+  recompute-preempts the most recent admission. A run-ahead horizon
+  reserves every page its span can touch up front.
 * **Reclamation**: EOS / length-limit completion frees the slot and
   *decrefs* its pages — pages shared with other slots or pinned by the
   prefix index survive with their encoded bytes intact.
@@ -212,14 +213,21 @@ class Scheduler:
 
     # --- decode-step paging ----------------------------------------------
 
-    def ensure_pages(self, lengths: np.ndarray,
-                     skip: Iterable[int] = ()) -> list[int]:
+    def ensure_pages(self, lengths: np.ndarray, skip: Iterable[int] = (),
+                     spans: Optional[dict] = None) -> list[int]:
         """Allocate next-page pages for slots about to cross a page
         boundary; returns slots that must stall this step (pool empty even
-        after evicting index-only pages). ``lengths``: (slots,) current
-        per-slot token counts — the next append writes at
-        ``lengths[slot]``. ``skip``: slots to leave alone (mid-prefill
-        slots, whose pages were reserved at admission)."""
+        after evicting index-only pages).
+
+        ``lengths``: (slots,) current per-slot token counts — the next
+        append writes at ``lengths[slot]``. ``skip``: slots to leave alone
+        (mid-prefill slots, whose pages were reserved at admission).
+        ``spans``: optional slot -> tokens the next dispatch may append
+        (>= 1; a run-ahead horizon). Without it — or for span 1 — this is
+        the one-token rule. A wider span asks for every page covering
+        ``[pos, pos + span)``; under a dry pool the trailing pages are
+        shed one at a time, and the slot only stalls when even its first
+        append position has no page."""
         g = self.layout.page_size
         skip = set(skip)
         stalled = []
@@ -227,11 +235,28 @@ class Scheduler:
             if slot in skip:
                 continue
             pos = int(lengths[slot])
-            if pos % g == 0 and self.alloc.slot_pages(slot) <= pos // g:
-                if not self.alloc.can_alloc(1):
-                    self.reclaim(1)
-                if not self.alloc.alloc(slot, 1):
-                    stalled.append(slot)
+            span = min(spans.get(slot, 1) if spans else 1,
+                       self.layout.tokens_per_slot - pos)
+            if span <= 1:
+                if pos % g == 0 and self.alloc.slot_pages(slot) <= pos // g:
+                    if not self.alloc.can_alloc(1):
+                        self.reclaim(1)
+                    if not self.alloc.alloc(slot, 1):
+                        stalled.append(slot)
+                continue
+            want = self.layout.pages_for(pos + span)
+            need_min = self.layout.pages_for(pos + 1)
+            while self.alloc.slot_pages(slot) < want:
+                n = want - self.alloc.slot_pages(slot)
+                if not self.alloc.can_alloc(n):
+                    self.reclaim(n)
+                if self.alloc.alloc(slot, n):
+                    break
+                if want <= need_min:
+                    break
+                want -= 1
+            if self.alloc.slot_pages(slot) < need_min:
+                stalled.append(slot)
         return stalled
 
     # --- cancellation / completion ---------------------------------------

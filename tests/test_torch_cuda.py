@@ -829,3 +829,271 @@ def test_value_quantized_engines_on_card(dev):
         plain = eng.generate({"tokens": toks},
                              GenerationConfig(max_new_tokens=12))
     assert (got["tokens"] == plain["tokens"]).mean() >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the paged engine's decode dispatch (serve/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def _graph_core(dev, runahead=0, seed=31, lens=(10, 40, 70, 100)):
+    """A bf16 smoke-width EngineCore on the card (4 slots of 4 pages of
+    32 tokens) with one prefilled request per slot: live pages 1-4, so
+    each width bucket has slots it covers."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import get_model
+    from repro_torch.serve import EngineCore, GenerationConfig, Request
+    cfg = reduce_for_smoke(get_config("tinyllama-1.1b"), dtype="bfloat16")
+    m = get_model(cfg)
+    params = m.init(generator=_gen(dev, seed))
+    core = EngineCore(m, params, max_slots=len(lens), max_len=128,
+                      runahead=runahead)
+    core.reset(GenerationConfig())
+    rng = np.random.default_rng(seed)
+    for i, t in enumerate(lens):
+        core.add_request(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size, (t,))
+            .astype(np.int32), max_new_tokens=16))
+    for _ in lens:
+        core.step()   # one admission + whole-prompt prefill each
+    assert len(core.sched.active) == len(lens) and not core._prefilling
+    return core
+
+
+def _state_tensors(state, scratch=None):
+    """Every buffer of every layer; ``scratch`` drops that pool page."""
+    out = []
+    for c in state:
+        pools = [c.key_codes, *c.key_scales.values(), c.value_codes,
+                 c.value_scale, c.value_zero, c.value_fp]
+        for x in pools:
+            if x is not None:
+                out.append(x if scratch is None else
+                           torch.cat([x[:scratch], x[scratch + 1:]]))
+        out += [c.key_residual, c.lengths]
+    return out
+
+
+def _assert_states_equal(a, b, scratch=None):
+    for x, y in zip(_state_tensors(a, scratch), _state_tensors(b, scratch),
+                    strict=True):
+        assert torch.equal(x, y)
+
+
+def test_decode_graph_replay_matches_eager_step_per_width(dev):
+    """Per width bucket: a replayed one-token step equals the eager
+    ``decode_paged`` + sampling on a copy of the same state — logits bit
+    for bit, tokens, every pool buffer. A replay with every lane inactive
+    leaves the state untouched outside the scratch page."""
+    import copy
+    from repro_torch.serve.core import _sample
+    core = _graph_core(dev)
+    g, s = core.layout.page_size, core.layout.slots
+    scratch = core.layout.scratch_page
+    for w in core._decode_widths():
+        lengths = core.state[0].lengths.cpu().numpy()
+        mask = lengths // g + 1 <= w
+        assert mask.any()
+        tok = np.random.default_rng(w).integers(
+            0, core.model.cfg.vocab_size, s).astype(np.int64)
+        table = core.sched.alloc.table()[:, :w]
+        # capture first: its eager run writes the scratch page
+        core._graphs.capture(w, 1, 0.0, 0, -1)
+        ref = copy.deepcopy(core.state)
+        lg, _ = core.model.decode_paged(
+            core.params, ref, torch.from_numpy(tok).to(dev),
+            table.to(dev), torch.from_numpy(mask).to(dev))
+        want = _sample(lg, core.gen)
+        logits, nxt = core._graphs.step(w, 0.0, 0, tok, table, mask)
+        assert torch.equal(logits, lg)
+        assert torch.equal(nxt, want)
+        _assert_states_equal(core.state, ref)
+        before = copy.deepcopy(core.state)
+        core._graphs.step(w, 0.0, 0, tok, table, np.zeros(s, bool))
+        _assert_states_equal(core.state, before, scratch)
+    assert len(core._graphs) == len(core._decode_widths())
+
+
+def test_decode_graph_counters_after_capture_and_replays(dev):
+    """The eager run before a capture counts its launches; the capture
+    itself counts none; each replay adds what the capture recorded."""
+    from repro_torch.serve import graphs as G
+    core = _graph_core(dev)
+    nl = core.model.cfg.num_layers
+    w = core._decode_widths()[-1]
+    before = G.read_counters()
+    cap = core._graphs.capture(w, 1, 0.0, 0, -1)
+    assert cap.counts == {(pek, "launches"): nl, (pdk, "launches"): nl}
+    after = G.read_counters()
+    assert {k: after[k] - before[k] for k in before
+            if after[k] != before[k]} == cap.counts
+    s = core.layout.slots
+    for _ in range(3):
+        core._graphs.step(w, 0.0, 0, np.zeros(s, np.int64),
+                          core.sched.alloc.table()[:, :w], np.ones(s, bool))
+    end = G.read_counters()
+    assert {k: end[k] - after[k] for k in end if end[k] != after[k]} == \
+        {k: 3 * n for k, n in cap.counts.items()}
+
+
+@pytest.mark.parametrize("h", [1, 4])
+def test_decode_graph_replay_runs_the_counted_kernels(dev, h):
+    """What a replay adds to the counters is what it launches: a profiled
+    replay (every lane inactive) runs each counted wrapper's kernel
+    function exactly as often as the capture recorded — nl encodes and nl
+    paged decodes a micro-step, a merge after each split walk — and no
+    other hand-written kernel."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    core = _graph_core(dev, runahead=h)
+    nl, s = core.model.cfg.num_layers, core.layout.slots
+    w = core._decode_widths()[-1]
+    cap = core._graphs.capture(w, h, 0.0, 0, -1)
+    assert cap.counts == {(pek, "launches"): nl * h,
+                          (pdk, "launches"): nl * h}
+    values = {"token": np.zeros(s, np.int64),
+              "table": core.sched.alloc.table()[:, :w],
+              "active": np.zeros(s, bool)}
+    if h > 1:
+        values |= {"remaining": np.zeros(s, np.int32),
+                   "done": np.ones(s, bool)}
+    fns = ("polar_encode_kernel", "lut_split_decode_kernel",
+           "lut_flash_decode_kernel", "merge_splits_kernel",
+           "flash_prefill_kernel", "flash_prefill_mma_kernel",
+           "paged_prefill_kernel", "paged_prefill_mma_kernel",
+           "polar_qk_kernel")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        core._graphs._replay(cap, values)
+        torch.cuda.synchronize()
+    ran = dict.fromkeys(fns, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for f in fns:
+                if re.search(rf"\b{f}\b", e.key):
+                    ran[f] += e.count
+    body = ran.pop("lut_split_decode_kernel") + ran.pop(
+        "lut_flash_decode_kernel")
+    assert body == nl * h
+    split = pdk.plan_splits(s, core.model.cfg.num_kv_heads, w) > 1
+    want = dict.fromkeys(ran, 0) | {
+        "polar_encode_kernel": nl * h,
+        "merge_splits_kernel": nl * h if split else 0}
+    assert ran == want
+
+
+def test_decode_graphs_survive_reset(dev):
+    """``reset()`` zeroes the state in place: the graphs captured in one
+    session replay the next, and its streams equal a fresh engine's."""
+    from repro_torch.serve import EngineCore, GenerationConfig, Request
+    core = _graph_core(dev)
+    m, params = core.model, core.params
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, m.cfg.vocab_size, (int(t),)).astype(np.int32)
+               for t in (20, 50, 90)]
+
+    def serve(eng):
+        eng.reset(GenerationConfig())
+        for i, p in enumerate(prompts):
+            eng.add_request(Request(rid=i, prompt=p, max_new_tokens=12))
+        list(eng.events())
+        return {r.rid: r.out_tokens for r in eng.result()["requests"]}
+
+    first = serve(core)
+    n = len(core._graphs)
+    assert n > 0
+    assert serve(core) == first
+    assert len(core._graphs) == n
+    fresh = EngineCore(m, params, max_slots=core.layout.slots, max_len=128)
+    assert serve(fresh) == first
+
+
+def test_horizon_graph_matches_four_eager_steps(dev):
+    """One H=4 horizon replay against four eager one-token steps whose
+    mask drops finished slots (budgets 1-4, one slot frozen by an earlier
+    horizon): tokens of every live micro-step, the carries, and every
+    buffer outside the scratch page."""
+    import copy
+    from repro_torch.serve.core import _sample
+    core = _graph_core(dev, runahead=4)
+    s, h = core.layout.slots, 4
+    w = core._decode_widths()[-1]
+    table = core.sched.alloc.table()[:, :w]
+    tok0 = core._next_tok.astype(np.int64)
+    rem0 = np.array([1, 4, 2, 3], np.int32)
+    done0 = np.array([False, False, False, True])
+    core._graphs.capture(w, h, 0.0, 0, -1)
+    ref = copy.deepcopy(core.state)
+    toks, tok, done, rem = core._graphs.horizon(
+        w, h, 0.0, 0, -1, tok0, table, np.ones(s, bool), rem0, done0)
+    live, left = ~done0, rem0.copy()
+    cur = torch.from_numpy(tok0).to(dev)
+    want = np.full((h, s), -1)
+    for j in range(h):
+        act = torch.from_numpy(live.copy()).to(dev)
+        lg, _ = core.model.decode_paged(core.params, ref, cur, table.to(dev),
+                                        act)
+        nxt = _sample(lg, core.gen).long()
+        cur = torch.where(act, nxt, cur)
+        for sl in np.flatnonzero(live):
+            want[j, sl] = int(nxt[sl])
+            left[sl] -= 1
+            live[sl] = left[sl] > 0
+    got = toks.cpu().numpy()
+    keep = want >= 0
+    assert np.array_equal(got[keep], want[keep])
+    assert torch.equal(tok, cur)
+    assert done.all() and rem.cpu().tolist() == [0, 0, 0, 3]
+    _assert_states_equal(core.state, ref, core.layout.scratch_page)
+
+
+def test_sampled_decode_graph_matches_eager_steps(dev):
+    """``temperature > 0``: the session generator registered with the
+    graph draws what eager sampling draws from the same state, replay
+    after replay; and a sampled engine gives one stream at H = 1 and
+    H = 4 (the rewind after a horizon whose lanes froze early)."""
+    import copy
+    from repro_torch.serve import (
+        ContinuousBatchingEngine, GenerationConfig, Request,
+    )
+    from repro_torch.serve.core import _sample
+    core = _graph_core(dev)
+    gen = GenerationConfig(temperature=0.8, top_k=8, seed=7)
+    s = core.layout.slots
+    w = core._decode_widths()[-1]
+    table = core.sched.alloc.table()[:, :w]
+    core._graphs.capture(w, 1, gen.temperature, gen.top_k, -1)
+    ref = copy.deepcopy(core.state)
+    eager_gen = torch.Generator(device=dev)
+    eager_gen.manual_seed(3)
+    core._generator.manual_seed(3)
+    tok = core._next_tok.astype(np.int64)
+    for _ in range(3):
+        mask = np.ones(s, bool)
+        lg, _ = core.model.decode_paged(
+            core.params, ref, torch.from_numpy(tok).to(dev), table.to(dev),
+            torch.from_numpy(mask).to(dev))
+        want = _sample(lg, gen, eager_gen)
+        logits, nxt = core._graphs.step(w, gen.temperature, gen.top_k, tok,
+                                        table, mask)
+        assert torch.equal(logits, lg) and torch.equal(nxt, want)
+        tok = nxt.cpu().numpy().astype(np.int64)
+    assert torch.equal(core._generator.get_state(), eager_gen.get_state())
+    _assert_states_equal(core.state, ref)
+
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, core.model.cfg.vocab_size, (int(t),))
+             .astype(np.int32), int(b)) for t, b in ((20, 17), (45, 23))]
+    streams = []
+    for h in (0, 4):
+        eng = ContinuousBatchingEngine(core.model, core.params, max_slots=2,
+                                       max_len=128, runahead=h)
+        out = eng.run([Request(rid=i, prompt=p, max_new_tokens=b)
+                       for i, (p, b) in enumerate(reqs)], gen)
+        streams.append({r.rid: r.out_tokens for r in out["requests"]})
+        if h:
+            assert out["runahead"]["horizons"] > 0
+            assert out["decode_graphs"] >= 2
+    assert streams[0] == streams[1]
