@@ -55,6 +55,20 @@ run):
               exact launch counts — and a sampled case (temperature 0.8,
               top_k 8, seed 7, staggered budgets) identical at H 1 and 4;
               tok/s, per-token step, sync wait and dispatch gap per H.
+   spec     — speculative decode (DESIGN.md §15): first, per verifier
+              (span on ``"jnp"``, scan on ``"paged_fused"``), each span
+              width's verify graph against a fresh eager verifier on a
+              copy of 8 prefilled slots (argmaxes, accepted counts, every
+              buffer bit-equal; inactive replays write only the scratch
+              page), a profiled replay of each graph, and the device ms
+              of each verify replay against the one-token step's; #6 at
+              the span shape (Qh = 8 Q). Then 8 greedy requests (prompts
+              100-900, 128 new, all at t = 0), ``SpecConfig(k=4)``: plain
+              and ngram arms on both backends, the span arm again eager,
+              a scripted oracle (acceptance 1) and adversary (acceptance
+              0), and a derived 2-layer draft model on 2 requests: every
+              spec arm's streams and per-request events equal its plain
+              arm's, no proposer fault, exact launches per arm.
 6. prefix   — chunked prefill with the shared-prefix page cache at full
               width: 8 slots, max_len 2048, 256-token chunks, 12 greedy
               requests sharing one 1024-token system prompt, served with
@@ -83,7 +97,7 @@ run):
               and of one H = 8 horizon replay per token: the device's idle
               share and the largest kernels.
 
-Then one JSON line of per-kernel numbers (launches summed over the five
+Then one JSON line of per-kernel numbers (launches summed over the six
 serving phases; the uint8 forms on rows of their own, encode's decode
 form — a decode step's flush — on a row of its own), and last the device
 JSON. Any failure raises (non-zero
@@ -1751,10 +1765,15 @@ def check_replay_kernels(torch, graphs, table, slots: int,
     from repro_torch.kernels import paged_decode as pd
     lines = []
     for key, cap in graphs._cache.items():
-        w, h = key[:2]
-        values = {"token": np.zeros(slots, np.int64), "table": table[:, :w],
-                  "active": np.zeros(slots, bool)}
-        if h > 1:
+        verify = key[0] == "verify"
+        w, h = key[1:3] if verify else key[:2]
+        values = {"table": table[:, :w], "active": np.zeros(slots, bool)}
+        if verify:
+            values |= {"tokens": np.zeros((slots, h), np.int64),
+                       "draft_len": np.zeros(slots, np.int32)}
+        else:
+            values["token"] = np.zeros(slots, np.int64)
+        if h > 1 and not verify:
             values |= {"remaining": np.zeros(slots, np.int32),
                        "done": np.ones(slots, bool)}
         ran = profiled_kernels(torch, lambda: graphs._replay(cap, values))
@@ -1768,8 +1787,10 @@ def check_replay_kernels(torch, graphs, table, slots: int,
         split = ran["lut_split_decode_kernel"]
         merges = split if pd.plan_splits(slots, hkv, w) > 1 else 0
         assert ran["merge_splits_kernel"] == merges, (key, ran)
-        lines.append(f"(w {w}, H {h}): {got['polar_encode']} encode + "
-                     f"{split} split decode + {merges} merge")
+        name = f"{key[3]} verify w {w}, Q {h}" if verify else f"w {w}, H {h}"
+        lines.append(f"({name}): {got['polar_encode']} encode + "
+                     f"{split} split decode + {merges} merge + "
+                     f"{got['polar_qk']} LUT scores")
     return lines
 
 
@@ -1928,6 +1949,375 @@ def phase_runahead(torch, model, params, counters) -> dict:
         "per-request events differ across horizons"
     print("runahead: greedy streams and per-request events identical at H "
           "0, 4 and 8; sampled streams identical at H 1 and 4", flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# speculative multi-token decode (DESIGN.md §15)
+# ---------------------------------------------------------------------------
+
+SCRIPTED = "chip-smoke-scripted"
+
+
+def _scripted_proposer():
+    """A proposer that replays a per-rid script (``.script``): the oracle
+    when fed a plain run's streams, the adversary when fed argmax + 1."""
+    from repro_torch.spec import DraftProposer, register_proposer
+
+    class Scripted(DraftProposer):
+        name = SCRIPTED
+        script: dict = {}
+
+        def propose(self, req, k):
+            s = self.script.get(req.rid, [])
+            pos = len(req.out_tokens)
+            return [int(t) for t in s[pos:pos + k]]
+
+    return register_proposer(Scripted, overwrite=True)
+
+
+def spec_expect(launches: dict, cfg, out, prompt_lens) -> tuple[dict, int]:
+    """The exact launches of a classic paged serving run with or without
+    speculation, and how many encodes are of the decode form. A plain
+    step launches the flush encode and the decode attention (#2 on
+    ``"paged_fused"``, #6 on ``"jnp"``) once a layer; a verify of span
+    width q launches, per layer, 2q encodes and q paged decodes (the scan
+    verifier: q steps on the shadow state, q masked commits) or 2
+    encodes and 2 score-only LUT launches (the span verifier: the flush
+    emulation and the commit; the pages and the flushed group)."""
+    nl = cfg.num_layers
+    sp = out.get("spec", {})
+    hist = sp.get("dispatches_by_q", {})
+    plain = out["decode_steps"] - sp.get("steps", 0)
+    scan = cfg.decode_backend != "jnp"
+    attn = "paged_decode" if scan else "polar_qk"
+    flushes = nl * plain + sum(n * nl * (2 * q if scan else 2)
+                               for q, n in hist.items())
+    full = sum(int(t) >= G for t in prompt_lens)
+    return ({**dict.fromkeys(launches, 0),
+             "polar_encode": nl * full + flushes,
+             attn: nl * plain + sum(n * nl * (q if scan else 2)
+                                    for q, n in hist.items()),
+             "flash_prefill": nl * out["prefills"]}, flushes)
+
+
+def _qk_span_check(torch, q_n=5) -> str:
+    """#6 at the span verifier's shape: 8 slots x 4 kv heads x (8 query
+    heads x Q) rows over an 8-page view, against its plain version, and
+    timed (kernel, plain, one launch of the one-token step's 8 rows)."""
+    from repro_torch.kernels import polar_qk as qkk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    bufs, _ = _dense_cache(torch, dev, gen)
+    bufs = [x[:, :, :8].contiguous() for x in bufs]
+    qh = QH * q_n
+    q = torch.randn((SB, HKV, qh, D), generator=gen, device=dev) * D ** -0.5
+    got = qkk.polar_qk_scores(q, *bufs)
+    ref = qkk.polar_qk_scores_plain(q, *bufs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=FP32_TOL, atol=FP32_TOL)
+    one = qkk.polar_qk_scores(q[:, :, :QH].contiguous(), *bufs)
+    assert torch.equal(one, got[:, :, :QH]), "rows depend on Qh"
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = time_ms(torch, lambda: qkk.polar_qk_scores(q, *bufs), flush=flush)
+    q8 = q[:, :, :QH].contiguous()
+    ms8 = time_ms(torch, lambda: qkk.polar_qk_scores(q8, *bufs), flush=flush)
+    plain_ms = time_ms(torch, lambda: qkk.polar_qk_scores_plain(q, *bufs),
+                       iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    groups = SB * HKV * 8
+    per = 3 * qh * P * 16 + 2 * G * P + 2 * qh * G * P
+    b_ms, by = bound(q.numel() * 4 + groups * (G * P + 4 * P * 4)
+                     + SB * HKV * qh * 8 * G * 4, groups * per)
+    return (f"qk[span shape]: {SB} rows x {HKV} kv heads x {qh} query heads "
+            f"(Q {q_n}) x 8 groups: err "
+            f"{float((got - ref).abs().max()):.3g} (limit {FP32_TOL}), rows "
+            f"bit-equal to a {QH}-head launch; {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms {by}; the step's "
+            f"{QH}-head launch {ms8:.4f} ms)")
+
+
+def _row_probe(torch) -> str:
+    """Why the span verifier runs its GEMMs and attention einsums
+    per span column: whether the rows of one op over 8 * Q rows (the span
+    folded onto the row axis) are bit-equal to the same op over each
+    column's 8 rows, at tinyllama's shapes, random inputs (reported, not
+    gated; the verifier does not depend on it)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+
+    def r(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def folded_equal(fn, x):   # x (8, Q, K): fn over 8 Q rows vs per column
+        y = fn(x)
+        return all(torch.equal(y[:, i:i + 1], fn(x[:, i:i + 1].contiguous()))
+                   for i in range(x.shape[1]))
+
+    out = []
+    for k, n in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+                 (2048, 32000)):
+        w = r(k, n)
+        same = [q for q in (2, 3, 5, 9)
+                if folded_equal(lambda x: x @ w, r(8, q, k))]
+        out.append(f"GEMM {k}x{n} equal at Q {same}")
+    # the attention einsums, span columns folded onto the query-head axis
+    # as span_verify_attention folds them: rows (query head, column)
+    res = r(8, HKV, G, D, dt=torch.float32)
+    v = r(8, HKV, 8 * G, D, dt=torch.float32)
+    for name, rhs, dim, eq in (
+            ("residual scores", res, D, "bhqd,bhgd->bhqg"),
+            ("p @ V", v, 8 * G, "bhqt,bhtd->bhqd")):
+        same = []
+        for q in (2, 3, 5, 9):
+            x = r(8, HKV, QH, q, dim, dt=torch.float32)
+            if name == "p @ V":
+                x = torch.softmax(x, -1)
+            y = torch.einsum(eq, x.reshape(8, HKV, QH * q, dim), rhs)
+            y = y.reshape(8, HKV, QH, q, -1)
+            if all(torch.equal(y[:, :, :, i], torch.einsum(
+                    eq, x[:, :, :, i].contiguous(), rhs)) for i in range(q)):
+                same.append(q)
+        out.append(f"{name} equal at Q {same}")
+    return ("spec: rows of a folded op bit-equal to the per-column op (8 "
+            "rows a column, Q 2/3/5/9): " + "; ".join(out))
+
+
+def _verify_core_checks(torch, models, params, lens, rng) -> list[str]:
+    """Per verifier, on an EngineCore holding 8 prefilled slots (60-1000
+    tokens): each span width's verify graph at the widest table against
+    a fresh eager verifier on a copy of the state (argmaxes, accepted
+    counts, every buffer outside the scratch page bit-equal; some drafts
+    accepted), an all-inactive replay that writes only the scratch page,
+    a profiled replay of every captured graph (``check_replay_kernels``),
+    and the device time of each verify replay against the one-token step
+    replay (CUDA events, every lane inactive: the same work, no commit).
+    Launches here are not part of the main path's counts."""
+    import copy
+    import numpy as np
+    from repro_torch.serve import EngineCore, GenerationConfig, Request
+    from repro_torch.spec import SpecConfig, make_verifier
+    lines = []
+    for backend, m in models.items():
+        core = EngineCore(m, params, max_slots=8, max_len=1024,
+                          spec=SpecConfig(mode="ngram", k=4))
+        core.reset(GenerationConfig())
+        for i, t in enumerate(lens):
+            core.add_request(Request(rid=i, prompt=rng.integers(
+                0, m.cfg.vocab_size, (t,)).astype(np.int32),
+                max_new_tokens=8))
+        for _ in lens:
+            core.step()
+        assert len(core.sched.active) == 8 and not core._prefilling
+        dev, s = core.device, 8
+        scratch = core.layout.scratch_page
+        w = core._decode_widths()[-1]
+        table = core.sched.alloc.table()[:, :w]
+        mask = np.ones(s, bool)
+        accepted, times = 0, {}
+        core._graphs.capture(w, 1, 0.0, 0, -1)
+        for q in core._spec_q_buckets():
+            toks = rng.integers(0, m.cfg.vocab_size, (s, q))
+            toks[:, 0] = core._next_tok
+            dlen = np.full(s, q - 1, np.int32)
+            probe = copy.deepcopy(core.state)
+            pred0 = make_verifier(m)(
+                params, probe, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(dlen).to(dev), table.to(dev),
+                torch.from_numpy(mask).to(dev))[0]
+            toks[::2, 1] = pred0[::2, 0].cpu().numpy()
+            del probe
+            core._graphs.capture_verify(w, q)
+            ref = copy.deepcopy(core.state)
+            want = make_verifier(m)(
+                params, ref, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(dlen).to(dev), table.to(dev),
+                torch.from_numpy(mask).to(dev))
+            preds, n_acc = core._graphs.verify(w, q, toks, dlen, table, mask)
+            assert torch.equal(preds, want[0]), f"{backend} q {q}: preds"
+            assert torch.equal(n_acc, want[1]), f"{backend} q {q}: n_acc"
+            assert _same_state(torch, core.state, ref, scratch), \
+                f"{backend} q {q}: committed state differs"
+            accepted += int(n_acc.sum())
+            del ref
+            before = copy.deepcopy(core.state)
+            core._graphs.verify(w, q, toks, dlen, table, np.zeros(s, bool))
+            assert _same_state(torch, core.state, before, scratch), \
+                f"{backend} q {q}: an inactive replay wrote outside scratch"
+            del before
+            cap = core._graphs.capture_verify(w, q)
+            off = {"tokens": toks, "draft_len": dlen, "table": table,
+                   "active": np.zeros(s, bool)}
+            times[q] = time_ms(torch, lambda: core._graphs._replay(cap, off),
+                               iters=10, lead_cycles=PLAIN_LEAD)
+        assert accepted > 0, f"{backend}: no draft accepted"
+        step = core._graphs.capture(w, 1, 0.0, 0, -1)
+        soff = {"token": core._next_tok.astype(np.int64), "table": table,
+                "active": np.zeros(s, bool)}
+        step_ms = time_ms(torch, lambda: core._graphs._replay(step, soff),
+                          iters=10, lead_cycles=PLAIN_LEAD)
+        kind = core._graphs.verifier.kind
+        lines.append(
+            f"spec[{kind} verifier, {backend}]: graphed verify == eager "
+            f"verify (argmaxes, accepted counts, every buffer outside the "
+            f"scratch page) at width {w} for Q {list(times)}, {accepted} "
+            f"drafts accepted; inactive replays wrote only the scratch page; "
+            f"device ms per replay at 8 slots x 60-1000 tokens: step "
+            f"{step_ms:.3f}; verify " + ", ".join(
+                f"Q {q} {t:.3f} ({t / step_ms:.2f}x step, "
+                f"{t / step_ms / q:.2f}x per column)"
+                for q, t in times.items()))
+        lines.append("spec: a profiled replay of each graph ran exactly the "
+                     "launches its capture recorded: " + "; ".join(
+                         check_replay_kernels(torch, core._graphs,
+                                              core.sched.alloc.table(), s,
+                                              m.cfg.num_kv_heads)))
+    return lines
+
+
+def _same_state(torch, a, b, scratch) -> bool:
+    """Every buffer of every layer equal, the scratch pool page aside."""
+    def tensors(state):
+        for c in state:
+            for x in (c.key_codes, *c.key_scales.values(), c.value_codes,
+                      c.value_scale, c.value_zero, c.value_fp):
+                if x is not None:
+                    yield torch.cat([x[:scratch], x[scratch + 1:]])
+            yield c.key_residual
+            yield c.lengths
+    return all(torch.equal(x, y)
+               for x, y in zip(tensors(a), tensors(b), strict=True))
+
+
+def phase_spec(torch, model, params, counters) -> dict:
+    """Speculative multi-token decode (DESIGN.md §15) at full width: 8
+    slots, max_len 1024, 8 greedy requests (prompts 100-900 tokens, 128
+    new tokens, all at t = 0), ``SpecConfig(k=4)``. Arms: (a) plain
+    ``"paged_fused"``, (b) ngram on the scan verifier, (c) plain
+    ``"jnp"``, (d) ngram on the span verifier, (e) arm (d) eager, (f)
+    the scripted oracle (replays (c)'s streams: acceptance 1), (g) the
+    scripted adversary (argmax + 1: acceptance 0), all graphed but (e);
+    then a derived 2-layer draft model (k 4) on 2 requests (64-token
+    prompts, 32 new tokens) against the plain run. Every spec arm's
+    streams and per-request events equal its plain arm's, no proposer
+    faulted, exact launches (#6 in (d), #2 in (b)). Before the arms: the
+    verify graphs against eager verifies and their device time per span
+    width (``_verify_core_checks``), and #6 at the span shape. Returns the
+    launches of every arm, summed."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import get_model
+    from repro_torch.serve import (
+        ContinuousBatchingEngine, GenerationConfig, Request,
+        check_event_stream,
+    )
+    from repro_torch.spec import SpecConfig
+    t_phase = time.monotonic()
+    cfg = model.cfg
+    models = {b: get_model(dataclasses.replace(cfg, decode_backend=b))
+              for b in ("paged_fused", "jnp")}
+    rng = np.random.default_rng(41)
+    for line in _verify_core_checks(
+            torch, models, params, (60, 200, 300, 500, 700, 900, 130, 1000),
+            rng):
+        print(line, flush=True)
+    print(_qk_span_check(torch), flush=True)
+    print(_row_probe(torch), flush=True)
+    t_arms = time.monotonic()
+    lens = rng.integers(100, 901, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32)
+               for t in lens]
+    dprompts = [rng.integers(0, cfg.vocab_size, (64,)).astype(np.int32)
+                for _ in range(2)]
+    scripted = _scripted_proposer()
+    total: dict = {}
+    outs: dict = {}
+
+    def engine(backend, spec, plens):
+        eng = ContinuousBatchingEngine(models[backend], params, max_slots=8,
+                                       max_len=1024, spec=spec)
+        eng.warmup([int(t) for t in plens])
+        return eng
+
+    def run(arm, eng, ps, new, eager=False):
+        patch = (mock.patch.object(eng.core._graphs, "eager", True)
+                 if eager else contextlib.nullcontext())
+        with patch:
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            t0 = time.monotonic()
+            out = eng.run([Request(rid=i, prompt=p, max_new_tokens=new)
+                           for i, p in enumerate(ps)], GenerationConfig())
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = read_counts(counters)
+        done = out["requests"]
+        assert len(done) == len(ps)
+        for r in done:
+            assert r.done_tokens == min(new, 1024 - len(ps[r.rid]) + 1)
+        check_events(out["events"], done)
+        check_event_stream(out["events"])
+        assert out["proposer_faults"] == 0, f"({arm}): a proposer faulted"
+        expect, flushes = spec_expect(launches, eng.core.model.cfg, out,
+                                      [len(p) for p in ps])
+        assert launches == expect, (arm, launches, expect)
+        counts = encode_forms(launches, flushes)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        sp = out.get("spec")
+        print(f"spec({arm}) {eng.core.model.cfg.decode_backend}"
+              + (f" {sp['mode']} k {sp['k']}" if sp else " plain")
+              + (" eager" if eager else "") + f": {len(ps)} requests x "
+              f"{new} tokens, {serve_line(out)}; run {wall:.2f} s; graphs "
+              f"{out['decode_graphs']}" + (
+                  f"; spec steps {sp['steps']} (by Q "
+                  f"{json.dumps(sp['dispatches_by_q'])}), drafted "
+                  f"{sp['drafted_tokens']}, accepted {sp['accepted_tokens']}"
+                  f", acceptance {sp['acceptance_rate']:.3f}, mean accepted "
+                  f"per step {sp['mean_accepted_per_step']:.3f}"
+                  if sp else "") + f"; launches {json.dumps(counts)}",
+              flush=True)
+        outs[arm] = out
+        return out
+
+    ngram = SpecConfig(mode="ngram", k=4)
+    plain_pf = engine("paged_fused", None, lens)
+    run("a", plain_pf, prompts, 128)
+    run("b", engine("paged_fused", ngram, lens), prompts, 128)
+    run("c", engine("jnp", None, lens), prompts, 128)
+    span = engine("jnp", ngram, lens)
+    run("d", span, prompts, 128)
+    run("e", span, prompts, 128, eager=True)
+    oracle = engine("jnp", SpecConfig(mode=SCRIPTED, k=4), lens)
+    base = {r.rid: list(r.out_tokens) for r in outs["c"]["requests"]}
+    scripted.script = base
+    run("f", oracle, prompts, 128)
+    scripted.script = {rid: [(t + 1) % cfg.vocab_size for t in ts]
+                       for rid, ts in base.items()}
+    run("g", oracle, prompts, 128)
+    run("draft-plain", plain_pf, dprompts, 32)
+    run("draft", engine("paged_fused", SpecConfig(mode="draft", k=4),
+                        [64, 64]), dprompts, 32)
+
+    for arm, ref in (("b", "a"), ("d", "c"), ("e", "d"), ("f", "c"),
+                     ("g", "c"), ("draft", "draft-plain")):
+        assert rid_events(outs[arm]) == rid_events(outs[ref]), \
+            f"({arm}) streams or events differ from ({ref})"
+    for arm in ("b", "d", "e", "f", "g", "draft"):
+        assert outs[arm]["spec"]["steps"] > 0, f"({arm}) never verified"
+    assert outs["d"]["spec"] == outs["e"]["spec"]
+    f, g = outs["f"]["spec"], outs["g"]["spec"]
+    assert f["drafted_tokens"] > 0 and f["acceptance_rate"] == 1.0
+    assert g["drafted_tokens"] > 0 and g["accepted_tokens"] == 0
+    print(f"spec: arms (b)-(g) and the draft arm give their plain arm's "
+          f"streams and per-request events; graphed (d) == eager (e); no "
+          f"proposer fault; tok/s vs plain: " + ", ".join(
+              f"({a}) {outs[a]['tokens_per_s'] / outs[r]['tokens_per_s']:.2f}x"
+              for a, r in (("b", "a"), ("d", "c"), ("f", "c"), ("g", "c"),
+                           ("draft", "draft-plain")))
+          + f"; arms {time.monotonic() - t_arms:.1f} s, phase "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
     return total
 
 
@@ -2438,12 +2828,14 @@ def main() -> int:
     serve = phase_serve(torch, model, params, counters)
     phase_graphs(torch, model, params)
     runahead = phase_runahead(torch, model, params, counters)
+    spec = phase_spec(torch, model, params, counters)
     prefix = phase_prefix(torch, model, params, counters)
     static = phase_static(torch, cfg, params, counters)
     values = phase_values(torch, cfg, params, counters)
     phase_profile(torch, model, params)
 
-    phases = {"serve": serve, "runahead": runahead, "prefix": prefix,
+    phases = {"serve": serve, "runahead": runahead, "spec": spec,
+              "prefix": prefix,
               "static": static, "values": values}
     print("launches per serving phase: " + json.dumps(phases), flush=True)
     for r in rows:

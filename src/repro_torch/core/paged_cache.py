@@ -94,14 +94,39 @@ def init_paged_cache(cfg: QuantConfig, layout: PagedLayout, num_kv_heads: int,
         cfg=cfg, layout=layout)
 
 
+def _state_buffers(cache: PagedKVCache) -> list[torch.Tensor]:
+    return [buf for buf in (cache.key_codes, *cache.key_scales.values(),
+                            cache.key_residual, cache.value_codes,
+                            cache.value_scale, cache.value_zero,
+                            cache.value_fp, cache.lengths)
+            if buf is not None]
+
+
+def empty_like_cache(cache: PagedKVCache) -> PagedKVCache:
+    """A cache of the same shapes with fresh, uninitialized buffers (the
+    scan verifier's shadow state, filled by :func:`copy_cache`)."""
+    def e(x):
+        return None if x is None else torch.empty_like(x)
+    return dataclasses.replace(
+        cache, key_codes=e(cache.key_codes),
+        key_scales={k: e(v) for k, v in cache.key_scales.items()},
+        key_residual=e(cache.key_residual), value_codes=e(cache.value_codes),
+        value_scale=e(cache.value_scale), value_zero=e(cache.value_zero),
+        value_fp=e(cache.value_fp), lengths=e(cache.lengths))
+
+
+def copy_cache(dst: PagedKVCache, src: PagedKVCache) -> PagedKVCache:
+    """Copy every buffer of ``src`` into ``dst``'s, in place."""
+    for d, s in zip(_state_buffers(dst), _state_buffers(src), strict=True):
+        d.copy_(s)
+    return dst
+
+
 def zero_cache(cache: PagedKVCache) -> PagedKVCache:
     """Zero every buffer in place: the state :func:`init_paged_cache`
     returns, at the same addresses (captured decode graphs bind them)."""
-    for buf in (cache.key_codes, *cache.key_scales.values(),
-                cache.key_residual, cache.value_codes, cache.value_scale,
-                cache.value_zero, cache.value_fp, cache.lengths):
-        if buf is not None:
-            buf.zero_()
+    for buf in _state_buffers(cache):
+        buf.zero_()
     return cache
 
 
@@ -254,6 +279,59 @@ def paged_append(cache: PagedKVCache, k_new: torch.Tensor,
     return cache
 
 
+def paged_append_span(cache: PagedKVCache, k_span: torch.Tensor,
+                      v_span: torch.Tensor, page_table: torch.Tensor,
+                      n_keep: torch.Tensor) -> PagedKVCache:
+    """Append the first ``n_keep[s]`` span tokens of every slot in one
+    shot, in place (port of ``repro/core/paged_cache.py:516-596``).
+
+    k_span/v_span: (S, Hkv, Q, d) post-RoPE (the speculative verifier's
+    span kv); ``n_keep``: (S,) int32 tokens to commit (0 = slot untouched)
+    — all on the cache's device, no host synchronisation. Bit-identical,
+    outside the never-read scratch page, to ``n_keep`` sequential masked
+    :func:`paged_append` calls PROVIDED the kept rows stay inside the
+    slot's current group (``n_keep <= g - lengths % g``; the engine's
+    span clamp guarantees it): kept value rows land at ``(page, r0 + j)``
+    and the rest on the scratch page; kept residual rows are written
+    through a one-row discard extension (a rejected row can never
+    overwrite a kept one); and the at-most-one group flush (kept row
+    ``g - 1``, necessarily the last) goes through one encode launch whose
+    non-flushing slots are skipped — computed every time, so the dispatch
+    can be captured (JAX gates it behind a ``lax.cond``)."""
+    g = cache.layout.page_size
+    scratch = cache.layout.scratch_page
+    s, h, qn, d = k_span.shape
+    pos = cache.lengths                                    # (S,)
+    r0 = pos % g
+    j = torch.arange(qn, device=pos.device)
+    keep = j[None, :] < n_keep[:, None]                    # (S, Q)
+    gidx = torch.clamp(pos // g, max=page_table.shape[1] - 1).long()
+    page = torch.gather(page_table, 1, gidx[:, None])[:, 0]
+    page = torch.where(n_keep > 0, page, torch.full_like(page, scratch))
+    rows = torch.clamp(r0[:, None] + j[None, :], max=g - 1).long()
+    pages_j = torch.where(keep, page[:, None].expand(s, qn),
+                          torch.full_like(rows, scratch)).long()
+
+    # --- values: kept rows to (page, r0 + j), the rest to scratch ---
+    for key, x in kvc.value_fields(cache.cfg, v_span).items():
+        buf = getattr(cache, key)
+        buf[pages_j, :, rows] = x.transpose(1, 2).to(buf.dtype)
+
+    # --- keys: kept residual rows, then the masked flush ---
+    res = cache.key_residual
+    ext = torch.cat([res, res.new_zeros((s, h, 1, d))], dim=2)
+    wrows = torch.where(keep, rows, torch.full_like(rows, g))
+    sid = torch.arange(s, device=pos.device)[:, None].expand(s, qn)
+    ext[sid, :, wrows] = k_span.transpose(1, 2).to(res.dtype)
+    res.copy_(ext[:, :, :g])
+    flush = (n_keep > 0) & (r0 + n_keep == g)
+    fpage = torch.where(flush, page, torch.full_like(page, -1))
+    cache.codec.encode_pages(cache.cfg, res, fpage.to(torch.int32)[:, None],
+                             cache.key_codes, cache.key_scales)
+    cache.lengths += n_keep.to(torch.int32)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Gathered dense view + decode attention
 # ---------------------------------------------------------------------------
@@ -334,3 +412,108 @@ def paged_decode_attention(cache: PagedKVCache, q: torch.Tensor,
         return cache.codec.paged_decode(cache, q, page_table, scale=scale)
     return gathered_decode_attention(cache, q, page_table, scale=scale,
                                      backend=backend)
+
+
+def span_verify_attention(cache: PagedKVCache, q: torch.Tensor,
+                          k_span: torch.Tensor, v_span: torch.Tensor,
+                          page_table: torch.Tensor,
+                          scale: float | None = None) -> torch.Tensor:
+    """Speculative-span attention: Q draft positions per slot in one call,
+    reproducing the sequential ``"jnp"`` decode view bit for bit (port of
+    ``repro/core/paged_cache.py:733-885``, grouped codecs: the port's
+    paged caches hold no other).
+
+    q: (S, Hq, Q, d) post-RoPE queries at absolute positions ``lengths +
+    [0, Q)``; k_span/v_span: (S, Hkv, Q, d) the span's own post-RoPE
+    keys/values. The cache is NOT mutated (the engine commits accepted
+    positions afterwards, :func:`paged_append_span`).
+
+    Sequential decode at span position j appends its own kv first, then
+    attends over groups ``[0, flushed)`` through the codec, residual rows
+    ``[flushed, L+j+1)`` at full precision (span keys rounded to
+    ``cfg.residual_dtype`` by the append), and — when row ``(L+j) % g``
+    is ``g - 1`` — the group that append flushed, through the codec. All
+    three are emulated against the original cache: span keys written into
+    a copy of the residual, span values into the gathered value view, and
+    the possible flush by encoding the final residual once (the bytes a
+    sequential flush encodes, because callers keep every span inside the
+    slot's current group, so at most the LAST position crosses). The
+    flush encode and its scores run every call (JAX gates them behind a
+    ``lax.cond``), so the dispatch can be captured.
+
+    The LUT scores run once over the pages and once over the flushed
+    group, with the span folded onto the query-head axis (``Qh = Hq/Hkv
+    * Q`` rows; the score rows are independent of each other). The ops
+    whose kernels are chosen by the number of rows — the residual scores,
+    the softmax and ``p @ V`` — run per span column at the one-token
+    step's shapes, so each column's output has the decode step's bits.
+    Span rows that fall past the table width (``lengths + j >=`` width *
+    g, padding columns only) are dropped. Returns (S, Hq, Q, d) in
+    ``q.dtype``."""
+    cfg = cache.cfg
+    codec = cache.codec
+    g = cache.layout.page_size
+    s, hq, qn, d = q.shape
+    hkv = cache.key_codes.shape[1]
+    qpk = hq // hkv
+    t_cap = page_table.shape[1] * g
+    scale = scale if scale is not None else d ** -0.5
+    lengths = cache.lengths                                 # (S,)
+    dev = lengths.device
+    flushed0 = (lengths // g) * g
+    j = torch.arange(qn, device=dev)
+    sid = torch.arange(s, device=dev)[:, None].expand(s, qn)
+    view = gather_view(cache, page_table)
+
+    def with_span(x, upd):  # write span rows into a (S, H, T, b) view
+        ext = torch.cat([x, x.new_zeros((s, x.shape[1], 1, x.shape[-1]))],
+                        dim=2)
+        tpos = torch.clamp(lengths[:, None] + j[None, :], max=t_cap).long()
+        ext[sid, :, tpos] = upd.transpose(1, 2).to(x.dtype)
+        return ext[:, :, :t_cap]
+
+    # the final residual: span keys rounded and written at rows r0 + j
+    # (rows past the group land on a discard row)
+    res = cache.key_residual
+    rows = (lengths % g)[:, None] + j[None, :]
+    wrows = torch.where(rows < g, rows, torch.full_like(rows, g)).long()
+    ext = torch.cat([res, res.new_zeros((s, hkv, 1, d))], dim=2)
+    ext[sid, :, wrows] = k_span.transpose(1, 2).to(res.dtype)
+    res_new = ext[:, :, :g].contiguous()
+
+    # fold span positions onto the query-head axis: rows (qpk, Q)
+    q4 = (q.float() * scale).reshape(s, hkv, qpk, qn, d)
+    qf = q4.reshape(s, hkv, qpk * qn, d)
+    s_pages = codec.scores(cfg, qf, view.key_codes, view.key_scales)
+    fcodes, fscales = codec.encode(cfg, res_new)           # (S, H, 1, g, ·)
+    s_flush = codec.scores(cfg, qf, fcodes, fscales)       # (S, H, Qh, g)
+    s_pages = s_pages.reshape(s, hkv, qpk, qn, t_cap)
+    s_flush = s_flush.reshape(s, hkv, qpk, qn, g)
+
+    v_view = {f: with_span(getattr(view, f), x) for f, x in
+              kvc.value_fields(cfg, v_span).items()}
+    values = kvc.dequant_rows(
+        *kvc.value_buffers(dataclasses.replace(view, **v_view)))
+    res32 = res_new.float()
+    pos = torch.arange(t_cap, dtype=torch.int32, device=dev)[None, :]
+    base = flushed0[:, None]                                # (S, 1)
+    neg = torch.full((), kvc.NEG_INF, dtype=torch.float32, device=dev)
+    reps = t_cap // g
+    out = []
+    for i in range(qn):
+        vl = lengths[:, None] + 1 + i                       # (S, 1)
+        m_pages = pos < base
+        m_flush = (pos >= base) & (pos < base + g) & (vl >= base + g)
+        m_res = (pos >= base) & (pos < vl) & (vl < base + g)
+        qi = q4[:, :, :, i].contiguous()
+        s_res = torch.einsum("bhqd,bhgd->bhqg", qi, res32)
+        scores = torch.where(
+            m_res[:, None, None], s_res.repeat(1, 1, 1, reps),
+            torch.where(m_flush[:, None, None],
+                        s_flush[:, :, :, i].repeat(1, 1, 1, reps),
+                        torch.where(m_pages[:, None, None],
+                                    s_pages[:, :, :, i], neg)))
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bhqt,bhtd->bhqd", probs, values)
+        out.append(o.reshape(s, hq, d).to(q.dtype))
+    return torch.stack(out, dim=2)

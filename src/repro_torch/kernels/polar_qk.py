@@ -13,6 +13,15 @@ dequantizes ρ̃ once per (token, pair), adds one gathered LUT entry per
 one ``float4``. That vector path needs d in (32, 64, 128), t_bits in
 (3, 4), g % 4 == 0 and 16-byte aligned codes; other shapes run a generic
 one-token-per-thread path. Every position of the ``(B, Hkv, Qh, G*g)`` output is written.
+
+Shared memory grows with the query heads: a block stages q (Qh·d
+floats), four stat rows (4·P) and the angle LUT (⌈Qh/4⌉·4·P·2^t floats,
+P = d/2), which must fit the 227 KB a block may opt into on an H100. The
+wrapper therefore tiles the query heads over launches of at most
+:func:`max_rows` heads each — 100 at d 64 and t_bits 4 (one launch up to
+a speculative span of Q = 12 at tinyllama's 8 query heads per kv head),
+48 at d 128 — and writes each tile's rows into the one output; a shape
+whose single-tile LUT does not fit (d 128 at t_bits 8) raises.
 Bound: bytes (codes and stats in, fp32 scores out), latency in practice;
 the score spill to memory is what the fused decode kernel
 (``polar_attention``) removes.
@@ -26,6 +35,21 @@ from repro_torch.kernels import ref as ref_mod
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
+
+#: shared memory one block may opt into on an H100
+SMEM_BYTES = 227 * 1024
+#: query heads per thread (``csrc/polar_qk.cu`` kRows): the LUT's head
+#: axis is allocated in multiples of it
+K_ROWS = 4
+
+
+def max_rows(d: int, t_bits: int) -> int:
+    """The most query heads one launch stages within :data:`SMEM_BYTES`:
+    ``rows * d + 4 * P + rows * P * 2**t_bits`` floats, ``rows`` a
+    multiple of :data:`K_ROWS` (0 when not even one tile fits)."""
+    p = d // 2
+    rows = (SMEM_BYTES // 4 - 4 * p) // (d + (p << t_bits))
+    return max(rows, 0) // K_ROWS * K_ROWS
 
 
 def _bind(lib) -> None:
@@ -48,7 +72,8 @@ def polar_qk_scores(q: torch.Tensor, codes: torch.Tensor, rs: torch.Tensor,
                     r_bits: int = 4, t_bits: int = 4) -> torch.Tensor:
     """LUT q·K̃ scores. q (B, Hkv, Qh, d) fp32; codes (B, Hkv, G, g, P)
     uint8; stats (B, Hkv, G, 1, P) fp32. Returns (B, Hkv, Qh, G*g) fp32.
-    The kernel for CUDA tensors, the plain version for CPU tensors."""
+    The kernel for CUDA tensors (one launch per :func:`max_rows` query
+    heads), the plain version for CPU tensors."""
     global launches
     if not B.on_card(q, codes, rs, rz, ts, tz):
         return polar_qk_scores_plain(q, codes, rs, rz, ts, tz, r_bits=r_bits,
@@ -66,13 +91,25 @@ def polar_qk_scores(q: torch.Tensor, codes: torch.Tensor, rs: torch.Tensor,
                   and tuple(st.shape) == (b, hkv, gc, 1, p),
                   "stats must be contiguous float32 (B, Hkv, G, 1, d/2)")
     B.require(r_bits + t_bits <= 8, "r_bits + t_bits must fit one byte")
+    tile = max_rows(d, t_bits)
+    B.require(tile > 0, f"d {d} at t_bits {t_bits}: one tile of {K_ROWS} "
+              "query heads exceeds the shared memory")
     out = torch.empty((b, hkv, qh, gc * g), dtype=torch.float32,
                       device=q.device)
     lib = B.library("polar_qk", _bind)
-    err = lib.polar_qk_launch(
-        q.data_ptr(), codes.data_ptr(), rs.data_ptr(), rz.data_ptr(),
-        ts.data_ptr(), tz.data_ptr(), out.data_ptr(), b, hkv, qh, d, gc, g,
-        t_bits, B.stream_ptr(q))
-    B.check(err, "polar_qk")
-    launches += 1
+    for lo in range(0, qh, tile):
+        rows = min(tile, qh - lo)
+        whole = rows == qh
+        qt = q if whole else q[:, :, lo:lo + rows].contiguous()
+        ot = out if whole else torch.empty((b, hkv, rows, gc * g),
+                                           dtype=torch.float32,
+                                           device=q.device)
+        err = lib.polar_qk_launch(
+            qt.data_ptr(), codes.data_ptr(), rs.data_ptr(), rz.data_ptr(),
+            ts.data_ptr(), tz.data_ptr(), ot.data_ptr(), b, hkv, rows, d,
+            gc, g, t_bits, B.stream_ptr(q))
+        B.check(err, "polar_qk")
+        launches += 1
+        if not whole:
+            out[:, :, lo:lo + rows] = ot
     return out

@@ -22,7 +22,12 @@ and paged entries of ``repro/models/attn_block.py``).
 * ``attention_decode_paged`` — one token per slot: append (residual
   write + masked group flush through the encode kernel) and page-native
   decode attention on ``cfg.decode_backend`` (``"paged_fused"``: the
-  paged-decode kernel walks the pages in place).
+  paged-decode kernel walks the pages in place); ``return_kv`` also
+  returns the step's post-RoPE kv for the speculative scan verifier.
+* ``attention_verify_span`` — Q speculative span positions per slot in
+  one attention call over the unmodified cache (the score-only LUT
+  kernel with the span folded onto the query-head axis, plus the flush
+  emulation's encode); the projections run per span column.
 
 Blocks call ``paged_cache`` directly; this slice has no mesh dispatch.
 """
@@ -132,12 +137,15 @@ def attention_prefill_chunk(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def attention_decode_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
                            cache: pgc.PagedKVCache, *,
-                           page_table: torch.Tensor, active: torch.Tensor):
+                           page_table: torch.Tensor, active: torch.Tensor,
+                           return_kv: bool = False):
     """Batched single-token decode over continuous-batching slots.
 
     x: (S, 1, D); every slot sits at its own position (cache.lengths), so
     RoPE uses per-slot positions and attention masks per-slot lengths.
-    Returns (y (S, 1, D), cache)."""
+    Returns (y (S, 1, D), cache) — or (y, cache, (k, v)) with
+    ``return_kv``: the post-RoPE kv (S, Hkv, 1, hd) the speculative scan
+    verifier re-commits for accepted positions."""
     s = x.shape[0]
     q, k, v = _project(params, x, cfg)
     pos = cache.lengths[:, None]                          # (S, 1)
@@ -146,4 +154,36 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
     cache = pgc.paged_append(cache, k, v, page_table, active)
     out = pgc.paged_decode_attention(cache, q[:, :, 0], page_table,
                                      backend=cfg.decode_backend)
-    return L.linear(out.reshape(s, 1, -1), params["wo"]), cache
+    y = L.linear(out.reshape(s, 1, -1), params["wo"])
+    if return_kv:
+        return y, cache, (k, v)
+    return y, cache
+
+
+def attention_verify_span(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                          cache: pgc.PagedKVCache, *,
+                          page_table: torch.Tensor):
+    """Speculative-span attention block (port of
+    ``repro/models/attn_block.py:236-258``): Q positions per slot, cache
+    untouched (the accepted positions are appended later through
+    ``paged_append_span``).
+
+    x: (S, Q, D) at absolute positions ``cache.lengths + [0, Q)``. The
+    projections, RoPE and the output projection run per span column at
+    the one-token step's shape (``L.per_column``), so every column has
+    the decode step's bits. Returns (y (S, Q, D), (k, v)) with the span's
+    post-RoPE kv (S, Hkv, Q, hd) for the commit."""
+    s, qn, _ = x.shape
+    qs, ks, vs = [], [], []
+    for i in range(qn):
+        q, k, v = _project(params, x[:, i:i + 1].contiguous(), cfg)
+        pos = cache.lengths[:, None] + i                  # (S, 1)
+        qs.append(L.apply_rope(q, pos, cfg.rope_base, cfg.rope_ntk_scale))
+        ks.append(L.apply_rope(k, pos, cfg.rope_base, cfg.rope_ntk_scale))
+        vs.append(v)
+    k, v = torch.cat(ks, dim=2), torch.cat(vs, dim=2)
+    out = pgc.span_verify_attention(cache, torch.cat(qs, dim=2), k, v,
+                                    page_table)           # (S, Hq, Q, hd)
+    y = L.per_column(lambda o: L.linear(o.reshape(s, 1, -1), params["wo"]),
+                     out.transpose(1, 2))
+    return y, (k, v)

@@ -17,6 +17,16 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def per_column(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` applied to each column of a span ``x`` (S, Q, ...) at the
+    one-token step's shape (S, 1, ...), contiguous, the results joined
+    along axis 1. The speculative verifier runs every op whose kernel is
+    chosen by the number of rows (GEMMs, row reductions) this way, so
+    each span column has the decode step's bits."""
+    return torch.cat([fn(x[:, i:i + 1].contiguous())
+                      for i in range(x.shape[1])], dim=1)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()

@@ -1,6 +1,5 @@
 """Model interface over the dense family's serving entries (port of
-``repro/models/registry.py:34-68,118-161``; speculative decoding comes in
-a later slice).
+``repro/models/registry.py:34-72,118-161``).
 
 ``get_model(cfg)`` returns a :class:`Model` bundle:
   init(generator, device) -> params
@@ -19,6 +18,15 @@ a later slice).
       and no host sync (DESIGN.md §18); returns the (H, S) token block
       plus the carries that seed the next horizon
   copy_pages(state, src, dst) — COW page copy across every layer's pools
+  decode_paged_collect(params, state, token (S,), page_table, active) /
+  commit_paged(state, kvs, page_table, keep) — the speculative scan
+      verifier's split: decode_paged that also returns each layer's
+      post-RoPE kv, and the re-append of one span position's saved kv
+  verify_span(params, state, tokens (S, Q), page_table, active) ->
+      (logits (S, Q, V), kvs) / commit_span(state, kvs, page_table,
+      n_keep) — the span verifier's pair: all Q span positions in one
+      pass, then one fused multi-row append per layer (spec/verify.py
+      picks the pair per cfg.decode_backend)
 """
 from __future__ import annotations
 
@@ -43,6 +51,10 @@ class Model:
     decode_paged: Callable[..., Any]
     decode_runahead: Callable[..., Any]
     copy_pages: Callable[..., Any]
+    decode_paged_collect: Callable[..., Any]
+    commit_paged: Callable[..., Any]
+    verify_span: Callable[..., Any]
+    commit_span: Callable[..., Any]
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -72,4 +84,12 @@ def get_model(cfg: ModelConfig) -> Model:
                 horizon=horizon, temperature=temperature, top_k=top_k,
                 eos_id=eos_id),
         copy_pages=TF.copy_state_pages,
+        decode_paged_collect=lambda p, s, t, table, active:
+            TF.decode_paged_collect_fn(p, s, t, table, active, cfg),
+        commit_paged=lambda s, kv, table, keep:
+            TF.commit_paged_fn(s, kv, table, keep, cfg),
+        verify_span=lambda p, s, t, table, active:
+            TF.verify_span_fn(p, s, t, table, active, cfg),
+        commit_span=lambda s, kv, table, n_keep:
+            TF.commit_span_paged_fn(s, kv, table, n_keep, cfg),
     )

@@ -11,6 +11,11 @@ one page-table numbering).
 :func:`sample_tokens` is the engine's sampling math (greedy argmax, or
 temperature, top-k and Gumbel-max), and :func:`decode_runahead_fn` runs
 ``horizon`` decode micro-steps with it on the device (DESIGN.md §18).
+The speculative verifiers' entries (DESIGN.md §15,
+``repro/models/transformer.py:484-600``): :func:`decode_paged_collect_fn`
+and :func:`commit_paged_fn` (the scan verifier's per-position step and
+commit), :func:`verify_span_fn` and :func:`commit_span_paged_fn` (the
+span verifier's one forward over the span and its fused commit).
 
 Params are a dict: ``embed`` (V, D), ``final_norm`` (D,), ``lm_head``
 (D, V) unless embeddings are tied, and ``layers``, a list of
@@ -224,3 +229,80 @@ def decode_runahead_fn(params: dict, caches: list, token: torch.Tensor,
         toks.append(nxt)
         token = nxt
     return torch.stack(toks), token, done, remaining
+
+
+@torch.no_grad()
+def decode_paged_collect_fn(params: dict, caches: list, token: torch.Tensor,
+                            page_table: torch.Tensor, active: torch.Tensor,
+                            cfg: ModelConfig):
+    """:func:`decode_paged_fn` that also returns every layer's post-RoPE
+    (k, v) (S, Hkv, 1, hd): the speculative scan verifier runs it per
+    span position on a shadow copy of the state and re-commits accepted
+    positions' kv through :func:`commit_paged_fn`, so verification and
+    the vanilla decode step share one graph. Returns (logits (S, V),
+    caches, kvs) with ``kvs`` a list of one (k, v) pair per layer."""
+    x = embed_tokens(params, token[:, None], cfg)
+    kvs = []
+    for bp, cache in zip(params["layers"], caches):
+        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        y, _, kv = AB.attention_decode_paged(
+            bp["attn"], h, cfg, cache, page_table=page_table, active=active,
+            return_kv=True)
+        x = x + y
+        h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        x = x + L.mlp(bp["ffn"], h, cfg.act)
+        kvs.append(kv)
+    logits = lm_logits(params, x, cfg)
+    return logits[:, 0], caches, kvs
+
+
+@torch.no_grad()
+def verify_span_fn(params: dict, caches: list, tokens: torch.Tensor,
+                   page_table: torch.Tensor, active: torch.Tensor,
+                   cfg: ModelConfig):
+    """Speculative verify forward: the Q span positions of every slot in
+    one pass over the layers. tokens: (S, Q) int, column 0 the real next
+    token, columns 1..Q-1 the zero-padded drafts. Attention scores all
+    columns in one call (``attention_verify_span``); norms, GEMMs and
+    logits run per column at the one-token step's shape
+    (``L.per_column``), so each column equals the sequential decode step
+    bit for bit as long as the span stays inside each slot's current
+    group. The caches are NOT mutated; ``active`` only gates the later
+    commit (inactive slots give don't-care logits). Returns (logits
+    (S, Q, V), kvs) with ``kvs`` one ((S, Hkv, Q, hd) k, v) pair per
+    layer, for :func:`commit_span_paged_fn`."""
+    del active
+    x = embed_tokens(params, tokens, cfg)
+    kvs = []
+    for bp, cache in zip(params["layers"], caches):
+        h = L.per_column(lambda c: L.rms_norm(c, bp["ln1"], cfg.norm_eps), x)
+        y, kv = AB.attention_verify_span(bp["attn"], h, cfg, cache,
+                                         page_table=page_table)
+        x = x + y
+        x = x + L.per_column(lambda c: L.mlp(
+            bp["ffn"], L.rms_norm(c, bp["ln2"], cfg.norm_eps), cfg.act), x)
+        kvs.append(kv)
+    return L.per_column(lambda c: lm_logits(params, c, cfg), x), kvs
+
+
+@torch.no_grad()
+def commit_span_paged_fn(caches: list, kvs: list, page_table: torch.Tensor,
+                         n_keep: torch.Tensor, cfg: ModelConfig) -> list:
+    """Commit the first ``n_keep[s]`` span positions of every slot with one
+    fused multi-row append per layer (``paged_cache.paged_append_span``),
+    in place. ``kvs``: :func:`verify_span_fn`'s per-layer (k, v)."""
+    for cache, (k, v) in zip(caches, kvs):
+        pgc.paged_append_span(cache, k, v, page_table, n_keep)
+    return caches
+
+
+@torch.no_grad()
+def commit_paged_fn(caches: list, kvs: list, page_table: torch.Tensor,
+                    active: torch.Tensor, cfg: ModelConfig) -> list:
+    """Append one span position's saved per-layer (k, v) through the
+    vanilla ``paged_append`` (residual rounding, group flush, masked
+    lengths), in place; only ``active`` slots advance. No forward runs:
+    the kv come from :func:`decode_paged_collect_fn`."""
+    for cache, (k, v) in zip(caches, kvs):
+        pgc.paged_append(cache, k, v, page_table, active)
+    return caches

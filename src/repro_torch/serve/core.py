@@ -31,9 +31,12 @@ H decode micro-steps with on-device sampling, one host sync per (H,
 slots) token block, the next horizon chained off the device-resident
 carries while the host reconciles the previous block). On the CPU the
 same dispatches run eagerly. Prefill and chunk prefill are eager on both.
-Every host synchronisation of ``repro_torch.serve`` is in this file and
-marked ``# sync:``. Speculative decoding, QoS, chaos and the mesh come in
-later slices.
+With ``spec=SpecConfig(...)`` (DESIGN.md §15) a host-side proposer
+guesses up to k tokens per slot and one verify dispatch — a replayed
+graph per (width, span width) on the card — scores the span and commits
+only the accepted tokens. Every host synchronisation of
+``repro_torch.serve`` is in this file and marked ``# sync:``. QoS, chaos
+and the mesh come in later slices.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from repro_torch.models import transformer as TF
 from repro_torch.models.registry import Model
 from repro_torch.serve.graphs import DecodeGraphs
 from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.spec import SpecConfig, make_proposer, make_verifier
 from repro_torch.utils import (
     cdiv, nearest_rank_pct, pow2_bucket, resolve_device, tree_bytes,
 )
@@ -204,17 +208,27 @@ class EngineCore:
     device-resident carries before the previous block lands. Streams are
     those of ``runahead=0``, greedy and sampled. 0 and 1 disable it.
 
+    ``spec=SpecConfig(mode=...)`` (DESIGN.md §15; greedy sampling only):
+    each decode step asks the proposer for up to ``spec.k`` drafts per
+    slot (clamped to the slot's current quantization group and budget),
+    and a step with drafts runs one verify dispatch that retires 1..k+1
+    tokens per slot — the span verifier on the ``"jnp"`` decode backend,
+    the scan verifier otherwise (``spec/verify.py``). Streams are those
+    of plain greedy decode; run-ahead stays off.
+
     Every decode dispatch goes through
     :class:`~repro_torch.serve.graphs.DecodeGraphs`: on the card a
-    replayed CUDA graph (one per width and horizon, bound to this
-    engine's state), on the CPU the same calls eagerly.
+    replayed CUDA graph (one per width and horizon, and per width and span
+    width for the verify, bound to this engine's state), on the CPU the
+    same calls eagerly.
     The device state is allocated once: :meth:`reset` zeroes it in place,
     so the graphs survive across sessions."""
 
     def __init__(self, model: Model, params: dict, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
                  prefix_cache: bool = False, prefill_chunk: int = 0,
-                 runahead: int = 0, device=None):
+                 runahead: int = 0, spec: Optional[SpecConfig] = None,
+                 device=None):
         self.model = model
         self.params = params
         self.device = resolve_device(device)
@@ -241,12 +255,23 @@ class EngineCore:
         self.runahead = int(runahead)
         if self.runahead < 0:
             raise ValueError(f"runahead must be >= 0, got {runahead}")
+        # speculative decode (DESIGN.md §15): a host-side proposer guesses
+        # up to spec.k tokens per slot; one verify dispatch scores the
+        # whole span and commits only accepted tokens. Greedy only —
+        # reset() enforces temperature 0.
+        self.spec = spec if spec is not None and spec.mode != "off" else None
+        verifier = None
+        if self.spec is not None:
+            verifier = make_verifier(model)
+            self._proposer = make_proposer(
+                self.spec, target_cfg=model.cfg, target_model=model,
+                target_params=params, max_len=self.layout.tokens_per_slot)
         # the session state and generator live as long as the engine: the
         # decode graphs bind their addresses
         self.state = self.model.init_paged_state(self.layout, self.device)
         self._generator = torch.Generator(device=self.device)
         self._graphs = DecodeGraphs(model, params, self.state,
-                                    self._generator)
+                                    self._generator, verifier)
         self.reset()
 
     # --- session lifecycle ------------------------------------------------
@@ -256,6 +281,13 @@ class EngineCore:
         buffers, and the decode graphs bound to them, are kept), new
         scheduler, clock, RNG seed and metrics."""
         self.gen = gen if gen is not None else GenerationConfig()
+        if self.spec is not None:
+            if self.gen.temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding requires greedy sampling "
+                    "(temperature 0): acceptance compares the target "
+                    "model's argmax per position")
+            self._proposer.reset()
         self.prefix = (PrefixIndex(self.layout, self.prefill_chunk)
                        if self.prefix_cache else None)
         self.sched = Scheduler(self.layout, prefix_index=self.prefix,
@@ -289,6 +321,11 @@ class EngineCore:
         self.prefill_computed = 0   # prefill tokens run through the model
         self.prefill_skipped = 0    # prefill tokens served from adoption
         self.cow_splits = 0
+        self.proposer_faults = 0
+        self.spec_steps = 0         # decode steps that verified >=1 draft
+        self.spec_drafted = 0       # draft tokens sent to verification
+        self.spec_accepted = 0      # draft tokens accepted
+        self.spec_q_hist: dict[int, int] = {}   # span width -> dispatches
         # run-ahead pipeline state (DESIGN.md §18): the in-flight horizon
         # record (which carries its own optimistic per-slot budgets) and
         # the host-vs-device attribution metrics
@@ -340,6 +377,8 @@ class EngineCore:
         if summary.slot >= 0:
             self._prefilling.pop(summary.slot, None)
             self._eff_max.pop(rid, None)
+        if self.spec is not None:
+            self._proposer.release(rid)
         return pre + self._cancelled(summary.req, summary.slot)
 
     def _cancelled(self, req: Request, slot: int = -1) -> list[TokenEvent]:
@@ -365,6 +404,26 @@ class EngineCore:
             w *= 2
         widths.append(n)
         return widths
+
+    def _spec_q_buckets(self) -> list[int]:
+        """Span-width buckets (Q = 1 bonus + drafts) of the verify
+        dispatch: 1 + pow2 draft counts, capped at ``spec.k + 1`` and at
+        the group size (the span clamp keeps every span inside its slot's
+        current quantization group)."""
+        cap = min(self.spec.k + 1, self.layout.page_size)
+        out, q = [], 2
+        while q < cap:
+            out.append(q)
+            q = 2 * (q - 1) + 1
+        out.append(cap)
+        return out
+
+    def _spec_q(self, q_needed: int) -> int:
+        """Smallest span-width bucket covering ``q_needed`` positions."""
+        for q in self._spec_q_buckets():
+            if q >= q_needed:
+                return q
+        return self.spec.k + 1
 
     def _step_width(self, pages_needed: int) -> int:
         """Smallest width bucket covering ``pages_needed`` live pages: the
@@ -398,9 +457,10 @@ class EngineCore:
         initialisation stay out of the measurements), sampling with a
         throwaway generator — the session's is left alone, as the JAX
         engine's warmup leaves its key. Then capture the decode graph of
-        every width (and the run-ahead horizon's) under ``gen``'s
-        sampling (default: the session's) against the session state,
-        every lane inactive (nothing to capture on the CPU)."""
+        every width (and the run-ahead horizon's, and the verify's of
+        every span width) under ``gen``'s sampling (default: the
+        session's) against the session state, every lane inactive
+        (nothing to capture on the CPU)."""
         gen = gen if gen is not None else self.gen
         state = self.model.init_paged_state(self.layout, self.device)
         rng = torch.Generator(device=self.device)
@@ -428,6 +488,9 @@ class EngineCore:
             for h in horizons:
                 self._graphs.capture(w, h, gen.temperature, gen.top_k,
                                      gen.eos_id)
+            if self.spec is not None:
+                for q in self._spec_q_buckets():
+                    self._graphs.capture_verify(w, q)
 
     # --- the step loop ----------------------------------------------------
 
@@ -596,47 +659,74 @@ class EngineCore:
         req.state = FINISHED
         req.t_done = self.clock
         self._eff_max.pop(req.rid, None)
+        if self.spec is not None:
+            self._proposer.release(req.rid)
         self.completed.append(self.sched.finish(slot))
         return [TokenEvent("finish", req.rid, self.clock, slot=slot)]
 
     def _decode_step(self) -> list[TokenEvent]:
         """Batched decode over the non-stalled, fully prefilled slots — a
-        run-ahead horizon when the planner allows one; recompute-
-        preemption when nothing can run and no chunk progressed this
-        cycle."""
+        speculative verify when some slot has drafts, a run-ahead horizon
+        when the planner allows one; recompute-preemption when nothing can
+        run and no chunk progressed this cycle."""
         sched, g = self.sched, self.layout.page_size
         if not sched.active:
             return []   # cancellation emptied the cycle mid-flight
+        drafts: dict[int, list[int]] = {}
         want_runahead = self._runahead_want()
         # a horizon reserves its whole span's pages up front; a shortfall
         # (pool pressure) drops this step back to the one-token dispatch,
         # which knows how to stall and preempt
         spans = ({sl: self.runahead for sl in sched.active}
                  if want_runahead else None)
+        if self.spec is not None:
+            # proposer work bills to the session clock: a draft-model
+            # proposer runs real forwards and must not get them for free
+            t0 = time.monotonic()
+            drafts = self._propose_drafts()
+            self.clock += time.monotonic() - t0
+            spans = {sl: 1 + len(d) for sl, d in drafts.items()}
         stalled = set(sched.ensure_pages(self._lengths,
                                          skip=self._prefilling.keys(),
                                          spans=spans))
+        if self.spec is not None:
+            # shed drafts the pool could not back: the accepted span must
+            # stay inside the slot's allocated pages
+            for sl, d in drafts.items():
+                cap = (sched.alloc.slot_pages(sl) * g
+                       - int(self._lengths[sl]) - 1)
+                if len(d) > max(cap, 0):
+                    del d[max(cap, 0):]
         step_slots = [sl for sl in sched.active
                       if sl not in stalled and sl not in self._prefilling]
 
         # copy-on-write guard: never append into a shared page. Chunk-
         # aligned adoption makes this a no-op in steady state (adopted
         # pages all precede the write frontier), but it is the invariant
-        # that keeps sharing safe under any adoption policy (DESIGN.md §12)
+        # that keeps sharing safe under any adoption policy (DESIGN.md
+        # §12). A speculative span may reach further pages, so every page
+        # the commit could touch is checked.
         if step_slots and (self.prefix_cache or self.cow_splits):
             safe = []
             for sl in step_slots:
-                pidx = int(self._lengths[sl]) // g
-                if pidx < sched.alloc.slot_pages(sl) and sched.alloc.refcount(
-                        sched.alloc.page_at(sl, pidx)) > 1:
+                lo = int(self._lengths[sl]) // g
+                hi = (int(self._lengths[sl]) + len(drafts.get(sl, ()))) // g
+                ok = True
+                for pidx in range(lo, hi + 1):
+                    if not (pidx < sched.alloc.slot_pages(sl) and
+                            sched.alloc.refcount(
+                                sched.alloc.page_at(sl, pidx)) > 1):
+                        continue
                     if not sched.alloc.can_alloc(1):
                         sched.reclaim(1)
                     if not sched.alloc.can_alloc(1):
-                        continue   # no page to split into: stall a step
+                        ok = False   # no page to split into: stall a step
+                        break
                     src, dst = sched.alloc.cow(sl, pidx)
                     self.state = self.model.copy_pages(self.state, src, dst)
                     self.cow_splits += 1
-                safe.append(sl)
+                if ok:
+                    safe.append(sl)
             step_slots = safe
 
         if not step_slots:
@@ -655,10 +745,15 @@ class EngineCore:
             assert victim not in self._prefilling
             retracted = vreq.out_tokens.pop() if vreq.out_tokens else None
             self._eff_max.pop(vreq.rid, None)
+            if self.spec is not None:
+                self._proposer.release(vreq.rid)
             sched.preempt(victim)
             vreq.state = PREEMPTED
             return [TokenEvent("preempt", vreq.rid, self.clock,
                                token=retracted, slot=victim)]
+        if self.spec is not None and any(drafts.get(sl)
+                                         for sl in step_slots):
+            return self._spec_dispatch(step_slots, drafts)
         if want_runahead and self._runahead_ready(step_slots):
             return self._runahead_dispatch(step_slots)
         return self._decode_dispatch(step_slots)
@@ -707,10 +802,12 @@ class EngineCore:
     def _runahead_want(self) -> bool:
         """Horizon-planner gate: run-ahead engages only when the next H
         step boundaries are provably event-free — nothing queued to
-        admit, no prefill chunk due, and no prefix sharing (its COW guard
-        decides per step). Every other configuration takes the one-token
-        dispatch unchanged."""
-        return (self.runahead > 1 and not self.prefix_cache
+        admit, no prefill chunk due, no speculation (drafts are proposed
+        per step) and no prefix sharing (its COW guard decides per step).
+        Every other configuration takes the one-token dispatch
+        unchanged."""
+        return (self.runahead > 1 and self.spec is None
+                and not self.prefix_cache
                 and not self._prefilling and not self._arrivals
                 and not self.sched.pending)
 
@@ -928,6 +1025,113 @@ class EngineCore:
         for _ in range(draws):
             torch.rand(shape, generator=self._generator, device=self.device)
 
+    # --- speculative decode (DESIGN.md §15) -------------------------------
+
+    def _propose_drafts(self) -> dict[int, list[int]]:
+        """Up to ``spec.k`` draft tokens per decode-ready slot, clamped so
+        (a) a fully accepted span never overshoots the request's budget
+        (the bonus token is always emitted on top of the drafts) and (b)
+        the span never extends past the slot's current quantization group
+        (``span <= g - length % g``) — the invariant the span verifier
+        and the fused span commit rely on (at most the LAST position can
+        flush a group), and the reason a verify dispatch runs at the
+        one-token step's table width. A proposer exception never takes
+        the engine down: the slot gets no drafts and the fault is
+        counted."""
+        g = self.layout.page_size
+        k = self.spec.k
+        drafts: dict[int, list[int]] = {}
+        for sl, req in self.sched.active.items():
+            if sl in self._prefilling:
+                continue
+            want = min(k, self._eff_max[req.rid] - req.done_tokens - 1,
+                       g - int(self._lengths[sl]) % g - 1)
+            d: list = []
+            if want > 0:
+                try:
+                    d = self._proposer.propose(req, want)
+                except Exception:
+                    self.proposer_faults += 1
+                    d = []
+            drafts[sl] = [int(t) for t in d[:max(want, 0)]]
+        return drafts
+
+    def _spec_dispatch(self, step_slots: list[int],
+                       drafts: dict[int, list[int]]) -> list[TokenEvent]:
+        """One verify dispatch retiring 1..k+1 tokens per stepped slot: a
+        replay of the (width, span width) verify graph (on the CPU the
+        verifier eagerly). Column 0 of the span is the step's real next
+        token, columns 1..k the zero-padded drafts; the emitted tokens are
+        the argmaxes of column 0 and of the accepted drafts — what plain
+        greedy decode emits over the next ``n_acc + 1`` steps."""
+        sched, g = self.sched, self.layout.page_size
+        s = self.layout.slots
+        q = self._spec_q(1 + max(len(drafts.get(sl, ()))
+                                 for sl in step_slots))
+        mask = np.zeros((s,), bool)
+        mask[step_slots] = True
+        toks = np.zeros((s, q), np.int64)
+        toks[:, 0] = self._next_tok
+        dlen = np.zeros((s,), np.int32)
+        for sl in step_slots:
+            d = drafts.get(sl, [])
+            toks[sl, 1:1 + len(d)] = d
+            dlen[sl] = len(d)
+        # the span clamp keeps every real span inside its slot's current
+        # page, so the one-token step's width covers it; padding columns
+        # past it reach only don't-care positions
+        w = self._step_width(
+            max(int(self._lengths[sl]) // g + 1 for sl in step_slots))
+        t0 = time.monotonic()
+        preds, n_acc = self._graphs.verify(w, q, toks, dlen,
+                                           sched.alloc.table()[:, :w], mask)
+        # one host fetch per verify (argmaxes and accept counts); it
+        # waits for the device
+        out = torch.cat([preds, n_acc[:, None]], 1).cpu().numpy()  # sync: verify
+        preds, n_acc = out[:, :q], out[:, q]
+        step_s = time.monotonic() - t0
+        self.clock += step_s
+        self.decode_steps += 1
+        self.spec_steps += 1
+        self.spec_q_hist[q] = self.spec_q_hist.get(q, 0) + 1
+        self._step_times.append(step_s)
+        self._util.append(sched.utilization())
+        self._active_hist.append(len(step_slots))
+
+        events = []
+        for sl in step_slots:
+            req = sched.active[sl]
+            n = int(n_acc[sl])
+            self.spec_drafted += int(dlen[sl])
+            self.spec_accepted += n
+            self._proposer.feedback(req.rid, int(dlen[sl]), n)
+            # emit the argmax chain, truncating at EOS or the budget (the
+            # clamp lets the budget bind only at the last span position)
+            emit: list[int] = []
+            finished = False
+            for j in range(n + 1):
+                t = int(preds[sl, j])
+                emit.append(t)
+                if (self.gen.eos_id >= 0 and t == self.gen.eos_id) or \
+                        req.done_tokens + len(emit) >= \
+                        self._eff_max[req.rid]:
+                    finished = True
+                    break
+            span = len(emit)
+            for j, t in enumerate(emit):
+                req.out_tokens.append(t)
+                events.append(TokenEvent(
+                    "token", req.rid, self.clock, token=t, slot=sl,
+                    ordinal=req.done_tokens - 1, span=span, span_ix=j))
+            # the device lengths advanced by n + 1 (the accepted span);
+            # when EOS truncates the emission the slot finishes and its
+            # pages are reclaimed, so the host length is moot
+            self._lengths[sl] += n + 1
+            self._next_tok[sl] = emit[-1]
+            if finished:
+                events += self._finish(sl)
+        return events
+
     # --- session results --------------------------------------------------
 
     def events(self) -> Iterator[TokenEvent]:
@@ -981,6 +1185,7 @@ class EngineCore:
             "n_cancelled": len(self.cancelled),
             "decode_graphs": len(self._graphs) if self._graphs is not None
             else 0,
+            "proposer_faults": self.proposer_faults,
         }
         if self.runahead > 1:
             # host-vs-device attribution of the pipeline: the dispatch-gap
@@ -994,6 +1199,21 @@ class EngineCore:
                 "dispatch_gap_ewma_s": self._gap_ewma or 0.0,
                 "host_overlap_s": self._overlap_s,
                 "sync_wait_s": self._sync_wait_s,
+            }
+        if self.spec is not None:
+            res["spec"] = {
+                "mode": self.spec.mode,
+                "k": self.spec.k,
+                "steps": self.spec_steps,
+                "drafted_tokens": self.spec_drafted,
+                "accepted_tokens": self.spec_accepted,
+                "acceptance_rate": self.spec_accepted / max(
+                    self.spec_drafted, 1),
+                "mean_accepted_per_step": self.spec_accepted / max(
+                    self.spec_steps, 1),
+                # verify dispatches per span-width bucket (the port's
+                # addition: each bucket is its own graph)
+                "dispatches_by_q": dict(sorted(self.spec_q_hist.items())),
             }
         if self.prefix is not None:
             page_bytes = sum(pgc.pool_page_bytes(c) for c in self.state)

@@ -43,18 +43,24 @@ class ContinuousBatchingEngine:
     ``runahead=0``, greedy and sampled; prefix-cache sessions keep the
     one-token dispatch.
 
-    On the card each decode dispatch (one-token step or horizon) is a
-    replayed CUDA graph, one per page-table width; :meth:`warmup`
-    captures them up front."""
+    **Speculative decode** (``spec=SpecConfig(...)``, DESIGN.md §15,
+    greedy only): a proposer guesses up to k tokens per slot and one
+    verify dispatch retires 1..k+1 tokens — the streams of plain greedy
+    decode.
+
+    On the card each decode dispatch (one-token step, horizon or verify)
+    is a replayed CUDA graph, one per page-table width (and span width);
+    :meth:`warmup` captures them up front."""
 
     def __init__(self, model, params, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
                  prefix_cache: bool = False, prefill_chunk: int = 0,
-                 runahead: int = 0, device=None):
+                 runahead: int = 0, spec=None, device=None):
         self.core = EngineCore(
             model, params, max_slots=max_slots, max_len=max_len,
             num_pages=num_pages, prefix_cache=prefix_cache,
-            prefill_chunk=prefill_chunk, runahead=runahead, device=device)
+            prefill_chunk=prefill_chunk, runahead=runahead, spec=spec,
+            device=device)
 
     @property
     def prefill_chunk(self) -> int:

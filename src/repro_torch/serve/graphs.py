@@ -1,22 +1,27 @@
 """CUDA graphs of the paged engine's decode dispatch: the port's
-counterpart of the two ``jax.jit`` calls of the JAX engine's decode —
+counterpart of the three ``jax.jit`` calls of the JAX engine's decode —
 the one-token step (``repro/serve/core.py:308``, ``decode_paged`` then
-``_sample``) and the run-ahead horizon (``repro/serve/core.py:324``,
-``decode_runahead``, DESIGN.md §18).
+``_sample``), the run-ahead horizon (``repro/serve/core.py:324``,
+``decode_runahead``, DESIGN.md §18) and the speculative verify
+(``repro/serve/core.py:334``, ``make_verifier``, DESIGN.md §15).
 
 A jitted JAX step is one dispatch; the same step issued eagerly from
 PyTorch is about a thousand small launches from Python, and on an H100
 the host then takes longer than the device. :class:`DecodeGraphs`
-captures each step once per ``(width, horizon, sampling)`` key and
-replays it: one ``CUDAGraph.replay()`` per step or per horizon. It is
-the engine's one decode route: on the CPU (``eager``) it runs the same
-calls eagerly and captures nothing.
+captures each step once per ``(width, horizon, sampling)`` key, and each
+verify once per ``("verify", width, Q, verifier)`` key, and replays it:
+one ``CUDAGraph.replay()`` per step, horizon or verify. It is the
+engine's one decode route: on the CPU (``eager``) it runs the same calls
+eagerly and captures nothing.
 
 * **What a graph binds.** The engine's per-layer caches, the params, the
   session generator and, per graph, static inputs (token, the
   width-sliced page table, the active mask; a horizon also the budgets
-  left and the done mask) and static outputs (logits and tokens of the
-  step; the token block and the carries of a horizon). Every input is
+  left and the done mask; a verify the token span (S, Q), the draft
+  lengths, the table and the mask) and static outputs (logits and tokens
+  of the step; the token block and the carries of a horizon; a verify's
+  argmaxes (S, Q) and accepted counts (S,)). The scan verifier's graph
+  also binds its shadow state (allocated by the eager run). Every input is
   copied into its static buffer on the current stream before a replay,
   so stream order keeps a replay from reading inputs meant for the next
   one. Host inputs are staged in pinned memory first: a copy from
@@ -29,9 +34,10 @@ calls eagerly and captures nothing.
   on a side stream with every lane inactive (kernel builds, library
   loads and ``cudaFuncSetAttribute`` stay out of the capture), then
   captured on that stream. An inactive lane writes only the scratch page
-  and keeps its length, so capturing between two steps of a live
-  session leaves it untouched; the session generator is restored after
-  the eager run and a capture draws nothing from it.
+  and keeps its length (an inactive verify lane commits ``n_keep = 0``
+  tokens), so capturing between two steps of a live session leaves it
+  untouched; the session generator is restored after the eager run and
+  a capture draws nothing from it.
 * **One memory pool.** All graphs of an instance share one pool; replays
   run on one stream, one after another.
 * **Launch counters.** The kernel wrappers count launches in Python, so a
@@ -60,7 +66,8 @@ from repro_torch.models import transformer as TF
 COUNTERS = ("launches", "launches_u8", "launches_mma", "launches_split")
 #: dtypes of the static inputs
 _DTYPES = {"token": torch.int64, "table": torch.int32, "active": torch.bool,
-           "remaining": torch.int32, "done": torch.bool}
+           "remaining": torch.int32, "done": torch.bool,
+           "tokens": torch.int64, "draft_len": torch.int32}
 
 
 def kernel_modules() -> tuple:
@@ -105,14 +112,16 @@ class DecodeGraphs:
 
     ``state`` (the per-layer paged caches), ``params`` and ``generator``
     are bound by address: the caller keeps them alive and updates them in
-    place, never rebinding a buffer."""
+    place, never rebinding a buffer. ``verifier`` (``spec.make_verifier``)
+    is the speculative verify a ``"verify"`` key captures."""
 
     def __init__(self, model, params: dict, state: list,
-                 generator: torch.Generator):
+                 generator: torch.Generator, verifier=None):
         self.model = model
         self.params = params
         self.state = state
         self.generator = generator
+        self.verifier = verifier
         lengths = state[0].lengths
         self.device = lengths.device
         self.slots = lengths.shape[0]
@@ -145,7 +154,7 @@ class DecodeGraphs:
 
     def capture(self, width: int, horizon: int, temperature: float,
                 top_k: int, eos_id: int) -> Optional[CapturedDecode]:
-        """The graph of one key, captured on first use (None when
+        """The graph of one decode key, captured on first use (None when
         ``eager``)."""
         if self.eager:
             return None
@@ -155,26 +164,62 @@ class DecodeGraphs:
             return cap
         s, dev = self.slots, self.device
         inp = {"token": torch.zeros((s,), dtype=torch.int64, device=dev),
-               "table": torch.full((s, width), self.scratch,
-                                   dtype=torch.int32, device=dev),
+               "table": self._dead_table(width),
                "active": torch.zeros((s,), dtype=torch.bool, device=dev)}
         if horizon > 1:
             inp["remaining"] = torch.zeros((s,), dtype=torch.int32,
                                            device=dev)
             inp["done"] = torch.ones((s,), dtype=torch.bool, device=dev)
+        return self._capture(
+            key, inp, lambda: self._run(inp, horizon, temperature, top_k,
+                                        eos_id), sampled=temperature > 0.0)
+
+    def capture_verify(self, width: int, q: int) -> Optional[CapturedDecode]:
+        """The graph of one speculative verify key (a span of ``q``
+        columns at table width ``width``), captured on first use (None
+        when ``eager``)."""
+        if self.eager:
+            return None
+        key = ("verify", width, q, self.verifier.kind)
+        cap = self._cache.get(key)
+        if cap is not None:
+            return cap
+        s, dev = self.slots, self.device
+        inp = {"tokens": torch.zeros((s, q), dtype=torch.int64, device=dev),
+               "draft_len": torch.zeros((s,), dtype=torch.int32, device=dev),
+               "table": self._dead_table(width),
+               "active": torch.zeros((s,), dtype=torch.bool, device=dev)}
+        return self._capture(key, inp, lambda: self._run_verify(inp),
+                             sampled=False)
+
+    def _dead_table(self, width: int) -> torch.Tensor:
+        return torch.full((self.slots, width), self.scratch,
+                          dtype=torch.int32, device=self.device)
+
+    def _run_verify(self, inp: dict):
+        """The eager verify a graph captures: (preds, n_acc)."""
+        preds, n_acc, _ = self.verifier(
+            self.params, self.state, inp["tokens"], inp["draft_len"],
+            inp["table"], inp["active"])
+        return preds, n_acc
+
+    def _capture(self, key: tuple, inp: dict, run,
+                 sampled: bool) -> CapturedDecode:
+        """Run ``run`` eagerly, then capture it: the graph of ``key``."""
+        dev = self.device
         rng = self.generator.get_state()
         # the eager run: every lane inactive, only the scratch page written
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream):
-            self._run(inp, horizon, temperature, top_k, eos_id)
+            run()
         torch.cuda.current_stream(dev).wait_stream(self.stream)
         self.generator.set_state(rng)
         before = read_counters()
         graph = torch.cuda.CUDAGraph()
-        if temperature > 0.0:
+        if sampled:
             graph.register_generator_state(self.generator)
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            out = self._run(inp, horizon, temperature, top_k, eos_id)
+            out = run()
         after = read_counters()
         _write_counters(before)
         self.generator.set_state(rng)
@@ -195,12 +240,15 @@ class DecodeGraphs:
         cap.graph.replay()
         _add_counters(cap.counts)
 
+    def _inputs(self, values: dict) -> dict:
+        return {name: torch.as_tensor(x).to(device=self.device,
+                                           dtype=_DTYPES[name], copy=True)
+                for name, x in values.items()}
+
     def _eager(self, values: dict, horizon: int, temperature: float,
                top_k: int, eos_id: int):
-        inp = {name: torch.as_tensor(x).to(device=self.device,
-                                          dtype=_DTYPES[name], copy=True)
-               for name, x in values.items()}
-        return self._run(inp, horizon, temperature, top_k, eos_id)
+        return self._run(self._inputs(values), horizon, temperature, top_k,
+                         eos_id)
 
     def step(self, width: int, temperature: float, top_k: int,
              token, table, active) -> tuple[torch.Tensor, torch.Tensor]:
@@ -227,5 +275,22 @@ class DecodeGraphs:
         if self.eager:
             return self._eager(values, horizon, temperature, top_k, eos_id)
         cap = self.capture(width, horizon, temperature, top_k, eos_id)
+        self._replay(cap, values)
+        return cap.outputs
+
+    def verify(self, width: int, q: int, tokens, draft_len, table,
+               active) -> tuple[torch.Tensor, torch.Tensor]:
+        """Replay one speculative verify: ``tokens`` (S, q) int, column 0
+        the real next token, then the zero-padded drafts; ``draft_len``
+        (S,) int32; ``table`` (S, width) int32; ``active`` (S,) bool —
+        host arrays or tensors. Commits the accepted span of every active
+        lane in place. Returns (preds (S, q) int32, n_acc (S,) int32): a
+        replay's static outputs, valid until the next replay of this
+        key."""
+        values = {"tokens": tokens, "draft_len": draft_len, "table": table,
+                  "active": active}
+        if self.eager:
+            return self._run_verify(self._inputs(values))
+        cap = self.capture_verify(width, q)
         self._replay(cap, values)
         return cap.outputs

@@ -836,18 +836,20 @@ def test_value_quantized_engines_on_card(dev):
 # ---------------------------------------------------------------------------
 
 
-def _graph_core(dev, runahead=0, seed=31, lens=(10, 40, 70, 100)):
+def _graph_core(dev, runahead=0, seed=31, lens=(10, 40, 70, 100),
+                spec=None, backend="paged_fused"):
     """A bf16 smoke-width EngineCore on the card (4 slots of 4 pages of
     32 tokens) with one prefilled request per slot: live pages 1-4, so
     each width bucket has slots it covers."""
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.models import get_model
     from repro_torch.serve import EngineCore, GenerationConfig, Request
-    cfg = reduce_for_smoke(get_config("tinyllama-1.1b"), dtype="bfloat16")
+    cfg = reduce_for_smoke(get_config("tinyllama-1.1b"), dtype="bfloat16",
+                           decode_backend=backend)
     m = get_model(cfg)
     params = m.init(generator=_gen(dev, seed))
     core = EngineCore(m, params, max_slots=len(lens), max_len=128,
-                      runahead=runahead)
+                      runahead=runahead, spec=spec)
     core.reset(GenerationConfig())
     rng = np.random.default_rng(seed)
     for i, t in enumerate(lens):
@@ -1097,3 +1099,147 @@ def test_sampled_decode_graph_matches_eager_steps(dev):
             assert out["runahead"]["horizons"] > 0
             assert out["decode_graphs"] >= 2
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify graphs (serve/graphs.py "verify" keys) and kernel #6
+# at a wide span
+# ---------------------------------------------------------------------------
+
+#: the two verifiers and the decode backend that selects each
+_VERIFIERS = {"span": "jnp", "scan": "paged_fused"}
+
+
+def _spec_core(dev, verifier):
+    from repro_torch.spec import SpecConfig
+    return _graph_core(dev, spec=SpecConfig(mode="ngram", k=4),
+                       backend=_VERIFIERS[verifier])
+
+
+def _verify_inputs(core, w, q, seed):
+    """A span per slot the width covers: the next token, then drafts
+    half of which repeat an earlier eager verify's argmaxes (so some are
+    accepted)."""
+    import copy
+    from repro_torch.spec import make_verifier
+    g, s = core.layout.page_size, core.layout.slots
+    lengths = core.state[0].lengths.cpu().numpy()
+    mask = lengths // g + 1 <= w
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, core.model.cfg.vocab_size, (s, q))
+    toks[:, 0] = core._next_tok
+    dlen = rng.integers(0, q, s).astype(np.int32)
+    table = core.sched.alloc.table()[:, :w]
+    probe = copy.deepcopy(core.state)
+    preds, _, _ = make_verifier(core.model)(
+        core.params, probe, torch.from_numpy(toks).to(core.device),
+        torch.from_numpy(dlen).to(core.device), table.to(core.device),
+        torch.from_numpy(mask).to(core.device))
+    toks[::2, 1] = preds[::2, 0].cpu().numpy()
+    return toks, dlen, table, mask
+
+
+@pytest.mark.parametrize("verifier", sorted(_VERIFIERS))
+def test_verify_graph_replay_matches_eager(dev, verifier):
+    """Per (width, span width) key: a replayed verify equals the eager
+    verifier (a fresh one, with its own shadow state) on a copy of the
+    same state — argmaxes, accepted counts and every buffer outside the
+    scratch page; a replay with every lane inactive leaves the state
+    untouched outside the scratch page."""
+    import copy
+    from repro_torch.spec import make_verifier
+    core = _spec_core(dev, verifier)
+    s, scratch = core.layout.slots, core.layout.scratch_page
+    assert core._graphs.verifier.kind == verifier
+    accepted = 0
+    for w in core._decode_widths():
+        for q in core._spec_q_buckets():
+            toks, dlen, table, mask = _verify_inputs(core, w, q, w * 10 + q)
+            # capture first: its eager run writes the scratch page
+            core._graphs.capture_verify(w, q)
+            ref = copy.deepcopy(core.state)
+            want = make_verifier(core.model)(
+                core.params, ref, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(dlen).to(dev), table.to(dev),
+                torch.from_numpy(mask).to(dev))
+            preds, n_acc = core._graphs.verify(w, q, toks, dlen, table,
+                                               mask)
+            assert torch.equal(preds, want[0]) and torch.equal(n_acc,
+                                                               want[1])
+            _assert_states_equal(core.state, ref, scratch)
+            accepted += int(n_acc[torch.from_numpy(mask).to(dev)].sum())
+            before = copy.deepcopy(core.state)
+            core._graphs.verify(w, q, toks, dlen, table, np.zeros(s, bool))
+            _assert_states_equal(core.state, before, scratch)
+    assert accepted > 0
+    assert len(core._graphs) == \
+        len(core._decode_widths()) * len(core._spec_q_buckets())
+
+
+@pytest.mark.parametrize("verifier", sorted(_VERIFIERS))
+def test_verify_graph_replay_runs_the_counted_kernels(dev, verifier):
+    """What a verify replay adds to the counters is what it launches (a
+    profiled replay, every lane inactive): the scan verifier runs Q
+    vanilla steps (nl encodes and nl paged decodes each) and Q masked
+    commits (nl encodes each); the span verifier runs, per layer, the
+    score-only LUT kernel over the pages and over the flushed group, the
+    flush emulation's encode and the commit's encode."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    core = _spec_core(dev, verifier)
+    nl, s = core.model.cfg.num_layers, core.layout.slots
+    w, q = core._decode_widths()[-1], core._spec_q_buckets()[-1]
+    cap = core._graphs.capture_verify(w, q)
+    want = ({(pek, "launches"): 2 * q * nl, (pdk, "launches"): q * nl}
+            if verifier == "scan" else
+            {(pek, "launches"): 2 * nl, (qkk, "launches"): 2 * nl})
+    assert cap.counts == want
+    values = {"tokens": np.zeros((s, q), np.int64),
+              "draft_len": np.zeros(s, np.int32),
+              "table": core.sched.alloc.table()[:, :w],
+              "active": np.zeros(s, bool)}
+    fns = ("polar_encode_kernel", "lut_split_decode_kernel",
+           "lut_flash_decode_kernel", "merge_splits_kernel",
+           "flash_prefill_kernel", "flash_prefill_mma_kernel",
+           "paged_prefill_kernel", "paged_prefill_mma_kernel",
+           "polar_qk_kernel")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        core._graphs._replay(cap, values)
+        torch.cuda.synchronize()
+    ran = dict.fromkeys(fns, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for f in fns:
+                if re.search(rf"\b{f}\b", e.key):
+                    ran[f] += e.count
+    body = ran.pop("lut_split_decode_kernel") + ran.pop(
+        "lut_flash_decode_kernel")
+    assert body == want.get((pdk, "launches"), 0)
+    split = pdk.plan_splits(s, core.model.cfg.num_kv_heads, w) > 1
+    assert ran == dict.fromkeys(ran, 0) | {
+        "polar_encode_kernel": want[(pek, "launches")],
+        "polar_qk_kernel": want.get((qkk, "launches"), 0),
+        "merge_splits_kernel": body if split else 0}
+
+
+def test_qk_kernel_wide_span_tiles_query_heads(dev):
+    """Kernel #6 at Qh = 8 * 17 (a span of k = 16 drafts folded onto
+    tinyllama's 8 query heads per kv head): its shared memory would
+    exceed the H100's 227 KB in one launch, so the wrapper tiles the
+    query heads (100 a launch at d 64, t_bits 4); the scores equal the
+    plain version's."""
+    gen = _gen(dev, 12)
+    b, hkv, d, g, gc, qh = 2, 4, 64, 128, 3, 8 * 17
+    assert qkk.max_rows(d, 4) == 100
+    enc = _dense_groups(dev, gen, b, hkv, d, g, gc)
+    q = torch.randn((b, hkv, qh, d), generator=gen, device=dev)
+    n = qkk.launches
+    got = qkk.polar_qk_scores(q, *enc)
+    assert qkk.launches == n + 2
+    ref = qkk.polar_qk_scores_plain(q, *enc)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    one = qkk.polar_qk_scores(q[:, :, :8].contiguous(), *enc)
+    assert torch.equal(one, got[:, :, :8])   # rows do not depend on Qh
