@@ -92,15 +92,30 @@ run):
               tensor-core body), ``ServeEngine`` on the fused and the
               score-only routes (gated, cache bytes per layer); every
               uint8 kernel form must have run.
-9. profile  — wall time of 8-slot decode steps against the device time of
+9. codecs   — the baseline key codecs and per-layer policies on the same
+              weights, 7 arms: int8, int4, KIVI 4-bit, ZipCache 4-bit, the
+              fp ``"none"`` cache, polar on the fixed angle grid and
+              ``CachePolicy.first_k(2, int8, polar)``. Per arm 8 greedy
+              requests (prompts 100-900, 64 new, all at t = 0) through
+              the classic paged engine on ``"paged_fused"`` (codecs
+              without the page-native kernels take the gathered route),
+              exact launches from the arm's polar layers, exact cache
+              bytes per layer, tok/s, decode step, prefill seconds and
+              logical key bits; graphed == eager for int8 and the mixed
+              policy; the logit gate for the mixed policy and the fixed
+              grid; chunked prefill with and without the prefix cache
+              (6 requests) for int8 and the mixed policy; the static
+              engine on both polar routes and speculative decode (ngram
+              k 4, both verifiers) under the mixed policy.
+10. profile — wall time of 8-slot decode steps against the device time of
               their kernels (torch.profiler), eager and as a graph replay,
               and of one H = 8 horizon replay per token: the device's idle
               share and the largest kernels.
 
-Then one JSON line of per-kernel numbers (launches summed over the six
+Then one JSON line of per-kernel numbers (launches summed over the seven
 serving phases; the uint8 forms on rows of their own, encode's decode
-form — a decode step's flush — on a row of its own), and last the device
-JSON. Any failure raises (non-zero
+form — a decode step's flush — and its fixed-angle-grid form on rows of
+their own), and last the device JSON. Any failure raises (non-zero
 exit). Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 
@@ -111,8 +126,7 @@ LUT kernel's groups per block, paged decode's pages per split and staging
 buffers, paged prefill's key groups, the dense decode kernel's unsplit
 body, encode's cluster of 1 or 2 blocks), each checked against the current
 source, and the timing floor (a 1-element ``add_`` timed as the kernels
-are). ``--variants --before DIR`` also times the encode kernel of the
-checkout at DIR (same C entry) against the current one.
+are).
 """
 from __future__ import annotations
 
@@ -272,15 +286,45 @@ def reset_counts(counters) -> None:
 def read_counts(counters) -> dict:
     """Launches since the last reset, per kernel form: ``name`` counts
     the launches on fp value rows (every launch of a kernel without value
-    rows), ``name[u8]`` those on uint8 value rows."""
+    rows), ``name[u8]`` those on uint8 value rows; the encode's launches
+    on the fixed angle grid count as ``polar_encode[fixed]``."""
     out = {}
     for mod in counters:
         name = mod.__name__.rsplit(".", 1)[1]
         u8 = getattr(mod, "launches_u8", None)
-        out[name] = mod.launches - (u8 or 0)
+        fixed = getattr(mod, "launches_fixed", None)
+        out[name] = mod.launches - (u8 or 0) - (fixed or 0)
         if u8 is not None:
             out[f"{name}[u8]"] = u8
+        if fixed is not None:
+            out[f"{name}[fixed]"] = fixed
     return out
+
+
+def polar_layers(cfg) -> int:
+    """The layers of ``cfg.policy`` whose codec has the page-native kernels
+    (polar): only they launch encode and attention kernels on the serving
+    paths; the other codecs' layers run plain PyTorch ops."""
+    return sum(cfg.policy.layer_config(i).codec.supports_paged_decode
+               for i in range(cfg.num_layers))
+
+
+def encode_name(cfg) -> str:
+    """The encode row a model's polar layers count on:
+    ``polar_encode[fixed]`` on the fixed angle grid."""
+    grids = {q.theta_stats for q in (cfg.policy.layer_config(i)
+                                     for i in range(cfg.num_layers))
+             if q.codec.supports_paged_decode}
+    assert len(grids) <= 1, grids
+    return "polar_encode[fixed]" if grids == {"fixed"} else "polar_encode"
+
+
+def decode_flushes(cfg, steps: int) -> int:
+    """Encodes of the decode form (``polar_encode[decode]``) among
+    ``steps`` flush launches per polar layer: none on the fixed grid,
+    whose row counts both forms."""
+    return polar_layers(cfg) * steps if encode_name(cfg) == "polar_encode" \
+        else 0
 
 
 def encode_forms(launches: dict, flushes: int) -> dict:
@@ -402,7 +446,71 @@ def check_encode(torch, dev, gen, flush) -> list[dict]:
               f"{lb} {ms:.4f} ms (plain {plain:.4f} ms, bound "
               f"{enc_bound(tok, pg)[0]:.4f} ms)"
               for lb, (ms, plain, tok, pg) in decode.items()), flush=True)
+    rows.append(check_encode_fixed(torch, dev, flush, k, pages, res,
+                                   dforms["one slot flushing"], some))
     return rows
+
+
+def check_encode_fixed(torch, dev, flush, k, pages, res, dpages,
+                       some) -> dict:
+    """#1 on the fixed angle grid (``theta_stats="fixed"``) in its three
+    forms on the inputs of :func:`check_encode`, plus a pair at theta ==
+    2pi exactly: codes and stats bit-equal to the plain version, skipped
+    pages untouched; timed in the prefill form (the row) and the decode
+    form with one slot flushing (its own line)."""
+    from repro_torch.kernels import polar_encode as pe
+    k = k.clone()
+    k[0, 2, 11, 3], k[0, 2, 11, 3 + P] = -1.0, 0.0   # atan2(+0, -1) + pi
+    pk, pp_ = _encode_pools(torch, dev), _encode_pools(torch, dev)
+    for kk, pg in ((k, pages), (res, dpages), (res, some)):
+        pe.polar_encode_pages(kk, pg, *pk, fixed=True)
+        pe.polar_encode_pages_plain(kk, pg, *pp_, fixed=True)
+    dk = pe.polar_encode(k, fixed=True)
+    dp = pe.polar_encode_plain(k, fixed=True)
+    torch.cuda.synchronize()
+    err = max(max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(x, y)) for x, y in ((pk, pp_), (dk, dp)))
+    assert err == 0.0, f"fixed-grid encode differs from the plain version "\
+        f"({err})"
+    assert int(dk[0][0, 2, 0, 11, 3]) & 15 == 15, "theta == 2pi not clipped"
+    assert float(dk[3].max()) == float(dk[3].min()) > 0 and \
+        not dk[4].any()
+    written = {*pages.flatten().tolist(), 11, 12, 13, 14, 64}
+    untouched = [i for i in range(pk[0].shape[0]) if i not in written]
+    assert all(int(x[untouched].abs().sum()) == 0 for x in pk), \
+        "skipped pages written"
+
+    def timed(kk, pg):
+        return (time_ms(torch, lambda: pe.polar_encode_pages(
+                    kk, pg, *pk, fixed=True), flush=flush),
+                time_ms(torch, lambda: pe.polar_encode_pages_plain(
+                    kk, pg, *pp_, fixed=True), iters=10, flush=flush,
+                    lead_cycles=PLAIN_LEAD))
+
+    def enc_bound(tokens, pg):
+        # the bytes of check_encode's bound; ~20 fp32 operations per pair
+        # (no theta min/max)
+        nbytes = pg.numel() * 4 + tokens * HKV * (D * 2 + P) \
+            + 4 * (tokens // G) * HKV * P * 4
+        return bound(nbytes, 20 * tokens * HKV * P, "fp32")
+
+    ms, plain_ms = timed(k, pages)
+    b_ms, by = enc_bound(1024, pages)
+    dms, dplain = timed(res, dpages)
+    print(f"encode[fixed]: the fixed angle grid, bit-equal to the plain "
+          f"version in the prefill, decode and dense forms; prefill form "
+          f"(1 x 4 kv heads x 1024 tokens, bf16) {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms); decode form (8 slots' "
+          f"residual groups, one slot flushing) {dms:.4f} ms (plain "
+          f"{dplain:.4f} ms, bound {enc_bound(G, dpages)[0]:.4f} ms)",
+          flush=True)
+    return {"name": "polar_encode[fixed]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/polar_encode.cu",
+            "replaces": "src/repro/kernels/polar_encode.py:51",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "shape": "prefill form on the fixed angle grid, 1 x 4 kv heads "
+                     "x 1024 tokens x 64 bf16 (launches: both forms)"}
 
 
 def check_decode(torch, dev, gen, flush) -> dict:
@@ -1314,10 +1422,6 @@ VARIANTS = (
        "\"memory\");"))),
 )
 
-# kernels whose C entry another checkout's source may replace as it is
-# (``--variants --before DIR``): their signature has not changed
-BEFORE_KERNELS = ("polar_encode",)
-
 
 def _prefill_inputs(torch, dev, gen, start):
     """Arguments of ``paged_prefill.polar_paged_prefill_grouped`` at the
@@ -1357,11 +1461,10 @@ def _decode_inputs(torch, dev, gen, s, n):
     return (q, codes, *stats, vals, table, fl)
 
 
-def _variant_sources(before=None) -> list[tuple[str, str, dict]]:
+def _variant_sources() -> list[tuple[str, str, dict]]:
     """(kernel, label, {file name: text}) of each variant: ``VARIANTS``'
     edits of the current sources (the kernel's ``.cu`` and every shared
-    ``.cuh``), then, with ``before`` (the root of another checkout), that
-    checkout's sources of ``BEFORE_KERNELS``."""
+    ``.cuh``)."""
     from repro_torch.kernels import _build
     out = []
     for name, label, edits in VARIANTS:
@@ -1373,16 +1476,10 @@ def _variant_sources(before=None) -> list[tuple[str, str, dict]]:
                 f"{label}: {old!r} not found once"
             srcs[hits[0]] = srcs[hits[0]].replace(old, new)
         out.append((name, label, srcs))
-    if before is not None:
-        csrc = Path(before).resolve() / "src/repro_torch/kernels/csrc"
-        for name in BEFORE_KERNELS:
-            out.append((name, f"the kernel of {before}",
-                        {f.name: f.read_text() for f in
-                         (csrc / f"{name}.cu", *csrc.glob("*.cuh"))}))
     return out
 
 
-def phase_variants(torch, before=None) -> None:
+def phase_variants(torch) -> None:
     """Builds each variant of :func:`_variant_sources` (one parallel
     ``nvcc`` each), checks it against the current source and times both at
     the kernel checks' main-path shapes, in the order current, variant,
@@ -1399,7 +1496,7 @@ def phase_variants(torch, before=None) -> None:
             "paged_prefill": ppk, "polar_attention": pak,
             "polar_encode": pe}
     _build.build(tuple(mods))
-    variants = _variant_sources(before)
+    variants = _variant_sources()
     procs = []
     for i, (name, label, srcs) in enumerate(variants):
         # quoted includes resolve in the copy's own directory first
@@ -1551,13 +1648,15 @@ def plain_kernels():
         yield
 
 
-def phase_model(torch, model, params) -> None:
+def paged_logit_gate(torch, model, params, t0=512, steps=16):
+    """Per-step relative L2 error of the logits, kernels vs plain
+    versions, of a ``t0``-token paged prefill and ``steps`` teacher-forced
+    decode steps (one slot of 8 pages), and the argmax agreement."""
     from repro_torch.core.cache_layout import PagedLayout
-    dev = torch.device("cuda")
+    dev = params["embed"].device
     cfg = model.cfg
     rng = torch.Generator(device="cpu")
     rng.manual_seed(1)
-    t0, steps = 512, 16
     toks = torch.randint(0, cfg.vocab_size, (t0 + steps,), generator=rng)
     layout = PagedLayout(page_size=G, num_pages=8, slots=1, pages_per_slot=8)
     table = torch.arange(8, dtype=torch.int32, device=dev)[None]
@@ -1583,6 +1682,12 @@ def phase_model(torch, model, params) -> None:
     agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
     assert torch.isfinite(kern).all()
     assert float(rel.max()) <= MODEL_REL_L2, f"logits drift {rel.tolist()}"
+    return rel, agree
+
+
+def phase_model(torch, model, params) -> None:
+    t0, steps = 512, 16
+    rel, agree = paged_logit_gate(torch, model, params, t0, steps)
     print(f"model: tinyllama-1.1b bf16 22 layers, prefill {t0} + {steps} "
           f"teacher-forced decode steps; relative L2 logit error kernel vs "
           f"plain per step max {float(rel.max()):.3e} (prefill "
@@ -1615,16 +1720,17 @@ def check_events(events, reqs) -> None:
 
 
 def serve_expect(launches: dict, cfg, out, prompt_lens) -> dict:
-    """The exact launches of a classic paged serving run: a prefill
-    encodes only when the prompt fills at least one group; every decode
-    step (each micro-step of a run-ahead horizon, frozen lanes included)
-    launches the paged decode and the (masked) flush encode once a
-    layer."""
+    """The exact launches of a classic paged serving run: flash prefill
+    once a layer and prompt; per polar layer, a prefill encodes only when
+    the prompt fills at least one group, and every decode step (each
+    micro-step of a run-ahead horizon, frozen lanes included) launches the
+    paged decode and the (masked) flush encode once."""
     nl, steps = cfg.num_layers, out["decode_steps"]
+    npl = polar_layers(cfg)
     full = sum(int(t) >= G for t in prompt_lens)
     return {**dict.fromkeys(launches, 0),
-            "polar_encode": nl * (full + steps),
-            f"paged_decode{value_form(cfg)}": nl * steps,
+            encode_name(cfg): npl * (full + steps),
+            f"paged_decode{value_form(cfg)}": npl * steps,
             "flash_prefill": nl * out["prefills"]}
 
 
@@ -1652,15 +1758,16 @@ def serve_line(out) -> str:
 
 
 def phase_serve(torch, model, params, counters, n_req=16, new=64, seed=0,
-                label="serve", eager_arm=True) -> dict:
+                label="serve", eager_arm=True, gap=0.02) -> tuple:
     """``n_req`` greedy requests (prompts 100-900 tokens, ``new`` tokens,
-    20 ms apart) through the classic paged engine: 8 slots, max_len
+    ``gap`` s apart) through the classic paged engine: 8 slots, max_len
     1024, its decode steps replayed CUDA graphs (captured in the warmup).
     With ``eager_arm``, the same workload again with the graph cache
     patched to its eager route (every decode step issued eagerly, as on
     the CPU): each request's tokens
     and events must equal the graphed run's (the order across requests
-    follows the engine clock, so it may differ)."""
+    follows the engine clock, so it may differ). Returns the graphed
+    run's launches and its result."""
     import numpy as np
     from repro_torch.serve import (
         ContinuousBatchingEngine, GenerationConfig, Request,
@@ -1673,7 +1780,7 @@ def phase_serve(torch, model, params, counters, n_req=16, new=64, seed=0,
 
     def reqs():
         return [Request(rid=i, prompt=p, max_new_tokens=new,
-                        arrival_time=0.02 * i) for i, p in enumerate(prompts)]
+                        arrival_time=gap * i) for i, p in enumerate(prompts)]
 
     eng = ContinuousBatchingEngine(model, params, max_slots=8, max_len=1024)
     eng.warmup([int(t) for t in lens])
@@ -1696,8 +1803,8 @@ def phase_serve(torch, model, params, counters, n_req=16, new=64, seed=0,
         assert launches == expect, (arm, launches, expect)
         assert out["prefills"] == n_req
         outs[arm] = out
-        counts[arm] = encode_forms(launches, cfg.num_layers
-                                   * out["decode_steps"])
+        counts[arm] = encode_forms(launches,
+                                   decode_flushes(cfg, out["decode_steps"]))
     assert outs["graph"]["decode_graphs"] == len(widths)   # none recaptured
     if eager_arm:
         assert rid_events(outs["eager"]) == rid_events(outs["graph"]), \
@@ -1713,7 +1820,7 @@ def phase_serve(torch, model, params, counters, n_req=16, new=64, seed=0,
               f"step eager / graphed "
               f"{e['decode_step_s_mean'] / g['decode_step_s_mean']:.2f}x; "
               "each request's tokens and events identical", flush=True)
-    return counts["graph"]
+    return counts["graph"], outs["graph"]
 
 
 #: each counted kernel wrapper's CUDA kernel functions, as a profile names
@@ -1984,21 +2091,24 @@ def spec_expect(launches: dict, cfg, out, prompt_lens) -> tuple[dict, int]:
     width q launches, per layer, 2q encodes and q paged decodes (the scan
     verifier: q steps on the shadow state, q masked commits) or 2
     encodes and 2 score-only LUT launches (the span verifier: the flush
-    emulation and the commit; the pages and the flushed group)."""
-    nl = cfg.num_layers
+    emulation and the commit; the pages and the flushed group). Per
+    layer means per polar layer (``polar_layers``), but flash prefill."""
+    nl, npl = cfg.num_layers, polar_layers(cfg)
     sp = out.get("spec", {})
     hist = sp.get("dispatches_by_q", {})
     plain = out["decode_steps"] - sp.get("steps", 0)
     scan = cfg.decode_backend != "jnp"
     attn = "paged_decode" if scan else "polar_qk"
-    flushes = nl * plain + sum(n * nl * (2 * q if scan else 2)
-                               for q, n in hist.items())
+    flushes = npl * plain + sum(n * npl * (2 * q if scan else 2)
+                                for q, n in hist.items())
     full = sum(int(t) >= G for t in prompt_lens)
+    enc = encode_name(cfg)
     return ({**dict.fromkeys(launches, 0),
-             "polar_encode": nl * full + flushes,
-             attn: nl * plain + sum(n * nl * (q if scan else 2)
-                                    for q, n in hist.items()),
-             "flash_prefill": nl * out["prefills"]}, flushes)
+             enc: npl * full + flushes,
+             attn: npl * plain + sum(n * npl * (q if scan else 2)
+                                     for q, n in hist.items()),
+             "flash_prefill": nl * out["prefills"]},
+            flushes if enc == "polar_encode" else 0)
 
 
 def _qk_span_check(torch, q_n=5) -> str:
@@ -2381,18 +2491,18 @@ def phase_prefix(torch, model, params, counters, n_req=12, new=32, seed=3,
         check_events(out["events"], done)
         hits = [0] + [sys_len] * (n_req - 1) if shared else [0] * n_req
         chunks, full = _chunk_plan([len(p) for p in prompts], hits, TC)
-        nl, steps = cfg.num_layers, out["decode_steps"]
+        npl, steps = polar_layers(cfg), out["decode_steps"]
         expect = {**dict.fromkeys(got, 0),
-                  "polar_encode": nl * (full + steps),
-                  f"paged_decode{form}": nl * steps,
-                  f"paged_prefill{form}": nl * chunks}
+                  encode_name(cfg): npl * (full + steps),
+                  f"paged_decode{form}": npl * steps,
+                  f"paged_prefill{form}": npl * chunks}
         assert got == expect, (shared, got, expect)
-        assert mma == nl * chunks, ("paged prefill off the tensor cores",
-                                    mma, nl * chunks)
+        assert mma == npl * chunks, ("paged prefill off the tensor cores",
+                                     mma, npl * chunks)
         assert out["prefills"] == chunks
         assert out["cow_splits"] == 0
         runs[shared] = out
-        launches[shared] = encode_forms(got, nl * steps)
+        launches[shared] = encode_forms(got, decode_flushes(cfg, steps))
     streams = [{r.rid: r.out_tokens for r in out["requests"]}
                for out in runs.values()]
     assert all(x == streams[0] for x in streams), \
@@ -2435,16 +2545,19 @@ def _teacher_logits(torch, model, params, prompts, tokens, steps):
     return torch.stack(out), state
 
 
-def _static_layer_bytes(method: str, value_bits: int) -> int:
-    """Bytes of one layer's dense cache at the static shape (8 rows, 4 kv
-    heads, 1152 tokens, d 64, g 128): polar keys as one code byte per pair,
-    four fp32 stat rows per group and the bf16 residual group, or bf16
-    keys for ``"none"``; values as bf16 rows, or uint8 codes with an fp32
-    scale and zero per row; the int32 length."""
+def _static_layer_bytes(q) -> int:
+    """Bytes of one layer's dense cache under ``q`` at the static shape (8
+    rows, 4 kv heads, 1152 tokens, d 64, g 128): polar keys as one code
+    byte per pair, four fp32 stat rows per group and the bf16 residual
+    group; int keys as one code byte per element and an fp32 scale and
+    zero per token; bf16 keys for ``"none"``. Values as bf16 rows, or
+    uint8 codes with an fp32 scale and zero per row; the int32 length."""
     rows = SB * HKV * SMAX
-    keys = rows * P + 4 * SB * HKV * SG * P * 4 + SB * HKV * G * D * 2 \
-        if method == "polar" else rows * D * 2
-    return keys + (rows * (D + 8) if value_bits else rows * D * 2) + 4
+    keys = {"polar": rows * P + 4 * SB * HKV * SG * P * 4
+            + SB * HKV * G * D * 2,
+            "int": rows * D + 2 * rows * 4,
+            "none": rows * D * 2}[q.method]
+    return keys + (rows * (D + 8) if q.value_bits else rows * D * 2) + 4
 
 
 STATIC_RUNS = (("polar", "jnp"), ("polar", "paged_fused"), ("none", "jnp"))
@@ -2458,10 +2571,13 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
     score-only route (``"jnp"``), polar on the fused route
     (``"paged_fused"``) and the fp ``"none"`` cache. Counters are set to 0
     just before each generate and read just after; returns the launches of
-    the runs, summed."""
+    the runs, summed. Under a per-layer policy (``cfg.cache_policy``, which
+    the codec of ``runs`` does not replace) the kernels run in its polar
+    layers only."""
     import dataclasses
     import numpy as np
     from repro_torch.core import kv_cache as kvc
+    from repro_torch.core.quantizers import QuantConfig
     from repro_torch.kernels import polar_attention as pak
     from repro_torch.models import get_model
     from repro_torch.serve import GenerationConfig, ServeEngine
@@ -2472,7 +2588,6 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
     nl, steps = cfg.num_layers, SNEW - 1
     total: dict = {}
     models, toks, per_layer = {}, {}, {}
-    vb = cfg.quant.value_bits
     for method, backend in runs:
         name = f"{method}/{backend}"
         model = get_model(dataclasses.replace(
@@ -2486,32 +2601,35 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
                            GenerationConfig(max_new_tokens=SNEW))
         torch.cuda.synchronize()
         got = read_counts(counters)
-        polar = method == "polar"
-        # prefill encodes its 7 full groups in one launch per layer, the
-        # append at position 1023 flushes once (the decode form); one
-        # attention launch per layer and decode step on the run's route
+        npl = polar_layers(model.cfg)
+        # prefill encodes its 7 full groups in one launch per polar layer,
+        # the append at position 1023 flushes once (the decode form); one
+        # attention launch per polar layer and decode step on the run's
+        # route
         route = ("polar_attention" + value_form(cfg)
                  if backend == "paged_fused" else "polar_qk")
-        expect = {**dict.fromkeys(got, 0), "polar_encode": 2 * nl * polar,
+        expect = {**dict.fromkeys(got, 0), "polar_encode": 2 * npl,
                   "flash_prefill": nl}
-        if polar:
-            expect[route] = nl * steps
+        if npl:
+            expect[route] = npl * steps
         assert got == expect, (name, got, expect)
         # every fused-route launch on the split body
         fused = got["polar_attention" + value_form(cfg)]
         assert pak.launches_split == fused, \
             (name, "polar_attention off the split body", pak.launches_split)
-        # the decode form: the flush at position 1023, once per layer
-        got = encode_forms(got, nl * polar)
+        # the decode form: the flush at position 1023, once per polar layer
+        got = encode_forms(got, npl)
         assert out["tokens"].shape == (SB, SNEW)
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
         models[name], toks[name] = model, out["tokens"]
         per_layer[name] = out["cache_bytes_per_layer"]
-        assert per_layer[name] == [_static_layer_bytes(method, vb)] * nl \
-            and out["cache_bytes"] == nl * per_layer[name][0], per_layer[name]
+        assert per_layer[name] == [
+            _static_layer_bytes(model.cfg.policy.layer_config(i))
+            for i in range(nl)] and \
+            out["cache_bytes"] == sum(per_layer[name]), per_layer[name]
         gate = ""
-        if polar:
+        if npl:
             # gate 1: the logits after prefill and over the first 8 decode
             # steps, against the same run with every kernel's plain version
             tok_t = torch.as_tensor(out["tokens"], device=dev).long()
@@ -2527,22 +2645,23 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
             gate = (f"; rel. L2 logits vs plain max {float(rel.max()):.3e} "
                     f"(prefill {float(rel[0].max()):.3e}, limit "
                     f"{MODEL_REL_L2})")
-        bits = kvc.cache_logical_bits(model.init_decode_state(1, G, dev)[0])
+        bits = [kvc.cache_logical_bits(c)
+                for c in model.init_decode_state(1, G, dev)]
         print(f"{label}[{name}]: {SB} rows x {SPROMPT}-token prompts, "
               f"{SNEW} greedy tokens, max_len {SMAX}: prefill "
               f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s = "
               f"{out['tokens_per_s']:.1f} tok/s; cache "
-              f"{per_layer[name][0]} B per layer "
-              f"({bits:.2f} logical key "
+              f"{sum(per_layer[name]) / nl:.0f} B per layer "
+              f"({sum(bits) / nl:.4f} logical key "
               f"bits/element){gate}; launches {json.dumps(got)}",
               flush=True)
-    polar_bytes = per_layer["polar/jnp"][0]
+    polar_bytes = sum(per_layer["polar/jnp"]) / nl
     a, b = toks["polar/jnp"], toks["polar/paged_fused"]
     same = a == b
     line = (f"{label}: cache bytes per layer polar / fp = "
-            f"{polar_bytes / _static_layer_bytes('none', 0):.4f}, polar / "
-            f"polar with bf16 values = "
-            f"{polar_bytes / _static_layer_bytes('polar', 0):.4f}; greedy "
+            f"{polar_bytes / _static_layer_bytes(QuantConfig('none')):.4f}, "
+            f"polar / polar with bf16 values = "
+            f"{polar_bytes / _static_layer_bytes(QuantConfig()):.4f}; greedy "
             f"tokens of the score-only and fused routes agree on "
             f"{float(same.mean()):.4f} of {same.size}")
     if not same.all():
@@ -2634,13 +2753,188 @@ def phase_values(torch, cfg, params, counters) -> dict:
           f"kernel vs plain per step max {gate:.3e} (prefill {gate_pre:.3e}, "
           f"limit {MODEL_REL_L2})", flush=True)
     runs = [phase_serve(torch, model, params, counters, n_req=8, new=32,
-                        seed=6, label="values:serve", eager_arm=False),
+                        seed=6, label="values:serve", eager_arm=False)[0],
             phase_prefix(torch, model, params, counters, n_req=6, new=16,
                          seed=7, arms=(True,), label="values:prefix"),
             phase_static(torch, vcfg, params, counters, runs=STATIC_RUNS[:2],
                          label="values:static")]
     print(f"values: phase {time.monotonic() - t_phase:.1f} s", flush=True)
     return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the baseline key codecs and per-layer cache policies
+# ---------------------------------------------------------------------------
+
+#: bytes of one pool page of one layer (4 kv heads, d 64, g 128, bf16
+#: values: 65,536 B of each) by codec: polar one code byte per pair and
+#: four fp32 stat rows; kivi one code byte per element and an fp32 scale
+#: and zero per channel; int one code byte per element and an fp32 scale
+#: and zero per token; zipcache those of int and an fp32 norm per channel;
+#: none the bf16 keys
+PAGE_BYTES = {"polar": 83_968, "kivi": 100_352, "int": 102_400,
+              "zipcache": 103_424, "none": 131_072}
+#: the codecs phase's arms' logical key bits per element (d 64, g 128)
+ARM_BITS = {"int8": 8.5, "int4": 4.5, "kivi4": 4.25, "zipcache4": 4.625,
+            "none": 16.0, "polar-fixed": 4.125,
+            "mixed": (2 * 8.5 + 20 * 4.25) / 22}
+
+
+def codec_arms(cfg) -> dict:
+    """The codecs phase's model configs: int8, int4, KIVI 4-bit, ZipCache
+    4-bit, the fp passthrough, polar on the fixed angle grid, and
+    ``CachePolicy.first_k(2, int8, polar)``."""
+    import dataclasses
+    from repro_torch.core.codecs import CachePolicy
+    q = cfg.quant
+
+    def quant(**kw):
+        return dataclasses.replace(cfg, quant=dataclasses.replace(q, **kw))
+
+    int8 = dataclasses.replace(q, method="int", key_bits=8)
+    return {"int8": quant(method="int", key_bits=8),
+            "int4": quant(method="int", key_bits=4),
+            "kivi4": quant(method="kivi", key_bits=4),
+            "zipcache4": quant(method="zipcache", key_bits=4),
+            "none": quant(method="none"),
+            "polar-fixed": quant(theta_stats="fixed"),
+            "mixed": dataclasses.replace(
+                cfg, cache_policy=CachePolicy.first_k(2, int8, q))}
+
+
+def paged_layer_bytes(model, dev) -> list[int]:
+    """Each layer's paged cache bytes at the serving shape (8 slots x 8
+    pages, 65 pool pages with the scratch page), asserted exactly: the
+    pool pages at ``PAGE_BYTES``, a grouped codec's bf16 residual group
+    per slot and kv head, the int32 lengths."""
+    from repro_torch.core import paged_cache as pgc
+    from repro_torch.core.cache_layout import PagedLayout
+    from repro_torch.utils import tree_bytes
+    lay = PagedLayout(page_size=G, num_pages=64, slots=8, pages_per_slot=8)
+    state = model.init_paged_state(lay, dev)
+    got, want = [], []
+    for i, c in enumerate(state):
+        page = PAGE_BYTES[model.cfg.policy.layer_config(i).method]
+        assert pgc.pool_page_bytes(c) == page, (i, pgc.pool_page_bytes(c))
+        want.append(lay.pool_pages * page + 8 * 4
+                    + (8 * HKV * G * D * 2 if c.grouped else 0))
+        got.append(tree_bytes(c))
+    assert got == want, (got, want)
+    return got
+
+
+def codecs_spec(torch, cfg, params, counters) -> dict:
+    """Speculative decode under ``cfg``'s policy: 8 greedy requests
+    (prompts 100-900, 64 new tokens, all at t = 0), plain and
+    ``SpecConfig(k=4)`` ngram arms on the scan (``"paged_fused"``) and the
+    span (``"jnp"``) verifier, graphed: each spec arm's streams and
+    per-request events equal its plain arm's, exact launches
+    (``spec_expect``). Returns the launches, summed."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import get_model
+    from repro_torch.serve import (
+        ContinuousBatchingEngine, GenerationConfig, Request,
+        check_event_stream,
+    )
+    from repro_torch.spec import SpecConfig
+    rng = np.random.default_rng(43)
+    lens = rng.integers(100, 901, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32)
+               for t in lens]
+    total, outs = {}, {}
+    for backend in ("paged_fused", "jnp"):
+        model = get_model(dataclasses.replace(cfg, decode_backend=backend))
+        for spec in (None, SpecConfig(mode="ngram", k=4)):
+            eng = ContinuousBatchingEngine(model, params, max_slots=8,
+                                           max_len=1024, spec=spec)
+            eng.warmup([int(t) for t in lens])
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            out = eng.run([Request(rid=i, prompt=p, max_new_tokens=64)
+                           for i, p in enumerate(prompts)],
+                          GenerationConfig())
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            done = out["requests"]
+            assert len(done) == 8 and all(r.done_tokens == 64 for r in done)
+            check_events(out["events"], done)
+            check_event_stream(out["events"])
+            assert out["proposer_faults"] == 0
+            expect, flushes = spec_expect(launches, model.cfg, out, lens)
+            assert launches == expect, (backend, spec, launches, expect)
+            counts = encode_forms(launches, flushes)
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            outs[backend, spec is not None] = out
+            sp = out.get("spec")
+            print(f"codecs:spec[{backend}, "
+                  f"{'ngram k 4' if sp else 'plain'}]: 8 requests x 64 "
+                  f"tokens, {serve_line(out)}" + (
+                      f"; spec steps {sp['steps']}, acceptance "
+                      f"{sp['acceptance_rate']:.3f}" if sp else "")
+                  + f"; launches {json.dumps(counts)}", flush=True)
+        assert outs[backend, True]["spec"]["steps"] > 0
+        assert rid_events(outs[backend, True]) == \
+            rid_events(outs[backend, False]), \
+            f"{backend}: spec streams or events differ from plain"
+    return total
+
+
+def phase_codecs(torch, cfg, params, counters) -> dict:
+    """The baseline key codecs and per-layer cache policies at full width
+    (``codec_arms``; the same weights): per arm, the ``serve`` phase's
+    classic paged serving of 8 greedy requests (prompts 100-900, 64 new,
+    all at t = 0) with exact launches from its polar layers and exact
+    cache bytes per layer, with an eager arm for int8 and the mixed
+    policy; the logit gate (kernels vs plain versions) for the mixed
+    policy and the fixed grid; chunked prefill with and without the
+    shared-prefix cache (6 requests) for int8 and the mixed policy; the
+    ``static`` phase's two polar routes and the speculative arms
+    (``codecs_spec``) under the mixed policy. Returns the launches of the
+    serving runs, summed."""
+    from repro_torch.models import get_model
+    t_phase = time.monotonic()
+    nl = cfg.num_layers
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    arms = codec_arms(cfg)
+    for arm, acfg in arms.items():
+        model = get_model(acfg)
+        layer_bytes = paged_layer_bytes(model, params["embed"].device)
+        bits = acfg.policy.avg_key_bits(nl, acfg.head_dim)
+        assert abs(bits - ARM_BITS[arm]) < 1e-12, (arm, bits)
+        counts, out = phase_serve(
+            torch, model, params, counters, n_req=8, new=64, seed=9,
+            label=f"codecs:serve[{arm}]", eager_arm=arm in ("int8", "mixed"),
+            gap=0.0)
+        assert out["cache_bytes"] == sum(layer_bytes)
+        add(counts)
+        print(f"codecs[{arm}]: {polar_layers(acfg)} of {nl} layers on the "
+              f"polar kernels; {out['tokens_per_s']:.1f} tok/s, decode step "
+              f"mean {out['decode_step_s_mean'] * 1e3:.3f} ms, prefill "
+              f"{out['prefill_s_total']:.3f} s; cache bytes per layer "
+              f"{sorted(set(layer_bytes))} (exact), {bits:.4f} logical key "
+              "bits/element", flush=True)
+        if arm in ("mixed", "polar-fixed"):
+            rel, agree = paged_logit_gate(torch, model, params)
+            print(f"codecs:gate[{arm}]: prefill 512 + 16 teacher-forced "
+                  f"decode steps, relative L2 logit error kernel vs plain "
+                  f"max {float(rel.max()):.3e} (limit {MODEL_REL_L2}); "
+                  f"argmax agreement {agree:.3f}", flush=True)
+        if arm in ("int8", "mixed"):
+            add(phase_prefix(torch, model, params, counters, n_req=6,
+                             new=16, seed=10,
+                             label=f"codecs:prefix[{arm}]"))
+    add(phase_static(torch, arms["mixed"], params, counters,
+                     runs=STATIC_RUNS[:2], label="codecs:static"))
+    add(codecs_spec(torch, arms["mixed"], params, counters))
+    print(f"codecs: phase {time.monotonic() - t_phase:.1f} s", flush=True)
+    return total
 
 
 def phase_profile(torch, model, params) -> None:
@@ -2810,10 +3104,8 @@ def main() -> int:
 
     phase_env(torch)
     if sys.argv[1:2] == ["--variants"]:
-        args = sys.argv[2:]
-        assert args in ([], ["--before", *args[1:2]]) and len(args) != 1, \
-            "usage: chip_smoke.py --variants [--before DIR]"
-        phase_variants(torch, before=args[1] if args else None)
+        assert len(sys.argv) == 2, "usage: chip_smoke.py --variants"
+        phase_variants(torch)
         return 0
     phase_build()
     rows = phase_kernels(torch)
@@ -2825,18 +3117,19 @@ def main() -> int:
     params = model.init(generator=gen, device="cuda")
     phase_model(torch, model, params)
     counters = (pe, pd, fpk, ppk, pak, qkk)
-    serve = phase_serve(torch, model, params, counters)
+    serve, _ = phase_serve(torch, model, params, counters)
     phase_graphs(torch, model, params)
     runahead = phase_runahead(torch, model, params, counters)
     spec = phase_spec(torch, model, params, counters)
     prefix = phase_prefix(torch, model, params, counters)
     static = phase_static(torch, cfg, params, counters)
     values = phase_values(torch, cfg, params, counters)
+    codecs = phase_codecs(torch, cfg, params, counters)
     phase_profile(torch, model, params)
 
     phases = {"serve": serve, "runahead": runahead, "spec": spec,
-              "prefix": prefix,
-              "static": static, "values": values}
+              "prefix": prefix, "static": static, "values": values,
+              "codecs": codecs}
     print("launches per serving phase: " + json.dumps(phases), flush=True)
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in phases.values())

@@ -3,8 +3,10 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from typing import Optional
 
-from repro_torch.core.paged_cache import DECODE_BACKENDS
+from repro_torch.core.codecs import CachePolicy
+from repro_torch.core.paged_cache import DECODE_BACKENDS, PREFILL_BACKENDS
 from repro_torch.core.quantizers import QuantConfig
 
 
@@ -27,8 +29,11 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     scale_embedding: bool = False     # gemma-style sqrt(d_model) embed scale
-    # uniform key-cache policy (per-layer mixing comes in a later slice)
+    # cache policy: `quant` is the uniform default; `cache_policy`
+    # (optional) maps layer index -> QuantConfig for KVTuner-style mixed
+    # precision. Read through the `policy` property.
     quant: QuantConfig = field(default_factory=QuantConfig)
+    cache_policy: Optional[CachePolicy] = None
     # decode attention (core.paged_cache.DECODE_BACKENDS): "paged_fused"
     # walks the page table in place (paged engine) / runs the fused dense
     # kernel (dense cache); "gathered" reads a dense per-slot copy through
@@ -37,13 +42,31 @@ class ModelConfig:
     # copy. JAX defaults to "jnp"; the port to the route its paged engine
     # has always run. The tensors' device picks kernel or plain version.
     decode_backend: str = "paged_fused"
+    # chunked-prefill attention (core.paged_cache.PREFILL_BACKENDS):
+    # "paged_fused" walks the row's pages in place (the paged-prefill
+    # kernel), "jnp" gathers them (chunk_prefill_attention). Codecs
+    # without a page-native prefill take "jnp" layer by layer. JAX
+    # defaults to "jnp"; the port, as for decode, to the kernel's route.
+    prefill_backend: str = "paged_fused"
 
     def __post_init__(self):
         if self.decode_backend not in DECODE_BACKENDS:
             raise ValueError(f"unknown decode_backend {self.decode_backend!r};"
                              f" expected one of {DECODE_BACKENDS}")
+        if self.prefill_backend not in PREFILL_BACKENDS:
+            raise ValueError(
+                f"unknown prefill_backend {self.prefill_backend!r}; "
+                f"expected one of {PREFILL_BACKENDS}")
         if self.head_dim == 0 and self.num_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def policy(self) -> CachePolicy:
+        """The per-layer cache policy (uniform over ``quant`` unless
+        ``cache_policy`` is set)."""
+        if self.cache_policy is not None:
+            return self.cache_policy
+        return CachePolicy(default=self.quant)
 
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
@@ -65,6 +88,9 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     else:
         small["num_kv_heads"] = 2
     small["quant"] = replace(cfg.quant, group_size=32)
+    if cfg.cache_policy is not None:
+        small["cache_policy"] = cfg.cache_policy.map(
+            lambda q: replace(q, group_size=32))
     small.update(overrides)
     return replace(cfg, name=cfg.name + "-smoke", **small)
 

@@ -1,17 +1,21 @@
 """PolarQuant core of the port: polar transform, quantizers, codec
-registry, paged KV cache, LUT scores."""
+registry and per-layer cache policy, paged KV cache, LUT scores,
+SnapKV eviction."""
 from repro_torch.core.quantizers import (  # noqa: F401
-    PolarKeys, QuantConfig, QuantizedValues, decode_polar_keys,
-    decode_values, encode_polar_keys, encode_values,
+    ChannelKeys, PolarKeys, QuantConfig, QuantizedValues, TokenKeys,
+    ZipKeys, decode_keys, decode_polar_keys, decode_values, encode_keys,
+    encode_polar_keys, encode_values,
 )
 from repro_torch.core.codecs import (  # noqa: F401
-    KeyCodec, PolarCodec, get_codec, register_codec,
+    CachePolicy, KeyCodec, PolarCodec, get_codec, register_codec,
+    registered_codecs,
 )
 from repro_torch.core.cache_layout import (  # noqa: F401
     PageAllocator, PagedLayout, PrefixIndex, token_page_hashes,
 )
 from repro_torch.core.paged_cache import (  # noqa: F401
-    PagedKVCache, copy_pool_pages, init_paged_cache, paged_append,
+    PagedKVCache, chunk_prefill_attention, copy_pool_pages,
+    init_paged_cache, paged_append,
     paged_decode_attention, paged_prefill, paged_prefill_attention,
     pool_page_bytes,
 )

@@ -6,10 +6,11 @@ The cache owns placement and the method-agnostic machinery; the resolved
 :class:`~repro_torch.core.codecs.KeyCodec` owns buffer shapes,
 encode/decode and the score path. Buffers:
 
-* grouped codecs (polar): ``key_codes`` (B, Hkv, G, g, ·) uint8,
-  ``key_scales`` per-group stat arrays, ``key_residual`` (B, Hkv, g, d)
-  in ``cfg.residual_dtype`` — the tokens of the not-yet-full group;
-* token-wise codecs (the fp passthrough ``"none"``): ``key_codes``
+* grouped codecs (polar, kivi, zipcache): ``key_codes`` (B, Hkv, G, g, ·)
+  uint8, ``key_scales`` per-group stat arrays, ``key_residual``
+  (B, Hkv, g, d) in ``cfg.residual_dtype`` — the tokens of the
+  not-yet-full group;
+* token-wise codecs (int, the fp passthrough ``"none"``): ``key_codes``
   (B, Hkv, T, ·) and per-token ``key_scales`` (``{}`` for ``"none"``);
 * values, token-major: ``value_fp`` (B, Hkv, T, d) in the model dtype,
   or, under ``cfg.value_bits > 0``, ``value_codes`` (B, Hkv, T, d) uint8

@@ -1,18 +1,25 @@
 """Paged quantized KV cache: a shared page pool + per-slot page tables
 (port of ``repro/core/paged_cache.py``, the paths of paged
 continuous-batching serving: whole-prompt and chunked prefill, decode
-append, decode attention on its three backends, page-native chunk
-attention, copy-on-write copies).
+append, decode attention on its three backends, chunk attention on its
+two, copy-on-write copies, the speculative span's attention and commit).
 
 One page holds exactly one quantization group (``page_size ==
 group_size``): its key codes/stats and its ``page_size`` token-major value
-rows. Buffer shapes (``PP = num_pages + 1``: the last page is the
-masked-write scratch page, ``S`` = slots, ``g`` = page size):
+rows. Key buffers come from the resolved codec (``core/codecs.py``).
+Buffer shapes (``PP = num_pages + 1``: the last page is the masked-write
+scratch page, ``S`` = slots, ``g`` = page size):
 
-* ``key_codes``    (PP, H, g, P) uint8 page pool
-* ``key_scales``   dict of four (PP, H, 1, P) fp32 stat pools
-* ``key_residual`` (S, H, g, d) per-slot not-yet-full group
-  (``cfg.residual_dtype``)
+* grouped codecs (polar, kivi, zipcache):
+    - ``key_codes``    (PP, H, g, ·) uint8 page pool (polar: (PP, H, g, P))
+    - ``key_scales``   dict of (PP, H, 1|g, ·) stat pools (polar: four
+      (PP, H, 1, P) fp32)
+    - ``key_residual`` (S, H, g, d) per-slot not-yet-full group
+      (``cfg.residual_dtype``)
+* token-wise codecs (int, the fp passthrough ``"none"``): ``key_codes``
+  (PP, H, g, ·) token-major page rows (the keys themselves in the model
+  dtype for ``"none"``) + per-token ``key_scales`` pools; no residual
+  (``key_residual`` is ``None``)
 * ``value_fp``     (PP, H, g, d) token-major value rows (model dtype), or
   under ``cfg.value_bits > 0`` ``value_codes`` (PP, H, g, d) uint8 with
   ``value_scale`` / ``value_zero`` (PP, H, g, 1) (``cfg.scale_dtype``),
@@ -20,17 +27,24 @@ masked-write scratch page, ``S`` = slots, ``g`` = page size):
 * ``lengths``      (S,) int32 per-slot token counts
 
 Value rows for positions ``[0, len)`` live in pages (row ``pos % g`` of
-page ``table[pos // g]``), key codes for ``[0, flushed)`` live in pages,
-and keys of the partial group ``[flushed, len)`` live in the residual.
+page ``table[pos // g]``); a grouped codec's key codes for ``[0,
+flushed)`` live in pages and keys of the partial group ``[flushed, len)``
+in the residual, a token-wise codec's key rows sit beside the value rows.
+
+Decode and chunk attention dispatch on the codec's capabilities, as JAX
+does: a codec with a page-native kernel (``supports_paged_decode`` /
+``supports_paged_prefill``: polar) reads its pages in place; the others
+take the gathered route (:func:`gather_view` + the dense decode) and
+:func:`chunk_prefill_attention`.
 
 **In-place updates.** The JAX engine donates its state to each jitted
 step; here :func:`paged_prefill` and :func:`paged_append` update the pools,
 the residual and ``lengths`` in place (``index_copy_``, indexed
 assignment) and return the same cache object. Group encodes write codes
-and stats straight into their pool pages (one kernel launch); a group
-that is not written (padding pages at prefill, non-flushing slots at
-decode) is skipped rather than redirected to the scratch page, so only
-the never-read scratch page can differ from the JAX cache.
+and stats straight into their pool pages (one kernel launch for polar); a
+polar group that is not written (padding pages at prefill, non-flushing
+slots at decode) is skipped rather than redirected to the scratch page,
+so only the never-read scratch page can differ from the JAX cache.
 :func:`copy_pool_pages` (the device half of a COW split) also copies in
 place.
 """
@@ -47,9 +61,9 @@ from repro_torch.utils import resolve_device, torch_dtype
 
 @dataclasses.dataclass
 class PagedKVCache:
-    key_codes: torch.Tensor          # (PP, H, g, P) uint8
-    key_scales: dict                 # four (PP, H, 1, P) stat pools
-    key_residual: torch.Tensor       # (S, H, g, d)
+    key_codes: torch.Tensor          # codec page pool (fp rows for "none")
+    key_scales: dict                 # codec stat pools (may be {})
+    key_residual: torch.Tensor | None    # (S, H, g, d), grouped codecs
     value_codes: torch.Tensor | None     # (PP, H, g, d) uint8
     value_scale: torch.Tensor | None     # (PP, H, g, 1)
     value_zero: torch.Tensor | None      # (PP, H, g, 1)
@@ -62,6 +76,10 @@ class PagedKVCache:
     def codec(self):
         return self.cfg.codec
 
+    @property
+    def grouped(self) -> bool:
+        return self.cfg.codec.grouped
+
 
 def init_paged_cache(cfg: QuantConfig, layout: PagedLayout, num_kv_heads: int,
                      head_dim: int, dtype=torch.bfloat16,
@@ -70,10 +88,7 @@ def init_paged_cache(cfg: QuantConfig, layout: PagedLayout, num_kv_heads: int,
     ``device`` (the card unless named)."""
     device = resolve_device(device)
     codec = cfg.codec
-    if not codec.grouped or not codec.supports_paged_decode:
-        raise ValueError(f"codec {cfg.method!r} has no paged path in this "
-                         "port")
-    if layout.page_size != cfg.group_size:
+    if codec.grouped and layout.page_size != cfg.group_size:
         raise ValueError(
             f"page_size {layout.page_size} must equal group_size "
             f"{cfg.group_size} (one page == one quantization group)")
@@ -81,14 +96,19 @@ def init_paged_cache(cfg: QuantConfig, layout: PagedLayout, num_kv_heads: int,
     h, d, g = num_kv_heads, head_dim, layout.page_size
     key_codes, key_scales = codec.init_buffers(cfg, (pp, h), g, d, dtype,
                                                device)
-    # one group per page: drop the G axis so the pool indexes pages directly
-    key_codes = key_codes[:, :, 0].contiguous()
-    key_scales = {k: v[:, :, 0].contiguous() for k, v in key_scales.items()}
+    key_residual = None
+    if codec.grouped:
+        # one group per page: drop the G axis so the pool indexes pages
+        # directly
+        key_codes = key_codes[:, :, 0].contiguous()
+        key_scales = {k: v[:, :, 0].contiguous()
+                      for k, v in key_scales.items()}
+        key_residual = torch.zeros((s, h, g, d),
+                                   dtype=torch_dtype(cfg.residual_dtype),
+                                   device=device)
     return PagedKVCache(
         key_codes=key_codes, key_scales=key_scales,
-        key_residual=torch.zeros((s, h, g, d),
-                                 dtype=torch_dtype(cfg.residual_dtype),
-                                 device=device),
+        key_residual=key_residual,
         **kvc.init_values(cfg, (pp, h, g), d, dtype, device),
         lengths=torch.zeros((s,), dtype=torch.int32, device=device),
         cfg=cfg, layout=layout)
@@ -130,6 +150,20 @@ def zero_cache(cache: PagedKVCache) -> PagedKVCache:
     return cache
 
 
+def _row_writes(cache: PagedKVCache, v: torch.Tensor,
+                k: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """(pool, rows) pairs of a token-major write of (…, T, ·) rows: the
+    value rows of ``v`` and, under a token-wise codec, the encoded key
+    rows of ``k`` (codes and per-token stats)."""
+    out = [(getattr(cache, key), x)
+           for key, x in kvc.value_fields(cache.cfg, v).items()]
+    if not cache.grouped:
+        codes, scales = cache.codec.encode(cache.cfg, k)
+        out.append((cache.key_codes, codes))
+        out += [(pool, scales[key]) for key, pool in cache.key_scales.items()]
+    return out
+
+
 def paged_prefill(cache: PagedKVCache, slot: int, page_row: torch.Tensor,
                   k: torch.Tensor, v: torch.Tensor, true_len: int,
                   start: int = 0) -> PagedKVCache:
@@ -140,10 +174,11 @@ def paged_prefill(cache: PagedKVCache, slot: int, page_row: torch.Tensor,
     *chunk* passes its page-aligned absolute offset ``start`` (k RoPE'd at
     the absolute positions).
     ``page_row``: (N,) int32 table row of ``slot`` on the cache's device.
-    Value rows of every page holding a real token, and the key groups that
-    are fully real, go to ``page_row[start // g:]``; the partial group goes
-    to the slot's residual (rounded through ``cfg.residual_dtype`` like
-    every encoded key, the streaming-parity invariant). The slot length
+    Value rows of every page holding a real token — and a token-wise
+    codec's key rows — and a grouped codec's key groups that are fully
+    real go to ``page_row[start // g:]``; the partial group goes to the
+    slot's residual (rounded through ``cfg.residual_dtype`` like every
+    encoded group, the streaming-parity invariant). The slot length
     becomes ``start + true_len``."""
     cfg = cache.cfg
     g = cache.layout.page_size
@@ -161,15 +196,19 @@ def paged_prefill(cache: PagedKVCache, slot: int, page_row: torch.Tensor,
     if p0 + ntouch > page_row.shape[0]:
         raise ValueError("prompt overruns the slot's page-table row")
 
-    # --- values: token-major rows of every touched page ---
+    # --- values (and token-wise keys): token-major rows of every touched
+    # page ---
     if ntouch:
         pages = page_row[p0:p0 + ntouch].long()
-        for key, x in kvc.value_fields(cfg, v[:, :, :ntouch * g]).items():
-            buf = getattr(cache, key)
+        for buf, x in _row_writes(cache, v[:, :, :ntouch * g],
+                                  k[:, :, :ntouch * g]):
             xp = x[0].reshape(h, ntouch, g, x.shape[-1]).transpose(0, 1)
             buf.index_copy_(0, pages, xp.to(buf.dtype))
+    if not cache.grouped:
+        cache.lengths[slot] = start + true_len
+        return cache
 
-    # --- keys: full groups encoded straight into their pages ---
+    # --- grouped keys: full groups encoded straight into their pages ---
     k_rdt = k.to(torch_dtype(cfg.residual_dtype))
     if nfull:
         pages = page_row[p0:p0 + nfull].to(torch.int32).reshape(1, nfull)
@@ -191,17 +230,105 @@ def paged_prefill(cache: PagedKVCache, slot: int, page_row: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def paged_prefill_attention(cache: PagedKVCache, q: torch.Tensor,
+def chunk_prefill_attention(cache: PagedKVCache, q: torch.Tensor,
                             k_chunk: torch.Tensor, v_chunk: torch.Tensor,
                             page_row: torch.Tensor, start: int,
                             chunk_len: int,
                             scale: float | None = None) -> torch.Tensor:
-    """Chunk-prefill attention, page-native (the ``"paged_fused"`` route
-    of ``repro/core/paged_cache.py:347``): the codec walks the slot's
-    table row and scores the quantized prefix pages in place with one
-    online softmax over prefix + chunk — the paged-prefill kernel for
-    CUDA tensors, its plain version for CPU tensors. ``page_row`` may be
-    width-sliced to the pages covering ``start + chunk_len``."""
+    """Attention of one prefill chunk over the slot's cached prefix, on a
+    gathered copy of the row's pages (port of
+    ``repro/core/paged_cache.py:259-340``): the ``"jnp"`` route, and the
+    route of every codec without a page-native prefill.
+
+    q: (1, Hq, Tc, d) post-RoPE queries at absolute positions ``start +
+    [0, Tc)``; k_chunk/v_chunk: (1, Hkv, Tc, d) the chunk's own fp
+    keys/values (real tokens = first ``chunk_len``). ``start`` is
+    page-aligned, so the prefix ``[0, start)`` is fully in pages (no
+    residual term). Prefix scores go through the codec's score path over
+    the encoded page bytes (polar: the score-only LUT kernel for CUDA
+    tensors), the chunk's own scores are fp causal, and one softmax
+    covers both. Returns (1, Hq, Tc, d) in q.dtype."""
+    cfg = cache.cfg
+    codec = cache.codec
+    lay = cache.layout
+    _, hq, tc, d = q.shape
+    hkv = cache.key_codes.shape[1]
+    qpk = hq // hkv
+    n = page_row.shape[0]
+    g = lay.page_size
+    t_cap = n * g
+    scale = scale if scale is not None else d ** -0.5
+    dev = q.device
+    pvalid = (page_row >= 0) & (page_row < lay.num_pages)
+    idx = page_row.long().clamp(0, lay.pool_pages - 1)
+
+    def gat(pool):  # (PP, H, a, b) -> (1, H, N, a, b), dead pages zeroed
+        zero = torch.zeros((), dtype=pool.dtype, device=pool.device)
+        x = torch.where(pvalid[:, None, None, None], pool[idx], zero)
+        return x.transpose(0, 1)[None].contiguous()
+
+    def flat(x):  # (1, H, N, g, ·) -> (1, H, N*g, ·)
+        return x.reshape(1, hkv, t_cap, x.shape[-1])
+
+    q4 = (q.float() * scale).reshape(1, hkv, qpk, tc, d)
+
+    # --- prefix scores: the codec's score path over the gathered pages,
+    # the chunk's queries folded onto the query-head axis ---
+    key_codes = gat(cache.key_codes)
+    key_scales = {kk: gat(vv) for kk, vv in cache.key_scales.items()}
+    if not cache.grouped:
+        key_codes = flat(key_codes)
+        key_scales = {kk: flat(vv) for kk, vv in key_scales.items()}
+    qf = q4.reshape(1, hkv, qpk * tc, d)
+    s_prefix = codec.scores(cfg, qf, key_codes, key_scales)
+    s_prefix = s_prefix.reshape(1, hkv, qpk, tc, t_cap)
+    neg = torch.full((), kvc.NEG_INF, dtype=torch.float32, device=dev)
+    pos = torch.arange(t_cap, device=dev)
+    s_prefix = torch.where(pos < start, s_prefix, neg)
+
+    # --- the chunk's own fp causal scores ---
+    s_chunk = torch.einsum("bhqtd,bhsd->bhqts", q4, k_chunk.float())
+    i = torch.arange(tc, device=dev)
+    cmask = (i[:, None] >= i[None, :]) & (i[None, :] < chunk_len)
+    s_chunk = torch.where(cmask, s_chunk, neg)
+    probs = torch.softmax(torch.cat([s_prefix, s_chunk], dim=-1), dim=-1)
+
+    # --- values: dequantized prefix rows + the chunk's own fp rows ---
+    values, vscale, vzero = kvc.value_buffers(cache)
+    v_pre = kvc.dequant_rows(*(None if x is None else flat(gat(x))
+                               for x in (values, vscale, vzero)))
+    v_all = torch.cat([v_pre, v_chunk.float()], dim=2)
+    out = torch.einsum("bhqts,bhsd->bhqtd", probs, v_all)
+    return out.reshape(1, hq, tc, d).to(q.dtype)
+
+
+#: chunk-prefill backends over a paged cache: "jnp" gathers the row's pages
+#: (:func:`chunk_prefill_attention`); "paged_fused" walks them in place
+#: where the codec has the kernel. The tensors' device picks kernel or
+#: plain version.
+PREFILL_BACKENDS = ("jnp", "paged_fused")
+
+
+def paged_prefill_attention(cache: PagedKVCache, q: torch.Tensor,
+                            k_chunk: torch.Tensor, v_chunk: torch.Tensor,
+                            page_row: torch.Tensor, start: int,
+                            chunk_len: int, scale: float | None = None,
+                            backend: str = "paged_fused") -> torch.Tensor:
+    """Chunk-prefill attention on one of :data:`PREFILL_BACKENDS`
+    (``repro/core/paged_cache.py:347-387``). ``"paged_fused"`` on a codec
+    with a page-native prefill (``supports_paged_prefill``): the codec
+    walks the slot's table row and scores the quantized prefix pages in
+    place with one online softmax over prefix + chunk — the paged-prefill
+    kernel for CUDA tensors, its plain version for CPU tensors. ``"jnp"``,
+    or a codec without the capability: :func:`chunk_prefill_attention`.
+    ``page_row`` may be width-sliced to the pages covering
+    ``start + chunk_len``."""
+    if backend not in PREFILL_BACKENDS:
+        raise ValueError(f"unknown paged prefill backend {backend!r}; "
+                         f"expected one of {PREFILL_BACKENDS}")
+    if backend == "jnp" or not cache.codec.supports_paged_prefill:
+        return chunk_prefill_attention(cache, q, k_chunk, v_chunk, page_row,
+                                       start, chunk_len, scale=scale)
     return cache.codec.paged_prefill(cache, q, k_chunk, v_chunk, page_row,
                                      start, chunk_len, scale=scale)
 
@@ -244,11 +371,11 @@ def paged_append(cache: PagedKVCache, k_new: torch.Tensor,
     width-sliced); active: (S,) bool — all on the cache's device, and no
     host synchronisation happens here.
 
-    Inactive slots write their value row to the scratch page and keep
-    their residual and length. One encode launch covers every slot's
-    residual group each step; only slots whose append completes the group
-    (row g-1) write it to their page (the masked flush), the others are
-    skipped."""
+    Inactive slots write their value row (and a token-wise codec's key
+    row) to the scratch page and keep their residual and length. Under a
+    grouped codec one encode launch covers every slot's residual group
+    each step; only slots whose append completes the group (row g-1)
+    write it to their page (the masked flush), the others are skipped."""
     g = cache.layout.page_size
     scratch = cache.layout.scratch_page
     s = k_new.shape[0]
@@ -261,12 +388,14 @@ def paged_append(cache: PagedKVCache, k_new: torch.Tensor,
     row = (pos % g).long()
     sid = torch.arange(s, device=pos.device)
 
-    # --- values (token-major page rows) ---
-    for key, x in kvc.value_fields(cache.cfg, v_new).items():
-        buf = getattr(cache, key)
+    # --- values and token-wise keys (token-major page rows) ---
+    for buf, x in _row_writes(cache, v_new, k_new):
         buf[page, :, row] = x[:, :, 0].to(buf.dtype)
+    if not cache.grouped:
+        cache.lengths += active.to(torch.int32)
+        return cache
 
-    # --- keys: residual row write, then the masked flush ---
+    # --- grouped keys: residual row write, then the masked flush ---
     res = cache.key_residual
     new_rows = torch.where(active[:, None, None], k_new[:, :, 0].to(res.dtype),
                            res[sid, :, row])
@@ -312,12 +441,15 @@ def paged_append_span(cache: PagedKVCache, k_span: torch.Tensor,
     pages_j = torch.where(keep, page[:, None].expand(s, qn),
                           torch.full_like(rows, scratch)).long()
 
-    # --- values: kept rows to (page, r0 + j), the rest to scratch ---
-    for key, x in kvc.value_fields(cache.cfg, v_span).items():
-        buf = getattr(cache, key)
+    # --- values and token-wise keys: kept rows to (page, r0 + j), the
+    # rest to scratch ---
+    for buf, x in _row_writes(cache, v_span, k_span):
         buf[pages_j, :, rows] = x.transpose(1, 2).to(buf.dtype)
+    if not cache.grouped:
+        cache.lengths += n_keep.to(torch.int32)
+        return cache
 
-    # --- keys: kept residual rows, then the masked flush ---
+    # --- grouped keys: kept residual rows, then the masked flush ---
     res = cache.key_residual
     ext = torch.cat([res, res.new_zeros((s, h, 1, d))], dim=2)
     wrows = torch.where(keep, rows, torch.full_like(rows, g))
@@ -366,9 +498,12 @@ def gather_view(cache: PagedKVCache,
         x = masked(x)
         return x.reshape(s, x.shape[1], t_cap, x.shape[-1])
 
+    # grouped codecs keep the (S, H, N, g, ·) group axes; token-wise key
+    # rows flatten like the value rows
+    keys = masked if cache.grouped else tokens
     return kvc.KVCache(
-        key_codes=masked(cache.key_codes),
-        key_scales={k: masked(v) for k, v in cache.key_scales.items()},
+        key_codes=keys(cache.key_codes),
+        key_scales={k: keys(v) for k, v in cache.key_scales.items()},
         key_residual=cache.key_residual,
         **{f: tokens(getattr(cache, f)) for f in
            ("value_codes", "value_scale", "value_zero", "value_fp")},
@@ -388,9 +523,10 @@ def gathered_decode_attention(cache: PagedKVCache, q: torch.Tensor,
                               scale: float | None = None,
                               backend: str = "jnp") -> torch.Tensor:
     """Decode attention over the dense per-slot view (an O(capacity) copy):
-    ``kv_cache.decode_attention`` for ``"jnp"``, the fused dense kernel
-    otherwise. The pre-page-native formulation, kept as a reference and
-    A/B arm."""
+    ``kv_cache.decode_attention`` for ``"jnp"`` and for a codec without the
+    fused dense kernel, that kernel otherwise. The pre-page-native
+    formulation, kept as a reference and A/B arm, and the route of every
+    codec without a page-native decode."""
     view = gather_view(cache, page_table)
     if backend == "jnp" or not cache.codec.supports_fused_decode:
         return kvc.decode_attention(view, q, scale=scale)
@@ -402,13 +538,15 @@ def paged_decode_attention(cache: PagedKVCache, q: torch.Tensor,
                            scale: float | None = None,
                            backend: str = "paged_fused") -> torch.Tensor:
     """Single-step attention of q (S, Hq, d) over all slots' pages, on one
-    of :data:`DECODE_BACKENDS`. ``"paged_fused"``: the codec walks the page
-    table and reads quantized pages in place. ``page_table`` may be
+    of :data:`DECODE_BACKENDS`. ``"paged_fused"``: a codec with a
+    page-native kernel (``supports_paged_decode``) walks the page table
+    and reads quantized pages in place; the others take the gathered
+    route (``repro/core/paged_cache.py:692-730``). ``page_table`` may be
     width-sliced to the live pages."""
     if backend not in DECODE_BACKENDS:
         raise ValueError(f"unknown paged decode backend {backend!r}; "
                          f"expected one of {DECODE_BACKENDS}")
-    if backend == "paged_fused":
+    if backend == "paged_fused" and cache.codec.supports_paged_decode:
         return cache.codec.paged_decode(cache, q, page_table, scale=scale)
     return gathered_decode_attention(cache, q, page_table, scale=scale,
                                      backend=backend)
@@ -420,8 +558,7 @@ def span_verify_attention(cache: PagedKVCache, q: torch.Tensor,
                           scale: float | None = None) -> torch.Tensor:
     """Speculative-span attention: Q draft positions per slot in one call,
     reproducing the sequential ``"jnp"`` decode view bit for bit (port of
-    ``repro/core/paged_cache.py:733-885``, grouped codecs: the port's
-    paged caches hold no other).
+    ``repro/core/paged_cache.py:733-885``).
 
     q: (S, Hq, Q, d) post-RoPE queries at absolute positions ``lengths +
     [0, Q)``; k_span/v_span: (S, Hkv, Q, d) the span's own post-RoPE
@@ -447,6 +584,9 @@ def span_verify_attention(cache: PagedKVCache, q: torch.Tensor,
     whose kernels are chosen by the number of rows — the residual scores,
     the softmax and ``p @ V`` — run per span column at the one-token
     step's shapes, so each column's output has the decode step's bits.
+    A token-wise codec needs no residual or flush emulation: the span keys
+    are encoded per row and written into the gathered key rows, and each
+    column scores them through the codec at the decode step's shapes.
     Span rows that fall past the table width (``lengths + j >=`` width *
     g, padding columns only) are dropped. Returns (S, Hq, Q, d) in
     ``q.dtype``."""
@@ -472,6 +612,28 @@ def span_verify_attention(cache: PagedKVCache, q: torch.Tensor,
         ext[sid, :, tpos] = upd.transpose(1, 2).to(x.dtype)
         return ext[:, :, :t_cap]
 
+    q4 = (q.float() * scale).reshape(s, hkv, qpk, qn, d)
+    v_view = {f: with_span(getattr(view, f), x) for f, x in
+              kvc.value_fields(cfg, v_span).items()}
+    values = kvc.dequant_rows(
+        *kvc.value_buffers(dataclasses.replace(view, **v_view)))
+    if not cache.grouped:
+        codes, scales = codec.encode(cfg, k_span)
+        kc = with_span(view.key_codes, codes)
+        ks = {kk: with_span(vv, scales[kk])
+              for kk, vv in view.key_scales.items()}
+        pos = torch.arange(t_cap, device=dev)[None, :]
+        neg = torch.full((), kvc.NEG_INF, dtype=torch.float32, device=dev)
+        out = []
+        for i in range(qn):
+            scores = codec.scores(cfg, q4[:, :, :, i].contiguous(), kc, ks)
+            valid = pos < (lengths[:, None] + 1 + i)           # (S, T)
+            probs = torch.softmax(
+                torch.where(valid[:, None, None], scores, neg), dim=-1)
+            o = torch.einsum("bhqt,bhtd->bhqd", probs, values)
+            out.append(o.reshape(s, hq, d).to(q.dtype))
+        return torch.stack(out, dim=2)
+
     # the final residual: span keys rounded and written at rows r0 + j
     # (rows past the group land on a discard row)
     res = cache.key_residual
@@ -482,7 +644,6 @@ def span_verify_attention(cache: PagedKVCache, q: torch.Tensor,
     res_new = ext[:, :, :g].contiguous()
 
     # fold span positions onto the query-head axis: rows (qpk, Q)
-    q4 = (q.float() * scale).reshape(s, hkv, qpk, qn, d)
     qf = q4.reshape(s, hkv, qpk * qn, d)
     s_pages = codec.scores(cfg, qf, view.key_codes, view.key_scales)
     fcodes, fscales = codec.encode(cfg, res_new)           # (S, H, 1, g, ·)
@@ -490,10 +651,6 @@ def span_verify_attention(cache: PagedKVCache, q: torch.Tensor,
     s_pages = s_pages.reshape(s, hkv, qpk, qn, t_cap)
     s_flush = s_flush.reshape(s, hkv, qpk, qn, g)
 
-    v_view = {f: with_span(getattr(view, f), x) for f, x in
-              kvc.value_fields(cfg, v_span).items()}
-    values = kvc.dequant_rows(
-        *kvc.value_buffers(dataclasses.replace(view, **v_view)))
     res32 = res_new.float()
     pos = torch.arange(t_cap, dtype=torch.int32, device=dev)[None, :]
     base = flushed0[:, None]                                # (S, 1)

@@ -1,6 +1,11 @@
-"""KV-cache quantizer math for the polar codec (port of
-``repro/core/quantizers.py``; the int, KIVI and ZipCache quantizers come
-in a later slice).
+"""KV-cache quantizer math: PolarQuant and the paper's baselines (Int-N,
+KIVI, ZipCache) — port of ``repro/core/quantizers.py``.
+
+This module holds the numerics (affine helpers, the per-method encode and
+decode functions and their quantized-key containers) and the
+:class:`QuantConfig` description. Method dispatch lives in
+:mod:`repro_torch.core.codecs`: ``QuantConfig.codec`` resolves the
+``method`` string once to a registered codec.
 
 All quantizers operate on tensors shaped ``(..., T, d)``. Group-wise
 methods require ``T % group_size == 0``; the cache layer owns the fp
@@ -10,12 +15,13 @@ Conventions (DESIGN.md §8):
 
 * PolarQuant uses a *mid-rise* uniform quantizer: ``s = (max-min)/2^b``,
   ``code = floor((x-z)/s)``, ``x~ = (code + 1/2) * s + z``.
-* Value quantization uses the *mid-tread* form: ``s = (max-min)/(2^b - 1)``,
-  ``code = round((x-z)/s)``, ``x~ = code*s + z``.
+* Int-N / KIVI / ZipCache / value quantization use the *mid-tread* form:
+  ``s = (max-min)/(2^b - 1)``, ``code = round((x-z)/s)``, ``x~ = code*s + z``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Literal
 
 import torch
@@ -30,13 +36,15 @@ _EPS = 1e-8
 class QuantConfig:
     """Cache-quantization policy (hashable, pure configuration)."""
 
-    method: str = "polar"            # "polar" | "none" (fp passthrough)
+    method: str = "polar"            # none|int|kivi|zipcache|polar
     rho_bits: int = 4                # polar radius bits (r)
     theta_bits: int = 4              # polar angle bits (t)
+    key_bits: int = 4                # int/kivi/zipcache key bits
     value_bits: int = 0              # 0 => values stay fp
     group_size: int = 128            # tokens per quantization group
     pairing: str = "half"            # RoPE pairing convention
     scale_dtype: str = "float32"
+    theta_stats: str = "group"       # group|fixed (beyond-paper angle grid)
     residual_dtype: str = "bfloat16"
 
     @property
@@ -134,12 +142,28 @@ def encode_polar_keys(k: torch.Tensor, cfg: QuantConfig) -> PolarKeys:
     rho, theta = polar.to_polar(k, cfg.pairing)          # (..., T, P)
     rc, rs, rz = affine_encode(_group(rho, cfg.group_size), cfg.rho_bits,
                                dim=-2, mode="midrise", scale_dtype=sdt)
-    tc, ts, tz = affine_encode(_group(theta, cfg.group_size), cfg.theta_bits,
-                               dim=-2, mode="midrise", scale_dtype=sdt)
+    theta_g = _group(theta, cfg.group_size)
+    if cfg.theta_stats == "fixed":
+        # beyond-paper variant: theta has the known support (0, 2pi], so a
+        # fixed grid replaces the per-group theta stats
+        step = fixed_theta_step(cfg.theta_bits)
+        ts = torch.full_like(rs, step)
+        tz = torch.zeros_like(rz)
+        q = torch.floor(theta_g / torch.tensor(step, dtype=torch.float32))
+        tc = torch.clamp(q, 0, (1 << cfg.theta_bits) - 1).to(torch.uint8)
+    else:
+        tc, ts, tz = affine_encode(theta_g, cfg.theta_bits, dim=-2,
+                                   mode="midrise", scale_dtype=sdt)
     codes = (rc << cfg.theta_bits) | tc
     return PolarKeys(codes=codes, rho_scale=rs, rho_zero=rz, theta_scale=ts,
                      theta_zero=tz, rho_bits=cfg.rho_bits,
                      theta_bits=cfg.theta_bits, pairing=cfg.pairing)
+
+
+def fixed_theta_step(theta_bits: int) -> float:
+    """The fixed angle grid's step ``2pi / 2^t``, computed in double (as
+    JAX's weak-typed Python constant); float32 where it is used."""
+    return 2.0 * math.pi / (1 << theta_bits)
 
 
 def decode_polar_keys(pk: PolarKeys,
@@ -149,6 +173,88 @@ def decode_polar_keys(pk: PolarKeys,
     theta = affine_decode(pk.theta_codes(), pk.theta_scale, pk.theta_zero,
                           "midrise")
     return _ungroup(polar.from_polar(rho, theta, pk.pairing)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# KIVI keys (channel-wise over token groups)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ChannelKeys:
+    codes: torch.Tensor   # (..., G, g, d) uint8
+    scale: torch.Tensor   # (..., G, 1, d)
+    zero: torch.Tensor    # (..., G, 1, d)
+    bits: int = 4
+
+
+def encode_kivi_keys(k: torch.Tensor, cfg: QuantConfig) -> ChannelKeys:
+    c, s, z = affine_encode(_group(k, cfg.group_size), cfg.key_bits, dim=-2,
+                            mode="midtread",
+                            scale_dtype=torch_dtype(cfg.scale_dtype))
+    return ChannelKeys(codes=c, scale=s, zero=z, bits=cfg.key_bits)
+
+
+def decode_channel_keys(ck: ChannelKeys,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return _ungroup(affine_decode(ck.codes, ck.scale, ck.zero,
+                                  "midtread")).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Int-N keys (token-wise)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TokenKeys:
+    codes: torch.Tensor   # (..., T, d) uint8
+    scale: torch.Tensor   # (..., T, 1)
+    zero: torch.Tensor    # (..., T, 1)
+    bits: int = 4
+
+
+def encode_int_keys(k: torch.Tensor, cfg: QuantConfig) -> TokenKeys:
+    c, s, z = affine_encode(k, cfg.key_bits, dim=-1, mode="midtread",
+                            scale_dtype=torch_dtype(cfg.scale_dtype))
+    return TokenKeys(codes=c, scale=s, zero=z, bits=cfg.key_bits)
+
+
+def decode_token_keys(tk: TokenKeys,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return affine_decode(tk.codes, tk.scale, tk.zero, "midtread").to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# ZipCache keys (channel-separable token-wise)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ZipKeys:
+    codes: torch.Tensor         # (..., G, g, d) uint8
+    token_scale: torch.Tensor   # (..., G, g, 1)
+    token_zero: torch.Tensor    # (..., G, g, 1)
+    channel_norm: torch.Tensor  # (..., G, 1, d) sqrt(max |K_channel|)
+    bits: int = 4
+
+
+def encode_zipcache_keys(k: torch.Tensor, cfg: QuantConfig) -> ZipKeys:
+    kg = _group(k, cfg.group_size).float()
+    norm = torch.sqrt(torch.clamp_min(
+        torch.amax(kg.abs(), dim=-2, keepdim=True), _EPS))
+    sdt = torch_dtype(cfg.scale_dtype)
+    c, s, z = affine_encode(kg / norm, cfg.key_bits, dim=-1, mode="midtread",
+                            scale_dtype=sdt)
+    return ZipKeys(codes=c, token_scale=s, token_zero=z,
+                   channel_norm=norm.to(sdt), bits=cfg.key_bits)
+
+
+def decode_zipcache_keys(zk: ZipKeys,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    normalized = affine_decode(zk.codes, zk.token_scale, zk.token_zero,
+                               "midtread")
+    return _ungroup(normalized * zk.channel_norm.float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -174,3 +280,32 @@ def encode_values(v: torch.Tensor, bits: int,
 def decode_values(qv: QuantizedValues,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return affine_decode(qv.codes, qv.scale, qv.zero, "midtread").to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Generic entry points (dispatch through the codec registry / container)
+# ---------------------------------------------------------------------------
+
+KEY_DECODERS = {
+    PolarKeys: decode_polar_keys,
+    ChannelKeys: decode_channel_keys,
+    TokenKeys: decode_token_keys,
+    ZipKeys: decode_zipcache_keys,
+}
+
+
+def encode_keys(k: torch.Tensor, cfg: QuantConfig):
+    """Quantize keys through the registered codec; returns the
+    method-specific container (``k`` itself for the fp passthrough)."""
+    codec = cfg.codec
+    return codec.container(cfg, *codec.encode(cfg, k))
+
+
+def decode_keys(qk, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    if isinstance(qk, torch.Tensor):
+        return qk.to(dtype)
+    decoder = KEY_DECODERS.get(type(qk))
+    if decoder is not None:
+        return decoder(qk, dtype)
+    # the generic container of a third-party codec (codecs.CodecKeys)
+    return qk.decode(dtype)

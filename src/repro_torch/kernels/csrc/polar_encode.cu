@@ -32,6 +32,14 @@
 // flushing slots write). All blocks of a cluster share one group, so they
 // skip it together, before any cluster barrier.
 //
+// With `fixed` set (the fixed angle grid, QuantConfig(theta_stats="fixed"))
+// theta has the known support (0, 2pi]: the block and cluster reductions
+// cover only the two rho rows, theta_scale is the constant `tstep` = 2pi /
+// 2^t (rounded to float32 by the caller), theta_zero is 0, and the angle
+// code is floor(theta / tstep) clipped to 2^t - 1 — the mid-rise code with
+// a zero of 0, so the same code_of, bit for bit (theta == 2pi gives 2^t
+// exactly and clips to the top code).
+//
 // Bound: bytes. Per group it reads g*d key elements and writes g*P code
 // bytes + 4*P stats; the arithmetic (one sqrt and one atan2 per pair) is
 // small next to that. A group is one short dependent chain (load, polar
@@ -107,7 +115,8 @@ __global__ void __launch_bounds__(V == 1 ? kNarrowThreads : kWideThreads)
         const T* __restrict__ k, long long sb, long long sh, long long sn, long long st,
         int H, int G, int g, int P, const int* __restrict__ pages,
         unsigned char* __restrict__ codes, float* __restrict__ rs, float* __restrict__ rz,
-        float* __restrict__ ts, float* __restrict__ tz, int r_bits, int t_bits) {
+        float* __restrict__ ts, float* __restrict__ tz, int r_bits, int t_bits, int fixed,
+        float tstep) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -131,6 +140,7 @@ __global__ void __launch_bounds__(V == 1 ? kNarrowThreads : kWideThreads)
   const int t_lo = rank * per, t_hi = min(g, t_lo + per);
   float* part = smem;
   float* red = smem + 4 * P;
+  const int rows = fixed ? 2 : 4;  // reduced stat rows: rho, then theta
 
   // every token's pairs loaded (all loads in flight), then rho and theta
   // in place, kept for the code write
@@ -160,8 +170,10 @@ __global__ void __launch_bounds__(V == 1 ? kNarrowThreads : kWideThreads)
         to_polar(rho[j][v], th[j][v], rho[j][v], th[j][v]);
         mn_r[v] = fminf(mn_r[v], rho[j][v]);
         mx_r[v] = fmaxf(mx_r[v], rho[j][v]);
-        mn_t[v] = fminf(mn_t[v], th[j][v]);
-        mx_t[v] = fmaxf(mx_t[v], th[j][v]);
+        if (!fixed) {
+          mn_t[v] = fminf(mn_t[v], th[j][v]);
+          mx_t[v] = fmaxf(mx_t[v], th[j][v]);
+        }
       }
     }
   }
@@ -170,14 +182,16 @@ __global__ void __launch_bounds__(V == 1 ? kNarrowThreads : kWideThreads)
     for (int v = 0; v < V; ++v) {
       red[(0 * slots + slot) * P + p0 + v] = mn_r[v];
       red[(1 * slots + slot) * P + p0 + v] = mx_r[v];
-      red[(2 * slots + slot) * P + p0 + v] = mn_t[v];
-      red[(3 * slots + slot) * P + p0 + v] = mx_t[v];
+      if (!fixed) {
+        red[(2 * slots + slot) * P + p0 + v] = mn_t[v];
+        red[(3 * slots + slot) * P + p0 + v] = mx_t[v];
+      }
     }
   }
   __syncthreads();
-  // rows w = 0..3 (rho min, rho max, theta min, theta max): even rows
-  // take the min, odd rows the max
-  for (int i = tid; i < 4 * P; i += nthr) {
+  // rows w = 0..rows-1 (rho min, rho max, theta min, theta max): even
+  // rows take the min, odd rows the max
+  for (int i = tid; i < rows * P; i += nthr) {
     const int w = i / P, p = i % P;
     float x = red[w * slots * P + p];
     for (int s = 1; s < slots; ++s) {
@@ -190,7 +204,7 @@ __global__ void __launch_bounds__(V == 1 ? kNarrowThreads : kWideThreads)
   cluster.sync();
   // the group's min/max: every peer's rows through distributed shared
   // memory, into this block's red (its own reads are done)
-  for (int i = tid; i < 4 * P; i += nthr) {
+  for (int i = tid; i < rows * P; i += nthr) {
     const int w = i / P;
     float x = part[i];
     for (int q = 1; q < kCluster; ++q) {
@@ -207,8 +221,9 @@ __global__ void __launch_bounds__(V == 1 ? kNarrowThreads : kWideThreads)
     for (int p = tid; p < P; p += nthr) {
       rs[o * P + p] = fmaxf(__fdiv_rn(__fsub_rn(red[P + p], red[p]), rden), kEps);
       rz[o * P + p] = red[p];
-      ts[o * P + p] = fmaxf(__fdiv_rn(__fsub_rn(red[3 * P + p], red[2 * P + p]), tden), kEps);
-      tz[o * P + p] = red[2 * P + p];
+      ts[o * P + p] =
+          fixed ? tstep : fmaxf(__fdiv_rn(__fsub_rn(red[3 * P + p], red[2 * P + p]), tden), kEps);
+      tz[o * P + p] = fixed ? 0.0f : red[2 * P + p];
     }
   }
   if (active) {
@@ -218,8 +233,8 @@ __global__ void __launch_bounds__(V == 1 ? kNarrowThreads : kWideThreads)
       const int p = p0 + v;
       rmn[v] = red[p];
       rsc[v] = fmaxf(__fdiv_rn(__fsub_rn(red[P + p], rmn[v]), rden), kEps);
-      tmn[v] = red[2 * P + p];
-      tsc[v] = fmaxf(__fdiv_rn(__fsub_rn(red[3 * P + p], tmn[v]), tden), kEps);
+      tmn[v] = fixed ? 0.0f : red[2 * P + p];
+      tsc[v] = fixed ? tstep : fmaxf(__fdiv_rn(__fsub_rn(red[3 * P + p], tmn[v]), tden), kEps);
     }
     unsigned char* ct = codes + o * g * P;
 #pragma unroll
@@ -244,7 +259,8 @@ __global__ void __launch_bounds__(V == 1 ? kNarrowThreads : kWideThreads)
 template <typename T, int V, int J>
 int launch(const T* k, long long sb, long long sh, long long sn, long long st, int B, int H,
            int G, int g, int P, const int* pages, unsigned char* codes, float* rs, float* rz,
-           float* ts, float* tz, int r_bits, int t_bits, int threads, cudaStream_t s) {
+           float* ts, float* tz, int r_bits, int t_bits, int fixed, float tstep, int threads,
+           cudaStream_t s) {
   const int slots = threads / (P / V);
   const size_t smem = sizeof(float) * 4 * static_cast<size_t>(P) * (1 + slots);
   cudaError_t err = rt::allow_smem(polar_encode_kernel<T, V, J>, smem);
@@ -252,7 +268,7 @@ int launch(const T* k, long long sb, long long sh, long long sn, long long st, i
   const dim3 grid(G * kCluster, H, B);
   polar_encode_kernel<T, V, J><<<grid, threads, smem, s>>>(k, sb, sh, sn, st, H, G, g, P,
                                                            pages, codes, rs, rz, ts, tz,
-                                                           r_bits, t_bits);
+                                                           r_bits, t_bits, fixed, tstep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,8 +277,8 @@ int launch(const T* k, long long sb, long long sh, long long sn, long long st, i
 template <typename T, int V>
 int launch_body(const T* k, long long sb, long long sh, long long sn, long long st, int B,
                 int H, int G, int g, int P, const int* pages, unsigned char* codes, float* rs,
-                float* rz, float* ts, float* tz, int r_bits, int t_bits, int cap,
-                cudaStream_t s) {
+                float* rz, float* ts, float* tz, int r_bits, int t_bits, int fixed,
+                float tstep, int cap, cudaStream_t s) {
   const int L = P / V;
   const int per = (g + kCluster - 1) / kCluster;
   const int threads = ((per * L < cap ? per * L : cap) + 31) / 32 * 32;
@@ -272,7 +288,7 @@ int launch_body(const T* k, long long sb, long long sh, long long sn, long long 
 #define POLAR_ENCODE_J(JJ)                                                                 \
   if (j <= JJ)                                                                             \
     return launch<T, V, JJ>(k, sb, sh, sn, st, B, H, G, g, P, pages, codes, rs, rz, ts, tz, \
-                            r_bits, t_bits, threads, s);
+                            r_bits, t_bits, fixed, tstep, threads, s);
   POLAR_ENCODE_J(1)
   POLAR_ENCODE_J(2)
   POLAR_ENCODE_J(4)
@@ -284,7 +300,8 @@ int launch_body(const T* k, long long sb, long long sh, long long sn, long long 
 template <typename T>
 int dispatch(const void* k, long long sb, long long sh, long long sn, long long st, int B,
              int H, int G, int g, int P, const int* pages, void* codes, void* rs, void* rz,
-             void* ts, void* tz, int r_bits, int t_bits, cudaStream_t s) {
+             void* ts, void* tz, int r_bits, int t_bits, int fixed, float tstep,
+             cudaStream_t s) {
   const auto* kp = static_cast<const T*>(k);
   auto* c = static_cast<unsigned char*>(codes);
   auto* a = static_cast<float*>(rs);
@@ -300,19 +317,21 @@ int dispatch(const void* k, long long sb, long long sh, long long sn, long long 
                     reinterpret_cast<uintptr_t>(codes) % kVec == 0;
   if (wide)
     return launch_body<T, kVec>(kp, sb, sh, sn, st, B, H, G, g, P, pages, c, a, z, e, w,
-                                r_bits, t_bits, kWideThreads, s);
+                                r_bits, t_bits, fixed, tstep, kWideThreads, s);
   return launch_body<T, 1>(kp, sb, sh, sn, st, B, H, G, g, P, pages, c, a, z, e, w, r_bits,
-                           t_bits, kNarrowThreads, s);
+                           t_bits, fixed, tstep, kNarrowThreads, s);
 }
 
 }  // namespace
 
 // k: element strides (sb, sh, sn, st) for (row, head, group, token); the
-// pair axis is contiguous. Returns cudaGetLastError() after the launch.
+// pair axis is contiguous. fixed != 0: the fixed angle grid of step tstep.
+// Returns cudaGetLastError() after the launch.
 extern "C" int polar_encode_launch(const void* k, int k_bf16, long long sb, long long sh,
                                    long long sn, long long st, int B, int H, int G, int g,
                                    int d, const int* pages, void* codes, void* rs, void* rz,
-                                   void* ts, void* tz, int r_bits, int t_bits, void* stream) {
+                                   void* ts, void* tz, int r_bits, int t_bits, int fixed,
+                                   float tstep, void* stream) {
   const int P = d / 2;
   if (P <= 0 || g <= 0 || B <= 0 || H <= 0 || G <= 0 || H > 65535 || B > 65535 ||
       static_cast<long long>(G) * kCluster > 0x7fffffff || r_bits + t_bits > 8)
@@ -320,7 +339,7 @@ extern "C" int polar_encode_launch(const void* k, int k_bf16, long long sb, long
   auto s = static_cast<cudaStream_t>(stream);
   if (k_bf16)
     return dispatch<__nv_bfloat16>(k, sb, sh, sn, st, B, H, G, g, P, pages, codes, rs, rz, ts,
-                                   tz, r_bits, t_bits, s);
+                                   tz, r_bits, t_bits, fixed, tstep, s);
   return dispatch<float>(k, sb, sh, sn, st, B, H, G, g, P, pages, codes, rs, rz, ts, tz,
-                         r_bits, t_bits, s);
+                         r_bits, t_bits, fixed, tstep, s);
 }

@@ -36,17 +36,18 @@ def polar_qk_scores(q, codes, rs, rz, ts, tz, *, r_bits=4, t_bits=4):
                                   t_bits=t_bits)
 
 
-def polar_encode(k, *, r_bits=4, t_bits=4, group_size=128):
-    """Dense polar encode of k (B, Hkv, T, d) -> (codes, rs, rz, ts, tz)."""
+def polar_encode(k, *, r_bits=4, t_bits=4, group_size=128, fixed=False):
+    """Dense polar encode of k (B, Hkv, T, d) -> (codes, rs, rz, ts, tz);
+    ``fixed``: the fixed angle grid."""
     return pe_mod.polar_encode(k, r_bits=r_bits, t_bits=t_bits,
-                               group_size=group_size)
+                               group_size=group_size, fixed=fixed)
 
 
 def polar_encode_pages(k, pages, codes, rs, rz, ts, tz, *, r_bits=4,
-                       t_bits=4) -> None:
+                       t_bits=4, fixed=False) -> None:
     """Paged polar encode in place (see ``polar_encode.polar_encode_pages``)."""
     pe_mod.polar_encode_pages(k, pages, codes, rs, rz, ts, tz,
-                              r_bits=r_bits, t_bits=t_bits)
+                              r_bits=r_bits, t_bits=t_bits, fixed=fixed)
 
 
 def polar_decode_attention_grouped(q, codes, rs, rz, ts, tz, values, length,

@@ -19,23 +19,33 @@ Two wrappers share the kernel: :func:`polar_encode` (dense outputs, the
 stats written straight into page-pool pages — the serving form; a decode
 step passes every slot's residual group and skips the slots that do not
 flush).
+
+``fixed=True`` is the fixed angle grid (``QuantConfig(theta_stats=
+"fixed")``, JAX ``quantizers.py:181-188``, which JAX's Pallas encode does
+not have): the kernel reduces only the rho rows, writes the constant
+``theta_scale = 2pi / 2^t`` (float32) and ``theta_zero = 0``, and codes
+the angle as ``clip(floor(theta / theta_scale), 0, 2^t - 1)``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantizers import QuantConfig, encode_polar_keys
+from repro_torch.core.quantizers import (
+    QuantConfig, encode_polar_keys, fixed_theta_step,
+)
 from repro_torch.kernels import _build as B
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
+#: of which on the fixed angle grid
+launches_fixed = 0
 
 
 def _bind(lib) -> None:
     lib.polar_encode_launch.argtypes = [
         B.VOIDP, B.INT, B.LLONG, B.LLONG, B.LLONG, B.LLONG, B.INT, B.INT,
         B.INT, B.INT, B.INT, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP,
-        B.VOIDP, B.INT, B.INT, B.VOIDP]
+        B.VOIDP, B.INT, B.INT, B.INT, B.FLOAT, B.VOIDP]
     lib.polar_encode_launch.restype = B.INT
 
 
@@ -45,22 +55,25 @@ def _bind(lib) -> None:
 
 
 def polar_encode_plain(k: torch.Tensor, *, r_bits: int = 4, t_bits: int = 4,
-                       group_size: int = 128):
+                       group_size: int = 128, fixed: bool = False):
     """k (B, Hkv, T, d), T % g == 0 -> (codes (B,Hkv,G,g,P) uint8, rho_scale,
     rho_zero, theta_scale, theta_zero (B,Hkv,G,1,P) fp32)."""
     cfg = QuantConfig(rho_bits=r_bits, theta_bits=t_bits,
-                      group_size=group_size)
+                      group_size=group_size,
+                      theta_stats="fixed" if fixed else "group")
     pk = encode_polar_keys(k, cfg)
     return pk.codes, pk.rho_scale, pk.rho_zero, pk.theta_scale, pk.theta_zero
 
 
 def polar_encode_pages_plain(k, pages, codes, rs, rz, ts, tz, *,
-                             r_bits: int = 4, t_bits: int = 4) -> None:
+                             r_bits: int = 4, t_bits: int = 4,
+                             fixed: bool = False) -> None:
     """Encode k (B, Hkv, G*g, d) and write group (b, n) into pool page
     ``pages[b, n]`` of codes (PP, Hkv, g, P) / stats (PP, Hkv, 1, P), in
     place; negative page ids skip their group."""
     g = codes.shape[2]
-    out = polar_encode_plain(k, r_bits=r_bits, t_bits=t_bits, group_size=g)
+    out = polar_encode_plain(k, r_bits=r_bits, t_bits=t_bits, group_size=g,
+                             fixed=fixed)
     keep = (pages >= 0).reshape(-1)
     idx = pages.reshape(-1)[keep].long()
     for pool, x in zip((codes, rs, rz, ts, tz), out):
@@ -84,27 +97,29 @@ def _check_keys(k: torch.Tensor, g: int) -> None:
               "keys need contiguous (token, channel) rows")
 
 
-def _launch(k, pages, outs, *, g, r_bits, t_bits) -> None:
-    global launches
+def _launch(k, pages, outs, *, g, r_bits, t_bits, fixed) -> None:
+    global launches, launches_fixed
     lib = B.library("polar_encode", _bind)
     b, h, t, d = k.shape
     err = lib.polar_encode_launch(
         k.data_ptr(), int(k.dtype == torch.bfloat16), k.stride(0),
         k.stride(1), g * k.stride(2), k.stride(2), b, h, t // g, g, d,
         pages.data_ptr() if pages is not None else None,
-        *(o.data_ptr() for o in outs), r_bits, t_bits, B.stream_ptr(k))
+        *(o.data_ptr() for o in outs), r_bits, t_bits, int(fixed),
+        fixed_theta_step(t_bits), B.stream_ptr(k))
     B.check(err, "polar_encode")
     launches += 1
+    launches_fixed += int(fixed)
 
 
 def polar_encode(k: torch.Tensor, *, r_bits: int = 4, t_bits: int = 4,
-                 group_size: int = 128):
+                 group_size: int = 128, fixed: bool = False):
     """Dense encode of k (B, Hkv, T, d): the kernel for a CUDA tensor, the
     plain version for a CPU tensor. Same outputs as
     :func:`polar_encode_plain`."""
     if not B.on_card(k):
         return polar_encode_plain(k, r_bits=r_bits, t_bits=t_bits,
-                                  group_size=group_size)
+                                  group_size=group_size, fixed=fixed)
     g = group_size
     _check_keys(k, g)
     b, h, t, d = k.shape
@@ -113,20 +128,22 @@ def polar_encode(k: torch.Tensor, *, r_bits: int = 4, t_bits: int = 4,
                         device=k.device)
     stats = [torch.empty((b, h, t // g, 1, p), dtype=torch.float32,
                          device=k.device) for _ in range(4)]
-    _launch(k, None, (codes, *stats), g=g, r_bits=r_bits, t_bits=t_bits)
+    _launch(k, None, (codes, *stats), g=g, r_bits=r_bits, t_bits=t_bits,
+            fixed=fixed)
     return (codes, *stats)
 
 
 def polar_encode_pages(k: torch.Tensor, pages: torch.Tensor,
                        codes: torch.Tensor, rs: torch.Tensor,
                        rz: torch.Tensor, ts: torch.Tensor, tz: torch.Tensor,
-                       *, r_bits: int = 4, t_bits: int = 4) -> None:
+                       *, r_bits: int = 4, t_bits: int = 4,
+                       fixed: bool = False) -> None:
     """Paged encode, in place: group (b, n) of k (B, Hkv, G*g, d) goes to
     pool page ``pages[b, n]`` (pages (B, G) int32; < 0 skips). The kernel
     for CUDA tensors, the plain version for CPU tensors."""
     if not B.on_card(k, pages, codes, rs, rz, ts, tz):
         polar_encode_pages_plain(k, pages, codes, rs, rz, ts, tz,
-                                 r_bits=r_bits, t_bits=t_bits)
+                                 r_bits=r_bits, t_bits=t_bits, fixed=fixed)
         return
     g = codes.shape[2]
     _check_keys(k, g)
@@ -142,4 +159,4 @@ def polar_encode_pages(k: torch.Tensor, pages: torch.Tensor,
                   and s.shape[1:] == (h, 1, d // 2),
                   "stat pools must be contiguous float32 (PP, Hkv, 1, d/2)")
     _launch(k, pages, (codes, rs, rz, ts, tz), g=g, r_bits=r_bits,
-            t_bits=t_bits)
+            t_bits=t_bits, fixed=fixed)

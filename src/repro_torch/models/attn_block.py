@@ -16,9 +16,11 @@ and paged entries of ``repro/models/attn_block.py``).
   attention (the flash-prefill kernel) + the paged cache fill (the encode
   kernel writes the prompt's key groups into their pages).
 * ``attention_prefill_chunk`` — one prefill chunk at a page-aligned
-  offset: the paged cache fill at ``start`` + page-native attention over
-  the quantized prefix and the chunk's own causal tile (the paged-prefill
-  kernel).
+  offset: the paged cache fill at ``start`` + attention over the
+  quantized prefix and the chunk's own causal tile on
+  ``cfg.prefill_backend`` (``"paged_fused"``: the paged-prefill kernel
+  walks the pages in place; ``"jnp"``, and every codec without that
+  kernel: ``chunk_prefill_attention`` over a gathered copy).
 * ``attention_decode_paged`` — one token per slot: append (residual
   write + masked group flush through the encode kernel) and page-native
   decode attention on ``cfg.decode_backend`` (``"paged_fused"``: the
@@ -53,14 +55,16 @@ def _project(params: dict, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, layer: int = 0,
                device=None) -> kvc.KVCache:
-    """Allocate one layer's dense cache under ``cfg.quant`` on ``device``
-    (the card unless named); the capacity rounds ``max_len`` up to a group
+    """Allocate layer ``layer``'s dense cache under
+    ``cfg.policy.layer_config(layer)`` on ``device`` (the card unless
+    named); the capacity rounds ``max_len`` up to the layer's group
     multiple, as the residual's ``slot % g`` tiling needs."""
-    g = cfg.quant.group_size
+    quant = cfg.policy.layer_config(layer)
+    g = quant.group_size
     cap = -(-max_len // g) * g
-    return kvc.init_cache(cfg.quant, batch, cfg.num_kv_heads, cfg.head_dim,
+    return kvc.init_cache(quant, batch, cfg.num_kv_heads, cfg.head_dim,
                           cap, dtype=torch_dtype(cfg.dtype), device=device)
 
 
@@ -131,7 +135,8 @@ def attention_prefill_chunk(params: dict, x: torch.Tensor, cfg: ModelConfig,
     cache = pgc.paged_prefill(cache, slot, page_row, k, v, chunk_len,
                               start=start)
     out = pgc.paged_prefill_attention(cache, q, k, v, page_row, start,
-                                      chunk_len)
+                                      chunk_len,
+                                      backend=cfg.prefill_backend)
     return L.linear(L.merge_heads(out), params["wo"]), cache
 
 

@@ -3,7 +3,8 @@ entries of ``repro/models/transformer.py``: the static batch's dense
 caches and continuous batching's paged caches).
 
 A Python loop over the layers replaces ``_scan_segments``; the state is
-one cache per layer, updated in place: a dense
+one cache per layer under that layer's config of ``cfg.policy`` (a mixed
+policy needs no segments), updated in place: a dense
 :class:`~repro_torch.core.kv_cache.KVCache` (static batch) or a
 :class:`~repro_torch.core.paged_cache.PagedKVCache` (paged caches share
 one page-table numbering).
@@ -59,13 +60,15 @@ def _block(bp: dict, x: torch.Tensor, cfg: ModelConfig, attn, cache, **kw):
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        device) -> list:
-    """One dense cache per layer for a static batch of ``batch`` rows."""
-    return [AB.make_cache(cfg, batch, max_len, device=device)
-            for _ in range(cfg.num_layers)]
+    """One dense cache per layer for a static batch of ``batch`` rows,
+    each under its layer's ``cfg.policy`` config."""
+    return [AB.make_cache(cfg, batch, max_len, layer=i, device=device)
+            for i in range(cfg.num_layers)]
 
 
 def per_layer_cache_bytes(caches: list) -> list[int]:
-    """Physical cache bytes of each layer."""
+    """Physical cache bytes of each layer (equal, for a segment of layers
+    under one config, to JAX's segment-averaged figure)."""
     return [tree_bytes(c) for c in caches]
 
 
@@ -94,11 +97,12 @@ def decode_fn(params: dict, caches: list, token: torch.Tensor,
 
 
 def init_paged_caches(cfg: ModelConfig, layout, device) -> list:
-    """One paged cache per layer, sharing one page-table numbering."""
-    return [pgc.init_paged_cache(cfg.quant, layout, cfg.num_kv_heads,
-                                 cfg.head_dim, dtype=torch_dtype(cfg.dtype),
-                                 device=device)
-            for _ in range(cfg.num_layers)]
+    """One paged cache per layer under its layer's ``cfg.policy`` config,
+    all sharing one page-table numbering."""
+    return [pgc.init_paged_cache(cfg.policy.layer_config(i), layout,
+                                 cfg.num_kv_heads, cfg.head_dim,
+                                 dtype=torch_dtype(cfg.dtype), device=device)
+            for i in range(cfg.num_layers)]
 
 
 @torch.no_grad()

@@ -232,7 +232,13 @@ class EngineCore:
         self.model = model
         self.params = params
         self.device = resolve_device(device)
-        g = model.cfg.quant.group_size
+        # chunk prefill width-slices the slot's table row only on the
+        # page-native backend (its read volume then follows the live
+        # prefix); "jnp" gathers the full row, as JAX's does
+        self._prefill_slicing = model.cfg.prefill_backend != "jnp"
+        # page == quantization group: every layer of the policy must agree
+        # on the group size (bit widths and methods may differ per layer)
+        g = model.cfg.policy.page_group_size()
         pages_per_slot = cdiv(max_len, g)
         if num_pages is None:
             num_pages = max_slots * pages_per_slot
@@ -247,10 +253,6 @@ class EngineCore:
             chunk = 2 * g   # sharing requires the chunk-aligned path
         if chunk:
             chunk = cdiv(chunk, g) * g   # page-aligned chunks
-            if not model.cfg.quant.codec.supports_paged_prefill:
-                raise ValueError(
-                    f"codec {model.cfg.quant.method!r} has no page-native "
-                    "chunk prefill in this port")
         self.prefill_chunk = chunk
         self.runahead = int(runahead)
         if self.runahead < 0:
@@ -436,7 +438,10 @@ class EngineCore:
 
     def _prefill_widths(self, prompt_lens: list[int]) -> list[int]:
         """Table-row widths the chunk prefill runs at: the decode buckets
-        up to the largest prompt's page count."""
+        up to the largest prompt's page count when the backend slices the
+        row, the full width otherwise."""
+        if not self._prefill_slicing:
+            return [self.layout.pages_per_slot]
         maxw = self._step_width(
             self.layout.pages_for(max(prompt_lens))
             if prompt_lens else self.layout.pages_per_slot)
@@ -604,10 +609,12 @@ class EngineCore:
         clen = min(c, tl - off)
         toks = np.zeros((1, c), np.int64)
         toks[0, :clen] = ctx_toks[off:off + clen]
-        # width-slice the row to the pages this chunk touches: the kernel
-        # then reads O(live prefix), not O(capacity)
-        row = self._table()[slot][:self._step_width(
-            cdiv(off + clen, self.layout.page_size))]
+        row = self._table()[slot]
+        if self._prefill_slicing:
+            # width-slice the row to the pages this chunk touches: the
+            # kernel then reads O(live prefix), not O(capacity)
+            row = row[:self._step_width(
+                cdiv(off + clen, self.layout.page_size))]
         t0 = time.monotonic()
         logits, self.state = self.model.prefill_paged_chunk(
             self.params, torch.as_tensor(toks, device=self.device),
@@ -1173,6 +1180,7 @@ class EngineCore:
             if self._util else 0.0,
             "cache_bytes": cache_bytes,
             "prefill_chunk": self.prefill_chunk,
+            "prefill_backend": self.model.cfg.prefill_backend,
             "prefix_cache": self.prefix_cache,
             "prefill_tokens_computed": self.prefill_computed,
             "prefill_tokens_skipped": self.prefill_skipped,

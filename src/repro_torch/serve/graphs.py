@@ -14,7 +14,10 @@ one ``CUDAGraph.replay()`` per step, horizon or verify. It is the
 engine's one decode route: on the CPU (``eager``) it runs the same calls
 eagerly and captures nothing.
 
-* **What a graph binds.** The engine's per-layer caches, the params, the
+* **What a graph binds.** The engine's per-layer caches (each under its
+  layer's codec: a token-wise codec's has no residual, and a codec
+  without a page-native kernel decodes on the gathered route, whose ops
+  make no host sync either), the params, the
   session generator and, per graph, static inputs (token, the
   width-sliced page table, the active mask; a horizon also the budgets
   left and the done mask; a verify the token span (S, Q), the draft
@@ -63,7 +66,8 @@ import torch
 from repro_torch.models import transformer as TF
 
 #: the kernel wrappers' launch counters (module attributes)
-COUNTERS = ("launches", "launches_u8", "launches_mma", "launches_split")
+COUNTERS = ("launches", "launches_u8", "launches_mma", "launches_split",
+            "launches_fixed")
 #: dtypes of the static inputs
 _DTYPES = {"token": torch.int64, "table": torch.int32, "active": torch.bool,
            "remaining": torch.int32, "done": torch.bool,

@@ -39,9 +39,11 @@ def _derive_draft_cfg(target_cfg, spec: SpecConfig):
         target_cfg,
         name=f"{target_cfg.name}-draft{spec.draft_layers}",
         num_layers=max(1, min(spec.draft_layers, target_cfg.num_layers)),
+        cache_policy=None,
         quant=QuantConfig(method="none", value_bits=0,
                           group_size=target_cfg.quant.group_size),
         decode_backend="jnp",
+        prefill_backend="jnp",
     )
 
 

@@ -837,15 +837,16 @@ def test_value_quantized_engines_on_card(dev):
 
 
 def _graph_core(dev, runahead=0, seed=31, lens=(10, 40, 70, 100),
-                spec=None, backend="paged_fused"):
+                spec=None, backend="paged_fused", **cfg_over):
     """A bf16 smoke-width EngineCore on the card (4 slots of 4 pages of
     32 tokens) with one prefilled request per slot: live pages 1-4, so
-    each width bucket has slots it covers."""
+    each width bucket has slots it covers. ``cfg_over`` replaces config
+    fields (a ``quant`` or a ``cache_policy``)."""
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.models import get_model
     from repro_torch.serve import EngineCore, GenerationConfig, Request
     cfg = reduce_for_smoke(get_config("tinyllama-1.1b"), dtype="bfloat16",
-                           decode_backend=backend)
+                           decode_backend=backend, **cfg_over)
     m = get_model(cfg)
     params = m.init(generator=_gen(dev, seed))
     core = EngineCore(m, params, max_slots=len(lens), max_len=128,
@@ -872,7 +873,8 @@ def _state_tensors(state, scratch=None):
             if x is not None:
                 out.append(x if scratch is None else
                            torch.cat([x[:scratch], x[scratch + 1:]]))
-        out += [c.key_residual, c.lengths]
+        # a token-wise codec's cache has no residual
+        out += [x for x in (c.key_residual, c.lengths) if x is not None]
     return out
 
 
@@ -1243,3 +1245,127 @@ def test_qk_kernel_wide_span_tiles_query_heads(dev):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
     one = qkk.polar_qk_scores(q[:, :, :8].contiguous(), *enc)
     assert torch.equal(one, got[:, :, :8])   # rows do not depend on Qh
+
+
+# ---------------------------------------------------------------------------
+# the fixed angle grid (#1's branch) and per-layer cache policies
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,g,offset", [(64, 128, 0), (64, 32, 0),
+                                        (128, 16, 0), (36, 32, 0),
+                                        (64, 128, 1)])
+@pytest.mark.parametrize("t_bits", [4, 3])
+def test_encode_kernel_fixed_grid_exact(dev, dtype, d, g, offset, t_bits):
+    """#1 on the fixed angle grid, dense and paged forms: codes and stats
+    bit-equal to the plain version, theta_scale the float32 2pi/2^t and
+    theta_zero 0; a pair at theta == 2pi (atan2(+0, x < 0) + pi) takes
+    the top angle code; ``launches_fixed`` counts the launches."""
+    k = _encode_keys(dev, _gen(dev, 3), (2, 3, 4 * g, d), dtype, offset)
+    k[1, 1, 2, 0], k[1, 1, 2, d // 2] = -1.0, 0.0
+    n, nf = pek.launches, pek.launches_fixed
+    got = pek.polar_encode(k, t_bits=t_bits, group_size=g, fixed=True)
+    ref = pek.polar_encode_plain(k, t_bits=t_bits, group_size=g, fixed=True)
+    assert (pek.launches, pek.launches_fixed) == (n + 1, nf + 1)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    step = np.float32(2 * np.pi / (1 << t_bits))
+    assert bool((got[3] == float(step)).all()) and not got[4].any()
+    assert int(got[0][1, 1, 0, 2, 0]) & ((1 << t_bits) - 1) == \
+        (1 << t_bits) - 1
+    pages = torch.tensor([[3, -1, 0, 5], [-1, 1, 6, -1]], dtype=torch.int32,
+                         device=dev)
+    pools = [[torch.zeros((8, 3, g, d // 2), dtype=torch.uint8, device=dev)]
+             + [torch.zeros((8, 3, 1, d // 2), device=dev) for _ in range(4)]
+             for _ in range(2)]
+    pek.polar_encode_pages(k, pages, *pools[0], t_bits=t_bits, fixed=True)
+    pek.polar_encode_pages_plain(k, pages, *pools[1], t_bits=t_bits,
+                                 fixed=True)
+    for a, b in zip(*pools):
+        assert torch.equal(a, b)
+        assert not a[[2, 4, 7]].any()
+
+
+def _fixed_pools(dev, gen, pp, hkv, d, g):
+    """(PP, Hkv, ·) pools from the fixed-grid encode kernel."""
+    k = torch.randn((1, pp * hkv, g, d), generator=gen, device=dev)
+    enc = ops.polar_encode(k, group_size=g, fixed=True)
+    return [x.reshape(pp, hkv, *x.shape[-2:]).contiguous() for x in enc]
+
+
+def test_decode_kernels_on_fixed_grid_stats_match_plain(dev):
+    """#2 (paged decode), #5 (dense decode) and #6 (LUT scores) read
+    theta_scale/theta_zero as arrays: on the fixed grid's stats each
+    equals its plain version (1e-4)."""
+    gen = _gen(dev, 41)
+    s, hkv, qh, d, g, pp = 4, 2, 8, 64, 128, 12
+    pool = _fixed_pools(dev, gen, pp, hkv, d, g)
+    values = torch.randn((pp, hkv, g, d), generator=gen, device=dev)
+    table = torch.stack([torch.randperm(pp - 1, generator=gen, device=dev)[:3]
+                         for _ in range(s)]).to(torch.int32)
+    flushed = torch.tensor([0, 128, 256, 384], dtype=torch.int32, device=dev)
+    q = torch.randn((s, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    got = pdk.polar_paged_decode_grouped(q, *pool, values, table, flushed)
+    ref = pdk.polar_paged_decode_grouped_plain(q, *pool, values, table,
+                                               flushed)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    # the dense forms: (B, Hkv, G, g, ·) from the first 3 pages per row
+    dense = [torch.stack([x[table[i].long()] for i in range(s)]).transpose(
+        1, 2).contiguous() for x in pool]
+    dvals = torch.stack([values[table[i].long()] for i in range(s)]
+                        ).transpose(1, 2).reshape(s, hkv, 3 * g, d)
+    length = torch.tensor([0, 200, 384, 300], dtype=torch.int32, device=dev)
+    got = pak.polar_decode_attention_grouped(q, *dense, dvals.contiguous(),
+                                             length)
+    ref = pak.polar_decode_attention_grouped_plain(q, *dense, dvals, length)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    got = qkk.polar_qk_scores(q, *dense)
+    ref = qkk.polar_qk_scores_plain(q, *dense)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def _policy_over(policy):
+    """Config fields of the ``int8`` and ``mixed`` policies (smoke g 32)."""
+    from repro_torch.core.codecs import CachePolicy
+    from repro_torch.core.quantizers import QuantConfig
+    polar = QuantConfig(group_size=32)
+    int8 = QuantConfig(method="int", key_bits=8, group_size=32)
+    if policy == "int8":
+        return {"quant": int8}
+    return {"quant": polar,
+            "cache_policy": CachePolicy.first_k(1, int8, polar)}
+
+
+@pytest.mark.parametrize("policy", ["int8", "mixed"])
+def test_decode_graph_replay_matches_eager_step_under_policies(dev, policy):
+    """A replayed one-token step equals the eager step on a copy of the
+    state, per width, under the int8 policy (every layer on the gathered
+    route) and the mixed one (layer 0 gathered, the rest on #2): logits
+    bit for bit, tokens, every buffer; the capture makes no host sync on
+    the gathered route."""
+    import copy
+    from repro_torch.serve.core import _sample
+    core = _graph_core(dev, **_policy_over(policy))
+    s = core.layout.slots
+    nl = core.model.cfg.num_layers
+    for w in core._decode_widths():
+        lengths = core.state[0].lengths.cpu().numpy()
+        mask = lengths // core.layout.page_size + 1 <= w
+        tok = np.random.default_rng(w).integers(
+            0, core.model.cfg.vocab_size, s).astype(np.int64)
+        table = core.sched.alloc.table()[:, :w]
+        cap = core._graphs.capture(w, 1, 0.0, 0, -1)
+        npolar = 0 if policy == "int8" else nl - 1
+        assert cap.counts.get((pdk, "launches"), 0) == npolar
+        ref = copy.deepcopy(core.state)
+        lg, _ = core.model.decode_paged(
+            core.params, ref, torch.from_numpy(tok).to(dev),
+            table.to(dev), torch.from_numpy(mask).to(dev))
+        want = _sample(lg, core.gen)
+        logits, nxt = core._graphs.step(w, 0.0, 0, tok, table, mask)
+        assert torch.equal(logits, lg)
+        assert torch.equal(nxt, want)
+        _assert_states_equal(core.state, ref)

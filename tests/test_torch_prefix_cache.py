@@ -460,12 +460,28 @@ def test_negative_chunk_raises(models):
 
 
 def test_chunked_engine_requires_paged_prefill_codec(models, monkeypatch):
+    """A codec without a page-native chunk prefill is served chunked all
+    the same: its capability flag sends every chunk through the gathering
+    ``chunk_prefill_attention``, as JAX dispatches (the engine no longer
+    refuses it), with the page-native run's greedy streams."""
+    from repro_torch.core import paged_cache as tpg
     from repro_torch.core.codecs import PolarCodec
     tm, tp = models[3], models[4]
+    reqs = _paged_prefill_workload(models[2].vocab_size)
+    kw = dict(max_slots=3, max_len=192, prefill_chunk=32, prefix_cache=True)
+    native = ContinuousBatchingEngine(tm, tp, device="cpu", **kw).run(
+        reqs(Request), GenerationConfig())
     monkeypatch.setattr(PolarCodec, "supports_paged_prefill", False)
-    with pytest.raises(ValueError, match="chunk prefill"):
-        ContinuousBatchingEngine(tm, tp, prefix_cache=True, device="cpu")
-    ContinuousBatchingEngine(tm, tp, device="cpu")   # classic still serves
+    calls = []
+    gathered = tpg.chunk_prefill_attention
+    monkeypatch.setattr(tpg, "chunk_prefill_attention",
+                        lambda *a, **k: calls.append(1) or gathered(*a, **k))
+    monkeypatch.setattr(PolarCodec, "paged_prefill", None)   # never called
+    out = ContinuousBatchingEngine(tm, tp, device="cpu", **kw).run(
+        reqs(Request), GenerationConfig())
+    assert len(calls) == out["prefills"] * tm.cfg.num_layers > 0
+    assert _streams(out) == _streams(native)
+    assert out["adopted_pages"] == native["adopted_pages"] > 0
 
 
 def test_cow_guard_splits_a_shared_write_page(models):

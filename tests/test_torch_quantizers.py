@@ -169,4 +169,4 @@ def test_polar_codec_round_trip_matches_quantizers(keys):
     assert bc.shape == (5, 3, 2, 32, 32) and bc.dtype == torch.uint8
     assert all(v.shape == (5, 3, 2, 1, 32) for v in bs.values())
     with pytest.raises(KeyError, match="unknown key codec"):
-        get_codec("kivi")
+        get_codec("nope")
