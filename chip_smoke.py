@@ -28,7 +28,11 @@ run):
               pages and paged prefill at start 2048, each on a line of its
               own; the uint8-value forms of paged decode, paged prefill
               (both bodies) and dense decode at value_bits 4 and 8, each
-              timed on a row of its own (``name[u8]``); then the paged
+              timed on a row of its own (``name[u8]``); every kernel at
+              the paper's widths, head_dim 128 at llama3.1-8b's 8 kv heads
+              x 4 query heads (rows ``name[d128]``; #2 and #5 on the split
+              body) and #2 and #4 also at qwen1.5-4b's 20 kv heads of one
+              query head (``name[d128,qh1]``); then the paged
               engine's three decode backends against each other on one
               fragmented cache, with bf16 and with 4-bit values.
 4. model    — full-width tinyllama-1.1b in bf16 (random weights from a
@@ -107,15 +111,39 @@ run):
               (6 requests) for int8 and the mixed policy; the static
               engine on both polar routes and speculative decode (ngram
               k 4, both verifiers) under the mixed policy.
-10. profile — wall time of 8-slot decode steps against the device time of
+10. qos     — DESIGN.md §16 on the same weights, graphed decode, 24 greedy
+              requests (prompts 100-900, 32 new) at t = 0: QoS with three
+              weighted tenants (one starting with an empty token bucket),
+              ``max_pending`` 16, a 1 s TTFT deadline, degradation and
+              ``runahead=4`` (one terminal event per request, the pool
+              drained whole, no horizon, exact launches; shed / reject /
+              degrade counts and goodput under the deadline printed);
+              then ngram speculation under an empty chaos schedule (the
+              events of ``chaos=None``) and under
+              ``exhaust@8,slow@5:0.05,cancel@12:0.5,proposer@0.3``
+              (survivors' streams those of the plain graphed engine,
+              quarantine released, allocator invariants, every proposer
+              fault an injected one).
+11. profile — wall time of 8-slot decode steps against the device time of
               their kernels (torch.profiler), eager and as a graph replay,
               and of one H = 8 horizon replay per token: the device's idle
               share and the largest kernels.
+12. configs — the paper's dense configs at head_dim 128, one at a time at
+              full width in bf16 (llama3.1-8b, granite-8b, yi-9b,
+              qwen1.5-4b; seeded random weights, qwen1.5's q/k/v biases
+              non-zero): the paged logit gate (rel. L2 5e-2) and a graphed
+              8-request serving run with exact launches each; for
+              llama3.1-8b also the ``serve`` workload graphed and eager,
+              ``ServeEngine`` on both polar routes (gates, exact cache
+              bytes per layer) and chunked prefill with and without the
+              prefix cache; for qwen1.5-4b (one query head per kv head)
+              the chunked prefill; each config's peak memory.
 
-Then one JSON line of per-kernel numbers (launches summed over the seven
+Then one JSON line of per-kernel numbers (launches summed over the nine
 serving phases; the uint8 forms on rows of their own, encode's decode
 form — a decode step's flush — and its fixed-angle-grid form on rows of
-their own), and last the device JSON. Any failure raises (non-zero
+their own, the head_dim-128 forms on theirs, counted in the configs
+phase), and last the device JSON. Any failure raises (non-zero
 exit). Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 
@@ -861,7 +889,9 @@ def _dequant(torch, bufs):
     pk = qz.PolarKeys(codes=bufs[0], rho_scale=bufs[1], rho_zero=bufs[2],
                       theta_scale=bufs[3], theta_zero=bufs[4], rho_bits=4,
                       theta_bits=4, pairing="half")
-    return qz.decode_polar_keys(pk, torch.float32).reshape(SB, HKV, SMAX, D)
+    b, hkv, gc, g, p = bufs[0].shape
+    return qz.decode_polar_keys(pk, torch.float32).reshape(b, hkv, gc * g,
+                                                           2 * p)
 
 
 def _paged_keys(torch, codes, stats, tl):
@@ -875,7 +905,8 @@ def _paged_keys(torch, codes, stats, tl):
                       theta_zero=stats[3][tl].transpose(1, 2), rho_bits=4,
                       theta_bits=4, pairing="half")
     k = qz.decode_polar_keys(pk, torch.float32)
-    return k.reshape(tl.shape[0], HKV, tl.shape[1] * G, D)
+    hkv, g, p = codes.shape[1:]
+    return k.reshape(tl.shape[0], hkv, tl.shape[1] * g, 2 * p)
 
 
 def _dense_flops(groups, with_attention=True):
@@ -1316,6 +1347,339 @@ def check_polar_attention_u8(torch, dev, gen, flush) -> dict:
                      "groups of a 1152-token buffer, 4-bit value codes"}
 
 
+# ---------------------------------------------------------------------------
+# the kernels at the paper's widths: head_dim 128, llama3.1-8b's 8 kv heads
+# x 4 query heads, qwen1.5-4b's 20 x 1
+# ---------------------------------------------------------------------------
+
+#: (kv heads, query heads per kv head) of the ``[d128]`` rows (llama3.1-8b;
+#: granite-8b has the same) and the ``[d128,qh1]`` rows (qwen1.5-4b, MHA)
+D128_SHAPES = {"[d128]": (8, 4), "[d128,qh1]": (20, 1)}
+D128 = 128
+
+
+def _d128_row(name, form, src, replaces, err, ms, plain_ms, b, lib_ms,
+              library, shape) -> dict:
+    return {"name": f"{name}{form}", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms, "library": library, "shape": shape}
+
+
+def _d128_stats(torch, dev, gen, pp, hkv, p):
+    """Random code pool (PP, Hkv, g, P) and the four stat pools at the
+    ranges of ``check_decode``."""
+    codes = torch.randint(0, 256, (pp, hkv, G, p), generator=gen,
+                          device=dev, dtype=torch.int32).to(torch.uint8)
+    stats = [lo + (hi - lo) * torch.rand((pp, hkv, 1, p), generator=gen,
+                                         device=dev)
+             for lo, hi in ((0.01, 0.3), (0.0, 1.0), (0.05, 0.4),
+                            (0.0, 0.5))]
+    return codes, stats
+
+
+def check_encode_d128(torch, dev, gen, flush) -> dict:
+    """#1's prefill form at llama3.1-8b's 8 kv heads x 1024 bf16 tokens x
+    d 128 into 8 fragmented pages (P = 64 pairs): codes and stats
+    bit-equal to the plain version, other pages untouched."""
+    from repro_torch.kernels import polar_encode as pe
+    hkv, d = D128_SHAPES["[d128]"][0], D128
+    p = d // 2
+    k = torch.randn((1, hkv, 1024, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k[0, 0, :5, :3] = 0.0
+    pages = torch.tensor([[9, 3, 40, 0, 63, 17, 5, 28]], dtype=torch.int32,
+                         device=dev)
+
+    def pools():
+        return (torch.zeros((65, hkv, G, p), dtype=torch.uint8, device=dev),
+                *(torch.zeros((65, hkv, 1, p), device=dev) for _ in range(4)))
+    pk, pp_ = pools(), pools()
+    pe.polar_encode_pages(k, pages, *pk)
+    pe.polar_encode_pages_plain(k, pages, *pp_)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(pk, pp_))
+    assert err == 0.0, f"encode at d 128 differs from the plain version {err}"
+    untouched = [i for i in range(65) if i not in pages.flatten().tolist()]
+    assert all(int(x[untouched].abs().sum()) == 0 for x in pk)
+    ms = time_ms(torch, lambda: pe.polar_encode_pages(k, pages, *pk),
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: pe.polar_encode_pages_plain(
+        k, pages, *pp_), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    nbytes = pages.numel() * 4 + 1024 * hkv * (d * 2 + p) \
+        + 4 * (1024 // G) * hkv * p * 4
+    return _d128_row(
+        "polar_encode", "[d128]", "polar_encode.cu",
+        "src/repro/kernels/polar_encode.py:51", err, ms, plain_ms,
+        bound(nbytes, 22 * 1024 * hkv * p, "fp32"), None, None,
+        "prefill form, 1 x 8 kv heads x 1024 tokens x 128 bf16 "
+        "(launches: both forms)")
+
+
+def check_decode_d128(torch, dev, gen, flush, form) -> dict:
+    """#2 at d 128, 8 slots over 8-page rows, bf16 values: slots flushed
+    0 ... 896 with dead entries on a NaN scratch page, normalized output
+    and softmax stats within 1e-4 of the plain version, every launch on
+    the split body; timed with every slot at 8 live pages."""
+    from repro_torch.kernels import paged_decode as pd
+    hkv, qh = D128_SHAPES[form]
+    d, s, n = D128, 8, 8
+    p, pp = d // 2, s * n + 1
+    scratch = pp - 1
+    codes, stats = _d128_stats(torch, dev, gen, pp, hkv, p)
+    vals = torch.randn((pp, hkv, G, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((s, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    table_t = torch.randperm(scratch, generator=gen, device=dev)[:s * n] \
+        .reshape(s, n).to(torch.int32)
+    fl_t = torch.full((s,), n * G, dtype=torch.int32, device=dev)
+    flushed = torch.arange(0, s * G, G, dtype=torch.int32, device=dev)
+    table = table_t.clone()
+    for sl in range(s):
+        table[sl, int(flushed[sl]) // G:] = scratch
+    for x in (*stats, vals):
+        x[scratch] = float("nan")
+    n_split = pd.launches_split
+    got = pd.polar_paged_decode_grouped(q, codes, *stats, vals, table,
+                                        flushed)
+    assert pd.launches_split == n_split + 1, "d 128 left the split body"
+    ref = pd.polar_paged_decode_grouped_plain(q, codes, *stats, vals, table,
+                                              flushed)
+    err = _partials_err(torch, got, ref)[0]
+    args = (q, codes, *stats, vals, table_t, fl_t)
+    ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped(*args),
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped_plain(
+        *args), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    tl = table_t.long()
+    kf = _paged_keys(torch, codes, stats, tl).repeat_interleave(qh, 1)
+    vf = vals[tl].transpose(1, 2).reshape(s, hkv, n * G, d).float() \
+        .repeat_interleave(qh, 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(q.reshape(s, hkv * qh, 1, d), kf,
+                                         vf, scale=1.0), flush=flush)
+    pages = s * n * hkv
+    nbytes = q.numel() * 4 + pages * (G * p + 4 * p * 4 + G * d * 2) \
+        + table_t.numel() * 4 + s * 4 + s * hkv * qh * (d + 2) * 4
+    flops = pages * (3 * qh * p * 16 + 2 * G * p + 2 * qh * G * p
+                     + 4 * qh * G + 2 * qh * G * d)
+    return _d128_row(
+        "paged_decode", form, "paged_decode.cu",
+        "src/repro/kernels/paged_decode.py:104", err, ms, plain_ms,
+        bound(nbytes, flops, "fp32"), lib_ms,
+        "SDPA over gathered pre-dequantized keys (fp32)",
+        f"8 slots x {hkv} kv heads x {qh} query heads x 8 live pages x "
+        f"d 128, bf16 values, nsplit {pd.plan_splits(s, hkv, n)}")
+
+
+def check_prefill_d128(torch, dev, gen, flush) -> dict:
+    """#3 at llama3.1-8b's serving prefill: 32 heads over 8 kv heads x
+    1024 tokens x d 128, bf16, causal, within one bf16 step (2^-7) of the
+    plain version."""
+    from repro_torch.kernels import flash_prefill as fpk
+    h, hkv, t, d = 32, D128_SHAPES["[d128]"][0], 1024, D128
+    q = torch.randn((1, h, t, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((1, hkv, t, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    got = fpk.flash_prefill(q, k, v)
+    ref = fpk.flash_prefill_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=BF16_RTOL,
+                               atol=BF16_RTOL)
+    err = float((got.float() - ref.float()).abs().max())
+    ms = time_ms(torch, lambda: fpk.flash_prefill(q, k, v), flush=flush)
+    plain_ms = time_ms(torch, lambda: fpk.flash_prefill_plain(q, k, v),
+                       iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    ke, ve = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(q, ke, ve, is_causal=True),
+                     flush=flush)
+    return _d128_row(
+        "flash_prefill", "[d128]", "flash_prefill.cu",
+        "src/repro/kernels/flash_prefill.py:77", err, ms, plain_ms,
+        bound((2 * h + 2 * hkv) * t * d * 2,
+              4.0 * h * d * (t * (t + 1) / 2), "bf16"), lib_ms, "SDPA",
+        "1 x 32 heads (8 kv) x 1024 tokens x 128 bf16, causal")
+
+
+def check_paged_prefill_d128(torch, dev, gen, flush, form) -> dict:
+    """#4 at d 128 on the tensor-core body (bf16 chunk K/V and values): a
+    256-token chunk over a fragmented 8-page prefix (start 1024), and a
+    77-token ragged chunk at start 384 with the value page at ``start``
+    and the chunk rows past ``chunk_len`` NaN-poisoned, dead entries on a
+    NaN scratch page; 1e-4 against the plain version."""
+    from repro_torch.kernels import paged_prefill as ppk
+    hkv, qh = D128_SHAPES[form]
+    d, pp = D128, 65
+    p, scratch, qt = d // 2, pp - 1, qh * TC
+    codes, stats = _d128_stats(torch, dev, gen, pp, hkv, p)
+    vals = torch.randn((pp, hkv, G, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    for x in (*stats, vals):
+        x[scratch] = float("nan")
+    perm = torch.randperm(scratch, generator=gen, device=dev)[:16].to(
+        torch.int32)
+    q = torch.randn((hkv, qt, d), generator=gen, device=dev) * d ** -0.5
+    errs = []
+    for start, clen in ((1024, TC), (384, 77)):
+        n_live = -(-(start + clen) // G)
+        width = 1 << (n_live - 1).bit_length()
+        row = perm[:width].clone()
+        row[n_live:] = scratch
+        v = vals.clone()
+        v[int(row[start // G])] = float("nan")
+        kc, vc = (torch.randn((hkv, TC, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        kc[:, clen:] = float("nan")
+        vc[:, clen:] = float("nan")
+        n_mma = ppk.launches_mma
+        got = ppk.polar_paged_prefill_grouped(q, kc, vc, codes, *stats, v,
+                                              row, start, clen)
+        assert ppk.launches_mma == n_mma + 1, "d 128 off the tensor cores"
+        ref = ppk.polar_paged_prefill_grouped_plain(q, kc, vc, codes, *stats,
+                                                    v, row, start, clen)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), "NaN leaked into prefill"
+        torch.testing.assert_close(got, ref, rtol=FP32_TOL, atol=FP32_TOL)
+        errs.append(float((got - ref).abs().max()))
+    start, n = 1024, 8
+    row = perm[:n].contiguous()
+    kc, vc = (torch.randn((hkv, TC, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    args = (q, kc, vc, codes, *stats, vals, row, start, TC)
+    ms = time_ms(torch, lambda: ppk.polar_paged_prefill_grouped(*args),
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: ppk.polar_paged_prefill_grouped_plain(
+        *args), iters=5, flush=flush, lead_cycles=PLAIN_LEAD)
+    rl = row.long()
+    k_pre = _paged_keys(torch, codes, stats, rl[None])[0]
+    v_pre = vals[rl].transpose(0, 1).reshape(hkv, start, d).float()
+    k_all = torch.cat([k_pre, kc.float()], 1).repeat_interleave(qh, 0)
+    v_all = torch.cat([v_pre, vc.float()], 1).repeat_interleave(qh, 0)
+    i = torch.arange(TC, device=dev)
+    mask = torch.cat([torch.ones((TC, start), dtype=torch.bool, device=dev),
+                      i[:, None] >= i[None, :]], 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q_h = q.reshape(hkv * qh, TC, d)[None]
+    lib_ms = time_ms(torch, lambda: sdpa(q_h, k_all[None], v_all[None],
+                                         attn_mask=mask, scale=1.0),
+                     flush=flush)
+    # the work of check_paged_prefill's bound at these heads and widths
+    nbytes = (hkv * n * (G * p + 4 * p * 4 + G * d * 2) + n * 4
+              + q.numel() * 4 + 2 * hkv * TC * d * 2 + hkv * qt * d * 4)
+    pairs = hkv * (qt * start + qh * TC * (TC + 1) // 2)
+    ops = {"bf16": 4.0 * d * pairs,
+           "fp32": hkv * n * (4 * p * 16 + 4 * G * p) + 4.0 * pairs}
+    return _d128_row(
+        "paged_prefill", form, "paged_prefill.cu",
+        "src/repro/kernels/paged_prefill.py:136", max(errs), ms, plain_ms,
+        bound(nbytes, ops), lib_ms,
+        "SDPA over pre-dequantized keys (fp32, bool mask)",
+        f"{hkv} kv heads x {qh} query heads x 256-token chunk over 8 prefix "
+        "pages (1024 tokens) x d 128, bf16, tensor-core body")
+
+
+def check_dense_d128(torch, dev, gen, flush) -> list[dict]:
+    """#5 and #6 at d 128 on the static phase's dense buffers (8 rows x 8
+    kv heads x 4 query heads x 9 groups, 8 flushed): #5 on the split body
+    with ragged lengths and every stat and value row past a length
+    NaN-poisoned, #6 over every group; both within 1e-4 of the plain
+    versions."""
+    from repro_torch.kernels import polar_attention as pak
+    from repro_torch.kernels import polar_encode as pe
+    from repro_torch.kernels import polar_qk as qkk
+    hkv, qh = D128_SHAPES["[d128]"]
+    d = D128
+    p = d // 2
+    k = torch.randn((SB, hkv, 8 * G, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    enc = pe.polar_encode(k)
+    bufs = [torch.zeros((SB, hkv, SG, *x.shape[3:]), dtype=x.dtype,
+                        device=dev) for x in enc]
+    for b, x in zip(bufs, enc):
+        b[:, :, :8] = x
+    vals = torch.randn((SB, hkv, SMAX, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((SB, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    lens = [1024, 900, 0, 128, 1, 513, 640, 1023]
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    v = vals.clone()
+    st = [x.clone() for x in bufs[1:]]
+    for i, n in enumerate(lens):
+        v[i, :, n:] = float("nan")
+        for x in st:
+            x[i, :, -(-n // G):] = float("nan")
+    n_split = pak.launches_split
+    got = pak.polar_decode_attention_grouped(q, bufs[0], *st, v, length)
+    assert pak.launches_split == n_split + 1, "d 128 left the split body"
+    ref = pak.polar_decode_attention_grouped_plain(q, bufs[0], *st, v, length)
+    err = _partials_err(torch, got, ref)[0]
+    full = torch.full((SB,), 8 * G, dtype=torch.int32, device=dev)
+    ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped(
+        q, *bufs, vals, full), flush=flush)
+    plain_ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped_plain(
+        q, *bufs, vals, full), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    kf = _dequant(torch, bufs)
+    mask = (torch.arange(SMAX, device=dev) < 8 * G)[None, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(
+        q.reshape(SB, hkv * qh, 1, d), kf.repeat_interleave(qh, 1),
+        vals.float().repeat_interleave(qh, 1), attn_mask=mask, scale=1.0),
+        flush=flush)
+
+    def flops(groups, attention):
+        per = 3 * qh * p * 16 + 2 * G * p + 2 * qh * G * p
+        return groups * (per + (4 * qh * G + 2 * qh * G * d
+                                if attention else 0))
+    groups = SB * hkv * 8
+    nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4 + G * d * 2) \
+        + SB * 4 + SB * hkv * qh * (d + 2) * 4
+    rows = [_d128_row(
+        "polar_attention", "[d128]", "polar_attention.cu",
+        "src/repro/kernels/polar_attention.py:104", err, ms, plain_ms,
+        bound(nbytes, flops(groups, True), "fp32"), lib_ms,
+        "SDPA over pre-dequantized keys (fp32, length mask)",
+        "8 rows x 8 kv heads x 4 query heads x 8 flushed groups of a "
+        "1152-token buffer x d 128, bf16 values")]
+    got = qkk.polar_qk_scores(q, *bufs)
+    ref = qkk.polar_qk_scores_plain(q, *bufs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=FP32_TOL, atol=FP32_TOL)
+    err = float((got - ref).abs().max())
+    ms = time_ms(torch, lambda: qkk.polar_qk_scores(q, *bufs), flush=flush)
+    plain_ms = time_ms(torch, lambda: qkk.polar_qk_scores_plain(q, *bufs),
+                       iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    kt = kf.transpose(-1, -2).contiguous()
+    lib_ms = time_ms(torch, lambda: torch.matmul(q, kt), flush=flush)
+    groups = SB * hkv * SG
+    nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4) \
+        + SB * hkv * qh * SMAX * 4
+    rows.append(_d128_row(
+        "polar_qk", "[d128]", "polar_qk.cu", "src/repro/kernels/polar_qk.py:68",
+        err, ms, plain_ms, bound(nbytes, flops(groups, False), "fp32"),
+        lib_ms, "matmul over pre-dequantized keys (fp32)",
+        "8 rows x 8 kv heads x 4 query heads x 9 groups (1152 tokens) x "
+        "d 128"))
+    return rows
+
+
+def check_d128(torch, dev, gen, flush) -> list[dict]:
+    """Every kernel at the paper's widths: #1-#6 at llama3.1-8b's (rows
+    ``name[d128]``), #2 and #4 also at qwen1.5-4b's 20 kv heads of one
+    query head (``name[d128,qh1]``). Their launches are counted in the
+    configs phase."""
+    return [check_encode_d128(torch, dev, gen, flush),
+            *(check_decode_d128(torch, dev, gen, flush, f)
+              for f in D128_SHAPES),
+            check_prefill_d128(torch, dev, gen, flush),
+            *(check_paged_prefill_d128(torch, dev, gen, flush, f)
+              for f in D128_SHAPES),
+            *check_dense_d128(torch, dev, gen, flush)]
+
+
 def phase_kernels(torch) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -1329,7 +1693,8 @@ def phase_kernels(torch) -> list[dict]:
             check_qk_scores(torch, dev, gen, flush),
             check_decode_u8(torch, dev, gen, flush),
             check_paged_prefill_u8(torch, dev, gen, flush),
-            check_polar_attention_u8(torch, dev, gen, flush)]
+            check_polar_attention_u8(torch, dev, gen, flush),
+            *check_d128(torch, dev, gen, flush)]
     backends_err = max(check_paged_backends(torch, dev, gen, vb)
                        for vb in (0, 4))
     print("kernels: " + "; ".join(
@@ -1865,7 +2230,8 @@ def check_replay_kernels(torch, graphs, table, slots: int,
     """Profile one replay of each graph in ``graphs``' cache, every lane
     inactive, and hold the kernels it ran to the launch counts its
     capture recorded (which each replay adds to the wrappers' counters):
-    each counted wrapper's kernel functions ran exactly that often, every
+    each counted wrapper's kernel functions ran exactly that often, the
+    split body as often as paged_decode's ``launches_split`` says, every
     paged_decode launch that splits also ran its merge, and no other
     hand-written kernel ran. Returns one summary per graph."""
     import numpy as np
@@ -1892,6 +2258,7 @@ def check_replay_kernels(torch, graphs, table, slots: int,
         assert got == {name: want.get(name, 0) for name in KERNEL_FNS}, \
             (key, got, want)
         split = ran["lut_split_decode_kernel"]
+        assert split == cap.counts.get((pd, "launches_split"), 0), (key, ran)
         merges = split if pd.plan_splits(slots, hkv, w) > 1 else 0
         assert ran["merge_splits_kernel"] == merges, (key, ran)
         name = f"{key[3]} verify w {w}, Q {h}" if verify else f"w {w}, H {h}"
@@ -2545,19 +2912,20 @@ def _teacher_logits(torch, model, params, prompts, tokens, steps):
     return torch.stack(out), state
 
 
-def _static_layer_bytes(q) -> int:
+def _static_layer_bytes(q, hkv=HKV, d=D) -> int:
     """Bytes of one layer's dense cache under ``q`` at the static shape (8
-    rows, 4 kv heads, 1152 tokens, d 64, g 128): polar keys as one code
+    rows, ``hkv`` kv heads — tinyllama's 4 by default —, 1152 tokens, head
+    dim ``d`` — 64 by default —, g 128): polar keys as one code
     byte per pair, four fp32 stat rows per group and the bf16 residual
     group; int keys as one code byte per element and an fp32 scale and
     zero per token; bf16 keys for ``"none"``. Values as bf16 rows, or
     uint8 codes with an fp32 scale and zero per row; the int32 length."""
-    rows = SB * HKV * SMAX
-    keys = {"polar": rows * P + 4 * SB * HKV * SG * P * 4
-            + SB * HKV * G * D * 2,
-            "int": rows * D + 2 * rows * 4,
-            "none": rows * D * 2}[q.method]
-    return keys + (rows * (D + 8) if q.value_bits else rows * D * 2) + 4
+    rows, p = SB * hkv * SMAX, d // 2
+    keys = {"polar": rows * p + 4 * SB * hkv * SG * p * 4
+            + SB * hkv * G * d * 2,
+            "int": rows * d + 2 * rows * 4,
+            "none": rows * d * 2}[q.method]
+    return keys + (rows * (d + 8) if q.value_bits else rows * d * 2) + 4
 
 
 STATIC_RUNS = (("polar", "jnp"), ("polar", "paged_fused"), ("none", "jnp"))
@@ -2586,6 +2954,7 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
     prompts = torch.as_tensor(np.random.default_rng(4).integers(
         0, cfg.vocab_size, (SB, SPROMPT)), device=dev).long()
     nl, steps = cfg.num_layers, SNEW - 1
+    shape = (cfg.num_kv_heads, cfg.head_dim)
     total: dict = {}
     models, toks, per_layer = {}, {}, {}
     for method, backend in runs:
@@ -2625,7 +2994,7 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
         models[name], toks[name] = model, out["tokens"]
         per_layer[name] = out["cache_bytes_per_layer"]
         assert per_layer[name] == [
-            _static_layer_bytes(model.cfg.policy.layer_config(i))
+            _static_layer_bytes(model.cfg.policy.layer_config(i), *shape)
             for i in range(nl)] and \
             out["cache_bytes"] == sum(per_layer[name]), per_layer[name]
         gate = ""
@@ -2658,10 +3027,12 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
     polar_bytes = sum(per_layer["polar/jnp"]) / nl
     a, b = toks["polar/jnp"], toks["polar/paged_fused"]
     same = a == b
+    fp_bytes = _static_layer_bytes(QuantConfig("none"), *shape)
+    bf16_bytes = _static_layer_bytes(QuantConfig(), *shape)
     line = (f"{label}: cache bytes per layer polar / fp = "
-            f"{polar_bytes / _static_layer_bytes(QuantConfig('none')):.4f}, "
+            f"{polar_bytes / fp_bytes:.4f}, "
             f"polar / polar with bf16 values = "
-            f"{polar_bytes / _static_layer_bytes(QuantConfig()):.4f}; greedy "
+            f"{polar_bytes / bf16_bytes:.4f}; greedy "
             f"tokens of the score-only and fused routes agree on "
             f"{float(same.mean()):.4f} of {same.size}")
     if not same.all():
@@ -2937,6 +3308,295 @@ def phase_codecs(torch, cfg, params, counters) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's dense configs at head_dim 128, full width
+# ---------------------------------------------------------------------------
+
+#: the dense configs beyond tinyllama, each at full width in bf16
+D128_CONFIGS = ("llama3.1-8b", "granite-8b", "yi-9b", "qwen1.5-4b")
+
+
+def d128_counts(counts: dict, cfg) -> dict:
+    """A phase's launches at a head_dim-128 config under the ``[d128]``
+    rows' names: both encode forms on ``polar_encode[d128]``, the paged
+    decode and prefill at one query head per kv head (qwen1.5-4b) on the
+    ``[d128,qh1]`` rows."""
+    out: dict = {}
+    for k, n in counts.items():
+        base = k.split("[")[0]
+        form = ("[d128,qh1]" if cfg.q_per_kv == 1 and base in (
+            "paged_decode", "paged_prefill") else "[d128]")
+        out[base + form] = out.get(base + form, 0) + n
+    return out
+
+
+def phase_configs(torch, counters, dev="cuda") -> dict:
+    """The four dense configs at head_dim 128, one at a time at full width
+    in bf16 (random weights from a seeded generator on the card; qwen1.5's
+    q/k/v biases drawn non-zero): the paged logit gate (512-token prefill
+    + 16 decode steps, kernels vs plain versions, rel. L2 5e-2) and a
+    graphed ``ContinuousBatchingEngine`` run (8 slots, max_len 1024, 8
+    greedy requests of 100-900 prompt tokens, 32 new, all at t = 0, exact
+    launches). llama3.1-8b, the paper's backbone, also runs the ``serve``
+    workload graphed and eager, chunked prefill with and without the
+    prefix cache (6 requests) and ``ServeEngine`` on both polar routes;
+    qwen1.5-4b (one query head per kv head) the chunked prefill (3
+    requests). Each
+    config's params, engines and graph pools are freed before the next;
+    its peak memory is printed. Returns the launches under the ``[d128]``
+    rows' names (:func:`d128_counts`)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    total: dict = {}
+    for name in D128_CONFIGS:
+        t0 = time.monotonic()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(name)
+        model = get_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = model.init(generator=gen, device=dev)
+        if cfg.qkv_bias:
+            for layer in params["layers"]:
+                for b in ("bq", "bk", "bv"):
+                    x = layer["attn"][b]
+                    x.copy_(0.1 * torch.randn(x.shape, generator=gen,
+                                              device=dev))
+        rel, agree = paged_logit_gate(torch, model, params)
+        print(f"configs[{name}]: {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+              f"head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, rope base "
+              f"{cfg.rope_base:g}" + (", q/k/v bias" if cfg.qkv_bias else "")
+              + f"; {cfg.param_count() / 1e9:.3f} B params bf16; prefill 512 "
+              f"+ 16 teacher-forced decode steps, relative L2 logit error "
+              f"kernel vs plain per step max {float(rel.max()):.3e} "
+              f"(prefill {float(rel[0]):.3e}, limit {MODEL_REL_L2}); argmax "
+              f"agreement {agree:.3f}", flush=True)
+        counts: dict = {}
+
+        def add(c):
+            for k, n in d128_counts(c, cfg).items():
+                counts[k] = counts.get(k, 0) + n
+        c, _ = phase_serve(torch, model, params, counters, n_req=8, new=32,
+                           seed=5, label=f"configs[{name}]", eager_arm=False,
+                           gap=0.0)
+        add(c)
+        if name == "llama3.1-8b":
+            c, _ = phase_serve(torch, model, params, counters,
+                               label=f"configs[{name}]:serve")
+            add(c)
+            add(phase_static(torch, cfg, params, counters,
+                             runs=STATIC_RUNS[:2],
+                             label=f"configs[{name}]:static"))
+        if name in ("llama3.1-8b", "qwen1.5-4b"):
+            # qwen1.5-4b's run checks the Qh-1 chunk path with 3 requests
+            # (6 take ~30 s of eager chunks where the host is slow)
+            add(phase_prefix(torch, model, params, counters,
+                             n_req=6 if name == "llama3.1-8b" else 3,
+                             label=f"configs[{name}]:prefix"))
+        peak = torch.cuda.max_memory_allocated()
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"configs[{name}]: peak memory {peak / 2 ** 30:.2f} GiB; "
+              f"{time.monotonic() - t0:.1f} s; launches "
+              f"{json.dumps(counts)}", flush=True)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 11: QoS and chaos (DESIGN.md §16) on graphed decode
+# ---------------------------------------------------------------------------
+
+
+def alloc_invariants(alloc) -> None:
+    """No leak, no double free: every page is free exactly once or
+    referenced, and slot mappings plus external pins account for every
+    reference (``tests/test_prefix_cache.py::check_alloc_invariants``)."""
+    free = list(alloc._free)
+    assert len(free) == len(set(free)), "page duplicated in the free list"
+    refs = [0] * alloc.layout.num_pages
+    for s in range(alloc.layout.slots):
+        for pg in alloc.slot_page_ids(s):
+            refs[pg] += 1
+    for pg, n in enumerate(refs):
+        assert (pg in free) == (alloc.refcount(pg) == 0), pg
+        assert alloc.refcount(pg) >= n, pg
+    assert len(free) + int((alloc._ref > 0).sum()) == alloc.layout.num_pages
+
+
+def phase_qos(torch, model, params, counters) -> dict:
+    """QoS and fault injection at full width (tinyllama), decode steps
+    replayed as graphs; 24 greedy requests (prompts 100-900, 32 new), all
+    at t = 0.
+
+    QoS run: three tenants (weights 1 / 1 / 2; tenant ``b`` starts with
+    an empty token bucket and lives on its refill), ``max_pending`` 16,
+    degradation on, a 1 s TTFT deadline, ``runahead=4``: every request
+    ends in exactly one terminal event, the pool drains back whole, no
+    horizon runs under QoS, exact launches; ``result()["qos"]`` and the
+    goodput under the deadline are printed.
+
+    Chaos runs (ngram speculation, k 4): an injector with an empty
+    schedule gives ``chaos=None``'s streams and events; the schedule
+    ``exhaust@8,slow@5:0.05,cancel@12:0.5,proposer@0.3`` leaves its
+    survivors the streams of the plain graphed engine, releases its
+    quarantine, keeps the allocator's invariants and lets no proposer
+    fault escape (every fault counted is an injected one). Returns the
+    launches of every run, summed."""
+    import numpy as np
+    from repro_torch.serve import (
+        ChaosConfig, ChaosInjector, ContinuousBatchingEngine,
+        GenerationConfig, QosConfig, Request, check_event_stream,
+        goodput_under_sla,
+    )
+    from repro_torch.spec import SpecConfig
+    t_phase = time.monotonic()
+    cfg = model.cfg
+    rng = np.random.default_rng(51)
+    n_req, new = 24, 32
+    lens = [int(t) for t in rng.integers(100, 901, n_req)]
+    prompts = [rng.integers(0, cfg.vocab_size, (t,)).astype(np.int32)
+               for t in lens]
+    tenants = ["a", "b", "c"] * (n_req // 3)
+    total: dict = {}
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=new,
+                        tenant=tenants[i]) for i, p in enumerate(prompts)]
+
+    def drive(eng, chaos="keep", tweak=None):
+        """Serve ``reqs()`` on ``eng`` (its chaos swapped unless
+        ``"keep"``), counters set to 0 just before and read just after;
+        returns (result with events, the requests, launches)."""
+        patch = (mock.patch.object(eng.core, "chaos", chaos)
+                 if chaos != "keep" else contextlib.nullcontext())
+        with patch:
+            core = eng.core
+            core.reset(GenerationConfig())
+            if tweak is not None:
+                tweak(core)
+            rs = reqs()
+            for r in rs:
+                core.add_request(r)
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            events = list(core.events())
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            out = core.result()
+        out["events"] = events
+        alloc = core.sched.alloc
+        alloc_invariants(alloc)
+        assert alloc.quarantined_pages == 0, "quarantine never released"
+        assert alloc.free_pages == core.layout.num_pages, "pages leaked"
+        assert not any(e.kind == "preempt" for e in events)
+        return out, rs, launches
+
+    def admitted(rs):
+        return [len(r.prompt) for r in rs if r.t_admitted is not None]
+
+    def add(launches, flushes):
+        for k, n in encode_forms(launches, flushes).items():
+            total[k] = total.get(k, 0) + n
+
+    # --- QoS -----------------------------------------------------------
+    qos = QosConfig(max_pending=16, degrade=True, ttft_slo=1.0,
+                    tenant_budget=2000.0, tenant_burst=1e6,
+                    weights={"a": 1.0, "b": 1.0, "c": 2.0})
+    eng = ContinuousBatchingEngine(model, params, max_slots=8, max_len=1024,
+                                   runahead=4, qos=qos)
+    eng.warmup(lens)
+
+    def broke(core):
+        core.qos.tenant("b").bucket = 0.0
+    out, rs, launches = drive(eng, tweak=broke)
+    terminal = check_event_stream(out["events"])
+    assert sorted(terminal) == list(range(n_req)), sorted(terminal)
+    kinds = {k: sum(v == k for v in terminal.values())
+             for k in ("finish", "shed", "reject")}
+    assert sum(kinds.values()) == n_req, terminal
+    assert kinds["reject"] == n_req - qos.max_pending, kinds
+    assert out["runahead"]["horizons"] == 0, "a horizon ran under QoS"
+    done = out["requests"]
+    assert all(r.done_tokens == new for r in done)
+    expect = serve_expect(launches, cfg, out, admitted(rs))
+    assert launches == expect, (launches, expect)
+    add(launches, decode_flushes(cfg, out["decode_steps"]))
+    q = out["qos"]
+    good = goodput_under_sla(rs, out["wall_s"], qos.ttft_slo)
+    admits = [e.rid for e in out["events"] if e.kind == "admit"]
+    print(f"qos: {n_req} requests x {new} tokens from tenants a / b / c "
+          f"(weights 1 / 1 / 2, b's bucket empty at 2000 tokens/s), "
+          f"max_pending {qos.max_pending}, TTFT deadline {qos.ttft_slo} s, "
+          f"runahead 4 (no horizon ran): {serve_line(out)}; terminal "
+          f"{json.dumps(kinds)}; admission order {admits}; shed "
+          f"{q['shed']}, rejected {q['rejected']}, degrade "
+          f"{json.dumps(q['degrade'])}, prefill rate "
+          f"{q['prefill_rate_est'] or 0:.0f} tok/s; tenants " + json.dumps(
+              {t: {k: v[k] for k in ("admitted", "shed", "rejected",
+                                     "served_tokens")}
+               for t, v in q["tenants"].items()})
+          + f"; goodput under SLA {good['goodput_tokens_per_s']:.1f} tok/s, "
+          f"deadline met {good['deadline_met_requests']} / missed "
+          f"{good['deadline_missed_requests']}; launches "
+          f"{json.dumps(launches)}", flush=True)
+
+    # --- chaos ---------------------------------------------------------
+    plain = ContinuousBatchingEngine(model, params, max_slots=8,
+                                     max_len=1024)
+    plain.warmup(lens)
+    out, rs, launches = drive(plain)
+    add(launches, decode_flushes(cfg, out["decode_steps"]))
+    base = {r.rid: list(r.out_tokens) for r in out["requests"]}
+    spec = ContinuousBatchingEngine(model, params, max_slots=8, max_len=1024,
+                                    spec=SpecConfig(mode="ngram", k=4))
+    spec.warmup(lens)
+    outs = {}
+    spec_chaos = ChaosConfig.parse(
+        "exhaust@8,slow@5:0.05,cancel@12:0.5,proposer@0.3", seed=3)
+    for arm, inj in (("none", None), ("empty", ChaosInjector(ChaosConfig())),
+                     ("chaos", ChaosInjector(spec_chaos))):
+        out, rs, launches = drive(spec, chaos=inj)
+        check_event_stream(out["events"])
+        expect, flushes = spec_expect(launches, cfg, out, admitted(rs))
+        assert launches == expect, (arm, launches, expect)
+        add(launches, flushes)
+        outs[arm] = out
+        for r in out["requests"]:
+            assert r.out_tokens == base[r.rid], \
+                f"chaos[{arm}]: survivor rid {r.rid} left the plain stream"
+    def key(o):
+        return [(e.kind, e.rid, e.slot, e.ordinal, e.token, e.span,
+                 e.span_ix) for e in o["events"]]
+    assert key(outs["empty"]) == key(outs["none"]), \
+        "an empty chaos schedule changed the events"
+    assert outs["empty"]["chaos"]["proposer_calls"] == 0
+    c = outs["chaos"]
+    st = c["chaos"]
+    assert (st["exhausts"], st["slow_steps"], st["cancel_storms"]) == \
+        (1, 1, 1), st
+    assert c["n_cancelled"] == st["storm_cancels"] > 0
+    assert len(c["requests"]) + c["n_cancelled"] == n_req
+    assert c["proposer_faults"] == st["proposer_faults"] > 0, \
+        "a proposer fault that was not injected"
+    print(f"chaos: ngram k 4, {n_req} requests x {new} tokens; empty "
+          f"schedule == chaos=None (events); "
+          f"exhaust@8,slow@5:0.05,cancel@12:0.5,proposer@0.3: "
+          f"{serve_line(c)}; survivors {len(c['requests'])} equal the plain "
+          f"graphed engine's streams, cancelled {c['n_cancelled']}; chaos "
+          f"{json.dumps(st)}; spec steps {c['spec']['steps']}, acceptance "
+          f"{c['spec']['acceptance_rate']:.3f}; quarantine released, "
+          f"allocator invariants hold; phase "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def phase_profile(torch, model, params) -> None:
     """Where a full-batch decode step's time goes: wall time of 8-slot
     decode steps at 512 tokens (host clock around steps that end in the
@@ -3125,14 +3785,17 @@ def main() -> int:
     static = phase_static(torch, cfg, params, counters)
     values = phase_values(torch, cfg, params, counters)
     codecs = phase_codecs(torch, cfg, params, counters)
+    qos = phase_qos(torch, model, params, counters)
     phase_profile(torch, model, params)
+    del params, model
+    configs = phase_configs(torch, counters)
 
     phases = {"serve": serve, "runahead": runahead, "spec": spec,
               "prefix": prefix, "static": static, "values": values,
-              "codecs": codecs}
+              "codecs": codecs, "qos": qos, "configs": configs}
     print("launches per serving phase: " + json.dumps(phases), flush=True)
     for r in rows:
-        r["launches"] = sum(p[r["name"]] for p in phases.values())
+        r["launches"] = sum(p.get(r["name"], 0) for p in phases.values())
         assert r["launches"] > 0, f"{r['name']} never ran on the main path"
     print(f"total: {time.monotonic() - t_start:.1f} s, kernel builds "
           "included", flush=True)

@@ -1,7 +1,10 @@
-"""Architecture registry (the dense configurations this slice serves)."""
+"""Architecture registry: the dense configurations this port serves."""
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, get_config, reduce_for_smoke,
+    ModelConfig, ShapeConfig, SHAPES, get_config, list_configs,
+    reduce_for_smoke,
 )
 
 # Importing each module registers its CONFIG.
-from repro_torch.configs import tinyllama_1p1b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    granite_8b, llama3_8b, qwen1p5_4b, tinyllama_1p1b, yi_9b,
+)

@@ -1,5 +1,6 @@
-"""Model configuration dataclass, the smoke-size reduction and the registry
-(port of ``repro/configs/base.py`` for the dense decoder family)."""
+"""Model configuration dataclass, the shape suite, the smoke-size
+reduction and the registry (port of ``repro/configs/base.py`` for the
+dense decoder family)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
@@ -27,6 +28,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     act: str = "silu"                 # silu (SwiGLU) | gelu (GeGLU)
     norm_eps: float = 1e-6
+    max_seq_len: int = 131072
     dtype: str = "bfloat16"
     scale_embedding: bool = False     # gemma-style sqrt(d_model) embed scale
     # cache policy: `quant` is the uniform default; `cache_policy`
@@ -68,6 +70,44 @@ class ModelConfig:
             return self.cache_policy
         return CachePolicy(default=self.quant)
 
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (matches init): the dense branch of
+        ``repro.configs.base.ModelConfig.param_count``, the family this
+        port serves."""
+        if self.family != "dense":
+            raise ValueError(f"param_count: family {self.family!r} is not "
+                             "served by this port")
+        d, h = self.d_model, self.head_dim
+        attn = d * h * self.num_heads + 2 * d * h * self.num_kv_heads + \
+            self.num_heads * h * d
+        if self.qkv_bias:
+            attn += h * (self.num_heads + 2 * self.num_kv_heads)
+        ffn = 3 * d * self.d_ff
+        norms = 2 * d
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.num_layers * (attn + ffn + norms) + emb + d
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+    generate_len: int = 1     # decode steps lowered (always 1 for dry-run)
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Shrink a config to CPU-smoke size while keeping the family topology
@@ -79,6 +119,7 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         head_dim=32,
         d_ff=256,
         vocab_size=512,
+        max_seq_len=512,
         dtype="float32",
     )
     if cfg.num_kv_heads == cfg.num_heads:
@@ -108,3 +149,8 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_configs() -> list[str]:
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)

@@ -14,4 +14,5 @@ CONFIG = register(ModelConfig(
     d_ff=5632,
     vocab_size=32000,
     rope_base=10000.0,
+    max_seq_len=2048 * 16,
 ))

@@ -90,6 +90,7 @@ class PageAllocator:
         self._table = np.full((layout.slots, layout.pages_per_slot),
                               layout.scratch_page, np.int32)
         self._owned: list[list[int]] = [[] for _ in range(layout.slots)]
+        self._quarantined: list[int] = []
 
     @property
     def free_pages(self) -> int:
@@ -197,6 +198,32 @@ class PageAllocator:
         self._owned[slot] = []
         self._table[slot, :] = self.layout.scratch_page
         return n
+
+    def quarantine(self, count: int) -> int:
+        """Pull up to ``count`` pages off the free list and pin them
+        (refcount 1, mapped into no slot): the fault-injection form of pool
+        exhaustion (DESIGN.md §16). A quarantined page is an external pin
+        like a prefix-index pin, so every allocator invariant holds while
+        it is held. Returns the number actually quarantined."""
+        n = min(int(count), len(self._free))
+        for _ in range(n):
+            page = self._free.popleft()
+            self._ref[page] = 1
+            self._quarantined.append(page)
+        return n
+
+    def release_quarantine(self) -> int:
+        """Return every quarantined page to the free list; returns the
+        number released."""
+        n = len(self._quarantined)
+        for page in self._quarantined:
+            self.decref(page)
+        self._quarantined = []
+        return n
+
+    @property
+    def quarantined_pages(self) -> int:
+        return len(self._quarantined)
 
     def table(self, device=None) -> torch.Tensor:
         """(slots, pages_per_slot) int32 page table on ``device`` (the

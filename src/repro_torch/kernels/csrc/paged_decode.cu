@@ -51,7 +51,8 @@ struct PagedGroups {
 // table (S, >=N) int32 with row stride table_stride; flushed (S,) int32.
 // Outputs acc (S, Hkv, Qh, d), m and l (S, Hkv, Qh), all fp32. nsplit: the
 // host's split count; partials: nsplit * S * Hkv * Qh * (d + 2) fp32 of
-// scratch when nsplit > 1 (else unused, may be null).
+// scratch when nsplit > 1 (else unused, may be null). *split_body is set to
+// 1 when the split body ran, 0 when the unsplit one did.
 extern "C" int paged_decode_launch(const void* q, const void* codes, const void* rs,
                                    const void* rz, const void* ts, const void* tz,
                                    const void* values, int v_kind, const void* vscale,
@@ -59,8 +60,9 @@ extern "C" int paged_decode_launch(const void* q, const void* codes, const void*
                                    long long table_stride, int N, const void* flushed,
                                    void* acc, void* m, void* l, int S, int Hkv, int Qh, int d,
                                    int g, int PP, int t_bits, int nsplit, void* partials,
-                                   void* stream) {
-  if (S <= 0 || Hkv <= 0 || Qh <= 0 || d <= 0 || d % 2 || g <= 0 || S > 65535 || t_bits > 8)
+                                   int* split_body, void* stream) {
+  if (S <= 0 || Hkv <= 0 || Qh <= 0 || d <= 0 || d % 2 || g <= 0 || S > 65535 || t_bits > 8 ||
+      split_body == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
@@ -71,6 +73,7 @@ extern "C" int paged_decode_launch(const void* q, const void* codes, const void*
   auto* mm = static_cast<float*>(m);
   auto* ll = static_cast<float*>(l);
   const bool split = rt::lut_split_decode_fits(d, codes, rs, rz, ts, tz, values);
+  *split_body = split;
   return rt::with_value_type(v_kind, [&](auto tv) {
     using TV = decltype(tv);
     if (split)

@@ -30,6 +30,8 @@ scored.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build as B
@@ -39,6 +41,9 @@ from repro_torch.kernels import ref as ref_mod
 launches = 0
 #: of those, the launches that read uint8 value rows
 launches_u8 = 0
+#: of those, the launches that ran the split body (``d % 32 == 0`` and
+#: 16-byte aligned pools; the unsplit body otherwise)
+launches_split = 0
 
 #: blocks the split planner aims at: two resident blocks on each of an
 #: H100's 132 SMs
@@ -73,7 +78,8 @@ def _bind(lib) -> None:
     lib.paged_decode_launch.argtypes = [
         B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
         B.VOIDP, B.VOIDP, B.VOIDP, B.LLONG, B.INT, B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT,
-        B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP, B.VOIDP]
+        B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.INT, B.VOIDP,
+        ctypes.POINTER(B.INT), B.VOIDP]
     lib.paged_decode_launch.restype = B.INT
 
 
@@ -102,7 +108,7 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
     flushed (S,) int32. Returns (acc (S,Hkv,Qh,d), m (S,Hkv,Qh),
     l (S,Hkv,Qh)) fp32. The kernel for CUDA tensors, the plain version
     for CPU tensors."""
-    global launches, launches_u8
+    global launches, launches_u8, launches_split
     tensors = (q, codes, rs, rz, ts, tz, values, page_table, flushed)
     quant = tuple(x for x in (vscale, vzero) if x is not None)
     if not B.on_card(*tensors, *quant):
@@ -135,6 +141,7 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
     # the splits' (acc, m, l) partials, merged on the device
     part = torch.empty(nsplit * s * hkv * qh * (d + 2), dtype=torch.float32,
                        device=q.device) if nsplit > 1 else None
+    split_body = B.INT(0)
     lib = B.library("paged_decode", _bind)
     err = lib.paged_decode_launch(
         q.data_ptr(), codes.data_ptr(), rs.data_ptr(), rz.data_ptr(),
@@ -142,8 +149,10 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
         vz_ptr, page_table.data_ptr(),
         page_table.stride(0), n, flushed.data_ptr(), acc.data_ptr(),
         m.data_ptr(), l.data_ptr(), s, hkv, qh, d, g, pp, t_bits, nsplit,
-        None if part is None else part.data_ptr(), B.stream_ptr(q))
+        None if part is None else part.data_ptr(), ctypes.byref(split_body),
+        B.stream_ptr(q))
     B.check(err, "paged_decode")
     launches += 1
     launches_u8 += int(values.dtype == torch.uint8)
+    launches_split += split_body.value
     return acc, m, l

@@ -1,6 +1,6 @@
 """Streaming request API: the open-loop front door over
 :class:`~repro_torch.serve.core.EngineCore` (port of
-``repro/serve/api.py``; the QoS intake fields come with the QoS slice).
+``repro/serve/api.py``).
 
 The batch adapter (``engine.ContinuousBatchingEngine``) takes every
 request up front and returns tokens when the whole batch drains.
@@ -71,30 +71,42 @@ class StreamingEngine:
 
     def add_request(self, prompt, max_new_tokens: int = 32, *,
                     rid: Optional[int] = None,
-                    arrival_time: Optional[float] = None) -> int:
+                    arrival_time: Optional[float] = None,
+                    tenant: str = "default",
+                    ttft_deadline: float = 0.0) -> int:
         """Enqueue a prompt; returns its rid. ``arrival_time`` defaults to
         *now* on the engine clock (an open-loop caller never schedules the
-        future; batch replays may)."""
+        future; batch replays may). ``tenant`` and ``ttft_deadline`` feed
+        QoS accounting and deadline shedding when the core has a
+        :class:`~repro_torch.serve.qos.QosConfig` (ignored otherwise).
+        With QoS bounded-queue backpressure, intake over a full queue
+        never hangs silently: the request is rejected and an explicit
+        ``reject`` event (``reason="queue_full"``) is queued for the next
+        :meth:`step` / :meth:`events` pull."""
         if rid is None:
             rid = self._next_rid   # submit() advances the counter
         req = Request(
             rid=rid, prompt=np.asarray(prompt, np.int32),
             max_new_tokens=int(max_new_tokens),
             arrival_time=(self.core.clock if arrival_time is None
-                          else float(arrival_time)))
+                          else float(arrival_time)),
+            tenant=tenant, ttft_deadline=float(ttft_deadline))
         return self.submit(req)
 
     def submit(self, req: Request) -> int:
         """Enqueue a pre-built :class:`Request` (batch-replay path)."""
         self._next_rid = max(self._next_rid, req.rid) + 1
-        return self.core.add_request(req)
+        rid = self.core.add_request(req)
+        # intake-time QoS rejects surface ahead of any step's events
+        self._pending_events.extend(self.core.take_intake_events())
+        return rid
 
     def cancel(self, rid: int) -> bool:
         """Cancel ``rid`` wherever it is — queued, mid-prefill, or
         mid-decode. Pages are decref'd and the slot freed at once; the
         ``cancel`` event surfaces on the next :meth:`step` /
-        :meth:`events` pull. An unknown rid (finished, already cancelled)
-        is a documented no-op returning False."""
+        :meth:`events` pull. An unknown rid (finished, already cancelled,
+        shed or rejected by QoS) is a documented no-op returning False."""
         events = self.core.cancel(rid)
         self._pending_events.extend(events)
         return bool(events)
@@ -195,8 +207,8 @@ def check_event_stream(events: Iterable[TokenEvent]) -> dict:
 
     * per-rid token ordinals are **dense** — each kept token's ordinal is
       exactly (tokens emitted so far − tokens retracted by preempts);
-    * at most one **terminal** event per rid (``finish`` or ``cancel``),
-      with no event for that rid after it;
+    * at most one **terminal** event per rid (``finish``, ``cancel``,
+      ``shed`` or ``reject``), with no event for that rid after it;
     * ``first_token`` happens once per rid;
     * timestamps are non-decreasing stream-wide;
     * the tokens of one span (``span > 1``) are consecutive events of
@@ -244,6 +256,6 @@ def check_event_stream(events: Iterable[TokenEvent]) -> dict:
         if ev.kind == "preempt":
             if ntoks.get(ev.rid, 0) > 0:
                 ntoks[ev.rid] -= 1   # the retracted token re-samples
-        elif ev.kind in ("finish", "cancel"):
+        elif ev.kind in ("finish", "cancel", "shed", "reject"):
             terminal[ev.rid] = ev.kind
     return terminal

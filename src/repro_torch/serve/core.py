@@ -18,6 +18,8 @@ Requests move through::
     WAITING -> PREFILLING -> DECODING -> FINISHED
                                   \\-> PREEMPTED (-> WAITING)
     any live state -> CANCELLED
+    intake over a full queue -> REJECTED        (QoS)
+    WAITING with an unmeetable deadline -> SHED (QoS)
 
 The device state (one paged cache per layer) is updated in place by each
 dispatch. The engine clock advances by measured wall time around each
@@ -35,8 +37,17 @@ With ``spec=SpecConfig(...)`` (DESIGN.md §15) a host-side proposer
 guesses up to k tokens per slot and one verify dispatch — a replayed
 graph per (width, span width) on the card — scores the span and commits
 only the accepted tokens. Every host synchronisation of
-``repro_torch.serve`` is in this file and marked ``# sync:``. QoS, chaos
-and the mesh come in later slices.
+``repro_torch.serve`` is in this file and marked ``# sync:``.
+
+With ``qos=QosConfig(...)`` (DESIGN.md §16) admission is weighted-fair
+over tenants with token budgets, pending requests whose TTFT deadline is
+unmeetable are shed, intake over a full queue is rejected, and a
+degradation controller caps speculation and the prefill budget under
+pool pressure (:mod:`repro_torch.serve.qos`). ``chaos=`` takes a fault
+injector (:mod:`repro_torch.serve.chaos`, duck-typed here) asked once
+per scheduling cycle for faults, applied through the production paths.
+Both default to None, and run-ahead stays off under either. The mesh
+comes in a later slice.
 """
 from __future__ import annotations
 
@@ -52,6 +63,9 @@ from repro_torch.core.cache_layout import PagedLayout, PrefixIndex
 from repro_torch.models import transformer as TF
 from repro_torch.models.registry import Model
 from repro_torch.serve.graphs import DecodeGraphs
+from repro_torch.serve.qos import (
+    DegradeController, QosConfig, QosState, RateEstimator,
+)
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.spec import SpecConfig, make_proposer, make_verifier
 from repro_torch.utils import (
@@ -157,6 +171,8 @@ DECODING = "decoding"        # prefill done, producing tokens
 FINISHED = "finished"        # EOS / length limit; slot + pages released
 PREEMPTED = "preempted"      # pages reclaimed under pressure; requeued
 CANCELLED = "cancelled"      # caller cancelled; slot + pages released
+REJECTED = "rejected"        # QoS bounded-queue backpressure at intake
+SHED = "shed"                # QoS deadline shed before admission
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,7 +188,9 @@ class TokenEvent:
     dispatch: each gets its own event sharing one clock stamp, with
     ``span`` the tokens that dispatch retired for the rid and ``span_ix``
     the event's position inside the span — a one-token step is the
-    degenerate ``span=1, span_ix=0``."""
+    degenerate ``span=1, span_ix=0``. ``reason`` says why a ``reject`` or
+    ``shed`` happened (``"queue_full"``, ``"deadline_blown"``,
+    ``"deadline_unmeetable"``); None otherwise."""
 
     kind: str
     rid: int
@@ -182,6 +200,7 @@ class TokenEvent:
     ordinal: int = -1
     span: int = 1
     span_ix: int = 0
+    reason: Optional[str] = None
 
 
 class EngineCore:
@@ -216,6 +235,13 @@ class EngineCore:
     the scan verifier otherwise (``spec/verify.py``). Streams are those
     of plain greedy decode; run-ahead stays off.
 
+    ``prefill_budget`` is the per-cycle chunk-prefill token budget
+    (default one chunk). ``qos=QosConfig(...)`` and ``chaos=`` (a
+    :class:`~repro_torch.serve.chaos.ChaosInjector`) add the QoS layer and
+    fault injection (DESIGN.md §16); a capped speculative span reuses the
+    verify graphs of the warmup, whose span-width buckets cover every
+    smaller span.
+
     Every decode dispatch goes through
     :class:`~repro_torch.serve.graphs.DecodeGraphs`: on the card a
     replayed CUDA graph (one per width and horizon, and per width and span
@@ -227,8 +253,9 @@ class EngineCore:
     def __init__(self, model: Model, params: dict, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
                  prefix_cache: bool = False, prefill_chunk: int = 0,
-                 runahead: int = 0, spec: Optional[SpecConfig] = None,
-                 device=None):
+                 prefill_budget: int = 0, runahead: int = 0,
+                 spec: Optional[SpecConfig] = None,
+                 qos: Optional[QosConfig] = None, chaos=None, device=None):
         self.model = model
         self.params = params
         self.device = resolve_device(device)
@@ -254,6 +281,7 @@ class EngineCore:
         if chunk:
             chunk = cdiv(chunk, g) * g   # page-aligned chunks
         self.prefill_chunk = chunk
+        self.prefill_budget = int(prefill_budget) if prefill_budget else chunk
         self.runahead = int(runahead)
         if self.runahead < 0:
             raise ValueError(f"runahead must be >= 0, got {runahead}")
@@ -268,6 +296,11 @@ class EngineCore:
             self._proposer = make_proposer(
                 self.spec, target_cfg=model.cfg, target_model=model,
                 target_params=params, max_len=self.layout.tokens_per_slot)
+        # QoS (DESIGN.md §16): None takes no QoS branch. chaos is a built
+        # injector, duck-typed (this module does not import serve.chaos);
+        # None takes no chaos branch.
+        self.qos_cfg = qos
+        self.chaos = chaos
         # the session state and generator live as long as the engine: the
         # decode graphs bind their addresses
         self.state = self.model.init_paged_state(self.layout, self.device)
@@ -292,8 +325,15 @@ class EngineCore:
             self._proposer.reset()
         self.prefix = (PrefixIndex(self.layout, self.prefill_chunk)
                        if self.prefix_cache else None)
+        self.qos = QosState(self.qos_cfg) if self.qos_cfg is not None \
+            else None
+        self.degrade = (DegradeController(self.qos_cfg)
+                        if self.qos_cfg is not None and self.qos_cfg.degrade
+                        else None)
+        self._prefill_rate = RateEstimator() if self.qos is not None \
+            else None
         self.sched = Scheduler(self.layout, prefix_index=self.prefix,
-                               chunk_tokens=self.prefill_chunk)
+                               chunk_tokens=self.prefill_chunk, qos=self.qos)
         for cache in self.state:
             pgc.zero_cache(cache)
         s = self.layout.slots
@@ -308,6 +348,14 @@ class EngineCore:
         self._arrivals: list[Request] = []     # sorted by arrival_time
         self.completed: list[Request] = []
         self.cancelled: list[Request] = []
+        self.shed: list[Request] = []          # QoS deadline sheds
+        self.rejected: list[Request] = []      # QoS queue-full rejects
+        self._intake_events: list[TokenEvent] = []
+        self._cycle = 0                        # chaos schedule domain
+        self._quarantine_release = -1
+        self._preempted_cycle = False          # degrade pressure signal
+        if self.chaos is not None:
+            self.chaos.reset()
         # cycle state: one cycle is the phase sequence begin -> admit* ->
         # prefill* -> decode, pumping arrivals and resetting the chunk
         # budget once per cycle (the JAX engine's replay order)
@@ -344,13 +392,27 @@ class EngineCore:
     def add_request(self, req: Request) -> int:
         """Enqueue ``req`` for admission at ``req.arrival_time`` on the
         engine clock (insertion-ordered among equal times). Rejects
-        (ValueError) a context that can never fit one slot."""
+        (ValueError) a context that can never fit one slot. With QoS
+        bounded-queue backpressure (``QosConfig.max_pending``), intake
+        over a full queue marks the request ``REJECTED`` and queues an
+        explicit ``reject`` event (``reason="queue_full"``); the rid is
+        returned all the same."""
         need = self.layout.pages_for(req.context_len + 1)
         if need > self.layout.pages_per_slot:
             raise ValueError(
                 f"request {req.rid}: context {req.context_len} needs "
                 f"{need} pages > pages_per_slot "
                 f"{self.layout.pages_per_slot}")
+        if self.qos is not None and self.qos_cfg.max_pending > 0 and \
+                len(self._arrivals) + len(self.sched.pending) >= \
+                self.qos_cfg.max_pending:
+            req.state = REJECTED
+            req.t_done = self.clock
+            self.rejected.append(req)
+            self.qos.on_reject(req)
+            self._intake_events.append(TokenEvent(
+                "reject", req.rid, self.clock, reason="queue_full"))
+            return req.rid
         req.state = WAITING
         i = len(self._arrivals)
         while i > 0 and self._arrivals[i - 1].arrival_time > \
@@ -358,6 +420,12 @@ class EngineCore:
             i -= 1
         self._arrivals.insert(i, req)
         return req.rid
+
+    def take_intake_events(self) -> list[TokenEvent]:
+        """Drain the events produced at intake (QoS rejects); :meth:`step`
+        prepends them itself."""
+        evs, self._intake_events = self._intake_events, []
+        return evs
 
     def cancel(self, rid: int) -> list[TokenEvent]:
         """Cancel a request wherever it is; returns the ``cancel`` event
@@ -509,7 +577,11 @@ class EngineCore:
         when every slot stalls on a dry pool. While a horizon is in
         flight, the step chains the next one and lands the block instead.
         Idle with scheduled arrivals jumps the clock; idle with no work
-        returns ``[]``."""
+        returns ``[]``. Intake events (QoS rejects) come first."""
+        intake = self.take_intake_events()
+        return intake + self._step() if intake else self._step()
+
+    def _step(self) -> list[TokenEvent]:
         if self._inflight is not None:
             # a run-ahead horizon is in flight: chain the next horizon off
             # its device-resident carries while it computes, then land it
@@ -524,11 +596,36 @@ class EngineCore:
                 # idle engine: jump the clock to the next arrival
                 self.clock = max(self.clock, self._arrivals[0].arrival_time)
                 self._pump_arrivals()
+            self._cycle += 1
             self._progressed = False
-            self._budget_left = self.prefill_chunk
+            self._budget_left = self.prefill_budget
+            if self.qos is not None:
+                self.qos.refill(self.clock)
+            if self.degrade is not None:
+                self.degrade.update(self.sched.utilization(),
+                                    self._preempted_cycle)
+                self._preempted_cycle = False
+                self._budget_left = self.degrade.prefill_budget(
+                    self.prefill_budget)
+                if self.degrade.evict_ahead:
+                    # drop index-only prefix pages so live decode keeps
+                    # ~1 page of headroom per active slot, ahead of the
+                    # preemption path
+                    want = (self.sched.num_active
+                            - self.sched.alloc.free_pages)
+                    if want > 0:
+                        self.sched.reclaim(want)
             self._phase = "admit"
+            if self.chaos is not None:
+                events = self._apply_chaos()
+                if events:
+                    return events   # faults end the begin phase
 
         if self._phase == "admit":
+            if self.qos is not None:
+                shed_evs = self._shed_unmeetable()
+                if shed_evs:
+                    return shed_evs
             req = self.sched.admissible()
             if req is not None:
                 return self._admit(req)
@@ -541,6 +638,20 @@ class EngineCore:
                                      self._arrivals[0].arrival_time)
                     return []
                 if self.sched.pending:
+                    if self._quarantine_release >= 0:
+                        # a chaos quarantine (not the pool size) holds the
+                        # pages; it lifts at a known cycle — spin
+                        return []
+                    if self.qos is not None:
+                        # an idle engine's clock stands still, so a tenant
+                        # bucket blocking the whole queue would never
+                        # refill: jump to the earliest affordable time
+                        # (deadlines blown by the wait shed next cycle)
+                        t = self.qos.next_affordable_time(
+                            self.sched.pending, self.clock)
+                        if t is not None:
+                            self.clock = max(self.clock, t)
+                            return []
                     raise RuntimeError("pool cannot fit a single pending "
                                        "request (num_pages too small)")
                 return []
@@ -558,6 +669,49 @@ class EngineCore:
         while self._arrivals and \
                 self._arrivals[0].arrival_time <= self.clock:
             self.sched.submit(self._arrivals.pop(0))
+
+    # --- QoS and chaos seams (DESIGN.md §16) ------------------------------
+
+    def _apply_chaos(self) -> list[TokenEvent]:
+        """The one chaos seam: once per cycle, apply the injector's
+        declarative faults through production paths (allocator
+        quarantine, the engine clock, the real cancel path)."""
+        if 0 <= self._quarantine_release <= self._cycle:
+            self.sched.alloc.release_quarantine()
+            self._quarantine_release = -1
+        events: list[TokenEvent] = []
+        for act in self.chaos.actions(self._cycle):
+            if act[0] == "exhaust":
+                self.sched.alloc.quarantine(self.sched.alloc.free_pages)
+                self._quarantine_release = self._cycle + int(act[1])
+            elif act[0] == "slow":
+                self.clock += float(act[1])
+            elif act[0] == "cancel_storm":
+                live = [r.rid for r in self.sched.pending] + \
+                    [r.rid for r in self.sched.active.values()]
+                for rid in self.chaos.pick_victims(live, float(act[1])):
+                    events += self.cancel(rid)
+        return events
+
+    def _shed_unmeetable(self) -> list[TokenEvent]:
+        """Deadline-aware admission control: drop pending requests whose
+        TTFT deadline is already blown or provably unmeetable given the
+        queue ahead of them and the measured prefill rate
+        (:meth:`QosState.unmeetable`), each with a ``shed`` event."""
+        inflight = sum(len(cur["ctx"]) - cur["off"]
+                       for cur in self._prefilling.values())
+        doomed = self.qos.unmeetable(self.sched.pending, self.clock,
+                                     self._prefill_rate.rate, inflight)
+        events: list[TokenEvent] = []
+        for req, reason in doomed:
+            self.sched.cancel(req.rid)
+            req.state = SHED
+            req.t_done = self.clock
+            self.shed.append(req)
+            self.qos.on_shed(req)
+            events.append(TokenEvent("shed", req.rid, self.clock,
+                                     reason=reason))
+        return events
 
     def _admit(self, req: Request) -> list[TokenEvent]:
         """Assign a slot, adopt prefix hits, reserve pages. Chunked mode
@@ -595,6 +749,8 @@ class EngineCore:
         dt = time.monotonic() - t0
         self.clock += dt
         self._prefill_times.append(dt)
+        if self._prefill_rate is not None:
+            self._prefill_rate.observe(tl, dt)
         self.prefill_computed += tl
         return events + self._take_first_token(slot, tok0, tl)
 
@@ -632,6 +788,8 @@ class EngineCore:
             dt = time.monotonic() - t0
             self.clock += dt
             self._prefill_times.append(dt)
+            if self._prefill_rate is not None:
+                self._prefill_rate.observe(clen, dt)
             del self._prefilling[slot]
             self.sched.register_prefix(slot)
             return self._take_first_token(slot, tok0, tl)
@@ -639,6 +797,8 @@ class EngineCore:
         dt = time.monotonic() - t0
         self.clock += dt
         self._prefill_times.append(dt)
+        if self._prefill_rate is not None:
+            self._prefill_rate.observe(clen, dt)
         return []
 
     def _take_first_token(self, slot: int, tok0: int,
@@ -652,6 +812,8 @@ class EngineCore:
         req.out_tokens.append(tok0)
         self._next_tok[slot] = tok0
         self._lengths[slot] = tl
+        if self.qos is not None:
+            self.qos.on_tokens(req.tenant, 1)
         # a preemption-resume re-prefill is not the stream's first token
         events = [TokenEvent("first_token" if first else "token",
                              req.rid, self.clock, token=tok0, slot=slot,
@@ -756,6 +918,7 @@ class EngineCore:
                 self._proposer.release(vreq.rid)
             sched.preempt(victim)
             vreq.state = PREEMPTED
+            self._preempted_cycle = True
             return [TokenEvent("preempt", vreq.rid, self.clock,
                                token=retracted, slot=victim)]
         if self.spec is not None and any(drafts.get(sl)
@@ -797,6 +960,8 @@ class EngineCore:
             t = int(toks[sl])
             req.out_tokens.append(t)
             self._next_tok[sl] = t
+            if self.qos is not None:
+                self.qos.on_tokens(req.tenant, 1)
             events.append(TokenEvent("token", req.rid, self.clock, token=t,
                                      slot=sl, ordinal=req.done_tokens - 1))
             if (self.gen.eos_id >= 0 and t == self.gen.eos_id) or \
@@ -809,11 +974,13 @@ class EngineCore:
     def _runahead_want(self) -> bool:
         """Horizon-planner gate: run-ahead engages only when the next H
         step boundaries are provably event-free — nothing queued to
-        admit, no prefill chunk due, no speculation (drafts are proposed
-        per step) and no prefix sharing (its COW guard decides per step).
-        Every other configuration takes the one-token dispatch
-        unchanged."""
+        admit, no prefill chunk due, and none of the subsystems that
+        decide per step in play: speculation (drafts are proposed per
+        step), QoS and chaos (shedding, budgets and faults act per cycle)
+        and prefix sharing (its COW guard decides per step). Every other
+        configuration takes the one-token dispatch unchanged."""
         return (self.runahead > 1 and self.spec is None
+                and self.qos is None and self.chaos is None
                 and not self.prefix_cache
                 and not self._prefilling and not self._arrivals
                 and not self.sched.pending)
@@ -1042,11 +1209,13 @@ class EngineCore:
         (``span <= g - length % g``) — the invariant the span verifier
         and the fused span commit rely on (at most the LAST position can
         flush a group), and the reason a verify dispatch runs at the
-        one-token step's table width. A proposer exception never takes
-        the engine down: the slot gets no drafts and the fault is
-        counted."""
+        one-token step's table width. A proposer exception (a real bug or
+        an injected fault) never takes the engine down: the slot gets no
+        drafts and the fault is counted. Under QoS degradation k is halved
+        per level (0 at level 3)."""
         g = self.layout.page_size
-        k = self.spec.k
+        k = (self.degrade.spec_k(self.spec.k) if self.degrade is not None
+             else self.spec.k)
         drafts: dict[int, list[int]] = {}
         for sl, req in self.sched.active.items():
             if sl in self._prefilling:
@@ -1056,6 +1225,8 @@ class EngineCore:
             d: list = []
             if want > 0:
                 try:
+                    if self.chaos is not None:
+                        self.chaos.maybe_fail_proposer()
                     d = self._proposer.propose(req, want)
                 except Exception:
                     self.proposer_faults += 1
@@ -1125,6 +1296,8 @@ class EngineCore:
                     finished = True
                     break
             span = len(emit)
+            if self.qos is not None:
+                self.qos.on_tokens(req.tenant, span)
             for j, t in enumerate(emit):
                 req.out_tokens.append(t)
                 events.append(TokenEvent(
@@ -1191,10 +1364,23 @@ class EngineCore:
             "cow_splits": self.cow_splits,
             "cancelled_requests": self.cancelled,
             "n_cancelled": len(self.cancelled),
+            "shed_requests": self.shed,
+            "n_shed": len(self.shed),
+            "rejected_requests": self.rejected,
+            "n_rejected": len(self.rejected),
             "decode_graphs": len(self._graphs) if self._graphs is not None
             else 0,
             "proposer_faults": self.proposer_faults,
         }
+        if self.qos is not None:
+            res["qos"] = {
+                **self.qos.stats(),
+                "prefill_rate_est": self._prefill_rate.rate,
+                "degrade": (self.degrade.stats()
+                            if self.degrade is not None else None),
+            }
+        if self.chaos is not None:
+            res["chaos"] = self.chaos.stats()
         if self.runahead > 1:
             # host-vs-device attribution of the pipeline: the dispatch-gap
             # EWMA is host time per horizon overlapped with device work;

@@ -24,8 +24,8 @@ class ContinuousBatchingEngine:
     + compute. Runs on the card unless ``device`` names another.
 
     **Chunked prefill** (``prefill_chunk > 0``): prompts are prefilled in
-    page-aligned chunks interleaved with decode steps, one chunk per
-    cycle.
+    page-aligned chunks interleaved with decode steps under a per-cycle
+    token budget (``prefill_budget``, default one chunk).
 
     **Shared-prefix page reuse** (``prefix_cache=True``, implies chunked
     prefill): completed prompts register their full-chunk pages in a
@@ -48,6 +48,12 @@ class ContinuousBatchingEngine:
     verify dispatch retires 1..k+1 tokens — the streams of plain greedy
     decode.
 
+    **QoS / chaos** (DESIGN.md §16): ``qos=QosConfig(...)`` for
+    weighted-fair admission, tenant token budgets, TTFT-deadline
+    shedding, bounded-queue rejects and graceful degradation;
+    ``chaos=ChaosInjector(ChaosConfig(...))`` for deterministic fault
+    injection. Both default to None (the FCFS engine).
+
     On the card each decode dispatch (one-token step, horizon or verify)
     is a replayed CUDA graph, one per page-table width (and span width);
     :meth:`warmup` captures them up front."""
@@ -55,11 +61,13 @@ class ContinuousBatchingEngine:
     def __init__(self, model, params, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
                  prefix_cache: bool = False, prefill_chunk: int = 0,
-                 runahead: int = 0, spec=None, device=None):
+                 prefill_budget: int = 0, runahead: int = 0, spec=None,
+                 qos=None, chaos=None, device=None):
         self.core = EngineCore(
             model, params, max_slots=max_slots, max_len=max_len,
             num_pages=num_pages, prefix_cache=prefix_cache,
-            prefill_chunk=prefill_chunk, runahead=runahead, spec=spec,
+            prefill_chunk=prefill_chunk, prefill_budget=prefill_budget,
+            runahead=runahead, spec=spec, qos=qos, chaos=chaos,
             device=device)
 
     @property

@@ -1,13 +1,16 @@
 """Continuous-batching scheduler state: requests, slots, page accounting
-(port of ``repro/serve/scheduler.py`` with prefix adoption and the
-multi-token spans of run-ahead decode; QoS comes in a later slice).
+(port of ``repro/serve/scheduler.py`` with prefix adoption, the
+multi-token spans of run-ahead decode and QoS admission).
 
-Host-side only. Policies (vLLM-style FCFS):
+Host-side only. Policies (vLLM-style FCFS unless QoS is attached):
 
 * **Admission**: the head of the pending queue is admitted when a slot is
   free AND the pool can cover the pages for its context plus the first
-  decoded token. With a :class:`~repro_torch.core.cache_layout.PrefixIndex`
-  attached, the context is first matched against indexed prompt pages:
+  decoded token. With a :class:`~repro_torch.serve.qos.QosState` the
+  pending queue is walked in weighted-fair order instead (DESIGN.md §16)
+  and the first request that fits is admitted. With a
+  :class:`~repro_torch.core.cache_layout.PrefixIndex` attached, the
+  context is first matched against indexed prompt pages:
   hits are *adopted* into the slot's table row at refcount+1 and only the
   remainder needs fresh pages — under pool pressure index-only pages are
   evicted to make room (DESIGN.md §12).
@@ -41,6 +44,10 @@ class Request:
     prompt: np.ndarray                  # (Tp,) int32
     max_new_tokens: int = 32
     arrival_time: float = 0.0           # engine-clock seconds
+    tenant: str = "default"             # QoS accounting bucket
+    #: TTFT deadline in seconds from arrival (0 = fall back to the
+    #: session's ``QosConfig.ttft_slo``; only enforced under QoS)
+    ttft_deadline: float = 0.0
 
     # filled in by the engine
     out_tokens: list = dataclasses.field(default_factory=list)
@@ -78,11 +85,17 @@ class Request:
 
 @dataclasses.dataclass(frozen=True)
 class CancelSummary:
-    """Report for a request leaving the scheduler early: ``slot`` is -1
-    for a never-admitted request."""
+    """Report for a request leaving the scheduler early (cancel or QoS
+    shed), one shape whether or not it was admitted: ``slot`` -1 and
+    ``freed_pages`` 0 for a pending request; an active one reports the
+    slot it released and the pages that actually returned to the free
+    list (pages shared with other slots or pinned by the prefix index
+    survive and are not counted)."""
 
     req: Request
     slot: int = -1
+    was_active: bool = False
+    freed_pages: int = 0
 
 
 class Scheduler:
@@ -93,14 +106,20 @@ class Scheduler:
     rounded *down* to chunk boundaries and always leaves at least the
     final chunk to recompute, which keeps a shared-prefix prefill
     bit-identical to the unshared chunked baseline and gives the engine
-    live logits for the last prompt token (DESIGN.md §12)."""
+    live logits for the last prompt token (DESIGN.md §12).
+
+    ``qos`` (optional, a :class:`~repro_torch.serve.qos.QosState`)
+    replaces the head-of-queue admission poll with weighted fair queueing
+    over the whole pending queue (budget-filtered, DESIGN.md §16); with
+    ``qos=None`` admission is FCFS."""
 
     def __init__(self, layout: PagedLayout, *,
                  prefix_index: Optional[PrefixIndex] = None,
-                 chunk_tokens: int = 0):
+                 chunk_tokens: int = 0, qos=None):
         self.layout = layout
         self.alloc = PageAllocator(layout)
         self.prefix = prefix_index
+        self.qos = qos
         self.chunk_tokens = int(chunk_tokens)
         self.free_slots: deque[int] = deque(range(layout.slots))
         self.active: dict[int, Request] = {}       # slot -> request
@@ -160,12 +179,19 @@ class Scheduler:
         return self.alloc.can_alloc(need)
 
     def admissible(self) -> Optional[Request]:
-        """The pending head if it fits right now (FCFS: a head that does
-        not fit blocks the queue)."""
+        """Next pending request that fits right now. Without QoS: FCFS,
+        head only (a head that does not fit blocks the queue). With QoS:
+        the pending queue in weighted-fair order (over-budget tenants
+        filtered), the first request that fits."""
         if not self.pending or not self.free_slots:
             return None
-        req = self.pending[0]
-        return req if self._fits(req) else None
+        if self.qos is None:
+            req = self.pending[0]
+            return req if self._fits(req) else None
+        for req in self.qos.admission_order(self.pending):
+            if self._fits(req):
+                return req
+        return None
 
     def admit(self, req: Request) -> int:
         """Assign a slot; adopt prefix-hit pages (refcount+1) and allocate
@@ -182,6 +208,8 @@ class Scheduler:
         assert ok, "admissible() guaranteed capacity"
         self.adopted_pages += len(hits)
         self.fresh_pages += need
+        if self.qos is not None:
+            self.qos.on_admit(req)
         req.prefix_hit_tokens = len(hits) * self.layout.page_size
         self._last_query = (-1, -1)
         req.slot = slot
@@ -277,8 +305,11 @@ class Scheduler:
             if req.rid == rid:
                 self._last_query = (-1, -1)
                 self._hash_cache = (-1, -1, [])
+                free_before = self.alloc.free_pages
                 self.finish(slot)
-                return CancelSummary(req, slot=slot)
+                return CancelSummary(
+                    req, slot=slot, was_active=True,
+                    freed_pages=self.alloc.free_pages - free_before)
         return None
 
     def finish(self, slot: int) -> Request:
@@ -303,6 +334,10 @@ class Scheduler:
     @property
     def has_work(self) -> bool:
         return bool(self.active or self.pending)
+
+    @property
+    def num_active(self) -> int:
+        return len(self.active)
 
     def utilization(self) -> float:
         return self.alloc.utilization()

@@ -927,7 +927,8 @@ def test_decode_graph_counters_after_capture_and_replays(dev):
     w = core._decode_widths()[-1]
     before = G.read_counters()
     cap = core._graphs.capture(w, 1, 0.0, 0, -1)
-    assert cap.counts == {(pek, "launches"): nl, (pdk, "launches"): nl}
+    assert cap.counts == {(pek, "launches"): nl, (pdk, "launches"): nl,
+                          (pdk, "launches_split"): nl}
     after = G.read_counters()
     assert {k: after[k] - before[k] for k in before
             if after[k] != before[k]} == cap.counts
@@ -946,7 +947,8 @@ def test_decode_graph_replay_runs_the_counted_kernels(dev, h):
     replay (every lane inactive) runs each counted wrapper's kernel
     function exactly as often as the capture recorded — nl encodes and nl
     paged decodes a micro-step, a merge after each split walk — and no
-    other hand-written kernel."""
+    other hand-written kernel; every paged decode on the split body, as
+    its counter says."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -955,7 +957,8 @@ def test_decode_graph_replay_runs_the_counted_kernels(dev, h):
     w = core._decode_widths()[-1]
     cap = core._graphs.capture(w, h, 0.0, 0, -1)
     assert cap.counts == {(pek, "launches"): nl * h,
-                          (pdk, "launches"): nl * h}
+                          (pdk, "launches"): nl * h,
+                          (pdk, "launches_split"): nl * h}
     values = {"token": np.zeros(s, np.int64),
               "table": core.sched.alloc.table()[:, :w],
               "active": np.zeros(s, bool)}
@@ -978,6 +981,8 @@ def test_decode_graph_replay_runs_the_counted_kernels(dev, h):
             for f in fns:
                 if re.search(rf"\b{f}\b", e.key):
                     ran[f] += e.count
+    assert ran["lut_split_decode_kernel"] == \
+        cap.counts[(pdk, "launches_split")]
     body = ran.pop("lut_split_decode_kernel") + ran.pop(
         "lut_flash_decode_kernel")
     assert body == nl * h
@@ -1193,7 +1198,8 @@ def test_verify_graph_replay_runs_the_counted_kernels(dev, verifier):
     nl, s = core.model.cfg.num_layers, core.layout.slots
     w, q = core._decode_widths()[-1], core._spec_q_buckets()[-1]
     cap = core._graphs.capture_verify(w, q)
-    want = ({(pek, "launches"): 2 * q * nl, (pdk, "launches"): q * nl}
+    want = ({(pek, "launches"): 2 * q * nl, (pdk, "launches"): q * nl,
+             (pdk, "launches_split"): q * nl}
             if verifier == "scan" else
             {(pek, "launches"): 2 * nl, (qkk, "launches"): 2 * nl})
     assert cap.counts == want
@@ -1369,3 +1375,197 @@ def test_decode_graph_replay_matches_eager_step_under_policies(dev, policy):
         assert torch.equal(logits, lg)
         assert torch.equal(nxt, want)
         _assert_states_equal(core.state, ref)
+
+
+# ---------------------------------------------------------------------------
+# the paper's widths: head_dim 128 (llama3.1-8b, granite-8b, yi-9b,
+# qwen1.5-4b) and one query head per kv head (qwen1.5-4b's MHA)
+# ---------------------------------------------------------------------------
+
+# (slots, kv heads, query heads per kv head): llama3.1-8b / granite-8b,
+# yi-9b and qwen1.5-4b at the serving phase's 8 slots over 8-page rows
+_D128 = {"llama": (8, 8, 4), "yi": (8, 4, 8), "qwen": (8, 20, 1)}
+
+
+def _d128_values(dev, gen, shape, values):
+    """Value rows of ``shape`` as fp32, bf16 or 4-bit uint8 codes; returns
+    (rows, vscale, vzero), the last two None for fp rows."""
+    if values == "u8":
+        return _u8_values(dev, gen, shape, 4)
+    dt = torch.float32 if values == "fp32" else torch.bfloat16
+    return torch.randn(shape, generator=gen, device=dev).to(dt), None, None
+
+
+@pytest.mark.parametrize("values", ["fp32", "bf16", "u8"])
+@pytest.mark.parametrize("case", sorted(_D128))
+def test_paged_decode_kernel_d128_matches_plain(dev, case, values):
+    """Kernel #2 at d 128 (P 64 pairs, g 128) on the split body, slots
+    flushed 0..896 over 8-page rows, dead entries on a NaN scratch page:
+    1e-4 against the plain version. At 20 kv heads (qwen1.5-4b) 8 slots
+    already make 160 blocks, so the planner leaves the walk unsplit."""
+    s, hkv, qh = _D128[case]
+    d, g, n = 128, 128, 8
+    pp = s * n + 1
+    scratch = pp - 1
+    gen = _gen(dev, 30)
+    k = torch.randn((1, pp * hkv, g, d), generator=gen, device=dev)
+    pool = [x.reshape(pp, hkv, *x.shape[-2:]).contiguous()
+            for x in ops.polar_encode(k, group_size=g)]
+    vals, vs, vz = _d128_values(dev, gen, (pp, hkv, g, d), values)
+    for x in pool[1:] + [x for x in (vs, vz) if x is not None]:
+        x[scratch] = float("nan")
+    if values == "u8":
+        vals[scratch] = 255
+    else:
+        vals[scratch] = float("nan")
+    fl = [0, 128, 256, 384, 512, 640, 768, 896]
+    table = torch.full((s, n), scratch, dtype=torch.int32, device=dev)
+    perm = torch.randperm(scratch, generator=gen, device=dev).to(torch.int32)
+    for sl, f in enumerate(fl):
+        table[sl, :f // g] = perm[sl * n:sl * n + f // g]
+    flushed = torch.tensor(fl, dtype=torch.int32, device=dev)
+    q = torch.randn((s, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    assert pdk.plan_splits(s, hkv, n) == {"llama": 4, "yi": 8, "qwen": 1}[case]
+    n_all, n_split = pdk.launches, pdk.launches_split
+    got = pdk.polar_paged_decode_grouped(q, *pool, vals, table, flushed,
+                                         vscale=vs, vzero=vz)
+    assert pdk.launches == n_all + 1
+    assert pdk.launches_split == n_split + 1, "d 128 left the split body"
+    ref = pdk.polar_paged_decode_grouped_plain(q, *pool, vals, table,
+                                               flushed, vscale=vs, vzero=vz)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_paged_decode_kernel_reports_its_body(dev):
+    """``launches_split`` counts the split body only: d 48 (d % 32 != 0)
+    runs the unsplit one."""
+    s, hkv, qh, d, g, pp = 2, 2, 4, 48, 128, 5
+    gen = _gen(dev, 31)
+    k = torch.randn((1, pp * hkv, g, d), generator=gen, device=dev)
+    pool = [x.reshape(pp, hkv, *x.shape[-2:]).contiguous()
+            for x in ops.polar_encode(k, group_size=g)]
+    vals = torch.randn((pp, hkv, g, d), generator=gen, device=dev)
+    table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=dev)
+    flushed = torch.tensor([256, 128], dtype=torch.int32, device=dev)
+    q = torch.randn((s, hkv, qh, d), generator=gen, device=dev)
+    n_all, n_split = pdk.launches, pdk.launches_split
+    pdk.polar_paged_decode_grouped(q, *pool, vals, table, flushed)
+    assert (pdk.launches, pdk.launches_split) == (n_all + 1, n_split)
+
+
+@pytest.mark.parametrize("values", ["fp32", "bf16", "u8"])
+@pytest.mark.parametrize("case", sorted(_D128))
+def test_polar_attention_kernel_d128_matches_plain(dev, case, values):
+    """Kernel #5 at d 128 on the split body: the static phase's 8 rows x
+    9 groups at the config's kv and query heads, ragged lengths (0, a
+    partial group, whole groups, the full buffer), stats and value rows
+    past each length NaN-poisoned (uint8: codes at 255, scales and zeros
+    NaN)."""
+    _, hkv, qh = _D128[case]
+    b, d, g, gc = 8, 128, 128, 9
+    gen = _gen(dev, 32)
+    enc = _dense_groups(dev, gen, b, hkv, d, g, gc)
+    lens = [1024, 900, 0, 128, 1, 513, 640, 1152]
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    vals, vs, vz = _d128_values(dev, gen, (b, hkv, gc * g, d), values)
+    for i, n in enumerate(lens):
+        for x in enc[1:]:
+            x[i, :, -(-n // g):] = float("nan")
+        if values == "u8":
+            vals[i, :, n:] = 255
+            vs[i, :, n:] = float("nan")
+            vz[i, :, n:] = float("nan")
+        else:
+            vals[i, :, n:] = float("nan")
+    q = torch.randn((b, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    n_all, n_split = pak.launches, pak.launches_split
+    got = pak.polar_decode_attention_grouped(q, *enc, vals, length,
+                                             vscale=vs, vzero=vz)
+    assert pak.launches == n_all + 1
+    assert pak.launches_split == n_split + 1, "d 128 left the split body"
+    ref = pak.polar_decode_attention_grouped_plain(q, *enc, vals, length,
+                                                   vscale=vs, vzero=vz)
+    _check_dense(got, ref, length)
+
+
+@pytest.mark.parametrize("values", ["bf16", "u8"])
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("start,clen", [(1024, 256), (384, 77), (0, 255)])
+def test_paged_prefill_kernel_qh1_hkv20_matches_plain(dev, start, clen,
+                                                      kvdtype, values):
+    """Kernel #4 at qwen1.5-4b's shape: 20 kv heads of one query head each
+    (a 256-token chunk is four 64-row q tiles per kv head), d 128, over a
+    fragmented prefix with the page at ``start`` and the chunk rows past
+    ``chunk_len`` poisoned: 1e-4 on both bodies (bf16 chunk K/V take the
+    tensor-core body)."""
+    hkv, qh, d, g, tc, pp = 20, 1, 128, 128, 256, 12
+    scratch = pp - 1
+    gen = _gen(dev, 33)
+    pool, _ = _prefill_pools(dev, gen, pp, hkv, g, d)
+    vals, vs, vz = _d128_values(dev, gen, (pp, hkv, g, d), values)
+    width = 1 << (-(-(start + clen) // g) - 1).bit_length()
+    row = torch.randperm(scratch, generator=gen, device=dev)[:width].to(
+        torch.int32)
+    row[-(-(start + clen) // g):] = scratch
+    for x in pool[1:] + [x for x in (vs, vz) if x is not None]:
+        x[scratch] = float("nan")
+    if start // g < width:
+        page = int(row[start // g])
+        if values == "u8":
+            vs[page] = float("nan")
+            vz[page] = float("nan")
+        else:
+            vals[page] = float("nan")
+    q = torch.randn((hkv, qh * tc, d), generator=gen, device=dev) * d ** -0.5
+    kc = torch.randn((hkv, tc, d), generator=gen, device=dev).to(kvdtype)
+    vc = torch.randn((hkv, tc, d), generator=gen, device=dev).to(kvdtype)
+    kc[:, clen:] = float("nan")
+    vc[:, clen:] = float("nan")
+    n_all, n_mma = ppk.launches, ppk.launches_mma
+    got = ppk.polar_paged_prefill_grouped(q, kc, vc, *pool, vals, row,
+                                          start, clen, vscale=vs, vzero=vz)
+    assert ppk.launches == n_all + 1
+    assert ppk.launches_mma == n_mma + int(kvdtype == torch.bfloat16)
+    ref = ppk.polar_paged_prefill_grouped_plain(
+        q, kc, vc, *pool, vals, row, start, clen, vscale=vs, vzero=vz)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_prefill_kernel_serving_shape_d128(dev):
+    """Kernel #3 at llama3.1-8b's serving prefill: 32 heads over 8 kv
+    heads x 1024 tokens x d 128, bf16, causal, and qwen1.5-4b's 20 / 20
+    heads: within one bf16 step (2^-7) of the plain version."""
+    gen = _gen(dev, 34)
+    for h, hkv in ((32, 8), (20, 20)):
+        q, k, v = (torch.randn((1, n, 1024, 128), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for n in (h, hkv, hkv))
+        n = fpk.launches
+        got = fpk.flash_prefill(q, k, v)
+        assert fpk.launches == n + 1
+        ref = fpk.flash_prefill_plain(q, k, v)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+@pytest.mark.parametrize("qh,span", [(4, 5), (1, 5), (8, 5), (4, 1)])
+def test_qk_kernel_d128_span_matches_plain(dev, qh, span):
+    """Kernel #6 at d 128 over 9 groups: llama3.1-8b's 4 query heads per
+    kv head folded with a speculative span of 5 (20 rows), qwen1.5-4b's 1
+    and yi-9b's 8 (40 rows) — one launch each, inside ``max_rows(128, 4)``
+    = 48 — and the plain one-token step."""
+    gen = _gen(dev, 35)
+    b, hkv, d, g, gc = 8, 8, 128, 128, 9
+    assert qkk.max_rows(d, 4) == 48 and qh * span <= 48
+    enc = _dense_groups(dev, gen, b, hkv, d, g, gc)
+    q = torch.randn((b, hkv, qh * span, d), generator=gen, device=dev)
+    n = qkk.launches
+    got = qkk.polar_qk_scores(q, *enc)
+    assert qkk.launches == n + 1
+    ref = qkk.polar_qk_scores_plain(q, *enc)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)

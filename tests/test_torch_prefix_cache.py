@@ -338,6 +338,27 @@ def test_chunked_prefill_under_budget_matches_jax(models):
         "first_token") - 1
 
 
+def test_prefill_budget_of_three_chunks_matches_jax(models):
+    """``prefill_budget`` above one chunk: up to three chunks a cycle before
+    the decode step, as the JAX engine schedules them (a burst)."""
+    cfg = models[2]
+    g = cfg.quant.group_size
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(rng.integers(8, 4 * g)),))
+               .astype(np.int32) for _ in range(6)]
+
+    def reqs(cls):
+        return [cls(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+
+    _, one = _run_both(models, reqs, max_slots=3, max_len=6 * g,
+                       prefill_chunk=g)
+    _, three = _run_both(models, reqs, max_slots=3, max_len=6 * g,
+                         prefill_chunk=g, prefill_budget=3 * g)
+    assert _streams(three) == _streams(one)
+    assert three["decode_steps"] < one["decode_steps"]
+
+
 def test_chunk_window_overrunning_row_matches_jax(models):
     """``tests/test_prefix_cache.py:552``: 5-page rows with 2-page chunks —
     the final chunk's window overruns the row; the streams must not
@@ -437,6 +458,95 @@ def test_streaming_cancel_mid_prefill_keeps_index_pages(models):
     res = eng.result()
     assert res["n_cancelled"] == 1
     assert {r.rid for r in res["requests"]} == {donor, other}
+
+
+def test_cancel_invalidates_hash_memo_across_rid_reuse():
+    """Port of ``tests/test_streaming.py``'s scheduler case: cancelling a
+    pending request reports slot -1, not active, no freed page, and drops
+    its memoized prefix hashes — a later request reusing the rid with an
+    equal-length but different prompt does not adopt the cancelled
+    prompt's pages."""
+    from repro_torch.serve.scheduler import Scheduler
+    lay = tcl.PagedLayout(page_size=4, num_pages=16, slots=2,
+                          pages_per_slot=8)
+    sched = Scheduler(lay, prefix_index=tcl.PrefixIndex(lay, 4),
+                      chunk_tokens=4)
+    prompt_a = np.arange(12, dtype=np.int32)
+    donor = Request(rid=0, prompt=prompt_a)
+    sched.submit(donor)
+    assert sched.admissible() is donor
+    slot = sched.admit(donor)
+    sched.register_prefix(slot)     # prompt A's pages enter the index
+    sched.finish(slot)
+    # rid 5 with prompt A polls admission (hashes memoized), then cancels
+    req_a = Request(rid=5, prompt=prompt_a.copy())
+    sched.submit(req_a)
+    assert sched.admissible() is req_a
+    summary = sched.cancel(5)
+    assert summary.req is req_a and summary.slot == -1
+    assert not summary.was_active and summary.freed_pages == 0
+    # rid 5 reused: same length, different tokens — must miss the index
+    req_b = Request(rid=5, prompt=np.arange(100, 112, dtype=np.int32))
+    sched.submit(req_b)
+    assert sched.admissible() is req_b
+    sched.admit(req_b)
+    assert req_b.prefix_hit_tokens == 0
+
+
+def test_active_cancel_summary_counts_freed_pages_like_jax():
+    """Active cancels over shared prefix pages: a slot that adopted index
+    pages frees only its own, a donor whose pages another slot still maps
+    frees fewer than it held, a pending cancel frees none — ``slot``,
+    ``was_active`` and ``freed_pages`` of every summary equal the JAX
+    scheduler's on the same sequence, and so does the allocator."""
+    from repro.serve.scheduler import Scheduler as JScheduler
+    from repro_torch.serve.scheduler import Scheduler
+    kw = dict(page_size=4, num_pages=24, slots=3, pages_per_slot=8)
+    lay, jlay = tcl.PagedLayout(**kw), jcl.PagedLayout(**kw)
+    sched = Scheduler(lay, prefix_index=tcl.PrefixIndex(lay, 8),
+                      chunk_tokens=8)
+    jsched = JScheduler(jlay, prefix_index=jcl.PrefixIndex(jlay, 8),
+                        chunk_tokens=8)
+    shared = np.arange(16, dtype=np.int32)
+
+    def prompt(i, tail):
+        return np.concatenate([shared, np.arange(100 * i, 100 * i + tail,
+                                                 dtype=np.int32)])
+
+    def both(fn):
+        a, b = fn(sched, Request), fn(jsched, JRequest)
+        return a, b
+
+    def admit(rid, tail):
+        def fn(sc, cls):
+            r = cls(rid=rid, prompt=prompt(rid, tail))
+            sc.submit(r)
+            assert sc.admissible() is r
+            return sc.admit(r)
+        return both(fn)
+
+    def cancel(rid):
+        a, b = both(lambda sc, cls: sc.cancel(rid))
+        assert (a.slot, a.was_active, a.freed_pages) == \
+            (b.slot, b.was_active, b.freed_pages), rid
+        assert a.req.rid == rid
+        return a
+
+    s0, _ = admit(0, 5)
+    both(lambda sc, cls: sc.register_prefix(s0))   # 2 shared chunks pinned
+    admit(1, 9)                                    # adopts the donor's pages
+    admit(2, 3)
+    donor = cancel(0)                # pages pinned by the index survive
+    assert donor.was_active and donor.slot == s0
+    assert 0 < donor.freed_pages < lay.pages_for(16 + 5 + 1)
+    both(lambda sc, cls: sc.submit(cls(rid=3, prompt=prompt(3, 4))))
+    pend = cancel(3)
+    assert pend.slot == -1 and not pend.was_active and pend.freed_pages == 0
+    adopter = cancel(1)             # frees only its own, not the adopted
+    assert adopter.was_active and adopter.freed_pages > 0
+    assert cancel(2).freed_pages == lay.pages_for(16 + 3 + 1) - 4
+    assert sched.cancel(7) is None and jsched.cancel(7) is None
+    assert _alloc_state(sched.alloc) == _alloc_state(jsched.alloc)
 
 
 @pytest.mark.parametrize("prefix_cache,chunk", [(True, 0), (False, 5),
