@@ -31,8 +31,9 @@ run):
               timed on a row of its own (``name[u8]``); every kernel at
               the paper's widths, head_dim 128 at llama3.1-8b's 8 kv heads
               x 4 query heads (rows ``name[d128]``; #2 and #5 on the split
-              body) and #2 and #4 also at qwen1.5-4b's 20 kv heads of one
-              query head (``name[d128,qh1]``); then the paged
+              body), #2-#6 also at qwen1.5-4b's 20 kv heads of one query
+              head (``name[d128,qh1]``) and at dbrx-132b's 8 kv heads x 6
+              query heads (``name[d128,qh6]``); then the paged
               engine's three decode backends against each other on one
               fragmented cache, with bf16 and with 4-bit values.
 4. model    — full-width tinyllama-1.1b in bf16 (random weights from a
@@ -53,6 +54,9 @@ run):
               on a copy of the same state (8 slots prefilled to 1-8
               pages): logits bit-equal, tokens, every buffer; an
               all-inactive replay writes only the scratch page.
+   From runahead to profile, tinyllama-1.1b keeps its full width and the
+   first ``LATER_DEPTH`` (6) of its 22 layers; the model, serve and
+   graphs phases run all 22.
    runahead — run-ahead decode (DESIGN.md §18): 8 greedy requests, 128
               new tokens, all at t = 0, at ``runahead`` 0, 4 and 8 —
               identical streams and per-request events, horizons > 0,
@@ -129,23 +133,41 @@ run):
               and of one H = 8 horizon replay per token: the device's idle
               share and the largest kernels.
 12. configs — the paper's dense configs at head_dim 128, one at a time at
-              full width in bf16 (llama3.1-8b, granite-8b, yi-9b,
-              qwen1.5-4b; seeded random weights, qwen1.5's q/k/v biases
-              non-zero): the paged logit gate (rel. L2 5e-2) and a graphed
+              full width in bf16 (llama3.1-8b with 8 of its 32 layers,
+              granite-8b, yi-9b, qwen1.5-4b whole; seeded random weights,
+              qwen1.5's q/k/v biases non-zero): the paged logit gate (rel. L2 5e-2) and a graphed
               8-request serving run with exact launches each; for
               llama3.1-8b also the ``serve`` workload graphed and eager,
               ``ServeEngine`` on both polar routes (gates, exact cache
               bytes per layer) and chunked prefill with and without the
               prefix cache; for qwen1.5-4b (one query head per kv head)
               the chunked prefill; each config's peak memory.
+13. moe     — the MoE family in bf16, one config at a time (seeded random
+              weights): qwen2-moe-a2.7b at full width (24 layers, 60
+              experts of 1408 top-4 + 4 shared units, 16 / 16 heads,
+              q/k/v biases non-zero) and dbrx-132b at its published
+              widths with its depth cut from 40 layers to 4 (16 experts
+              of 10752 top-4, 48 / 8 heads). Each: the paged logit gate
+              (rel. L2 5e-2; the plain run replays the kernel run's expert
+              choices, and a plain run with its own routing reports the
+              share of routing decisions that differ and holds its median
+              step to 5e-2), a graphed 8-request serving run with exact
+              launches, ``ServeEngine`` on both polar routes and chunked
+              prefill with and without the prefix cache (3 requests);
+              qwen2-moe-a2.7b also the serving run eager (each request's
+              tokens and events equal) and the ``graphs`` checks. Each
+              config's peak memory and the phase's seconds. Both phases
+              run one loop (``phase_configs``) over a table of configs and
+              arms (``D128_CONFIGS``, ``MOE_CONFIGS``).
 
-Then one JSON line of per-kernel numbers (launches summed over the nine
-serving phases; the uint8 forms on rows of their own, encode's decode
-form — a decode step's flush — and its fixed-angle-grid form on rows of
-their own, the head_dim-128 forms on theirs, counted in the configs
-phase), and last the device JSON. Any failure raises (non-zero
-exit). Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+Each phase's end and seconds go to stderr as it ends; then a line of
+seconds per phase, one JSON line of per-kernel numbers (launches summed
+over the ten serving phases; the uint8 forms on rows of their own,
+encode's decode form — a decode step's flush — and its fixed-angle-grid
+form on rows of their own, the head_dim-128 forms on theirs, counted in
+the configs and moe phases), and last the device JSON. Any failure
+raises (non-zero exit). Without a CUDA device, or outside a checkout of
+the repository, it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --variants`` runs only the env phase and then
 times the alternatives the redesigned kernels were chosen against
@@ -190,6 +212,11 @@ TC = 256                      # prefill chunk of the prefix phase
 # 8 flushed groups
 SB, SPROMPT, SNEW, SMAX = 8, 1000, 64, 1152
 SG = SMAX // G
+# tinyllama-1.1b's layers kept for the paths after ``graphs`` (runahead,
+# spec, prefix, static, values, codecs, qos, profile): at full depth the
+# whole run took 513 s on an H100 80GB HBM3 at 700 W, too close to its
+# time limit on a slower host
+LATER_DEPTH = 6
 
 
 def bound(nbytes: float, flops: float | dict, kind: str = "fp32"
@@ -1353,8 +1380,9 @@ def check_polar_attention_u8(torch, dev, gen, flush) -> dict:
 # ---------------------------------------------------------------------------
 
 #: (kv heads, query heads per kv head) of the ``[d128]`` rows (llama3.1-8b;
-#: granite-8b has the same) and the ``[d128,qh1]`` rows (qwen1.5-4b, MHA)
-D128_SHAPES = {"[d128]": (8, 4), "[d128,qh1]": (20, 1)}
+#: granite-8b has the same), the ``[d128,qh1]`` rows (qwen1.5-4b, MHA) and
+#: the ``[d128,qh6]`` rows (dbrx-132b)
+D128_SHAPES = {"[d128]": (8, 4), "[d128,qh1]": (20, 1), "[d128,qh6]": (8, 6)}
 D128 = 128
 
 
@@ -1474,12 +1502,14 @@ def check_decode_d128(torch, dev, gen, flush, form) -> dict:
         f"d 128, bf16 values, nsplit {pd.plan_splits(s, hkv, n)}")
 
 
-def check_prefill_d128(torch, dev, gen, flush) -> dict:
-    """#3 at llama3.1-8b's serving prefill: 32 heads over 8 kv heads x
-    1024 tokens x d 128, bf16, causal, within one bf16 step (2^-7) of the
-    plain version."""
+def check_prefill_d128(torch, dev, gen, flush, form) -> dict:
+    """#3 at a serving prefill of 1024 tokens x d 128, bf16, causal: at
+    llama3.1-8b's 32 heads over 8 kv heads (``[d128]``), qwen1.5-4b's 20
+    over 20 (``[d128,qh1]``) or dbrx-132b's 48 over 8 (``[d128,qh6]``),
+    within one bf16 step (2^-7) of the plain version."""
     from repro_torch.kernels import flash_prefill as fpk
-    h, hkv, t, d = 32, D128_SHAPES["[d128]"][0], 1024, D128
+    hkv, qh = D128_SHAPES[form]
+    h, t, d = hkv * qh, 1024, D128
     q = torch.randn((1, h, t, d), generator=gen, device=dev).to(
         torch.bfloat16)
     k, v = (torch.randn((1, hkv, t, d), generator=gen, device=dev).to(
@@ -1498,11 +1528,11 @@ def check_prefill_d128(torch, dev, gen, flush) -> dict:
     lib_ms = time_ms(torch, lambda: sdpa(q, ke, ve, is_causal=True),
                      flush=flush)
     return _d128_row(
-        "flash_prefill", "[d128]", "flash_prefill.cu",
+        "flash_prefill", form, "flash_prefill.cu",
         "src/repro/kernels/flash_prefill.py:77", err, ms, plain_ms,
         bound((2 * h + 2 * hkv) * t * d * 2,
               4.0 * h * d * (t * (t + 1) / 2), "bf16"), lib_ms, "SDPA",
-        "1 x 32 heads (8 kv) x 1024 tokens x 128 bf16, causal")
+        f"1 x {h} heads ({hkv} kv) x 1024 tokens x 128 bf16, causal")
 
 
 def check_paged_prefill_d128(torch, dev, gen, flush, form) -> dict:
@@ -1582,16 +1612,16 @@ def check_paged_prefill_d128(torch, dev, gen, flush, form) -> dict:
         "pages (1024 tokens) x d 128, bf16, tensor-core body")
 
 
-def check_dense_d128(torch, dev, gen, flush) -> list[dict]:
-    """#5 and #6 at d 128 on the static phase's dense buffers (8 rows x 8
-    kv heads x 4 query heads x 9 groups, 8 flushed): #5 on the split body
-    with ragged lengths and every stat and value row past a length
-    NaN-poisoned, #6 over every group; both within 1e-4 of the plain
-    versions."""
+def check_dense_d128(torch, dev, gen, flush, form) -> list[dict]:
+    """#5 and #6 at d 128 on the static phase's dense buffers (8 rows x
+    the form's kv heads x query heads (``D128_SHAPES``) x 9 groups, 8
+    flushed): #5 on the split body with ragged lengths and every stat and
+    value row past a length NaN-poisoned, #6 over every group; both
+    within 1e-4 of the plain versions."""
     from repro_torch.kernels import polar_attention as pak
     from repro_torch.kernels import polar_encode as pe
     from repro_torch.kernels import polar_qk as qkk
-    hkv, qh = D128_SHAPES["[d128]"]
+    hkv, qh = D128_SHAPES[form]
     d = D128
     p = d // 2
     k = torch.randn((SB, hkv, 8 * G, d), generator=gen, device=dev).to(
@@ -1638,11 +1668,11 @@ def check_dense_d128(torch, dev, gen, flush) -> list[dict]:
     nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4 + G * d * 2) \
         + SB * 4 + SB * hkv * qh * (d + 2) * 4
     rows = [_d128_row(
-        "polar_attention", "[d128]", "polar_attention.cu",
+        "polar_attention", form, "polar_attention.cu",
         "src/repro/kernels/polar_attention.py:104", err, ms, plain_ms,
         bound(nbytes, flops(groups, True), "fp32"), lib_ms,
         "SDPA over pre-dequantized keys (fp32, length mask)",
-        "8 rows x 8 kv heads x 4 query heads x 8 flushed groups of a "
+        f"8 rows x {hkv} kv heads x {qh} query heads x 8 flushed groups of a "
         "1152-token buffer x d 128, bf16 values")]
     got = qkk.polar_qk_scores(q, *bufs)
     ref = qkk.polar_qk_scores_plain(q, *bufs)
@@ -1658,26 +1688,29 @@ def check_dense_d128(torch, dev, gen, flush) -> list[dict]:
     nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4) \
         + SB * hkv * qh * SMAX * 4
     rows.append(_d128_row(
-        "polar_qk", "[d128]", "polar_qk.cu", "src/repro/kernels/polar_qk.py:68",
+        "polar_qk", form, "polar_qk.cu", "src/repro/kernels/polar_qk.py:68",
         err, ms, plain_ms, bound(nbytes, flops(groups, False), "fp32"),
         lib_ms, "matmul over pre-dequantized keys (fp32)",
-        "8 rows x 8 kv heads x 4 query heads x 9 groups (1152 tokens) x "
-        "d 128"))
+        f"8 rows x {hkv} kv heads x {qh} query heads x 9 groups (1152 "
+        "tokens) x d 128"))
     return rows
 
 
 def check_d128(torch, dev, gen, flush) -> list[dict]:
     """Every kernel at the paper's widths: #1-#6 at llama3.1-8b's (rows
-    ``name[d128]``), #2 and #4 also at qwen1.5-4b's 20 kv heads of one
-    query head (``name[d128,qh1]``). Their launches are counted in the
-    configs phase."""
+    ``name[d128]``), #2-#6 also at qwen1.5-4b's 20 kv heads of one query
+    head (``name[d128,qh1]``) and at dbrx-132b's 8 kv heads of six query
+    heads (``name[d128,qh6]``). Their launches are counted in the configs
+    and moe phases (:func:`d128_counts`)."""
     return [check_encode_d128(torch, dev, gen, flush),
             *(check_decode_d128(torch, dev, gen, flush, f)
               for f in D128_SHAPES),
-            check_prefill_d128(torch, dev, gen, flush),
+            *(check_prefill_d128(torch, dev, gen, flush, f)
+              for f in D128_SHAPES),
             *(check_paged_prefill_d128(torch, dev, gen, flush, f)
               for f in D128_SHAPES),
-            *check_dense_d128(torch, dev, gen, flush)]
+            *(row for f in D128_SHAPES
+              for row in check_dense_d128(torch, dev, gen, flush, f))]
 
 
 def phase_kernels(torch) -> list[dict]:
@@ -2013,10 +2046,91 @@ def plain_kernels():
         yield
 
 
+@contextlib.contextmanager
+def record_routes(sink: list):
+    """Append the expert indices (B, T, k) of every MoE layer's routing to
+    ``sink`` while the block runs."""
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod.route
+
+    def rec(params, x, cfg):
+        out = route(params, x, cfg)
+        sink.append(out[2])
+        return out
+    with mock.patch.object(moe_mod, "route", rec):
+        yield
+
+
+@contextlib.contextmanager
+def replay_routes(recorded: list):
+    """Route every MoE layer to the experts ``recorded`` by a kernel run's
+    :func:`record_routes` (consumed in call order), with the gates from
+    this run's own router probabilities. A plain run against a kernel run
+    then compares the kernels' arithmetic with the routing held fixed:
+    the choice of experts is discrete, and bf16 noise near tied router
+    logits flips some of it, which moves a token's FFN output by a whole
+    expert whatever the kernels' error."""
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod.route
+    todo = list(recorded)
+
+    def rep(params, x, cfg):
+        probs, _, _ = route(params, x, cfg)
+        eidx = todo.pop(0)
+        assert eidx.shape == (*probs.shape[:-1], cfg.top_k), eidx.shape
+        gates = probs.gather(-1, eidx)
+        if cfg.norm_topk:
+            gates = gates / gates.sum(dim=-1, keepdim=True)
+        return probs, gates, eidx
+    with mock.patch.object(moe_mod, "route", rep):
+        yield
+    assert not todo, f"{len(todo)} recorded routings not replayed"
+
+
+def routing_flips(torch, a: list, b: list) -> float | None:
+    """Share of routing decisions (one layer's top-k expert set for one
+    token) that differ between two runs' :func:`record_routes`; None when
+    no MoE layer ran."""
+    assert len(a) == len(b)
+    if not a:
+        return None
+    diff = [(x.sort(-1).values != y.sort(-1).values).any(-1).flatten()
+            for x, y in zip(a, b)]
+    return float(torch.cat(diff).float().mean())
+
+
+def free_routing(torch, run, kern, routes: list) -> dict | None:
+    """For an MoE model (``routes`` recorded while ``run`` gave ``kern``
+    through the kernels), ``run`` again on the plain versions with its own
+    routing: {"flips": the share of routing decisions it makes
+    differently (:func:`routing_flips`), "free_rel": the relative L2
+    logit error of ``kern`` against it per step (flattened), "agree": the
+    argmax agreement}. Its median step must be within MODEL_REL_L2: a
+    routing flip moves the few steps it reaches by a whole expert, a
+    faulty kernel moves every step. None for a dense model."""
+    if not routes:
+        return None
+    free_routes: list = []
+    with plain_kernels(), record_routes(free_routes):
+        free = run()
+    rel = ((kern - free).norm(dim=-1) / free.norm(dim=-1)).flatten()
+    out = {"flips": routing_flips(torch, routes, free_routes),
+           "free_rel": rel,
+           "agree": float((kern.argmax(-1) == free.argmax(-1)).float()
+                          .mean())}
+    assert float(rel.median()) <= MODEL_REL_L2, \
+        f"logits drift under free routing {rel.tolist()}, {out['flips']}"
+    return out
+
+
 def paged_logit_gate(torch, model, params, t0=512, steps=16):
     """Per-step relative L2 error of the logits, kernels vs plain
     versions, of a ``t0``-token paged prefill and ``steps`` teacher-forced
-    decode steps (one slot of 8 pages), and the argmax agreement."""
+    decode steps (one slot of 8 pages), and the argmax agreement. For an
+    MoE model the gated plain run takes the kernel run's expert choices
+    (:func:`replay_routes`), and a third run, plain with its own routing,
+    is gated on its median step (:func:`free_routing`, returned as
+    ``moe``); ``moe`` is None for a dense model."""
     from repro_torch.core.cache_layout import PagedLayout
     dev = params["embed"].device
     cfg = model.cfg
@@ -2040,19 +2154,23 @@ def paged_logit_gate(torch, model, params, t0=512, steps=16):
             out.append(lg.float())
         return torch.stack(out)
 
-    kern = run()
-    with plain_kernels():
+    routes: list = []
+    with record_routes(routes):
+        kern = run()
+    with plain_kernels(), replay_routes(routes):
         plain = run()
     rel = ((kern - plain).norm(dim=-1) / plain.norm(dim=-1)).flatten()
     agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    moe = free_routing(torch, run, kern, routes)
     assert torch.isfinite(kern).all()
-    assert float(rel.max()) <= MODEL_REL_L2, f"logits drift {rel.tolist()}"
-    return rel, agree
+    assert float(rel.max()) <= MODEL_REL_L2, \
+        f"logits drift {rel.tolist()}; MoE routing replayed, free run {moe}"
+    return rel, agree, moe
 
 
 def phase_model(torch, model, params) -> None:
     t0, steps = 512, 16
-    rel, agree = paged_logit_gate(torch, model, params, t0, steps)
+    rel, agree, _ = paged_logit_gate(torch, model, params, t0, steps)
     print(f"model: tinyllama-1.1b bf16 22 layers, prefill {t0} + {steps} "
           f"teacher-forced decode steps; relative L2 logit error kernel vs "
           f"plain per step max {float(rel.max()):.3e} (prefill "
@@ -2201,28 +2319,50 @@ KERNEL_FNS = {"polar_encode": ("polar_encode_kernel",),
               "polar_qk": ("polar_qk_kernel",)}
 
 
-def profiled_kernels(torch, fn) -> dict:
+def profiled_kernels(torch, fn, tries=3, pad=32) -> dict:
     """Kernel launches per CUDA kernel function (``KERNEL_FNS``' names and
     ``merge_splits_kernel``) that the device ran in one call of ``fn``,
-    read from torch.profiler."""
+    read from torch.profiler. The tracer can lose a trace's first records
+    and its last ones (traces of replays of qwen2-moe-a2.7b's graphs lost
+    a few leading records, and once a tail holding a layer's encode and
+    decode, on an NVIDIA H100 80GB HBM3 at 700 W), and its timestamps do
+    not order a replay's records against the host's. So ``pad`` spin
+    kernels open the trace and ``pad`` close it, each group followed by a
+    synchronize: a loss at either end that stops short of ``fn``'s
+    records eats only spins, and the trace is complete when fewer than
+    ``pad`` spins are missing. An incomplete trace is taken again
+    (``tries`` times at most, then it fails); a complete one is counted
+    as it is."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     names = [f for fns in KERNEL_FNS.values() for f in fns]
     names.append("merge_splits_kernel")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+
+    def spin():
+        for _ in range(pad):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    ran = dict.fromkeys(names, 0)
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for f in names:
-            if re.search(rf"\b{f}\b", e.key):
-                ran[f] += e.count
-    return ran
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            spin()
+            fn()
+            torch.cuda.synchronize()
+            spin()
+        evs = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        spins = sum(bool(re.search(r"\bspin_kernel\b", e)) for e in evs)
+        if spins > pad:
+            ran = dict.fromkeys(names, 0)
+            for e in evs:
+                for f in names:
+                    ran[f] += bool(re.search(rf"\b{f}\b", e))
+            return ran
+        print(f"profile: an incomplete trace ({len(evs)} device records, "
+              f"{spins} of {2 * pad} spin kernels), taken again", flush=True)
+    raise AssertionError(f"no complete trace of {fn} in {tries} profiles")
 
 
 def check_replay_kernels(torch, graphs, table, slots: int,
@@ -2268,7 +2408,7 @@ def check_replay_kernels(torch, graphs, table, slots: int,
     return lines
 
 
-def phase_graphs(torch, model, params) -> None:
+def phase_graphs(torch, model, params, label="graphs") -> None:
     """Each width bucket's decode graph against the eager step at full
     width: 8 slots prefilled to 60-1000 tokens (1-8 live pages), then per
     width a replayed one-token step on the engine's state and the eager
@@ -2339,7 +2479,7 @@ def phase_graphs(torch, model, params) -> None:
         assert same(core.state, before, scratch), \
             f"width {w}: an inactive replay wrote outside the scratch page"
     torch.cuda.synchronize()
-    print(f"graphs: widths {core._decode_widths()} covering {covered} of 8 "
+    print(f"{label}: widths {core._decode_widths()} covering {covered} of 8 "
           f"prefilled slots: replayed step == eager step on a copy (logits "
           f"bit-equal, tokens, every buffer of {cfg.num_layers} layers); "
           f"inactive replays wrote only the scratch page; "
@@ -2348,7 +2488,7 @@ def phase_graphs(torch, model, params) -> None:
     lines = check_replay_kernels(torch, core._graphs,
                                  core.sched.alloc.table(), 8,
                                  cfg.num_kv_heads)
-    print(f"graphs: a profiled replay of each of {len(lines)} graphs ran "
+    print(f"{label}: a profiled replay of each of {len(lines)} graphs ran "
           f"exactly the launches its capture recorded ({cfg.num_layers} "
           f"layers; per H = 1 step, H = 8 per horizon): "
           + "; ".join(lines), flush=True)
@@ -3002,18 +3142,29 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
             # gate 1: the logits after prefill and over the first 8 decode
             # steps, against the same run with every kernel's plain version
             tok_t = torch.as_tensor(out["tokens"], device=dev).long()
-            kern, _ = _teacher_logits(torch, model, params, prompts, tok_t,
-                                      8)
-            with plain_kernels():
+            routes: list = []
+            with record_routes(routes):
+                kern, _ = _teacher_logits(torch, model, params, prompts,
+                                          tok_t, 8)
+            # an MoE model's plain run takes the kernel run's experts
+            with plain_kernels(), replay_routes(routes):
                 plain, _ = _teacher_logits(torch, model, params, prompts,
                                            tok_t, 8)
             rel = ((kern - plain).norm(dim=-1) / plain.norm(dim=-1))
             assert torch.isfinite(kern).all()
             assert float(rel.max()) <= MODEL_REL_L2, \
                 f"{name} logits drift {rel.flatten().tolist()}"
+            free = free_routing(torch, lambda: _teacher_logits(
+                torch, model, params, prompts, tok_t, 8)[0], kern, routes)
             gate = (f"; rel. L2 logits vs plain max {float(rel.max()):.3e} "
                     f"(prefill {float(rel[0].max()):.3e}, limit "
-                    f"{MODEL_REL_L2})")
+                    f"{MODEL_REL_L2}" + (
+                        f", MoE routing replayed; plain with its own "
+                        f"routing: {free['flips']:.4f} of routing decisions "
+                        f"differ, median "
+                        f"{float(free['free_rel'].median()):.3e} max "
+                        f"{float(free['free_rel'].max()):.3e}"
+                        if free else "") + ")")
         bits = [kvc.cache_logical_bits(c)
                 for c in model.init_decode_state(1, G, dev)]
         print(f"{label}[{name}]: {SB} rows x {SPROMPT}-token prompts, "
@@ -3148,7 +3299,7 @@ PAGE_BYTES = {"polar": 83_968, "kivi": 100_352, "int": 102_400,
 #: the codecs phase's arms' logical key bits per element (d 64, g 128)
 ARM_BITS = {"int8": 8.5, "int4": 4.5, "kivi4": 4.25, "zipcache4": 4.625,
             "none": 16.0, "polar-fixed": 4.125,
-            "mixed": (2 * 8.5 + 20 * 4.25) / 22}
+            "mixed": (2 * 8.5 + (LATER_DEPTH - 2) * 4.25) / LATER_DEPTH}
 
 
 def codec_arms(cfg) -> dict:
@@ -3292,7 +3443,7 @@ def phase_codecs(torch, cfg, params, counters) -> dict:
               f"{sorted(set(layer_bytes))} (exact), {bits:.4f} logical key "
               "bits/element", flush=True)
         if arm in ("mixed", "polar-fixed"):
-            rel, agree = paged_logit_gate(torch, model, params)
+            rel, agree, _ = paged_logit_gate(torch, model, params)
             print(f"codecs:gate[{arm}]: prefill 512 + 16 teacher-forced "
                   f"decode steps, relative L2 logit error kernel vs plain "
                   f"max {float(rel.max()):.3e} (limit {MODEL_REL_L2}); "
@@ -3309,52 +3460,101 @@ def phase_codecs(torch, cfg, params, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the paper's dense configs at head_dim 128, full width
+# phases 12 and 13: the paper's configs at head_dim 128 (dense, MoE)
 # ---------------------------------------------------------------------------
 
-#: the dense configs beyond tinyllama, each at full width in bf16
-D128_CONFIGS = ("llama3.1-8b", "granite-8b", "yi-9b", "qwen1.5-4b")
+#: a config run of :func:`phase_configs`: the config, the layers kept (0:
+#: all), the arms beyond the logit gate and the graphed 8 x 32 serving run
+#: ("serve": the ``serve`` workload graphed and eager; "eager": the 8 x 32
+#: run again eagerly; "graphs": :func:`phase_graphs`; "static":
+#: ``ServeEngine`` on both polar routes) and the requests of its chunked
+#: prefill run (0: none)
+ConfigRun = tuple[str, int, tuple[str, ...], int]
+
+#: the dense configs beyond tinyllama, each at full width in bf16;
+#: llama3.1-8b, which carries the arms, with 8 of its 32 layers (whole,
+#: its arms took 52 s of the run); qwen1.5-4b's 3 chunked-prefill requests
+#: check the Qh-1 chunk path (6 take ~30 s of eager chunks where the host
+#: is slow)
+D128_CONFIGS: tuple[ConfigRun, ...] = (
+    ("llama3.1-8b", 8, ("serve", "static"), 6),
+    ("granite-8b", 0, (), 0),
+    ("yi-9b", 0, (), 0),
+    ("qwen1.5-4b", 0, (), 3),
+)
+
+#: the MoE configs: qwen2-moe-a2.7b whole (14.3 B params, 28.6 GB in
+#: bf16); dbrx-132b at its published widths with 4 of its 40 layers (the
+#: whole model, 132 B params, does not fit one card)
+MOE_CONFIGS: tuple[ConfigRun, ...] = (
+    ("qwen2-moe-a2.7b", 0, ("eager", "graphs", "static"), 3),
+    ("dbrx-132b", 4, ("static",), 3),
+)
 
 
 def d128_counts(counts: dict, cfg) -> dict:
     """A phase's launches at a head_dim-128 config under the ``[d128]``
-    rows' names: both encode forms on ``polar_encode[d128]``, the paged
-    decode and prefill at one query head per kv head (qwen1.5-4b) on the
-    ``[d128,qh1]`` rows."""
+    rows' names: both encode forms on ``polar_encode[d128]``, every
+    attention kernel at one query head per kv head (qwen1.5-4b,
+    qwen2-moe-a2.7b) on the ``[d128,qh1]`` rows and at six (dbrx-132b) on
+    the ``[d128,qh6]`` rows."""
     out: dict = {}
     for k, n in counts.items():
         base = k.split("[")[0]
-        form = ("[d128,qh1]" if cfg.q_per_kv == 1 and base in (
-            "paged_decode", "paged_prefill") else "[d128]")
+        form = "[d128]"
+        if base != "polar_encode" and cfg.q_per_kv in (1, 6):
+            form = f"[d128,qh{cfg.q_per_kv}]"
         out[base + form] = out.get(base + form, 0) + n
     return out
 
 
-def phase_configs(torch, counters, dev="cuda") -> dict:
-    """The four dense configs at head_dim 128, one at a time at full width
-    in bf16 (random weights from a seeded generator on the card; qwen1.5's
-    q/k/v biases drawn non-zero): the paged logit gate (512-token prefill
-    + 16 decode steps, kernels vs plain versions, rel. L2 5e-2) and a
-    graphed ``ContinuousBatchingEngine`` run (8 slots, max_len 1024, 8
-    greedy requests of 100-900 prompt tokens, 32 new, all at t = 0, exact
-    launches). llama3.1-8b, the paper's backbone, also runs the ``serve``
-    workload graphed and eager, chunked prefill with and without the
-    prefix cache (6 requests) and ``ServeEngine`` on both polar routes;
-    qwen1.5-4b (one query head per kv head) the chunked prefill (3
-    requests). Each
-    config's params, engines and graph pools are freed before the next;
-    its peak memory is printed. Returns the launches under the ``[d128]``
-    rows' names (:func:`d128_counts`)."""
+def describe(cfg, full) -> str:
+    """One config's widths, and its depth cut against ``full``."""
+    cut = (f" (depth cut from {full.num_layers} to {cfg.num_layers} layers; "
+           f"whole: {full.param_count() / 1e9:.2f} B params)"
+           if cfg.num_layers != full.num_layers else "")
+    moe = ""
+    if cfg.family == "moe":
+        moe = (f", {cfg.num_experts} experts of {cfg.moe_d_ff} "
+               f"top-{cfg.top_k}"
+               + (f" + {cfg.num_shared_experts} shared units"
+                  if cfg.num_shared_experts else "")
+               + (", norm_topk" if cfg.norm_topk else ""))
+    return (f"{cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+            f"{cfg.head_dim}{moe}, vocab {cfg.vocab_size}, rope base "
+            f"{cfg.rope_base:g}" + (", q/k/v bias" if cfg.qkv_bias else "")
+            + f"; {cfg.param_count() / 1e9:.3f} B params bf16")
+
+
+def phase_configs(torch, counters, runs: tuple[ConfigRun, ...], label: str,
+                  dev="cuda") -> dict:
+    """Each of ``runs`` one at a time in bf16 (random weights from a seeded
+    generator on the card; q/k/v biases, where the config has them, drawn
+    non-zero): the paged logit gate (512-token prefill + 16 decode steps,
+    kernels vs plain versions, rel. L2 5e-2; for an MoE config the plain
+    run replays the kernel run's expert choices, and a plain run with its
+    own routing reports the share of routing decisions that differ and is
+    gated on its median step, :func:`paged_logit_gate`), a graphed
+    ``ContinuousBatchingEngine`` run (8 slots, max_len 1024, 8 greedy
+    requests of 100-900 prompt tokens, 32 new, all at t = 0, exact
+    launches) and the run's arms (:data:`ConfigRun`). Each config's
+    params, engines and graph pools are freed before the next; its peak
+    memory and seconds are printed, and the phase's. Returns the launches
+    under the ``[d128]`` rows' names (:func:`d128_counts`)."""
+    import dataclasses
     import gc
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
+    t_phase = time.monotonic()
     total: dict = {}
-    for name in D128_CONFIGS:
+    for name, depth, arms, n_prefix in runs:
         t0 = time.monotonic()
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cfg = get_config(name)
+        full = get_config(name)
+        cfg = dataclasses.replace(full, num_layers=depth) if depth else full
         model = get_model(cfg)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -3365,47 +3565,52 @@ def phase_configs(torch, counters, dev="cuda") -> dict:
                     x = layer["attn"][b]
                     x.copy_(0.1 * torch.randn(x.shape, generator=gen,
                                               device=dev))
-        rel, agree = paged_logit_gate(torch, model, params)
-        print(f"configs[{name}]: {cfg.num_layers} layers, d_model "
-              f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
-              f"head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, rope base "
-              f"{cfg.rope_base:g}" + (", q/k/v bias" if cfg.qkv_bias else "")
-              + f"; {cfg.param_count() / 1e9:.3f} B params bf16; prefill 512 "
-              f"+ 16 teacher-forced decode steps, relative L2 logit error "
-              f"kernel vs plain per step max {float(rel.max()):.3e} "
-              f"(prefill {float(rel[0]):.3e}, limit {MODEL_REL_L2}); argmax "
-              f"agreement {agree:.3f}", flush=True)
+        rel, agree, free = paged_logit_gate(torch, model, params)
+        tag = f"{label}[{name}]"
+        print(f"{tag}: {describe(cfg, full)}; prefill 512 + 16 "
+              f"teacher-forced decode steps, relative L2 logit error kernel "
+              f"vs plain" + (" (routing replayed)" if free else "")
+              + f" per step max {float(rel.max()):.3e} (prefill "
+              f"{float(rel[0]):.3e}, limit {MODEL_REL_L2}); argmax agreement "
+              f"{agree:.3f}" + (
+                  f"; plain with its own routing: {free['flips']:.4f} of "
+                  f"routing decisions differ, logit error per step median "
+                  f"{float(free['free_rel'].median()):.3e} (limit "
+                  f"{MODEL_REL_L2}), max {float(free['free_rel'].max()):.3e} "
+                  f"(prefill {float(free['free_rel'][0]):.3e}), argmax "
+                  f"agreement {free['agree']:.3f}" if free else ""),
+              flush=True)
         counts: dict = {}
 
         def add(c):
             for k, n in d128_counts(c, cfg).items():
                 counts[k] = counts.get(k, 0) + n
         c, _ = phase_serve(torch, model, params, counters, n_req=8, new=32,
-                           seed=5, label=f"configs[{name}]", eager_arm=False,
+                           seed=5, label=tag, eager_arm="eager" in arms,
                            gap=0.0)
         add(c)
-        if name == "llama3.1-8b":
+        if "serve" in arms:
             c, _ = phase_serve(torch, model, params, counters,
-                               label=f"configs[{name}]:serve")
+                               label=f"{tag}:serve")
             add(c)
+        if "graphs" in arms:
+            phase_graphs(torch, model, params, label=f"{tag}:graphs")
+        if "static" in arms:
             add(phase_static(torch, cfg, params, counters,
-                             runs=STATIC_RUNS[:2],
-                             label=f"configs[{name}]:static"))
-        if name in ("llama3.1-8b", "qwen1.5-4b"):
-            # qwen1.5-4b's run checks the Qh-1 chunk path with 3 requests
-            # (6 take ~30 s of eager chunks where the host is slow)
-            add(phase_prefix(torch, model, params, counters,
-                             n_req=6 if name == "llama3.1-8b" else 3,
-                             label=f"configs[{name}]:prefix"))
+                             runs=STATIC_RUNS[:2], label=f"{tag}:static"))
+        if n_prefix:
+            add(phase_prefix(torch, model, params, counters, n_req=n_prefix,
+                             label=f"{tag}:prefix"))
         peak = torch.cuda.max_memory_allocated()
         del params, model
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"configs[{name}]: peak memory {peak / 2 ** 30:.2f} GiB; "
+        print(f"{tag}: peak memory {peak / 2 ** 30:.2f} GiB; "
               f"{time.monotonic() - t0:.1f} s; launches "
               f"{json.dumps(counts)}", flush=True)
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
+    print(f"{label}: {time.monotonic() - t_phase:.1f} s", flush=True)
     return total
 
 
@@ -3742,6 +3947,43 @@ def phase_profile(torch, model, params) -> None:
               for k, (d, land, tot) in lands.items()), flush=True)
 
 
+def cut_depth(cfg, params, depth: int):
+    """tinyllama-1.1b at its full width with only its first ``depth``
+    layers, for the paths after ``graphs``: (config, model, params)."""
+    import dataclasses
+    from repro_torch.models import get_model
+    cut = dataclasses.replace(cfg, num_layers=depth)
+    print(f"runahead to profile: {cfg.name} at its full width, depth cut "
+          f"from {cfg.num_layers} to {depth} layers", flush=True)
+    return cut, get_model(cut), {**params, "layers": params["layers"][:depth]}
+
+
+class PhaseClock:
+    """Times each phase of ``main``. Besides keeping the seconds, it writes
+    each phase's end to stderr as it happens, and every thread's stack if
+    a phase runs past 240 s (none takes 100 s), so a run stopped at its
+    time limit still shows how far it got, where the time went and where
+    it hung."""
+
+    def __init__(self, t_start: float):
+        self.t_start, self.seconds = t_start, {}
+
+    def run(self, name, fn, *args):
+        import faulthandler
+        t0 = time.monotonic()
+        faulthandler.dump_traceback_later(240.0, exit=False)
+        try:
+            out = fn(*args)
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+        now = time.monotonic()
+        self.seconds[name] = round(now - t0, 1)
+        print(f"chip_smoke: {name} done in {now - t0:.1f} s, "
+              f"{now - self.t_start:.1f} s since start", file=sys.stderr,
+              flush=True)
+        return out
+
+
 def main() -> int:
     t_start = time.monotonic()
     import torch
@@ -3767,36 +4009,42 @@ def main() -> int:
         assert len(sys.argv) == 2, "usage: chip_smoke.py --variants"
         phase_variants(torch)
         return 0
-    phase_build()
-    rows = phase_kernels(torch)
+    clock = PhaseClock(t_start)
+    clock.run("build", phase_build)
+    rows = clock.run("kernels", phase_kernels, torch)
 
     cfg = get_config("tinyllama-1.1b")
     model = get_model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = model.init(generator=gen, device="cuda")
-    phase_model(torch, model, params)
+    clock.run("model", phase_model, torch, model, params)
     counters = (pe, pd, fpk, ppk, pak, qkk)
-    serve, _ = phase_serve(torch, model, params, counters)
-    phase_graphs(torch, model, params)
-    runahead = phase_runahead(torch, model, params, counters)
-    spec = phase_spec(torch, model, params, counters)
-    prefix = phase_prefix(torch, model, params, counters)
-    static = phase_static(torch, cfg, params, counters)
-    values = phase_values(torch, cfg, params, counters)
-    codecs = phase_codecs(torch, cfg, params, counters)
-    qos = phase_qos(torch, model, params, counters)
-    phase_profile(torch, model, params)
+    serve, _ = clock.run("serve", phase_serve, torch, model, params, counters)
+    clock.run("graphs", phase_graphs, torch, model, params)
+    cfg, model, params = cut_depth(cfg, params, LATER_DEPTH)
+    runahead = clock.run("runahead", phase_runahead, torch, model, params,
+                         counters)
+    spec = clock.run("spec", phase_spec, torch, model, params, counters)
+    prefix = clock.run("prefix", phase_prefix, torch, model, params, counters)
+    static = clock.run("static", phase_static, torch, cfg, params, counters)
+    values = clock.run("values", phase_values, torch, cfg, params, counters)
+    codecs = clock.run("codecs", phase_codecs, torch, cfg, params, counters)
+    qos = clock.run("qos", phase_qos, torch, model, params, counters)
+    clock.run("profile", phase_profile, torch, model, params)
     del params, model
-    configs = phase_configs(torch, counters)
+    configs = clock.run("configs", phase_configs, torch, counters,
+                        D128_CONFIGS, "configs")
+    moe = clock.run("moe", phase_configs, torch, counters, MOE_CONFIGS, "moe")
 
     phases = {"serve": serve, "runahead": runahead, "spec": spec,
               "prefix": prefix, "static": static, "values": values,
-              "codecs": codecs, "qos": qos, "configs": configs}
+              "codecs": codecs, "qos": qos, "configs": configs, "moe": moe}
     print("launches per serving phase: " + json.dumps(phases), flush=True)
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in phases.values())
         assert r["launches"] > 0, f"{r['name']} never ran on the main path"
+    print("seconds per phase: " + json.dumps(clock.seconds), flush=True)
     print(f"total: {time.monotonic() - t_start:.1f} s, kernel builds "
           "included", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,6 +1,6 @@
 """Model configuration dataclass, the shape suite, the smoke-size
 reduction and the registry (port of ``repro/configs/base.py`` for the
-dense decoder family)."""
+dense and MoE decoder families)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
@@ -14,7 +14,7 @@ from repro_torch.core.quantizers import QuantConfig
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # this slice serves "dense" only
+    family: str                       # the port serves "dense" and "moe"
     num_layers: int
     d_model: int
     num_heads: int
@@ -31,6 +31,14 @@ class ModelConfig:
     max_seq_len: int = 131072
     dtype: str = "bfloat16"
     scale_embedding: bool = False     # gemma-style sqrt(d_model) embed scale
+    # --- MoE ---
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0                 # per-expert hidden (0 => d_ff)
+    capacity_factor: float = 1.25
+    norm_topk: bool = True
+    router_aux_loss: float = 0.01
     # cache policy: `quant` is the uniform default; `cache_policy`
     # (optional) maps layer index -> QuantConfig for KVTuner-style mixed
     # precision. Read through the `policy` property.
@@ -75,10 +83,10 @@ class ModelConfig:
         return self.num_heads // max(self.num_kv_heads, 1)
 
     def param_count(self) -> int:
-        """Analytic parameter count (matches init): the dense branch of
-        ``repro.configs.base.ModelConfig.param_count``, the family this
-        port serves."""
-        if self.family != "dense":
+        """Analytic parameter count (matches init): the dense and MoE
+        branches of ``repro.configs.base.ModelConfig.param_count``, the
+        families this port serves."""
+        if self.family not in ("dense", "moe"):
             raise ValueError(f"param_count: family {self.family!r} is not "
                              "served by this port")
         d, h = self.d_model, self.head_dim
@@ -86,7 +94,12 @@ class ModelConfig:
             self.num_heads * h * d
         if self.qkv_bias:
             attn += h * (self.num_heads + 2 * self.num_kv_heads)
-        ffn = 3 * d * self.d_ff
+        if self.family == "moe":
+            eff = self.moe_d_ff or self.d_ff
+            ffn = self.num_experts * 3 * d * eff + d * self.num_experts
+            ffn += self.num_shared_experts * 3 * d * eff
+        else:
+            ffn = 3 * d * self.d_ff
         norms = 2 * d
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.num_layers * (attn + ffn + norms) + emb + d
@@ -128,6 +141,9 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         small["num_kv_heads"] = 1
     else:
         small["num_kv_heads"] = 2
+    if cfg.family == "moe":
+        small.update(num_experts=4, top_k=2, moe_d_ff=64,
+                     num_shared_experts=min(cfg.num_shared_experts, 1))
     small["quant"] = replace(cfg.quant, group_size=32)
     if cfg.cache_policy is not None:
         small["cache_policy"] = cfg.cache_policy.map(

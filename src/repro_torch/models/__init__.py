@@ -1,2 +1,2 @@
-"""Model zoo of the port (the dense decoder family in this slice)."""
+"""Model zoo of the port (the dense and MoE decoder families)."""
 from repro_torch.models.registry import Model, get_model  # noqa: F401

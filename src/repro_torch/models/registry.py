@@ -1,4 +1,4 @@
-"""Model interface over the dense family's serving entries (port of
+"""Model interface over the dense and MoE families' serving entries (port of
 ``repro/models/registry.py:34-72,118-161``).
 
 ``get_model(cfg)`` returns a :class:`Model` bundle:
@@ -58,7 +58,7 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"family {cfg.family!r} is not ported yet")
     from repro_torch.weights import init_params
     return Model(

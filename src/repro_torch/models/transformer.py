@@ -20,7 +20,10 @@ span verifier's one forward over the span and its fused commit).
 
 Params are a dict: ``embed`` (V, D), ``final_norm`` (D,), ``lm_head``
 (D, V) unless embeddings are tied, and ``layers``, a list of
-``{"ln1", "ln2", "attn": {wq, wk, wv, wo}, "ffn": {wg, wu, wd}}``.
+``{"ln1", "ln2", "attn": {wq, wk, wv, wo}, "ffn": {wg, wu, wd}}`` — for
+the MoE family ``ffn`` is ``{router, wg, wu, wd}`` with expert-stacked
+matrices, plus ``shared`` ``{wg, wu, wd}`` where the config has shared
+experts (:func:`ffn_apply`).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged_cache as pgc
 from repro_torch.models import attn_block as AB
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.utils import torch_dtype, tree_bytes
 
 
@@ -49,13 +53,21 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h @ w.to(h.dtype)
 
 
+def ffn_apply(bp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The block's FFN by family: the routed experts (``moe_ffn``, capacity
+    over each batch row's tokens) or the dense SwiGLU."""
+    if cfg.family == "moe":
+        return MOE.moe_ffn(bp["ffn"], h, cfg)
+    return L.mlp(bp["ffn"], h, cfg.act)
+
+
 def _block(bp: dict, x: torch.Tensor, cfg: ModelConfig, attn, cache, **kw):
     """Pre-norm residual block around the attention entry ``attn``."""
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     y, cache = attn(bp["attn"], h, cfg, cache, **kw)
     x = x + y
     h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp(bp["ffn"], h, cfg.act), cache
+    return x + ffn_apply(bp, h, cfg), cache
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -254,7 +266,7 @@ def decode_paged_collect_fn(params: dict, caches: list, token: torch.Tensor,
             return_kv=True)
         x = x + y
         h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp(bp["ffn"], h, cfg.act)
+        x = x + ffn_apply(bp, h, cfg)
         kvs.append(kv)
     logits = lm_logits(params, x, cfg)
     return logits[:, 0], caches, kvs
@@ -274,7 +286,16 @@ def verify_span_fn(params: dict, caches: list, tokens: torch.Tensor,
     group. The caches are NOT mutated; ``active`` only gates the later
     commit (inactive slots give don't-care logits). Returns (logits
     (S, Q, V), kvs) with ``kvs`` one ((S, Hkv, Q, hd) k, v) pair per
-    layer, for :func:`commit_span_paged_fn`."""
+    layer, for :func:`commit_span_paged_fn`.
+
+    An MoE FFN runs per column too, at t = 1 with the decode step's
+    capacity, where JAX runs it once over the span with capacity over its
+    Q tokens. The two route alike while no expert takes more than the
+    capacity of one slot's span — always for Q <= 8, since the capacity
+    is at least 8 after rounding and an expert takes at most one
+    assignment per token. The engine's span is at most ``spec.k + 1``,
+    and ``EngineCore`` refuses a ``spec.k`` whose span widths exceed
+    their capacity."""
     del active
     x = embed_tokens(params, tokens, cfg)
     kvs = []
@@ -283,8 +304,8 @@ def verify_span_fn(params: dict, caches: list, tokens: torch.Tensor,
         y, kv = AB.attention_verify_span(bp["attn"], h, cfg, cache,
                                          page_table=page_table)
         x = x + y
-        x = x + L.per_column(lambda c: L.mlp(
-            bp["ffn"], L.rms_norm(c, bp["ln2"], cfg.norm_eps), cfg.act), x)
+        x = x + L.per_column(lambda c: ffn_apply(
+            bp, L.rms_norm(c, bp["ln2"], cfg.norm_eps), cfg), x)
         kvs.append(kv)
     return L.per_column(lambda c: lm_logits(params, c, cfg), x), kvs
 

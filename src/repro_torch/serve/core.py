@@ -60,6 +60,7 @@ import torch
 
 from repro_torch.core import paged_cache as pgc
 from repro_torch.core.cache_layout import PagedLayout, PrefixIndex
+from repro_torch.models import moe
 from repro_torch.models import transformer as TF
 from repro_torch.models.registry import Model
 from repro_torch.serve.graphs import DecodeGraphs
@@ -233,7 +234,9 @@ class EngineCore:
     and a step with drafts runs one verify dispatch that retires 1..k+1
     tokens per slot — the span verifier on the ``"jnp"`` decode backend,
     the scan verifier otherwise (``spec/verify.py``). Streams are those
-    of plain greedy decode; run-ahead stays off.
+    of plain greedy decode; run-ahead stays off. An MoE model on the span
+    verifier refuses a ``spec.k`` whose span widths exceed the MoE
+    capacity of their span (``models/moe.py``, :func:`capacity`).
 
     ``prefill_budget`` is the per-cycle chunk-prefill token budget
     (default one chunk). ``qos=QosConfig(...)`` and ``chaos=`` (a
@@ -293,6 +296,17 @@ class EngineCore:
         verifier = None
         if self.spec is not None:
             verifier = make_verifier(model)
+            if verifier.kind == "span" and model.cfg.family == "moe":
+                # the span verifier routes each column alone (t = 1, no
+                # drop); JAX routes the whole span with capacity over its
+                # Q tokens, which drops once Q exceeds that capacity
+                over = [q for q in self._spec_q_buckets()
+                        if q > moe.capacity(q, model.cfg)]
+                if over:
+                    raise ValueError(
+                        f"spec.k {self.spec.k} gives span widths {over} "
+                        f"past the MoE capacity of their span; the span "
+                        f"verifier would keep assignments JAX drops")
             self._proposer = make_proposer(
                 self.spec, target_cfg=model.cfg, target_model=model,
                 target_params=params, max_len=self.layout.tokens_per_slot)

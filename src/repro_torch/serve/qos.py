@@ -31,6 +31,7 @@ the FCFS engine's.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 
 
@@ -138,6 +139,21 @@ class TenantState:
         self.bucket = min(self.bucket + dt * self.cfg.tenant_budget,
                           self.cfg.burst)
 
+    def affording_clock(self, need: float, clock: float) -> float:
+        """A clock after ``clock`` whose :meth:`refill` brings the bucket to
+        ``need`` (the refill's own float operations, so it surely does).
+        Used when ``clock + deficit / tenant_budget`` does not move the
+        clock: a deficit left by a refill that fell an ulp short adds less
+        than one ulp, a clock that does not move refills nothing, and an
+        idle engine would jump to the same clock forever."""
+        step = math.ulp(clock) if clock > 0 else 2.0 ** -52
+        t = clock + step
+        while self.bucket + max(t - self._last_refill, 0.0) \
+                * self.cfg.tenant_budget < need:
+            step *= 2.0
+            t = clock + step
+        return t
+
     def can_afford(self, cost: int) -> bool:
         """Bucket check for an admission of ``cost`` committed tokens. A
         cost larger than the whole bucket capacity is charged at capacity
@@ -217,7 +233,10 @@ class QosState:
         now — then the blocker is pages, not budget). The engine uses
         this to jump its simulated clock when the pool is otherwise
         idle: with no work running the clock — and therefore every
-        bucket refill — would freeze, starving the queue forever."""
+        bucket refill — would freeze, starving the queue forever. The
+        time returned is always later than ``clock``; JAX's can equal it,
+        and its engine then jumps to the same clock forever
+        (:meth:`TenantState.affording_clock`)."""
         if self.cfg.tenant_budget <= 0:
             return None
         best = None
@@ -228,6 +247,8 @@ class QosState:
             if deficit <= 0:
                 return None
             t = clock + deficit / self.cfg.tenant_budget
+            if t <= clock:
+                t = ts.affording_clock(need, clock)
             best = t if best is None else min(best, t)
         return best
 

@@ -3,7 +3,9 @@
 
 Matrices and the embedding are stored in the model dtype (the JAX
 package keeps fp32 masters and casts them at every use, which computes
-the same products); norm weights stay fp32, as ``rms_norm`` reads them.
+the same products); norm weights stay fp32, as ``rms_norm`` reads them,
+and so does an MoE layer's router, which JAX casts to fp32 (a router in
+the model dtype would move the routing).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.moe import init_moe
 from repro_torch.utils import resolve_device, torch_dtype
 
 _MATS = {"attn": ("wq", "wk", "wv", "wo"), "ffn": ("wg", "wu", "wd")}
@@ -36,8 +39,11 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
         for group, names in _MATS.items():
             layer[group] = {n: t(lp[group][n][i], dt) for n in names}
             layer[group].update({n: t(lp[group][n][i], torch.float32)
-                                 for n in ("bq", "bk", "bv")
+                                 for n in ("bq", "bk", "bv", "router")
                                  if n in lp[group]})
+        if "shared" in lp["ffn"]:
+            layer["ffn"]["shared"] = {n: t(lp["ffn"]["shared"][n][i], dt)
+                                      for n in _MATS["ffn"]}
         layers.append(layer)
     out = {"embed": t(np_params["embed"], dt),
            "final_norm": t(np_params["final_norm"], torch.float32),
@@ -50,8 +56,9 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None, dtype=None) -> dict:
     """Random params at the JAX package's init scales (dense: normal /
-    sqrt(d_in); embedding: normal * 0.02; norms: ones), drawn on
-    ``device`` from ``generator`` (which must live on that device)."""
+    sqrt(d_in); embedding and MoE router: normal * 0.02; norms: ones),
+    drawn on ``device`` from ``generator`` (which must live on that
+    device)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
@@ -72,7 +79,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                      "wk": dense(d, cfg.num_kv_heads * hd),
                      "wv": dense(d, cfg.num_kv_heads * hd),
                      "wo": dense(cfg.num_heads * hd, d)},
-            "ffn": {"wg": dense(d, f), "wu": dense(d, f), "wd": dense(f, d)},
+            "ffn": (init_moe(cfg, generator, dev, dt) if cfg.family == "moe"
+                    else {"wg": dense(d, f), "wu": dense(d, f),
+                          "wd": dense(f, d)}),
         })
         if cfg.qkv_bias:
             layers[-1]["attn"].update(

@@ -1,5 +1,6 @@
 """Port parity for the paper's dense configurations at head_dim 128
-(llama3.1-8b, granite-8b, yi-9b, qwen1.5-4b) beside tinyllama.
+(llama3.1-8b, granite-8b, yi-9b, qwen1.5-4b) beside tinyllama, and the
+MoE configurations (qwen2-moe-a2.7b, dbrx-132b).
 
 Each port config equals its JAX config on every shared field, with the
 same ``param_count``, the same shape suite and registry; then, on each
@@ -38,6 +39,7 @@ from repro_torch.weights import params_from_jax  # noqa: E402
 TOL = dict(rtol=1e-4, atol=1e-4)
 DENSE = ("granite-8b", "llama3.1-8b", "qwen1.5-4b", "tinyllama-1.1b",
          "yi-9b")
+MOE = ("dbrx-132b", "qwen2-moe-a2.7b")
 NEW = ("llama3.1-8b", "granite-8b", "yi-9b", "qwen1.5-4b")
 #: fields the port's ModelConfig shares with JAX's whose values may differ
 #: by design: the policy objects are each package's own classes, and the
@@ -52,7 +54,7 @@ def _shared_fields():
     return sorted(ours - _OWN)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + MOE)
 def test_config_matches_jax(name):
     cfg, jcfg = configs.get_config(name), jconfigs.get_config(name)
     for f in _shared_fields():
@@ -69,19 +71,25 @@ def test_config_matches_jax(name):
 
 
 def test_registry_and_shape_suite_match_jax():
-    assert configs.list_configs() == list(DENSE)
-    dense = [n for n in jconfigs.list_configs()
-             if jconfigs.get_config(n).family == "dense"]
-    assert configs.list_configs() == dense
+    assert configs.list_configs() == sorted(DENSE + MOE)
+    ported = [n for n in jconfigs.list_configs()
+              if jconfigs.get_config(n).family in ("dense", "moe")]
+    assert configs.list_configs() == ported
     assert {k: dataclasses.astuple(v) for k, v in configs.SHAPES.items()} \
         == {k: dataclasses.astuple(v) for k, v in jconfigs.SHAPES.items()}
     assert [f.name for f in dataclasses.fields(configs.ShapeConfig)] == \
         [f.name for f in dataclasses.fields(jconfigs.ShapeConfig)]
-    with pytest.raises(KeyError):
-        configs.get_config("qwen2-moe-a2.7b")
+    unported = sorted(set(jconfigs.list_configs()) - set(ported))
+    assert unported
+    for name in unported:
+        with pytest.raises(KeyError):
+            configs.get_config(name)
+    for name in MOE:
+        assert configs.get_config(name).param_count() == \
+            jconfigs.get_config(name).param_count()
     with pytest.raises(ValueError):
         dataclasses.replace(configs.get_config("yi-9b"),
-                            family="moe").param_count()
+                            family="vlm").param_count()
     assert cbase.get_config("qwen1.5-4b").qkv_bias
     assert [configs.get_config(n).rope_base for n in NEW] == \
         [500000.0, 10000.0, 10000.0, 1000000.0]

@@ -11,6 +11,7 @@ engines. The clock-independent engine cases — a default ``QosConfig``,
 weighted tenants without deadlines and rejects at ``max_pending``, all
 arriving as a burst — give JAX's greedy streams and event sequences."""
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -476,6 +477,50 @@ def test_idle_engine_jumps_clock_to_bucket_refill(smoke_model):
     # rid 1 had to wait out a full bucket refill (20 tokens / 10 tok/s)
     assert res["wall_s"] >= 1.9
     assert res["qos"]["tenants"]["default"]["admitted"] == 2
+
+
+def test_affordable_time_moves_the_clock_past_a_rounding_deficit():
+    """A bucket one ulp short of a request's cost at clock 10, as a refill
+    that falls short leaves it: JAX's next affordable time is the clock
+    itself, so its idle engine would jump to the same clock forever; the
+    port's is later, and a refill there affords the request."""
+    cfg = dict(tenant_budget=2000.0)
+    st, jst = QosState(QosConfig(**cfg)), jqos.QosState(JQosConfig(**cfg))
+    clock, r, jr = 10.0, _req(0, plen=496), _req(0, plen=496, cls=JRequest)
+    need = float(jqos.request_cost(jr))
+    for state in (st, jst):
+        state.refill(clock)
+        state.tenant("default").bucket = need - math.ulp(need)
+    assert jst.next_affordable_time([jr], clock) == clock
+    t = st.next_affordable_time([r], clock)
+    assert clock < t < clock + 1e-12
+    st.refill(t)
+    assert st.tenant("default").can_afford(int(need))
+
+
+def test_idle_engine_clock_jump_survives_a_rounding_deficit(smoke_model):
+    """The engine end of the test above: an idle engine whose one pending
+    request's bucket is an ulp short at clock 10 moves its clock, admits
+    and finishes the request within a few steps."""
+    cfg = smoke_model[2]
+    eng = _engine(smoke_model, max_slots=2, max_len=64,
+                  qos=QosConfig(tenant_budget=10.0))  # burst 20 = one request
+    core = eng.core
+    core.reset(GenerationConfig())
+    core.clock = 10.0
+    core.add_request(Request(rid=0, prompt=np.random.default_rng(32).integers(
+        0, cfg.vocab_size, (16,)).astype(np.int32), max_new_tokens=4))
+    ts = core.qos.tenant("default")
+    ts.refill(core.clock)
+    ts.bucket = 20.0 - math.ulp(20.0)        # cost 20
+    events = []
+    for _ in range(50):
+        if not core.has_work:
+            break
+        events += core.step()
+    assert not core.has_work and core.clock > 10.0
+    assert [e.kind for e in events if e.kind in ("admit", "finish")] == \
+        ["admit", "finish"]
 
 
 def test_runahead_stays_off_under_qos(smoke_model):
