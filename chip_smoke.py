@@ -33,7 +33,13 @@ run):
               x 4 query heads (rows ``name[d128]``; #2 and #5 on the split
               body), #2-#6 also at qwen1.5-4b's 20 kv heads of one query
               head (``name[d128,qh1]``) and at dbrx-132b's 8 kv heads x 6
-              query heads (``name[d128,qh6]``); then the paged
+              query heads (``name[d128,qh6]``); head_dim 256 at one kv
+              head (``[d256…]``): encode, flash prefill in its
+              ``prefix`` (paligemma-3b, 8 heads, 1000 tokens, prefix 256)
+              and ``local`` (recurrentgemma-9b, 16 heads, 2560 tokens,
+              window 2048) modes beside SDPA with the same boolean mask,
+              #5 at 8 query heads (the split body on one staging buffer)
+              and #6 at 8 and 16; then the paged
               engine's three decode backends against each other on one
               fragmented cache, with bf16 and with 4-bit values.
 4. model    — full-width tinyllama-1.1b in bf16 (random weights from a
@@ -159,13 +165,29 @@ run):
               config's peak memory and the phase's seconds. Both phases
               run one loop (``phase_configs``) over a table of configs and
               arms (``D128_CONFIGS``, ``MOE_CONFIGS``).
+14. families — the static-only families at head_dim 256, whole and at
+              full width in bf16 (seeded random weights), one at a time:
+              paligemma-3b (18 layers, 8 query heads over 1 kv head, 256
+              stubbed image tokens under the prefix-LM mask) through
+              ``ServeEngine`` on both polar routes — 8 rows x (256 image
+              + 744 text tokens), 64 greedy tokens, exact launches, every
+              fused launch on #5's split body, the logit gate over the
+              prefill and all 63 decode steps —, and recurrentgemma-9b
+              (38 layers: 12 (rec, rec, attn) periods + 2 rec; 16 query
+              heads over 1, 2048-slot ring caches) on 8 x 2560-token
+              prompts (the ring wraps at prefill, 16 new tokens) and 8 x
+              2016 (it wraps in decode, 64 new): exact launches (#6 on
+              every ring decode, never #5), the logit gate over the
+              prefill and every decode step, tok/s, the decode step, the
+              ring's bytes per attention layer and peak memory.
 
 Each phase's end and seconds go to stderr as it ends; then a line of
 seconds per phase, one JSON line of per-kernel numbers (launches summed
-over the ten serving phases; the uint8 forms on rows of their own,
+over the eleven serving phases; the uint8 forms on rows of their own,
 encode's decode form — a decode step's flush — and its fixed-angle-grid
 form on rows of their own, the head_dim-128 forms on theirs, counted in
-the configs and moe phases), and last the device JSON. Any failure
+the configs and moe phases, the head_dim-256 forms on theirs, counted in
+the families phase), and last the device JSON. Any failure
 raises (non-zero exit). Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 
@@ -1713,6 +1735,201 @@ def check_d128(torch, dev, gen, flush) -> list[dict]:
               for row in check_dense_d128(torch, dev, gen, flush, f))]
 
 
+# ---------------------------------------------------------------------------
+
+#: head_dim 256 at one kv head: paligemma-3b's 8 query heads, 256 image
+#: tokens + 744 text tokens (the families phase's 1000-token prompts, a
+#: 1152-token dense buffer), and recurrentgemma-9b's 16 over its 2048-slot
+#: ring (16 groups), 2560-token prompts under the 2048-token window
+D256, VLM_QH, HYB_QH, PREFIX, WINDOW, HYB_T = 256, 8, 16, 256, 2048, 2560
+
+
+def check_encode_d256(torch, dev, gen, flush) -> dict:
+    """#1's dense form at the static prefill of both families: 8 rows x 1
+    kv head x 7 groups x d 256 bf16 (P = 128 pairs); codes and stats
+    bit-equal to the plain version."""
+    from repro_torch.kernels import polar_encode as pe
+    p = D256 // 2
+    k = torch.randn((SB, 1, 7 * G, D256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k[0, 0, :5, :3] = 0.0
+    got = pe.polar_encode(k)
+    ref = pe.polar_encode_plain(k)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, ref))
+    assert err == 0.0, f"encode at d 256 differs from the plain version {err}"
+    ms = time_ms(torch, lambda: pe.polar_encode(k), flush=flush)
+    plain_ms = time_ms(torch, lambda: pe.polar_encode_plain(k), iters=10,
+                       flush=flush, lead_cycles=PLAIN_LEAD)
+    tokens = SB * 7 * G
+    nbytes = tokens * (D256 * 2 + p) + 4 * SB * 7 * p * 4
+    return _d128_row(
+        "polar_encode", "[d256]", "polar_encode.cu",
+        "src/repro/kernels/polar_encode.py:51", err, ms, plain_ms,
+        bound(nbytes, 22 * tokens * p, "fp32"), None, None,
+        "dense form, 8 rows x 1 kv head x 896 tokens x 256 bf16 "
+        "(launches: both forms)")
+
+
+def check_prefill_d256(torch, dev, gen, flush, mode) -> dict:
+    """#3 at d 256, bf16, 8 rows: ``prefix`` at paligemma-3b's 8 heads
+    over 1 kv head, 1000 tokens, bidirectional over the first 256 (with
+    other prefixes per row for the check: 0, mid-tile, past T), and
+    ``local`` at recurrentgemma-9b's 16 over 1, 2560 tokens under a 2048
+    window; within one bf16 step (2^-7) of the plain version. Timed at
+    the served masks, beside SDPA with the same boolean mask."""
+    from repro_torch.kernels import flash_prefill as fpk
+    h, t = (VLM_QH, SPROMPT) if mode == "prefix" else (HYB_QH, HYB_T)
+    q = torch.randn((SB, h, t, D256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((SB, 1, t, D256), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    kw = ({"prefix_len": torch.full((SB,), PREFIX, dtype=torch.int32,
+                                    device=dev)}
+          if mode == "prefix" else {"window": WINDOW})
+    checks = [kw]
+    if mode == "prefix":
+        checks.append({"prefix_len": torch.tensor(
+            [0, 1, 100, 256, 257, 640, 999, 1500], dtype=torch.int32,
+            device=dev)})
+    errs = []
+    for c in checks:
+        got = fpk.flash_prefill(q, k, v, mode=mode, **c)
+        ref = fpk.flash_prefill_plain(q, k, v, mode=mode, **c)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), rtol=BF16_RTOL,
+                                   atol=BF16_RTOL)
+        errs.append(float((got.float() - ref.float()).abs().max()))
+        del ref
+    ms = time_ms(torch, lambda: fpk.flash_prefill(q, k, v, mode=mode, **kw),
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: fpk.flash_prefill_plain(
+        q, k, v, mode=mode, **kw), iters=5, flush=flush,
+        lead_cycles=PLAIN_LEAD)
+    i = torch.arange(t, device=dev)
+    causal = i[:, None] >= i[None, :]
+    mask = (causal | (i[None, :] < PREFIX) if mode == "prefix"
+            else causal & (i[:, None] - i[None, :] < WINDOW))
+    ke, ve = (x.repeat_interleave(h, dim=1) for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(q, ke, ve, attn_mask=mask),
+                     flush=flush)
+    pairs = SB * float(mask.sum())
+    return _d128_row(
+        "flash_prefill", f"[d256,{mode}]", "flash_prefill.cu",
+        "src/repro/kernels/flash_prefill.py:77", max(errs), ms, plain_ms,
+        bound(SB * (2 * h + 2) * t * D256 * 2, 4.0 * h * D256 * pairs,
+              "bf16"), lib_ms, "SDPA, bool mask",
+        f"8 x {h} heads (1 kv) x {t} tokens x 256 bf16, " + (
+            f"prefix {PREFIX}" if mode == "prefix" else f"window {WINDOW}"))
+
+
+def check_dense_d256(torch, dev, gen, flush) -> list[dict]:
+    """#5 at paligemma-3b's decode shape (8 rows x 1 kv head x 8 query
+    heads x 9 groups of a 1152-token buffer, 8 flushed, d 256, bf16
+    values) on the split body with one staging buffer, ragged lengths and
+    NaN-poisoned rows past them; #6 at the same buffer (``[d256,qh8]``)
+    and at recurrentgemma-9b's 16 query heads over its 2048-slot ring
+    (``[d256,qh16]``); all within 1e-4 of the plain versions."""
+    from repro_torch.kernels import polar_attention as pak
+    from repro_torch.kernels import polar_encode as pe
+    from repro_torch.kernels import polar_qk as qkk
+    d, p = D256, D256 // 2
+
+    def buffers(groups, flushed):
+        k = torch.randn((SB, 1, flushed * G, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        enc = pe.polar_encode(k)
+        bufs = [torch.zeros((SB, 1, groups, *x.shape[3:]), dtype=x.dtype,
+                            device=dev) for x in enc]
+        for b, x in zip(bufs, enc):
+            b[:, :, :flushed] = x
+        return bufs
+
+    def flops(groups, qh, attention):
+        per = 3 * qh * p * 16 + 2 * G * p + 2 * qh * G * p
+        return groups * (per + (4 * qh * G + 2 * qh * G * d
+                                if attention else 0))
+
+    bufs = buffers(SG, 8)
+    vals = torch.randn((SB, 1, SMAX, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((SB, 1, VLM_QH, d), generator=gen, device=dev) * d ** -0.5
+    lens = [1024, 900, 0, 128, 1, 513, 640, 1023]
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    v = vals.clone()
+    st = [x.clone() for x in bufs[1:]]
+    for i, n in enumerate(lens):
+        v[i, :, n:] = float("nan")
+        for x in st:
+            x[i, :, -(-n // G):] = float("nan")
+    n_split = pak.launches_split
+    got = pak.polar_decode_attention_grouped(q, bufs[0], *st, v, length)
+    assert pak.launches_split == n_split + 1, "d 256 left the split body"
+    ref = pak.polar_decode_attention_grouped_plain(q, bufs[0], *st, v, length)
+    err = _partials_err(torch, got, ref)[0]
+    full = torch.full((SB,), 8 * G, dtype=torch.int32, device=dev)
+    ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped(
+        q, *bufs, vals, full), flush=flush)
+    plain_ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped_plain(
+        q, *bufs, vals, full), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    kr = _dequant(torch, bufs).repeat_interleave(VLM_QH, 1)
+    vr = vals.float().repeat_interleave(VLM_QH, 1)
+    qr = q.reshape(SB, VLM_QH, 1, d)
+    mask = (torch.arange(SMAX, device=dev) < 8 * G)[None, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(qr, kr, vr, attn_mask=mask,
+                                         scale=1.0), flush=flush)
+    groups = SB * 8
+    nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4 + G * d * 2) \
+        + SB * 4 + SB * VLM_QH * (d + 2) * 4
+    rows = [_d128_row(
+        "polar_attention", f"[d256,qh{VLM_QH}]", "polar_attention.cu",
+        "src/repro/kernels/polar_attention.py:104", err, ms, plain_ms,
+        bound(nbytes, flops(groups, VLM_QH, True), "fp32"), lib_ms,
+        "SDPA over pre-dequantized keys (fp32, length mask)",
+        "8 rows x 1 kv head x 8 query heads x 8 flushed groups of a "
+        "1152-token buffer x d 256, bf16 values, one staging buffer")]
+    ring = WINDOW // G
+    for qh, gcount, b in ((VLM_QH, SG, bufs),
+                          (HYB_QH, ring, buffers(ring, ring))):
+        q = torch.randn((SB, 1, qh, d), generator=gen, device=dev) \
+            * d ** -0.5
+        got = qkk.polar_qk_scores(q, *b)
+        ref = qkk.polar_qk_scores_plain(q, *b)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=FP32_TOL, atol=FP32_TOL)
+        err = float((got - ref).abs().max())
+        ms = time_ms(torch, lambda: qkk.polar_qk_scores(q, *b), flush=flush)
+        plain_ms = time_ms(torch, lambda: qkk.polar_qk_scores_plain(q, *b),
+                           iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+        kt = _dequant(torch, b).transpose(-1, -2).contiguous()
+        lib_ms = time_ms(torch, lambda: torch.matmul(q, kt), flush=flush)
+        groups = SB * gcount
+        nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4) \
+            + SB * qh * gcount * G * 4
+        rows.append(_d128_row(
+            "polar_qk", f"[d256,qh{qh}]", "polar_qk.cu",
+            "src/repro/kernels/polar_qk.py:68", err, ms, plain_ms,
+            bound(nbytes, flops(groups, qh, False), "fp32"), lib_ms,
+            "matmul over pre-dequantized keys (fp32)",
+            f"8 rows x 1 kv head x {qh} query heads x {gcount} groups "
+            f"({gcount * G} tokens) x d 256"))
+    return rows
+
+
+def check_d256(torch, dev, gen, flush) -> list[dict]:
+    """The head_dim-256 forms of the families phase: #1 (``[d256]``), #3
+    in ``prefix`` and ``local`` modes, #5 at 8 query heads per kv head and
+    #6 at 8 and 16. Their launches are counted in the families phase
+    (:func:`d256_counts`)."""
+    return [check_encode_d256(torch, dev, gen, flush),
+            *(check_prefill_d256(torch, dev, gen, flush, m)
+              for m in ("prefix", "local")),
+            *check_dense_d256(torch, dev, gen, flush)]
+
+
 def phase_kernels(torch) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -1727,7 +1944,8 @@ def phase_kernels(torch) -> list[dict]:
             check_decode_u8(torch, dev, gen, flush),
             check_paged_prefill_u8(torch, dev, gen, flush),
             check_polar_attention_u8(torch, dev, gen, flush),
-            *check_d128(torch, dev, gen, flush)]
+            *check_d128(torch, dev, gen, flush),
+            *check_d256(torch, dev, gen, flush)]
     backends_err = max(check_paged_backends(torch, dev, gen, vb)
                        for vb in (0, 4))
     print("kernels: " + "; ".join(
@@ -1780,7 +1998,8 @@ _TWO_PAGES = (_PER_SPLIT, "const int per_split = N > 0 && nsplit > 0 ? "
 # kernel's source and the shared csrc/*.cuh headers that holds it once)
 VARIANTS = (
     ("flash_prefill", "__launch_bounds__(128, 1)",
-     (("__launch_bounds__(kMmaThreads, 2)", "__launch_bounds__(kMmaThreads)"),)),
+     (("__launch_bounds__(kMmaThreads, D <= 128 ? 2 : 1)",
+       "__launch_bounds__(kMmaThreads)"),)),
     ("flash_prefill", "exp2f for ex2.approx.ftz",
      ((r'asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));',
        "y = exp2f(x);"),)),
@@ -2330,9 +2549,13 @@ def profiled_kernels(torch, fn, tries=3, pad=32) -> dict:
     kernels open the trace and ``pad`` close it, each group followed by a
     synchronize: a loss at either end that stops short of ``fn``'s
     records eats only spins, and the trace is complete when fewer than
-    ``pad`` spins are missing. An incomplete trace is taken again
-    (``tries`` times at most, then it fails); a complete one is counted
-    as it is."""
+    ``pad`` spins are missing. The host also waits 10 ms after the trace
+    opens and before it closes: a whole group of spins lost at one end
+    (three traces in a row of one replay in ``spec``, same card) points at
+    a tracer that starts or drains late. An incomplete trace is taken
+    again (``tries`` times at most, then it fails) and says which end was
+    short (device timestamps order the spins against ``fn``'s kernels); a
+    complete one is counted as it is."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2347,21 +2570,29 @@ def profiled_kernels(torch, fn, tries=3, pad=32) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
             spin()
             fn()
             torch.cuda.synchronize()
             spin()
-        evs = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
-        spins = sum(bool(re.search(r"\bspin_kernel\b", e)) for e in evs)
+            time.sleep(0.01)
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        evs = [e.name for e in dev]
+        is_spin = [bool(re.search(r"\bspin_kernel\b", e)) for e in evs]
+        spins = sum(is_spin)
         if spins > pad:
             ran = dict.fromkeys(names, 0)
             for e in evs:
                 for f in names:
                     ran[f] += bool(re.search(rf"\b{f}\b", e))
             return ran
+        starts = [e.time_range.start for e, sp in zip(dev, is_spin) if not sp]
+        first = min(starts) if starts else 0
+        lead = sum(e.time_range.start < first for e, sp in zip(dev, is_spin)
+                   if sp)
         print(f"profile: an incomplete trace ({len(evs)} device records, "
-              f"{spins} of {2 * pad} spin kernels), taken again", flush=True)
+              f"{spins} of {2 * pad} spin kernels: {lead} before the first "
+              f"other kernel, {spins - lead} after), taken again", flush=True)
     raise AssertionError(f"no complete trace of {fn} in {tries} profiles")
 
 
@@ -3040,11 +3271,15 @@ def phase_prefix(torch, model, params, counters, n_req=12, new=32, seed=3,
 # ---------------------------------------------------------------------------
 
 
-def _teacher_logits(torch, model, params, prompts, tokens, steps):
-    """Logits (steps + 1, B, V) fp32 of a prefill of ``prompts`` then
-    ``steps`` decode steps fed ``tokens[:, :steps]``, and the state."""
-    state = model.init_decode_state(prompts.shape[0], SMAX, prompts.device)
-    lg, _ = model.prefill(params, {"tokens": prompts}, state)
+def _teacher_logits(torch, model, params, batch, tokens, steps,
+                    max_len=SMAX):
+    """Logits (steps + 1, B, V) fp32 of a prefill of ``batch`` (tokens,
+    and a VLM's patches) then ``steps`` decode steps fed ``tokens[:,
+    :steps]``, and the state."""
+    prompts = batch["tokens"]
+    state = model.init_decode_state(prompts.shape[0], max_len,
+                                    prompts.device)
+    lg, state = model.prefill(params, batch, state)
     out = [lg.float()]
     for i in range(steps):
         lg, _ = model.decode(params, state, tokens[:, i])
@@ -3072,16 +3307,19 @@ STATIC_RUNS = (("polar", "jnp"), ("polar", "paged_fused"), ("none", "jnp"))
 
 
 def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
-                 label="static") -> dict:
+                 label="static", gate_steps=8) -> dict:
     """``ServeEngine`` at full width: 8 rows, 1000-token prompts (one group
     flush, at position 1023, falls inside the decode loop), 64 greedy new
     tokens, max_len 1152; ``runs`` of (codec, decode route): polar on the
     score-only route (``"jnp"``), polar on the fused route
-    (``"paged_fused"``) and the fp ``"none"`` cache. Counters are set to 0
-    just before each generate and read just after; returns the launches of
-    the runs, summed. Under a per-layer policy (``cfg.cache_policy``, which
-    the codec of ``runs`` does not replace) the kernels run in its polar
-    layers only."""
+    (``"paged_fused"``) and the fp ``"none"`` cache. A VLM's prompt is its
+    ``frontend_tokens`` image tokens (seeded random patch embeddings on
+    the card) and 1000 - frontend_tokens text tokens. Counters are set to
+    0 just before each generate and read just after; returns the launches
+    of the runs, summed. The logit gate covers the prefill and the first
+    ``gate_steps`` decode steps. Under a per-layer policy
+    (``cfg.cache_policy``, which the codec of ``runs`` does not replace)
+    the kernels run in its polar layers only."""
     import dataclasses
     import numpy as np
     from repro_torch.core import kv_cache as kvc
@@ -3091,8 +3329,15 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
     from repro_torch.serve import GenerationConfig, ServeEngine
     t_phase = time.monotonic()
     dev = params["embed"].device
+    image = cfg.frontend_tokens if cfg.family == "vlm" else 0
     prompts = torch.as_tensor(np.random.default_rng(4).integers(
-        0, cfg.vocab_size, (SB, SPROMPT)), device=dev).long()
+        0, cfg.vocab_size, (SB, SPROMPT - image)), device=dev).long()
+    batch = {"tokens": prompts}
+    if image:
+        pgen = torch.Generator(device=dev)
+        pgen.manual_seed(4)
+        batch["patches"] = torch.randn((SB, image, cfg.frontend_dim),
+                                       generator=pgen, device=dev)
     nl, steps = cfg.num_layers, SNEW - 1
     shape = (cfg.num_kv_heads, cfg.head_dim)
     total: dict = {}
@@ -3103,10 +3348,10 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
             cfg, decode_backend=backend,
             quant=dataclasses.replace(cfg.quant, method=method)))
         eng = ServeEngine(model, params, max_len=SMAX)
-        eng.generate({"tokens": prompts}, GenerationConfig(max_new_tokens=2))
+        eng.generate(batch, GenerationConfig(max_new_tokens=2))
         torch.cuda.synchronize()
         reset_counts(counters)
-        out = eng.generate({"tokens": prompts},
+        out = eng.generate(batch,
                            GenerationConfig(max_new_tokens=SNEW))
         torch.cuda.synchronize()
         got = read_counts(counters)
@@ -3139,26 +3384,31 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
             out["cache_bytes"] == sum(per_layer[name]), per_layer[name]
         gate = ""
         if npl:
-            # gate 1: the logits after prefill and over the first 8 decode
-            # steps, against the same run with every kernel's plain version
+            # gate 1: the logits after prefill and over the first
+            # gate_steps decode steps, against the same run with every
+            # kernel's plain version
             tok_t = torch.as_tensor(out["tokens"], device=dev).long()
             routes: list = []
             with record_routes(routes):
-                kern, _ = _teacher_logits(torch, model, params, prompts,
-                                          tok_t, 8)
+                kern, _ = _teacher_logits(torch, model, params, batch,
+                                          tok_t, gate_steps)
             # an MoE model's plain run takes the kernel run's experts
             with plain_kernels(), replay_routes(routes):
-                plain, _ = _teacher_logits(torch, model, params, prompts,
-                                           tok_t, 8)
+                plain, _ = _teacher_logits(torch, model, params, batch,
+                                           tok_t, gate_steps)
             rel = ((kern - plain).norm(dim=-1) / plain.norm(dim=-1))
             assert torch.isfinite(kern).all()
             assert float(rel.max()) <= MODEL_REL_L2, \
                 f"{name} logits drift {rel.flatten().tolist()}"
             free = free_routing(torch, lambda: _teacher_logits(
-                torch, model, params, prompts, tok_t, 8)[0], kern, routes)
-            gate = (f"; rel. L2 logits vs plain max {float(rel.max()):.3e} "
+                torch, model, params, batch, tok_t, gate_steps)[0], kern,
+                routes)
+            agree = float((kern.argmax(-1) == plain.argmax(-1)).float()
+                          .mean())
+            gate = (f"; rel. L2 logits vs plain over prefill + {gate_steps} "
+                    f"steps max {float(rel.max()):.3e} "
                     f"(prefill {float(rel[0].max()):.3e}, limit "
-                    f"{MODEL_REL_L2}" + (
+                    f"{MODEL_REL_L2}; argmax agreement {agree:.4f}" + (
                         f", MoE routing replayed; plain with its own "
                         f"routing: {free['flips']:.4f} of routing decisions "
                         f"differ, median "
@@ -3170,7 +3420,8 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
         print(f"{label}[{name}]: {SB} rows x {SPROMPT}-token prompts, "
               f"{SNEW} greedy tokens, max_len {SMAX}: prefill "
               f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s = "
-              f"{out['tokens_per_s']:.1f} tok/s; cache "
+              f"{out['tokens_per_s']:.1f} tok/s, step "
+              f"{out['decode_s'] / steps * 1e3:.3f} ms; cache "
               f"{sum(per_layer[name]) / nl:.0f} B per layer "
               f"({sum(bits) / nl:.4f} logical key "
               f"bits/element){gate}; launches {json.dumps(got)}",
@@ -3196,7 +3447,7 @@ def phase_static(torch, cfg, params, counters, runs=STATIC_RUNS,
         for name, x, y in (("polar/jnp", ta, tb),
                            ("polar/paged_fused", tb, ta)):
             lg, _ = _teacher_logits(
-                torch, models[name], params, prompts,
+                torch, models[name], params, batch,
                 torch.as_tensor(a, device=dev).long(), i)
             margins.append(float(lg[i, r, x] - lg[i, r, y]))
         line += (f"; first divergence at row {r}, token {i}: {ta} vs {tb}, "
@@ -3520,6 +3771,12 @@ def describe(cfg, full) -> str:
                + (f" + {cfg.num_shared_experts} shared units"
                   if cfg.num_shared_experts else "")
                + (", norm_topk" if cfg.norm_topk else ""))
+    if cfg.family == "vlm":
+        moe = (f", {cfg.frontend_tokens} image tokens of {cfg.frontend_dim} "
+               "(stubbed frontend) under a prefix-LM mask")
+    if cfg.family == "hybrid":
+        moe = (f", pattern {'/'.join(cfg.block_pattern)}, local window "
+               f"{cfg.window}, lru_width {cfg.lru_width}")
     return (f"{cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
             f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
             f"{cfg.head_dim}{moe}, vocab {cfg.vocab_size}, rope base "
@@ -3611,6 +3868,153 @@ def phase_configs(torch, counters, runs: tuple[ConfigRun, ...], label: str,
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
     print(f"{label}: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the VLM and hybrid families (head_dim 256, static engine only)
+# ---------------------------------------------------------------------------
+
+#: recurrentgemma-9b's runs: (prompt tokens, new tokens). 2560 wraps the
+#: 2048-slot ring at prefill; 2016 + 63 appends wrap it during decode
+HYBRID_RUNS = ((HYB_T, 16), (2016, SNEW))
+
+
+def d256_counts(counts: dict, cfg) -> dict:
+    """A families-phase run's launches under the ``[d256…]`` rows' names:
+    both encode forms on ``polar_encode[d256]``; flash prefill on
+    ``[d256,prefix]`` (the VLM) or ``[d256,local]`` (the hybrid); the
+    decode kernels at the config's query heads per kv head
+    (``[d256,qh8]``, ``[d256,qh16]``)."""
+    out: dict = {}
+    for k, n in counts.items():
+        base = k.split("[")[0]
+        form = {"polar_encode": "[d256]",
+                "flash_prefill": "[d256,prefix]" if cfg.family == "vlm"
+                else "[d256,local]"}.get(base, f"[d256,qh{cfg.q_per_kv}]")
+        out[base + form] = out.get(base + form, 0) + n
+    return out
+
+
+def hybrid_run(torch, cfg, params, counters, prompt: int, new: int) -> dict:
+    """``ServeEngine`` on recurrentgemma-9b: 8 rows x ``prompt`` tokens,
+    ``new`` greedy tokens, the attention layers on 2048-slot rings (the
+    decode route stays on #6 + softmax whatever ``decode_backend``). Exact
+    launches: per attention layer one flash prefill, one encode of the
+    ring's groups at prefill and one per flush in the decode loop, one
+    #6 per decode step; no #5. The logit gate covers the prefill and every
+    decode step (kernels vs plain versions, rel. L2 5e-2). Prints tok/s,
+    the decode step, the ring's bytes per attention layer and the peak
+    memory; returns the launches."""
+    import numpy as np
+    from repro_torch.models import get_model
+    from repro_torch.models import hybrid as HY
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    from repro_torch.utils import tree_bytes
+    dev = params["embed"].device
+    model = get_model(cfg)
+    kinds = HY.layer_types(cfg)
+    n_attn = kinds.count("attn")
+    max_len = prompt + new
+    prompts = torch.as_tensor(np.random.default_rng(prompt).integers(
+        0, cfg.vocab_size, (SB, prompt)), device=dev).long()
+    eng = ServeEngine(model, params, max_len=max_len)
+    eng.generate({"tokens": prompts}, GenerationConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    out = eng.generate({"tokens": prompts},
+                       GenerationConfig(max_new_tokens=new))
+    torch.cuda.synchronize()
+    got = read_counts(counters)
+    steps = new - 1
+    g = cfg.quant.group_size
+    flushes = sum(p % g == g - 1 for p in range(prompt, prompt + steps))
+    expect = {**dict.fromkeys(got, 0),
+              "polar_encode": n_attn * (1 + flushes),
+              "flash_prefill": n_attn, "polar_qk": n_attn * steps}
+    assert got == expect, (prompt, got, expect)
+    got = encode_forms(got, n_attn * flushes)
+    assert out["tokens"].shape == (SB, new)
+    assert out["cache_bytes_per_layer"] is None
+    peak = torch.cuda.max_memory_allocated()
+    state = model.init_decode_state(SB, max_len, dev)
+    ring = [tree_bytes(c) for c, k in zip(state, kinds) if k == "attn"]
+    rec = [tree_bytes(c) for c, k in zip(state, kinds) if k == "rec"]
+    assert all(c.max_len == cfg.window for c, k in zip(state, kinds)
+               if k == "attn")
+    del state
+    tok_t = torch.as_tensor(out["tokens"], device=dev).long()
+    batch = {"tokens": prompts}
+    kern, _ = _teacher_logits(torch, model, params, batch, tok_t, steps,
+                              max_len)
+    with plain_kernels():
+        plain, _ = _teacher_logits(torch, model, params, batch, tok_t,
+                                   steps, max_len)
+    rel = (kern - plain).norm(dim=-1) / plain.norm(dim=-1)
+    assert torch.isfinite(kern).all()
+    assert float(rel.max()) <= MODEL_REL_L2, \
+        f"{cfg.name} {prompt} logits drift {rel.flatten().tolist()}"
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"families[{cfg.name}]: {SB} rows x {prompt}-token prompts "
+          f"(window {cfg.window}: the ring " + (
+              "wraps at prefill" if prompt > cfg.window else
+              f"wraps in decode at position {cfg.window}")
+          + f"), {new} greedy tokens: prefill {out['prefill_s']:.3f} s, "
+          f"decode {out['decode_s']:.3f} s = {out['tokens_per_s']:.1f} tok/s,"
+          f" decode step {out['decode_s'] / max(steps, 1) * 1e3:.3f} ms; "
+          f"ring cache {ring[0]} B per attention layer ({len(ring)} layers,"
+          f" capacity {cfg.window}), RG-LRU state {rec[0]} B per recurrent "
+          f"layer ({len(rec)}); peak {peak / 2 ** 30:.2f} GiB; rel. L2 "
+          f"logits vs plain over prefill + {steps} steps max "
+          f"{float(rel.max()):.3e} (prefill {float(rel[0].max()):.3e}, "
+          f"limit {MODEL_REL_L2}); argmax agreement {agree:.4f}; launches "
+          f"{json.dumps(got)}", flush=True)
+    return got
+
+
+def phase_families(torch, counters, dev="cuda") -> dict:
+    """paligemma-3b and recurrentgemma-9b whole, at full width in bf16 on
+    the static engine (seeded random weights on the card, one model at a
+    time, params freed between): paligemma's ``phase_static`` on both
+    polar routes (8 rows x 256 image + 744 text tokens, 64 new, the logit
+    gate over every decode step; every fused launch on #5's split body)
+    and recurrentgemma's :data:`HYBRID_RUNS` (:func:`hybrid_run`). Returns
+    the launches under the ``[d256…]`` rows' names."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    t_phase = time.monotonic()
+    total: dict = {}
+    for name in ("paligemma-3b", "recurrentgemma-9b"):
+        t0 = time.monotonic()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(name)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = get_model(cfg).init(generator=gen, device=dev)
+        print(f"families[{name}]: {describe(cfg, cfg)}", flush=True)
+        if cfg.family == "vlm":
+            runs = [phase_static(torch, cfg, params, counters,
+                                 runs=STATIC_RUNS[:2],
+                                 label=f"families[{name}]:static",
+                                 gate_steps=SNEW - 1)]
+        else:
+            runs = [hybrid_run(torch, cfg, params, counters, t, n)
+                    for t, n in HYBRID_RUNS]
+        for r in runs:
+            for k, n in d256_counts(r, cfg).items():
+                total[k] = total.get(k, 0) + n
+        peak = torch.cuda.max_memory_allocated()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"families[{name}]: peak memory {peak / 2 ** 30:.2f} GiB; "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+    print(f"families: {time.monotonic() - t_phase:.1f} s; launches "
+          f"{json.dumps(total)}", flush=True)
     return total
 
 
@@ -4036,10 +4440,12 @@ def main() -> int:
     configs = clock.run("configs", phase_configs, torch, counters,
                         D128_CONFIGS, "configs")
     moe = clock.run("moe", phase_configs, torch, counters, MOE_CONFIGS, "moe")
+    families = clock.run("families", phase_families, torch, counters)
 
     phases = {"serve": serve, "runahead": runahead, "spec": spec,
               "prefix": prefix, "static": static, "values": values,
-              "codecs": codecs, "qos": qos, "configs": configs, "moe": moe}
+              "codecs": codecs, "qos": qos, "configs": configs, "moe": moe,
+              "families": families}
     print("launches per serving phase: " + json.dumps(phases), flush=True)
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in phases.values())

@@ -1,5 +1,5 @@
-"""Architecture registry: the dense and MoE configurations this port
-serves."""
+"""Architecture registry: the dense, MoE, VLM and hybrid configurations
+this port serves."""
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig, ShapeConfig, SHAPES, get_config, list_configs,
     reduce_for_smoke,
@@ -7,6 +7,6 @@ from repro_torch.configs.base import (  # noqa: F401
 
 # Importing each module registers its CONFIG.
 from repro_torch.configs import (  # noqa: F401
-    dbrx_132b, granite_8b, llama3_8b, qwen1p5_4b, qwen2_moe_a2p7b,
-    tinyllama_1p1b, yi_9b,
+    dbrx_132b, granite_8b, llama3_8b, paligemma_3b, qwen1p5_4b,
+    qwen2_moe_a2p7b, recurrentgemma_9b, tinyllama_1p1b, yi_9b,
 )

@@ -1,6 +1,7 @@
 """Model configuration dataclass, the shape suite, the smoke-size
 reduction and the registry (port of ``repro/configs/base.py`` for the
-dense and MoE decoder families)."""
+dense, MoE, VLM and hybrid families; ``ssm`` and ``encdec`` wait for
+their slice)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
@@ -14,7 +15,7 @@ from repro_torch.core.quantizers import QuantConfig
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # the port serves "dense" and "moe"
+    family: str                       # the port serves dense|moe|vlm|hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -39,6 +40,14 @@ class ModelConfig:
     capacity_factor: float = 1.25
     norm_topk: bool = True
     router_aux_loss: float = 0.01
+    # --- VLM frontend (stubbed: precomputed patch embeddings) ---
+    frontend_dim: int = 0             # stubbed modality frontend feature dim
+    frontend_tokens: int = 0          # tokens emitted by the frontend stub
+    # --- hybrid (recurrentgemma) ---
+    window: int = 0                   # local-attention window (0 = global)
+    block_pattern: tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
+    lru_width: int = 0
+    conv1d_width: int = 4
     # cache policy: `quant` is the uniform default; `cache_policy`
     # (optional) maps layer index -> QuantConfig for KVTuner-style mixed
     # precision. Read through the `policy` property.
@@ -82,11 +91,16 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.num_heads // max(self.num_kv_heads, 1)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Supports long-context decode with bounded per-token state."""
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
-        """Analytic parameter count (matches init): the dense and MoE
-        branches of ``repro.configs.base.ModelConfig.param_count``, the
-        families this port serves."""
-        if self.family not in ("dense", "moe"):
+        """Analytic parameter count (matches init): the dense, MoE, VLM and
+        hybrid branches of ``repro.configs.base.ModelConfig.param_count``,
+        the families this port serves."""
+        if self.family not in ("dense", "moe", "vlm", "hybrid"):
             raise ValueError(f"param_count: family {self.family!r} is not "
                              "served by this port")
         d, h = self.d_model, self.head_dim
@@ -102,7 +116,23 @@ class ModelConfig:
             ffn = 3 * d * self.d_ff
         norms = 2 * d
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return self.num_layers * (attn + ffn + norms) + emb + d
+        if self.family == "hybrid":
+            w = self.lru_width or d
+            # RG-LRU block: in-proj x2 (d->w), conv1d (w*width), gates
+            # (block-diagonal: 2 * w * w / nheads), lambda + D, out proj w->d.
+            nb = max(self.num_heads, 1)
+            rec = 2 * d * w + self.conv1d_width * w + 2 * (w * w // nb) + \
+                2 * w + w * d
+            n_rec = sum(1 for i in range(self.num_layers)
+                        if self.block_pattern[i % len(self.block_pattern)]
+                        == "rec")
+            n_att = self.num_layers - n_rec
+            return (n_att * (attn + ffn + norms) + n_rec * (rec + ffn + norms)
+                    + emb + d)
+        extra = 0
+        if self.family == "vlm" and self.frontend_dim:
+            extra = self.frontend_dim * d          # patch projector
+        return self.num_layers * (attn + ffn + norms) + extra + emb + d
 
 
 @dataclass(frozen=True)
@@ -144,6 +174,12 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.family == "moe":
         small.update(num_experts=4, top_k=2, moe_d_ff=64,
                      num_shared_experts=min(cfg.num_shared_experts, 1))
+    if cfg.family == "vlm":
+        small.update(frontend_dim=32, frontend_tokens=16)
+    if cfg.family == "hybrid":
+        # one full block pattern + tail so attn AND rec layers are exercised
+        small.update(window=64, lru_width=128,
+                     num_layers=len(cfg.block_pattern) + 1)
     small["quant"] = replace(cfg.quant, group_size=32)
     if cfg.cache_policy is not None:
         small["cache_policy"] = cfg.cache_policy.map(

@@ -11,7 +11,8 @@ from repro_torch.core.codecs import (  # noqa: F401
     registered_codecs,
 )
 from repro_torch.core.cache_layout import (  # noqa: F401
-    PageAllocator, PagedLayout, PrefixIndex, token_page_hashes,
+    LinearLayout, PageAllocator, PagedLayout, PrefixIndex, RingLayout,
+    ring_segments, token_page_hashes,
 )
 from repro_torch.core.paged_cache import (  # noqa: F401
     PagedKVCache, chunk_prefill_attention, copy_pool_pages,

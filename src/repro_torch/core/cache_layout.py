@@ -1,10 +1,10 @@
 """Cache layouts, the paged layout's host-side page allocator and the
-shared-prefix page index (port of ``repro/core/cache_layout.py``; the ring
-layout of windowed caches waits for the windowed families, which the
-port's ``ModelConfig`` does not have yet).
+shared-prefix page index (port of ``repro/core/cache_layout.py``).
 
 A :class:`LinearLayout` places the dense cache's tokens at their absolute
-positions.
+positions. A :class:`RingLayout` places position ``pos`` at slot
+``pos % capacity`` with capacity == the local-attention window, so a key
+expires exactly when its value slot is overwritten.
 
 A :class:`PagedLayout` is a pool of fixed-size pages shared by up to
 ``slots`` sequences; a per-slot page-table row maps group index -> pool
@@ -38,11 +38,55 @@ class LinearLayout:
 
     capacity: int
 
+    def token_slot(self, pos):
+        return pos
+
+    def group_slot(self, gidx, ngroups: int):
+        return gidx
+
     def prefill_offset(self, t: int) -> int:
         if t > self.capacity:
             raise ValueError(
                 f"prompt length {t} exceeds linear capacity {self.capacity}")
         return 0
+
+    def copy_segments(self, t: int) -> list[tuple[int, int, int]]:
+        self.prefill_offset(t)
+        return [(0, t, 0)]
+
+
+@dataclasses.dataclass(frozen=True)
+class RingLayout:
+    """Sliding-window layout: slot ``pos % capacity``; capacity == window."""
+
+    capacity: int
+
+    def token_slot(self, pos):
+        return pos % self.capacity
+
+    def group_slot(self, gidx, ngroups: int):
+        return gidx % ngroups
+
+    def prefill_offset(self, t: int) -> int:
+        return max(0, t - self.capacity)
+
+    def copy_segments(self, t: int) -> list[tuple[int, int, int]]:
+        return ring_segments(t, self.capacity)
+
+
+def ring_segments(t: int, cap: int) -> list[tuple[int, int, int]]:
+    """Static (src_lo, src_hi, dst_lo) copy segments mapping positions
+    [max(0, t-cap), t) onto slots pos % cap. At most two segments."""
+    start = max(0, t - cap)
+    if start == 0:
+        return [(0, t, 0)]
+    p0 = -(-start // cap) * cap  # first position mapping to slot 0
+    segs = []
+    if p0 > start:
+        segs.append((start, min(p0, t), start % cap))
+    if t > p0:
+        segs.append((p0, t, 0))
+    return segs
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,5 @@
 """Dense quantized KV cache over pluggable key codecs (port of
-``repro/core/kv_cache.py`` for linear layouts; ring layouts wait for the
-windowed families).
+``repro/core/kv_cache.py``).
 
 The cache owns placement and the method-agnostic machinery; the resolved
 :class:`~repro_torch.core.codecs.KeyCodec` owns buffer shapes,
@@ -22,6 +21,14 @@ encode/decode and the score path. Buffers:
 ``[flushed, length)`` live in the residual at row ``pos % g`` (which is
 why ``max_len`` is a multiple of g).
 
+**Layouts.** A :class:`~repro_torch.core.cache_layout.LinearLayout` keeps
+position ``pos`` at slot ``pos`` (``length <= max_len``). A
+:class:`~repro_torch.core.cache_layout.RingLayout` (local attention,
+capacity == window rounded up to g) keeps it at slot ``pos % max_len`` and
+key group ``n`` at group slot ``n % (max_len / g)``; ``length`` keeps
+counting absolute positions, and :func:`position_masks` recovers each
+slot's position.
+
 **Lengths.** ``length`` is an int32 tensor on the cache's device: ``()``
 for a lock-step batch (the static engine), ``(B,)`` for gathered paged
 views where every slot sits at its own position. A ``()`` cache also keeps
@@ -41,7 +48,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import quantizers as qz
-from repro_torch.core.cache_layout import LinearLayout
+from repro_torch.core.cache_layout import LinearLayout, ring_segments
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.utils import resolve_device, torch_dtype
 
@@ -60,7 +67,7 @@ class KVCache:
     length: torch.Tensor             # () or (B,) int32
     cfg: QuantConfig
     max_len: int
-    layout: LinearLayout
+    layout: object                   # LinearLayout | RingLayout
     host_length: Optional[int] = None   # the host's copy of a () length
 
     @property
@@ -82,9 +89,9 @@ class KVCache:
 
 def init_cache(cfg: QuantConfig, batch: int, num_kv_heads: int,
                head_dim: int, max_len: int, dtype=torch.bfloat16,
-               device=None) -> KVCache:
-    """Allocate an empty linear cache of ``max_len`` tokens on ``device``
-    (the card unless named)."""
+               device=None, layout=None) -> KVCache:
+    """Allocate an empty cache of ``max_len`` tokens on ``device`` (the
+    card unless named); ``layout`` places them (default: linear)."""
     device = resolve_device(device)
     b, h, d = batch, num_kv_heads, head_dim
     codec = cfg.codec
@@ -100,7 +107,9 @@ def init_cache(cfg: QuantConfig, batch: int, num_kv_heads: int,
         key_residual=key_residual,
         **init_values(cfg, (b, h, max_len), d, dtype, device),
         length=torch.zeros((), dtype=torch.int32, device=device), cfg=cfg,
-        max_len=max_len, layout=LinearLayout(max_len), host_length=0)
+        max_len=max_len,
+        layout=layout if layout is not None else LinearLayout(max_len),
+        host_length=0)
 
 
 def init_values(cfg: QuantConfig, lead: tuple, head_dim: int, dtype,
@@ -151,24 +160,29 @@ def dequant_rows(values: torch.Tensor, vscale=None,
 def append(cache: KVCache, k_new: torch.Tensor,
            v_new: torch.Tensor) -> KVCache:
     """Append one token to every row, in place. k_new/v_new: (B, Hkv, 1, d)
-    post-RoPE. A grouped codec writes the key to residual row ``pos % g``
-    and, when that completes the group, encodes the residual into group
-    ``pos // g`` (one encode launch, decided on the host)."""
+    post-RoPE. Token-major rows go to slot ``layout.token_slot(pos)``. A
+    grouped codec writes the key to residual row ``pos % g`` and, when that
+    completes the group, encodes the residual into group slot
+    ``layout.group_slot(pos // g)`` (one encode launch, decided on the
+    host from the absolute position)."""
     cfg = cache.cfg
     codec = cache.codec
+    lay = cache.layout
     pos = cache.host_length
     if pos is None:
         raise ValueError("append needs a lock-step () length")
-    if pos >= cache.max_len:
+    if isinstance(lay, LinearLayout) and pos >= cache.max_len:
         raise ValueError(f"linear cache of capacity {cache.max_len} is full")
+    slot = lay.token_slot(pos)
     for key, rows in value_fields(cfg, v_new).items():
         buf = getattr(cache, key)
-        buf[:, :, pos] = rows[:, :, 0].to(buf.dtype)
+        buf[:, :, slot] = rows[:, :, 0].to(buf.dtype)
     if not codec.grouped:
         codes, scales = codec.encode(cfg, k_new)
-        cache.key_codes[:, :, pos] = codes[:, :, 0].to(cache.key_codes.dtype)
+        cache.key_codes[:, :, slot] = codes[:, :, 0].to(
+            cache.key_codes.dtype)
         for key, buf in cache.key_scales.items():
-            buf[:, :, pos] = scales[key][:, :, 0].to(buf.dtype)
+            buf[:, :, slot] = scales[key][:, :, 0].to(buf.dtype)
     else:
         g = cfg.group_size
         res = cache.key_residual
@@ -176,7 +190,7 @@ def append(cache: KVCache, k_new: torch.Tensor,
         if pos % g == g - 1:
             # res (B,H,g,d) -> codes (B,H,1,g,·) / scales (B,H,1,1,·)
             codes, scales = codec.encode(cfg, res)
-            gidx = pos // g
+            gidx = lay.group_slot(pos // g, cache.key_codes.shape[2])
             cache.key_codes[:, :, gidx] = codes[:, :, 0]
             for key, buf in cache.key_scales.items():
                 buf[:, :, gidx] = scales[key][:, :, 0].to(buf.dtype)
@@ -187,32 +201,51 @@ def append(cache: KVCache, k_new: torch.Tensor,
 
 def prefill(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
     """Fill an empty cache with ``T`` tokens at once, in place.
-    k/v: (B, Hkv, T, d) post-RoPE, ``T <= max_len``."""
+    k/v: (B, Hkv, T, d) post-RoPE.
+
+    A linear cache takes ``T <= max_len``. A ring cache takes any T: only
+    the last ``max_len`` tokens are stored token-major at slots
+    ``pos % max_len``, and of the key groups (absolute-aligned) the last
+    ``max_len / g``; the few grouped keys older than the window are masked
+    out at attention time (:func:`position_masks`)."""
     cfg = cache.cfg
     codec = cache.codec
+    lay = cache.layout
     t = k.shape[2]
-    cache.layout.prefill_offset(t)          # capacity check
-    for key, rows in value_fields(cfg, v).items():
-        buf = getattr(cache, key)
-        buf[:, :, :t] = rows.to(buf.dtype)
+    off = lay.prefill_offset(t)    # tokens before `off` fall out of the ring
+    segs = lay.copy_segments(t)
+
+    def write_tok(buf, src):
+        for lo, hi, dst in segs:
+            buf[:, :, dst:dst + (hi - lo)] = src[:, :, lo - off:hi - off].to(
+                buf.dtype)
+
+    for key, rows in value_fields(cfg, v[:, :, off:]).items():
+        write_tok(getattr(cache, key), rows)
     if not codec.grouped:
-        codes, scales = codec.encode(cfg, k)
-        cache.key_codes[:, :, :t] = codes.to(cache.key_codes.dtype)
+        codes, scales = codec.encode(cfg, k[:, :, off:])
+        write_tok(cache.key_codes, codes)
         for key, buf in cache.key_scales.items():
-            buf[:, :, :t] = scales[key].to(buf.dtype)
+            write_tok(buf, scales[key])
     else:
         g = cfg.group_size
         nfull = t // g
+        goff = max(0, nfull - cache.max_len // g)   # group ring offset
+        rem = t - nfull * g
         # round through the residual dtype so bulk prefill and token-by-
         # token append produce bit-identical codes (streaming parity)
-        k_rdt = k.to(torch_dtype(cfg.residual_dtype))
-        if nfull:
-            codes, scales = codec.encode(cfg, k_rdt[:, :, :nfull * g])
-            cache.key_codes[:, :, :nfull] = codes
-            for key, buf in cache.key_scales.items():
-                buf[:, :, :nfull] = scales[key].to(buf.dtype)
-        if t > nfull * g:
-            cache.key_residual[:, :, :t - nfull * g] = k_rdt[:, :, nfull * g:]
+        k_rdt = k[:, :, goff * g:].to(torch_dtype(cfg.residual_dtype))
+        if nfull > goff:
+            codes, scales = codec.encode(cfg, k_rdt[:, :, :(nfull - goff) * g])
+            for lo, hi, dst in ring_segments(nfull, cache.max_len // g):
+                n = hi - lo
+                cache.key_codes[:, :, dst:dst + n] = \
+                    codes[:, :, lo - goff:hi - goff]
+                for key, buf in cache.key_scales.items():
+                    buf[:, :, dst:dst + n] = \
+                        scales[key][:, :, lo - goff:hi - goff].to(buf.dtype)
+        if rem:
+            cache.key_residual[:, :, :rem] = k_rdt[:, :, (nfull - goff) * g:]
     cache.length.fill_(t)
     cache.host_length = t
     return cache
@@ -225,8 +258,17 @@ def key_scores(cache: KVCache, q: torch.Tensor) -> torch.Tensor:
                               cache.key_scales)
 
 
-def position_masks(t_cap: int, g: int, length: torch.Tensor):
-    """Validity masks over the slots of a linear cache.
+def position_masks(t_cap: int, g: int, length: torch.Tensor,
+                   window: int = 0):
+    """Validity masks over the buffer slots.
+
+    ``window == 0``: a linear cache, slot == position. ``window > 0``: ring
+    semantics (capacity == window): slot ``i`` of the token-major value
+    buffer holds position ``i + floor((length-1-i)/t_cap)*t_cap``, key-group
+    slots wrap by ``flushed`` instead, and a grouped key older than
+    ``length - window`` is invalid. A slot's key expires from the window
+    exactly when its value slot is overwritten, so grouped validity and
+    residual membership never overlap.
 
     ``length`` is () — one shared length — or (B,) per-row lengths.
     Returns (valid_grouped, in_residual, flushed): (t_cap,) bools and a
@@ -236,15 +278,23 @@ def position_masks(t_cap: int, g: int, length: torch.Tensor):
     fl, ln = flushed, length
     if length.dim():
         i, fl, ln = i[None, :], flushed[:, None], length[:, None]
-    return i < fl, (i >= fl) & (i < ln), flushed
+    if window <= 0:
+        return i < fl, (i >= fl) & (i < ln), flushed
+    abs_k = i + torch.div(fl - 1 - i, t_cap, rounding_mode="floor") * t_cap
+    abs_v = i + torch.div(ln - 1 - i, t_cap, rounding_mode="floor") * t_cap
+    valid_g = (abs_k >= 0) & (abs_k < fl) & (abs_k >= ln - window)
+    in_res = (abs_v >= fl) & (abs_v < ln)
+    return valid_g, in_res, flushed
 
 
 def decode_attention(cache: KVCache, q: torch.Tensor,
-                     scale: float | None = None) -> torch.Tensor:
+                     scale: float | None = None,
+                     window: int = 0) -> torch.Tensor:
     """Single-step attention of q (B, Hq, d) over the cache: masked softmax
     over the codec's scores (the score-only LUT kernel for polar) and the
     fp residual's, then p @ V. GQA folds query heads onto their kv head.
-    Returns (B, Hq, d) in q.dtype."""
+    ``window > 0`` applies ring-buffer local-attention semantics (capacity
+    == window). Returns (B, Hq, d) in q.dtype."""
     cfg = cache.cfg
     b, hq, d = q.shape
     hkv = cache.num_kv_heads
@@ -259,7 +309,7 @@ def decode_attention(cache: KVCache, q: torch.Tensor,
 
     if cache.grouped:
         g = cfg.group_size
-        valid_g, in_res, _ = position_masks(t_cap, g, cache.length)
+        valid_g, in_res, _ = position_masks(t_cap, g, cache.length, window)
         s_grouped = key_scores(cache, q4)                        # (B,H,Qh,T)
         res = cache.key_residual.float()                         # (B,H,g,d)
         s_res = torch.einsum("bhqd,bhgd->bhqg", q4, res)
@@ -267,7 +317,7 @@ def decode_attention(cache: KVCache, q: torch.Tensor,
         scores = torch.where(bc(in_res), s_res_tiled,
                              torch.where(bc(valid_g), s_grouped, neg))
     else:
-        valid_g, in_res, _ = position_masks(t_cap, 1, cache.length)
+        valid_g, in_res, _ = position_masks(t_cap, 1, cache.length, window)
         scores = torch.where(bc(valid_g | in_res), key_scores(cache, q4),
                              neg)
     probs = torch.softmax(scores, dim=-1)
@@ -283,10 +333,13 @@ def fused_decode_attention(cache: KVCache, q: torch.Tensor,
     polar_decode_attention_full`): LUT scores over the quantized groups
     fused with the value matmul, merged exactly with the fp residual.
     Equal to :func:`decode_attention` on a linear cache; ``cache.length``
-    may be () or (B,)."""
+    may be () or (B,). A ring cache is refused: it wraps, and the kernel's
+    ``pos < flushed`` mask would validate overwritten slots."""
     if not cache.codec.supports_fused_decode:
         raise ValueError("fused decode path requires a codec with a fused "
                          f"kernel, got {cache.codec.name!r}")
+    if not isinstance(cache.layout, LinearLayout):
+        raise ValueError("fused decode path requires a linear layout")
     return cache.codec.fused_decode(cache, q, scale=scale)
 
 

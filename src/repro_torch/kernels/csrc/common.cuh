@@ -59,6 +59,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Shared memory one block of the current device may opt into (232,448 B,
+// 227 KB, on an H100); 0 when the query fails.
+inline size_t smem_optin_bytes() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return static_cast<size_t>(bytes);
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when asked.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -1,7 +1,15 @@
-// Causal GQA flash attention forward for whole-prompt prefill (replaces
-// the Pallas kernel repro/kernels/flash_prefill.py::flash_prefill; the
-// JAX serving path computes the same function with the jnp
-// core/attention.flash_attention).
+// GQA flash attention forward for whole-prompt prefill (replaces the
+// Pallas kernel repro/kernels/flash_prefill.py::flash_prefill; the JAX
+// serving path computes the same function with the jnp
+// core/attention.flash_attention, in its causal, prefix and local modes).
+//
+// Mask modes (Mask below, as core/attention.py::_mask_bias): full; causal;
+// prefix — key j is visible to query i when j <= i or j < prefix_len[b]
+// (PaliGemma's image + prefix text); local — i - window < j <= i
+// (RecurrentGemma's sliding window). Both bodies walk only the key tiles
+// the mode can reach: from the window's first tile (local; a local
+// prefill is O(T * window)) to the diagonal (causal, local), to
+// max(diagonal, prefix_len[b]) (prefix) or to the end (full).
 //
 // Bound: operations — ~4*Tq*Tk/2*d FLOPs per head against O(T*d) bytes.
 // Two bodies, chosen by dtype:
@@ -18,12 +26,16 @@
 // online softmax stays in registers (row max and sum over the 4 lanes of
 // a quad, ex2 with log2(e) folded into the scale); P is rounded to bf16
 // in registers and fed straight back as the A operand of P V. Only the
-// diagonal tile and the tile holding kv_len are masked; rows past Tq are
-// computed from zero-filled Q rows and never written. The k loop stops at
-// the causal bound, and a row whose every key is masked ends with l == 0
-// and is written as zeros. The q tiles are launched heaviest (last)
-// first, so the causal imbalance leaves no tail on 132 SMs. Pointers that
-// are not 16-byte aligned (cp.async needs it) take the fp32-FMA body.
+// tiles that cross the diagonal, kv_len or the window's lower edge are
+// masked; rows past Tq are computed from zero-filled Q rows and never
+// written. A row whose every key is masked ends with l == 0 and is written
+// as zeros. The q tiles are launched heaviest (last) first, so the causal
+// imbalance leaves no tail on 132 SMs. At D = 256 the Q fragments (64
+// registers a thread) do not stay in registers beside the 128 of the
+// output accumulator: they are reread from the Q tile in shared memory
+// with ldmatrix at each k step, and the block takes the SM alone (169 KB
+// of shared memory). Pointers that are not 16-byte aligned (cp.async
+// needs it) take the fp32-FMA body.
 //
 // fp32 (the kernel checks and the fp32 smoke config, held to 1e-4): the
 // first version's body, unchanged — Q tile, K/V tile, score tile and
@@ -35,6 +47,47 @@
 
 namespace {
 
+// mask modes, in the order of core/attention.py::MASK_MODES
+constexpr int kFull = 0, kCausal = 1, kPrefix = 2, kLocal = 3;
+
+// One batch row's mask: the keys a query sees, and the key range a q
+// tile [q0, q0 + rows) can reach. Every mode leaves query qi one run of
+// keys [lo, hi]: [0, qi] (causal), [0, max(qi, prefix_len - 1)]
+// (prefix: j <= i or j < prefix_len), [qi - window + 1, qi] (local),
+// [0, kv_len - 1] (full), cut at kv_len - 1; so a thread bounds its rows
+// once and tests each key with two compares, as the causal-only kernel
+// did.
+struct Mask {
+  int mode, window, plen;  // plen: prefix_len[b] (prefix mode), else 0
+
+  __device__ __forceinline__ int2 keys(int qi, int kv_len) const {
+    const int lo = mode == kLocal ? qi - window + 1 : 0;
+    const int hi = mode == kFull ? kv_len - 1 : mode == kPrefix ? max(qi, plen - 1) : qi;
+    return make_int2(lo, min(hi, kv_len - 1));
+  }
+  // first key tile (of `tile` keys) any row of the q tile can see
+  __device__ __forceinline__ int k_begin(int q0, int tile) const {
+    return mode == kLocal ? max(0, q0 - window + 1) / tile * tile : 0;
+  }
+  // keys past the last one any row of the q tile can see
+  __device__ __forceinline__ int k_end(int q0, int rows, int kv_len) const {
+    if (mode == kFull) return kv_len;
+    if (mode == kPrefix) return min(kv_len, max(q0 + rows, plen));
+    return min(kv_len, q0 + rows);
+  }
+  // whether a tile of keys [k0, k0 + tile) may hold a masked key for some
+  // row of [r0, r0 + rows)
+  __device__ __forceinline__ bool partial(int k0, int tile, int r0, int rows,
+                                          int kv_len) const {
+    return k0 + tile > kv_len || (mode != kFull && k0 + tile - 1 > r0) ||
+           (mode == kLocal && k0 <= r0 + rows - 1 - window);
+  }
+};
+
+__device__ __forceinline__ Mask row_mask(int mode, int window, const int* prefix_len, int b) {
+  return Mask{mode, window, mode == kPrefix ? prefix_len[b] : 0};
+}
+
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;  // query rows per block
 constexpr int kBK = 32;  // key rows per tile (one per lane in the softmax)
@@ -43,7 +96,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int H, int Hkv, int Tq, int Tk, int kv_len, float scale,
-    int causal) {
+    int mode, int window, const int* __restrict__ prefix_len) {
   constexpr int kRows = kThreads / D;     // output rows one pass covers
   constexpr int kOut = kBQ / kRows;       // accumulators per thread
   constexpr int kKS = D + 1;              // padded K row: conflict-free dots
@@ -77,8 +130,9 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   for (int r = 0; r < kOut; ++r) acc[r] = 0.0f;
   const int dd = tid % D, row0 = tid / D;
 
-  const int k_end = causal ? min(kv_len, q0 + kBQ) : kv_len;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  const Mask mask = row_mask(mode, window, prefix_len, b);
+  const int k_end = mask.k_end(q0, kBQ, kv_len);
+  for (int k0 = mask.k_begin(q0, kBK); k0 < k_end; k0 += kBK) {
     __syncthreads();  // previous tile's readers are done
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int j = i / D, c = i % D;
@@ -91,7 +145,8 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     for (int i = tid; i < kBQ * kBK; i += kThreads) {
       const int r = i / kBK, j = i % kBK;
       const int qi = q0 + r, kj = k0 + j;
-      const bool valid = kj < kv_len && (!causal || qi >= kj);
+      const int2 seen = mask.keys(qi, kv_len);
+      const bool valid = kj >= seen.x && kj <= seen.y;
       float dot = 0.0f;
       if (valid) {
         const float* qr = q_s + r * D;
@@ -147,14 +202,15 @@ constexpr size_t smem_bytes(int D) {
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
-           int Tq, int Tk, float scale, int causal, cudaStream_t stream) {
+           int Tq, int Tk, float scale, int mode, int window, const int* prefix_len,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes(D);
   cudaError_t err = rt::allow_smem(flash_prefill_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, Hkv, Tq, Tk, Tk, scale, causal);
+      static_cast<T*>(out), H, Hkv, Tq, Tk, Tk, scale, mode, window, prefix_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -168,13 +224,16 @@ constexpr int kTile = 64;         // query rows per block, keys per K/V tile
 // Grid (H, B, ceil(Tq / 64)); blockIdx.z = 0 is the LAST q tile. Fragment
 // layouts are those of mma.m16n8k16: lane = 4 * gid + tq; an accumulator
 // tile's c[0..1] hold row gid, columns 2tq and 2tq+1, c[2..3] row gid+8.
-// The minimum of 2 blocks per SM and ex2.approx are timed against the
-// default bounds and exp2f by `chip_smoke.py --variants`.
+// The minimum of 2 blocks per SM (up to D = 128; at D = 256 the shared
+// memory admits one) and ex2.approx are timed against the default bounds
+// and exp2f by `chip_smoke.py --variants`.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 2) flash_prefill_mma_kernel(
+__global__ void __launch_bounds__(kMmaThreads, D <= 128 ? 2 : 1) flash_prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int H, int Hkv,
-    int Tq, int Tk, int kv_len, float scale_log2, int causal) {
+    int Tq, int Tk, int kv_len, float scale_log2, int mode, int window,
+    const int* __restrict__ prefix_len) {
+  constexpr bool kQReg = D <= 128;   // Q fragments kept in registers
   constexpr int kS = D + 8;          // padded smem row (elements): +16 B per row
   constexpr int kRowChunks = D / 8;  // 16-byte chunks per row
   constexpr int kND = D / 8;         // n tiles of the output (8 columns each)
@@ -211,21 +270,26 @@ __global__ void __launch_bounds__(kMmaThreads, 2) flash_prefill_mma_kernel(
       cp_async16(vd + r * kS + col, vb + off, ok);
     }
   };
-  const int k_end = causal ? min(kv_len, q0 + kTile) : kv_len;
-  const int nk = (k_end + kTile - 1) / kTile;
-  load_kv(0, 0);
+  const Mask mask = row_mask(mode, window, prefix_len, b);
+  const int k_first = mask.k_begin(q0, kTile);
+  const int k_end = mask.k_end(q0, kTile, kv_len);
+  const int nk = k_end > k_first ? (k_end - k_first + kTile - 1) / kTile : 0;
+  load_kv(0, k_first);
   cp_async_commit();
 
-  unsigned qf[kKD][4];
+  unsigned qf[kQReg ? kKD : 1][4];
   float o[kND][4];
 #pragma unroll
   for (int n = 0; n < kND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
   float m_r[2] = {-INFINITY, -INFINITY};  // raw-score row max, rows gid and gid+8
   float l_r[2] = {0.0f, 0.0f};            // this thread's share of the row sums
   const int row0 = q0 + warp * 16;        // the warp's first query row
+  // the keys rows gid and gid + 8 see
+  const int2 seen[2] = {mask.keys(row0 + gid, kv_len), mask.keys(row0 + gid + 8, kv_len)};
 
+  if (nk == 0) cp_async_wait<0>();
   for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kTile;
+    const int k0 = k_first + j * kTile;
     if (j + 1 < nk) {
       load_kv((j + 1) & 1, k0 + kTile);
       cp_async_commit();
@@ -234,10 +298,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2) flash_prefill_mma_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (j == 0) {
+    if (kQReg && j == 0) {
 #pragma unroll
       for (int kk = 0; kk < kKD; ++kk)
-        ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * kS + kk * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(qf[kQReg ? kk : 0],
+                    q_s + (warp * 16 + (lane & 15)) * kS + kk * 16 + (lane >> 4) * 8);
     }
     const __nv_bfloat16* kt = k_s + (j & 1) * kTile * kS;
     const __nv_bfloat16* vt = v_s + (j & 1) * kTile * kS;
@@ -248,24 +313,28 @@ __global__ void __launch_bounds__(kMmaThreads, 2) flash_prefill_mma_kernel(
     for (int n = 0; n < kNK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < kKD; ++kk) {
+      const unsigned(&qa)[4] = qf[kQReg ? kk : 0];
+      if (!kQReg)  // D = 256: this k step's Q fragment from shared memory
+        ldmatrix_x4(qf[0], q_s + (warp * 16 + (lane & 15)) * kS + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int n2 = 0; n2 < kNK / 2; ++n2) {
         unsigned bk[4];
         ldmatrix_x4(bk, kt + (n2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * kS + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * n2], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * n2 + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * n2], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * n2 + 1], qa, bk[2], bk[3]);
       }
     }
-    // masks: keys at or past kv_len, keys above the diagonal
-    if (k0 + kTile > kv_len || (causal && k0 + kTile - 1 > row0)) {
+    // masks: keys at or past kv_len, and the keys the mode hides (above
+    // the diagonal, past the prefix, below the window)
+    if (mask.partial(k0, kTile, row0, 16, kv_len)) {
 #pragma unroll
       for (int n = 0; n < kNK; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kj = k0 + n * 8 + 2 * tq + (e & 1);
-          const int qi = row0 + gid + (e >> 1) * 8;
-          if (kj >= kv_len || (causal && kj > qi)) s[n][e] = -INFINITY;
+          const int2 r = seen[e >> 1];
+          if (kj < r.x || kj > r.y) s[n][e] = -INFINITY;
         }
     }
     // online softmax in registers; m stays in raw-score units
@@ -328,7 +397,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) flash_prefill_mma_kernel(
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
-               int Tq, int Tk, float scale, int causal, cudaStream_t stream) {
+               int Tq, int Tk, float scale, int mode, int window, const int* prefix_len,
+               cudaStream_t stream) {
   constexpr size_t smem = sizeof(__nv_bfloat16) * 5 * kTile * (D + 8);
   cudaError_t err = rt::allow_smem(flash_prefill_mma_kernel<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -337,42 +407,58 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   flash_prefill_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, Hkv, Tq, Tk,
-      Tk, scale * kLog2e, causal);
+      Tk, scale * kLog2e, mode, window, prefix_len);
   return static_cast<int>(cudaGetLastError());
 }
 
+#define FP_MASK_ARGS scale, mode, window, prefix_len, stream
+
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
-             int Tq, int Tk, int d, float scale, int causal, cudaStream_t stream) {
-  if (d == 32) return launch<T, 32>(q, k, v, out, B, H, Hkv, Tq, Tk, scale, causal, stream);
-  if (d == 64) return launch<T, 64>(q, k, v, out, B, H, Hkv, Tq, Tk, scale, causal, stream);
-  if (d == 128) return launch<T, 128>(q, k, v, out, B, H, Hkv, Tq, Tk, scale, causal, stream);
+             int Tq, int Tk, int d, float scale, int mode, int window, const int* prefix_len,
+             cudaStream_t stream) {
+  if (d == 32) return launch<T, 32>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
+  if (d == 64) return launch<T, 64>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
+  if (d == 128) return launch<T, 128>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
+  if (d == 256) return launch<T, 256>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int launch_mma_d(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
-                 int Tq, int Tk, int d, float scale, int causal, cudaStream_t stream) {
-  if (d == 32) return launch_mma<32>(q, k, v, out, B, H, Hkv, Tq, Tk, scale, causal, stream);
-  if (d == 64) return launch_mma<64>(q, k, v, out, B, H, Hkv, Tq, Tk, scale, causal, stream);
-  if (d == 128) return launch_mma<128>(q, k, v, out, B, H, Hkv, Tq, Tk, scale, causal, stream);
+                 int Tq, int Tk, int d, float scale, int mode, int window, const int* prefix_len,
+                 cudaStream_t stream) {
+  if (d == 32) return launch_mma<32>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
+  if (d == 64) return launch_mma<64>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
+  if (d == 128) return launch_mma<128>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
+  if (d == 256) return launch_mma<256>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#undef FP_MASK_ARGS
 
 }  // namespace
 
 // q (B, H, Tq, d), k/v (B, Hkv, Tk, d), out (B, H, Tq, d), all contiguous,
-// bf16 (is_bf16 = 1) or fp32; d in {32, 64, 128}. bf16 with 16-byte
-// aligned pointers (and fewer than 65536 q tiles) runs on the tensor
-// cores, everything else on the FMA body.
+// bf16 (is_bf16 = 1) or fp32; d in {32, 64, 128, 256}. mode: 0 full, 1
+// causal, 2 prefix (prefix_len: (B,) int32 on the device), 3 local
+// (window > 0); prefix_len may be null in the other modes. bf16 with
+// 16-byte aligned pointers (and fewer than 65536 q tiles) runs on the
+// tensor cores, everything else on the FMA body.
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v, void* out,
                                     int is_bf16, int B, int H, int Hkv, int Tq, int Tk, int d,
-                                    float scale, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 || H > 65535 || B > 65535)
+                                    float scale, int mode, int window, const void* prefix_len,
+                                    void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 || H > 65535 ||
+      B > 65535 || mode < kFull || mode > kLocal || (mode == kLocal && window <= 0) ||
+      (mode == kPrefix && prefix_len == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  const auto* pl = static_cast<const int*>(prefix_len);
   if (is_bf16 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
       (Tq + kTile - 1) / kTile <= 65535)
-    return launch_mma_d(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, causal, s);
-  if (is_bf16) return launch_d<__nv_bfloat16>(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, causal, s);
-  return launch_d<float>(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, causal, s);
+    return launch_mma_d(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, mode, window, pl, s);
+  if (is_bf16)
+    return launch_d<__nv_bfloat16>(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, mode, window, pl,
+                                   s);
+  return launch_d<float>(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, mode, window, pl, s);
 }

@@ -35,7 +35,10 @@
 //   dense groups: 160), and a second small kernel merges the splits
 //   exactly; inside a split the groups are double-buffered (16-byte
 //   cp.async), so group n + 1 loads while group n is scored, and a scoring
-//   thread owns one token for 4 query heads.
+//   thread owns one token for 4 query heads. Where two staging buffers do
+//   not fit a block's shared memory (bf16 rows at d 256 with 8 query
+//   heads: 258,176 B against 232,448), the walk runs on one buffer, which
+//   loads group n + 1 after group n is done.
 // - lut_flash_decode_kernel (both kernels, for the shapes the split body
 //   does not take: d % 32 != 0, unaligned buffers): one block per (kv
 //   head, row) walks the row's live groups one after another, all of a
@@ -253,7 +256,7 @@ int launch_lut_flash_decode(const float* q, const unsigned char* codes, const fl
 // split, double-buffered body (paged_decode.cu and polar_attention.cu)
 // ---------------------------------------------------------------------------
 
-constexpr int kSplitStages = 2;  // staging buffers per block (1: no prefetch)
+constexpr int kSplitStages = 2;  // staging buffers per block where they fit (1: no prefetch)
 constexpr int kQG = 4;           // query heads a scoring thread carries
 
 // Bytes of lut_split_decode_kernel's shared memory: q (Qh, d), the LUT
@@ -296,8 +299,9 @@ __device__ __forceinline__ float2 load_pair(const unsigned char* p) {
 // in flight (16-byte cp.async into the other stage) while group n is
 // scored; value rows past live[s] are copied with the predicate off, so
 // they land as exact zeros (uint8 rows: codes, scale and zero all zero).
-// Needs d % 32 == 0 and 16-byte aligned buffers.
-template <typename TV, typename Groups>
+// Needs d % 32 == 0 and 16-byte aligned buffers. kStages: the staging
+// buffers (2: double-buffered; 1: the next group loads after this one).
+template <typename TV, typename Groups, int kStages>
 __global__ void __launch_bounds__(kDecodeThreads) lut_split_decode_kernel(
     const float* __restrict__ q, const unsigned char* __restrict__ codes,
     const float* __restrict__ rs, const float* __restrict__ rz, const float* __restrict__ ts,
@@ -383,9 +387,9 @@ __global__ void __launch_bounds__(kDecodeThreads) lut_split_decode_kernel(
     cp_async_commit();
   }
   for (int k = 0; k < nn; ++k) {
-    const int n = n_begin + k, b = k % kSplitStages;
-    if (kSplitStages > 1 && k + 1 < nn) {
-      fetch(n + 1, (k + 1) % kSplitStages);
+    const int n = n_begin + k, b = k % kStages;
+    if (kStages > 1 && k + 1 < nn) {
+      fetch(n + 1, (k + 1) % kStages);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -471,7 +475,7 @@ __global__ void __launch_bounds__(kDecodeThreads) lut_split_decode_kernel(
       }
     }
     __syncthreads();  // every thread is done with stage b before it refills
-    if (kSplitStages == 1 && k + 1 < nn) {
+    if (kStages == 1 && k + 1 < nn) {
       fetch(n + 1, 0);
       cp_async_commit();
     }
@@ -518,7 +522,9 @@ __global__ void merge_splits_kernel(const T* __restrict__ acc_p, const T* __rest
 // the merge, both on `stream`. The walk of N table entries splits into
 // ranges of per_split = ceil(N / nsplit) groups, nsplit' = ceil(N /
 // per_split) <= nsplit of them (kernels/paged_decode.py::split_ranges);
-// `partials` holds nsplit' * S * Hkv * Qh * (d + 2) floats.
+// `partials` holds nsplit' * S * Hkv * Qh * (d + 2) floats. The body runs
+// on kSplitStages staging buffers where they fit the device's shared
+// memory per block, else on one.
 template <typename TV, typename Groups>
 int launch_lut_split_decode(const float* q, const unsigned char* codes, const float* rs,
                             const float* rz, const float* ts, const float* tz,
@@ -531,16 +537,24 @@ int launch_lut_split_decode(const float* q, const unsigned char* codes, const fl
   if (nsplit > 65535 || (nsplit > 1 && partials == nullptr) ||
       (kQuantV<TV> && (g % 4 || vscale == nullptr || vzero == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = lut_split_head_bytes(Qh, d, g, t_bits) +
-                      kSplitStages * lut_split_stage_bytes(d, g, sizeof(TV), kQuantV<TV>);
-  cudaError_t err = allow_smem(lut_split_decode_kernel<TV, Groups>, smem);
+  const size_t head = lut_split_head_bytes(Qh, d, g, t_bits);
+  const size_t stage = lut_split_stage_bytes(d, g, sizeof(TV), kQuantV<TV>);
+  static const size_t optin = smem_optin_bytes();  // one device per process
+  const bool staged = head + kSplitStages * stage <= optin;
+  const size_t smem = head + (staged ? kSplitStages : 1) * stage;
+  // refused here, not by the attribute call, whose error would stay the
+  // last error and fail the next launch's check
+  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = staged ? lut_split_decode_kernel<TV, Groups, kSplitStages>
+                       : lut_split_decode_kernel<TV, Groups, 1>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(S) * Hkv * Qh;
   float* pa = nsplit > 1 ? partials : acc;
   float* pm = nsplit > 1 ? partials + nsplit * rows * d : m;
   float* pl = nsplit > 1 ? pm + nsplit * rows : l;
   const dim3 grid(Hkv, S, nsplit);
-  lut_split_decode_kernel<TV, Groups><<<grid, kDecodeThreads, smem, stream>>>(
+  kernel<<<grid, kDecodeThreads, smem, stream>>>(
       q, codes, rs, rz, ts, tz, static_cast<const TV*>(values), vscale, vzero, groups, live,
       pa, pm, pl, Hkv, Qh, d, g, t_bits, per_split);
   err = cudaGetLastError();

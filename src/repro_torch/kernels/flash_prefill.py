@@ -1,5 +1,5 @@
-"""Causal GQA flash attention for whole-prompt prefill: hand-written CUDA
-kernel + its plain version.
+"""GQA flash attention for whole-prompt prefill: hand-written CUDA kernel
++ its plain version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_prefill.py::
 flash_prefill``; the JAX serving path computes the same function with the
@@ -10,10 +10,20 @@ Bound: operations (quadratic in the prompt against linear bytes). bf16
 inputs run a FlashAttention-2 style tensor-core body: one block of 4 warps
 per (64-row q tile, head, batch row), Q in registers, 64-key K/V tiles
 double-buffered through ``cp.async``, ``mma.sync`` bf16 products with fp32
-accumulators, the online softmax in registers, heaviest q tiles first.
-fp32 inputs (held to 1e-4, which TF32 would not meet) and bf16 pointers
-that are not 16-byte aligned run the fp32-FMA body. Both stop the k loop
-at the causal bound and keep an l == 0 guard. Its yardstick is
+accumulators, the online softmax in registers, heaviest q tiles first
+(at d 256 the Q fragments are reread from shared memory each key tile
+instead of living in registers). fp32 inputs (held to 1e-4, which TF32
+would not meet) and bf16 pointers that are not 16-byte aligned run the
+fp32-FMA body. Head dims 32, 64, 128 and 256.
+
+Mask modes (``core/attention.py``): ``causal``, ``full``, ``prefix``
+(bidirectional over the first ``prefix_len[b]`` keys of row b, causal
+after; PaliGemma) and ``local`` (keys ``i - window < j <= i``;
+RecurrentGemma). Both bodies walk only the key tiles the mode can reach:
+up to the diagonal (causal, local), or to ``max(diagonal, prefix_len)``
+(prefix), and from the window's first tile on (local, so a local prefill
+is O(T·window)); a row whose every key is masked ends with l == 0 and is
+written as zeros. Its yardstick is
 ``torch.nn.functional.scaled_dot_product_attention``, which the port never
 calls.
 """
@@ -21,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.attention import reference_attention
+from repro_torch.core.attention import MASK_MODES, reference_attention
 from repro_torch.kernels import _build as B
 
 #: kernel launches since the last reset (CPU calls never count)
@@ -31,25 +41,35 @@ launches = 0
 def _bind(lib) -> None:
     lib.flash_prefill_launch.argtypes = [
         B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT, B.INT, B.INT, B.INT, B.INT,
-        B.INT, B.INT, B.FLOAT, B.INT, B.VOIDP]
+        B.INT, B.INT, B.FLOAT, B.INT, B.INT, B.VOIDP, B.VOIDP]
     lib.flash_prefill_launch.restype = B.INT
 
 
-def flash_prefill_plain(q, k, v, *, causal: bool = True,
+def flash_prefill_plain(q, k, v, *, mode: str = "causal", window: int = 0,
+                        prefix_len=None,
                         scale: float | None = None) -> torch.Tensor:
     """Plain version: O(T^2) reference attention."""
-    return reference_attention(q, k, v, mode="causal" if causal else "full",
-                               scale=scale)
+    return reference_attention(q, k, v, mode=mode, window=window,
+                               prefix_len=prefix_len, scale=scale)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True,
+                  mode: str = "causal", window: int = 0,
+                  prefix_len: torch.Tensor | None = None,
                   scale: float | None = None) -> torch.Tensor:
-    """q (B, H, Tq, d); k/v (B, Hkv, Tk, d) -> (B, H, Tq, d) in q.dtype.
-    The kernel for CUDA tensors, the plain version for CPU tensors."""
+    """q (B, H, Tq, d); k/v (B, Hkv, Tk, d) -> (B, H, Tq, d) in q.dtype;
+    ``mode`` one of ``MASK_MODES``, ``prefix_len`` (B,) int32 for
+    ``prefix``, ``window`` > 0 for ``local``. The kernel for CUDA tensors,
+    the plain version for CPU tensors."""
     global launches
-    if not B.on_card(q, k, v):
-        return flash_prefill_plain(q, k, v, causal=causal, scale=scale)
+    B.require(mode in MASK_MODES, f"unknown mask mode {mode!r}")
+    B.require((prefix_len is not None) == (mode == "prefix"),
+              "prefix_len is required by, and only by, mode 'prefix'")
+    B.require(mode != "local" or window > 0, "mode 'local' needs window > 0")
+    tensors = (q, k, v) + ((prefix_len,) if prefix_len is not None else ())
+    if not B.on_card(*tensors):
+        return flash_prefill_plain(q, k, v, mode=mode, window=window,
+                                   prefix_len=prefix_len, scale=scale)
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     for x in (q, k, v):
@@ -58,14 +78,22 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   "q/k/v must be contiguous and all bf16 or all fp32")
     B.require(tuple(k.shape) == (b, hkv, tk, d) and k.shape == v.shape
               and h % hkv == 0, "k/v must be (B, Hkv, Tk, d), H % Hkv == 0")
-    B.require(d in (32, 64, 128), f"head_dim {d} not in (32, 64, 128)")
+    B.require(d in (32, 64, 128, 256),
+              f"head_dim {d} not in (32, 64, 128, 256)")
+    if prefix_len is not None:
+        B.require(prefix_len.dtype == torch.int32
+                  and prefix_len.is_contiguous()
+                  and tuple(prefix_len.shape) == (b,),
+                  "prefix_len must be contiguous int32 (B,)")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     lib = B.library("flash_prefill", _bind)
     err = lib.flash_prefill_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), b, h, hkv, tq, tk, d, float(scale),
-        int(causal), B.stream_ptr(q))
+        MASK_MODES.index(mode), int(window),
+        None if prefix_len is None else prefix_len.data_ptr(),
+        B.stream_ptr(q))
     B.check(err, "flash_prefill")
     launches += 1
     return out

@@ -70,9 +70,12 @@ def polar_paged_decode_attention_grouped(q, codes, rs, rz, ts, tz, values,
         vzero=vzero, r_bits=r_bits, t_bits=t_bits)
 
 
-def flash_prefill(q, k, v, *, causal=True, scale=None):
-    """Causal GQA flash attention forward for prefill."""
-    return fp_mod.flash_prefill(q, k, v, causal=causal, scale=scale)
+def flash_prefill(q, k, v, *, mode="causal", window=0, prefix_len=None,
+                  scale=None):
+    """GQA flash attention forward for prefill in mask ``mode`` (causal,
+    full, prefix with ``prefix_len`` (B,) int32, local with ``window``)."""
+    return fp_mod.flash_prefill(q, k, v, mode=mode, window=window,
+                                prefix_len=prefix_len, scale=scale)
 
 
 def polar_paged_prefill_attention(q, k_chunk, v_chunk, codes, rs, rz, ts,

@@ -26,6 +26,12 @@ the host splits each row's walk over the G groups into
 call. Shapes the split body does not take (d % 32 != 0, unaligned
 buffers) run the unsplit body; ``launches_split`` counts the launches
 that took the split body.
+
+A split block stages its group in two shared-memory buffers where they
+fit the 227 KB a block may opt into, else in one (bf16 rows at d 256 with
+8 query heads, paligemma-3b's shape, need 258,176 B for two and 172,160
+for one). A shape that does not fit even one buffer (fp32 rows at d 256
+and 8 query heads: 237,696 B) fails at launch.
 """
 from __future__ import annotations
 

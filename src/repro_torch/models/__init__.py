@@ -1,2 +1,2 @@
-"""Model zoo of the port (the dense and MoE decoder families)."""
+"""Model zoo of the port (the dense, MoE, VLM and hybrid families)."""
 from repro_torch.models.registry import Model, get_model  # noqa: F401

@@ -1,17 +1,21 @@
 """GQA attention block over the quantized KV caches (port of the dense
 and paged entries of ``repro/models/attn_block.py``).
 
-* ``make_cache`` — one layer's dense cache: linear layout, capacity
-  rounded up to a group multiple.
-* ``attention_prefill`` — the static batch's prompt: causal flash
-  attention (the flash-prefill kernel, where JAX runs the jnp
-  ``flash_attention``) + the dense cache fill (the encode kernel).
+* ``make_cache`` — one layer's dense cache: capacity rounded up to a
+  group multiple; a linear layout, or for a windowed config a ring of
+  ``min(max_len, window)`` slots.
+* ``attention_prefill`` — the static batch's prompt: flash attention in
+  mask mode ``causal``, ``prefix`` (the VLM's image + prefix text,
+  ``prefix_len`` per row) or ``local`` (``window``) — the flash-prefill
+  kernel, where JAX runs the jnp ``flash_attention`` — + the dense cache
+  fill (the encode kernel).
 * ``attention_decode`` — one token per row over the dense cache: append
   (residual write, group flush through the encode kernel) and decode
   attention on ``cfg.decode_backend``: ``"jnp"`` through the score-only
   LUT kernel + softmax, ``"paged_fused"`` and ``"gathered"`` through the
   fused dense kernel (JAX's ``_dense_kernel_backend`` mapping); codecs
-  without a fused kernel fall back to the ``"jnp"`` route.
+  without a fused kernel, and windowed (ring) layers, take the ``"jnp"``
+  route.
 * ``attention_prefill_paged`` — one request's prompt: causal flash
   attention (the flash-prefill kernel) + the paged cache fill (the encode
   kernel writes the prompt's key groups into their pages).
@@ -40,9 +44,24 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_cache as kvc
 from repro_torch.core import paged_cache as pgc
+from repro_torch.core.cache_layout import LinearLayout, RingLayout
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.utils import torch_dtype
+
+
+def init_attention(cfg: ModelConfig, generator: torch.Generator | None,
+                   device, dtype: torch.dtype) -> dict:
+    """``wq``, ``wk``, ``wv``, ``wo`` at JAX's ``init_attention`` scales (and
+    zero fp32 q/k/v biases where the config has them)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    p = {n: L.dense_init(a, b, generator, device, dtype) for n, a, b in (
+        ("wq", d, hq), ("wk", d, hkv), ("wv", d, hkv), ("wo", hq, d))}
+    if cfg.qkv_bias:
+        p.update({n: torch.zeros(w, device=device)
+                  for n, w in (("bq", hq), ("bk", hkv), ("bv", hkv))})
+    return p
 
 
 def _project(params: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -59,19 +78,27 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, layer: int = 0,
                device=None) -> kvc.KVCache:
     """Allocate layer ``layer``'s dense cache under
     ``cfg.policy.layer_config(layer)`` on ``device`` (the card unless
-    named); the capacity rounds ``max_len`` up to the layer's group
-    multiple, as the residual's ``slot % g`` tiling needs."""
+    named). A windowed config gets a ring of ``min(max_len, window)``
+    slots, any other a linear cache of ``max_len``; the capacity rounds up
+    to the layer's group multiple, as the residual's ``slot % g`` tiling
+    needs."""
     quant = cfg.policy.layer_config(layer)
+    cap = min(max_len, cfg.window) if cfg.window else max_len
     g = quant.group_size
-    cap = -(-max_len // g) * g
+    cap = -(-cap // g) * g
+    layout = RingLayout(cap) if cfg.window else LinearLayout(cap)
     return kvc.init_cache(quant, batch, cfg.num_kv_heads, cfg.head_dim,
-                          cap, dtype=torch_dtype(cfg.dtype), device=device)
+                          cap, dtype=torch_dtype(cfg.dtype), device=device,
+                          layout=layout)
 
 
 def attention_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                      cache: kvc.KVCache):
-    """Causal attention over the static batch's prompt + bulk cache fill.
-    x: (B, T, D). Returns (y (B, T, D), cache)."""
+                      cache: kvc.KVCache, *, mask_mode: str = "causal",
+                      prefix_len: torch.Tensor | None = None,
+                      window: int = 0):
+    """Attention over the static batch's prompt in ``mask_mode`` (causal,
+    prefix with ``prefix_len`` (B,) int32, local with ``window``) + bulk
+    cache fill. x: (B, T, D). Returns (y (B, T, D), cache)."""
     t = x.shape[1]
     positions = torch.arange(t, dtype=torch.int32, device=x.device)
     q, k, v = _project(params, x, cfg)
@@ -79,24 +106,28 @@ def attention_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     k = L.apply_rope(k, positions, cfg.rope_base, cfg.rope_ntk_scale)
     v = v.contiguous()
     cache = kvc.prefill(cache, k, v)
-    out = ops.flash_prefill(q, k, v, causal=True)
+    out = ops.flash_prefill(q, k, v, mode=mask_mode, window=window,
+                            prefix_len=prefix_len)
     return L.linear(L.merge_heads(out), params["wo"]), cache
 
 
 def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                     cache: kvc.KVCache):
+                     cache: kvc.KVCache, *, window: int = 0):
     """Single-token decode of every row at the shared position
-    ``cache.length``. x: (B, 1, D). Returns (y (B, 1, D), cache)."""
+    ``cache.length``. x: (B, 1, D). ``window > 0``: a ring cache's local
+    attention, which stays on the score route (the fused kernel assumes
+    linear placement). Returns (y (B, 1, D), cache)."""
     b = x.shape[0]
     q, k, v = _project(params, x, cfg)
     pos = cache.length.reshape(1)
     q = L.apply_rope(q, pos, cfg.rope_base, cfg.rope_ntk_scale)
     k = L.apply_rope(k, pos, cfg.rope_base, cfg.rope_ntk_scale)
     cache = kvc.append(cache, k, v)
-    if cfg.decode_backend != "jnp" and cache.codec.supports_fused_decode:
+    if (cfg.decode_backend != "jnp" and cache.codec.supports_fused_decode
+            and window == 0):
         out = kvc.fused_decode_attention(cache, q[:, :, 0])
     else:
-        out = kvc.decode_attention(cache, q[:, :, 0])
+        out = kvc.decode_attention(cache, q[:, :, 0], window=window)
     return L.linear(out.reshape(b, 1, -1), params["wo"]), cache
 
 
@@ -113,7 +144,7 @@ def attention_prefill_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
     k = L.apply_rope(k, positions, cfg.rope_base, cfg.rope_ntk_scale)
     v = v.contiguous()
     cache = pgc.paged_prefill(cache, slot, page_row, k, v, true_len)
-    out = ops.flash_prefill(q, k, v, causal=True)
+    out = ops.flash_prefill(q, k, v)
     return L.linear(L.merge_heads(out), params["wo"]), cache
 
 

@@ -5,8 +5,28 @@ Plain functions over tensors and dict params. Matrices are stored
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+
+def dense_init(d_in: int, d_out: int, generator: torch.Generator | None,
+               device, dtype: torch.dtype) -> torch.Tensor:
+    """A (d_in, d_out) matrix at JAX's ``dense_init`` scale, normal /
+    sqrt(d_in), drawn in fp32 from ``generator`` on ``device`` and cast to
+    ``dtype``."""
+    x = torch.randn((d_in, d_out), generator=generator, device=device,
+                    dtype=torch.float32)
+    return (x * (1.0 / math.sqrt(d_in))).to(dtype)
+
+
+def init_mlp(d: int, d_ff: int, generator: torch.Generator | None, device,
+             dtype: torch.dtype) -> dict:
+    """The gated MLP's ``wg``, ``wu`` (d, d_ff) and ``wd`` (d_ff, d)."""
+    return {"wg": dense_init(d, d_ff, generator, device, dtype),
+            "wu": dense_init(d, d_ff, generator, device, dtype),
+            "wd": dense_init(d_ff, d, generator, device, dtype)}
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,

@@ -1,12 +1,17 @@
-"""Model interface over the dense and MoE families' serving entries (port of
-``repro/models/registry.py:34-72,118-161``).
+"""Model interface over the serving entries of the dense, MoE, VLM and
+hybrid families (port of ``repro/models/registry.py:34-72,106-195``).
 
 ``get_model(cfg)`` returns a :class:`Model` bundle:
   init(generator, device) -> params
   init_decode_state(batch, max_len, device) -> list of per-layer KVCaches
-  prefill(params, {"tokens": (B, T)}, state) -> (last logits (B, V), state)
+  prefill(params, {"tokens": (B, T)[, "patches": (B, Np, F)]}, state)
+      -> (last logits (B, V), state)
   decode(params, state, token (B,)) -> (logits (B, V), state)
-  cache_layer_bytes(state) -> physical cache bytes per layer
+  cache_layer_bytes(state) -> physical cache bytes per layer (None for the
+      hybrid family, whose state mixes ring caches and recurrent states)
+The paged entries below are None for the VLM and hybrid families, which
+JAX serves on the static engine only (the VLM prefill needs the patch
+frontend; the paged attention has no sliding-window mask):
   init_paged_state(layout, device) -> list of per-layer PagedKVCaches
   prefill_paged(params, tokens (1,Tp), state, slot, page_row, true_len)
   prefill_paged_chunk(params, tokens (1,Tc), state, slot, page_row, start,
@@ -34,6 +39,7 @@ import dataclasses
 from typing import Any, Callable
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as TF
 
 
@@ -44,32 +50,51 @@ class Model:
     init_decode_state: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
-    cache_layer_bytes: Callable[[Any], list[int]]
-    init_paged_state: Callable[..., Any]
-    prefill_paged: Callable[..., Any]
-    prefill_paged_chunk: Callable[..., Any]
-    decode_paged: Callable[..., Any]
-    decode_runahead: Callable[..., Any]
-    copy_pages: Callable[..., Any]
-    decode_paged_collect: Callable[..., Any]
-    commit_paged: Callable[..., Any]
-    verify_span: Callable[..., Any]
-    commit_span: Callable[..., Any]
+    cache_layer_bytes: Callable[[Any], list[int]] | None = None
+    init_paged_state: Callable[..., Any] | None = None
+    prefill_paged: Callable[..., Any] | None = None
+    prefill_paged_chunk: Callable[..., Any] | None = None
+    decode_paged: Callable[..., Any] | None = None
+    decode_runahead: Callable[..., Any] | None = None
+    copy_pages: Callable[..., Any] | None = None
+    decode_paged_collect: Callable[..., Any] | None = None
+    commit_paged: Callable[..., Any] | None = None
+    verify_span: Callable[..., Any] | None = None
+    commit_span: Callable[..., Any] | None = None
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
         raise ValueError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family not in ("dense", "moe", "vlm") and not cfg.policy.is_uniform:
+        # JAX's refusal and message, kept for parity (the port's per-layer
+        # state list could hold mixed caches)
+        raise ValueError(
+            f"per-layer cache policies are not supported for the "
+            f"{cfg.family!r} family (its decode state stacks one cache "
+            "shape across layers)")
     from repro_torch.weights import init_params
-    return Model(
-        cfg=cfg,
-        init=lambda generator=None, device=None: init_params(
-            cfg, generator=generator, device=device),
+
+    def init(generator=None, device=None):
+        return init_params(cfg, generator=generator, device=device)
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg, init=init,
+            init_decode_state=lambda batch, max_len, device:
+                HY.init_decode_state(cfg, batch, max_len, device),
+            prefill=lambda p, b, s: HY.prefill_fn(p, b, cfg, s),
+            decode=lambda p, s, t: HY.decode_fn(p, s, t, cfg))
+    static = dict(
+        cfg=cfg, init=init,
         init_decode_state=lambda batch, max_len, device:
             TF.init_decode_caches(cfg, batch, max_len, device),
         prefill=lambda p, b, s: TF.prefill_fn(p, b, cfg, s),
         decode=lambda p, s, t: TF.decode_fn(p, s, t, cfg),
-        cache_layer_bytes=TF.per_layer_cache_bytes,
+        cache_layer_bytes=TF.per_layer_cache_bytes)
+    if cfg.family == "vlm" or cfg.window:
+        return Model(**static)
+    return Model(
+        **static,
         init_paged_state=lambda layout, device: TF.init_paged_caches(
             cfg, layout, device),
         prefill_paged=lambda p, toks, s, slot, row, tl:

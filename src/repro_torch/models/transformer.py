@@ -1,6 +1,7 @@
 """Decoder-only transformer LM over quantized caches (port of the serving
 entries of ``repro/models/transformer.py``: the static batch's dense
-caches and continuous batching's paged caches).
+caches and continuous batching's paged caches; the dense, MoE and
+prefix-LM VLM families).
 
 A Python loop over the layers replaces ``_scan_segments``; the state is
 one cache per layer under that layer's config of ``cfg.policy`` (a mixed
@@ -23,7 +24,10 @@ Params are a dict: ``embed`` (V, D), ``final_norm`` (D,), ``lm_head``
 ``{"ln1", "ln2", "attn": {wq, wk, wv, wo}, "ffn": {wg, wu, wd}}`` — for
 the MoE family ``ffn`` is ``{router, wg, wu, wd}`` with expert-stacked
 matrices, plus ``shared`` ``{wg, wu, wd}`` where the config has shared
-experts (:func:`ffn_apply`).
+experts (:func:`ffn_apply`). The VLM family adds ``projector``
+(frontend_dim, D): :func:`prefill_fn` projects the stubbed frontend's
+patch embeddings with it and prepends them to the text under a prefix-LM
+mask; the VLM has static entries only, as in JAX.
 """
 from __future__ import annotations
 
@@ -87,11 +91,24 @@ def per_layer_cache_bytes(caches: list) -> list[int]:
 @torch.no_grad()
 def prefill_fn(params: dict, batch: dict, cfg: ModelConfig, caches: list):
     """Prefill the static batch into its dense caches (in place).
-    batch["tokens"]: (B, T) int. Returns (last-token logits (B, V),
-    caches)."""
+    batch["tokens"]: (B, T) int; for the VLM also batch["patches"] (B,
+    frontend_tokens, frontend_dim): projected (cast to the model dtype,
+    not scaled by the embedding scale) and prepended to the text, with
+    the prefix-LM mask bidirectional over the ``frontend_tokens`` image
+    positions. Returns (last-token logits (B, V), caches)."""
     x = embed_tokens(params, batch["tokens"], cfg)
+    mask_mode = "causal" if cfg.window == 0 else "local"
+    prefix_len = None
+    if cfg.family == "vlm":
+        px = L.linear(batch["patches"].to(x.dtype), params["projector"])
+        x = torch.cat([px, x], dim=1)
+        prefix_len = torch.full((x.shape[0],), cfg.frontend_tokens,
+                                dtype=torch.int32, device=x.device)
+        mask_mode = "prefix"
     for bp, cache in zip(params["layers"], caches):
-        x, _ = _block(bp, x, cfg, AB.attention_prefill, cache)
+        x, _ = _block(bp, x, cfg, AB.attention_prefill, cache,
+                      mask_mode=mask_mode, prefix_len=prefix_len,
+                      window=cfg.window)
     logits = lm_logits(params, x[:, -1:], cfg)
     return logits[:, 0], caches
 
@@ -103,7 +120,8 @@ def decode_fn(params: dict, caches: list, token: torch.Tensor,
     token: (B,) int -> (logits (B, V), caches)."""
     x = embed_tokens(params, token[:, None], cfg)
     for bp, cache in zip(params["layers"], caches):
-        x, _ = _block(bp, x, cfg, AB.attention_decode, cache)
+        x, _ = _block(bp, x, cfg, AB.attention_decode, cache,
+                      window=cfg.window)
     logits = lm_logits(params, x, cfg)
     return logits[:, 0], caches
 

@@ -116,24 +116,33 @@ class ServeEngine:
 
     def generate(self, batch: dict,
                  gen: Optional[GenerationConfig] = None) -> dict:
-        """batch: {"tokens": (B, Tp) int}. Returns the generated tokens
+        """batch: {"tokens": (B, Tp) int} (the VLM also ``"patches"`` (B,
+        frontend_tokens, frontend_dim)). Returns the generated tokens
         (B, max_new_tokens) as numpy, prefill and decode seconds, decode
-        tokens/s and the cache's physical bytes (in all and per layer)."""
+        tokens/s and the cache's physical bytes (in all and per layer; per
+        layer None for the hybrid family)."""
         gen = gen if gen is not None else GenerationConfig()
+        cfg = self.model.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        inputs = {"tokens": tokens}
+        if cfg.family == "vlm":
+            inputs["patches"] = torch.as_tensor(batch["patches"],
+                                                device=self.device)
         b, tp = tokens.shape
-        # linear cache: prompt + appended tokens must fit (the last sampled
-        # token is never appended, hence the -1)
-        if tp + gen.max_new_tokens - 1 > self.max_len:
-            raise ValueError(
-                f"prompt {tp} + max_new_tokens {gen.max_new_tokens} "
-                f"exceeds cache capacity {self.max_len}")
+        if cfg.family in ("dense", "moe", "vlm") and cfg.window == 0:
+            # linear cache: prompt (with the frontend's tokens) + appended
+            # tokens must fit (the last sampled token is never appended,
+            # hence the -1); a ring cache holds any length
+            tp += cfg.frontend_tokens if cfg.family == "vlm" else 0
+            if tp + gen.max_new_tokens - 1 > self.max_len:
+                raise ValueError(
+                    f"prompt {tp} + max_new_tokens {gen.max_new_tokens} "
+                    f"exceeds cache capacity {self.max_len}")
         generator = torch.Generator(device=self.device)
         generator.manual_seed(gen.seed)
         state = self.model.init_decode_state(b, self.max_len, self.device)
         t0 = time.monotonic()
-        logits, state = self.model.prefill(self.params, {"tokens": tokens},
-                                           state)
+        logits, state = self.model.prefill(self.params, inputs, state)
         _sync(self.device)
         t_prefill = time.monotonic() - t0
 
@@ -158,7 +167,9 @@ class ServeEngine:
             "decode_s": t_decode,
             "tokens_per_s": b * n_dec / max(t_decode, 1e-9),
             "cache_bytes": tree_bytes(state),
-            "cache_bytes_per_layer": self.model.cache_layer_bytes(state),
+            "cache_bytes_per_layer": (
+                self.model.cache_layer_bytes(state)
+                if self.model.cache_layer_bytes else None),
         }
 
 
@@ -259,6 +270,9 @@ class EngineCore:
                  prefill_budget: int = 0, runahead: int = 0,
                  spec: Optional[SpecConfig] = None,
                  qos: Optional[QosConfig] = None, chaos=None, device=None):
+        if model.decode_paged is None:
+            raise ValueError(
+                f"family {model.cfg.family!r} has no paged decode path")
         self.model = model
         self.params = params
         self.device = resolve_device(device)

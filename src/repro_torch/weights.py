@@ -5,20 +5,57 @@ Matrices and the embedding are stored in the model dtype (the JAX
 package keeps fp32 masters and casts them at every use, which computes
 the same products); norm weights stay fp32, as ``rms_norm`` reads them,
 and so does an MoE layer's router, which JAX casts to fp32 (a router in
-the model dtype would move the routing).
+the model dtype would move the routing), and so do the RG-LRU block's
+conv, gate and Lambda params, which JAX computes in fp32.
+
+The VLM family adds ``projector`` (frontend_dim, D). The hybrid family's
+JAX tree stacks its layers per pattern period (``periods/sub{i}_{kind}``,
+leading axis the period) and in ``tail``; here they are one list in layer
+order, each layer's mixer under ``mix``.
 """
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attn_block as AB
+from repro_torch.models import hybrid as HY
+from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe
 from repro_torch.utils import resolve_device, torch_dtype
 
 _MATS = {"attn": ("wq", "wk", "wv", "wo"), "ffn": ("wg", "wu", "wd")}
+#: the RG-LRU block's matrices, in the model dtype (the rest stays fp32)
+_RG_MATS = ("w_gate", "w_in", "w_out")
+
+
+def _hybrid_from_jax(np_params: dict, cfg: ModelConfig, t) -> list:
+    """The hybrid's period-stacked and tail-stacked layers -> one list in
+    layer order (period p, sub-layer i -> layer p * len(pattern) + i, then
+    the tail)."""
+    dt = torch_dtype(cfg.dtype)
+    n_periods, pat, tail = HY._period_split(cfg)
+
+    def layer(tree, i, kind):
+        out = {"ln1": t(tree["ln1"][i], torch.float32),
+               "ln2": t(tree["ln2"][i], torch.float32),
+               "ffn": {n: t(tree["ffn"][n][i], dt) for n in _MATS["ffn"]}}
+        mix = tree["mix"]
+        if kind == "attn":
+            out["mix"] = {n: t(mix[n][i], dt) for n in _MATS["attn"]}
+            out["mix"].update({n: t(mix[n][i], torch.float32)
+                               for n in ("bq", "bk", "bv") if n in mix})
+        else:
+            out["mix"] = {n: t(a[i], dt if n in _RG_MATS else torch.float32)
+                          for n, a in mix.items()}
+        return out
+
+    layers = [layer(np_params["periods"][f"sub{j}_{kind}"], p, kind)
+              for p in range(n_periods) for j, kind in enumerate(pat)]
+    layers += [layer(np_params["tail"], i, kind)
+               for i, kind in enumerate(tail)]
+    return layers
 
 
 def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
@@ -31,7 +68,23 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     def t(a, dtype):
         return torch.from_numpy(np.array(a)).to(dev, dtype)
 
-    lp = np_params["layers"]
+    if cfg.family == "hybrid":
+        layers = _hybrid_from_jax(np_params, cfg, t)
+    else:
+        layers = _layers_from_jax(np_params["layers"], cfg, t)
+    out = {"embed": t(np_params["embed"], dt),
+           "final_norm": t(np_params["final_norm"], torch.float32),
+           "layers": layers}
+    for name in ("lm_head", "projector"):
+        if name in np_params:
+            out[name] = t(np_params[name], dt)
+    return out
+
+
+def _layers_from_jax(lp: dict, cfg: ModelConfig, t) -> list:
+    """The dense / MoE / VLM layer stack (leading layer axis) -> one dict
+    per layer."""
+    dt = torch_dtype(cfg.dtype)
     layers = []
     for i in range(cfg.num_layers):
         layer = {"ln1": t(lp["ln1"][i], torch.float32),
@@ -45,51 +98,39 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
             layer["ffn"]["shared"] = {n: t(lp["ffn"]["shared"][n][i], dt)
                                       for n in _MATS["ffn"]}
         layers.append(layer)
-    out = {"embed": t(np_params["embed"], dt),
-           "final_norm": t(np_params["final_norm"], torch.float32),
-           "layers": layers}
-    if "lm_head" in np_params:
-        out["lm_head"] = t(np_params["lm_head"], dt)
-    return out
+    return layers
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None, dtype=None) -> dict:
     """Random params at the JAX package's init scales (dense: normal /
-    sqrt(d_in); embedding and MoE router: normal * 0.02; norms: ones),
-    drawn on ``device`` from ``generator`` (which must live on that
-    device)."""
+    sqrt(d_in); embedding and MoE router: normal * 0.02; norms: ones; the
+    RG-LRU block's as ``models/rglru.py``), drawn on ``device`` from
+    ``generator`` (which must live on that device)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
-    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    d = cfg.d_model
 
-    def normal(shape, scale):
-        x = torch.randn(shape, generator=generator, device=dev,
+    def block() -> dict:
+        return {"ln1": torch.ones(d, device=dev),
+                "ln2": torch.ones(d, device=dev),
+                "attn": AB.init_attention(cfg, generator, dev, dt),
+                "ffn": (init_moe(cfg, generator, dev, dt)
+                        if cfg.family == "moe"
+                        else L.init_mlp(d, cfg.d_ff, generator, dev, dt))}
+
+    if cfg.family == "hybrid":
+        layers = [HY.init_sub_layer(cfg, kind, generator, dev, dt)
+                  for kind in HY.layer_types(cfg)]
+    else:
+        layers = [block() for _ in range(cfg.num_layers)]
+    embed = torch.randn((cfg.vocab_size, d), generator=generator, device=dev,
                         dtype=torch.float32)
-        return (x * scale).to(dt)
-
-    def dense(d_in, d_out):
-        return normal((d_in, d_out), 1.0 / math.sqrt(d_in))
-
-    layers = []
-    for _ in range(cfg.num_layers):
-        layers.append({
-            "ln1": torch.ones(d, device=dev), "ln2": torch.ones(d, device=dev),
-            "attn": {"wq": dense(d, cfg.num_heads * hd),
-                     "wk": dense(d, cfg.num_kv_heads * hd),
-                     "wv": dense(d, cfg.num_kv_heads * hd),
-                     "wo": dense(cfg.num_heads * hd, d)},
-            "ffn": (init_moe(cfg, generator, dev, dt) if cfg.family == "moe"
-                    else {"wg": dense(d, f), "wu": dense(d, f),
-                          "wd": dense(f, d)}),
-        })
-        if cfg.qkv_bias:
-            layers[-1]["attn"].update(
-                {n: torch.zeros(w, device=dev) for n, w in (
-                    ("bq", cfg.num_heads * hd), ("bk", cfg.num_kv_heads * hd),
-                    ("bv", cfg.num_kv_heads * hd))})
-    out = {"embed": normal((cfg.vocab_size, d), 0.02),
+    out = {"embed": (embed * 0.02).to(dt),
            "final_norm": torch.ones(d, device=dev), "layers": layers}
     if not cfg.tie_embeddings:
-        out["lm_head"] = dense(d, cfg.vocab_size)
+        out["lm_head"] = L.dense_init(d, cfg.vocab_size, generator, dev, dt)
+    if cfg.family == "vlm":
+        out["projector"] = L.dense_init(cfg.frontend_dim, d, generator, dev,
+                                        dt)
     return out

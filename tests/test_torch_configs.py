@@ -1,6 +1,7 @@
 """Port parity for the paper's dense configurations at head_dim 128
-(llama3.1-8b, granite-8b, yi-9b, qwen1.5-4b) beside tinyllama, and the
-MoE configurations (qwen2-moe-a2.7b, dbrx-132b).
+(llama3.1-8b, granite-8b, yi-9b, qwen1.5-4b) beside tinyllama, the MoE
+configurations (qwen2-moe-a2.7b, dbrx-132b), the VLM (paligemma-3b) and
+the hybrid (recurrentgemma-9b).
 
 Each port config equals its JAX config on every shared field, with the
 same ``param_count``, the same shape suite and registry; then, on each
@@ -40,6 +41,8 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 DENSE = ("granite-8b", "llama3.1-8b", "qwen1.5-4b", "tinyllama-1.1b",
          "yi-9b")
 MOE = ("dbrx-132b", "qwen2-moe-a2.7b")
+#: the static-only families (the VLM frontend, the RG-LRU hybrid)
+STATIC_ONLY = ("paligemma-3b", "recurrentgemma-9b")
 NEW = ("llama3.1-8b", "granite-8b", "yi-9b", "qwen1.5-4b")
 #: fields the port's ModelConfig shares with JAX's whose values may differ
 #: by design: the policy objects are each package's own classes, and the
@@ -54,7 +57,7 @@ def _shared_fields():
     return sorted(ours - _OWN)
 
 
-@pytest.mark.parametrize("name", DENSE + MOE)
+@pytest.mark.parametrize("name", DENSE + MOE + STATIC_ONLY)
 def test_config_matches_jax(name):
     cfg, jcfg = configs.get_config(name), jconfigs.get_config(name)
     for f in _shared_fields():
@@ -71,9 +74,10 @@ def test_config_matches_jax(name):
 
 
 def test_registry_and_shape_suite_match_jax():
-    assert configs.list_configs() == sorted(DENSE + MOE)
+    assert configs.list_configs() == sorted(DENSE + MOE + STATIC_ONLY)
     ported = [n for n in jconfigs.list_configs()
-              if jconfigs.get_config(n).family in ("dense", "moe")]
+              if jconfigs.get_config(n).family in ("dense", "moe", "vlm",
+                                                   "hybrid")]
     assert configs.list_configs() == ported
     assert {k: dataclasses.astuple(v) for k, v in configs.SHAPES.items()} \
         == {k: dataclasses.astuple(v) for k, v in jconfigs.SHAPES.items()}
@@ -84,12 +88,12 @@ def test_registry_and_shape_suite_match_jax():
     for name in unported:
         with pytest.raises(KeyError):
             configs.get_config(name)
-    for name in MOE:
+    for name in MOE + STATIC_ONLY:
         assert configs.get_config(name).param_count() == \
             jconfigs.get_config(name).param_count()
     with pytest.raises(ValueError):
         dataclasses.replace(configs.get_config("yi-9b"),
-                            family="vlm").param_count()
+                            family="ssm").param_count()
     assert cbase.get_config("qwen1.5-4b").qkv_bias
     assert [configs.get_config(n).rope_base for n in NEW] == \
         [500000.0, 10000.0, 10000.0, 1000000.0]
@@ -284,3 +288,27 @@ def test_prefix_engine_streams_and_events_match_jax(pair):
     jout, tout = _engines_match(pair, reqs, max_slots=3, max_len=128,
                                 prefix_cache=True, prefill_chunk=32)
     assert tout["adopted_pages"] == jout["adopted_pages"] > 0
+
+
+@pytest.mark.parametrize("name", STATIC_ONLY)
+def test_static_only_param_counts_and_smoke_reductions_match_jax(name):
+    """paligemma-3b (with its patch projector) and recurrentgemma-9b (RG-LRU
+    layers beside the local-attention ones, 38 = 12 periods + a 2-layer
+    tail) count JAX's parameters, whole and in the smoke reduction, which
+    keeps a one-layer tail for the hybrid."""
+    cfg, jcfg = configs.get_config(name), jconfigs.get_config(name)
+    assert cfg.param_count() == jcfg.param_count()
+    small, jsmall = configs.reduce_for_smoke(cfg), \
+        jconfigs.reduce_for_smoke(jcfg)
+    for f in _shared_fields():
+        assert getattr(small, f) == getattr(jsmall, f), f
+    assert small.param_count() == jsmall.param_count()
+    assert cfg.head_dim == 256 and cfg.num_kv_heads == 1
+    if cfg.family == "hybrid":
+        assert small.num_layers == len(cfg.block_pattern) + 1
+        assert (small.window, small.lru_width) == (64, 128)
+        assert cfg.sub_quadratic == jcfg.sub_quadratic is True
+    else:
+        assert (small.frontend_dim, small.frontend_tokens) == (32, 16)
+        assert cfg.param_count() - dataclasses.replace(
+            cfg, family="dense").param_count() == 1152 * 2048

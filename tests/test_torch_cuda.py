@@ -58,7 +58,7 @@ def _encode_keys(dev, gen, shape, dtype, offset=0):
 @pytest.mark.parametrize("d,g,offset", [
     (64, 16, 0), (64, 32, 0), (64, 64, 0), (64, 128, 0), (32, 16, 0),
     (128, 32, 0), (128, 128, 0), (48, 64, 0), (64, 10, 0), (40, 32, 0),
-    (36, 32, 0), (64, 128, 1)])
+    (36, 32, 0), (64, 128, 1), (256, 128, 0), (256, 32, 0)])
 def test_encode_kernel_codes_exact(dev, dtype, d, g, offset):
     k = _encode_keys(dev, _gen(dev), (2, 3, 4 * g, d), dtype, offset)
     n = pek.launches
@@ -346,9 +346,10 @@ def test_flash_prefill_kernel_matches_plain(dev, b, h, hkv, tq, tk, d, dtype,
     k = randn((b, hkv, tk, d))
     v = randn((b, hkv, tk, d))
     n = fpk.launches
-    got = fpk.flash_prefill(q, k, v, causal=causal)
+    mode = "causal" if causal else "full"
+    got = fpk.flash_prefill(q, k, v, mode=mode)
     assert fpk.launches == n + 1
-    ref = fpk.flash_prefill_plain(q, k, v, causal=causal)
+    ref = fpk.flash_prefill_plain(q, k, v, mode=mode)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
@@ -1607,6 +1608,130 @@ def test_qk_kernel_d128_span_matches_plain(dev, qh, span):
     assert qkk.max_rows(d, 4) == 48 and qh * span <= 48
     enc = _dense_groups(dev, gen, b, hkv, d, g, gc)
     q = torch.randn((b, hkv, qh * span, d), generator=gen, device=dev)
+    n = qkk.launches
+    got = qkk.polar_qk_scores(q, *enc)
+    assert qkk.launches == n + 1
+    ref = qkk.polar_qk_scores_plain(q, *enc)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# head_dim 256 (paligemma-3b: 8 query heads over 1 kv head; recurrentgemma-
+# 9b: 16 over 1) and the prefix-LM and sliding-window masks of #3
+# ---------------------------------------------------------------------------
+
+# (batch, heads, kv heads, T, d, dtype, mode, window, prefix_len, offset):
+# paligemma's prefix mask (a row's prefix past T, one of 0, one ending
+# mid-tile) and recurrentgemma's local window (narrower than a tile, a
+# tile, wider than T, and the served 2048 over 2560 tokens), causal at
+# d 256, GQA 4:1 at d 64, the FMA body (fp32, and bf16 at a 1-element
+# offset); every T off the 64-row tile
+@pytest.mark.parametrize("b,h,hkv,t,d,dtype,mode,window,plen,offset", [
+    (2, 8, 1, 300, 256, _BF16, "prefix", 0, (100, 257), 0),
+    (3, 8, 1, 130, 256, _BF16, "prefix", 0, (0, 64, 500), 0),
+    (2, 8, 2, 77, 64, _BF16, "prefix", 0, (30, 70), 0),
+    (2, 8, 1, 150, 256, _F32, "prefix", 0, (40, 129), 0),
+    (2, 8, 1, 99, 256, _BF16, "prefix", 0, (50, 3), 1),
+    (2, 16, 1, 300, 256, _BF16, "local", 37, None, 0),
+    (2, 16, 1, 300, 256, _BF16, "local", 64, None, 0),
+    (2, 16, 1, 200, 256, _BF16, "local", 1000, None, 0),
+    (1, 16, 1, 2560, 256, _BF16, "local", 2048, None, 0),
+    (2, 8, 2, 201, 64, _BF16, "local", 50, None, 0),
+    (2, 16, 1, 150, 256, _F32, "local", 45, None, 0),
+    (2, 16, 1, 99, 256, _BF16, "local", 20, None, 1),
+    (2, 8, 1, 300, 256, _BF16, "causal", 0, None, 0),
+    (2, 8, 1, 100, 256, _F32, "causal", 0, None, 0)])
+def test_flash_prefill_kernel_masks_d256_match_plain(
+        dev, b, h, hkv, t, d, dtype, mode, window, plen, offset):
+    gen = _gen(dev, 40)
+
+    def randn(shape):
+        raw = torch.empty(int(np.prod(shape)) + offset, dtype=dtype,
+                          device=dev)
+        x = raw[offset:].view(shape)
+        return x.copy_(torch.randn(shape, generator=gen, device=dev))
+
+    q, k, v = randn((b, h, t, d)), randn((b, hkv, t, d)), randn((b, hkv, t, d))
+    pl = None if plen is None else torch.tensor(plen, dtype=torch.int32,
+                                                device=dev)
+    n = fpk.launches
+    got = fpk.flash_prefill(q, k, v, mode=mode, window=window, prefix_len=pl)
+    assert fpk.launches == n + 1
+    ref = fpk.flash_prefill_plain(q, k, v, mode=mode, window=window,
+                                  prefix_len=pl)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_flash_prefill_masks_reject_bad_inputs(dev):
+    q = torch.zeros((2, 8, 16, 256), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((2, 1, 16, 256), dtype=torch.bfloat16, device=dev)
+    pl = torch.tensor([4, 4], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="prefix_len"):
+        fpk.flash_prefill(q, k, k, mode="prefix")
+    with pytest.raises(ValueError, match="prefix_len"):
+        fpk.flash_prefill(q, k, k, prefix_len=pl)
+    with pytest.raises(ValueError, match="int32"):
+        fpk.flash_prefill(q, k, k, mode="prefix", prefix_len=pl.long())
+    with pytest.raises(ValueError, match="window"):
+        fpk.flash_prefill(q, k, k, mode="local")
+    with pytest.raises(ValueError, match="mask mode"):
+        fpk.flash_prefill(q, k, k, mode="sliding")
+    with pytest.raises(ValueError, match="head_dim"):
+        fpk.flash_prefill(q[..., :192].contiguous(),
+                          *(k[..., :192].contiguous(),) * 2)
+
+
+@pytest.mark.parametrize("values", ["fp32", "bf16", "u8"])
+def test_polar_attention_kernel_d256_qh8_matches_plain(dev, values):
+    """Kernel #5 at paligemma-3b's 8 query heads over 1 kv head, d 256
+    (P 128), g 128, on the split body: two staging buffers do not fit the
+    227 KB a block may opt into with bf16 rows (258,176 B), so those run
+    on one (172,160 B); uint8 rows keep two; fp32 rows do not fit even
+    one (237,696 B) and fail at launch. 8 rows x 9 groups, ragged lengths,
+    stats and value rows past each length NaN-poisoned."""
+    b, hkv, qh, d, g, gc = 8, 1, 8, 256, 128, 9
+    gen = _gen(dev, 41)
+    enc = _dense_groups(dev, gen, b, hkv, d, g, gc)
+    lens = [1024, 900, 0, 128, 1, 513, 640, 1152]
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    vals, vs, vz = _d128_values(dev, gen, (b, hkv, gc * g, d), values)
+    for i, n in enumerate(lens):
+        for x in enc[1:]:
+            x[i, :, -(-n // g):] = float("nan")
+        if values == "u8":
+            vals[i, :, n:] = 255
+            vs[i, :, n:] = float("nan")
+            vz[i, :, n:] = float("nan")
+        else:
+            vals[i, :, n:] = float("nan")
+    q = torch.randn((b, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    n_all, n_split = pak.launches, pak.launches_split
+    if values == "fp32":
+        with pytest.raises(RuntimeError, match="polar_attention"):
+            pak.polar_decode_attention_grouped(q, *enc, vals, length)
+        assert pak.launches == n_all
+        return
+    got = pak.polar_decode_attention_grouped(q, *enc, vals, length,
+                                             vscale=vs, vzero=vz)
+    assert pak.launches == n_all + 1
+    assert pak.launches_split == n_split + 1, "d 256 left the split body"
+    ref = pak.polar_decode_attention_grouped_plain(q, *enc, vals, length,
+                                                   vscale=vs, vzero=vz)
+    _check_dense(got, ref, length)
+
+
+@pytest.mark.parametrize("qh", [8, 16])
+def test_qk_kernel_d256_matches_plain(dev, qh):
+    """Kernel #6 at d 256 over a 2048-slot ring (16 groups of 128):
+    paligemma-3b's 8 and recurrentgemma-9b's 16 query heads over one kv
+    head, one launch each (``max_rows(256, 4)`` = 24), on the generic
+    path (the vector path stops at d 128)."""
+    b, hkv, d, g, gc = 8, 1, 256, 128, 16
+    gen = _gen(dev, 42)
+    assert qkk.max_rows(d, 4) == 24
+    enc = _dense_groups(dev, gen, b, hkv, d, g, gc)
+    q = torch.randn((b, hkv, qh, d), generator=gen, device=dev)
     n = qkk.launches
     got = qkk.polar_qk_scores(q, *enc)
     assert qkk.launches == n + 1
