@@ -39,7 +39,13 @@ run):
               and ``local`` (recurrentgemma-9b, 16 heads, 2560 tokens,
               window 2048) modes beside SDPA with the same boolean mask,
               #5 at 8 query heads (the split body on one staging buffer)
-              and #6 at 8 and 16; then the paged
+              and #6 at 8 and 16; head_dim 64 at seamless-m4t-medium's
+              16 kv heads of one query head (``[d64…]``): encode at the
+              cross-cache fill, flash prefill in ``full`` mode over the
+              encoder's 1024 x 1024 frames and the cross-attention's 16
+              queries x 1024 frames (also a ragged 33 x 1000) and causal
+              over the 16-token decoder prompt, beside SDPA, #5 at the
+              self decode and #6 at the cross decode; then the paged
               engine's three decode backends against each other on one
               fragmented cache, with bf16 and with 4-bit values.
 4. model    — full-width tinyllama-1.1b in bf16 (random weights from a
@@ -179,15 +185,27 @@ run):
               2016 (it wraps in decode, 64 new): exact launches (#6 on
               every ring decode, never #5), the logit gate over the
               prefill and every decode step, tok/s, the decode step, the
-              ring's bytes per attention layer and peak memory.
+              ring's bytes per attention layer and peak memory;
+              seamless-m4t-medium (12 encoder + 12 decoder layers, 16 /
+              16 heads at head_dim 64) through ``ServeEngine`` on both
+              polar routes — 8 rows x 1024 stubbed audio frames + a
+              16-token prompt, 128 greedy tokens, max_len 256 (the self
+              cache flushes once in decode): exact launches (#3 ``full``
+              and causal counted apart), the logit gate over the prefill
+              and all 127 decode steps, the self + cross cache bytes
+              exactly —; and mamba2-2.7b (64 SSD layers, no KV cache, no
+              kernel) on 8 x 1000-token prompts, 64 greedy tokens: no
+              launch, the decode state's bytes exactly, and the duality
+              gate (prefill T + 16 steps against prefill T + 16) in fp32
+              and in bf16.
 
 Each phase's end and seconds go to stderr as it ends; then a line of
 seconds per phase, one JSON line of per-kernel numbers (launches summed
 over the eleven serving phases; the uint8 forms on rows of their own,
 encode's decode form — a decode step's flush — and its fixed-angle-grid
 form on rows of their own, the head_dim-128 forms on theirs, counted in
-the configs and moe phases, the head_dim-256 forms on theirs, counted in
-the families phase), and last the device JSON. Any failure
+the configs and moe phases, the head_dim-256 and head_dim-64 forms on
+theirs, counted in the families phase), and last the device JSON. Any failure
 raises (non-zero exit). Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 
@@ -364,17 +382,17 @@ def read_counts(counters) -> dict:
     """Launches since the last reset, per kernel form: ``name`` counts
     the launches on fp value rows (every launch of a kernel without value
     rows), ``name[u8]`` those on uint8 value rows; the encode's launches
-    on the fixed angle grid count as ``polar_encode[fixed]``."""
+    on the fixed angle grid count as ``polar_encode[fixed]``, flash
+    prefill's in mode ``full`` as ``flash_prefill[full]``."""
     out = {}
     for mod in counters:
         name = mod.__name__.rsplit(".", 1)[1]
-        u8 = getattr(mod, "launches_u8", None)
-        fixed = getattr(mod, "launches_fixed", None)
-        out[name] = mod.launches - (u8 or 0) - (fixed or 0)
-        if u8 is not None:
-            out[f"{name}[u8]"] = u8
-        if fixed is not None:
-            out[f"{name}[fixed]"] = fixed
+        forms = {f: getattr(mod, f"launches_{f}", None)
+                 for f in ("u8", "fixed", "full")}
+        out[name] = mod.launches - sum(n or 0 for n in forms.values())
+        for f, n in forms.items():
+            if n is not None:
+                out[f"{name}[{f}]"] = n
     return out
 
 
@@ -412,6 +430,33 @@ def encode_forms(launches: dict, flushes: int) -> dict:
     assert 0 <= flushes <= launches["polar_encode"], (launches, flushes)
     return {**launches, "polar_encode": launches["polar_encode"] - flushes,
             "polar_encode[decode]": flushes}
+
+
+@contextlib.contextmanager
+def booked_launches(counters, spans: dict):
+    """Book the launches made inside calls. ``spans`` maps a name to
+    (module, function name, test of the call's arguments); while the
+    context is open, each call that passes its test adds the launches it
+    made (:func:`read_counts` after it less before it) to the yielded
+    dict's entry of that name. Spans may nest."""
+    booked: dict = {name: {} for name in spans}
+
+    def wrap(name, fn, when):
+        def call(*args, **kw):
+            if not when(*args, **kw):
+                return fn(*args, **kw)
+            before = read_counts(counters)
+            out = fn(*args, **kw)
+            for k, n in read_counts(counters).items():
+                booked[name][k] = booked[name].get(k, 0) + n - before[k]
+            return out
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr, when) in spans.items():
+            stack.enter_context(mock.patch.object(
+                mod, attr, wrap(name, getattr(mod, attr), when)))
+        yield booked
 
 
 def value_form(cfg) -> str:
@@ -1408,7 +1453,7 @@ D128_SHAPES = {"[d128]": (8, 4), "[d128,qh1]": (20, 1), "[d128,qh6]": (8, 6)}
 D128 = 128
 
 
-def _d128_row(name, form, src, replaces, err, ms, plain_ms, b, lib_ms,
+def _form_row(name, form, src, replaces, err, ms, plain_ms, b, lib_ms,
               library, shape) -> dict:
     return {"name": f"{name}{form}", "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -1460,7 +1505,7 @@ def check_encode_d128(torch, dev, gen, flush) -> dict:
         k, pages, *pp_), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
     nbytes = pages.numel() * 4 + 1024 * hkv * (d * 2 + p) \
         + 4 * (1024 // G) * hkv * p * 4
-    return _d128_row(
+    return _form_row(
         "polar_encode", "[d128]", "polar_encode.cu",
         "src/repro/kernels/polar_encode.py:51", err, ms, plain_ms,
         bound(nbytes, 22 * 1024 * hkv * p, "fp32"), None, None,
@@ -1515,7 +1560,7 @@ def check_decode_d128(torch, dev, gen, flush, form) -> dict:
         + table_t.numel() * 4 + s * 4 + s * hkv * qh * (d + 2) * 4
     flops = pages * (3 * qh * p * 16 + 2 * G * p + 2 * qh * G * p
                      + 4 * qh * G + 2 * qh * G * d)
-    return _d128_row(
+    return _form_row(
         "paged_decode", form, "paged_decode.cu",
         "src/repro/kernels/paged_decode.py:104", err, ms, plain_ms,
         bound(nbytes, flops, "fp32"), lib_ms,
@@ -1549,7 +1594,7 @@ def check_prefill_d128(torch, dev, gen, flush, form) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(q, ke, ve, is_causal=True),
                      flush=flush)
-    return _d128_row(
+    return _form_row(
         "flash_prefill", form, "flash_prefill.cu",
         "src/repro/kernels/flash_prefill.py:77", err, ms, plain_ms,
         bound((2 * h + 2 * hkv) * t * d * 2,
@@ -1625,7 +1670,7 @@ def check_paged_prefill_d128(torch, dev, gen, flush, form) -> dict:
     pairs = hkv * (qt * start + qh * TC * (TC + 1) // 2)
     ops = {"bf16": 4.0 * d * pairs,
            "fp32": hkv * n * (4 * p * 16 + 4 * G * p) + 4.0 * pairs}
-    return _d128_row(
+    return _form_row(
         "paged_prefill", form, "paged_prefill.cu",
         "src/repro/kernels/paged_prefill.py:136", max(errs), ms, plain_ms,
         bound(nbytes, ops), lib_ms,
@@ -1689,7 +1734,7 @@ def check_dense_d128(torch, dev, gen, flush, form) -> list[dict]:
     groups = SB * hkv * 8
     nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4 + G * d * 2) \
         + SB * 4 + SB * hkv * qh * (d + 2) * 4
-    rows = [_d128_row(
+    rows = [_form_row(
         "polar_attention", form, "polar_attention.cu",
         "src/repro/kernels/polar_attention.py:104", err, ms, plain_ms,
         bound(nbytes, flops(groups, True), "fp32"), lib_ms,
@@ -1709,7 +1754,7 @@ def check_dense_d128(torch, dev, gen, flush, form) -> list[dict]:
     groups = SB * hkv * SG
     nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4) \
         + SB * hkv * qh * SMAX * 4
-    rows.append(_d128_row(
+    rows.append(_form_row(
         "polar_qk", form, "polar_qk.cu", "src/repro/kernels/polar_qk.py:68",
         err, ms, plain_ms, bound(nbytes, flops(groups, False), "fp32"),
         lib_ms, "matmul over pre-dequantized keys (fp32)",
@@ -1764,7 +1809,7 @@ def check_encode_d256(torch, dev, gen, flush) -> dict:
                        flush=flush, lead_cycles=PLAIN_LEAD)
     tokens = SB * 7 * G
     nbytes = tokens * (D256 * 2 + p) + 4 * SB * 7 * p * 4
-    return _d128_row(
+    return _form_row(
         "polar_encode", "[d256]", "polar_encode.cu",
         "src/repro/kernels/polar_encode.py:51", err, ms, plain_ms,
         bound(nbytes, 22 * tokens * p, "fp32"), None, None,
@@ -1816,7 +1861,7 @@ def check_prefill_d256(torch, dev, gen, flush, mode) -> dict:
     lib_ms = time_ms(torch, lambda: sdpa(q, ke, ve, attn_mask=mask),
                      flush=flush)
     pairs = SB * float(mask.sum())
-    return _d128_row(
+    return _form_row(
         "flash_prefill", f"[d256,{mode}]", "flash_prefill.cu",
         "src/repro/kernels/flash_prefill.py:77", max(errs), ms, plain_ms,
         bound(SB * (2 * h + 2) * t * D256 * 2, 4.0 * h * D256 * pairs,
@@ -1884,7 +1929,7 @@ def check_dense_d256(torch, dev, gen, flush) -> list[dict]:
     groups = SB * 8
     nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4 + G * d * 2) \
         + SB * 4 + SB * VLM_QH * (d + 2) * 4
-    rows = [_d128_row(
+    rows = [_form_row(
         "polar_attention", f"[d256,qh{VLM_QH}]", "polar_attention.cu",
         "src/repro/kernels/polar_attention.py:104", err, ms, plain_ms,
         bound(nbytes, flops(groups, VLM_QH, True), "fp32"), lib_ms,
@@ -1909,7 +1954,7 @@ def check_dense_d256(torch, dev, gen, flush) -> list[dict]:
         groups = SB * gcount
         nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4) \
             + SB * qh * gcount * G * 4
-        rows.append(_d128_row(
+        rows.append(_form_row(
             "polar_qk", f"[d256,qh{qh}]", "polar_qk.cu",
             "src/repro/kernels/polar_qk.py:68", err, ms, plain_ms,
             bound(nbytes, flops(groups, qh, False), "fp32"), lib_ms,
@@ -1923,11 +1968,194 @@ def check_d256(torch, dev, gen, flush) -> list[dict]:
     """The head_dim-256 forms of the families phase: #1 (``[d256]``), #3
     in ``prefix`` and ``local`` modes, #5 at 8 query heads per kv head and
     #6 at 8 and 16. Their launches are counted in the families phase
-    (:func:`d256_counts`)."""
+    (:func:`family_rows`)."""
     return [check_encode_d256(torch, dev, gen, flush),
             *(check_prefill_d256(torch, dev, gen, flush, m)
               for m in ("prefix", "local")),
             *check_dense_d256(torch, dev, gen, flush)]
+
+
+# ---------------------------------------------------------------------------
+
+#: seamless-m4t-medium (the families phase's encoder-decoder): 8 rows, 16
+#: kv heads of one query head each (MHA) at head_dim 64, 1024 stubbed audio
+#: frames, a 16-token decoder prompt, a 256-token self cache (2 groups)
+ED_HKV, ED_FRAMES, ED_TEXT, ED_NEW, ED_MAX = 16, 1024, 16, 128, 256
+
+
+def check_encode_d64(torch, dev, gen, flush) -> dict:
+    """#1's dense form at the cross-cache fill: 8 rows x 16 kv heads x 1024
+    un-rotated memory keys x d 64 bf16 (8 groups each); codes and stats
+    bit-equal to the plain version."""
+    from repro_torch.kernels import polar_encode as pe
+    p = D // 2
+    k = torch.randn((SB, ED_HKV, ED_FRAMES, D), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k[0, 0, :5, :3] = 0.0
+    got = pe.polar_encode(k)
+    ref = pe.polar_encode_plain(k)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, ref))
+    assert err == 0.0, f"encode at the cross fill differs {err}"
+    ms = time_ms(torch, lambda: pe.polar_encode(k), flush=flush)
+    plain_ms = time_ms(torch, lambda: pe.polar_encode_plain(k), iters=10,
+                       flush=flush, lead_cycles=PLAIN_LEAD)
+    tokens = SB * ED_HKV * ED_FRAMES
+    nbytes = tokens * (D * 2 + p) + 4 * (tokens // G) * p * 4
+    return _form_row(
+        "polar_encode", "[d64,cross]", "polar_encode.cu",
+        "src/repro/kernels/polar_encode.py:51", err, ms, plain_ms,
+        bound(nbytes, 22 * tokens * p, "fp32"), None, None,
+        "dense form, 8 rows x 16 kv heads x 1024 memory keys x 64 bf16 "
+        "(the cross-cache fill)")
+
+
+def check_prefill_d64(torch, dev, gen, flush, form) -> dict:
+    """#3 at d 64, bf16, 8 rows x 16 heads over 16 kv heads, within one
+    bf16 step (2^-7) of the plain version: ``[d64,full]`` the encoder's
+    full mode over 1024 x 1024 frames; ``[d64,cross]`` full mode at Tq 16
+    over Tk 1024 memory frames, also checked at a ragged Tq 33 / Tk 1000
+    (key-tile masking past Tk, zero-filled q rows past Tq); ``[d64,qh1]``
+    the decoder prompt's causal 16 x 16. Timed beside SDPA."""
+    from repro_torch.kernels import flash_prefill as fpk
+    mode = "causal" if form == "[d64,qh1]" else "full"
+    shapes = {"[d64,full]": [(ED_FRAMES, ED_FRAMES)],
+              "[d64,cross]": [(ED_TEXT, ED_FRAMES), (33, 1000)],
+              "[d64,qh1]": [(ED_TEXT, ED_TEXT)]}[form]
+    h = ED_HKV
+    errs = []
+    for tq, tk in reversed(shapes):
+        q = torch.randn((SB, h, tq, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((SB, h, tk, D), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        got = fpk.flash_prefill(q, k, v, mode=mode)
+        ref = fpk.flash_prefill_plain(q, k, v, mode=mode)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), rtol=BF16_RTOL,
+                                   atol=BF16_RTOL)
+        errs.append(float((got.float() - ref.float()).abs().max()))
+        del ref
+    tq, tk = shapes[0]
+    ms = time_ms(torch, lambda: fpk.flash_prefill(q, k, v, mode=mode),
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: fpk.flash_prefill_plain(
+        q, k, v, mode=mode), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=mode == "causal"),
+                     flush=flush)
+    pairs = SB * (tq * (tq + 1) / 2 if mode == "causal" else tq * tk)
+    return _form_row(
+        "flash_prefill", form, "flash_prefill.cu",
+        "src/repro/kernels/flash_prefill.py:77", max(errs), ms, plain_ms,
+        bound(SB * h * (2 * tq + 2 * tk) * D * 2, 4.0 * h * D * pairs,
+              "bf16"), lib_ms, "SDPA",
+        f"8 x 16 heads (16 kv) x {tq} queries x {tk} keys x 64 bf16, "
+        f"{mode}" + (", also Tq 33 / Tk 1000" if len(shapes) > 1 else ""))
+
+
+def check_dense_d64(torch, dev, gen, flush) -> list[dict]:
+    """#5 at seamless-m4t-medium's self decode (8 rows x 16 kv heads x 1
+    query head over a 256-token buffer of 2 groups, the first flushed,
+    d 64, bf16 values, ragged lengths with the rows past them
+    NaN-poisoned) on the split body, and #6 at its cross decode (8 rows x
+    16 kv heads x 1 query head x 8 groups, the 1024 memory keys); both
+    within 1e-4 of the plain versions."""
+    from repro_torch.kernels import polar_attention as pak
+    from repro_torch.kernels import polar_encode as pe
+    from repro_torch.kernels import polar_qk as qkk
+    hkv, qh, d, p = ED_HKV, 1, D, D // 2
+
+    def buffers(groups, flushed):
+        k = torch.randn((SB, hkv, flushed * G, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        enc = pe.polar_encode(k)
+        bufs = [torch.zeros((SB, hkv, groups, *x.shape[3:]), dtype=x.dtype,
+                            device=dev) for x in enc]
+        for b, x in zip(bufs, enc):
+            b[:, :, :flushed] = x
+        return bufs
+
+    def flops(groups, attention):
+        per = 3 * qh * p * 16 + 2 * G * p + 2 * qh * G * p
+        return groups * (per + (4 * qh * G + 2 * qh * G * d
+                                if attention else 0))
+
+    sg = ED_MAX // G
+    bufs = buffers(sg, 1)
+    vals = torch.randn((SB, hkv, ED_MAX, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((SB, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    lens = [128, 100, 0, 1, 64, 127, 128, 37]
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    v = vals.clone()
+    st = [x.clone() for x in bufs[1:]]
+    for i, n in enumerate(lens):
+        v[i, :, n:] = float("nan")
+        for x in st:
+            x[i, :, -(-n // G):] = float("nan")
+    n_split = pak.launches_split
+    got = pak.polar_decode_attention_grouped(q, bufs[0], *st, v, length)
+    assert pak.launches_split == n_split + 1, "d 64 qh 1 left the split body"
+    ref = pak.polar_decode_attention_grouped_plain(q, bufs[0], *st, v, length)
+    err = _partials_err(torch, got, ref)[0]
+    full = torch.full((SB,), G, dtype=torch.int32, device=dev)
+    ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped(
+        q, *bufs, vals, full), flush=flush)
+    plain_ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped_plain(
+        q, *bufs, vals, full), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    mask = (torch.arange(ED_MAX, device=dev) < G)[None, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kf = _dequant(torch, bufs)
+    lib_ms = time_ms(torch, lambda: sdpa(
+        q.reshape(SB, hkv, 1, d), kf, vals.float(), attn_mask=mask,
+        scale=1.0), flush=flush)
+    groups = SB * hkv
+    nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4 + G * d * 2) \
+        + SB * 4 + SB * hkv * qh * (d + 2) * 4
+    rows = [_form_row(
+        "polar_attention", "[d64,qh1]", "polar_attention.cu",
+        "src/repro/kernels/polar_attention.py:104", err, ms, plain_ms,
+        bound(nbytes, flops(groups, True), "fp32"), lib_ms,
+        "SDPA over pre-dequantized keys (fp32, length mask)",
+        "8 rows x 16 kv heads x 1 query head x 1 flushed group of a "
+        "256-token buffer x d 64, bf16 values")]
+    cg = ED_FRAMES // G
+    cross = buffers(cg, cg)
+    got = qkk.polar_qk_scores(q, *cross)
+    ref = qkk.polar_qk_scores_plain(q, *cross)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=FP32_TOL, atol=FP32_TOL)
+    err = float((got - ref).abs().max())
+    ms = time_ms(torch, lambda: qkk.polar_qk_scores(q, *cross), flush=flush)
+    plain_ms = time_ms(torch, lambda: qkk.polar_qk_scores_plain(q, *cross),
+                       iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
+    kt = _dequant(torch, cross).transpose(-1, -2).contiguous()
+    lib_ms = time_ms(torch, lambda: torch.matmul(q, kt), flush=flush)
+    groups = SB * hkv * cg
+    nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4) \
+        + SB * hkv * qh * ED_FRAMES * 4
+    rows.append(_form_row(
+        "polar_qk", "[d64,qh1]", "polar_qk.cu",
+        "src/repro/kernels/polar_qk.py:68", err, ms, plain_ms,
+        bound(nbytes, flops(groups, False), "fp32"), lib_ms,
+        "matmul over pre-dequantized keys (fp32)",
+        "8 rows x 16 kv heads x 1 query head x 8 groups (the 1024-frame "
+        "cross cache) x d 64"))
+    return rows
+
+
+def check_d64(torch, dev, gen, flush) -> list[dict]:
+    """The encoder-decoder's forms at head_dim 64 with 16 kv heads of one
+    query head: #1 at the cross-cache fill, #3 in ``full`` mode (encoder
+    and cross-attention) and causal (the decoder prompt), #5 at the self
+    decode and #6 at the cross decode. Their launches are counted in the
+    families phase (:func:`encdec_run`)."""
+    return [check_encode_d64(torch, dev, gen, flush),
+            *(check_prefill_d64(torch, dev, gen, flush, f)
+              for f in ("[d64,full]", "[d64,cross]", "[d64,qh1]")),
+            *check_dense_d64(torch, dev, gen, flush)]
 
 
 def phase_kernels(torch) -> list[dict]:
@@ -1945,7 +2173,8 @@ def phase_kernels(torch) -> list[dict]:
             check_paged_prefill_u8(torch, dev, gen, flush),
             check_polar_attention_u8(torch, dev, gen, flush),
             *check_d128(torch, dev, gen, flush),
-            *check_d256(torch, dev, gen, flush)]
+            *check_d256(torch, dev, gen, flush),
+            *check_d64(torch, dev, gen, flush)]
     backends_err = max(check_paged_backends(torch, dev, gen, vb)
                        for vb in (0, 4))
     print("kernels: " + "; ".join(
@@ -3777,7 +4006,20 @@ def describe(cfg, full) -> str:
     if cfg.family == "hybrid":
         moe = (f", pattern {'/'.join(cfg.block_pattern)}, local window "
                f"{cfg.window}, lru_width {cfg.lru_width}")
-    return (f"{cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
+    if cfg.family == "encdec":
+        moe = (f", {cfg.frontend_tokens} audio frames of {cfg.frontend_dim} "
+               "(stubbed frontend) through the encoder's full attention, "
+               "cross-attention in every decoder layer")
+    if cfg.family == "ssm":
+        return (f"{cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
+                f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} SSD heads "
+                f"of {cfg.ssm_headdim}, state {cfg.ssm_state}, "
+                f"{cfg.ssm_ngroups} B/C group, conv {cfg.ssm_conv}, chunk "
+                f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}, tied embeddings; "
+                f"{cfg.param_count() / 1e9:.3f} B params bf16 (JAX's count)")
+    layers = (f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder"
+              if cfg.family == "encdec" else f"{cfg.num_layers}")
+    return (f"{layers} layers{cut}, d_model {cfg.d_model}, "
             f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
             f"{cfg.head_dim}{moe}, vocab {cfg.vocab_size}, rope base "
             f"{cfg.rope_base:g}" + (", q/k/v bias" if cfg.qkv_bias else "")
@@ -3880,19 +4122,31 @@ def phase_configs(torch, counters, runs: tuple[ConfigRun, ...], label: str,
 HYBRID_RUNS = ((HYB_T, 16), (2016, SNEW))
 
 
-def d256_counts(counts: dict, cfg) -> dict:
-    """A families-phase run's launches under the ``[d256…]`` rows' names:
-    both encode forms on ``polar_encode[d256]``; flash prefill on
-    ``[d256,prefix]`` (the VLM) or ``[d256,local]`` (the hybrid); the
-    decode kernels at the config's query heads per kv head
-    (``[d256,qh8]``, ``[d256,qh16]``)."""
+def family_rows(counts: dict, cfg) -> dict:
+    """A families-phase run's launches under the kernel rows' names, by
+    the config's head dim. d 256 (paligemma-3b, recurrentgemma-9b): both
+    encode forms on ``polar_encode[d256]``, flash prefill on
+    ``[d256,prefix]`` (the VLM) or ``[d256,local]`` (the hybrid). d 64
+    (seamless-m4t-medium, the forms :func:`encdec_run` measured): the
+    self cache's encodes keep their rows (``polar_encode``,
+    ``polar_encode[decode]``), the cross fill's go on
+    ``polar_encode[d64,cross]``, the encoder's ``full`` flash prefill on
+    ``[d64,full]``, the cross-attention's on ``[d64,cross]``. Every other
+    launch goes on its kernel's form at the config's query heads per kv
+    head (``[d256,qh8]``, ``[d256,qh16]``, ``[d64,qh1]``)."""
+    d = cfg.head_dim
+    forms = {256: {"polar_encode": "[d256]",
+                   "flash_prefill": "[d256,prefix]" if cfg.family == "vlm"
+                   else "[d256,local]"},
+             64: {"polar_encode": "", "polar_encode[decode]": "[decode]",
+                  "polar_encode[cross]": "[d64,cross]",
+                  "flash_prefill[full]": "[d64,full]",
+                  "flash_prefill[cross]": "[d64,cross]"}}.get(d, {})
     out: dict = {}
     for k, n in counts.items():
         base = k.split("[")[0]
-        form = {"polar_encode": "[d256]",
-                "flash_prefill": "[d256,prefix]" if cfg.family == "vlm"
-                else "[d256,local]"}.get(base, f"[d256,qh{cfg.q_per_kv}]")
-        out[base + form] = out.get(base + form, 0) + n
+        row = base + forms.get(k, forms.get(base, f"[d{d},qh{cfg.q_per_kv}]"))
+        out[row] = out.get(row, 0) + n
     return out
 
 
@@ -3973,20 +4227,317 @@ def hybrid_run(torch, cfg, params, counters, prompt: int, new: int) -> dict:
     return got
 
 
+def _polar_cache_bytes(b, hkv, t, d, g=G) -> int:
+    """One polar cache of ``b`` rows x ``hkv`` kv heads x ``t`` tokens
+    (a multiple of g) x head dim ``d``, bf16 values: a code byte per
+    pair, four fp32 stat rows per group, the bf16 residual group, the
+    value rows and the int32 length."""
+    rows, p = b * hkv * t, d // 2
+    return rows * p + 4 * b * hkv * (t // g) * p * 4 + b * hkv * g * d * 2 \
+        + rows * d * 2 + 4
+
+
+def encdec_run(torch, cfg, params, counters) -> dict:
+    """``ServeEngine`` on seamless-m4t-medium, speech-to-text: 8 rows, 1024
+    stubbed audio frames of 160 seeded random features, a 16-token
+    decoder prompt, 128 greedy tokens, max_len 256 (the self cache
+    flushes its first group at position 127, inside the decode loop), on
+    both polar routes. Exact launches: the encoder's ``full`` flash
+    prefill once an encoder layer, and per decoder layer one causal
+    flash prefill (the prompt), one ``full`` (the cross-attention over
+    the memory), one encode of the cross cache's 8 groups and one flush
+    encode; per decoder layer and step, the self decode on the run's
+    route (#5 on ``"paged_fused"``, every launch on its split body; #6
+    on ``"jnp"``) and #6 on the cross cache. The logit gate covers the
+    prefill and every decode step; the decode state's bytes (self +
+    cross caches) are asserted exactly. Each form's launches are measured
+    in the run (:func:`booked_launches`): the encodes inside
+    ``cross_attention_cache`` (``polar_encode[cross]``), the rest of the
+    prefill's (``polar_encode``, the self cache's fill) and those after it
+    (``polar_encode[decode]``, the flushes); the ``full`` flash prefills
+    inside ``encode`` (``flash_prefill[full]``) and inside the
+    cross-attention's ``attention_train`` (``flash_prefill[cross]``).
+    Returns those counts, summed over both routes (:func:`family_rows`
+    names their rows)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.kernels import polar_attention as pak
+    from repro_torch.models import attn_block as AB
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import get_model
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    dev = params["embed"].device
+    nl, ne, steps = cfg.num_layers, cfg.encoder_layers, ED_NEW - 1
+    always = lambda *a, **kw: True  # noqa: E731
+    spans = {"prefill": (ED, "prefill_fn", always),
+             "encoder": (ED, "encode", always),
+             "cross fill": (AB, "cross_attention_cache", always),
+             "cross": (AB, "attention_train",
+                       lambda *a, memory=None, **kw: memory is not None)}
+    prompts = torch.as_tensor(np.random.default_rng(ED_TEXT).integers(
+        0, cfg.vocab_size, (SB, ED_TEXT)), device=dev).long()
+    fgen = torch.Generator(device=dev)
+    fgen.manual_seed(5)
+    batch = {"tokens": prompts,
+             "frames": torch.randn((SB, cfg.frontend_tokens,
+                                    cfg.frontend_dim), generator=fgen,
+                                   device=dev)}
+    g = cfg.quant.group_size
+    flushes = sum(p % g == g - 1 for p in range(ED_TEXT, ED_TEXT + steps))
+    state_bytes = nl * (
+        _polar_cache_bytes(SB, cfg.num_kv_heads, ED_MAX, cfg.head_dim, g)
+        + _polar_cache_bytes(SB, cfg.num_kv_heads,
+                             -(-cfg.frontend_tokens // g) * g, cfg.head_dim,
+                             g))
+    total: dict = {}
+    toks = {}
+    for backend in ("jnp", "paged_fused"):
+        model = get_model(dataclasses.replace(cfg, decode_backend=backend))
+        eng = ServeEngine(model, params, max_len=ED_MAX)
+        eng.generate(batch, GenerationConfig(max_new_tokens=2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        with booked_launches(counters, spans) as spent:
+            out = eng.generate(batch,
+                               GenerationConfig(max_new_tokens=ED_NEW))
+        torch.cuda.synchronize()
+        got = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        fused = backend == "paged_fused"
+        zero = dict.fromkeys(got, 0)
+        expect = {**zero, "polar_encode": nl * (1 + flushes),
+                  "flash_prefill": nl, "flash_prefill[full]": ne + nl,
+                  "polar_qk": nl * steps * (1 if fused else 2)}
+        if fused:
+            expect["polar_attention"] = nl * steps
+        assert got == expect, (backend, got, expect)
+        want = {"prefill": {**zero, "polar_encode": nl, "flash_prefill": nl,
+                            "flash_prefill[full]": ne + nl},
+                "encoder": {**zero, "flash_prefill[full]": ne},
+                "cross fill": {**zero, "polar_encode": nl},
+                "cross": {**zero, "flash_prefill[full]": nl}}
+        assert spent == want, (backend, spent, want)
+        assert pak.launches_split == got["polar_attention"], \
+            (backend, "polar_attention off the split body")
+        pre = spent["prefill"]["polar_encode"]
+        fill = spent["cross fill"]["polar_encode"]
+        measured = {"polar_encode[cross]": fill,
+                    "polar_encode": pre - fill,
+                    "polar_encode[decode]": got["polar_encode"] - pre,
+                    "flash_prefill[full]":
+                        spent["encoder"]["flash_prefill[full]"],
+                    "flash_prefill[cross]":
+                        spent["cross"]["flash_prefill[full]"],
+                    "flash_prefill": got["flash_prefill"],
+                    "polar_attention": got["polar_attention"],
+                    "polar_qk": got["polar_qk"]}
+        for k, n in measured.items():
+            total[k] = total.get(k, 0) + n
+        assert out["tokens"].shape == (SB, ED_NEW)
+        assert out["cache_bytes_per_layer"] is None
+        assert out["cache_bytes"] == state_bytes, \
+            (out["cache_bytes"], state_bytes)
+        toks[backend] = out["tokens"]
+        tok_t = torch.as_tensor(out["tokens"], device=dev).long()
+        kern, _ = _teacher_logits(torch, model, params, batch, tok_t, steps,
+                                  ED_MAX)
+        with plain_kernels():
+            plain, _ = _teacher_logits(torch, model, params, batch, tok_t,
+                                       steps, ED_MAX)
+        rel = (kern - plain).norm(dim=-1) / plain.norm(dim=-1)
+        assert torch.isfinite(kern).all()
+        assert float(rel.max()) <= MODEL_REL_L2, \
+            f"{cfg.name} {backend} logits drift {rel.flatten().tolist()}"
+        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+        del kern, plain
+        print(f"families[{cfg.name}:{backend}]: {SB} rows x "
+              f"{cfg.frontend_tokens} frames + {ED_TEXT}-token prompts, "
+              f"{ED_NEW} greedy tokens, max_len {ED_MAX}: prefill (encoder "
+              f"included) {out['prefill_s']:.3f} s, decode "
+              f"{out['decode_s']:.3f} s = {out['tokens_per_s']:.1f} tok/s, "
+              f"step {out['decode_s'] / steps * 1e3:.3f} ms; decode state "
+              f"{out['cache_bytes']} B (self + cross caches, "
+              f"{out['cache_bytes'] // nl} B per decoder layer); peak "
+              f"{peak / 2 ** 30:.2f} GiB; rel. L2 logits vs plain over "
+              f"prefill + {steps} steps max {float(rel.max()):.3e} (prefill "
+              f"{float(rel[0].max()):.3e}, limit {MODEL_REL_L2}); argmax "
+              f"agreement {agree:.4f}; launches "
+              f"{json.dumps(family_rows(measured, cfg))}", flush=True)
+    same = toks["jnp"] == toks["paged_fused"]
+    print(f"families[{cfg.name}]: greedy tokens of the score-only and fused "
+          f"self-decode routes agree on {float(same.mean()):.4f} of "
+          f"{same.size}", flush=True)
+    return total
+
+
+#: mamba2-2.7b's run: 8 rows x 1000-token prompts (4 SSD chunks of 256, the
+#: last ragged), 64 greedy tokens; the duality gate's k decode steps
+SSM_T, SSM_NEW, SSM_K = 1000, 64, 16
+#: mamba2's bf16 duality limit (rel. L2 of the last logits, the max over
+#: the rows): above the sound reading (5.643e-2 on an H100), below both
+#: controls' of :func:`ssm_run` (a bf16 SSD state between decode steps
+#: read 6.148e-2, the prefill conv rounded at JAX's points 7.624e-2),
+#: which the phase asserts above it in every run
+SSM_BF16_TOL = 5.9e-2
+
+
+def _duality(torch, model, params, ext, t0: int, step_hook=None) -> dict:
+    """The engine's two computations of the last logits over ``ext`` (B,
+    t0 + k): a prefill of t0 tokens (the chunked SSD) then k decode steps
+    (the recurrence, each followed by ``step_hook`` on the state where
+    one is given), against a prefill of all t0 + k. Returns the rel. L2
+    of the logits per row, their argmax agreement and the rel. L2 of the
+    two final states (conv windows, SSD states)."""
+    dev = ext.device
+    b = ext.shape[0]
+    lg, rec = model.prefill(params, {"tokens": ext[:, :t0]},
+                            model.init_decode_state(b, 0, dev))
+    for i in range(t0, ext.shape[1]):
+        lg, rec = model.decode(params, rec, ext[:, i])
+        if step_hook is not None:
+            rec = step_hook(rec)
+    want, chunked = model.prefill(params, {"tokens": ext},
+                                  model.init_decode_state(b, 0, dev))
+    assert torch.isfinite(lg).all() and torch.isfinite(want).all()
+    lg, want = lg.float(), want.float()
+
+    def state_rel(i):
+        a = torch.stack([s[i].float() for s in rec])
+        r = torch.stack([s[i].float() for s in chunked])
+        return float((a - r).norm() / r.norm())
+    return {"rel": (lg - want).norm(dim=-1) / want.norm(dim=-1),
+            "agree": float((lg.argmax(-1) == want.argmax(-1)).float().mean()),
+            "conv": state_rel(0), "ssd": state_rel(1), "steps": lg,
+            "chunked": want}
+
+
+def _conv_rounded_apart(u, w, b):
+    """The SSD prefill conv with JAX's rounding points (its
+    ``_causal_conv``): the conv, the bias add and the SiLU each rounded to
+    u's dtype. A control of :func:`ssm_run`'s bf16 gate: the port rounds
+    once, as the decode step does."""
+    import torch.nn.functional as F
+    wn, c = w.shape
+    x = F.pad(u.transpose(1, 2), (wn - 1, 0))
+    out = F.conv1d(x, w.t()[:, None, :].to(u.dtype), groups=c)
+    return F.silu(out.transpose(1, 2) + b.to(u.dtype))
+
+
+def ssm_run(torch, cfg, params, counters) -> dict:
+    """``ServeEngine`` on mamba2-2.7b: 8 rows x 1000 tokens, 64 greedy
+    tokens. The family runs no hand-written kernel (its SSD scan is jnp
+    in JAX, plain PyTorch here): every launch count must stay 0. The
+    logit gate compares the engine's two computations of the same
+    function (:func:`_duality`): the last logits of a prefill of T + k
+    tokens (the chunked SSD) against a prefill of T then k decode steps
+    (the recurrence), k = 16. On the same weights cast to fp32 they must
+    agree within rel. L2 1e-4: the SSD duality itself. In bf16 they must
+    agree within :data:`SSM_BF16_TOL`, and two controls, each a bf16-only
+    fault in one of the two computations, must not: the SSD state
+    rounded to bf16 after every decode step, and the prefill conv
+    rounded at JAX's points (conv, bias add and SiLU apart,
+    :func:`_conv_rounded_apart`). The two final states and the bf16
+    computations' distance from their fp32 twins are reported. The
+    decode state's bytes are asserted exactly: per row and layer (W - 1)
+    x conv_dim conv rows in bf16 and H x P x N fp32 SSD state."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import get_model
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    dev = params["embed"].device
+    model = get_model(cfg)
+    dm = M2.dims(cfg)
+    prompts = torch.as_tensor(np.random.default_rng(SSM_T).integers(
+        0, cfg.vocab_size, (SB, SSM_T)), device=dev).long()
+    eng = ServeEngine(model, params, max_len=SSM_T + SSM_NEW)
+    eng.generate({"tokens": prompts}, GenerationConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    out = eng.generate({"tokens": prompts},
+                       GenerationConfig(max_new_tokens=SSM_NEW))
+    torch.cuda.synchronize()
+    got = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    assert got == dict.fromkeys(got, 0), got
+    per_row = cfg.num_layers * ((dm.conv_w - 1) * dm.conv_dim * 2
+                                + dm.nheads * dm.headdim * dm.dstate * 4)
+    assert out["cache_bytes"] == SB * per_row, (out["cache_bytes"], per_row)
+    assert out["tokens"].shape == (SB, SSM_NEW)
+    steps = SSM_NEW - 1
+    ext = torch.cat([prompts, torch.as_tensor(
+        out["tokens"][:, :SSM_K], device=dev).long()], dim=1)
+    bf = _duality(torch, model, params, ext, SSM_T)
+    p32 = {k: v.float() for k, v in params.items() if k != "layers"}
+    p32["layers"] = [{k: v.float() for k, v in lp.items()}
+                     for lp in params["layers"]]
+    f32 = _duality(torch, get_model(dataclasses.replace(
+        cfg, dtype="float32")), p32, ext, SSM_T)
+    del p32
+    # each bf16 computation against its fp32 twin, reported
+    noise = max(float(((bf[k] - f32[k]).norm(dim=-1)
+                       / f32[k].norm(dim=-1)).max())
+                for k in ("steps", "chunked"))
+    gates = {"fp32": (f32, FP32_TOL), "bf16": (bf, SSM_BF16_TOL)}
+    for kind, (d, limit) in gates.items():
+        assert float(d["rel"].max()) <= limit, \
+            f"{cfg.name} {kind} duality drift {d['rel'].tolist()}, {limit}"
+    controls = {"SSD state in bf16 between steps": _duality(
+        torch, model, params, ext, SSM_T,
+        step_hook=lambda rec: [(c, s.bfloat16().float()) for c, s in rec])}
+    with mock.patch.object(M2, "_causal_conv", _conv_rounded_apart):
+        controls["prefill conv rounded at JAX's points"] = _duality(
+            torch, model, params, ext, SSM_T)
+    for name, d in controls.items():
+        assert float(d["rel"].max()) > SSM_BF16_TOL, \
+            f"{cfg.name}: the bf16 duality gate passes the control " \
+            f"{name!r}: {d['rel'].tolist()}"
+    print(f"families[{cfg.name}]: {SB} rows x {SSM_T}-token prompts "
+          f"({-(-SSM_T // cfg.ssm_chunk)} SSD chunks of {cfg.ssm_chunk}, the "
+          f"last ragged), {SSM_NEW} greedy tokens: prefill "
+          f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s = "
+          f"{out['tokens_per_s']:.1f} tok/s, step "
+          f"{out['decode_s'] / steps * 1e3:.3f} ms; decode state "
+          f"{out['cache_bytes']} B ({per_row} B per row, "
+          f"{per_row // cfg.num_layers} per row and layer); peak "
+          f"{peak / 2 ** 30:.2f} GiB; duality gate, prefill {SSM_T} + "
+          f"{SSM_K} steps vs prefill {SSM_T + SSM_K}: " + "; ".join(
+              f"{kind}: rel. L2 of the last logits max "
+              f"{float(d['rel'].max()):.3e} (limit {limit}), argmax "
+              f"agreement {d['agree']:.4f}, rel. L2 of the states: conv "
+              f"windows {d['conv']:.3e}, SSD states {d['ssd']:.3e}"
+              for kind, (d, limit) in gates.items())
+          + "; controls, each above the bf16 limit: " + "; ".join(
+              f"{name}: max {float(d['rel'].max()):.3e}"
+              for name, d in controls.items())
+          + f"; bf16 against fp32 max {noise:.3e}"
+          + "; no kernel launched", flush=True)
+    return {}
+
+
+#: the families phase's configs, one at a time
+FAMILY_CONFIGS = ("paligemma-3b", "recurrentgemma-9b", "seamless-m4t-medium",
+                  "mamba2-2.7b")
+
+
 def phase_families(torch, counters, dev="cuda") -> dict:
-    """paligemma-3b and recurrentgemma-9b whole, at full width in bf16 on
-    the static engine (seeded random weights on the card, one model at a
-    time, params freed between): paligemma's ``phase_static`` on both
-    polar routes (8 rows x 256 image + 744 text tokens, 64 new, the logit
-    gate over every decode step; every fused launch on #5's split body)
-    and recurrentgemma's :data:`HYBRID_RUNS` (:func:`hybrid_run`). Returns
-    the launches under the ``[d256…]`` rows' names."""
+    """paligemma-3b, recurrentgemma-9b, seamless-m4t-medium and
+    mamba2-2.7b whole, at full width in bf16 on the static engine (seeded
+    random weights on the card, one model at a time, params freed
+    between): paligemma's ``phase_static`` on both polar routes (8 rows x
+    256 image + 744 text tokens, 64 new, the logit gate over every decode
+    step; every fused launch on #5's split body), recurrentgemma's
+    :data:`HYBRID_RUNS` (:func:`hybrid_run`), seamless's
+    :func:`encdec_run` and mamba2's :func:`ssm_run` (none). Returns the
+    launches under the kernel rows' names (:func:`family_rows`)."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     t_phase = time.monotonic()
     total: dict = {}
-    for name in ("paligemma-3b", "recurrentgemma-9b"):
+    for name in FAMILY_CONFIGS:
         t0 = time.monotonic()
         gc.collect()
         torch.cuda.empty_cache()
@@ -4001,11 +4552,15 @@ def phase_families(torch, counters, dev="cuda") -> dict:
                                  runs=STATIC_RUNS[:2],
                                  label=f"families[{name}]:static",
                                  gate_steps=SNEW - 1)]
-        else:
+        elif cfg.family == "hybrid":
             runs = [hybrid_run(torch, cfg, params, counters, t, n)
                     for t, n in HYBRID_RUNS]
+        elif cfg.family == "encdec":
+            runs = [encdec_run(torch, cfg, params, counters)]
+        else:
+            runs = [ssm_run(torch, cfg, params, counters)]
         for r in runs:
-            for k, n in d256_counts(r, cfg).items():
+            for k, n in family_rows(r, cfg).items():
                 total[k] = total.get(k, 0) + n
         peak = torch.cuda.max_memory_allocated()
         del params

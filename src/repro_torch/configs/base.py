@@ -1,7 +1,5 @@
 """Model configuration dataclass, the shape suite, the smoke-size
-reduction and the registry (port of ``repro/configs/base.py`` for the
-dense, MoE, VLM and hybrid families; ``ssm`` and ``encdec`` wait for
-their slice)."""
+reduction and the registry (port of ``repro/configs/base.py``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
@@ -15,7 +13,7 @@ from repro_torch.core.quantizers import QuantConfig
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # the port serves dense|moe|vlm|hybrid
+    family: str                       # dense|moe|encdec|vlm|ssm|hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -40,9 +38,18 @@ class ModelConfig:
     capacity_factor: float = 1.25
     norm_topk: bool = True
     router_aux_loss: float = 0.01
-    # --- VLM frontend (stubbed: precomputed patch embeddings) ---
+    # --- enc-dec ---
+    encoder_layers: int = 0
+    # --- modality frontend (stubbed: precomputed frame / patch embeddings) ---
     frontend_dim: int = 0             # stubbed modality frontend feature dim
     frontend_tokens: int = 0          # tokens emitted by the frontend stub
+    # --- SSM (mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_ngroups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
     # --- hybrid (recurrentgemma) ---
     window: int = 0                   # local-attention window (0 = global)
     block_pattern: tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
@@ -97,12 +104,13 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
     def param_count(self) -> int:
-        """Analytic parameter count (matches init): the dense, MoE, VLM and
-        hybrid branches of ``repro.configs.base.ModelConfig.param_count``,
-        the families this port serves."""
-        if self.family not in ("dense", "moe", "vlm", "hybrid"):
-            raise ValueError(f"param_count: family {self.family!r} is not "
-                             "served by this port")
+        """Analytic parameter count: JAX's
+        ``repro.configs.base.ModelConfig.param_count``, its values kept.
+        Its ssm branch leaves out ``conv_b`` and one of the three per-head
+        vectors (``A_log``, ``dt_bias``, ``D``), its encdec branch
+        ``frontend_proj`` and ``enc_norm``: the params drawn are that many
+        more (pinned in ``tests/test_torch_ssm.py`` and
+        ``tests/test_torch_encdec.py``)."""
         d, h = self.d_model, self.head_dim
         attn = d * h * self.num_heads + 2 * d * h * self.num_kv_heads + \
             self.num_heads * h * d
@@ -116,6 +124,14 @@ class ModelConfig:
             ffn = 3 * d * self.d_ff
         norms = 2 * d
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            din = self.ssm_expand * d
+            nheads = din // self.ssm_headdim
+            bc = 2 * self.ssm_ngroups * self.ssm_state
+            in_proj = d * (2 * din + bc + nheads)
+            conv = (din + bc) * self.ssm_conv
+            per_layer = in_proj + conv + 2 * nheads + din + din * d + d
+            return self.num_layers * per_layer + emb + d
         if self.family == "hybrid":
             w = self.lru_width or d
             # RG-LRU block: in-proj x2 (d->w), conv1d (w*width), gates
@@ -130,9 +146,12 @@ class ModelConfig:
             return (n_att * (attn + ffn + norms) + n_rec * (rec + ffn + norms)
                     + emb + d)
         extra = 0
+        if self.family == "encdec":
+            extra = self.num_layers * (attn + d)   # decoder cross-attention
         if self.family == "vlm" and self.frontend_dim:
             extra = self.frontend_dim * d          # patch projector
-        return self.num_layers * (attn + ffn + norms) + extra + emb + d
+        return ((self.num_layers + self.encoder_layers) * (attn + ffn + norms)
+                + extra + emb + d)
 
 
 @dataclass(frozen=True)
@@ -174,8 +193,12 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.family == "moe":
         small.update(num_experts=4, top_k=2, moe_d_ff=64,
                      num_shared_experts=min(cfg.num_shared_experts, 1))
+    if cfg.family == "encdec":
+        small.update(encoder_layers=2, frontend_dim=32, frontend_tokens=16)
     if cfg.family == "vlm":
         small.update(frontend_dim=32, frontend_tokens=16)
+    if cfg.family == "ssm":
+        small.update(ssm_state=16, ssm_headdim=16, ssm_chunk=32)
     if cfg.family == "hybrid":
         # one full block pattern + tail so attn AND rec layers are exercised
         small.update(window=64, lru_width=128,

@@ -36,6 +36,9 @@ from repro_torch.kernels import _build as B
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
+#: of those, the launches in mode ``full`` (the encoder-decoder's encoder
+#: and cross-attention)
+launches_full = 0
 
 
 def _bind(lib) -> None:
@@ -61,7 +64,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``mode`` one of ``MASK_MODES``, ``prefix_len`` (B,) int32 for
     ``prefix``, ``window`` > 0 for ``local``. The kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    global launches
+    global launches, launches_full
     B.require(mode in MASK_MODES, f"unknown mask mode {mode!r}")
     B.require((prefix_len is not None) == (mode == "prefix"),
               "prefix_len is required by, and only by, mode 'prefix'")
@@ -96,4 +99,5 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         B.stream_ptr(q))
     B.check(err, "flash_prefill")
     launches += 1
+    launches_full += int(mode == "full")
     return out

@@ -1,2 +1,2 @@
-"""Model zoo of the port (the dense, MoE, VLM and hybrid families)."""
+"""Model zoo of the port (every family of the JAX package)."""
 from repro_torch.models.registry import Model, get_model  # noqa: F401

@@ -1,9 +1,18 @@
-"""GQA attention block over the quantized KV caches (port of the dense
-and paged entries of ``repro/models/attn_block.py``).
+"""GQA attention block over the quantized KV caches (port of the dense,
+paged and forward encoder-decoder entries of
+``repro/models/attn_block.py``).
 
 * ``make_cache`` — one layer's dense cache: capacity rounded up to a
   group multiple; a linear layout, or for a windowed config a ring of
   ``min(max_len, window)`` slots.
+* ``attention_train`` — attention over a whole sequence with no cache,
+  forward only (the encoder-decoder family): RoPE'd self-attention in
+  ``mask_mode`` (the encoder runs ``full``), or with ``memory``
+  cross-attention — K/V from the encoder memory, no RoPE, mode ``full``,
+  Tq != Tk; both through the flash-prefill kernel, where JAX runs the jnp
+  ``flash_attention``.
+* ``cross_attention_cache`` — a decoder layer's cross cache filled from
+  the un-rotated memory K/V (the encode kernel).
 * ``attention_prefill`` — the static batch's prompt: flash attention in
   mask mode ``causal``, ``prefix`` (the VLM's image + prefix text,
   ``prefix_len`` per row) or ``local`` (``window``) — the flash-prefill
@@ -15,7 +24,8 @@ and paged entries of ``repro/models/attn_block.py``).
   LUT kernel + softmax, ``"paged_fused"`` and ``"gathered"`` through the
   fused dense kernel (JAX's ``_dense_kernel_backend`` mapping); codecs
   without a fused kernel, and windowed (ring) layers, take the ``"jnp"``
-  route.
+  route. ``cross=True``: a static cross cache — no RoPE, no append, and
+  the score route on any backend, as JAX.
 * ``attention_prefill_paged`` — one request's prompt: causal flash
   attention (the flash-prefill kernel) + the paged cache fill (the encode
   kernel writes the prompt's key groups into their pages).
@@ -92,6 +102,46 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, layer: int = 0,
                           layout=layout)
 
 
+def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    mask_mode: str = "causal",
+                    memory: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D), no cache, in ``mask_mode`` (``full`` or
+    ``causal``). ``memory`` (B, Tm, D) switches to cross-attention: K/V
+    from memory, no RoPE on keys or queries, mode ``full``."""
+    if memory is None:
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        q, k, v = _project(params, x, cfg)
+        q = L.apply_rope(q, positions, cfg.rope_base, cfg.rope_ntk_scale)
+        k = L.apply_rope(k, positions, cfg.rope_base, cfg.rope_ntk_scale)
+    else:
+        q = L.split_heads(L.linear(x, params["wq"], params.get("bq")),
+                          cfg.num_heads)
+        k, v = _memory_kv(params, memory, cfg)
+        mask_mode = "full"
+    out = ops.flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
+                            mode=mask_mode)
+    return L.linear(L.merge_heads(out), params["wo"])
+
+
+def _memory_kv(params: dict, memory: torch.Tensor, cfg: ModelConfig):
+    """Un-rotated K/V (B, Hkv, Tm, d) of the encoder memory."""
+    k = L.split_heads(L.linear(memory, params["wk"], params.get("bk")),
+                      cfg.num_kv_heads)
+    v = L.split_heads(L.linear(memory, params["wv"], params.get("bv")),
+                      cfg.num_kv_heads)
+    return k, v
+
+
+def cross_attention_cache(params: dict, memory: torch.Tensor,
+                          cfg: ModelConfig,
+                          cache: kvc.KVCache) -> kvc.KVCache:
+    """Fill a cross-attention cache from encoder memory (B, Tm, D), no
+    RoPE, in place."""
+    k, v = _memory_kv(params, memory, cfg)
+    return kvc.prefill(cache, k.contiguous(), v.contiguous())
+
+
 def attention_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
                       cache: kvc.KVCache, *, mask_mode: str = "causal",
                       prefix_len: torch.Tensor | None = None,
@@ -112,12 +162,19 @@ def attention_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                     cache: kvc.KVCache, *, window: int = 0):
+                     cache: kvc.KVCache, *, window: int = 0,
+                     cross: bool = False):
     """Single-token decode of every row at the shared position
     ``cache.length``. x: (B, 1, D). ``window > 0``: a ring cache's local
     attention, which stays on the score route (the fused kernel assumes
-    linear placement). Returns (y (B, 1, D), cache)."""
+    linear placement). ``cross``: attention over a static cross cache —
+    no RoPE, no append, the score route. Returns (y (B, 1, D), cache)."""
     b = x.shape[0]
+    if cross:
+        q = L.split_heads(L.linear(x, params["wq"], params.get("bq")),
+                          cfg.num_heads)
+        out = kvc.decode_attention(cache, q[:, :, 0])
+        return L.linear(out.reshape(b, 1, -1), params["wo"]), cache
     q, k, v = _project(params, x, cfg)
     pos = cache.length.reshape(1)
     q = L.apply_rope(q, pos, cfg.rope_base, cfg.rope_ntk_scale)

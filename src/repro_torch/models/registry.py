@@ -1,17 +1,22 @@
-"""Model interface over the serving entries of the dense, MoE, VLM and
-hybrid families (port of ``repro/models/registry.py:34-72,106-195``).
+"""Model interface over the serving entries of every family: dense, MoE,
+VLM, hybrid, encoder-decoder and SSM (port of
+``repro/models/registry.py:34-72,106-195``).
 
 ``get_model(cfg)`` returns a :class:`Model` bundle:
   init(generator, device) -> params
-  init_decode_state(batch, max_len, device) -> list of per-layer KVCaches
-  prefill(params, {"tokens": (B, T)[, "patches": (B, Np, F)]}, state)
-      -> (last logits (B, V), state)
+  init_decode_state(batch, max_len, device) -> the decode state: a list of
+      per-layer KVCaches (dense, MoE, VLM), of ring caches and RG-LRU
+      states (hybrid) or of (conv, SSD) states (SSM), or the encoder-
+      decoder's {"self": [...], "cross": [...]} caches
+  prefill(params, {"tokens": (B, T)[, "patches" | "frames": (B, Nf, F)]},
+          state) -> (last logits (B, V), state)
   decode(params, state, token (B,)) -> (logits (B, V), state)
   cache_layer_bytes(state) -> physical cache bytes per layer (None for the
-      hybrid family, whose state mixes ring caches and recurrent states)
-The paged entries below are None for the VLM and hybrid families, which
-JAX serves on the static engine only (the VLM prefill needs the patch
-frontend; the paged attention has no sliding-window mask):
+      hybrid, encoder-decoder and SSM families, as JAX)
+The paged entries below are None for the VLM, hybrid, encoder-decoder
+and SSM families, which JAX serves on the static engine only (the VLM
+and encoder-decoder prefills need their frontends; the paged attention
+has no sliding-window mask; the SSM has no KV cache):
   init_paged_state(layout, device) -> list of per-layer PagedKVCaches
   prefill_paged(params, tokens (1,Tp), state, slot, page_row, true_len)
   prefill_paged_chunk(params, tokens (1,Tc), state, slot, page_row, start,
@@ -39,7 +44,9 @@ import dataclasses
 from typing import Any, Callable
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
+from repro_torch.models import ssm_lm as SSM
 from repro_torch.models import transformer as TF
 
 
@@ -64,8 +71,6 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
-        raise ValueError(f"family {cfg.family!r} is not ported yet")
     if cfg.family not in ("dense", "moe", "vlm") and not cfg.policy.is_uniform:
         # JAX's refusal and message, kept for parity (the port's per-layer
         # state list could hold mixed caches)
@@ -73,6 +78,8 @@ def get_model(cfg: ModelConfig) -> Model:
             f"per-layer cache policies are not supported for the "
             f"{cfg.family!r} family (its decode state stacks one cache "
             "shape across layers)")
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "encdec", "ssm"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     from repro_torch.weights import init_params
 
     def init(generator=None, device=None):
@@ -84,6 +91,20 @@ def get_model(cfg: ModelConfig) -> Model:
                 HY.init_decode_state(cfg, batch, max_len, device),
             prefill=lambda p, b, s: HY.prefill_fn(p, b, cfg, s),
             decode=lambda p, s, t: HY.decode_fn(p, s, t, cfg))
+    if cfg.family == "encdec":
+        return Model(
+            cfg=cfg, init=init,
+            init_decode_state=lambda batch, max_len, device:
+                ED.init_decode_state(cfg, batch, max_len, device),
+            prefill=lambda p, b, s: ED.prefill_fn(p, b, cfg, s),
+            decode=lambda p, s, t: ED.decode_fn(p, s, t, cfg))
+    if cfg.family == "ssm":
+        return Model(
+            cfg=cfg, init=init,
+            init_decode_state=lambda batch, max_len, device:
+                SSM.init_decode_state(cfg, batch, device),
+            prefill=lambda p, b, s: SSM.prefill_fn(p, b, cfg, s),
+            decode=lambda p, s, t: SSM.decode_fn(p, s, t, cfg))
     static = dict(
         cfg=cfg, init=init,
         init_decode_state=lambda batch, max_len, device:

@@ -116,20 +116,28 @@ class ServeEngine:
 
     def generate(self, batch: dict,
                  gen: Optional[GenerationConfig] = None) -> dict:
-        """batch: {"tokens": (B, Tp) int} (the VLM also ``"patches"`` (B,
-        frontend_tokens, frontend_dim)). Returns the generated tokens
-        (B, max_new_tokens) as numpy, prefill and decode seconds, decode
-        tokens/s and the cache's physical bytes (in all and per layer; per
-        layer None for the hybrid family)."""
+        """batch: {"tokens": (B, Tp) int} (the VLM also ``"patches"``, the
+        encoder-decoder ``"frames"``, each (B, frontend_tokens,
+        frontend_dim)). Returns the generated tokens (B, max_new_tokens)
+        as numpy, prefill and decode seconds, decode tokens/s and the
+        decode state's physical bytes (in all and per layer; per layer
+        None for the hybrid, encoder-decoder and SSM families).
+
+        A linear self cache (dense, MoE, VLM, encoder-decoder) must hold
+        the prompt and the appended tokens, else ``ValueError``. JAX's
+        engine skips the check for the encoder-decoder family and decodes
+        past the cache's capacity."""
         gen = gen if gen is not None else GenerationConfig()
         cfg = self.model.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         inputs = {"tokens": tokens}
-        if cfg.family == "vlm":
-            inputs["patches"] = torch.as_tensor(batch["patches"],
-                                                device=self.device)
+        frontend = {"vlm": "patches", "encdec": "frames"}.get(cfg.family)
+        if frontend:
+            inputs[frontend] = torch.as_tensor(batch[frontend],
+                                               device=self.device)
         b, tp = tokens.shape
-        if cfg.family in ("dense", "moe", "vlm") and cfg.window == 0:
+        if (cfg.family in ("dense", "moe", "vlm", "encdec")
+                and cfg.window == 0):
             # linear cache: prompt (with the frontend's tokens) + appended
             # tokens must fit (the last sampled token is never appended,
             # hence the -1); a ring cache holds any length

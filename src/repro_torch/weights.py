@@ -11,7 +11,12 @@ conv, gate and Lambda params, which JAX computes in fp32.
 The VLM family adds ``projector`` (frontend_dim, D). The hybrid family's
 JAX tree stacks its layers per pattern period (``periods/sub{i}_{kind}``,
 leading axis the period) and in ``tail``; here they are one list in layer
-order, each layer's mixer under ``mix``.
+order, each layer's mixer under ``mix``. The SSM family's ``layers`` hold
+the Mamba-2 mixer's params: ``in_proj`` and ``out_proj`` in the model
+dtype, the conv, the per-head vectors and the norms in fp32. The
+encoder-decoder family has ``enc_layers`` and ``dec_layers`` (with
+``ln_x`` and the cross-attention ``xattn``) instead of ``layers``, plus
+``frontend_proj`` (frontend_dim, D) and ``enc_norm``.
 """
 from __future__ import annotations
 
@@ -20,14 +25,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attn_block as AB
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models.moe import init_moe
 from repro_torch.utils import resolve_device, torch_dtype
 
 _MATS = {"attn": ("wq", "wk", "wv", "wo"), "ffn": ("wg", "wu", "wd")}
 #: the RG-LRU block's matrices, in the model dtype (the rest stays fp32)
 _RG_MATS = ("w_gate", "w_in", "w_out")
+#: the Mamba-2 mixer's matrices, in the model dtype (the rest stays fp32)
+_SSM_MATS = ("in_proj", "out_proj")
 
 
 def _hybrid_from_jax(np_params: dict, cfg: ModelConfig, t) -> list:
@@ -68,28 +77,42 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     def t(a, dtype):
         return torch.from_numpy(np.array(a)).to(dev, dtype)
 
-    if cfg.family == "hybrid":
-        layers = _hybrid_from_jax(np_params, cfg, t)
-    else:
-        layers = _layers_from_jax(np_params["layers"], cfg, t)
     out = {"embed": t(np_params["embed"], dt),
-           "final_norm": t(np_params["final_norm"], torch.float32),
-           "layers": layers}
-    for name in ("lm_head", "projector"):
+           "final_norm": t(np_params["final_norm"], torch.float32)}
+    if cfg.family == "hybrid":
+        out["layers"] = _hybrid_from_jax(np_params, cfg, t)
+    elif cfg.family == "ssm":
+        lp = np_params["layers"]
+        out["layers"] = [
+            {n: t(a[i], dt if n in _SSM_MATS else torch.float32)
+             for n, a in lp.items()} for i in range(cfg.num_layers)]
+    elif cfg.family == "encdec":
+        out["enc_layers"] = _layers_from_jax(
+            np_params["enc_layers"], cfg, t, cfg.encoder_layers)
+        out["dec_layers"] = _layers_from_jax(
+            np_params["dec_layers"], cfg, t, cfg.num_layers)
+        out["enc_norm"] = t(np_params["enc_norm"], torch.float32)
+    else:
+        out["layers"] = _layers_from_jax(np_params["layers"], cfg, t,
+                                         cfg.num_layers)
+    for name in ("lm_head", "projector", "frontend_proj"):
         if name in np_params:
             out[name] = t(np_params[name], dt)
     return out
 
 
-def _layers_from_jax(lp: dict, cfg: ModelConfig, t) -> list:
-    """The dense / MoE / VLM layer stack (leading layer axis) -> one dict
-    per layer."""
+def _layers_from_jax(lp: dict, cfg: ModelConfig, t,
+                     n_layers: int) -> list:
+    """A dense / MoE / VLM / encoder / decoder layer stack (leading layer
+    axis) -> one dict per layer (a decoder layer's ``ln_x`` and ``xattn``
+    beside its ``attn``)."""
     dt = torch_dtype(cfg.dtype)
+    groups = {**_MATS, **({"xattn": _MATS["attn"]} if "xattn" in lp else {})}
     layers = []
-    for i in range(cfg.num_layers):
-        layer = {"ln1": t(lp["ln1"][i], torch.float32),
-                 "ln2": t(lp["ln2"][i], torch.float32)}
-        for group, names in _MATS.items():
+    for i in range(n_layers):
+        layer = {n: t(lp[n][i], torch.float32)
+                 for n in ("ln1", "ln2", "ln_x") if n in lp}
+        for group, names in groups.items():
             layer[group] = {n: t(lp[group][n][i], dt) for n in names}
             layer[group].update({n: t(lp[group][n][i], torch.float32)
                                  for n in ("bq", "bk", "bv", "router")
@@ -105,8 +128,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None, dtype=None) -> dict:
     """Random params at the JAX package's init scales (dense: normal /
     sqrt(d_in); embedding and MoE router: normal * 0.02; norms: ones; the
-    RG-LRU block's as ``models/rglru.py``), drawn on ``device`` from
-    ``generator`` (which must live on that device)."""
+    RG-LRU block's as ``models/rglru.py``, the Mamba-2 mixer's as
+    ``models/mamba2.py``), drawn on ``device`` from ``generator`` (which
+    must live on that device)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     d = cfg.d_model
@@ -120,17 +144,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                         else L.init_mlp(d, cfg.d_ff, generator, dev, dt))}
 
     if cfg.family == "hybrid":
-        layers = [HY.init_sub_layer(cfg, kind, generator, dev, dt)
-                  for kind in HY.layer_types(cfg)]
+        body = {"layers": [HY.init_sub_layer(cfg, kind, generator, dev, dt)
+                           for kind in HY.layer_types(cfg)]}
+    elif cfg.family == "ssm":
+        body = {"layers": [M2.init_mamba_layer(cfg, generator, dev, dt)
+                           for _ in range(cfg.num_layers)]}
+    elif cfg.family == "encdec":
+        body = {"enc_layers": [ED.init_enc_layer(cfg, generator, dev, dt)
+                               for _ in range(cfg.encoder_layers)],
+                "dec_layers": [ED.init_dec_layer(cfg, generator, dev, dt)
+                               for _ in range(cfg.num_layers)],
+                "enc_norm": torch.ones(d, device=dev)}
     else:
-        layers = [block() for _ in range(cfg.num_layers)]
+        body = {"layers": [block() for _ in range(cfg.num_layers)]}
     embed = torch.randn((cfg.vocab_size, d), generator=generator, device=dev,
                         dtype=torch.float32)
     out = {"embed": (embed * 0.02).to(dt),
-           "final_norm": torch.ones(d, device=dev), "layers": layers}
+           "final_norm": torch.ones(d, device=dev), **body}
     if not cfg.tie_embeddings:
         out["lm_head"] = L.dense_init(d, cfg.vocab_size, generator, dev, dt)
-    if cfg.family == "vlm":
-        out["projector"] = L.dense_init(cfg.frontend_dim, d, generator, dev,
-                                        dt)
+    if cfg.family in ("vlm", "encdec"):
+        name = "projector" if cfg.family == "vlm" else "frontend_proj"
+        out[name] = L.dense_init(cfg.frontend_dim, d, generator, dev, dt)
     return out

@@ -318,7 +318,16 @@ def test_proposer_faults_degrade_to_plain_decode(smoke_model, rate):
         assert r1["spec"][k] == jr["spec"][k], k
 
 
-def test_slow_steps_only_stretch_the_clock(smoke_model):
+def test_slow_steps_only_stretch_the_clock(smoke_model, monkeypatch):
+    """Injected slow steps add their seconds to the engine clock and
+    nothing else. The clock reads a fake ``time.monotonic`` that advances
+    one fixed step per call, so both runs measure the same compute
+    whatever the host's load, and the difference is the injected 1.5 s
+    exactly."""
+    from repro_torch.serve import core as serve_core
+    ticks = iter(range(1 << 40))
+    monkeypatch.setattr(serve_core.time, "monotonic",
+                        lambda: next(ticks) * 2.0 ** -10)
     cfg = smoke_model[2]
     mk = lambda chaos: _engine(smoke_model, max_slots=2, max_len=64,  # noqa: E731
                                chaos=chaos)
@@ -329,7 +338,7 @@ def test_slow_steps_only_stretch_the_clock(smoke_model):
                       GenerationConfig())
     assert r1["chaos"]["slow_steps"] == 3
     assert _toks(r0) == _toks(r1)              # tokens untouched
-    assert r1["wall_s"] >= r0["wall_s"] + 1.4  # ~3 x 0.5s injected
+    assert r1["wall_s"] == pytest.approx(r0["wall_s"] + 1.5, abs=1e-9)
     check_event_stream(r1["events"])
 
 

@@ -1,7 +1,8 @@
 """Port parity for the paper's dense configurations at head_dim 128
 (llama3.1-8b, granite-8b, yi-9b, qwen1.5-4b) beside tinyllama, the MoE
-configurations (qwen2-moe-a2.7b, dbrx-132b), the VLM (paligemma-3b) and
-the hybrid (recurrentgemma-9b).
+configurations (qwen2-moe-a2.7b, dbrx-132b), the VLM (paligemma-3b), the
+hybrid (recurrentgemma-9b), the encoder-decoder (seamless-m4t-medium) and
+the SSM (mamba2-2.7b).
 
 Each port config equals its JAX config on every shared field, with the
 same ``param_count``, the same shape suite and registry; then, on each
@@ -41,8 +42,10 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 DENSE = ("granite-8b", "llama3.1-8b", "qwen1.5-4b", "tinyllama-1.1b",
          "yi-9b")
 MOE = ("dbrx-132b", "qwen2-moe-a2.7b")
-#: the static-only families (the VLM frontend, the RG-LRU hybrid)
-STATIC_ONLY = ("paligemma-3b", "recurrentgemma-9b")
+#: the static-only families (the VLM frontend, the RG-LRU hybrid, the
+#: encoder-decoder, the SSM)
+STATIC_ONLY = ("mamba2-2.7b", "paligemma-3b", "recurrentgemma-9b",
+               "seamless-m4t-medium")
 NEW = ("llama3.1-8b", "granite-8b", "yi-9b", "qwen1.5-4b")
 #: fields the port's ModelConfig shares with JAX's whose values may differ
 #: by design: the policy objects are each package's own classes, and the
@@ -75,25 +78,22 @@ def test_config_matches_jax(name):
 
 def test_registry_and_shape_suite_match_jax():
     assert configs.list_configs() == sorted(DENSE + MOE + STATIC_ONLY)
-    ported = [n for n in jconfigs.list_configs()
-              if jconfigs.get_config(n).family in ("dense", "moe", "vlm",
-                                                   "hybrid")]
-    assert configs.list_configs() == ported
+    assert configs.list_configs() == jconfigs.list_configs()
     assert {k: dataclasses.astuple(v) for k, v in configs.SHAPES.items()} \
         == {k: dataclasses.astuple(v) for k, v in jconfigs.SHAPES.items()}
     assert [f.name for f in dataclasses.fields(configs.ShapeConfig)] == \
         [f.name for f in dataclasses.fields(jconfigs.ShapeConfig)]
-    unported = sorted(set(jconfigs.list_configs()) - set(ported))
-    assert unported
-    for name in unported:
-        with pytest.raises(KeyError):
-            configs.get_config(name)
     for name in MOE + STATIC_ONLY:
         assert configs.get_config(name).param_count() == \
             jconfigs.get_config(name).param_count()
-    with pytest.raises(ValueError):
-        dataclasses.replace(configs.get_config("yi-9b"),
-                            family="ssm").param_count()
+    # every family's branch of param_count, JAX's values (gaps included)
+    for family in ("ssm", "encdec"):
+        assert dataclasses.replace(configs.get_config("yi-9b"),
+                                   family=family).param_count() == \
+            dataclasses.replace(jconfigs.get_config("yi-9b"),
+                                family=family).param_count()
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("mamba2-1.3b")
     assert cbase.get_config("qwen1.5-4b").qkv_bias
     assert [configs.get_config(n).rope_base for n in NEW] == \
         [500000.0, 10000.0, 10000.0, 1000000.0]
@@ -292,10 +292,13 @@ def test_prefix_engine_streams_and_events_match_jax(pair):
 
 @pytest.mark.parametrize("name", STATIC_ONLY)
 def test_static_only_param_counts_and_smoke_reductions_match_jax(name):
-    """paligemma-3b (with its patch projector) and recurrentgemma-9b (RG-LRU
+    """paligemma-3b (with its patch projector), recurrentgemma-9b (RG-LRU
     layers beside the local-attention ones, 38 = 12 periods + a 2-layer
-    tail) count JAX's parameters, whole and in the smoke reduction, which
-    keeps a one-layer tail for the hybrid."""
+    tail), seamless-m4t-medium (12 encoder + 12 decoder layers, MHA at
+    head_dim 64) and mamba2-2.7b (attention-free) count JAX's parameters,
+    whole and in the smoke reduction, which keeps a one-layer tail for
+    the hybrid, 2 + 2 layers for the encoder-decoder and JAX's SSD sizes
+    for the SSM."""
     cfg, jcfg = configs.get_config(name), jconfigs.get_config(name)
     assert cfg.param_count() == jcfg.param_count()
     small, jsmall = configs.reduce_for_smoke(cfg), \
@@ -303,6 +306,21 @@ def test_static_only_param_counts_and_smoke_reductions_match_jax(name):
     for f in _shared_fields():
         assert getattr(small, f) == getattr(jsmall, f), f
     assert small.param_count() == jsmall.param_count()
+    assert cfg.sub_quadratic == jcfg.sub_quadratic
+    if cfg.family == "ssm":
+        assert (cfg.d_model, cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_chunk,
+                cfg.head_dim) == (2560, 128, 64, 256, 0)
+        assert (small.ssm_state, small.ssm_headdim, small.ssm_chunk) == \
+            (16, 16, 32)
+        assert cfg.sub_quadratic and cfg.tie_embeddings
+        return
+    if cfg.family == "encdec":
+        assert (cfg.head_dim, cfg.num_kv_heads, cfg.encoder_layers) == \
+            (64, 16, 12)
+        assert (small.encoder_layers, small.frontend_dim,
+                small.frontend_tokens) == (2, 32, 16)
+        assert not cfg.sub_quadratic
+        return
     assert cfg.head_dim == 256 and cfg.num_kv_heads == 1
     if cfg.family == "hybrid":
         assert small.num_layers == len(cfg.block_pattern) + 1

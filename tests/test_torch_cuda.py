@@ -1737,3 +1737,35 @@ def test_qk_kernel_d256_matches_plain(dev, qh):
     assert qkk.launches == n + 1
     ref = qkk.polar_qk_scores_plain(q, *enc)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# head_dim 64 at seamless-m4t-medium's 16 kv heads of one query head: #3 in
+# ``full`` mode over the encoder's frames and as cross-attention (Tq != Tk)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tq,tk,dtype", [
+    (1024, 1024, _BF16), (16, 1024, _BF16), (33, 1000, _BF16),
+    (33, 1000, _F32), (1, 77, _BF16), (70, 16, _BF16)])
+def test_flash_prefill_full_mode_cross_shapes_match_plain(dev, tq, tk,
+                                                          dtype):
+    """Kernel #3 in ``full`` mode at 16 heads over 16 kv heads, d 64: the
+    encoder's 1024 x 1024, the decoder prompt's 16 queries over 1024
+    memory frames, a ragged 33 x 1000 on both bodies (key tiles masked
+    past Tk, zero-filled q rows past Tq), a single query and more
+    queries than keys; each launch counts on ``launches_full``."""
+    gen = _gen(dev, 50)
+    q = torch.randn((2, 16, tq, 64), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((2, 16, tk, 64), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    n, nf = fpk.launches, fpk.launches_full
+    got = fpk.flash_prefill(q, k, v, mode="full")
+    assert (fpk.launches, fpk.launches_full) == (n + 1, nf + 1)
+    ref = fpk.flash_prefill_plain(q, k, v, mode="full")
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    if tq == tk:
+        fpk.flash_prefill(q, k, v, mode="causal")   # not a full launch
+        assert fpk.launches == n + 2
+    assert fpk.launches_full == nf + 1
