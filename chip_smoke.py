@@ -31,7 +31,10 @@ run):
               timed on a row of its own (``name[u8]``); every kernel at
               the paper's widths, head_dim 128 at llama3.1-8b's 8 kv heads
               x 4 query heads (rows ``name[d128]``; #2 and #5 on the split
-              body), #2-#6 also at qwen1.5-4b's 20 kv heads of one query
+              body), #1-#4 at a mesh rank's 4 kv heads x 4 query heads
+              (``name[d128,mesh2]``; #2 planned for the model's 8 kv heads
+              and bit-equal to those heads of the whole call), #2-#6 also
+              at qwen1.5-4b's 20 kv heads of one query
               head (``name[d128,qh1]``) and at dbrx-132b's 8 kv heads x 6
               query heads (``name[d128,qh6]``); head_dim 256 at one kv
               head (``[d256…]``): encode, flash prefill in its
@@ -144,6 +147,20 @@ run):
               their kernels (torch.profiler), eager and as a graph replay,
               and of one H = 8 horizon replay per token: the device's idle
               share and the largest kernels.
+    mesh    — head-sharded paged serving on ``torch.distributed``
+              (DESIGN.md §17): an NCCL world of one in this process,
+              ``EngineCore(mesh=(1, 1))`` on the same model (one-shot, and
+              chunked + prefix cache) with the head gather inside the
+              replayed graphs — streams, events and every decode step's
+              logits bit-equal to the meshless engine's; llama3.1-8b at
+              full width (8 of 32 layers) over two gloo ranks spawned from
+              here (``--mesh-rank``; 4 KV heads a rank, decode eager by a
+              choice made before capture) — streams and events equal to
+              the meshless engine's, decode logits bit-equal, each rank's
+              pool bytes exactly half, its launches those of the meshless
+              run; the smoke tinyllama over four gloo ranks — 2 KV heads do
+              not divide 4, so every rank holds the whole pools (the GQA
+              fallback, asserted). Its seconds go to stderr.
 12. configs — the paper's dense configs at head_dim 128, one at a time at
               full width in bf16 (llama3.1-8b with 8 of its 32 layers,
               granite-8b, yi-9b, qwen1.5-4b whole; seeded random weights,
@@ -1451,6 +1468,15 @@ def check_polar_attention_u8(torch, dev, gen, flush) -> dict:
 #: the ``[d128,qh6]`` rows (dbrx-132b)
 D128_SHAPES = {"[d128]": (8, 4), "[d128,qh1]": (20, 1), "[d128,qh6]": (8, 6)}
 D128 = 128
+#: a rank's shapes on the mesh phase's head-sharded llama3.1-8b: (kv heads,
+#: query heads a kv head) of one of two ranks, and the model's kv heads
+#: the paged decode plans its splits for
+MESH_SHAPES = {"[d128,mesh2]": (4, 4)}
+MESH_PLAN_HEADS = {"[d128,mesh2]": 8}
+
+
+def _d128_shape(form: str) -> tuple[int, int]:
+    return {**D128_SHAPES, **MESH_SHAPES}[form]
 
 
 def _form_row(name, form, src, replaces, err, ms, plain_ms, b, lib_ms,
@@ -1474,12 +1500,13 @@ def _d128_stats(torch, dev, gen, pp, hkv, p):
     return codes, stats
 
 
-def check_encode_d128(torch, dev, gen, flush) -> dict:
-    """#1's prefill form at llama3.1-8b's 8 kv heads x 1024 bf16 tokens x
-    d 128 into 8 fragmented pages (P = 64 pairs): codes and stats
-    bit-equal to the plain version, other pages untouched."""
+def check_encode_d128(torch, dev, gen, flush, form="[d128]") -> dict:
+    """#1's prefill form at llama3.1-8b's 8 kv heads (a mesh rank's 4 for
+    ``[d128,mesh2]``) x 1024 bf16 tokens x d 128 into 8 fragmented pages
+    (P = 64 pairs): codes and stats bit-equal to the plain version, other
+    pages untouched."""
     from repro_torch.kernels import polar_encode as pe
-    hkv, d = D128_SHAPES["[d128]"][0], D128
+    hkv, d = _d128_shape(form)[0], D128
     p = d // 2
     k = torch.randn((1, hkv, 1024, d), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -1506,10 +1533,10 @@ def check_encode_d128(torch, dev, gen, flush) -> dict:
     nbytes = pages.numel() * 4 + 1024 * hkv * (d * 2 + p) \
         + 4 * (1024 // G) * hkv * p * 4
     return _form_row(
-        "polar_encode", "[d128]", "polar_encode.cu",
+        "polar_encode", form, "polar_encode.cu",
         "src/repro/kernels/polar_encode.py:51", err, ms, plain_ms,
         bound(nbytes, 22 * 1024 * hkv * p, "fp32"), None, None,
-        "prefill form, 1 x 8 kv heads x 1024 tokens x 128 bf16 "
+        f"prefill form, 1 x {hkv} kv heads x 1024 tokens x 128 bf16 "
         "(launches: both forms)")
 
 
@@ -1517,9 +1544,14 @@ def check_decode_d128(torch, dev, gen, flush, form) -> dict:
     """#2 at d 128, 8 slots over 8-page rows, bf16 values: slots flushed
     0 ... 896 with dead entries on a NaN scratch page, normalized output
     and softmax stats within 1e-4 of the plain version, every launch on
-    the split body; timed with every slot at 8 live pages."""
+    the split body; timed with every slot at 8 live pages. A mesh rank's
+    form plans its splits for the model's kv heads
+    (:data:`MESH_PLAN_HEADS`), and its output is bit-equal to the same
+    heads of the whole model's call."""
     from repro_torch.kernels import paged_decode as pd
-    hkv, qh = D128_SHAPES[form]
+    hkv, qh = _d128_shape(form)
+    plan = {"plan_heads": MESH_PLAN_HEADS[form]} if form in MESH_SHAPES \
+        else {}
     d, s, n = D128, 8, 8
     p, pp = d // 2, s * n + 1
     scratch = pp - 1
@@ -1538,14 +1570,30 @@ def check_decode_d128(torch, dev, gen, flush, form) -> dict:
         x[scratch] = float("nan")
     n_split = pd.launches_split
     got = pd.polar_paged_decode_grouped(q, codes, *stats, vals, table,
-                                        flushed)
+                                        flushed, **plan)
     assert pd.launches_split == n_split + 1, "d 128 left the split body"
     ref = pd.polar_paged_decode_grouped_plain(q, codes, *stats, vals, table,
                                               flushed)
     err = _partials_err(torch, got, ref)[0]
+    if plan:
+        # the rank's heads are the first block of the model's: pad the
+        # inputs to every head and run the whole model's call
+        nb = plan["plan_heads"] // hkv
+
+        def whole(x):
+            return torch.cat([x] + [torch.zeros_like(x)] * (nb - 1), 1)
+        full = pd.polar_paged_decode_grouped(
+            whole(q), whole(codes), *(whole(x) for x in stats), whole(vals),
+            table, flushed)
+        assert all(torch.equal(a[:, :hkv], b) for a, b in zip(full, got)), \
+            f"{form}: the shard's decode differs from the whole call's heads"
     args = (q, codes, *stats, vals, table_t, fl_t)
-    ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped(*args),
+    ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped(*args, **plan),
                  flush=flush)
+    # the price of planning for the model's heads: the same call on the
+    # shard's own plan (more splits, another merge order)
+    own_ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped(*args),
+                     flush=flush) if plan else None
     plain_ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped_plain(
         *args), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
     tl = table_t.long()
@@ -1560,13 +1608,21 @@ def check_decode_d128(torch, dev, gen, flush, form) -> dict:
         + table_t.numel() * 4 + s * 4 + s * hkv * qh * (d + 2) * 4
     flops = pages * (3 * qh * p * 16 + 2 * G * p + 2 * qh * G * p
                      + 4 * qh * G + 2 * qh * G * d)
-    return _form_row(
+    row = _form_row(
         "paged_decode", form, "paged_decode.cu",
         "src/repro/kernels/paged_decode.py:104", err, ms, plain_ms,
         bound(nbytes, flops, "fp32"), lib_ms,
         "SDPA over gathered pre-dequantized keys (fp32)",
         f"8 slots x {hkv} kv heads x {qh} query heads x 8 live pages x "
-        f"d 128, bf16 values, nsplit {pd.plan_splits(s, hkv, n)}")
+        f"d 128, bf16 values, nsplit "
+        f"{pd.plan_splits(s, plan.get('plan_heads', hkv), n)}"
+        + (f" (planned for {plan['plan_heads']} kv heads; bit-equal to "
+           "those heads of the whole call; the shard's own plan, nsplit "
+           f"{pd.plan_splits(s, hkv, n)}, takes {own_ms:.4f} ms)"
+           if plan else ""))
+    if plan:
+        row["own_plan_ms"] = own_ms
+    return row
 
 
 def check_prefill_d128(torch, dev, gen, flush, form) -> dict:
@@ -1575,7 +1631,7 @@ def check_prefill_d128(torch, dev, gen, flush, form) -> dict:
     over 20 (``[d128,qh1]``) or dbrx-132b's 48 over 8 (``[d128,qh6]``),
     within one bf16 step (2^-7) of the plain version."""
     from repro_torch.kernels import flash_prefill as fpk
-    hkv, qh = D128_SHAPES[form]
+    hkv, qh = _d128_shape(form)
     h, t, d = hkv * qh, 1024, D128
     q = torch.randn((1, h, t, d), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -1609,7 +1665,7 @@ def check_paged_prefill_d128(torch, dev, gen, flush, form) -> dict:
     and the chunk rows past ``chunk_len`` NaN-poisoned, dead entries on a
     NaN scratch page; 1e-4 against the plain version."""
     from repro_torch.kernels import paged_prefill as ppk
-    hkv, qh = D128_SHAPES[form]
+    hkv, qh = _d128_shape(form)
     d, pp = D128, 65
     p, scratch, qt = d // 2, pp - 1, qh * TC
     codes, stats = _d128_stats(torch, dev, gen, pp, hkv, p)
@@ -1777,7 +1833,20 @@ def check_d128(torch, dev, gen, flush) -> list[dict]:
             *(check_paged_prefill_d128(torch, dev, gen, flush, f)
               for f in D128_SHAPES),
             *(row for f in D128_SHAPES
-              for row in check_dense_d128(torch, dev, gen, flush, f))]
+              for row in check_dense_d128(torch, dev, gen, flush, f)),
+            *check_mesh_d128(torch, dev, gen, flush)]
+
+
+def check_mesh_d128(torch, dev, gen, flush) -> list[dict]:
+    """#1-#4 at a mesh rank's shapes (:data:`MESH_SHAPES`: llama3.1-8b's
+    8 kv heads over two ranks, 4 a rank with 4 query heads each) — the
+    kernels of the head-sharded paged path; #5 and #6 are not on it.
+    Their launches are counted in the mesh phase."""
+    return [row for f in MESH_SHAPES for row in (
+        check_encode_d128(torch, dev, gen, flush, f),
+        check_decode_d128(torch, dev, gen, flush, f),
+        check_prefill_d128(torch, dev, gen, flush, f),
+        check_paged_prefill_d128(torch, dev, gen, flush, f))]
 
 
 # ---------------------------------------------------------------------------
@@ -2181,7 +2250,9 @@ def phase_kernels(torch) -> list[dict]:
         f"{r['name']} err {r['max_abs_err']:.3g}"
         + (f" (partials {r['partials_err']:.3g})" if "partials_err" in r
            else "") + f" {r['ms']:.4f} ms "
-        f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        + (f"(the shard's own plan {r['own_plan_ms']:.4f} ms) "
+           if "own_plan_ms" in r else "")
+        + f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
         f"{r['bound_by']}" + (f", {r.get('library', 'library')} "
                               f"{r['library_ms']:.4f} ms"
                               if r["library_ms"] is not None else "") + ")"
@@ -4574,6 +4645,434 @@ def phase_families(torch, counters, dev="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: head-sharded paged serving on torch.distributed (DESIGN.md §17)
+# ---------------------------------------------------------------------------
+
+#: the mesh phase's spawned worlds: (config, depth (0: whole), world size,
+#: smoke reduction) — llama3.1-8b at full width over two gloo ranks (4 of
+#: its 8 KV heads a rank), and the smoke tinyllama (2 KV heads) over four,
+#: the GQA fallback: every rank holds the whole pools
+MESH_WORLDS = (("llama3.1-8b", 8, 2, False), ("tinyllama-1.1b", 0, 4, True))
+#: a rank's seconds to come up, serve and write its results
+MESH_RANK_TIMEOUT_S = 150
+
+
+def _mesh_workload(cfg, smoke: bool, seed: int = 11) -> dict:
+    """The mesh phase's requests, all at t = 0 so that two engines (mesh
+    and meshless) make the same schedule: ``classic`` — 8 greedy requests
+    of 100-900 prompt tokens (20-100 for the smoke config), 32 new;
+    ``prefix`` (not for the smoke config) — 6 requests sharing a 512-token
+    system prompt + 32-300-token suffixes, rid 0 at t = 0 and the rest at
+    t = 5 s (so rid 0's pages are registered first), served chunked (256)
+    with the prefix cache. Lists of (rid, prompt, new, arrival)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi, n = (20, 100, 4) if smoke else (100, 900, 8)
+    out = {"classic": [
+        (i, rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32),
+         16 if smoke else 32, 0.0)
+        for i, t in enumerate(rng.integers(lo, hi + 1, n))]}
+    if not smoke:
+        system = rng.integers(0, cfg.vocab_size, (512,)).astype(np.int32)
+        out["prefix"] = [
+            (i, np.concatenate([system, rng.integers(
+                0, cfg.vocab_size, (int(t),)).astype(np.int32)]), 32,
+             0.0 if i == 0 else 5.0)
+            for i, t in enumerate(rng.integers(32, 301, 6))]
+    return out
+
+
+def _mesh_model(torch, name: str, depth: int, smoke: bool, dev):
+    """(config, model, params): seeded random weights on ``dev``, the
+    same on every process."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import get_model
+    cfg = get_config(name)
+    if smoke:
+        cfg = reduce_for_smoke(cfg)
+    elif depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return cfg, model, model.init(generator=gen, device=dev)
+
+
+def mesh_serve(torch, model, params, counters, reqs, dev, mesh=None,
+               smoke=False, **kw) -> dict:
+    """Serve ``reqs`` ((rid, prompt, new, arrival)) on one engine (8 slots,
+    max_len 1024; 4 and 128 for a ``smoke`` workload), warmed up first, with
+    each decode step's logits recorded: streams, per-request events,
+    logits, launches, cache bytes, whether decode replayed graphs, the
+    head block and the mean decode step."""
+    from repro_torch.serve import (
+        ContinuousBatchingEngine, GenerationConfig, Request,
+    )
+    eng = ContinuousBatchingEngine(
+        model, params, max_slots=4 if smoke else 8,
+        max_len=128 if smoke else 1024, device=dev, mesh=mesh, **kw)
+    eng.warmup([len(p) for _, p, _, _ in reqs])
+    logits = []
+    real = eng.core._graphs.step
+
+    def step(*a, **k):
+        out = real(*a, **k)
+        logits.append(out[0].clone())   # a replay's output: copy it
+        return out
+    with mock.patch.object(eng.core._graphs, "step", step):
+        _sync_dev(torch, dev)
+        reset_counts(counters)
+        out = eng.run([Request(rid=rid, prompt=p, max_new_tokens=n,
+                               arrival_time=t) for rid, p, n, t in reqs],
+                      GenerationConfig())
+        _sync_dev(torch, dev)
+        launches = read_counts(counters)
+    done = out["requests"]
+    assert len(done) == len(reqs) and all(
+        r.done_tokens == n for r, (_, _, n, _) in zip(
+            sorted(done, key=lambda r: r.rid), reqs))
+    check_events(out["events"], done)
+    lengths = sum(c.lengths.numel() * 4 for c in eng.core.state)
+    return {"streams": {r.rid: list(r.out_tokens) for r in done},
+            "events": rid_events(out), "logits": logits,
+            "launches": launches, "pool_bytes": out["cache_bytes"] - lengths,
+            "graphs": out["graphs"], "head_shard": out["head_shard"],
+            "step_ms": out["decode_step_s_mean"] * 1e3,
+            "decode_steps": out["decode_steps"], "wall_s": out["wall_s"]}
+
+
+def _sync_dev(torch, dev) -> None:
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _mesh_arms(cfg, smoke: bool) -> dict:
+    """The engine options of each workload arm."""
+    arms = {"classic": {}}
+    if not smoke:
+        arms["prefix"] = {"prefill_chunk": TC, "prefix_cache": True}
+    return arms
+
+
+def _logit_gate(torch, got: list, want: list, label: str, probe) -> str:
+    """Bit-equal decode logits, step for step; else the relative L2 error
+    (limit 1e-6) with the op that first differs (``probe()``, for example
+    :func:`_mesh_op_probe`), named also when the limit fails."""
+    assert len(got) == len(want), (label, len(got), len(want))
+    if all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want)):
+        return "bit-equal"
+    rel = max(float((a.cpu().float() - b.cpu().float()).norm()
+                    / b.cpu().float().norm()) for a, b in zip(got, want))
+    op = probe()
+    assert rel <= 1e-6, (f"{label}: decode logits differ, rel L2 {rel:.3e}; "
+                         f"first differing op: {op}")
+    return f"rel L2 {rel:.3e} (limit 1e-6; first differing op: {op})"
+
+
+def mesh_rank_main(argv: list[str]) -> int:
+    """One rank of a spawned world: ``--mesh-rank R --mesh-world N
+    --mesh-dir D --mesh-config NAME --mesh-depth K --mesh-smoke 0|1
+    --mesh-dev DEV``. Joins the gloo world through ``D/rdzv``, serves the
+    workload arms on ``EngineCore(mesh=(1, N))`` and saves its results to
+    ``D/rank_R.pt``. The kernels are built by the parent before any rank
+    starts: a rank loads them and never runs nvcc."""
+    import torch
+    import torch.distributed as dist
+    args = dict(zip(argv[0::2], argv[1::2]))
+    rank, world = int(args["--mesh-rank"]), int(args["--mesh-world"])
+    out_dir, dev = Path(args["--mesh-dir"]), args["--mesh-dev"]
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import (
+        flash_prefill, paged_decode, paged_prefill, polar_attention,
+        polar_encode, polar_qk,
+    )
+    from repro_torch.launch.mesh import init_world, make_mesh
+    counters = (polar_encode, paged_decode, flash_prefill, paged_prefill,
+                polar_attention, polar_qk)
+    # the ranks share the host's cores with each other and the parent;
+    # their host work is the schedule, the gloo staging and the launches
+    torch.set_num_threads(1)
+    init_world(rank, world, f"file://{out_dir / 'rdzv'}", "gloo",
+               timeout_s=60)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        smoke = args["--mesh-smoke"] == "1"
+        cfg, model, params = _mesh_model(
+            torch, args["--mesh-config"], int(args["--mesh-depth"]), smoke,
+            dev)
+        work = _mesh_workload(cfg, smoke)
+        res = {}
+        for arm, kw in _mesh_arms(cfg, smoke).items():
+            r = mesh_serve(torch, model, params, counters, work[arm], dev,
+                           mesh=mesh, smoke=smoke, **kw)
+            r["logits"] = [x.cpu() for x in r["logits"]]
+            res[arm] = r
+        # the ranks' streams, events and logits, compared on every rank
+        mine = {a: (r["streams"], r["events"]) for a, r in res.items()}
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        res["ranks_agree"] = all(x == every[0] for x in every)
+        torch.save(res, out_dir / f"rank_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_world(name, depth, world, smoke, dev, out_dir: Path) -> list:
+    """Start ``world`` rank processes of this script (their output to
+    ``out_dir/rank_R.log``)."""
+    procs = []
+    for r in range(world):
+        log = open(out_dir / f"rank_{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+             str(r), "--mesh-world", str(world), "--mesh-dir", str(out_dir),
+             "--mesh-config", name, "--mesh-depth", str(depth),
+             "--mesh-smoke", str(int(smoke)), "--mesh-dev", str(dev)],
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT), log))
+    return procs
+
+
+def _join_world(torch, procs: list, out_dir: Path, deadline: float) -> list:
+    """Wait for every rank (killing the rest once one fails or the
+    deadline passes) and load their results; a failed rank fails the
+    run, its log's tail in the error."""
+    failed = []
+    for r, (p, log) in enumerate(procs):
+        try:
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        if rc != 0:
+            failed.append((r, rc))
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+    if failed:
+        tails = "\n".join(
+            f"rank {r} ({rc}):\n" + (out_dir / f"rank_{r}.log").read_text()[
+                -3000:] for r, rc in failed)
+        raise AssertionError(f"mesh ranks failed: {tails}")
+    return [torch.load(out_dir / f"rank_{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+def _mesh_op_probe(torch, dev) -> str:
+    """Which op of a head shard's decode attention differs from the same
+    heads of the whole call, at llama3.1-8b's shapes (8 slots, 8 kv heads
+    x 4 query heads, d 128, 8 pages, bf16 values; the shard: 4 kv heads,
+    planned for 8): #2's partials, the residual partials, the merge. The
+    first op that is not bit-equal, or ``none``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode as pd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    s, hkv, qh, d, n = 8, 8, 4, D128, 8
+    p, pp = d // 2, s * n + 1
+    codes, stats = _d128_stats(torch, dev, gen, pp, hkv, p)
+    vals = torch.randn((pp, hkv, G, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q4 = torch.randn((s, hkv, qh, d), generator=gen, device=dev) * d ** -0.5
+    res = torch.randn((s, hkv, G, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    table = torch.randperm(pp - 1, generator=gen, device=dev)[:s * n] \
+        .reshape(s, n).to(torch.int32)
+    lengths = torch.arange(s, device=dev, dtype=torch.int32) * 113 + 90
+    flushed = (lengths // G) * G
+    blk = slice(0, hkv // 2)
+
+    def part(x):
+        return x[:, blk].contiguous()
+
+    whole = pd.polar_paged_decode_grouped(q4, codes, *stats, vals, table,
+                                          flushed)
+    shard = pd.polar_paged_decode_grouped(
+        part(q4), part(codes), *(part(x) for x in stats), part(vals), table,
+        flushed, plan_heads=hkv)
+    ops_ = [("paged_decode partials (#2)", whole, shard)]
+    v_res = vals[table[:, 0].long()].float()
+    r_whole = ops._residual_flash_partials(q4, res, lengths - flushed, v_res)
+    r_shard = ops._residual_flash_partials(part(q4), part(res),
+                                           lengths - flushed, part(v_res))
+    ops_.append(("residual partials (einsum, amax, exp, sum, einsum)",
+                 r_whole, r_shard))
+    ops_.append(("merge_softmax_partials",
+                 ops.merge_softmax_partials([whole, r_whole]),
+                 ops.merge_softmax_partials([shard, r_shard])))
+    for name, a, b in ops_:
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        if not all(torch.equal(x[:, blk], y) for x, y in zip(a, b)):
+            return name
+    return "none"
+
+
+def phase_mesh(torch, counters, model, params, dev="cuda",
+               backend="nccl") -> dict:
+    """Head-sharded paged serving (DESIGN.md §17), three parts:
+
+    1. a ``backend`` (NCCL) world of one in this process (file rendezvous
+       in a temp directory): ``EngineCore(mesh=(1, 1))`` on ``model`` —
+       the sharded dispatch, its head gather an all-reduce inside the
+       replayed graphs — against the meshless engine, one-shot and
+       chunked + prefix cache: streams, events and every decode step's
+       logits bit-equal, the same launches;
+    2. :data:`MESH_WORLDS`' llama3.1-8b over two gloo ranks spawned from
+       here (their step eager, chosen before capture): streams equal to
+       the meshless engine's run here, decode logits bit-equal (else rel.
+       L2 1e-6 with the first differing op named), each rank's pool bytes
+       exactly half, per-rank launches equal to the meshless run's;
+    3. the smoke tinyllama over four gloo ranks, spawned with part 2: the
+       GQA fallback (2 KV heads; every rank holds the whole pools, no
+       collective in the step, graphs replayed), streams equal.
+
+    Returns the launches under the kernel rows' names: part 1's on the
+    tinyllama rows, rank 0's of part 2 on the ``[d128,mesh2]`` rows."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world, make_mesh
+    t_phase = time.monotonic()
+    total: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        tmp = Path(tmp)
+        started = []
+        for i, (name, depth, world, smoke) in enumerate(MESH_WORLDS):
+            d = tmp / f"world{i}"
+            d.mkdir()
+            started.append((name, depth, world, smoke, d,
+                            _spawn_world(name, depth, world, smoke, dev, d)))
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+        try:
+            # part 1, while the ranks come up
+            t0 = time.monotonic()
+            init_world(0, 1, f"file://{tmp / 'rdzv1'}", backend,
+                       timeout_s=60)
+            try:
+                mesh = make_mesh((1, 1), ("data", "model"))
+                assert mesh.backend("model") == backend
+                work = _mesh_workload(model.cfg, False)
+                for arm, kw in _mesh_arms(model.cfg, False).items():
+                    base = mesh_serve(torch, model, params, counters,
+                                      work[arm], dev, **kw)
+                    got = mesh_serve(torch, model, params, counters,
+                                     work[arm], dev, mesh=mesh, **kw)
+                    assert got["head_shard"] == (0, 1)
+                    assert got["graphs"] == (dev == "cuda")
+                    assert got["streams"] == base["streams"], arm
+                    assert got["events"] == base["events"], arm
+                    assert got["launches"] == base["launches"], \
+                        (arm, got["launches"], base["launches"])
+                    gate = _logit_gate(torch, got["logits"], base["logits"],
+                                       f"mesh[{backend} x1,{arm}]",
+                                       lambda: _mesh_op_probe(torch, dev))
+                    assert gate == "bit-equal", gate
+                    for k, n in encode_forms(got["launches"], decode_flushes(
+                            model.cfg, got["decode_steps"])).items():
+                        total[k] = total.get(k, 0) + n
+                    print(f"mesh[{backend} x1,{arm}]: {model.cfg.name} at "
+                          f"full width ({model.cfg.num_layers} layers), "
+                          f"{len(work[arm])} requests at t = 0, "
+                          f"{got['decode_steps']} decode steps "
+                          + ("replayed with the head gather ("
+                             f"{backend} all-reduce) inside the graphs"
+                             if got["graphs"] else "eager")
+                          + ": streams, events and every "
+                          f"step's logits {gate} to the meshless engine's; "
+                          f"decode step mean {got['step_ms']:.3f} ms "
+                          f"(meshless {base['step_ms']:.3f} ms); launches "
+                          f"{json.dumps(got['launches'])}", flush=True)
+            finally:
+                dist.destroy_process_group()
+            print(f"mesh: {backend} world of one {time.monotonic() - t0:.1f}"
+                  " s", file=sys.stderr, flush=True)
+            print(f"mesh: {backend} world of one {time.monotonic() - t0:.1f}"
+                  " s", flush=True)
+            # parts 2 and 3: the meshless references here, then the ranks
+            for name, depth, world, smoke, d, procs in started:
+                t0 = time.monotonic()
+                cfg, mmodel, mparams = _mesh_model(torch, name, depth, smoke,
+                                                   dev)
+                work = _mesh_workload(cfg, smoke)
+                base = {arm: mesh_serve(torch, mmodel, mparams, counters,
+                                        work[arm], dev, smoke=smoke, **kw)
+                        for arm, kw in _mesh_arms(cfg, smoke).items()}
+                del mparams, mmodel
+                t_ref = time.monotonic() - t0
+                ranks = _join_world(torch, procs, d, deadline)
+                split = cfg.num_kv_heads % world == 0
+                assert all(r["ranks_agree"] for r in ranks)
+                for arm, b in base.items():
+                    gates = []
+                    for r, res in enumerate(ranks):
+                        got = res[arm]
+                        assert got["streams"] == b["streams"], (name, arm, r)
+                        assert got["events"] == b["events"], (name, arm, r)
+                        assert got["launches"] == b["launches"], \
+                            (name, arm, r, got["launches"], b["launches"])
+                        if split:
+                            assert got["head_shard"] == (r, world)
+                            assert got["graphs"] is False   # gloo: eager
+                            assert got["pool_bytes"] * world == \
+                                b["pool_bytes"], (got["pool_bytes"],
+                                                  b["pool_bytes"])
+                        else:
+                            assert got["head_shard"] is None
+                            assert got["graphs"] == (dev == "cuda")
+                            assert got["pool_bytes"] == b["pool_bytes"]
+                        gates.append(_logit_gate(
+                            torch, got["logits"], b["logits"],
+                            f"mesh[gloo x{world},{name},{arm}]",
+                            lambda: _mesh_op_probe(torch, dev)))
+                    r0 = ranks[0][arm]
+                    steps = ", ".join(f"{x[arm]['step_ms']:.3f}"
+                                      for x in ranks)
+                    print(f"mesh[gloo x{world},{name},{arm}]: "
+                          f"{describe(cfg, cfg)}; "
+                          + ("KV pools split over KV heads, "
+                             f"{cfg.num_kv_heads // world} a rank, "
+                             "decode eager (gloo)" if split else
+                             f"{cfg.num_kv_heads} KV heads do not divide "
+                             f"{world}: pools replicated on every rank (the "
+                             "GQA fallback), no collective in the step, "
+                             "decode " + ("graphs replayed" if r0["graphs"]
+                                          else "eager"))
+                          + f"; {len(work[arm])} requests, every rank's "
+                          f"streams and events equal to the meshless "
+                          f"engine's and to each other's; decode logits per "
+                          f"rank: {', '.join(gates)}; pool bytes a "
+                          f"rank {r0['pool_bytes']} (meshless "
+                          f"{b['pool_bytes']}); decode step mean a rank "
+                          f"{steps} ms "
+                          f"(meshless {b['step_ms']:.3f} ms); launches a "
+                          f"rank {json.dumps(r0['launches'])}", flush=True)
+                    if split and not smoke:
+                        form = f"[d128,mesh{world}]"
+                        for k, n in r0["launches"].items():
+                            if n:
+                                row = k.split("[")[0] + form
+                                total[row] = total.get(row, 0) + n
+                print(f"mesh: gloo x{world} {name} done "
+                      f"{time.monotonic() - t_phase:.1f} s into the phase "
+                      f"(its meshless runs here {t_ref:.1f} s; its ranks "
+                      "started with the phase)", file=sys.stderr, flush=True)
+        finally:
+            for *_, procs in started:
+                for p, log in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                    log.close()
+    print(f"mesh: {time.monotonic() - t_phase:.1f} s; launches "
+          f"{json.dumps(total)}", flush=True)
+    print(f"mesh: {time.monotonic() - t_phase:.1f} s", file=sys.stderr,
+          flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 11: QoS and chaos (DESIGN.md §16) on graphed decode
 # ---------------------------------------------------------------------------
 
@@ -4945,6 +5444,8 @@ class PhaseClock:
 
 def main() -> int:
     t_start = time.monotonic()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank_main(sys.argv[1:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4991,6 +5492,7 @@ def main() -> int:
     codecs = clock.run("codecs", phase_codecs, torch, cfg, params, counters)
     qos = clock.run("qos", phase_qos, torch, model, params, counters)
     clock.run("profile", phase_profile, torch, model, params)
+    mesh = clock.run("mesh", phase_mesh, torch, counters, model, params)
     del params, model
     configs = clock.run("configs", phase_configs, torch, counters,
                         D128_CONFIGS, "configs")
@@ -4999,8 +5501,8 @@ def main() -> int:
 
     phases = {"serve": serve, "runahead": runahead, "spec": spec,
               "prefix": prefix, "static": static, "values": values,
-              "codecs": codecs, "qos": qos, "configs": configs, "moe": moe,
-              "families": families}
+              "codecs": codecs, "qos": qos, "mesh": mesh, "configs": configs,
+              "moe": moe, "families": families}
     print("launches per serving phase: " + json.dumps(phases), flush=True)
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in phases.values())

@@ -415,7 +415,9 @@ class PolarCodec(_GroupedCodec):
 
     def paged_decode(self, cache, q, page_table, *, scale):
         # page-native hot path: the kernel walks the page table and reads
-        # codes/stats/values in place — no gathered dense copy
+        # codes/stats/values in place — no gathered dense copy. A head
+        # shard plans its splits for the model's kv heads (bit-equal
+        # per head to the unsharded call)
         from repro_torch.core.kv_cache import value_buffers
         from repro_torch.kernels import ops
         cfg = cache.cfg
@@ -425,7 +427,8 @@ class PolarCodec(_GroupedCodec):
             q, cache.key_codes, sc["rho_scale"], sc["rho_zero"],
             sc["theta_scale"], sc["theta_zero"], cache.key_residual,
             values, page_table, cache.lengths, vscale=vscale, vzero=vzero,
-            r_bits=cfg.rho_bits, t_bits=cfg.theta_bits, softmax_scale=scale)
+            r_bits=cfg.rho_bits, t_bits=cfg.theta_bits, softmax_scale=scale,
+            plan_heads=cache.kv_heads)
 
     def paged_prefill(self, cache, q, k_chunk, v_chunk, page_row, start,
                       chunk_len, *, scale):

@@ -26,6 +26,11 @@ scratch page, ``S`` = slots, ``g`` = page size):
   one per (token, kv head) row; the other form is ``None``
 * ``lengths``      (S,) int32 per-slot token counts
 
+``H`` is the KV heads the cache holds. On a mesh that splits the pools
+over KV heads (``distributed/serving.py``, DESIGN.md §17) a rank's cache
+holds one block of them and says which: ``head_shard = (r, n)``, block
+``r`` of ``n``; page ids, tables and lengths are the same on every rank.
+
 Value rows for positions ``[0, len)`` live in pages (row ``pos % g`` of
 page ``table[pos // g]``); a grouped codec's key codes for ``[0,
 flushed)`` live in pages and keys of the partial group ``[flushed, len)``
@@ -71,10 +76,19 @@ class PagedKVCache:
     lengths: torch.Tensor            # (S,) int32
     cfg: QuantConfig
     layout: PagedLayout
+    #: (block, blocks) when the pools hold one contiguous block of the
+    #: model's KV heads; None when they hold every head
+    head_shard: tuple[int, int] | None = None
 
     @property
     def codec(self):
         return self.cfg.codec
+
+    @property
+    def kv_heads(self) -> int:
+        """The model's KV heads (every block's, under a head shard)."""
+        n = 1 if self.head_shard is None else self.head_shard[1]
+        return self.key_codes.shape[1] * n
 
     @property
     def grouped(self) -> bool:
@@ -83,10 +97,19 @@ class PagedKVCache:
 
 def init_paged_cache(cfg: QuantConfig, layout: PagedLayout, num_kv_heads: int,
                      head_dim: int, dtype=torch.bfloat16,
-                     device=None) -> PagedKVCache:
+                     device=None,
+                     head_shard: tuple[int, int] | None = None
+                     ) -> PagedKVCache:
     """Allocate empty page pools for ``layout`` under policy ``cfg`` on
-    ``device`` (the card unless named)."""
+    ``device`` (the card unless named). ``head_shard = (r, n)``: the pools
+    hold block ``r`` of ``n`` of the ``num_kv_heads`` heads."""
     device = resolve_device(device)
+    if head_shard is not None:
+        r, n = head_shard
+        if num_kv_heads % n or not 0 <= r < n:
+            raise ValueError(f"head block {head_shard} of {num_kv_heads} "
+                             "kv heads")
+        num_kv_heads //= n
     codec = cfg.codec
     if codec.grouped and layout.page_size != cfg.group_size:
         raise ValueError(
@@ -111,7 +134,7 @@ def init_paged_cache(cfg: QuantConfig, layout: PagedLayout, num_kv_heads: int,
         key_residual=key_residual,
         **kvc.init_values(cfg, (pp, h, g), d, dtype, device),
         lengths=torch.zeros((s,), dtype=torch.int32, device=device),
-        cfg=cfg, layout=layout)
+        cfg=cfg, layout=layout, head_shard=head_shard)
 
 
 def _state_buffers(cache: PagedKVCache) -> list[torch.Tensor]:

@@ -1,0 +1,192 @@
+"""Explicit collectives over a process mesh: softmax-stats merges and int8
+error feedback (port of ``repro/distributed/collectives.py``).
+
+JAX runs these inside ``shard_map`` over a mesh axis; here every rank
+calls them with its own block and the :class:`~repro_torch.launch.mesh.
+Mesh`, and they run ``torch.distributed`` collectives over the rank's
+line along the named axis (outside a world the line is this rank alone
+and the collectives are the identity).
+
+* **Online-softmax stats merges** for sharded attention
+  (:func:`softmax_stats`, :func:`combine_softmax_stats`,
+  :func:`merge_softmax_stats`, :func:`allgather_concat`,
+  :func:`finalize_softmax`). A shard that scored only part of a query's
+  context holds partial ``(m, l, acc)`` carries; merging rescales by
+  ``exp(m_i - max_j m_j)`` and sums. A shard with zero live positions
+  carries ``m = -inf`` (or the finite ``NEG_INF`` sentinel) and
+  contributes exactly zero, not ``exp(-inf - -inf) = NaN``.
+* **int8 error-feedback mean** (:func:`ef_allreduce_mean`): each
+  participant quantizes (grad + carried error) to int8 with its own fp32
+  scale, the dequantized contributions are summed over the axis, and the
+  quantization error is carried into the next step (EF-SGD).
+
+Gathers are all-reduce sums of zero-filled buffers in which each rank
+writes its block: exact (x + 0 = x; only the sign of a zero can change),
+and supported for CUDA tensors by both gloo and NCCL — gloo has no CUDA
+all-gather. NCCL's all-reduce can be captured in a CUDA graph.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+
+def _group(mesh, axis: str):
+    """``axis``'s process group; None (collectives are the identity) only
+    for an axis of one position."""
+    group = mesh.group(axis)
+    if group is None and mesh.shape[axis] != 1:
+        raise ValueError(f"mesh axis {axis!r} of {mesh.shape[axis]} "
+                         "positions has no process group")
+    return group
+
+
+def _all_reduce(x: torch.Tensor, mesh, axis: str,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place all-reduce of ``x`` over ``axis``'s line (the identity
+    outside a world)."""
+    group = _group(mesh, axis)
+    if group is not None:
+        dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def broadcast_host_float(value: float, mesh, axis: str) -> float:
+    """The value of the rank at coordinate 0 of ``axis``'s line, on every
+    rank of it (a float64 on the line's gloo group; the identity outside
+    a world)."""
+    group = mesh.host_group(axis)
+    if group is None:
+        return value
+    t = torch.tensor([value], dtype=torch.float64)
+    dist.broadcast(t, src=mesh.lines[axis][0], group=group)
+    return float(t[0])
+
+
+# ---------------------------------------------------------------------------
+# Online-softmax stats: per-shard partials + merge collectives
+# ---------------------------------------------------------------------------
+
+
+def softmax_stats(scores: torch.Tensor, values: torch.Tensor):
+    """Partial online-softmax carries for a block of masked scores.
+
+    scores: (..., T) with masked lanes at ``NEG_INF`` (or ``-inf``);
+    values: (..., T, d) token-major value rows. Returns ``(m, l, acc)``:
+    running max (...,), normalizer (...,) and unnormalized accumulator
+    (..., d). A fully-masked block yields ``l == 0`` / ``acc == 0``."""
+    m = torch.amax(scores, dim=-1)
+    fin = torch.isfinite(m)
+    safe_m = torch.where(fin, m, torch.zeros_like(m))
+    p = torch.where(fin[..., None], torch.exp(scores - safe_m[..., None]),
+                    torch.zeros_like(scores))
+    # finite NEG_INF sentinel: every lane NEG_INF gives p == 1 everywhere;
+    # zero the block so it carries no weight into a merge
+    dead = m <= -1e29
+    p = torch.where(dead[..., None], torch.zeros_like(p), p)
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("...t,...td->...d", p, values)
+    return m, l, acc
+
+
+def _coeff(mi: torch.Tensor, safe_m: torch.Tensor) -> torch.Tensor:
+    live = torch.isfinite(mi) & (mi > -1e29)
+    return torch.where(live, torch.exp(mi - safe_m), torch.zeros_like(mi))
+
+
+def combine_softmax_stats(a, b):
+    """Merge two partial ``(m, l, acc)`` carries over the same queries —
+    the pairwise combiner, no collective. Degenerate operands contribute
+    exactly zero."""
+    m1, l1, acc1 = a
+    m2, l2, acc2 = b
+    m = torch.maximum(m1, m2)
+    safe_m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    c1, c2 = _coeff(m1, safe_m), _coeff(m2, safe_m)
+    l = l1 * c1 + l2 * c2
+    acc = acc1 * c1[..., None] + acc2 * c2[..., None]
+    return m, l, acc
+
+
+def merge_softmax_stats(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                        mesh, axis: str):
+    """Collective merge of per-rank ``(m, l, acc)`` partials over ``axis``:
+    ``m`` all-reduced by MAX, ``l``/``acc`` rescaled by ``exp(m -
+    m_max)`` and all-reduced by SUM; a rank with zero live positions
+    contributes exactly zero."""
+    m_max = _all_reduce(m.clone(), mesh, axis, dist.ReduceOp.MAX)
+    safe_max = torch.where(torch.isfinite(m_max), m_max,
+                           torch.zeros_like(m_max))
+    c = _coeff(m, safe_max)
+    l_tot = _all_reduce(l * c, mesh, axis)
+    acc_tot = _all_reduce(acc * c[..., None], mesh, axis)
+    return m_max, l_tot, acc_tot
+
+
+def finalize_softmax(l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """``acc / l`` with the all-masked case (l == 0) mapped to 0, not NaN."""
+    return torch.where(l[..., None] > 0,
+                       acc / torch.clamp(l, min=1e-38)[..., None],
+                       torch.zeros_like(acc))
+
+
+def allgather_concat(x: torch.Tensor, mesh, axis_name: str,
+                     axis: int = -1) -> torch.Tensor:
+    """Every rank's block of ``x`` concatenated along ``axis`` in mesh
+    order — the rank at coordinate ``r`` fills ``[r * n, (r + 1) * n)`` of
+    a zero buffer and the buffers are summed (exact: see the module
+    doc)."""
+    world = mesh.shape[axis_name]
+    if _group(mesh, axis_name) is None:
+        return x
+    axis = axis % x.ndim
+    n = x.shape[axis]
+    shape = list(x.shape)
+    shape[axis] = n * world
+    out = x.new_zeros(shape)
+    out.narrow(axis, mesh.axis_index(axis_name) * n, n).copy_(x)
+    return _all_reduce(out, mesh, axis_name)
+
+
+# ---------------------------------------------------------------------------
+# int8 error feedback
+# ---------------------------------------------------------------------------
+
+
+def ef_quantize(g: torch.Tensor, err: torch.Tensor):
+    """One participant's half of ``repro/distributed/collectives.py::
+    _ef_leaf``: (its dequantized int8 contribution, its new error), both
+    fp32."""
+    x = g.float() + err
+    amax = torch.amax(torch.abs(x))
+    scale = torch.clamp(amax / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    contrib = q.float() * scale
+    return contrib, x - contrib
+
+
+def _tree_map2(fn, a, b):
+    if isinstance(a, dict):
+        keys = list(a)
+        outs = [_tree_map2(fn, a[k], b[k]) for k in keys]
+        return ({k: o[0] for k, o in zip(keys, outs)},
+                {k: o[1] for k, o in zip(keys, outs)})
+    if isinstance(a, (list, tuple)):
+        outs = [_tree_map2(fn, x, y) for x, y in zip(a, b, strict=True)]
+        return (type(a)(o[0] for o in outs), type(a)(o[1] for o in outs))
+    return fn(a, b)
+
+
+def ef_allreduce_mean(grads: Any, errors: Any, mesh, axis: str = "dp"):
+    """Error-feedback int8 mean over ``axis``: ``grads`` / ``errors`` are
+    this rank's trees (dicts, lists or tuples of tensors). Returns
+    (mean grads, this rank's new errors): the mean of every participant's
+    dequantized contribution, on every rank."""
+    n = mesh.shape[axis]
+
+    def leaf(g, e):
+        contrib, new_err = ef_quantize(g, e)
+        return _all_reduce(contrib, mesh, axis) / n, new_err
+    return _tree_map2(leaf, grads, errors)

@@ -62,12 +62,15 @@ def polar_decode_attention_grouped(q, codes, rs, rz, ts, tz, values, length,
 
 def polar_paged_decode_attention_grouped(q, codes, rs, rz, ts, tz, values,
                                          page_table, flushed, *, vscale=None,
-                                         vzero=None, r_bits=4, t_bits=4):
+                                         vzero=None, r_bits=4, t_bits=4,
+                                         plan_heads=None):
     """Page-native fused flash decode over the grouped segment: pool
-    buffers + page table in, flash partials out (no dense gather copy)."""
+    buffers + page table in, flash partials out (no dense gather copy).
+    ``plan_heads``: the kv heads the split plan is made for (a head
+    shard's call passes the model's)."""
     return pd_mod.polar_paged_decode_grouped(
         q, codes, rs, rz, ts, tz, values, page_table, flushed, vscale=vscale,
-        vzero=vzero, r_bits=r_bits, t_bits=t_bits)
+        vzero=vzero, r_bits=r_bits, t_bits=t_bits, plan_heads=plan_heads)
 
 
 def flash_prefill(q, k, v, *, mode="causal", window=0, prefix_len=None,
@@ -189,7 +192,8 @@ def polar_decode_attention_full(q, codes, rs, rz, ts, tz, key_residual,
 
 def polar_paged_decode_attention_full(
         q, codes, rs, rz, ts, tz, key_residual, values, page_table, lengths,
-        *, vscale=None, vzero=None, r_bits=4, t_bits=4, softmax_scale=None):
+        *, vscale=None, vzero=None, r_bits=4, t_bits=4, softmax_scale=None,
+        plan_heads=None):
     """End-to-end page-native decode attention: flushed pages through the
     page-walking kernel + the fp residual segment, merged exactly.
 
@@ -197,6 +201,7 @@ def polar_paged_decode_attention_full(
     key_residual (S, Hkv, g, d); page_table (S, N) int32 (N may be
     width-sliced to the live pages); lengths (S,) int32. The residual's
     value rows live in the page being filled (``table[s, flushed // g]``).
+    ``plan_heads`` as in :func:`polar_paged_decode_attention_grouped`.
     Returns (S, Hq, d) in q.dtype."""
     s, hq, d = q.shape
     hkv = codes.shape[1]
@@ -209,7 +214,8 @@ def polar_paged_decode_attention_full(
 
     acc_g, m_g, l_g = polar_paged_decode_attention_grouped(
         q4, codes, rs, rz, ts, tz, values, page_table, flushed,
-        vscale=vscale, vzero=vzero, r_bits=r_bits, t_bits=t_bits)
+        vscale=vscale, vzero=vzero, r_bits=r_bits, t_bits=t_bits,
+        plan_heads=plan_heads)
 
     # residual V rows sit in the page being filled; empty slots clamp to
     # table entry 0 (possibly scratch) and every row is masked below

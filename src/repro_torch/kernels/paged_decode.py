@@ -86,9 +86,12 @@ def _bind(lib) -> None:
 def polar_paged_decode_grouped_plain(q, codes, rs, rz, ts, tz, values,
                                      page_table, flushed, *, vscale=None,
                                      vzero=None, r_bits: int = 4,
-                                     t_bits: int = 4):
+                                     t_bits: int = 4,
+                                     plan_heads: int | None = None):
     """Plain version: gather the table's pages, LUT scores, masked softmax
-    partials (``ref.ref_polar_paged_decode_attention``)."""
+    partials (``ref.ref_polar_paged_decode_attention``). It walks no
+    splits, so ``plan_heads`` changes nothing; it is taken so that the
+    plain version can stand in for the kernel's wrapper."""
     return ref_mod.ref_polar_paged_decode_attention(
         q, codes, rs, rz, ts, tz, values, page_table, flushed,
         r_bits=r_bits, t_bits=t_bits, vscale=vscale, vzero=vzero)
@@ -99,7 +102,8 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
                                ts: torch.Tensor, tz: torch.Tensor,
                                values: torch.Tensor, page_table: torch.Tensor,
                                flushed: torch.Tensor, *, vscale=None,
-                               vzero=None, r_bits: int = 4, t_bits: int = 4):
+                               vzero=None, r_bits: int = 4, t_bits: int = 4,
+                               plan_heads: int | None = None):
     """Fused flash decode over the grouped segment, straight off the pools.
 
     q (S, Hkv, Qh, d) fp32, ALREADY scaled; codes (PP, Hkv, g, P) uint8;
@@ -107,7 +111,10 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
     uint8 codes with fp32 vscale/vzero (PP, Hkv, g, 1); page_table (S, N) int32 (may be a width slice of a wider table);
     flushed (S,) int32. Returns (acc (S,Hkv,Qh,d), m (S,Hkv,Qh),
     l (S,Hkv,Qh)) fp32. The kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors. ``plan_heads``: plan the splits as for that many kv
+    heads — a head shard's call passes the model's count, so its splits,
+    and the order its partials merge in, are those of the unsharded call
+    (default: Hkv)."""
     global launches, launches_u8, launches_split
     tensors = (q, codes, rs, rz, ts, tz, values, page_table, flushed)
     quant = tuple(x for x in (vscale, vzero) if x is not None)
@@ -137,7 +144,7 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
     acc = torch.empty((s, hkv, qh, d), dtype=torch.float32, device=q.device)
     m = torch.empty((s, hkv, qh), dtype=torch.float32, device=q.device)
     l = torch.empty((s, hkv, qh), dtype=torch.float32, device=q.device)
-    nsplit = plan_splits(s, hkv, n)
+    nsplit = plan_splits(s, plan_heads or hkv, n)
     # the splits' (acc, m, l) partials, merged on the device
     part = torch.empty(nsplit * s * hkv * qh * (d + 2), dtype=torch.float32,
                        device=q.device) if nsplit > 1 else None

@@ -45,7 +45,11 @@ paged and forward encoder-decoder entries of
   kernel with the span folded onto the query-head axis, plus the flush
   emulation's encode); the projections run per span column.
 
-Blocks call ``paged_cache`` directly; this slice has no mesh dispatch.
+The three paged attention sites (whole-prompt and chunk prefill, decode)
+go through ``distributed/serving.py``'s dispatch, as JAX's do: when the
+engine installed a mesh and the cache is one rank's head shard, the rank
+writes its block of the step's k/v, attends over its head block and
+gathers the heads before ``wo``; otherwise the plain calls run.
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_cache as kvc
 from repro_torch.core import paged_cache as pgc
 from repro_torch.core.cache_layout import LinearLayout, RingLayout
+from repro_torch.distributed import serving as dsrv
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.utils import torch_dtype
@@ -200,8 +205,10 @@ def attention_prefill_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
     q = L.apply_rope(q, positions, cfg.rope_base, cfg.rope_ntk_scale)
     k = L.apply_rope(k, positions, cfg.rope_base, cfg.rope_ntk_scale)
     v = v.contiguous()
-    cache = pgc.paged_prefill(cache, slot, page_row, k, v, true_len)
-    out = ops.flash_prefill(q, k, v)
+    cache = pgc.paged_prefill(cache, slot, page_row,
+                              dsrv.local_heads(cache, k),
+                              dsrv.local_heads(cache, v), true_len)
+    out = dsrv.dispatch_flash_prefill(cache, q, k, v)
     return L.linear(L.merge_heads(out), params["wo"]), cache
 
 
@@ -220,11 +227,13 @@ def attention_prefill_chunk(params: dict, x: torch.Tensor, cfg: ModelConfig,
     q = L.apply_rope(q, positions, cfg.rope_base, cfg.rope_ntk_scale)
     k = L.apply_rope(k, positions, cfg.rope_base, cfg.rope_ntk_scale)
     v = v.contiguous()
-    cache = pgc.paged_prefill(cache, slot, page_row, k, v, chunk_len,
+    cache = pgc.paged_prefill(cache, slot, page_row,
+                              dsrv.local_heads(cache, k),
+                              dsrv.local_heads(cache, v), chunk_len,
                               start=start)
-    out = pgc.paged_prefill_attention(cache, q, k, v, page_row, start,
-                                      chunk_len,
-                                      backend=cfg.prefill_backend)
+    out = dsrv.dispatch_paged_prefill_attention(
+        cache, q, k, v, page_row, start, chunk_len,
+        backend=cfg.prefill_backend)
     return L.linear(L.merge_heads(out), params["wo"]), cache
 
 
@@ -244,9 +253,10 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
     pos = cache.lengths[:, None]                          # (S, 1)
     q = L.apply_rope(q, pos, cfg.rope_base, cfg.rope_ntk_scale)
     k = L.apply_rope(k, pos, cfg.rope_base, cfg.rope_ntk_scale)
-    cache = pgc.paged_append(cache, k, v, page_table, active)
-    out = pgc.paged_decode_attention(cache, q[:, :, 0], page_table,
-                                     backend=cfg.decode_backend)
+    cache = pgc.paged_append(cache, dsrv.local_heads(cache, k),
+                             dsrv.local_heads(cache, v), page_table, active)
+    out = dsrv.dispatch_paged_decode_attention(cache, q[:, :, 0], page_table,
+                                               backend=cfg.decode_backend)
     y = L.linear(out.reshape(s, 1, -1), params["wo"])
     if return_kv:
         return y, cache, (k, v)

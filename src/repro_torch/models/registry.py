@@ -17,7 +17,8 @@ The paged entries below are None for the VLM, hybrid, encoder-decoder
 and SSM families, which JAX serves on the static engine only (the VLM
 and encoder-decoder prefills need their frontends; the paged attention
 has no sliding-window mask; the SSM has no KV cache):
-  init_paged_state(layout, device) -> list of per-layer PagedKVCaches
+  init_paged_state(layout, device, head_shard=None) -> list of per-layer
+      PagedKVCaches (``head_shard = (r, n)``: block r of n of the KV heads)
   prefill_paged(params, tokens (1,Tp), state, slot, page_row, true_len)
   prefill_paged_chunk(params, tokens (1,Tc), state, slot, page_row, start,
                       chunk_len)
@@ -116,8 +117,8 @@ def get_model(cfg: ModelConfig) -> Model:
         return Model(**static)
     return Model(
         **static,
-        init_paged_state=lambda layout, device: TF.init_paged_caches(
-            cfg, layout, device),
+        init_paged_state=lambda layout, device, head_shard=None:
+            TF.init_paged_caches(cfg, layout, device, head_shard),
         prefill_paged=lambda p, toks, s, slot, row, tl:
             TF.prefill_paged_fn(p, toks, cfg, s, slot, row, tl),
         prefill_paged_chunk=lambda p, toks, s, slot, row, start, cl:

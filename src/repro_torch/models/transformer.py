@@ -126,12 +126,16 @@ def decode_fn(params: dict, caches: list, token: torch.Tensor,
     return logits[:, 0], caches
 
 
-def init_paged_caches(cfg: ModelConfig, layout, device) -> list:
+def init_paged_caches(cfg: ModelConfig, layout, device,
+                      head_shard: Optional[tuple[int, int]] = None) -> list:
     """One paged cache per layer under its layer's ``cfg.policy`` config,
-    all sharing one page-table numbering."""
+    all sharing one page-table numbering. ``head_shard = (r, n)``: each
+    pool holds block ``r`` of ``n`` of the KV heads (a rank of a mesh that
+    splits the pools over KV heads, ``distributed/serving.py``)."""
     return [pgc.init_paged_cache(cfg.policy.layer_config(i), layout,
                                  cfg.num_kv_heads, cfg.head_dim,
-                                 dtype=torch_dtype(cfg.dtype), device=device)
+                                 dtype=torch_dtype(cfg.dtype), device=device,
+                                 head_shard=head_shard)
             for i in range(cfg.num_layers)]
 
 

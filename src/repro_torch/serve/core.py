@@ -46,11 +46,21 @@ degradation controller caps speculation and the prefill budget under
 pool pressure (:mod:`repro_torch.serve.qos`). ``chaos=`` takes a fault
 injector (:mod:`repro_torch.serve.chaos`, duck-typed here) asked once
 per scheduling cycle for faults, applied through the production paths.
-Both default to None, and run-ahead stays off under either. The mesh
-comes in a later slice.
+Both default to None, and run-ahead stays off under either.
+
+With ``mesh=`` (a :class:`~repro_torch.launch.mesh.Mesh` of shape (1, n)
+over ``("data", "model")``, DESIGN.md §17) the engine is one of n
+processes that serve together: every rank holds the params whole, runs
+the same host schedule and holds the same page ids, its page pools hold
+one block of the KV heads, and the paged attention runs per head block
+with the heads gathered over the ``model`` axis
+(``distributed/serving.py``). Every input of a scheduling decision agrees
+across ranks: the clock advances by rank 0's measured time. A step whose
+collectives cannot be captured in a CUDA graph (gloo's) runs eagerly.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Iterator, Optional
@@ -60,6 +70,11 @@ import torch
 
 from repro_torch.core import paged_cache as pgc
 from repro_torch.core.cache_layout import PagedLayout, PrefixIndex
+from repro_torch.distributed import ctx as dctx
+from repro_torch.distributed import serving as dsrv
+from repro_torch.distributed.collectives import broadcast_host_float
+from repro_torch.distributed.sharding import serving_rules
+from repro_torch.launch.mesh import data_axes
 from repro_torch.models import moe
 from repro_torch.models import transformer as TF
 from repro_torch.models.registry import Model
@@ -94,6 +109,23 @@ def _sample(logits: torch.Tensor, gen: GenerationConfig,
     ``generator``."""
     return TF.sample_tokens(logits, gen.temperature, gen.top_k, generator,
                             noise)
+
+
+def _check_mesh(mesh, runahead: int, spec) -> None:
+    """The meshes and options the head-sharded engine takes: (1, n) over
+    a ``model`` axis, no run-ahead, no speculation (ROADMAP queue 1)."""
+    if dsrv.MODEL_AXIS not in mesh.shape:
+        raise ValueError(f"mesh {mesh.shape} has no {dsrv.MODEL_AXIS!r} axis")
+    dp = [a for a in data_axes(mesh) if mesh.shape[a] > 1]
+    if dp:
+        raise ValueError(f"mesh {mesh.shape}: a data axis > 1 in the paged "
+                         "engine is not ported (ROADMAP queue 1)")
+    if int(runahead) > 1:
+        raise ValueError("runahead > 1 under a mesh is not ported (ROADMAP "
+                         "queue 1)")
+    if spec is not None and spec.mode != "off":
+        raise ValueError("speculative decode under a mesh is not ported "
+                         "(ROADMAP queue 1)")
 
 
 def _sync(device: torch.device) -> None:
@@ -270,20 +302,43 @@ class EngineCore:
     width for the verify, bound to this engine's state), on the CPU the
     same calls eagerly.
     The device state is allocated once: :meth:`reset` zeroes it in place,
-    so the graphs survive across sessions."""
+    so the graphs survive across sessions.
+
+    ``mesh`` (DESIGN.md §17): this process's view of a (1, n) mesh over
+    ``("data", "model")``, under the rules of
+    :func:`~repro_torch.distributed.sharding.serving_rules`. Where they map
+    ``kv_heads`` to the model axis (n divides the KV heads), the page
+    pools hold this rank's head block and the paged attention runs per
+    shard; otherwise every rank holds the whole pools and runs the plain
+    path. A data axis > 1, ``runahead > 1`` and ``spec`` raise: ROADMAP
+    queue 1 lists them as not ported. ``result()["graphs"]`` says whether
+    decode dispatches replay CUDA graphs."""
 
     def __init__(self, model: Model, params: dict, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
                  prefix_cache: bool = False, prefill_chunk: int = 0,
                  prefill_budget: int = 0, runahead: int = 0,
                  spec: Optional[SpecConfig] = None,
-                 qos: Optional[QosConfig] = None, chaos=None, device=None):
+                 qos: Optional[QosConfig] = None, chaos=None, device=None,
+                 mesh=None):
         if model.decode_paged is None:
             raise ValueError(
                 f"family {model.cfg.family!r} has no paged decode path")
         self.model = model
         self.params = params
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # a mesh gets the serving rule set: heads and the KV page pools
+        # over "model" where divisible
+        self.rules = None
+        if mesh is not None:
+            _check_mesh(mesh, runahead, spec)
+            self.rules = serving_rules(model.cfg, mesh, max_slots)
+        axis = self.rules.get("kv_heads") if self.rules else None
+        #: this rank's (head block, blocks) of the KV heads, or None when
+        #: the pools hold every head
+        self.head_shard = (dsrv.head_block(mesh, axis)
+                           if isinstance(axis, str) else None)
         # chunk prefill width-slices the slot's table row only on the
         # page-native backend (its read volume then follows the live
         # prefix); "jnp" gathers the full row, as JAX's does
@@ -339,10 +394,15 @@ class EngineCore:
         self.chaos = chaos
         # the session state and generator live as long as the engine: the
         # decode graphs bind their addresses
-        self.state = self.model.init_paged_state(self.layout, self.device)
+        self.state = self.model.init_paged_state(self.layout, self.device,
+                                                 self.head_shard)
         self._generator = torch.Generator(device=self.device)
+        # a head-sharded step gathers over the model axis: decided here,
+        # before any capture, whether its collectives can be captured
+        capturable = self.head_shard is None or mesh.capturable(axis)
         self._graphs = DecodeGraphs(model, params, self.state,
-                                    self._generator, verifier)
+                                    self._generator, verifier,
+                                    capturable=capturable)
         self.reset()
 
     # --- session lifecycle ------------------------------------------------
@@ -571,7 +631,12 @@ class EngineCore:
         session's) against the session state, every lane inactive
         (nothing to capture on the CPU)."""
         gen = gen if gen is not None else self.gen
-        state = self.model.init_paged_state(self.layout, self.device)
+        with self._ctx():
+            self._warmup(prompt_lens, gen)
+
+    def _warmup(self, prompt_lens: list[int], gen: GenerationConfig) -> None:
+        state = self.model.init_paged_state(self.layout, self.device,
+                                            self.head_shard)
         rng = torch.Generator(device=self.device)
         rng.manual_seed(0)
         row = self._table()[0]
@@ -615,7 +680,27 @@ class EngineCore:
         Idle with scheduled arrivals jumps the clock; idle with no work
         returns ``[]``. Intake events (QoS rejects) come first."""
         intake = self.take_intake_events()
-        return intake + self._step() if intake else self._step()
+        with self._ctx():
+            events = self._step()
+        return intake + events if intake else events
+
+    def _ctx(self):
+        """The sharding context of this engine's dispatches (none without
+        a mesh)."""
+        if self.rules is not None:
+            return dctx.use_sharding(self.mesh, self.rules)
+        return contextlib.nullcontext()
+
+    def _tick(self, t0: float) -> float:
+        """Advance the clock by the wall time since ``t0`` and return the
+        advance; under a mesh by rank 0's measurement, so that every
+        rank's scheduling decisions (arrivals, QoS budgets, deadlines)
+        read one clock and the ranks issue matching collectives."""
+        dt = time.monotonic() - t0
+        if self.mesh is not None:
+            dt = broadcast_host_float(dt, self.mesh, dsrv.MODEL_AXIS)
+        self.clock += dt
+        return dt
 
     def _step(self) -> list[TokenEvent]:
         if self._inflight is not None:
@@ -782,8 +867,7 @@ class EngineCore:
         # the host fetch waits for the device: the clock counts its time
         tok = _sample(logits, self.gen, self._generator)
         tok0 = int(tok.cpu()[0])  # sync: classic prefill's first token
-        dt = time.monotonic() - t0
-        self.clock += dt
+        dt = self._tick(t0)
         self._prefill_times.append(dt)
         if self._prefill_rate is not None:
             self._prefill_rate.observe(tl, dt)
@@ -821,8 +905,7 @@ class EngineCore:
             # fetch waits for the device
             tok = _sample(logits, self.gen, self._generator)
             tok0 = int(tok.cpu()[0])  # sync: final chunk's first token
-            dt = time.monotonic() - t0
-            self.clock += dt
+            dt = self._tick(t0)
             self._prefill_times.append(dt)
             if self._prefill_rate is not None:
                 self._prefill_rate.observe(clen, dt)
@@ -830,8 +913,7 @@ class EngineCore:
             self.sched.register_prefix(slot)
             return self._take_first_token(slot, tok0, tl)
         _sync(self.device)   # honest clock
-        dt = time.monotonic() - t0
-        self.clock += dt
+        dt = self._tick(t0)
         self._prefill_times.append(dt)
         if self._prefill_rate is not None:
             self._prefill_rate.observe(clen, dt)
@@ -889,7 +971,7 @@ class EngineCore:
             # proposer runs real forwards and must not get them for free
             t0 = time.monotonic()
             drafts = self._propose_drafts()
-            self.clock += time.monotonic() - t0
+            self._tick(t0)
             spans = {sl: 1 + len(d) for sl, d in drafts.items()}
         stalled = set(sched.ensure_pages(self._lengths,
                                          skip=self._prefilling.keys(),
@@ -982,8 +1064,7 @@ class EngineCore:
                                    tok, sched.alloc.table()[:, :w], mask)
         # one host fetch per step; it waits for the device
         toks = nxt.cpu().numpy()  # sync: one-token step's token fetch
-        step_s = time.monotonic() - t0
-        self.clock += step_s
+        step_s = self._tick(t0)
         self.decode_steps += 1
         self._step_times.append(step_s)
         self._util.append(sched.utilization())
@@ -1303,8 +1384,7 @@ class EngineCore:
         # waits for the device
         out = torch.cat([preds, n_acc[:, None]], 1).cpu().numpy()  # sync: verify
         preds, n_acc = out[:, :q], out[:, q]
-        step_s = time.monotonic() - t0
-        self.clock += step_s
+        step_s = self._tick(t0)
         self.decode_steps += 1
         self.spec_steps += 1
         self.spec_q_hist[q] = self.spec_q_hist.get(q, 0) + 1
@@ -1406,6 +1486,8 @@ class EngineCore:
             "n_rejected": len(self.rejected),
             "decode_graphs": len(self._graphs) if self._graphs is not None
             else 0,
+            "graphs": not self._graphs.eager,
+            "head_shard": self.head_shard,
             "proposer_faults": self.proposer_faults,
         }
         if self.qos is not None:

@@ -56,19 +56,24 @@ class ContinuousBatchingEngine:
 
     On the card each decode dispatch (one-token step, horizon or verify)
     is a replayed CUDA graph, one per page-table width (and span width);
-    :meth:`warmup` captures them up front."""
+    :meth:`warmup` captures them up front.
+
+    **Mesh** (``mesh=``, DESIGN.md §17): one of the processes
+    of a (1, n) mesh; its page pools hold its block of the KV heads and
+    the paged attention runs per head block (see
+    :class:`~repro_torch.serve.core.EngineCore`)."""
 
     def __init__(self, model, params, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
                  prefix_cache: bool = False, prefill_chunk: int = 0,
                  prefill_budget: int = 0, runahead: int = 0, spec=None,
-                 qos=None, chaos=None, device=None):
+                 qos=None, chaos=None, device=None, mesh=None):
         self.core = EngineCore(
             model, params, max_slots=max_slots, max_len=max_len,
             num_pages=num_pages, prefix_cache=prefix_cache,
             prefill_chunk=prefill_chunk, prefill_budget=prefill_budget,
             runahead=runahead, spec=spec, qos=qos, chaos=chaos,
-            device=device)
+            device=device, mesh=mesh)
 
     @property
     def prefill_chunk(self) -> int:

@@ -54,7 +54,11 @@ eagerly and captures nothing.
   the eager draws would.
 
 Nothing here falls back to eager execution on the card: a capture or
-replay that fails raises.
+replay that fails raises. The one eager route on the card is chosen up
+front, before any capture: a step that runs collectives a CUDA graph
+cannot capture (a gloo group's, which stage CUDA tensors through the
+host) is built with ``capturable=False`` and runs eagerly. NCCL
+collectives are captured with the rest of the step.
 """
 from __future__ import annotations
 
@@ -117,10 +121,13 @@ class DecodeGraphs:
     ``state`` (the per-layer paged caches), ``params`` and ``generator``
     are bound by address: the caller keeps them alive and updates them in
     place, never rebinding a buffer. ``verifier`` (``spec.make_verifier``)
-    is the speculative verify a ``"verify"`` key captures."""
+    is the speculative verify a ``"verify"`` key captures.
+    ``capturable=False``: the step's collectives cannot be captured, so
+    every dispatch runs eagerly on the card too."""
 
     def __init__(self, model, params: dict, state: list,
-                 generator: torch.Generator, verifier=None):
+                 generator: torch.Generator, verifier=None,
+                 capturable: bool = True):
         self.model = model
         self.params = params
         self.state = state
@@ -131,8 +138,9 @@ class DecodeGraphs:
         self.slots = lengths.shape[0]
         self.scratch = state[0].layout.scratch_page
         #: run every dispatch eagerly and capture nothing: the CPU's route
-        #: (a CUDA graph needs the card)
-        self.eager = self.device.type != "cuda"
+        #: (a CUDA graph needs the card), and that of a step whose
+        #: collectives cannot be captured
+        self.eager = self.device.type != "cuda" or not capturable
         if not self.eager:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)

@@ -1769,3 +1769,97 @@ def test_flash_prefill_full_mode_cross_shapes_match_plain(dev, tq, tk,
         fpk.flash_prefill(q, k, v, mode="causal")   # not a full launch
         assert fpk.launches == n + 2
     assert fpk.launches_full == nf + 1
+
+
+def _mesh_cache(dev, hkv=8, d=128, slots=8, g=128, n=8, seed=41):
+    """A polar paged cache on the card (bf16 values) filled by chunked
+    prefills of random keys over a permuted table: slot lengths 0 ... n*g,
+    ragged, the open groups in the residual. Returns (cache, table)."""
+    from repro_torch.core import paged_cache as pgc
+    from repro_torch.core.cache_layout import PagedLayout
+    from repro_torch.core.quantizers import QuantConfig
+    gen = _gen(dev, seed)
+    lay = PagedLayout(page_size=g, num_pages=slots * n, slots=slots,
+                      pages_per_slot=n)
+    cache = pgc.init_paged_cache(QuantConfig(group_size=g), lay, hkv, d,
+                                 dtype=torch.bfloat16, device=dev)
+    perm = torch.randperm(lay.num_pages, generator=gen, device=dev)
+    table = perm.reshape(slots, n).to(torch.int32)
+    for sl in range(slots):
+        tl = (sl * 131 + 77) % (n * g - 1) + 1
+        tp = -(-tl // g) * g
+        k, v = (torch.randn((1, hkv, tp, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        pgc.paged_prefill(cache, sl, table[sl], k, v, tl)
+    return cache, table
+
+
+def _rank_view(n: int, r: int):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh({"data": 1, "model": n}, {"data": 0, "model": r},
+                {"data": [r], "model": list(range(n))})
+
+
+def test_sharded_dispatch_at_world_one_is_bit_equal(dev, tmp_path):
+    """An NCCL world of one: the head-sharded decode (#2) and chunk
+    prefill (#4) — one head block, the gather an NCCL all-reduce — equal
+    the unsharded calls bit for bit, and launch the kernels."""
+    import torch.distributed as dist
+    from repro_torch.core import paged_cache as pgc
+    from repro_torch.distributed import serving as dsrv
+    from repro_torch.launch.mesh import init_world, make_mesh
+    cache, table = _mesh_cache(dev)
+    gen = _gen(dev, 42)
+    q = torch.randn((8, 32, 128), generator=gen, device=dev).to(torch.bfloat16)
+    qc = torch.randn((1, 32, 256, 128), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kc, vc = (torch.randn((1, 8, 256, 128), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    row, start, clen = table[3, :4], 256, 200
+    init_world(0, 1, f"file://{tmp_path / 'rdzv'}", "nccl")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        shard = dsrv.shard_paged_state(cache, mesh)
+        n_dec, n_pre = pdk.launches, ppk.launches
+        got = dsrv.sharded_paged_decode_attention(shard, q, table, mesh=mesh)
+        got_pre = dsrv.sharded_paged_prefill_attention(
+            shard, qc, kc, vc, row, start, clen, mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert pdk.launches == n_dec + 1 and ppk.launches == n_pre + 1
+    assert torch.equal(got, pgc.paged_decode_attention(cache, q, table))
+    assert torch.equal(got_pre, pgc.paged_prefill_attention(
+        cache, qc, kc, vc, row, start, clen))
+
+
+def test_head_block_decode_plans_globally_and_is_bit_equal(dev):
+    """#2 on one of two head blocks (4 of 8 kv heads, 8 slots x 8 pages):
+    its own heads would plan 8 splits, the model's plan 4; with the
+    global plan every block's output is bit-equal to the same heads of
+    the whole call, through the kernel and through the cache's dispatch."""
+    from repro_torch.core import paged_cache as pgc
+    from repro_torch.distributed import serving as dsrv
+    assert pdk.plan_splits(8, 8, 8) == 4 and pdk.plan_splits(8, 4, 8) == 8
+    cache, table = _mesh_cache(dev)
+    gen = _gen(dev, 43)
+    q = torch.randn((8, 32, 128), generator=gen, device=dev).to(torch.bfloat16)
+    whole = pgc.paged_decode_attention(cache, q, table)
+    sc = cache.key_scales
+    stats = [sc[k] for k in ("rho_scale", "rho_zero", "theta_scale",
+                             "theta_zero")]
+    q4 = (q.float() * 128 ** -0.5).reshape(8, 8, 4, 128)
+    flushed = (cache.lengths // 128) * 128
+    parts = pdk.polar_paged_decode_grouped(q4, cache.key_codes, *stats,
+                                           cache.value_fp, table, flushed)
+    for r in range(2):
+        shard = dsrv.shard_paged_state(cache, _rank_view(2, r))
+        blk = slice(4 * r, 4 * r + 4)
+        got = pgc.paged_decode_attention(shard, q[:, 16 * r:16 * r + 16],
+                                         table)
+        assert torch.equal(got, whole[:, 16 * r:16 * r + 16])
+        sstats = [x[:, blk].contiguous() for x in stats]
+        sparts = pdk.polar_paged_decode_grouped(
+            q4[:, blk].contiguous(), shard.key_codes, *sstats,
+            shard.value_fp, table, flushed, plan_heads=8)
+        assert all(torch.equal(a[:, blk], b) for a, b in zip(parts, sparts))
