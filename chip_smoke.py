@@ -215,15 +215,38 @@ run):
               launch, the decode state's bytes exactly, and the duality
               gate (prefill T + 16 steps against prefill T + 16) in fp32
               and in bf16.
+15. train   — the training path: #3 with its log-sum-exp output at
+              tinyllama-1.1b's training shape (8 x 32 / 4 heads x 512 x
+              d 64, causal, bf16; ``out`` within 2^-7 of the plain
+              version and bit-equal to the launch without ``lse``, ``lse``
+              within 1e-3; timed beside the plain version and SDPA: the
+              ``flash_prefill[lse]`` row); ``flash_attention``'s dq / dk
+              / dv (the kernel's forward, the ported backward) against
+              autograd through ``reference_attention`` in the causal,
+              prefix, local and full (Tq != Tk) modes (rel. L2 1e-3 fp32,
+              2e-2 bf16); then tinyllama-1.1b whole at full width through
+              ``make_train_step`` (fp32 masters, bf16 compute, 8 x 512,
+              block remat, 40 steps on the synthetic stream): the loss
+              falls by more than 0.05 (mean of the first 5 steps to the
+              last 5), the first step within 1e-3 (loss) and 2e-2
+              (grad_norm) of a plain run's, exactly 2 x 22 #3 launches a
+              step, step ms, tokens/s, peak memory and the share of a
+              step in the ported flash backward (CUDA events); the five
+              other families at smoke width (fp32, 40 steps: the loss
+              falls, step 1 within 1e-4 of plain); and
+              ``python -m repro_torch.launch.train --smoke --steps 12``
+              in a subprocess, its checkpoint resumed here to step 16.
 
 Each phase's end and seconds go to stderr as it ends; then a line of
 seconds per phase, one JSON line of per-kernel numbers (launches summed
-over the eleven serving phases; the uint8 forms on rows of their own,
-encode's decode form — a decode step's flush — and its fixed-angle-grid
-form on rows of their own, the head_dim-128 forms on theirs, counted in
-the configs and moe phases, the head_dim-256 and head_dim-64 forms on
-theirs, counted in the families phase), and last the device JSON. Any failure
-raises (non-zero exit). Without a CUDA device, or outside a checkout of
+over the serving phases and the train phase; the uint8 forms on rows of
+their own, encode's decode form — a decode step's flush — and its
+fixed-angle-grid form on rows of their own, the head_dim-128 forms on
+theirs, counted in the configs and moe phases, the head_dim-256 and
+head_dim-64 forms on theirs, counted in the families phase, #3's
+training form with the log-sum-exp on ``flash_prefill[lse]``, counted in
+the train phase), and last the device JSON. Any failure raises
+(non-zero exit). Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --variants`` runs only the env phase and then
@@ -400,12 +423,14 @@ def read_counts(counters) -> dict:
     the launches on fp value rows (every launch of a kernel without value
     rows), ``name[u8]`` those on uint8 value rows; the encode's launches
     on the fixed angle grid count as ``polar_encode[fixed]``, flash
-    prefill's in mode ``full`` as ``flash_prefill[full]``."""
+    prefill's serving launches in mode ``full`` as ``flash_prefill[full]``
+    and its training launches (with the log-sum-exp) as
+    ``flash_prefill[lse]``."""
     out = {}
     for mod in counters:
         name = mod.__name__.rsplit(".", 1)[1]
         forms = {f: getattr(mod, f"launches_{f}", None)
-                 for f in ("u8", "fixed", "full")}
+                 for f in ("u8", "fixed", "full", "lse")}
         out[name] = mod.launches - sum(n or 0 for n in forms.values())
         for f, n in forms.items():
             if n is not None:
@@ -4645,6 +4670,304 @@ def phase_families(torch, counters, dev="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the training path
+# ---------------------------------------------------------------------------
+
+#: the full-width training run: tinyllama-1.1b, 8 rows x 512 tokens (+1),
+#: fp32 masters and bf16 compute, block remat, the head's loss in chunks of
+#: 512, TRAIN_STEPS steps on the synthetic stream
+TRAIN_CONFIG, TRAIN_B, TRAIN_T, TRAIN_STEPS = "tinyllama-1.1b", 8, 512, 40
+TRAIN_STEP_CFG = dict(peak_lr=3e-4, warmup_steps=5, total_steps=TRAIN_STEPS,
+                      remat="block", ce_chunk=512)
+#: the other five families at their smoke reductions (head_dim 32, fp32)
+TRAIN_FAMILIES = ("qwen2-moe-a2.7b", "paligemma-3b", "recurrentgemma-9b",
+                  "seamless-m4t-medium", "mamba2-2.7b")
+TRAIN_SMOKE = dict(batch=8, seq=64, steps=40,
+                   step_cfg=dict(peak_lr=2e-3, warmup_steps=5,
+                                 total_steps=40))
+#: relative L2 of flash_attention's dq / dk / dv against autograd through
+#: reference_attention in fp32, by input dtype
+GRAD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+LSE_TOL = 1e-3         # abs, the kernel's lse against the plain version's
+FALL = 0.05            # loss fall, mean of the first 5 steps to the last 5
+TRAIN_LOSS_RTOL = 1e-3         # bf16 full width: kernel vs plain, step 1
+TRAIN_GNORM_RTOL = 2e-2
+SMOKE_LOSS_RTOL = 1e-4         # fp32 smoke width: kernel vs plain, step 1
+
+
+def check_train_attention(torch, dev, gen, flush) -> dict:
+    """#3 with the log-sum-exp at the training shape (tinyllama-1.1b's 32
+    / 4 heads x 512 tokens x d 64, 8 rows, causal, bf16): ``out`` within
+    one bf16 step (2^-7) of the plain version (the chunked online-softmax
+    forward), ``lse`` within 1e-3, and ``out`` bit-equal to the serving
+    launch without ``lse``. Timed beside the plain version and SDPA."""
+    from repro_torch.kernels import flash_prefill as fpk
+    h, hkv, b, t = 32, HKV, TRAIN_B, TRAIN_T
+    q = torch.randn((b, h, t, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, hkv, t, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    out, lse = fpk.flash_prefill(q, k, v, return_lse=True)
+    ref, ref_lse = fpk.flash_prefill_plain(q, k, v, return_lse=True)
+    serve = fpk.flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_RTOL,
+                               atol=BF16_RTOL)
+    lse_err = float((lse - ref_lse).abs().max())
+    assert lse_err <= LSE_TOL, f"lse off by {lse_err}"
+    assert torch.equal(out, serve), "the lse launch moved the output"
+    err = float((out.float() - ref.float()).abs().max())
+    ms = time_ms(torch, lambda: fpk.flash_prefill(q, k, v, return_lse=True),
+                 flush=flush)
+    serve_ms = time_ms(torch, lambda: fpk.flash_prefill(q, k, v),
+                       flush=flush)
+    plain_ms = time_ms(torch, lambda: fpk.flash_prefill_plain(
+        q, k, v, return_lse=True), iters=10, flush=flush,
+        lead_cycles=PLAIN_LEAD)
+    ke, ve = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(torch, lambda: sdpa(q, ke, ve, is_causal=True),
+                     flush=flush)
+    nbytes = (2 * h + 2 * hkv) * b * t * D * 2 + b * h * t * 4
+    b_ms = bound(nbytes, 4.0 * b * h * D * (t * (t + 1) / 2), "bf16")
+    print(f"train[kernel]: flash_prefill with lse {b} x {h} heads ({hkv} "
+          f"kv) x {t} x {D} bf16, causal: {ms:.4f} ms (without lse "
+          f"{serve_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
+          f"ms, bound {b_ms[0]:.4f} ms {b_ms[1]}); out err {err:.3g}, lse "
+          f"err {lse_err:.3g}", flush=True)
+    return _form_row(
+        "flash_prefill", "[lse]", "flash_prefill.cu",
+        "src/repro/kernels/flash_prefill.py:77", max(err, lse_err), ms,
+        plain_ms, b_ms, lib_ms, "SDPA",
+        f"{b} x {h} heads ({hkv} kv) x {t} tokens x {D} bf16, causal, "
+        "+ lse (B, H, T) fp32")
+
+
+def check_train_grads(torch, dev, gen) -> None:
+    """dq, dk, dv of ``flash_attention`` (the kernel's forward with lse,
+    the ported backward) against autograd through ``reference_attention``
+    on the same values in fp32: relative L2 within ``GRAD_TOL`` in the
+    causal, prefix, local and full (Tq != Tk) modes, fp32 and bf16."""
+    from repro_torch.core.attention import flash_attention, \
+        reference_attention
+    cases = (("causal", 256, 256, 0), ("prefix", 256, 256, 0),
+             ("local", 256, 256, 96), ("full", 160, 320, 0))
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for mode, tq, tk, window in cases:
+            q = torch.randn((2, 8, tq, D), generator=gen, device=dev).to(dt)
+            k, v = (torch.randn((2, 2, tk, D), generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            g = torch.randn((2, 8, tq, D), generator=gen, device=dev)
+            pl = (torch.tensor([100, 37], dtype=torch.int32, device=dev)
+                  if mode == "prefix" else None)
+            kw = dict(mode=mode, window=window, prefix_len=pl)
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            got = torch.autograd.grad(flash_attention(*xs, **kw), xs,
+                                      g.to(dt))
+            rs = [x.float().requires_grad_(True) for x in (q, k, v)]
+            want = torch.autograd.grad(reference_attention(*rs, **kw), rs, g)
+            rel = max(float(torch.linalg.vector_norm(a.float() - w)
+                            / torch.linalg.vector_norm(w))
+                      for a, w in zip(got, want))
+            name = str(dt).split(".")[1]
+            assert rel <= GRAD_TOL[name], f"{name} {mode}: rel L2 {rel}"
+            worst[f"{name} {mode}"] = rel
+    print("train[grads]: flash_attention dq/dk/dv rel. L2 vs autograd "
+          "through reference_attention: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
+
+
+def _first_step_gate(label, kern, plain, rtol_loss, rtol_gnorm=None) -> str:
+    """The kernel run's first-step metrics against the plain run's."""
+    rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    assert rel <= rtol_loss, f"{label}: step-1 loss rel {rel}"
+    out = f"step-1 loss {kern['loss']:.6f} vs plain {plain['loss']:.6f} " \
+          f"(rel {rel:.2e})"
+    if rtol_gnorm is not None:
+        rg = abs(kern["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
+        assert rg <= rtol_gnorm, f"{label}: step-1 grad_norm rel {rg}"
+        out += f", grad_norm {kern['grad_norm']:.5f} vs " \
+               f"{plain['grad_norm']:.5f} (rel {rg:.2e})"
+    return out
+
+
+def train_run(torch, cfg, dev, batches, step_cfg, timed=False) -> dict:
+    """One plain step (every kernel wrapper swapped for its plain version)
+    and ``len(batches)`` kernel steps from the same initial state: the
+    loss falls by more than ``FALL``; returns the first steps' metrics,
+    the losses and, with ``timed``, each step's ms and the ported flash
+    backward's ms in it (CUDA events)."""
+    from repro_torch.core import attention as att
+    from repro_torch.models import get_model
+    from repro_torch.train import StepConfig, init_train_state, \
+        make_train_step
+    model = get_model(cfg)
+    step = make_train_step(model, None, StepConfig(**step_cfg))
+    state = init_train_state(model, 0, device=dev)
+    with plain_kernels():
+        _, m = step(state, batches[0])
+    plain = {k: float(v) for k, v in m.items()}
+    metrics, steps, bwd = [], [], []
+    real_bwd = att.flash_backward
+
+    def timed_bwd(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_bwd(*a, **kw)
+        ev[1].record()
+        bwd[-1].append(ev)
+        return out
+    with mock.patch.object(att, "flash_backward",
+                           timed_bwd if timed else real_bwd):
+        for b in batches:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            bwd.append([])
+            ev[0].record()
+            state, m = step(state, b)
+            ev[1].record()
+            steps.append(ev)
+            metrics.append(m)
+    torch.cuda.synchronize()
+    losses = [float(m["loss"]) for m in metrics]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    assert last < first - FALL, f"{cfg.name}: loss {first} -> {last}"
+    out = {"plain": plain, "kern": {k: float(v) for k, v in
+                                    metrics[0].items()},
+           "losses": losses, "first5": first, "last5": last}
+    if timed:
+        out["step_ms"] = [a.elapsed_time(b) for a, b in steps]
+        out["bwd_ms"] = [sum(a.elapsed_time(b) for a, b in evs)
+                         for evs in bwd]
+    return out
+
+
+def train_resume(torch, dev) -> str:
+    """``python -m repro_torch.launch.train --smoke --steps 12`` in a
+    subprocess (on the card, its default; checkpoints at steps 6 and 12
+    under a temporary directory), then a ``Trainer`` here restores its
+    step-12 checkpoint and trains to step 16 (the launcher's settings for
+    ``--steps 16``)."""
+    import os
+    import signal
+    import tempfile
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import get_model
+    from repro_torch.train import StepConfig, Trainer, TrainerConfig
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+             "--steps", "12", "--batch", "8", "--seq", "64", "--ckpt", d]
+            + ([] if dev == "cuda" else ["--device", str(dev)]),
+            capture_output=True, text=True, env=env, timeout=300)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+        assert latest_step(d) == 12, os.listdir(d)
+        sub = proc.stdout.strip().splitlines()[-1]
+        cfg = reduce_for_smoke(get_config("tinyllama-1.1b"))
+        ds = SyntheticLMDataset(cfg, global_batch=8, seq_len=64, seed=0)
+        logs = []
+        original = signal.getsignal(signal.SIGTERM)
+        try:
+            tr = Trainer(get_model(cfg), ds,
+                         TrainerConfig(total_steps=16, checkpoint_every=8,
+                                       checkpoint_dir=d, log_every=100),
+                         StepConfig(peak_lr=1e-3, warmup_steps=5,
+                                    total_steps=16),
+                         log_fn=logs.append, device=dev)
+            res = tr.run()
+        finally:
+            signal.signal(signal.SIGTERM, original)
+        assert logs[0] == "[trainer] restored step=12", logs
+        assert res["final_step"] == 16 and len(res["losses"]) == 4
+        assert ds.state.step == 16 and latest_step(d) == 16
+    return (f"subprocess: {sub!r}; resumed at 12, losses "
+            f"{[round(x, 4) for x in res['losses']]}; "
+            f"{time.monotonic() - t0:.1f} s")
+
+
+def phase_train(torch, counters, dev="cuda") -> tuple[dict, dict]:
+    """The training path on the card: #3 with its log-sum-exp at the
+    training shape (the ``flash_prefill[lse]`` row) and the gradients of
+    ``flash_attention``, both beside their references (launches not
+    counted); then, counted, tinyllama-1.1b at full width through
+    ``make_train_step`` for ``TRAIN_STEPS`` steps (its first step beside
+    a plain run's; 2 x 22 #3 launches a step under block remat), the five
+    other families at smoke width, and the launcher in a subprocess with
+    a resume here. Returns (launches, the kernel row)."""
+    import gc
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data import SyntheticLMDataset
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    row = check_train_attention(torch, dev, gen, flush)
+    check_train_grads(torch, dev, gen)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(TRAIN_CONFIG)
+    ds = SyntheticLMDataset(cfg, global_batch=TRAIN_B, seq_len=TRAIN_T,
+                            seed=0)
+    batches = [ds.next_batch() for _ in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.monotonic()
+    r = train_run(torch, cfg, dev, batches, TRAIN_STEP_CFG, timed=True)
+    counts = read_counts(counters)
+    per_step = counts["flash_prefill[lse]"] / TRAIN_STEPS
+    assert per_step == 2 * cfg.num_layers, counts
+    assert not {k: n for k, n in counts.items()
+                if n and k != "flash_prefill[lse]"}, counts
+    steady = sorted(r["step_ms"][1:])
+    step_ms = steady[len(steady) // 2]
+    share = sum(r["bwd_ms"][1:]) / sum(r["step_ms"][1:])
+    gate = _first_step_gate(cfg.name, r["kern"], r["plain"],
+                            TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL)
+    print(f"train[{cfg.name}]: {describe(cfg, cfg)}; fp32 masters, bf16 "
+          f"compute, {TRAIN_B} x {TRAIN_T} tokens, block remat, ce_chunk "
+          f"{TRAIN_STEP_CFG['ce_chunk']}, {TRAIN_STEPS} steps: loss "
+          f"{r['first5']:.4f} -> "
+          f"{r['last5']:.4f} (mean of the first / last 5); {gate}; step "
+          f"{step_ms:.2f} ms (median of steps 2-{TRAIN_STEPS}, CUDA "
+          f"events), {TRAIN_B * TRAIN_T / step_ms * 1e3:.0f} tokens/s; "
+          f"flash backward {share * 100:.1f} % of a step; #3 launches a "
+          f"step {per_step:.0f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    del r, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sm = TRAIN_SMOKE
+    for name in TRAIN_FAMILIES:
+        t0 = time.monotonic()
+        fcfg = reduce_for_smoke(get_config(name))
+        seq = sm["seq"] + (fcfg.frontend_tokens if fcfg.family == "vlm"
+                           else 0)
+        fds = SyntheticLMDataset(fcfg, global_batch=sm["batch"],
+                                 seq_len=seq, seed=0)
+        r = train_run(torch, fcfg, dev,
+                      [fds.next_batch() for _ in range(sm["steps"])],
+                      sm["step_cfg"])
+        gate = _first_step_gate(name, r["kern"], r["plain"], SMOKE_LOSS_RTOL)
+        print(f"train[{name}]: smoke width ({fcfg.num_layers} layers, "
+              f"d_model {fcfg.d_model}, head_dim {fcfg.head_dim}, fp32), "
+              f"{sm['batch']} x {seq} tokens, {sm['steps']} steps: loss "
+              f"{r['first5']:.4f} -> {r['last5']:.4f}; {gate}; "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+    print(f"train[launch]: {train_resume(torch, dev)}", flush=True)
+    counts = read_counts(counters)
+    print(f"train: launches {json.dumps(counts)}", flush=True)
+    return {"flash_prefill[lse]": counts["flash_prefill[lse]"]}, row
+
+
+# ---------------------------------------------------------------------------
 # phase 15: head-sharded paged serving on torch.distributed (DESIGN.md §17)
 # ---------------------------------------------------------------------------
 
@@ -5498,11 +5821,13 @@ def main() -> int:
                         D128_CONFIGS, "configs")
     moe = clock.run("moe", phase_configs, torch, counters, MOE_CONFIGS, "moe")
     families = clock.run("families", phase_families, torch, counters)
+    train, train_row = clock.run("train", phase_train, torch, counters)
+    rows.append(train_row)
 
     phases = {"serve": serve, "runahead": runahead, "spec": spec,
               "prefix": prefix, "static": static, "values": values,
               "codecs": codecs, "qos": qos, "mesh": mesh, "configs": configs,
-              "moe": moe, "families": families}
+              "moe": moe, "families": families, "train": train}
     print("launches per serving phase: " + json.dumps(phases), flush=True)
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in phases.values())

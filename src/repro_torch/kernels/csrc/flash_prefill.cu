@@ -11,6 +11,12 @@
 // prefill is O(T * window)) to the diagonal (causal, local), to
 // max(diagonal, prefix_len[b]) (prefix) or to the end (full).
 //
+// With a non-null lse pointer each row also writes the log-sum-exp of its
+// scaled scores, m + log(l) from its running max and sum (fp32, (B, H,
+// Tq)): the forward of the training path's differentiable flash attention
+// (core/attention.py::flash_attention), whose backward recomputes the
+// probabilities from it. With null nothing else changes.
+//
 // Bound: operations — ~4*Tq*Tk/2*d FLOPs per head against O(T*d) bytes.
 // Two bodies, chosen by dtype:
 //
@@ -84,6 +90,14 @@ struct Mask {
   }
 };
 
+// A row's log-sum-exp of its scaled scores from its running max m (scaled
+// units) and sum l, with JAX's guard: a row whose sum is 0 takes l = 1.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m + logf(l == 0.0f ? 1.0f : l);
+}
+
+constexpr float kLn2 = 0.6931471805599453f;
+
 __device__ __forceinline__ Mask row_mask(int mode, int window, const int* prefix_len, int b) {
   return Mask{mode, window, mode == kPrefix ? prefix_len[b] : 0};
 }
@@ -96,7 +110,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int H, int Hkv, int Tq, int Tk, int kv_len, float scale,
-    int mode, int window, const int* __restrict__ prefix_len) {
+    int mode, int window, const int* __restrict__ prefix_len, float* __restrict__ lse) {
   constexpr int kRows = kThreads / D;     // output rows one pass covers
   constexpr int kOut = kBQ / kRows;       // accumulators per thread
   constexpr int kKS = D + 1;              // padded K row: conflict-free dots
@@ -193,6 +207,10 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
       ob[static_cast<long long>(q0 + row) * D + dd] = rt::from_f32<T>(o);
     }
   }
+  if (lse != nullptr) {
+    float* lb = lse + (static_cast<long long>(b) * H + h) * Tq;
+    for (int r = tid; r < kBQ && q0 + r < Tq; r += kThreads) lb[q0 + r] = row_lse(m_s[r], l_s[r]);
+  }
 }
 
 constexpr size_t smem_bytes(int D) {
@@ -203,14 +221,14 @@ constexpr size_t smem_bytes(int D) {
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
            int Tq, int Tk, float scale, int mode, int window, const int* prefix_len,
-           cudaStream_t stream) {
+           float* lse, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes(D);
   cudaError_t err = rt::allow_smem(flash_prefill_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, Hkv, Tq, Tk, Tk, scale, mode, window, prefix_len);
+      static_cast<T*>(out), H, Hkv, Tq, Tk, Tk, scale, mode, window, prefix_len, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -232,7 +250,7 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 128 ? 2 : 1) flash_prefill_m
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int H, int Hkv,
     int Tq, int Tk, int kv_len, float scale_log2, int mode, int window,
-    const int* __restrict__ prefix_len) {
+    const int* __restrict__ prefix_len, float* __restrict__ lse) {
   constexpr bool kQReg = D <= 128;   // Q fragments kept in registers
   constexpr int kS = D + 8;          // padded smem row (elements): +16 B per row
   constexpr int kRowChunks = D / 8;  // 16-byte chunks per row
@@ -391,6 +409,10 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 128 ? 2 : 1) flash_prefill_m
 #pragma unroll
       for (int n = 0; n < kND; ++n)
         orow[n * 4 + tq] = pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      // m_r is in raw-score units: m_r * scale = m_r * scale_log2 * ln 2
+      if (lse != nullptr && tq == 0)
+        lse[(static_cast<long long>(b) * H + h) * Tq + qi] =
+            row_lse(m_r[r] == -INFINITY ? rt::kNegInf : m_r[r] * scale_log2 * kLn2, l);
     }
   }
 }
@@ -398,7 +420,7 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 128 ? 2 : 1) flash_prefill_m
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
                int Tq, int Tk, float scale, int mode, int window, const int* prefix_len,
-               cudaStream_t stream) {
+               float* lse, cudaStream_t stream) {
   constexpr size_t smem = sizeof(__nv_bfloat16) * 5 * kTile * (D + 8);
   cudaError_t err = rt::allow_smem(flash_prefill_mma_kernel<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -407,16 +429,16 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   flash_prefill_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, Hkv, Tq, Tk,
-      Tk, scale * kLog2e, mode, window, prefix_len);
+      Tk, scale * kLog2e, mode, window, prefix_len, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-#define FP_MASK_ARGS scale, mode, window, prefix_len, stream
+#define FP_MASK_ARGS scale, mode, window, prefix_len, lse, stream
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
              int Tq, int Tk, int d, float scale, int mode, int window, const int* prefix_len,
-             cudaStream_t stream) {
+             float* lse, cudaStream_t stream) {
   if (d == 32) return launch<T, 32>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
   if (d == 64) return launch<T, 64>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
   if (d == 128) return launch<T, 128>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
@@ -426,7 +448,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B, int 
 
 int launch_mma_d(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv,
                  int Tq, int Tk, int d, float scale, int mode, int window, const int* prefix_len,
-                 cudaStream_t stream) {
+                 float* lse, cudaStream_t stream) {
   if (d == 32) return launch_mma<32>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
   if (d == 64) return launch_mma<64>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
   if (d == 128) return launch_mma<128>(q, k, v, out, B, H, Hkv, Tq, Tk, FP_MASK_ARGS);
@@ -441,24 +463,27 @@ int launch_mma_d(const void* q, const void* k, const void* v, void* out, int B, 
 // q (B, H, Tq, d), k/v (B, Hkv, Tk, d), out (B, H, Tq, d), all contiguous,
 // bf16 (is_bf16 = 1) or fp32; d in {32, 64, 128, 256}. mode: 0 full, 1
 // causal, 2 prefix (prefix_len: (B,) int32 on the device), 3 local
-// (window > 0); prefix_len may be null in the other modes. bf16 with
+// (window > 0); prefix_len may be null in the other modes. lse: null, or
+// (B, H, Tq) fp32 for each row's log-sum-exp of its scaled scores (the
+// backward of the training path's flash attention). bf16 with
 // 16-byte aligned pointers (and fewer than 65536 q tiles) runs on the
 // tensor cores, everything else on the FMA body.
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v, void* out,
                                     int is_bf16, int B, int H, int Hkv, int Tq, int Tk, int d,
                                     float scale, int mode, int window, const void* prefix_len,
-                                    void* stream) {
+                                    void* lse, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 || H > 65535 ||
       B > 65535 || mode < kFull || mode > kLocal || (mode == kLocal && window <= 0) ||
       (mode == kPrefix && prefix_len == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* pl = static_cast<const int*>(prefix_len);
+  auto* ls = static_cast<float*>(lse);
   if (is_bf16 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
       (Tq + kTile - 1) / kTile <= 65535)
-    return launch_mma_d(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, mode, window, pl, s);
+    return launch_mma_d(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, mode, window, pl, ls, s);
   if (is_bf16)
     return launch_d<__nv_bfloat16>(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, mode, window, pl,
-                                   s);
-  return launch_d<float>(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, mode, window, pl, s);
+                                   ls, s);
+  return launch_d<float>(q, k, v, out, B, H, Hkv, Tq, Tk, d, scale, mode, window, pl, ls, s);
 }

@@ -26,32 +26,46 @@ is O(T·window)); a row whose every key is masked ends with l == 0 and is
 written as zeros. Its yardstick is
 ``torch.nn.functional.scaled_dot_product_attention``, which the port never
 calls.
+
+``return_lse=True`` also returns each row's log-sum-exp of its scaled
+scores, fp32 (B, H, Tq): the forward of the training path's
+differentiable ``core/attention.flash_attention``, whose backward needs
+it. The serving calls pass no ``lse`` buffer and keep their bits.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.attention import MASK_MODES, reference_attention
+from repro_torch.core.attention import (MASK_MODES, flash_forward,
+                                        reference_attention)
 from repro_torch.kernels import _build as B
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
-#: of those, the launches in mode ``full`` (the encoder-decoder's encoder
-#: and cross-attention)
+#: of those, the serving launches in mode ``full`` (the encoder-decoder's
+#: encoder and cross-attention)
 launches_full = 0
+#: of those, the launches that also wrote the log-sum-exp (the training
+#: path's forward, any mode); apart from ``launches_full``
+launches_lse = 0
 
 
 def _bind(lib) -> None:
     lib.flash_prefill_launch.argtypes = [
         B.VOIDP, B.VOIDP, B.VOIDP, B.VOIDP, B.INT, B.INT, B.INT, B.INT, B.INT,
-        B.INT, B.INT, B.FLOAT, B.INT, B.INT, B.VOIDP, B.VOIDP]
+        B.INT, B.INT, B.FLOAT, B.INT, B.INT, B.VOIDP, B.VOIDP, B.VOIDP]
     lib.flash_prefill_launch.restype = B.INT
 
 
 def flash_prefill_plain(q, k, v, *, mode: str = "causal", window: int = 0,
-                        prefix_len=None,
-                        scale: float | None = None) -> torch.Tensor:
-    """Plain version: O(T^2) reference attention."""
+                        prefix_len=None, scale: float | None = None,
+                        return_lse: bool = False):
+    """Plain version: O(T^2) reference attention; with ``return_lse``
+    the chunked online-softmax forward (``flash_forward``), which returns
+    (out, lse)."""
+    if return_lse:
+        return flash_forward(q, k, v, mode=mode, window=window, scale=scale,
+                             prefix_len=prefix_len)
     return reference_attention(q, k, v, mode=mode, window=window,
                                prefix_len=prefix_len, scale=scale)
 
@@ -59,12 +73,13 @@ def flash_prefill_plain(q, k, v, *, mode: str = "causal", window: int = 0,
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   mode: str = "causal", window: int = 0,
                   prefix_len: torch.Tensor | None = None,
-                  scale: float | None = None) -> torch.Tensor:
+                  scale: float | None = None, return_lse: bool = False):
     """q (B, H, Tq, d); k/v (B, Hkv, Tk, d) -> (B, H, Tq, d) in q.dtype;
     ``mode`` one of ``MASK_MODES``, ``prefix_len`` (B,) int32 for
-    ``prefix``, ``window`` > 0 for ``local``. The kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    global launches, launches_full
+    ``prefix``, ``window`` > 0 for ``local``; ``return_lse``: (out, lse
+    (B, H, Tq) fp32). The kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    global launches, launches_full, launches_lse
     B.require(mode in MASK_MODES, f"unknown mask mode {mode!r}")
     B.require((prefix_len is not None) == (mode == "prefix"),
               "prefix_len is required by, and only by, mode 'prefix'")
@@ -72,7 +87,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensors = (q, k, v) + ((prefix_len,) if prefix_len is not None else ())
     if not B.on_card(*tensors):
         return flash_prefill_plain(q, k, v, mode=mode, window=window,
-                                   prefix_len=prefix_len, scale=scale)
+                                   prefix_len=prefix_len, scale=scale,
+                                   return_lse=return_lse)
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     for x in (q, k, v):
@@ -90,14 +106,17 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   "prefix_len must be contiguous int32 (B,)")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = B.library("flash_prefill", _bind)
     err = lib.flash_prefill_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), b, h, hkv, tq, tk, d, float(scale),
         MASK_MODES.index(mode), int(window),
         None if prefix_len is None else prefix_len.data_ptr(),
-        B.stream_ptr(q))
+        None if lse is None else lse.data_ptr(), B.stream_ptr(q))
     B.check(err, "flash_prefill")
     launches += 1
-    launches_full += int(mode == "full")
-    return out
+    launches_full += int(mode == "full" and not return_lse)
+    launches_lse += int(return_lse)
+    return (out, lse) if return_lse else out

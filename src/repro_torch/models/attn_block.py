@@ -5,12 +5,16 @@ paged and forward encoder-decoder entries of
 * ``make_cache`` — one layer's dense cache: capacity rounded up to a
   group multiple; a linear layout, or for a windowed config a ring of
   ``min(max_len, window)`` slots.
-* ``attention_train`` — attention over a whole sequence with no cache,
-  forward only (the encoder-decoder family): RoPE'd self-attention in
-  ``mask_mode`` (the encoder runs ``full``), or with ``memory``
+* ``attention_train`` — attention over a whole sequence with no cache
+  (every family's training loss, and the encoder-decoder's encoder and
+  prefill cross-attention): RoPE'd self-attention in ``mask_mode``
+  (``prefix_len``, ``window`` as the prefill's), or with ``memory``
   cross-attention — K/V from the encoder memory, no RoPE, mode ``full``,
-  Tq != Tk; both through the flash-prefill kernel, where JAX runs the jnp
-  ``flash_attention``.
+  Tq != Tk. Where JAX runs the jnp ``flash_attention``, inputs that need
+  a gradient go through the differentiable ``core.attention.
+  flash_attention`` (the flash-prefill kernel with its log-sum-exp, and
+  the ported backward); the serving calls, under ``torch.no_grad``,
+  through the forward-only flash-prefill kernel.
 * ``cross_attention_cache`` — a decoder layer's cross cache filled from
   the un-rotated memory K/V (the encode kernel).
 * ``attention_prefill`` — the static batch's prompt: flash attention in
@@ -58,6 +62,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_cache as kvc
 from repro_torch.core import paged_cache as pgc
+from repro_torch.core.attention import flash_attention
 from repro_torch.core.cache_layout import LinearLayout, RingLayout
 from repro_torch.distributed import serving as dsrv
 from repro_torch.kernels import ops
@@ -109,9 +114,12 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, layer: int = 0,
 
 def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     mask_mode: str = "causal",
-                    memory: torch.Tensor | None = None) -> torch.Tensor:
-    """x: (B, T, D) -> (B, T, D), no cache, in ``mask_mode`` (``full`` or
-    ``causal``). ``memory`` (B, Tm, D) switches to cross-attention: K/V
+                    prefix_len: torch.Tensor | None = None,
+                    memory: torch.Tensor | None = None,
+                    window: int = 0) -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D), no cache, in ``mask_mode`` (``causal``,
+    ``full``, ``prefix`` with ``prefix_len`` (B,) int32, ``local`` with
+    ``window``). ``memory`` (B, Tm, D) switches to cross-attention: K/V
     from memory, no RoPE on keys or queries, mode ``full``."""
     if memory is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
@@ -124,8 +132,12 @@ def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                           cfg.num_heads)
         k, v = _memory_kv(params, memory, cfg)
         mask_mode = "full"
-    out = ops.flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
-                            mode=mask_mode)
+    kw = dict(mode=mask_mode, window=window, prefix_len=prefix_len)
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        out = flash_attention(q, k, v, **kw)
+    else:
+        out = ops.flash_prefill(q.contiguous(), k.contiguous(),
+                                v.contiguous(), **kw)
     return L.linear(L.merge_heads(out), params["wo"])
 
 

@@ -17,8 +17,10 @@ Params: the LM's ``embed``, ``final_norm`` and ``lm_head``;
 "ln2", "attn", "ffn"}``; ``dec_layers``, each ``{"ln1", "ln_x", "ln2",
 "attn", "xattn", "ffn"}``; ``enc_norm``. State: ``{"self": [...],
 "cross": [...]}``, one dense :class:`~repro_torch.core.kv_cache.KVCache`
-per decoder layer in each. Training (``lm_loss``) waits for the training
-slice.
+per decoder layer in each. ``lm_loss`` trains the encoder over the frames
+and the decoder over the text (teacher forcing, the cross-attention over
+the full-precision memory), each layer recomputed in the backward under
+``remat="block"``.
 """
 from __future__ import annotations
 
@@ -52,17 +54,49 @@ def _mlp_residual(lp: dict, h: torch.Tensor, cfg: ModelConfig):
                      cfg.act)
 
 
-@torch.no_grad()
-def encode(params: dict, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
-    """frames (B, Tf, frontend_dim) -> memory (B, Tf, D)."""
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+           remat: str = "block") -> torch.Tensor:
+    """frames (B, Tf, frontend_dim) -> memory (B, Tf, D); each layer
+    recomputed in the backward under ``remat="block"`` (when a gradient
+    is being recorded)."""
+    def layer(lp, h):
+        h = h + AB.attention_train(lp["attn"],
+                                   L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                                   cfg, mask_mode="full")
+        return _mlp_residual(lp, h, cfg)
+
+    layer = L.remat(layer, remat)
     x = L.linear(frames.to(torch_dtype(cfg.dtype)), params["frontend_proj"])
     for lp in params["enc_layers"]:
-        x = x + AB.attention_train(lp["attn"],
-                                   L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                   cfg, mask_mode="full")
-        x = _mlp_residual(lp, x, cfg)
+        x = layer(lp, x)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_block_train(lp: dict, h: torch.Tensor, memory: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    h = h + AB.attention_train(lp["attn"],
+                               L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+                               mask_mode="causal")
+    h = h + AB.attention_train(lp["xattn"],
+                               L.rms_norm(h, lp["ln_x"], cfg.norm_eps), cfg,
+                               memory=memory)
+    return _mlp_residual(lp, h, cfg)
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
+            remat: str = "block", ce_chunk: int = 512):
+    """batch: ``frames`` (B, Tf, frontend_dim), ``tokens`` (B, T+1) int.
+    Returns (ce, {"ce"})."""
+    memory = encode(params, batch["frames"], cfg, remat)
+    tokens = batch["tokens"].long()
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    x = TF.embed_tokens(params, inputs, cfg)
+    layer = L.remat(lambda lp, h, mem: _dec_block_train(lp, h, mem, cfg),
+                    remat)
+    for lp in params["dec_layers"]:
+        x = layer(lp, x, memory)
+    loss = TF.lm_head_loss(params, x, labels, cfg, ce_chunk)
+    return loss, {"ce": loss}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

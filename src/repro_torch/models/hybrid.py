@@ -18,8 +18,10 @@ each ``{"ln1", "ln2", "ffn": {wg, wu, wd}, "mix"}`` with ``mix`` the
 attention's ``{wq, wk, wv, wo}`` or the RG-LRU block's params
 (``models/rglru.py``). State: per layer a ring
 :class:`~repro_torch.core.kv_cache.KVCache` (attention) or a
-``(conv, h)`` tuple (recurrent). Training (``lm_loss``) waits for the
-training slice.
+``(conv, h)`` tuple (recurrent). ``lm_loss`` trains the same layer list,
+each pattern period recomputed in the backward as one unit and each tail
+layer as one (JAX's ``jax.checkpoint`` around its period and tail scan
+bodies).
 """
 from __future__ import annotations
 
@@ -68,6 +70,45 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     return [AB.make_cache(cfg, batch, max_len, device=device)
             if kind == "attn" else RG.init_state(cfg, batch, device)
             for kind in layer_types(cfg)]
+
+
+def _sub_train(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+               kind: str) -> torch.Tensor:
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if kind == "attn":
+        y = AB.attention_train(lp["mix"], h, cfg, mask_mode="local",
+                               window=cfg.window)
+    else:
+        y = RG.rglru_mix(lp["mix"], h, cfg)
+    x = x + y
+    return x + L.mlp(lp["ffn"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                     cfg.act)
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
+            remat: str = "block", ce_chunk: int = 512):
+    """batch["tokens"]: (B, T+1) int. Returns (ce, {"ce"})."""
+    tokens = batch["tokens"].long()
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    x = TF.embed_tokens(params, inputs, cfg)
+    n_periods, pat, tail = _period_split(cfg)
+    layers = params["layers"]
+
+    def period(lps, h):
+        for lp, kind in zip(lps, pat):
+            h = _sub_train(lp, h, cfg, kind)
+        return h
+
+    period = L.remat(period, remat)
+    for p in range(n_periods):
+        x = period(layers[p * len(pat):(p + 1) * len(pat)], x)
+    if tail:
+        tail_layer = L.remat(
+            lambda lp, h: _sub_train(lp, h, cfg, tail[0]), remat)
+        for lp in layers[n_periods * len(pat):]:
+            x = tail_layer(lp, x)
+    loss = TF.lm_head_loss(params, x, labels, cfg, ce_chunk)
+    return loss, {"ce": loss}
 
 
 def _sub_prefill(lp: dict, h: torch.Tensor, cfg: ModelConfig, kind: str,

@@ -16,9 +16,10 @@ graph. As in JAX, padding tokens (past a prompt's real length in a
 prefill bucket or chunk) are routed and take capacity, and every expert
 runs over its whole capacity buffer whether or not a token landed there.
 
-The Switch load-balance loss is its own function,
-:func:`load_balance_loss`: the serving path never computes it (JAX's jit
-drops it there).
+The Switch load-balance loss comes with the training form,
+:func:`moe_ffn_train` (y, aux), and alone from :func:`load_balance_loss`;
+the serving path's :func:`moe_ffn` never computes it (JAX's jit drops it
+there).
 """
 from __future__ import annotations
 
@@ -111,10 +112,22 @@ def _experts(params: dict, buf: torch.Tensor, act: str) -> torch.Tensor:
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, T, D) -> (B, T, D), capacity per batch row over its T
     tokens (every token routed, padding included)."""
+    return _moe_ffn(params, x, cfg)[0]
+
+
+def moe_ffn_train(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The training form (JAX's ``moe_ffn``): (y, the Switch
+    load-balance loss of this routing, fp32)."""
+    y, probs, eidx = _moe_ffn(params, x, cfg)
+    return y, _switch_aux(probs, eidx, cfg)
+
+
+def _moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """(y, router probs, expert indices)."""
     b, t, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     cap = capacity(t, cfg)
-    _, gates, eidx = route(params, x, cfg)
+    probs, gates, eidx = route(params, x, cfg)
     keep, dst = dispatch(eidx, cap, e)
 
     rows = e * b * cap
@@ -130,17 +143,22 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = torch.einsum("bktd,bkt->btd", back, gk)
     if cfg.num_shared_experts:
         y = y + L.mlp(params["shared"], x, cfg.act)
-    return y
+    return y, probs, eidx
 
 
 def load_balance_loss(params: dict, x: torch.Tensor,
                       cfg: ModelConfig) -> torch.Tensor:
-    """Switch load-balance loss of ``x``'s routing (JAX's ``aux``):
-    E * sum(mean router prob * mean assignment share) * router_aux_loss,
-    in fp32."""
-    e = cfg.num_experts
+    """Switch load-balance loss of ``x``'s routing (JAX's ``aux``)."""
     probs, _, eidx = route(params, x, cfg)
+    return _switch_aux(probs, eidx, cfg)
+
+
+def _switch_aux(probs: torch.Tensor, eidx: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """E * sum(mean router prob * mean assignment share) *
+    router_aux_loss, in fp32; the gradient flows through the probs."""
+    e = cfg.num_experts
     me = probs.mean(dim=(0, 1))
-    ce = (eidx[..., None] == torch.arange(e, device=x.device)).float() \
+    ce = (eidx[..., None] == torch.arange(e, device=eidx.device)).float() \
         .sum(dim=2).mean(dim=(0, 1))
     return e * torch.sum(me * ce) * cfg.router_aux_loss

@@ -4,6 +4,10 @@ VLM, hybrid, encoder-decoder and SSM (port of
 
 ``get_model(cfg)`` returns a :class:`Model` bundle:
   init(generator, device) -> params
+  loss(params, batch, remat="block", ce_chunk=512) -> (loss, metrics) —
+      the training loss: batch["tokens"] (B, T+1) (+ "patches" for the
+      VLM, "frames" for the encoder-decoder); metrics {"ce", "aux"} for
+      the dense, MoE and VLM families, {"ce"} for the others, as JAX
   init_decode_state(batch, max_len, device) -> the decode state: a list of
       per-layer KVCaches (dense, MoE, VLM), of ring caches and RG-LRU
       states (hybrid) or of (conv, SSD) states (SSM), or the encoder-
@@ -58,6 +62,7 @@ class Model:
     init_decode_state: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
+    loss: Callable[..., Any]
     cache_layer_bytes: Callable[[Any], list[int]] | None = None
     init_paged_state: Callable[..., Any] | None = None
     prefill_paged: Callable[..., Any] | None = None
@@ -91,27 +96,31 @@ def get_model(cfg: ModelConfig) -> Model:
             init_decode_state=lambda batch, max_len, device:
                 HY.init_decode_state(cfg, batch, max_len, device),
             prefill=lambda p, b, s: HY.prefill_fn(p, b, cfg, s),
-            decode=lambda p, s, t: HY.decode_fn(p, s, t, cfg))
+            decode=lambda p, s, t: HY.decode_fn(p, s, t, cfg),
+            loss=lambda p, b, **kw: HY.lm_loss(p, b, cfg, **kw))
     if cfg.family == "encdec":
         return Model(
             cfg=cfg, init=init,
             init_decode_state=lambda batch, max_len, device:
                 ED.init_decode_state(cfg, batch, max_len, device),
             prefill=lambda p, b, s: ED.prefill_fn(p, b, cfg, s),
-            decode=lambda p, s, t: ED.decode_fn(p, s, t, cfg))
+            decode=lambda p, s, t: ED.decode_fn(p, s, t, cfg),
+            loss=lambda p, b, **kw: ED.lm_loss(p, b, cfg, **kw))
     if cfg.family == "ssm":
         return Model(
             cfg=cfg, init=init,
             init_decode_state=lambda batch, max_len, device:
                 SSM.init_decode_state(cfg, batch, device),
             prefill=lambda p, b, s: SSM.prefill_fn(p, b, cfg, s),
-            decode=lambda p, s, t: SSM.decode_fn(p, s, t, cfg))
+            decode=lambda p, s, t: SSM.decode_fn(p, s, t, cfg),
+            loss=lambda p, b, **kw: SSM.lm_loss(p, b, cfg, **kw))
     static = dict(
         cfg=cfg, init=init,
         init_decode_state=lambda batch, max_len, device:
             TF.init_decode_caches(cfg, batch, max_len, device),
         prefill=lambda p, b, s: TF.prefill_fn(p, b, cfg, s),
         decode=lambda p, s, t: TF.decode_fn(p, s, t, cfg),
+        loss=lambda p, b, **kw: TF.lm_loss(p, b, cfg, **kw),
         cache_layer_bytes=TF.per_layer_cache_bytes)
     if cfg.family == "vlm" or cfg.window:
         return Model(**static)

@@ -6,8 +6,9 @@ per layer (:func:`repro_torch.models.mamba2.init_state`) — O(1) in the
 sequence length. JAX scans the stack; here a Python loop runs the layers
 and the state is a list in layer order. Params: the LM's ``embed``,
 ``final_norm`` (and ``lm_head`` unless tied) and ``layers``, each the
-mixer's params (``models/mamba2.py``) with its pre-norm ``ln``. Training
-(``lm_loss``) waits for the training slice.
+mixer's params (``models/mamba2.py``) with its pre-norm ``ln``.
+``lm_loss`` runs the mixer over the whole sequence from the zero state,
+each layer recomputed in the backward under ``remat="block"``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,20 @@ def init_decode_state(cfg: ModelConfig, batch: int, device) -> list:
     """Per layer the zero state: conv window in ``cfg.dtype``, SSD state
     in fp32."""
     return [M2.init_state(cfg, batch, device) for _ in range(cfg.num_layers)]
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
+            remat: str = "block", ce_chunk: int = 512):
+    """batch["tokens"]: (B, T+1) int. Returns (ce, {"ce"})."""
+    tokens = batch["tokens"].long()
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    x = TF.embed_tokens(params, inputs, cfg)
+    layer = L.remat(lambda lp, h: h + M2.mamba_mix(
+        lp, L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg), remat)
+    for lp in params["layers"]:
+        x = layer(lp, x)
+    loss = TF.lm_head_loss(params, x, labels, cfg, ce_chunk)
+    return loss, {"ce": loss}
 
 
 @torch.no_grad()

@@ -1,7 +1,13 @@
-"""Decoder-only transformer LM over quantized caches (port of the serving
-entries of ``repro/models/transformer.py``: the static batch's dense
-caches and continuous batching's paged caches; the dense, MoE and
-prefix-LM VLM families).
+"""Decoder-only transformer LM over quantized caches (port of
+``repro/models/transformer.py``: the training loss, and the serving
+entries over the static batch's dense caches and continuous batching's
+paged caches; the dense, MoE and prefix-LM VLM families).
+
+Training: :func:`lm_loss` runs :func:`forward_hidden` (a Python loop of
+:func:`block_train` over the layers, each recomputed in the backward
+under ``remat="block"``; JAX scans them under ``jax.checkpoint``) and
+:func:`lm_head_loss` (the cross entropy over token chunks, each chunk's
+logits recomputed in the backward).
 
 A Python loop over the layers replaces ``_scan_segments``; the state is
 one cache per layer under that layer's config of ``cfg.policy`` (a mixed
@@ -57,12 +63,95 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h @ w.to(h.dtype)
 
 
+def lm_head_loss(params: dict, h: torch.Tensor, labels: torch.Tensor,
+                 cfg: ModelConfig, ce_chunk: int = 512) -> torch.Tensor:
+    """Cross entropy of the head over h (B, T, D) without keeping (B, T, V)
+    fp32 logits: over chunks of ``ce_chunk`` tokens, each chunk's logits
+    recomputed in the backward. Single-shot when ``ce_chunk <= 0``, T <=
+    ``ce_chunk`` or T is not a multiple of it, as JAX."""
+    t = h.shape[1]
+    if ce_chunk <= 0 or t <= ce_chunk or t % ce_chunk:
+        return L.cross_entropy_loss(lm_logits(params, h, cfg), labels)
+
+    def body(hx, lx):
+        logits = lm_logits(params, hx, cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lx.clamp(min=0)[..., None])[..., 0]
+        mask = (lx != -1).float()
+        return torch.sum((lse - ll) * mask), torch.sum(mask)
+
+    body = L.remat(body, "block")
+    nll = n = torch.zeros((), device=h.device)
+    for c0 in range(0, t, ce_chunk):
+        a, m = body(h[:, c0:c0 + ce_chunk], labels[:, c0:c0 + ce_chunk])
+        nll, n = nll + a, n + m
+    return nll / torch.clamp_min(n, 1.0)
+
+
 def ffn_apply(bp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The block's FFN by family: the routed experts (``moe_ffn``, capacity
     over each batch row's tokens) or the dense SwiGLU."""
     if cfg.family == "moe":
         return MOE.moe_ffn(bp["ffn"], h, cfg)
     return L.mlp(bp["ffn"], h, cfg.act)
+
+
+def block_train(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                mask_mode: str, prefix_len: Optional[torch.Tensor],
+                window: int = 0):
+    """One block over a whole sequence, no cache: (x, the MoE aux loss, 0
+    for a dense FFN)."""
+    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    x = x + AB.attention_train(bp["attn"], h, cfg, mask_mode=mask_mode,
+                               prefix_len=prefix_len, window=window)
+    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        f, aux = MOE.moe_ffn_train(bp["ffn"], h, cfg)
+    else:
+        f, aux = L.mlp(bp["ffn"], h, cfg.act), torch.zeros((), device=x.device)
+    return x + f, aux
+
+
+def forward_hidden(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                   mask_mode: str = "causal",
+                   prefix_len: Optional[torch.Tensor] = None,
+                   remat: str = "block"):
+    """The layer stack over x (B, T, D): (hidden, the aux losses summed
+    over the layers)."""
+    def body(lp, h):
+        return block_train(lp, h, cfg, mask_mode=mask_mode,
+                           prefix_len=prefix_len, window=cfg.window)
+
+    body = L.remat(body, remat)
+    aux = torch.zeros((), device=x.device)
+    for lp in params["layers"]:
+        x, a = body(lp, x)
+        aux = aux + a
+    return x, aux
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
+            remat: str = "block", ce_chunk: int = 512):
+    """batch["tokens"]: (B, T+1) int (the VLM also ``patches`` (B,
+    frontend_tokens, frontend_dim), prepended under the prefix-LM mask and
+    dropped before the head). Returns (ce + aux, {"ce", "aux"})."""
+    tokens = batch["tokens"].long()
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    mask_mode = "causal" if cfg.window == 0 else "local"
+    x = embed_tokens(params, inputs, cfg)
+    prefix_len = None
+    if cfg.family == "vlm":
+        px = L.linear(batch["patches"].to(x.dtype), params["projector"])
+        x = torch.cat([px, x], dim=1)
+        prefix_len = torch.full((x.shape[0],), cfg.frontend_tokens,
+                                dtype=torch.int32, device=x.device)
+        mask_mode = "prefix"
+    h, aux = forward_hidden(params, x, cfg, mask_mode=mask_mode,
+                            prefix_len=prefix_len, remat=remat)
+    if cfg.family == "vlm":
+        h = h[:, cfg.frontend_tokens:]
+    loss = lm_head_loss(params, h, labels, cfg, ce_chunk)
+    return loss + aux, {"ce": loss, "aux": aux}
 
 
 def _block(bp: dict, x: torch.Tensor, cfg: ModelConfig, attn, cache, **kw):

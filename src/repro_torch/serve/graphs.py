@@ -71,7 +71,7 @@ from repro_torch.models import transformer as TF
 
 #: the kernel wrappers' launch counters (module attributes)
 COUNTERS = ("launches", "launches_u8", "launches_mma", "launches_split",
-            "launches_fixed", "launches_full")
+            "launches_fixed", "launches_full", "launches_lse")
 #: dtypes of the static inputs
 _DTYPES = {"token": torch.int64, "table": torch.int32, "active": torch.bool,
            "remaining": torch.int32, "done": torch.bool,

@@ -1,0 +1,154 @@
+"""Train-step construction: gradient accumulation, remat, AdamW (port of
+``repro/train/train_step.py`` without a mesh).
+
+``make_train_step`` returns a (state, batch) -> (state, metrics) function
+that runs on the params' device: the loss and its gradient by autograd
+(every family's ``Model.loss``; the attention's backward is
+``core.attention.flash_backward``), microbatches accumulated as JAX's
+scan does, then the cosine schedule and AdamW. The params are fp32
+masters unless ``param_dtype`` names another dtype; the model casts them
+to ``cfg.dtype`` at every use, as JAX's layers do. Sharded training
+(``mesh``) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.registry import Model
+from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
+                                     tree_map)
+from repro_torch.optim.schedule import cosine_schedule
+from repro_torch.utils import resolve_device, torch_dtype
+from repro_torch.weights import init_params, params_from_jax, params_to_jax
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: AdamWState
+
+
+class StepConfig(NamedTuple):
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    microbatches: int = 1
+    remat: str = "block"
+    ce_chunk: int = 512        # 0 => unchunked lm-head loss
+    seq_shard: bool = True     # sequence-shards remat-saved activations
+                               # under a mesh (no effect without one)
+    param_dtype: str = "float32"
+
+
+def _cast(params, dtype: torch.dtype):
+    return tree_map(lambda p: p.to(dtype) if p.is_floating_point() else p,
+                    params)
+
+
+def init_train_state(model: Model, seed: int = 0,
+                     param_dtype: str = "float32", device=None) -> TrainState:
+    """Fresh params drawn from ``seed`` on ``device`` (the card unless
+    named), every floating leaf in ``param_dtype``, and zero AdamW
+    moments."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = torch_dtype(param_dtype)
+    params = _cast(init_params(model.cfg, generator=gen, device=dev,
+                               dtype=dt), dt)
+    return TrainState(params=params, opt=adamw_init(params))
+
+
+def train_state_to_jax(state: TrainState, cfg) -> TrainState:
+    """The state in JAX's tree layout (numpy, layers stacked): what a
+    checkpoint holds."""
+    return TrainState(
+        params=params_to_jax(state.params, cfg),
+        opt=AdamWState(step=np.asarray(state.opt.step.cpu().numpy(),
+                                       np.int32),
+                       m=params_to_jax(state.opt.m, cfg),
+                       v=params_to_jax(state.opt.v, cfg)))
+
+
+def train_state_from_jax(np_state, cfg, device=None,
+                         param_dtype: str = "float32") -> TrainState:
+    """A state in JAX's layout (numpy leaves) -> the port's, on
+    ``device``: params in ``param_dtype``, moments in fp32."""
+    dev = resolve_device(device)
+    dt = torch_dtype(param_dtype)
+
+    def tree(t, dtype):
+        return _cast(params_from_jax(t, cfg, device=dev, dtype=dtype), dtype)
+    opt = np_state.opt
+    return TrainState(
+        params=tree(np_state.params, dt),
+        opt=AdamWState(step=torch.as_tensor(np.asarray(opt.step),
+                                            dtype=torch.int32, device=dev),
+                       m=tree(opt.m, torch.float32),
+                       v=tree(opt.v, torch.float32)))
+
+
+def loss_and_grad(model: Model, params, batch: dict, remat: str,
+                  ce_chunk: int):
+    """(loss, metrics, grads) of ``model.loss`` at ``params``; every leaf
+    must reach the loss (autograd raises otherwise)."""
+    leaves = []
+
+    def live(p):
+        leaves.append(p.detach().requires_grad_(True))
+        return leaves[-1]
+    loss, metrics = model.loss(tree_map(live, params), batch, remat=remat,
+                               ce_chunk=ce_chunk)
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda _: next(grads), params))
+
+
+def make_train_step(model: Model, mesh: Optional[Any] = None,
+                    step_cfg: StepConfig = StepConfig(), *,
+                    global_batch: int = 8):
+    """The train step: (TrainState, batch) -> (TrainState, metrics
+    {ce, aux (dense, MoE, VLM), loss, lr, grad_norm}), every metric a
+    0-dim tensor on the device. The batch's arrays (numpy or tensors) are
+    moved to the params' device; ``microbatches`` n splits its rows as
+    JAX's ``x.reshape((n, B // n) + ...)``, microbatch 0 fixing the
+    metric and gradient trees, and averages loss, metrics and grads."""
+    del global_batch    # the batch layout over a mesh; no mesh here
+    if mesh is not None:
+        raise ValueError(
+            "make_train_step(mesh=...): sharded training is not ported yet "
+            "(ROADMAP.md queue 1, 'sharded training'); pass mesh=None")
+    sc = step_cfg
+
+    def step(state: TrainState, batch: dict):
+        dev = state.opt.step.device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        n = max(sc.microbatches, 1)
+        micro = [{k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                  for k, v in batch.items()} for i in range(n)]
+        loss, metrics, grads = loss_and_grad(model, state.params, micro[0],
+                                             sc.remat, sc.ce_chunk)
+        for mb in micro[1:]:
+            l_i, m_i, g_i = loss_and_grad(model, state.params, mb, sc.remat,
+                                          sc.ce_chunk)
+            loss = loss + l_i
+            metrics = {k: v + m_i[k] for k, v in metrics.items()}
+            grads = tree_map(torch.add, grads, g_i)
+        if n > 1:
+            inv = 1.0 / n
+            loss = loss * inv
+            metrics = {k: v * inv for k, v in metrics.items()}
+            grads = tree_map(lambda g: g * inv, grads)
+        with torch.no_grad():
+            lr = cosine_schedule(state.opt.step, sc.peak_lr,
+                                 sc.warmup_steps, sc.total_steps)
+            params, opt, om = adamw_update(
+                state.params, grads, state.opt, lr,
+                weight_decay=sc.weight_decay, clip_norm=sc.clip_norm)
+        return TrainState(params, opt), dict(metrics, loss=loss, lr=lr, **om)
+
+    return step

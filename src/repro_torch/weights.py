@@ -17,6 +17,13 @@ dtype, the conv, the per-head vectors and the norms in fp32. The
 encoder-decoder family has ``enc_layers`` and ``dec_layers`` (with
 ``ln_x`` and the cross-attention ``xattn``) instead of ``layers``, plus
 ``frontend_proj`` (frontend_dim, D) and ``enc_norm``.
+
+Training keeps fp32 masters, as JAX does: ``params_from_jax(...,
+dtype=torch.float32)`` carries every leaf over in fp32, and
+:func:`params_to_jax` is its inverse, the port's tree (params, or the
+AdamW moments, which have its shape) back in JAX's layout — the layers
+stacked, the hybrid's split into its periods and tail — for checkpoints
+either package restores.
 """
 from __future__ import annotations
 
@@ -39,11 +46,10 @@ _RG_MATS = ("w_gate", "w_in", "w_out")
 _SSM_MATS = ("in_proj", "out_proj")
 
 
-def _hybrid_from_jax(np_params: dict, cfg: ModelConfig, t) -> list:
+def _hybrid_from_jax(np_params: dict, cfg: ModelConfig, t, dt) -> list:
     """The hybrid's period-stacked and tail-stacked layers -> one list in
     layer order (period p, sub-layer i -> layer p * len(pattern) + i, then
     the tail)."""
-    dt = torch_dtype(cfg.dtype)
     n_periods, pat, tail = HY._period_split(cfg)
 
     def layer(tree, i, kind):
@@ -67,12 +73,14 @@ def _hybrid_from_jax(np_params: dict, cfg: ModelConfig, t) -> list:
     return layers
 
 
-def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
+def params_from_jax(np_params: dict, cfg: ModelConfig, device=None,
+                    dtype=None) -> dict:
     """JAX ``init_params`` tree (leaves as numpy arrays, layer-stacked
     leaves with a leading layer axis) -> the port's params, one dict per
-    layer, on ``device`` (the card unless named)."""
+    layer, on ``device`` (the card unless named); matrices in ``dtype``
+    (the model dtype unless named; fp32 for training's masters)."""
     dev = resolve_device(device)
-    dt = torch_dtype(cfg.dtype)
+    dt = torch_dtype(dtype or cfg.dtype)
 
     def t(a, dtype):
         return torch.from_numpy(np.array(a)).to(dev, dtype)
@@ -80,7 +88,7 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     out = {"embed": t(np_params["embed"], dt),
            "final_norm": t(np_params["final_norm"], torch.float32)}
     if cfg.family == "hybrid":
-        out["layers"] = _hybrid_from_jax(np_params, cfg, t)
+        out["layers"] = _hybrid_from_jax(np_params, cfg, t, dt)
     elif cfg.family == "ssm":
         lp = np_params["layers"]
         out["layers"] = [
@@ -88,25 +96,23 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
              for n, a in lp.items()} for i in range(cfg.num_layers)]
     elif cfg.family == "encdec":
         out["enc_layers"] = _layers_from_jax(
-            np_params["enc_layers"], cfg, t, cfg.encoder_layers)
+            np_params["enc_layers"], t, cfg.encoder_layers, dt)
         out["dec_layers"] = _layers_from_jax(
-            np_params["dec_layers"], cfg, t, cfg.num_layers)
+            np_params["dec_layers"], t, cfg.num_layers, dt)
         out["enc_norm"] = t(np_params["enc_norm"], torch.float32)
     else:
-        out["layers"] = _layers_from_jax(np_params["layers"], cfg, t,
-                                         cfg.num_layers)
+        out["layers"] = _layers_from_jax(np_params["layers"], t,
+                                         cfg.num_layers, dt)
     for name in ("lm_head", "projector", "frontend_proj"):
         if name in np_params:
             out[name] = t(np_params[name], dt)
     return out
 
 
-def _layers_from_jax(lp: dict, cfg: ModelConfig, t,
-                     n_layers: int) -> list:
+def _layers_from_jax(lp: dict, t, n_layers: int, dt) -> list:
     """A dense / MoE / VLM / encoder / decoder layer stack (leading layer
     axis) -> one dict per layer (a decoder layer's ``ln_x`` and ``xattn``
     beside its ``attn``)."""
-    dt = torch_dtype(cfg.dtype)
     groups = {**_MATS, **({"xattn": _MATS["attn"]} if "xattn" in lp else {})}
     layers = []
     for i in range(n_layers):
@@ -122,6 +128,45 @@ def _layers_from_jax(lp: dict, cfg: ModelConfig, t,
                                       for n in _MATS["ffn"]}
         layers.append(layer)
     return layers
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy; bf16 (which numpy lacks) as fp32,
+    exactly."""
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+
+def _stack(layers: list):
+    """Per-layer trees (dicts of tensors) -> one tree of numpy arrays with
+    a leading layer axis."""
+    if isinstance(layers[0], dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in layers[0]}
+    return np.stack([_to_numpy(x) for x in layers])
+
+
+def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
+    """The port's params (or any tree of their shape, such as the AdamW
+    moments) -> numpy in JAX's ``init_params`` layout: every layer list
+    stacked along a leading axis, the hybrid's layers split back into
+    ``periods/sub{i}_{kind}`` and ``tail`` by ``_period_split``. The
+    inverse of ``params_from_jax(..., dtype=torch.float32)``, bit for
+    bit."""
+    out = {k: _to_numpy(v) for k, v in params.items()
+           if isinstance(v, torch.Tensor)}
+    if cfg.family == "hybrid":
+        n_periods, pat, tail = HY._period_split(cfg)
+        layers, n = params["layers"], len(pat)
+        out["periods"] = {
+            f"sub{i}_{kind}": _stack(layers[i:n_periods * n:n])
+            for i, kind in enumerate(pat)}
+        if tail:
+            out["tail"] = _stack(layers[n_periods * n:])
+        return out
+    for name in ("layers", "enc_layers", "dec_layers"):
+        if name in params:
+            out[name] = _stack(params[name])
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,

@@ -1863,3 +1863,92 @@ def test_head_block_decode_plans_globally_and_is_bit_equal(dev):
             q4[:, blk].contiguous(), shard.key_codes, *sstats,
             shard.value_fp, table, flushed, plan_heads=8)
         assert all(torch.equal(a[:, blk], b) for a, b in zip(parts, sparts))
+
+
+# (B, H, Hkv, Tq, Tk, d, mode, window, dtype): the training path's #3
+# forward with the log-sum-exp — tinyllama's 8:1 GQA, every mask mode, a
+# ragged T, both bodies (bf16 tensor cores, fp32 FMA) and d 32 / 64 / 128
+@pytest.mark.parametrize("b,h,hkv,tq,tk,d,mode,window,dtype", [
+    (2, 8, 1, 200, 200, 64, "causal", 0, _BF16),
+    (2, 8, 2, 130, 130, 64, "causal", 0, _F32),
+    (2, 8, 2, 150, 150, 64, "prefix", 0, _BF16),
+    (2, 8, 2, 150, 150, 32, "local", 40, _F32),
+    (2, 8, 2, 150, 150, 128, "local", 40, _BF16),
+    (2, 4, 4, 70, 200, 64, "full", 0, _BF16),
+    (2, 4, 4, 70, 200, 32, "full", 0, _F32)])
+def test_flash_prefill_lse_matches_plain(dev, b, h, hkv, tq, tk, d, mode,
+                                         window, dtype):
+    gen = _gen(dev, 5)
+    q = torch.randn((b, h, tq, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, hkv, tk, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    pl = (torch.tensor([37, 120], dtype=torch.int32, device=dev)
+          if mode == "prefix" else None)
+    kw = dict(mode=mode, window=window, prefix_len=pl)
+    n, nl = fpk.launches, fpk.launches_lse
+    out, lse = fpk.flash_prefill(q, k, v, return_lse=True, **kw)
+    assert (fpk.launches, fpk.launches_lse) == (n + 1, nl + 1)
+    ref, ref_lse = fpk.flash_prefill_plain(q, k, v, return_lse=True, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    assert torch.equal(out, fpk.flash_prefill(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype,tol", [(_F32, 1e-3), (_BF16, 2e-2)])
+@pytest.mark.parametrize("mode,tq,tk,window", [
+    ("causal", 130, 130, 0), ("prefix", 130, 130, 0), ("local", 130, 130, 40),
+    ("full", 70, 150, 0)])
+def test_flash_attention_grads_on_card(dev, dtype, tol, mode, tq, tk,
+                                       window):
+    """dq / dk / dv of the differentiable attention (the kernel's forward,
+    the ported backward) against autograd through the reference attention
+    in fp32: relative L2 within 1e-3 (fp32) and 2e-2 (bf16)."""
+    from repro_torch.core.attention import flash_attention, \
+        reference_attention
+    gen = _gen(dev, 6)
+    q = torch.randn((2, 8, tq, 64), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((2, 2, tk, 64), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    g = torch.randn((2, 8, tq, 64), generator=gen, device=dev)
+    pl = (torch.tensor([50, 9], dtype=torch.int32, device=dev)
+          if mode == "prefix" else None)
+    kw = dict(mode=mode, window=window, prefix_len=pl)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n = fpk.launches_lse
+    got = torch.autograd.grad(flash_attention(*xs, **kw), xs, g.to(dtype))
+    assert fpk.launches_lse == n + 1
+    rs = [x.float().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(reference_attention(*rs, **kw), rs, g)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        rel = torch.linalg.vector_norm(a.float() - w) / \
+            torch.linalg.vector_norm(w)
+        assert float(rel) <= tol, (mode, float(rel))
+
+
+def test_train_step_on_card_by_default(dev):
+    """The smoke tinyllama's train step on the card (the default device):
+    every #3 launch writes the log-sum-exp, two a layer under block
+    remat, and the loss matches the CPU's plain run within 1e-4."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import get_model
+    from repro_torch.train import StepConfig, init_train_state, \
+        make_train_step
+    from repro_torch.train.train_step import (train_state_from_jax,
+                                              train_state_to_jax)
+    cfg = reduce_for_smoke(get_config("tinyllama-1.1b"))
+    model = get_model(cfg)
+    state = init_train_state(model, 0)
+    assert state.params["embed"].is_cuda
+    batch = SyntheticLMDataset(cfg, 4, 64).next_batch()
+    step = make_train_step(model, None, StepConfig())
+    n = fpk.launches_lse
+    _, m = step(state, batch)
+    assert fpk.launches_lse == n + 2 * cfg.num_layers
+    cpu = train_state_from_jax(train_state_to_jax(state, cfg), cfg,
+                               device="cpu")
+    _, mc = step(cpu, batch)
+    assert abs(float(m["loss"]) - float(mc["loss"])) <= 1e-4 * float(
+        mc["loss"])
