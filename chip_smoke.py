@@ -1769,7 +1769,9 @@ def check_dense_d128(torch, dev, gen, flush, form) -> list[dict]:
     from repro_torch.kernels import polar_attention as pak
     from repro_torch.kernels import polar_encode as pe
     from repro_torch.kernels import polar_qk as qkk
-    hkv, qh = D128_SHAPES[form]
+    from repro_torch.kernels.paged_decode import plan_splits
+    hkv, qh = _d128_shape(form)
+    plan = MESH_PLAN_HEADS.get(form)
     d = D128
     p = d // 2
     k = torch.randn((SB, hkv, 8 * G, d), generator=gen, device=dev).to(
@@ -1791,13 +1793,34 @@ def check_dense_d128(torch, dev, gen, flush, form) -> list[dict]:
         for x in st:
             x[i, :, -(-n // G):] = float("nan")
     n_split = pak.launches_split
-    got = pak.polar_decode_attention_grouped(q, bufs[0], *st, v, length)
+    got = pak.polar_decode_attention_grouped(q, bufs[0], *st, v, length,
+                                             plan_heads=plan)
     assert pak.launches_split == n_split + 1, "d 128 left the split body"
     ref = pak.polar_decode_attention_grouped_plain(q, bufs[0], *st, v, length)
     err = _partials_err(torch, got, ref)[0]
+    own = ""
+    if plan:
+        # the rank's heads are the first block of the model's: pad the
+        # inputs to every head and run the whole model's call
+        nb = plan // hkv
+
+        def whole(x):
+            return torch.cat([x] + [torch.zeros_like(x)] * (nb - 1), 1)
+        wfull = pak.polar_decode_attention_grouped(
+            whole(q), whole(bufs[0]), *(whole(x) for x in st), whole(v),
+            length)
+        assert all(torch.equal(a[:, :hkv], b) for a, b in zip(wfull, got)), \
+            f"{form}: the shard's #5 differs from the whole call's heads"
     full = torch.full((SB,), 8 * G, dtype=torch.int32, device=dev)
     ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped(
-        q, *bufs, vals, full), flush=flush)
+        q, *bufs, vals, full, plan_heads=plan), flush=flush)
+    if plan:
+        own_ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped(
+            q, *bufs, vals, full), flush=flush)
+        own = (f" (nsplit {plan_splits(SB, plan, SG)}, planned for {plan} kv "
+               "heads; bit-equal to those heads of the whole call; the "
+               f"shard's own plan, nsplit {plan_splits(SB, hkv, SG)}, takes "
+               f"{own_ms:.4f} ms)")
     plain_ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped_plain(
         q, *bufs, vals, full), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
     kf = _dequant(torch, bufs)
@@ -1821,7 +1844,7 @@ def check_dense_d128(torch, dev, gen, flush, form) -> list[dict]:
         bound(nbytes, flops(groups, True), "fp32"), lib_ms,
         "SDPA over pre-dequantized keys (fp32, length mask)",
         f"8 rows x {hkv} kv heads x {qh} query heads x 8 flushed groups of a "
-        "1152-token buffer x d 128, bf16 values")]
+        "1152-token buffer x d 128, bf16 values" + own)]
     got = qkk.polar_qk_scores(q, *bufs)
     ref = qkk.polar_qk_scores_plain(q, *bufs)
     torch.cuda.synchronize()
@@ -1863,15 +1886,18 @@ def check_d128(torch, dev, gen, flush) -> list[dict]:
 
 
 def check_mesh_d128(torch, dev, gen, flush) -> list[dict]:
-    """#1-#4 at a mesh rank's shapes (:data:`MESH_SHAPES`: llama3.1-8b's
+    """#1-#6 at a mesh rank's shapes (:data:`MESH_SHAPES`: llama3.1-8b's
     8 kv heads over two ranks, 4 a rank with 4 query heads each) — the
-    kernels of the head-sharded paged path; #5 and #6 are not on it.
-    Their launches are counted in the mesh phase."""
+    kernels of the head-sharded paged path (#1-#4) and of the static
+    engine's head-sharded linear caches (#1, #3, #5, #6; #2 and #5 plan
+    their splits for the model's 8 kv heads). Their launches are counted
+    in the mesh phase."""
     return [row for f in MESH_SHAPES for row in (
         check_encode_d128(torch, dev, gen, flush, f),
         check_decode_d128(torch, dev, gen, flush, f),
         check_prefill_d128(torch, dev, gen, flush, f),
-        check_paged_prefill_d128(torch, dev, gen, flush, f))]
+        check_paged_prefill_d128(torch, dev, gen, flush, f),
+        *check_dense_d128(torch, dev, gen, flush, f))]
 
 
 # ---------------------------------------------------------------------------
@@ -5026,9 +5052,11 @@ def mesh_serve(torch, model, params, counters, reqs, dev, mesh=None,
                smoke=False, **kw) -> dict:
     """Serve ``reqs`` ((rid, prompt, new, arrival)) on one engine (8 slots,
     max_len 1024; 4 and 128 for a ``smoke`` workload), warmed up first, with
-    each decode step's logits recorded: streams, per-request events,
-    logits, launches, cache bytes, whether decode replayed graphs, the
-    head block and the mean decode step."""
+    each decode step's logits recorded (a speculative verify's argmaxes
+    and accept counts: it returns no logits): streams, per-request
+    events, logits, launches, cache bytes, whether decode replayed graphs,
+    the head block, the mean decode step and the result's decode steps,
+    prefills, spec and run-ahead entries."""
     from repro_torch.serve import (
         ContinuousBatchingEngine, GenerationConfig, Request,
     )
@@ -5037,13 +5065,21 @@ def mesh_serve(torch, model, params, counters, reqs, dev, mesh=None,
         max_len=128 if smoke else 1024, device=dev, mesh=mesh, **kw)
     eng.warmup([len(p) for _, p, _, _ in reqs])
     logits = []
-    real = eng.core._graphs.step
+    graphs = eng.core._graphs
+    real, real_verify = graphs.step, graphs.verify
 
     def step(*a, **k):
         out = real(*a, **k)
         logits.append(out[0].clone())   # a replay's output: copy it
         return out
-    with mock.patch.object(eng.core._graphs, "step", step):
+
+    def verify(*a, **k):
+        # a verify returns no logits: its argmaxes and accept counts
+        preds, n_acc = real_verify(*a, **k)
+        logits.append(torch.cat([preds, n_acc[:, None]], 1).clone())
+        return preds, n_acc
+    with mock.patch.object(graphs, "step", step), \
+            mock.patch.object(graphs, "verify", verify):
         _sync_dev(torch, dev)
         reset_counts(counters)
         out = eng.run([Request(rid=rid, prompt=p, max_new_tokens=n,
@@ -5062,7 +5098,9 @@ def mesh_serve(torch, model, params, counters, reqs, dev, mesh=None,
             "launches": launches, "pool_bytes": out["cache_bytes"] - lengths,
             "graphs": out["graphs"], "head_shard": out["head_shard"],
             "step_ms": out["decode_step_s_mean"] * 1e3,
-            "decode_steps": out["decode_steps"], "wall_s": out["wall_s"]}
+            "decode_steps": out["decode_steps"], "wall_s": out["wall_s"],
+            "result": {k: out.get(k) for k in ("decode_steps", "prefills",
+                                               "spec", "runahead")}}
 
 
 def _sync_dev(torch, dev) -> None:
@@ -5070,12 +5108,182 @@ def _sync_dev(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
+#: the mesh phase's speculative arms: ngram, k 4
+MESH_SPEC_K = 4
+#: the static engine's decode routes under a mesh: #5 (the fused route)
+#: and #6 (the score route)
+MESH_STATIC_ROUTES = (("paged_fused", "polar_attention"),
+                      ("jnp", "polar_qk"))
+#: decode steps whose logits a spawned rank keeps whole (every step's
+#: logits also as a digest of their bytes)
+MESH_KEEP_STEPS = 8
+
+
+def _digest(torch, x) -> str:
+    """A digest of ``x``'s bytes: equal digests, bit-equal tensors."""
+    import hashlib
+    return hashlib.sha1(x.detach().contiguous().view(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh_static(torch, cfg, params, counters, dev, mesh=None,
+                keep=None) -> dict:
+    """``ServeEngine`` on the static phase's shape (8 rows x 1000-token
+    prompts, 64 greedy new tokens, max_len 1152) per decode route of
+    :data:`MESH_STATIC_ROUTES`, on ``mesh`` when one is given (the engine
+    installs ``serving_rules``), after a 2-token warm-up. Per route: tokens, the prefill's and every decode step's
+    logits (``keep``: only the first ``keep`` steps' whole, every step's
+    digest), launches, the linear caches' bytes (the whole length scalars
+    left out), the head block and the decode seconds."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    prompts = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (SB, SPROMPT)), device=dev).long()
+    out = {}
+    for backend, route in MESH_STATIC_ROUTES:
+        model = get_model(dataclasses.replace(cfg, decode_backend=backend))
+        eng = ServeEngine(model, params, max_len=SMAX, device=dev, mesh=mesh)
+        eng.generate({"tokens": prompts}, GenerationConfig(max_new_tokens=2))
+        logits = []
+        real_p, real_d = TF.prefill_fn, TF.decode_fn
+
+        def prefill(*a, **k):
+            lg, st = real_p(*a, **k)
+            logits.append(lg.clone())
+            return lg, st
+
+        def decode(*a, **k):
+            lg, st = real_d(*a, **k)
+            logits.append(lg.clone())
+            return lg, st
+        with mock.patch.object(TF, "prefill_fn", prefill), \
+                mock.patch.object(TF, "decode_fn", decode):
+            _sync_dev(torch, dev)
+            reset_counts(counters)
+            res = eng.generate({"tokens": prompts},
+                               GenerationConfig(max_new_tokens=SNEW))
+            _sync_dev(torch, dev)
+            launches = read_counts(counters)
+        digests = [_digest(torch, x) for x in logits]
+        if keep is not None:
+            logits = [x.cpu() for x in logits[:keep + 1]]
+        out[route] = {"tokens": res["tokens"], "logits": logits,
+                      "digests": digests, "launches": launches,
+                      "bytes": res["cache_bytes"] - 4 * cfg.num_layers,
+                      "head_shard": res["head_shard"],
+                      "decode_s": res["decode_s"]}
+    return out
+
+
+def static_expect(launches: dict, cfg, route: str) -> tuple[dict, int]:
+    """A polar ``ServeEngine`` run's exact launches at the static shape,
+    and its encodes of the decode form: a prefill launch of #3 and #1 a
+    layer, one flush a layer at position 1023 (the decode form), and the
+    route's attention kernel once a layer and decode step."""
+    nl = cfg.num_layers
+    return ({**dict.fromkeys(launches, 0), "polar_encode": 2 * nl,
+             "flash_prefill": nl, route: nl * (SNEW - 1)}, nl)
+
+
+def _static_gate(torch, got: dict, want: dict, label: str) -> str:
+    """Bit-equal logits over the prefill and every decode step (by digest);
+    else, where every differing step was kept whole, the rel. L2 error
+    over them (limit 1e-6). A difference at a step not kept whole fails:
+    its error was not measured."""
+    assert len(got["digests"]) == len(want["digests"]), label
+    if got["digests"] == want["digests"]:
+        return "bit-equal"
+    n = len(got["logits"])
+    differ = [i for i, (a, b) in enumerate(zip(got["digests"],
+                                               want["digests"])) if a != b]
+    assert differ[-1] < n, (f"{label}: logits differ at steps {differ[:8]}"
+                            f"{'...' if len(differ) > 8 else ''}, past the "
+                            f"{n} kept whole")
+    return _logit_gate(torch, got["logits"], want["logits"][:n], label,
+                       lambda: f"the digests differ at steps {differ[:8]}")
+
+
+#: the serving launcher's arguments in :func:`cli_line`
+CLI_ARGS = ("--engine", "cb", "--decode-backend", "paged_fused",
+            "--prefill-backend", "paged_fused", "--batch", "4", "--gen", "16")
+
+
+def cli_line(torch, dev="cuda") -> str:
+    """``repro_torch.launch.serve.main`` in this process at tinyllama-1.1b's
+    full width (``--engine cb``, both page-native backends, 4 requests, 16
+    new tokens), once meshless and once with ``--mesh-shape 1x1``: each
+    printed first sequence equals the engine called directly on the
+    params the launcher draws."""
+    import io
+    import numpy as np
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import (
+        ContinuousBatchingEngine, GenerationConfig, Request,
+    )
+    t0 = time.monotonic()
+    argv = list(CLI_ARGS) + ([] if dev == "cuda"
+                             else ["--device", str(dev)])
+    firsts = []
+    for extra in ([], ["--mesh-shape", "1x1"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert launch.main(argv + extra) == 0
+        lines = buf.getvalue().splitlines()
+        assert lines[-1].startswith("[serve] first sequence: "), lines
+        firsts.append(json.loads(lines[-1].split(": ", 1)[1]))
+    args = launch.parse_args(argv)
+    cfg, model, params = launch.build(args)
+    rng = np.random.default_rng(args.seed)
+    toks = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    shared = rng.integers(0, cfg.vocab_size, (args.shared_prefix_len,))
+    eng = ContinuousBatchingEngine(model, params, max_slots=args.batch,
+                                   max_len=args.max_len, device=dev)
+    out = eng.run([Request(rid=i, prompt=np.concatenate(
+        [shared, toks[i]]).astype(np.int32), max_new_tokens=args.gen,
+        arrival_time=0.0 if i == 0 else 100.0 + 0.01 * i)
+        for i in range(args.batch)], GenerationConfig(
+            max_new_tokens=args.gen, seed=args.seed))
+    want = [r for r in out["requests"] if r.rid == 0][0].out_tokens
+    assert firsts == [want, want], (firsts, want)
+    del params, model, eng
+    return (f"cli: python -m repro_torch.launch.serve {' '.join(argv)} "
+            f"(tinyllama-1.1b, {cfg.num_layers} layers) and the same with "
+            "--mesh-shape 1x1, in this process: each first sequence "
+            f"({len(want)} tokens) equal to the engine called directly on "
+            f"the launcher's params; {time.monotonic() - t0:.1f} s")
+
+
 def _mesh_arms(cfg, smoke: bool) -> dict:
-    """The engine options of each workload arm."""
+    """The engine options of each workload arm: ``classic``, and for a
+    full-width config ``prefix`` (chunked prefill with the prefix cache)
+    and ``spec`` (ngram, k :data:`MESH_SPEC_K`, on the config's decode
+    backend's verifier; the classic workload)."""
+    from repro_torch.spec import SpecConfig
     arms = {"classic": {}}
     if not smoke:
         arms["prefix"] = {"prefill_chunk": TC, "prefix_cache": True}
+        arms["spec"] = {"spec": SpecConfig(mode="ngram", k=MESH_SPEC_K)}
     return arms
+
+
+def _arm_work(work: dict, arm: str) -> list:
+    """An arm's requests: the spec and run-ahead arms serve the classic
+    workload."""
+    return work.get(arm, work["classic"])
+
+
+def _arm_flushes(cfg, got: dict, reqs: list) -> int:
+    """The decode-form encodes among an arm's launches, asserting a spec
+    arm's launches exactly (:func:`spec_expect`)."""
+    if got["result"]["spec"] is None:
+        return decode_flushes(cfg, got["decode_steps"])
+    expect, flushes = spec_expect(got["launches"], cfg, got["result"],
+                                  [len(p) for _, p, _, _ in reqs])
+    assert got["launches"] == expect, (got["launches"], expect)
+    return flushes
 
 
 def _logit_gate(torch, got: list, want: list, label: str, probe) -> str:
@@ -5097,8 +5305,9 @@ def mesh_rank_main(argv: list[str]) -> int:
     """One rank of a spawned world: ``--mesh-rank R --mesh-world N
     --mesh-dir D --mesh-config NAME --mesh-depth K --mesh-smoke 0|1
     --mesh-dev DEV``. Joins the gloo world through ``D/rdzv``, serves the
-    workload arms on ``EngineCore(mesh=(1, N))`` and saves its results to
-    ``D/rank_R.pt``. The kernels are built by the parent before any rank
+    workload arms on ``EngineCore(mesh=(1, N))`` (and, for a full-width
+    config, the static engine's routes on ``ServeEngine(mesh=)``:
+    :func:`mesh_static`) and saves its results to ``D/rank_R.pt``. The kernels are built by the parent before any rank
     starts: a rank loads them and never runs nvcc."""
     import torch
     import torch.distributed as dist
@@ -5127,12 +5336,18 @@ def mesh_rank_main(argv: list[str]) -> int:
         work = _mesh_workload(cfg, smoke)
         res = {}
         for arm, kw in _mesh_arms(cfg, smoke).items():
-            r = mesh_serve(torch, model, params, counters, work[arm], dev,
-                           mesh=mesh, smoke=smoke, **kw)
+            r = mesh_serve(torch, model, params, counters,
+                           _arm_work(work, arm), dev, mesh=mesh, smoke=smoke,
+                           **kw)
             r["logits"] = [x.cpu() for x in r["logits"]]
             res[arm] = r
         # the ranks' streams, events and logits, compared on every rank
         mine = {a: (r["streams"], r["events"]) for a, r in res.items()}
+        if not smoke:
+            res["static"] = mesh_static(torch, cfg, params, counters, dev,
+                                        mesh=mesh, keep=MESH_KEEP_STEPS)
+            mine["static"] = [r["tokens"].tolist()
+                              for r in res["static"].values()]
         every = [None] * world
         dist.all_gather_object(every, mine)
         res["ranks_agree"] = all(x == every[0] for x in every)
@@ -5233,24 +5448,52 @@ def _mesh_op_probe(torch, dev) -> str:
     return "none"
 
 
+def _part1_arms(model) -> list:
+    """Part 1's arms: (name, model, engine options). The classic and prefix
+    arms, the scan verifier's spec arm (``model``'s ``"paged_fused"``
+    route) and the span verifier's (the same weights on ``"jnp"``), and
+    ``runahead=4`` (held to the classic arm's meshless run)."""
+    import dataclasses
+    from repro_torch.models import get_model
+    kws = _mesh_arms(model.cfg, False)
+    span = get_model(dataclasses.replace(model.cfg, decode_backend="jnp"))
+    return [("classic", model, kws["classic"]),
+            ("prefix", model, kws["prefix"]),
+            ("spec[scan]", model, kws["spec"]),
+            ("spec[span]", span, kws["spec"]),
+            ("runahead", model, {"runahead": 4})]
+
+
 def phase_mesh(torch, counters, model, params, dev="cuda",
                backend="nccl") -> dict:
-    """Head-sharded paged serving (DESIGN.md §17), three parts:
+    """Head-sharded serving (DESIGN.md §17), three parts and a line:
 
     1. a ``backend`` (NCCL) world of one in this process (file rendezvous
        in a temp directory): ``EngineCore(mesh=(1, 1))`` on ``model`` —
        the sharded dispatch, its head gather an all-reduce inside the
-       replayed graphs — against the meshless engine, one-shot and
-       chunked + prefix cache: streams, events and every decode step's
-       logits bit-equal, the same launches;
+       replayed graphs — against the meshless engine, one-shot, chunked +
+       prefix cache, ngram speculation (k :data:`MESH_SPEC_K`) on each
+       verifier (graphed) and ``runahead=4`` (taken, left unused: held to
+       the meshless ``runahead=0`` run): streams, events and every decode
+       step's logits (a verify's argmaxes and accept counts) bit-equal,
+       the same launches; then ``ServeEngine(mesh=)`` on
+       both static routes (#5, #6; :func:`mesh_static`) against the
+       meshless ``ServeEngine``: tokens, the prefill's and every decode
+       step's logits bit-equal, the same launches and cache bytes;
     2. :data:`MESH_WORLDS`' llama3.1-8b over two gloo ranks spawned from
-       here (their step eager, chosen before capture): streams equal to
-       the meshless engine's run here, decode logits bit-equal (else rel.
-       L2 1e-6 with the first differing op named), each rank's pool bytes
-       exactly half, per-rank launches equal to the meshless run's;
+       here (their step eager, chosen before capture) in the classic,
+       prefix and spec (scan verifier) arms: streams equal to the meshless
+       engine's run here, decode logits bit-equal (else rel. L2 1e-6 with
+       the first differing op named), each rank's pool bytes exactly
+       half, per-rank launches equal to the meshless run's; and the
+       static routes: tokens equal, logits bit-equal by digest, each
+       rank's linear-cache bytes exactly half;
     3. the smoke tinyllama over four gloo ranks, spawned with part 2: the
        GQA fallback (2 KV heads; every rank holds the whole pools, no
-       collective in the step, graphs replayed), streams equal.
+       collective in the step, graphs replayed), streams equal;
+
+    and :func:`cli_line`: the serving launcher in this process, meshless
+    and on a ``1x1`` mesh.
 
     Returns the launches under the kernel rows' names: part 1's on the
     tinyllama rows, rank 0's of part 2 on the ``[d128,mesh2]`` rows."""
@@ -5259,6 +5502,10 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
     from repro_torch.launch.mesh import init_world, make_mesh
     t_phase = time.monotonic()
     total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
         tmp = Path(tmp)
         started = []
@@ -5277,11 +5524,16 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
                 mesh = make_mesh((1, 1), ("data", "model"))
                 assert mesh.backend("model") == backend
                 work = _mesh_workload(model.cfg, False)
-                for arm, kw in _mesh_arms(model.cfg, False).items():
-                    base = mesh_serve(torch, model, params, counters,
-                                      work[arm], dev, **kw)
-                    got = mesh_serve(torch, model, params, counters,
-                                     work[arm], dev, mesh=mesh, **kw)
+                bases = {}
+                for arm, amodel, kw in _part1_arms(model):
+                    reqs = _arm_work(work, arm)
+                    if arm == "runahead":
+                        base = bases["classic"]
+                    else:
+                        base = bases[arm] = mesh_serve(
+                            torch, amodel, params, counters, reqs, dev, **kw)
+                    got = mesh_serve(torch, amodel, params, counters, reqs,
+                                     dev, mesh=mesh, **kw)
                     assert got["head_shard"] == (0, 1)
                     assert got["graphs"] == (dev == "cuda")
                     assert got["streams"] == base["streams"], arm
@@ -5292,21 +5544,65 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
                                        f"mesh[{backend} x1,{arm}]",
                                        lambda: _mesh_op_probe(torch, dev))
                     assert gate == "bit-equal", gate
-                    for k, n in encode_forms(got["launches"], decode_flushes(
-                            model.cfg, got["decode_steps"])).items():
-                        total[k] = total.get(k, 0) + n
+                    note = ""
+                    if arm == "runahead":
+                        ra = got["result"]["runahead"]
+                        assert (ra["h"], ra["horizons"], ra["tokens"]) == \
+                            (4, 0, 0), ra
+                        note = ("; runahead=4 taken and left unused (h 4, "
+                                "0 horizons), held to the meshless "
+                                "runahead=0 run")
+                    if got["result"]["spec"] is not None:
+                        sp = got["result"]["spec"]
+                        note = (f"; ngram k {MESH_SPEC_K}: {sp['steps']} "
+                                f"verifies, {sp['accepted_tokens']} of "
+                                f"{sp['drafted_tokens']} drafts accepted, "
+                                f"verifies by span width "
+                                f"{sp['dispatches_by_q']}")
+                    add(encode_forms(got["launches"], _arm_flushes(
+                        amodel.cfg, got, reqs)))
                     print(f"mesh[{backend} x1,{arm}]: {model.cfg.name} at "
                           f"full width ({model.cfg.num_layers} layers), "
-                          f"{len(work[arm])} requests at t = 0, "
+                          f"{len(reqs)} requests at t = 0, "
                           f"{got['decode_steps']} decode steps "
                           + ("replayed with the head gather ("
                              f"{backend} all-reduce) inside the graphs"
                              if got["graphs"] else "eager")
                           + ": streams, events and every "
-                          f"step's logits {gate} to the meshless engine's; "
-                          f"decode step mean {got['step_ms']:.3f} ms "
+                          f"step's logits {gate} to the meshless engine's"
+                          f"{note}; decode step mean {got['step_ms']:.3f} ms "
                           f"(meshless {base['step_ms']:.3f} ms); launches "
                           f"{json.dumps(got['launches'])}", flush=True)
+                del bases
+                t1 = time.monotonic()
+                base = mesh_static(torch, model.cfg, params, counters, dev)
+                got = mesh_static(torch, model.cfg, params, counters, dev,
+                                  mesh=mesh)
+                for route, g in got.items():
+                    b = base[route]
+                    expect, flushes = static_expect(g["launches"],
+                                                    model.cfg, route)
+                    assert g["launches"] == b["launches"] == expect, \
+                        (route, g["launches"], b["launches"], expect)
+                    assert g["head_shard"] == (0, 1)
+                    assert (g["tokens"] == b["tokens"]).all(), route
+                    assert g["bytes"] == b["bytes"], (g["bytes"], b["bytes"])
+                    gate = _static_gate(torch, g, b,
+                                        f"mesh[{backend} x1,static,{route}]")
+                    assert gate == "bit-equal", gate
+                    add(encode_forms(g["launches"], flushes))
+                    print(f"mesh[{backend} x1,static,{route}]: ServeEngine("
+                          f"mesh=), {SB} rows x {SPROMPT}-"
+                          f"token prompts, {SNEW} new: tokens and the "
+                          f"prefill's and all {SNEW - 1} decode steps' "
+                          f"logits {gate} to the meshless ServeEngine's; "
+                          f"cache {g['bytes']} B (meshless {b['bytes']}); "
+                          f"decode {g['decode_s']:.3f} s (meshless "
+                          f"{b['decode_s']:.3f} s); launches "
+                          f"{json.dumps(g['launches'])}", flush=True)
+                del base, got
+                print(f"mesh: {backend} world of one static arm "
+                      f"{time.monotonic() - t1:.1f} s", flush=True)
             finally:
                 dist.destroy_process_group()
             print(f"mesh: {backend} world of one {time.monotonic() - t0:.1f}"
@@ -5320,8 +5616,11 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
                                                    dev)
                 work = _mesh_workload(cfg, smoke)
                 base = {arm: mesh_serve(torch, mmodel, mparams, counters,
-                                        work[arm], dev, smoke=smoke, **kw)
+                                        _arm_work(work, arm), dev,
+                                        smoke=smoke, **kw)
                         for arm, kw in _mesh_arms(cfg, smoke).items()}
+                static = None if smoke else mesh_static(
+                    torch, cfg, mparams, counters, dev)
                 del mparams, mmodel
                 t_ref = time.monotonic() - t0
                 ranks = _join_world(torch, procs, d, deadline)
@@ -5350,6 +5649,7 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
                             f"mesh[gloo x{world},{name},{arm}]",
                             lambda: _mesh_op_probe(torch, dev)))
                     r0 = ranks[0][arm]
+                    _arm_flushes(cfg, r0, _arm_work(work, arm))
                     steps = ", ".join(f"{x[arm]['step_ms']:.3f}"
                                       for x in ranks)
                     print(f"mesh[gloo x{world},{name},{arm}]: "
@@ -5362,8 +5662,8 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
                              "GQA fallback), no collective in the step, "
                              "decode " + ("graphs replayed" if r0["graphs"]
                                           else "eager"))
-                          + f"; {len(work[arm])} requests, every rank's "
-                          f"streams and events equal to the meshless "
+                          + f"; {len(_arm_work(work, arm))} requests, every "
+                          f"rank's streams and events equal to the meshless "
                           f"engine's and to each other's; decode logits per "
                           f"rank: {', '.join(gates)}; pool bytes a "
                           f"rank {r0['pool_bytes']} (meshless "
@@ -5377,6 +5677,42 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
                             if n:
                                 row = k.split("[")[0] + form
                                 total[row] = total.get(row, 0) + n
+                for route, b in (static or {}).items():
+                    gates = []
+                    for r, res in enumerate(ranks):
+                        g = res["static"][route]
+                        gates.append(_static_gate(
+                            torch, g, b,
+                            f"mesh[gloo x{world},{name},static,{route}]"))
+                        assert (g["tokens"] == b["tokens"]).all(), \
+                            (name, route, r)
+                        assert g["launches"] == b["launches"] == \
+                            static_expect(b["launches"], cfg, route)[0], \
+                            (name, route, r, g["launches"], b["launches"])
+                        assert g["head_shard"] == ((r, world) if split
+                                                   else None)
+                        assert g["bytes"] * (world if split else 1) == \
+                            b["bytes"], (g["bytes"], b["bytes"])
+                    g0 = ranks[0]["static"][route]
+                    print(f"mesh[gloo x{world},{name},static,{route}]: "
+                          f"ServeEngine(mesh=), {SB} rows x "
+                          f"{SPROMPT}-token prompts, {SNEW} new, linear "
+                          f"caches split over KV heads, "
+                          f"{cfg.num_kv_heads // world} a rank: every "
+                          "rank's tokens equal to the meshless "
+                          f"ServeEngine's; logits per rank over the prefill "
+                          f"and {SNEW - 1} decode steps: {', '.join(gates)}; "
+                          f"cache bytes a rank {g0['bytes']} (meshless "
+                          f"{b['bytes']}); decode a rank "
+                          + ", ".join(f"{x['static'][route]['decode_s']:.3f}"
+                                      for x in ranks)
+                          + f" s (meshless {b['decode_s']:.3f} s); launches "
+                          f"a rank {json.dumps(g0['launches'])}", flush=True)
+                    for k, n in g0["launches"].items():
+                        if n:
+                            row = k.split("[")[0] + f"[d128,mesh{world}]"
+                            total[row] = total.get(row, 0) + n
+                del static
                 print(f"mesh: gloo x{world} {name} done "
                       f"{time.monotonic() - t_phase:.1f} s into the phase "
                       f"(its meshless runs here {t_ref:.1f} s; its ranks "
@@ -5388,6 +5724,7 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
                         p.kill()
                         p.wait()
                     log.close()
+    print(cli_line(torch, dev), flush=True)
     print(f"mesh: {time.monotonic() - t_phase:.1f} s; launches "
           f"{json.dumps(total)}", flush=True)
     print(f"mesh: {time.monotonic() - t_phase:.1f} s", file=sys.stderr,

@@ -390,7 +390,9 @@ class PolarCodec(_GroupedCodec):
     def fused_decode(self, cache, q, *, scale):
         # LUT scores fused with the value matmul over the flushed groups,
         # merged exactly with the fp residual segment; uint8 value rows
-        # travel with their row scale and zero
+        # travel with their row scale and zero. A head shard plans its
+        # splits for the model's kv heads (bit-equal per head to the
+        # unsharded call)
         from repro_torch.core.kv_cache import value_buffers
         from repro_torch.kernels import ops
         cfg = cache.cfg
@@ -400,7 +402,8 @@ class PolarCodec(_GroupedCodec):
             q, cache.key_codes, sc["rho_scale"], sc["rho_zero"],
             sc["theta_scale"], sc["theta_zero"], cache.key_residual,
             values, cache.length, vscale=vscale, vzero=vzero,
-            r_bits=cfg.rho_bits, t_bits=cfg.theta_bits, softmax_scale=scale)
+            r_bits=cfg.rho_bits, t_bits=cfg.theta_bits, softmax_scale=scale,
+            plan_heads=cache.kv_heads)
 
     def encode_pages(self, cfg, k, pages, codes_pool, scale_pools):
         # the hand-written encode kernel writes codes and stats straight

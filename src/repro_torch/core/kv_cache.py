@@ -36,6 +36,11 @@ its value on the host (``host_length``): :func:`append` decides the group
 flush from it, so a decode step never waits for the device (JAX's
 ``lax.cond`` flush).
 
+**Head shards.** Under a mesh whose rules split the KV heads
+(``distributed/serving.py``), a rank's cache holds one contiguous block
+of them, ``head_shard = (r, n)``: every buffer with a head axis (axis 1)
+holds ``num_kv_heads / n`` heads and ``length`` is whole.
+
 **In-place updates.** JAX's functions return new caches; here
 :func:`prefill` and :func:`append` write the buffers and the length in
 place and return the same cache object.
@@ -69,10 +74,20 @@ class KVCache:
     max_len: int
     layout: object                   # LinearLayout | RingLayout
     host_length: Optional[int] = None   # the host's copy of a () length
+    #: (block, blocks) when the buffers hold one contiguous block of the
+    #: model's KV heads; None when they hold every head
+    head_shard: Optional[tuple[int, int]] = None
 
     @property
     def num_kv_heads(self) -> int:
+        """The KV heads the buffers hold (a head shard's block)."""
         return self.key_codes.shape[1]
+
+    @property
+    def kv_heads(self) -> int:
+        """The model's KV heads (every block's, under a head shard)."""
+        n = 1 if self.head_shard is None else self.head_shard[1]
+        return self.num_kv_heads * n
 
     @property
     def head_dim(self) -> int:
@@ -89,10 +104,19 @@ class KVCache:
 
 def init_cache(cfg: QuantConfig, batch: int, num_kv_heads: int,
                head_dim: int, max_len: int, dtype=torch.bfloat16,
-               device=None, layout=None) -> KVCache:
+               device=None, layout=None,
+               head_shard: Optional[tuple[int, int]] = None) -> KVCache:
     """Allocate an empty cache of ``max_len`` tokens on ``device`` (the
-    card unless named); ``layout`` places them (default: linear)."""
+    card unless named); ``layout`` places them (default: linear).
+    ``head_shard = (r, n)``: the buffers hold block ``r`` of ``n`` of the
+    ``num_kv_heads`` heads."""
     device = resolve_device(device)
+    if head_shard is not None:
+        r, n = head_shard
+        if num_kv_heads % n or not 0 <= r < n:
+            raise ValueError(f"head block {head_shard} of {num_kv_heads} "
+                             "kv heads")
+        num_kv_heads //= n
     b, h, d = batch, num_kv_heads, head_dim
     codec = cfg.codec
     key_codes, key_scales = codec.init_buffers(cfg, (b, h), max_len, d,
@@ -109,7 +133,7 @@ def init_cache(cfg: QuantConfig, batch: int, num_kv_heads: int,
         length=torch.zeros((), dtype=torch.int32, device=device), cfg=cfg,
         max_len=max_len,
         layout=layout if layout is not None else LinearLayout(max_len),
-        host_length=0)
+        host_length=0, head_shard=head_shard)
 
 
 def init_values(cfg: QuantConfig, lead: tuple, head_dim: int, dtype,
@@ -251,6 +275,24 @@ def prefill(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
     return cache
 
 
+def head_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+                heads: int) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` over operands (and a result) whose axis 1
+    holds a block of the model's ``heads`` heads, run at the shape of all
+    ``heads`` — the block zero-padded — and cut back. A batched GEMM's
+    kernel is chosen by its batch count, so on the card a head shard's
+    einsum at its own shape sums in another order than the whole call;
+    at the whole call's shape each head's bits are the whole call's."""
+    h = a.shape[1]
+    if h == heads:
+        return torch.einsum(eq, a, b)
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((x.shape[0], heads - h,
+                                          *x.shape[2:]))], dim=1)
+    return torch.einsum(eq, pad(a), pad(b))[:, :h]
+
+
 def key_scores(cache: KVCache, q: torch.Tensor) -> torch.Tensor:
     """Scores of q (B, Hkv, Qh, d) against all stored keys through the
     codec's score path -> (B, Hkv, Qh, max_len)."""
@@ -294,7 +336,8 @@ def decode_attention(cache: KVCache, q: torch.Tensor,
     over the codec's scores (the score-only LUT kernel for polar) and the
     fp residual's, then p @ V. GQA folds query heads onto their kv head.
     ``window > 0`` applies ring-buffer local-attention semantics (capacity
-    == window). Returns (B, Hq, d) in q.dtype."""
+    == window). A head shard's einsums run at the model's head count
+    (:func:`head_einsum`). Returns (B, Hq, d) in q.dtype."""
     cfg = cache.cfg
     b, hq, d = q.shape
     hkv = cache.num_kv_heads
@@ -312,7 +355,7 @@ def decode_attention(cache: KVCache, q: torch.Tensor,
         valid_g, in_res, _ = position_masks(t_cap, g, cache.length, window)
         s_grouped = key_scores(cache, q4)                        # (B,H,Qh,T)
         res = cache.key_residual.float()                         # (B,H,g,d)
-        s_res = torch.einsum("bhqd,bhgd->bhqg", q4, res)
+        s_res = head_einsum("bhqd,bhgd->bhqg", q4, res, cache.kv_heads)
         s_res_tiled = s_res.repeat(1, 1, 1, t_cap // g)          # slot % g
         scores = torch.where(bc(in_res), s_res_tiled,
                              torch.where(bc(valid_g), s_grouped, neg))
@@ -321,8 +364,8 @@ def decode_attention(cache: KVCache, q: torch.Tensor,
         scores = torch.where(bc(valid_g | in_res), key_scores(cache, q4),
                              neg)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqt,bhtd->bhqd", probs,
-                       dequant_rows(*value_buffers(cache)))
+    out = head_einsum("bhqt,bhtd->bhqd", probs,
+                      dequant_rows(*value_buffers(cache)), cache.kv_heads)
     return out.reshape(b, hq, d).to(q.dtype)
 
 

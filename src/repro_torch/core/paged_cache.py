@@ -147,7 +147,8 @@ def _state_buffers(cache: PagedKVCache) -> list[torch.Tensor]:
 
 def empty_like_cache(cache: PagedKVCache) -> PagedKVCache:
     """A cache of the same shapes with fresh, uninitialized buffers (the
-    scan verifier's shadow state, filled by :func:`copy_cache`)."""
+    scan verifier's shadow state, filled by :func:`copy_cache`); a head
+    shard's keeps its block (``head_shard``, hence ``kv_heads``)."""
     def e(x):
         return None if x is None else torch.empty_like(x)
     return dataclasses.replace(
@@ -310,7 +311,8 @@ def chunk_prefill_attention(cache: PagedKVCache, q: torch.Tensor,
     s_prefix = torch.where(pos < start, s_prefix, neg)
 
     # --- the chunk's own fp causal scores ---
-    s_chunk = torch.einsum("bhqtd,bhsd->bhqts", q4, k_chunk.float())
+    s_chunk = kvc.head_einsum("bhqtd,bhsd->bhqts", q4, k_chunk.float(),
+                              cache.kv_heads)
     i = torch.arange(tc, device=dev)
     cmask = (i[:, None] >= i[None, :]) & (i[None, :] < chunk_len)
     s_chunk = torch.where(cmask, s_chunk, neg)
@@ -321,7 +323,7 @@ def chunk_prefill_attention(cache: PagedKVCache, q: torch.Tensor,
     v_pre = kvc.dequant_rows(*(None if x is None else flat(gat(x))
                                for x in (values, vscale, vzero)))
     v_all = torch.cat([v_pre, v_chunk.float()], dim=2)
-    out = torch.einsum("bhqts,bhsd->bhqtd", probs, v_all)
+    out = kvc.head_einsum("bhqts,bhsd->bhqtd", probs, v_all, cache.kv_heads)
     return out.reshape(1, hq, tc, d).to(q.dtype)
 
 
@@ -502,7 +504,8 @@ def gather_view(cache: PagedKVCache,
     scratch page, or out of pool range) are masked at *page* granularity:
     their gathered pages are zeroed before any scoring, so stale
     masked-write garbage on the scratch page can never leak through a
-    zero-probability lane (``0 * NaN``)."""
+    zero-probability lane (``0 * NaN``). The view keeps ``cache``'s head
+    shard."""
     lay = cache.layout
     s, n = page_table.shape
     t_cap = n * lay.page_size
@@ -531,7 +534,7 @@ def gather_view(cache: PagedKVCache,
         **{f: tokens(getattr(cache, f)) for f in
            ("value_codes", "value_scale", "value_zero", "value_fp")},
         length=cache.lengths, cfg=cache.cfg, max_len=t_cap,
-        layout=LinearLayout(t_cap))
+        layout=LinearLayout(t_cap), head_shard=cache.head_shard)
 
 
 #: decode backends over a paged cache: "jnp" and "gathered" read a dense
@@ -653,7 +656,8 @@ def span_verify_attention(cache: PagedKVCache, q: torch.Tensor,
             valid = pos < (lengths[:, None] + 1 + i)           # (S, T)
             probs = torch.softmax(
                 torch.where(valid[:, None, None], scores, neg), dim=-1)
-            o = torch.einsum("bhqt,bhtd->bhqd", probs, values)
+            o = kvc.head_einsum("bhqt,bhtd->bhqd", probs, values,
+                                cache.kv_heads)
             out.append(o.reshape(s, hq, d).to(q.dtype))
         return torch.stack(out, dim=2)
 
@@ -686,7 +690,8 @@ def span_verify_attention(cache: PagedKVCache, q: torch.Tensor,
         m_flush = (pos >= base) & (pos < base + g) & (vl >= base + g)
         m_res = (pos >= base) & (pos < vl) & (vl < base + g)
         qi = q4[:, :, :, i].contiguous()
-        s_res = torch.einsum("bhqd,bhgd->bhqg", qi, res32)
+        s_res = kvc.head_einsum("bhqd,bhgd->bhqg", qi, res32,
+                                cache.kv_heads)
         scores = torch.where(
             m_res[:, None, None], s_res.repeat(1, 1, 1, reps),
             torch.where(m_flush[:, None, None],
@@ -694,6 +699,7 @@ def span_verify_attention(cache: PagedKVCache, q: torch.Tensor,
                         torch.where(m_pages[:, None, None],
                                     s_pages[:, :, :, i], neg)))
         probs = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bhqt,bhtd->bhqd", probs, values)
+        o = kvc.head_einsum("bhqt,bhtd->bhqd", probs, values,
+                            cache.kv_heads)
         out.append(o.reshape(s, hq, d).to(q.dtype))
     return torch.stack(out, dim=2)

@@ -20,6 +20,13 @@ same host schedule.
   order before the replicated ``wo`` — bit-identical per head to the
   unsharded call. The paged decode kernel plans its splits from the
   model's KV-head count (``PagedKVCache.kv_heads``) for that reason.
+* **Dense caches too.** The static engine under a mesh
+  (``ServeEngine(mesh=)``) holds per-layer linear caches
+  (``kv_cache.KVCache``) of the rank's head block
+  (``KVCache.head_shard``); its prefill (#3) and decode (#5 or #6) run
+  through :func:`dispatch_flash_prefill`, :func:`dispatch_decode_attention`
+  and :func:`dispatch_fused_decode_attention`, and the speculative span
+  verifier's attention through :func:`dispatch_span_verify_attention`.
 * **GQA fallback.** When ``num_kv_heads`` (or ``num_heads``) does not
   divide the model axis, every rank holds the whole pools and dispatch
   runs the plain path — same math, no partitioning, no collective.
@@ -158,10 +165,10 @@ def shard_paged_state(state: Any, mesh: Mesh, axis: str = MODEL_AXIS) -> Any:
 # ---------------------------------------------------------------------------
 
 
-def local_heads(cache: pgc.PagedKVCache, x: torch.Tensor,
-                dim: int = 1) -> torch.Tensor:
+def local_heads(cache, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     """The block of ``x``'s heads (axis ``dim``) that ``cache``'s head
-    shard holds, contiguous; ``x`` itself for a cache of every head."""
+    shard holds, contiguous; ``x`` itself for a cache of every head.
+    ``cache``: a paged or a dense (``kv_cache.KVCache``) cache."""
     if cache.head_shard is None:
         return x
     r, n = cache.head_shard
@@ -169,7 +176,7 @@ def local_heads(cache: pgc.PagedKVCache, x: torch.Tensor,
     return x.narrow(dim, r * b, b).contiguous()
 
 
-def _check_block(cache: pgc.PagedKVCache, mesh: Mesh, axis: str) -> None:
+def _check_block(cache, mesh: Mesh, axis: str) -> None:
     if cache.head_shard != head_block(mesh, axis):
         raise ValueError(f"cache holds head block {cache.head_shard}, but "
                          f"this rank is {head_block(mesh, axis)} of mesh "
@@ -222,12 +229,13 @@ def sharded_paged_prefill_attention(cache: pgc.PagedKVCache, q: torch.Tensor,
     return allgather_concat(out, mesh, axis, axis=1)
 
 
-def _active_head_axis(cache: pgc.PagedKVCache, q_heads: int):
+def _active_head_axis(cache, q_heads: int):
     """(mesh, axis) when the installed sharding context maps ``kv_heads``
-    onto a mesh axis that divides both head counts and ``cache`` is a
-    head shard; (None, None) otherwise (no context, the GQA fallback, a
-    test double). A head shard outside such a context raises: its pools
-    hold only some of the heads."""
+    onto a mesh axis that divides both head counts and ``cache`` (paged or
+    dense) is a head shard; (None, None) otherwise (no context, the GQA
+    fallback, a cache of every head such as a draft model's, a test
+    double). A head shard outside such a context raises: its buffers hold
+    only some of the heads."""
     mesh = ctx.current_mesh()
     rules = ctx.current_rules() or {}
     axis = rules.get("kv_heads")
@@ -281,20 +289,72 @@ def dispatch_paged_prefill_attention(cache: pgc.PagedKVCache, q: torch.Tensor,
         axis=axis, scale=scale, backend=backend)
 
 
-def dispatch_flash_prefill(cache: pgc.PagedKVCache, q: torch.Tensor,
-                           k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal flash attention of a whole prompt (q (1, Hq, T, d), k/v (1,
-    Hkv, T, d)), over the head block of ``cache``'s shard and gathered
-    when the engine installed a mesh (see
+def dispatch_flash_prefill(cache, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, **kw) -> torch.Tensor:
+    """Flash attention of a whole prompt (q (B, Hq, T, d), k/v (B, Hkv, T,
+    d); ``kw``: ``ops.flash_prefill``'s mask mode, window and prefix
+    lengths), over the head block of ``cache``'s shard (paged or dense)
+    and gathered when the engine installed a mesh (see
     :func:`dispatch_paged_decode_attention`) — the port's counterpart of
     the GSPMD-partitioned flash attention of JAX's
-    ``attention_prefill_paged``."""
+    ``attention_prefill_paged`` and ``attention_prefill``."""
     mesh, axis = _active_head_axis(cache, q.shape[1])
     if mesh is None:
-        return ops.flash_prefill(q, k, v)
+        return ops.flash_prefill(q, k, v, **kw)
     _check_block(cache, mesh, axis)
     out = ops.flash_prefill(local_heads(cache, q), local_heads(cache, k),
-                            local_heads(cache, v))
+                            local_heads(cache, v), **kw)
+    return allgather_concat(out, mesh, axis, axis=1)
+
+
+def dispatch_span_verify_attention(cache: pgc.PagedKVCache, q: torch.Tensor,
+                                   k_span: torch.Tensor,
+                                   v_span: torch.Tensor,
+                                   page_table: torch.Tensor
+                                   ) -> torch.Tensor:
+    """Context-aware speculative-span attention (the span verifier's,
+    :func:`pgc.span_verify_attention`): q (S, Hq, Q, d) and the span's
+    k/v (S, Hkv, Q, d) with every head in, (S, Hq, Q, d) out. Under a
+    mesh that splits the heads the rank scores its head block and the
+    blocks are gathered (see :func:`dispatch_paged_decode_attention`);
+    the plain call otherwise."""
+    mesh, axis = _active_head_axis(cache, q.shape[1])
+    if mesh is None:
+        return pgc.span_verify_attention(cache, q, k_span, v_span,
+                                         page_table)
+    _check_block(cache, mesh, axis)
+    out = pgc.span_verify_attention(
+        cache, local_heads(cache, q), local_heads(cache, k_span),
+        local_heads(cache, v_span), page_table)
+    return allgather_concat(out, mesh, axis, axis=1)
+
+
+def dispatch_decode_attention(cache: kvc.KVCache, q: torch.Tensor, *,
+                              window: int = 0) -> torch.Tensor:
+    """Context-aware decode over a dense cache on the score route
+    (:func:`kvc.decode_attention`: #6 + softmax for polar): q (B, Hq, d)
+    every query head, (B, Hq, d) out; per head block and gathered under
+    a mesh that splits the heads (``cache`` the rank's
+    ``head_shard``)."""
+    mesh, axis = _active_head_axis(cache, q.shape[1])
+    if mesh is None:
+        return kvc.decode_attention(cache, q, window=window)
+    _check_block(cache, mesh, axis)
+    out = kvc.decode_attention(cache, local_heads(cache, q), window=window)
+    return allgather_concat(out, mesh, axis, axis=1)
+
+
+def dispatch_fused_decode_attention(cache: kvc.KVCache,
+                                    q: torch.Tensor) -> torch.Tensor:
+    """Context-aware decode over a dense cache through the codec's fused
+    kernel (:func:`kvc.fused_decode_attention`: #5 for polar, its splits
+    planned for the model's KV heads); see
+    :func:`dispatch_decode_attention`."""
+    mesh, axis = _active_head_axis(cache, q.shape[1])
+    if mesh is None:
+        return kvc.fused_decode_attention(cache, q)
+    _check_block(cache, mesh, axis)
+    out = kvc.fused_decode_attention(cache, local_heads(cache, q))
     return allgather_concat(out, mesh, axis, axis=1)
 
 

@@ -52,12 +52,14 @@ def polar_encode_pages(k, pages, codes, rs, rz, ts, tz, *, r_bits=4,
 
 def polar_decode_attention_grouped(q, codes, rs, rz, ts, tz, values, length,
                                    *, vscale=None, vzero=None, r_bits=4,
-                                   t_bits=4):
+                                   t_bits=4, plan_heads=None):
     """Fused flash decode over the dense grouped segment: q (B, Hkv, Qh, d)
-    pre-scaled, dense buffers, length (B,) int32 -> flash partials."""
+    pre-scaled, dense buffers, length (B,) int32 -> flash partials.
+    ``plan_heads``: the kv heads the split plan is made for (a head
+    shard's call passes the model's)."""
     return pa_mod.polar_decode_attention_grouped(
         q, codes, rs, rz, ts, tz, values, length, vscale=vscale,
-        vzero=vzero, r_bits=r_bits, t_bits=t_bits)
+        vzero=vzero, r_bits=r_bits, t_bits=t_bits, plan_heads=plan_heads)
 
 
 def polar_paged_decode_attention_grouped(q, codes, rs, rz, ts, tz, values,
@@ -150,15 +152,17 @@ def _residual_flash_partials(q4, key_residual, n_res, v_res):
 
 def polar_decode_attention_full(q, codes, rs, rz, ts, tz, key_residual,
                                 values, length, *, vscale=None, vzero=None,
-                                r_bits=4, t_bits=4, softmax_scale=None):
+                                r_bits=4, t_bits=4, softmax_scale=None,
+                                plan_heads=None):
     """End-to-end decode attention over the dense cache: flushed groups
     through the fused kernel + the fp residual segment, merged exactly.
 
     q (B, Hq, d); codes (B, Hkv, G, g, P) with stats (B, Hkv, G, 1, P);
     key_residual (B, Hkv, g, d); values (B, Hkv, T, d) token-major rows
     (fp, or uint8 with vscale/vzero (B, Hkv, T, 1)); length () or (B,) int32 total tokens (per-row lengths mask gathered
-    continuous-batching slots at their own positions). Returns (B, Hq, d)
-    in q.dtype."""
+    continuous-batching slots at their own positions). ``plan_heads`` as
+    in :func:`polar_decode_attention_grouped`. Returns (B, Hq, d) in
+    q.dtype."""
     b, hq, d = q.shape
     hkv = codes.shape[1]
     g = codes.shape[3]
@@ -170,7 +174,7 @@ def polar_decode_attention_full(q, codes, rs, rz, ts, tz, key_residual,
 
     acc_g, m_g, l_g = polar_decode_attention_grouped(
         q4, codes, rs, rz, ts, tz, values, flushed, vscale=vscale,
-        vzero=vzero, r_bits=r_bits, t_bits=t_bits)
+        vzero=vzero, r_bits=r_bits, t_bits=t_bits, plan_heads=plan_heads)
 
     # residual V rows live token-major at [flushed, flushed + g), gathered
     # per row (flushed differs across slots; the clamp keeps the gather in

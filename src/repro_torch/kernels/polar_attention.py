@@ -61,9 +61,11 @@ def _bind(lib) -> None:
 
 def polar_decode_attention_grouped_plain(q, codes, rs, rz, ts, tz, values,
                                          length, *, vscale=None, vzero=None,
-                                         r_bits: int = 4, t_bits: int = 4):
+                                         r_bits: int = 4, t_bits: int = 4,
+                                         plan_heads: int | None = None):
     """Plain version: LUT scores, masked softmax partials, dead value rows
-    zeroed (``ref.ref_polar_decode_attention`` with q already scaled)."""
+    zeroed (``ref.ref_polar_decode_attention`` with q already scaled). It
+    walks no splits, so ``plan_heads`` changes nothing."""
     return ref_mod.ref_polar_decode_attention(
         q, codes, rs, rz, ts, tz, values, length, r_bits=r_bits,
         t_bits=t_bits, softmax_scale=1.0, vscale=vscale, vzero=vzero)
@@ -74,7 +76,8 @@ def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
                                    ts: torch.Tensor, tz: torch.Tensor,
                                    values: torch.Tensor, length: torch.Tensor,
                                    *, vscale=None, vzero=None,
-                                   r_bits: int = 4, t_bits: int = 4):
+                                   r_bits: int = 4, t_bits: int = 4,
+                                   plan_heads: int | None = None):
     """Fused flash decode over the dense grouped segment.
 
     q (B, Hkv, Qh, d) fp32, ALREADY scaled; codes (B, Hkv, G, g, P) uint8;
@@ -82,7 +85,10 @@ def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
     token-major rows, or uint8 codes with fp32 vscale/vzero
     (B, Hkv, G*g, 1); length (B,) int32 valid grouped tokens per row.
     Returns (acc (B,Hkv,Qh,d), m (B,Hkv,Qh), l (B,Hkv,Qh)) fp32. The kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, the plain version for CPU tensors. ``plan_heads``:
+    plan the splits as for that many kv heads (a head shard passes the
+    model's, so that each head is summed in the same splits as in the
+    whole call)."""
     global launches, launches_u8, launches_split
     tensors = (q, codes, rs, rz, ts, tz, values, length)
     quant = tuple(x for x in (vscale, vzero) if x is not None)
@@ -110,7 +116,7 @@ def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
     acc = torch.empty((b, hkv, qh, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, qh), dtype=torch.float32, device=q.device)
     l = torch.empty((b, hkv, qh), dtype=torch.float32, device=q.device)
-    nsplit = plan_splits(b, hkv, gc)
+    nsplit = plan_splits(b, plan_heads or hkv, gc)
     # the splits' (acc, m, l) partials, merged on the device
     part = torch.empty(nsplit * b * hkv * qh * (d + 2), dtype=torch.float32,
                        device=q.device) if nsplit > 1 else None

@@ -49,11 +49,14 @@ paged and forward encoder-decoder entries of
   kernel with the span folded onto the query-head axis, plus the flush
   emulation's encode); the projections run per span column.
 
-The three paged attention sites (whole-prompt and chunk prefill, decode)
-go through ``distributed/serving.py``'s dispatch, as JAX's do: when the
-engine installed a mesh and the cache is one rank's head shard, the rank
-writes its block of the step's k/v, attends over its head block and
-gathers the heads before ``wo``; otherwise the plain calls run.
+The paged attention sites (whole-prompt and chunk prefill, decode, the
+span verify) and the dense cache's prefill and decode go through
+``distributed/serving.py``'s dispatch, as JAX's do: when the engine
+installed a mesh and the cache is one rank's head shard, the rank writes
+its block of the step's k/v, attends over its head block and gathers the
+heads before ``wo``; otherwise the plain calls run. (The cross cache of
+the encoder-decoder is never sharded: that family is refused under a
+mesh.)
 """
 from __future__ import annotations
 
@@ -95,13 +98,15 @@ def _project(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, layer: int = 0,
-               device=None) -> kvc.KVCache:
+               device=None,
+               head_shard: tuple[int, int] | None = None) -> kvc.KVCache:
     """Allocate layer ``layer``'s dense cache under
     ``cfg.policy.layer_config(layer)`` on ``device`` (the card unless
     named). A windowed config gets a ring of ``min(max_len, window)``
     slots, any other a linear cache of ``max_len``; the capacity rounds up
     to the layer's group multiple, as the residual's ``slot % g`` tiling
-    needs."""
+    needs. ``head_shard = (r, n)``: the cache holds block ``r`` of ``n``
+    of the KV heads (a rank of a mesh that splits them)."""
     quant = cfg.policy.layer_config(layer)
     cap = min(max_len, cfg.window) if cfg.window else max_len
     g = quant.group_size
@@ -109,7 +114,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, layer: int = 0,
     layout = RingLayout(cap) if cfg.window else LinearLayout(cap)
     return kvc.init_cache(quant, batch, cfg.num_kv_heads, cfg.head_dim,
                           cap, dtype=torch_dtype(cfg.dtype), device=device,
-                          layout=layout)
+                          layout=layout, head_shard=head_shard)
 
 
 def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -172,9 +177,10 @@ def attention_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     q = L.apply_rope(q, positions, cfg.rope_base, cfg.rope_ntk_scale)
     k = L.apply_rope(k, positions, cfg.rope_base, cfg.rope_ntk_scale)
     v = v.contiguous()
-    cache = kvc.prefill(cache, k, v)
-    out = ops.flash_prefill(q, k, v, mode=mask_mode, window=window,
-                            prefix_len=prefix_len)
+    cache = kvc.prefill(cache, dsrv.local_heads(cache, k),
+                        dsrv.local_heads(cache, v))
+    out = dsrv.dispatch_flash_prefill(cache, q, k, v, mode=mask_mode,
+                                      window=window, prefix_len=prefix_len)
     return L.linear(L.merge_heads(out), params["wo"]), cache
 
 
@@ -196,12 +202,14 @@ def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     pos = cache.length.reshape(1)
     q = L.apply_rope(q, pos, cfg.rope_base, cfg.rope_ntk_scale)
     k = L.apply_rope(k, pos, cfg.rope_base, cfg.rope_ntk_scale)
-    cache = kvc.append(cache, k, v)
+    cache = kvc.append(cache, dsrv.local_heads(cache, k),
+                       dsrv.local_heads(cache, v))
     if (cfg.decode_backend != "jnp" and cache.codec.supports_fused_decode
             and window == 0):
-        out = kvc.fused_decode_attention(cache, q[:, :, 0])
+        out = dsrv.dispatch_fused_decode_attention(cache, q[:, :, 0])
     else:
-        out = kvc.decode_attention(cache, q[:, :, 0], window=window)
+        out = dsrv.dispatch_decode_attention(cache, q[:, :, 0],
+                                             window=window)
     return L.linear(out.reshape(b, 1, -1), params["wo"]), cache
 
 
@@ -297,8 +305,8 @@ def attention_verify_span(params: dict, x: torch.Tensor, cfg: ModelConfig,
         ks.append(L.apply_rope(k, pos, cfg.rope_base, cfg.rope_ntk_scale))
         vs.append(v)
     k, v = torch.cat(ks, dim=2), torch.cat(vs, dim=2)
-    out = pgc.span_verify_attention(cache, torch.cat(qs, dim=2), k, v,
-                                    page_table)           # (S, Hq, Q, hd)
+    out = dsrv.dispatch_span_verify_attention(
+        cache, torch.cat(qs, dim=2), k, v, page_table)    # (S, Hq, Q, hd)
     y = L.per_column(lambda o: L.linear(o.reshape(s, 1, -1), params["wo"]),
                      out.transpose(1, 2))
     return y, (k, v)

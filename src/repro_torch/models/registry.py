@@ -9,9 +9,10 @@ VLM, hybrid, encoder-decoder and SSM (port of
       VLM, "frames" for the encoder-decoder); metrics {"ce", "aux"} for
       the dense, MoE and VLM families, {"ce"} for the others, as JAX
   init_decode_state(batch, max_len, device) -> the decode state: a list of
-      per-layer KVCaches (dense, MoE, VLM), of ring caches and RG-LRU
-      states (hybrid) or of (conv, SSD) states (SSM), or the encoder-
-      decoder's {"self": [...], "cross": [...]} caches
+      per-layer KVCaches (dense, MoE, VLM; these also take
+      ``head_shard=(r, n)``: block r of n of the KV heads), of ring caches
+      and RG-LRU states (hybrid) or of (conv, SSD) states (SSM), or the
+      encoder-decoder's {"self": [...], "cross": [...]} caches
   prefill(params, {"tokens": (B, T)[, "patches" | "frames": (B, Nf, F)]},
           state) -> (last logits (B, V), state)
   decode(params, state, token (B,)) -> (logits (B, V), state)
@@ -116,8 +117,8 @@ def get_model(cfg: ModelConfig) -> Model:
             loss=lambda p, b, **kw: SSM.lm_loss(p, b, cfg, **kw))
     static = dict(
         cfg=cfg, init=init,
-        init_decode_state=lambda batch, max_len, device:
-            TF.init_decode_caches(cfg, batch, max_len, device),
+        init_decode_state=lambda batch, max_len, device, head_shard=None:
+            TF.init_decode_caches(cfg, batch, max_len, device, head_shard),
         prefill=lambda p, b, s: TF.prefill_fn(p, b, cfg, s),
         decode=lambda p, s, t: TF.decode_fn(p, s, t, cfg),
         loss=lambda p, b, **kw: TF.lm_loss(p, b, cfg, **kw),

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged_cache as pgc
+from repro_torch.distributed import serving as dsrv
 from repro_torch.models import attn_block as AB
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -164,10 +165,14 @@ def _block(bp: dict, x: torch.Tensor, cfg: ModelConfig, attn, cache, **kw):
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
-                       device) -> list:
+                       device,
+                       head_shard: Optional[tuple[int, int]] = None) -> list:
     """One dense cache per layer for a static batch of ``batch`` rows,
-    each under its layer's ``cfg.policy`` config."""
-    return [AB.make_cache(cfg, batch, max_len, layer=i, device=device)
+    each under its layer's ``cfg.policy`` config. ``head_shard = (r, n)``:
+    each holds block ``r`` of ``n`` of the KV heads (a rank of a mesh
+    that splits them, ``distributed/serving.py``)."""
+    return [AB.make_cache(cfg, batch, max_len, layer=i, device=device,
+                          head_shard=head_shard)
             for i in range(cfg.num_layers)]
 
 
@@ -426,9 +431,11 @@ def commit_span_paged_fn(caches: list, kvs: list, page_table: torch.Tensor,
                          n_keep: torch.Tensor, cfg: ModelConfig) -> list:
     """Commit the first ``n_keep[s]`` span positions of every slot with one
     fused multi-row append per layer (``paged_cache.paged_append_span``),
-    in place. ``kvs``: :func:`verify_span_fn`'s per-layer (k, v)."""
+    in place. ``kvs``: :func:`verify_span_fn`'s per-layer (k, v), every
+    head (a head shard appends its block)."""
     for cache, (k, v) in zip(caches, kvs):
-        pgc.paged_append_span(cache, k, v, page_table, n_keep)
+        pgc.paged_append_span(cache, dsrv.local_heads(cache, k),
+                              dsrv.local_heads(cache, v), page_table, n_keep)
     return caches
 
 
@@ -438,7 +445,9 @@ def commit_paged_fn(caches: list, kvs: list, page_table: torch.Tensor,
     """Append one span position's saved per-layer (k, v) through the
     vanilla ``paged_append`` (residual rounding, group flush, masked
     lengths), in place; only ``active`` slots advance. No forward runs:
-    the kv come from :func:`decode_paged_collect_fn`."""
+    the kv come from :func:`decode_paged_collect_fn`, every head (a head
+    shard appends its block)."""
     for cache, (k, v) in zip(caches, kvs):
-        pgc.paged_append(cache, k, v, page_table, active)
+        pgc.paged_append(cache, dsrv.local_heads(cache, k),
+                         dsrv.local_heads(cache, v), page_table, active)
     return caches

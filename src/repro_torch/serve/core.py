@@ -56,7 +56,10 @@ one block of the KV heads, and the paged attention runs per head block
 with the heads gathered over the ``model`` axis
 (``distributed/serving.py``). Every input of a scheduling decision agrees
 across ranks: the clock advances by rank 0's measured time. A step whose
-collectives cannot be captured in a CUDA graph (gloo's) runs eagerly.
+collectives cannot be captured in a CUDA graph (gloo's) runs eagerly, the
+verify included. Speculation runs under a mesh; run-ahead is taken and
+stays off, as in JAX. ``ServeEngine(mesh=)`` splits the static engine's
+linear caches over KV heads the same way.
 """
 from __future__ import annotations
 
@@ -111,21 +114,20 @@ def _sample(logits: torch.Tensor, gen: GenerationConfig,
                             noise)
 
 
-def _check_mesh(mesh, runahead: int, spec) -> None:
-    """The meshes and options the head-sharded engine takes: (1, n) over
-    a ``model`` axis, no run-ahead, no speculation (ROADMAP queue 1)."""
+def _check_mesh(mesh, engine: str) -> None:
+    """The meshes the head-sharded engines take: (1, n) over a ``model``
+    axis (a data axis > 1 is not ported, ROADMAP queue 1)."""
     if dsrv.MODEL_AXIS not in mesh.shape:
         raise ValueError(f"mesh {mesh.shape} has no {dsrv.MODEL_AXIS!r} axis")
     dp = [a for a in data_axes(mesh) if mesh.shape[a] > 1]
     if dp:
-        raise ValueError(f"mesh {mesh.shape}: a data axis > 1 in the paged "
+        raise ValueError(f"mesh {mesh.shape}: a data axis > 1 in the {engine} "
                          "engine is not ported (ROADMAP queue 1)")
-    if int(runahead) > 1:
-        raise ValueError("runahead > 1 under a mesh is not ported (ROADMAP "
-                         "queue 1)")
-    if spec is not None and spec.mode != "off":
-        raise ValueError("speculative decode under a mesh is not ported "
-                         "(ROADMAP queue 1)")
+
+
+#: the families whose static caches split over KV heads under a mesh
+#: (``ServeEngine(mesh=)``): those ``models/transformer.py`` serves
+_STATIC_MESH_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _sync(device: torch.device) -> None:
@@ -137,14 +139,50 @@ class ServeEngine:
     """Static batching: one shared prefill, lock-step decode; the whole
     batch runs until its last step. Runs on the card unless ``device``
     names another (``params`` must live there); with no GPU and no device
-    named, construction raises."""
+    named, construction raises.
+
+    ``mesh`` (JAX's ``ServeEngine(mesh=, rules=)``, whose CLI passes
+    ``serving_rules``): ``generate`` installs
+    :func:`~repro_torch.distributed.sharding.serving_rules` for its batch.
+    Where their ``kv_heads`` maps to the ``model`` axis (n divides the KV
+    heads), each layer's linear cache holds this rank's block of the KV
+    heads (``KVCache.head_shard``), #1 and #3 run on it at prefill, #5 or
+    #6 at decode, and the heads are gathered over the axis before ``wo``;
+    where they do not divide, every rank holds the whole caches (the GQA
+    fallback). The dense, MoE and VLM families serve under a mesh; the
+    hybrid, encoder-decoder and SSM families are refused, and so is a
+    data axis > 1 (ROADMAP queue 1)."""
 
     def __init__(self, model: Model, params: dict, max_len: int,
-                 device=None):
+                 device=None, mesh=None):
         self.model = model
         self.params = params
         self.max_len = max_len
         self.device = resolve_device(device)
+        self.mesh = mesh
+        #: this rank's (head block, blocks) of the KV heads, or None when
+        #: the caches hold every head
+        self.head_shard = None
+        if mesh is not None:
+            fam = model.cfg.family
+            if fam not in _STATIC_MESH_FAMILIES:
+                raise ValueError(
+                    f"ServeEngine(mesh=): the {fam!r} family under a mesh "
+                    "is not ported (ROADMAP queue 1); the "
+                    f"{', '.join(_STATIC_MESH_FAMILIES)} families are")
+            _check_mesh(mesh, "static")
+            # the kv_heads rule does not depend on the batch
+            axis = serving_rules(model.cfg, mesh, 1).get("kv_heads")
+            if isinstance(axis, str):
+                self.head_shard = dsrv.head_block(mesh, axis)
+
+    def _ctx(self, batch: int):
+        """The sharding context of this engine's dispatches: the serving
+        rules for ``batch`` rows under a mesh."""
+        if self.mesh is not None:
+            return dctx.use_sharding(
+                self.mesh, serving_rules(self.model.cfg, self.mesh, batch))
+        return contextlib.nullcontext()
 
     def generate(self, batch: dict,
                  gen: Optional[GenerationConfig] = None) -> dict:
@@ -180,26 +218,30 @@ class ServeEngine:
                     f"exceeds cache capacity {self.max_len}")
         generator = torch.Generator(device=self.device)
         generator.manual_seed(gen.seed)
-        state = self.model.init_decode_state(b, self.max_len, self.device)
-        t0 = time.monotonic()
-        logits, state = self.model.prefill(self.params, inputs, state)
-        _sync(self.device)
-        t_prefill = time.monotonic() - t0
+        skw = ({} if self.head_shard is None
+               else {"head_shard": self.head_shard})
+        state = self.model.init_decode_state(b, self.max_len, self.device,
+                                             **skw)
+        with self._ctx(b):
+            t0 = time.monotonic()
+            logits, state = self.model.prefill(self.params, inputs, state)
+            _sync(self.device)
+            t_prefill = time.monotonic() - t0
 
-        tok = _sample(logits, gen, generator)
-        toks = [tok]
-        done = torch.zeros((b,), dtype=torch.bool, device=self.device)
-        t0 = time.monotonic()
-        for _ in range(gen.max_new_tokens - 1):
-            logits, state = self.model.decode(self.params, state, tok)
             tok = _sample(logits, gen, generator)
-            if gen.eos_id >= 0:
-                done = done | (tok == gen.eos_id)
-                tok = torch.where(done, torch.full_like(tok, gen.eos_id),
-                                  tok)
-            toks.append(tok)
-        _sync(self.device)
-        t_decode = time.monotonic() - t0
+            toks = [tok]
+            done = torch.zeros((b,), dtype=torch.bool, device=self.device)
+            t0 = time.monotonic()
+            for _ in range(gen.max_new_tokens - 1):
+                logits, state = self.model.decode(self.params, state, tok)
+                tok = _sample(logits, gen, generator)
+                if gen.eos_id >= 0:
+                    done = done | (tok == gen.eos_id)
+                    tok = torch.where(done,
+                                      torch.full_like(tok, gen.eos_id), tok)
+                toks.append(tok)
+            _sync(self.device)
+            t_decode = time.monotonic() - t0
         n_dec = max(gen.max_new_tokens - 1, 1)
         return {
             "tokens": torch.stack(toks, dim=1).cpu().numpy(),  # sync: out
@@ -210,6 +252,7 @@ class ServeEngine:
             "cache_bytes_per_layer": (
                 self.model.cache_layer_bytes(state)
                 if self.model.cache_layer_bytes else None),
+            "head_shard": self.head_shard,
         }
 
 
@@ -310,9 +353,13 @@ class EngineCore:
     ``kv_heads`` to the model axis (n divides the KV heads), the page
     pools hold this rank's head block and the paged attention runs per
     shard; otherwise every rank holds the whole pools and runs the plain
-    path. A data axis > 1, ``runahead > 1`` and ``spec`` raise: ROADMAP
-    queue 1 lists them as not ported. ``result()["graphs"]`` says whether
-    decode dispatches replay CUDA graphs."""
+    path. Speculative decode runs as without a mesh (both verifiers, per
+    head block; a draft model's dense caches hold every head on every
+    rank). ``runahead > 1`` is taken and left unused, as JAX's engine
+    leaves it (its horizon planner stays off under a mesh), so
+    ``result()["runahead"]`` reports no horizon. A data axis > 1 raises
+    (ROADMAP queue 1). ``result()["graphs"]`` says whether decode
+    dispatches replay CUDA graphs."""
 
     def __init__(self, model: Model, params: dict, *, max_slots: int = 4,
                  max_len: int = 256, num_pages: Optional[int] = None,
@@ -332,7 +379,7 @@ class EngineCore:
         # over "model" where divisible
         self.rules = None
         if mesh is not None:
-            _check_mesh(mesh, runahead, spec)
+            _check_mesh(mesh, "paged")
             self.rules = serving_rules(model.cfg, mesh, max_slots)
         axis = self.rules.get("kv_heads") if self.rules else None
         #: this rank's (head block, blocks) of the KV heads, or None when
@@ -657,7 +704,9 @@ class EngineCore:
                                                      0, row, tp)
                 _sample(logits, gen, rng).cpu()  # sync: warmup barrier
         del state
-        horizons = [1] + ([self.runahead] if self.runahead > 1 else [])
+        # no horizon under a mesh: the planner never engages there
+        horizons = [1] + ([self.runahead] if self.runahead > 1
+                          and self.mesh is None else [])
         for w in self._decode_widths():
             for h in horizons:
                 self._graphs.capture(w, h, gen.temperature, gen.top_k,
@@ -1093,12 +1142,13 @@ class EngineCore:
         step boundaries are provably event-free — nothing queued to
         admit, no prefill chunk due, and none of the subsystems that
         decide per step in play: speculation (drafts are proposed per
-        step), QoS and chaos (shedding, budgets and faults act per cycle)
-        and prefix sharing (its COW guard decides per step). Every other
-        configuration takes the one-token dispatch unchanged."""
+        step), QoS and chaos (shedding, budgets and faults act per cycle),
+        mesh placement and prefix sharing (its COW guard decides per
+        step), JAX's gate term for term. Every other configuration takes
+        the one-token dispatch unchanged."""
         return (self.runahead > 1 and self.spec is None
                 and self.qos is None and self.chaos is None
-                and not self.prefix_cache
+                and self.mesh is None and not self.prefix_cache
                 and not self._prefilling and not self._arrivals
                 and not self.sched.pending)
 

@@ -1865,6 +1865,58 @@ def test_head_block_decode_plans_globally_and_is_bit_equal(dev):
         assert all(torch.equal(a[:, blk], b) for a, b in zip(parts, sparts))
 
 
+def test_dense_head_block_decode_plans_globally_and_is_bit_equal(dev):
+    """The static engine's linear caches under a head split: #5 on one of
+    two head blocks (4 of 8 kv heads, 8 rows x 9 groups of 128, d 128)
+    plans its splits for the model's 8 kv heads (nsplit 3, where its own
+    4 would plan 5), and the dense cache's fused and score routes on each
+    block (``KVCache.head_shard``; the score route's einsums at the
+    model's head count, ``kv_cache.head_einsum``) are bit-equal to the
+    same heads of the whole call."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.core.quantizers import QuantConfig
+    assert pdk.plan_splits(8, 8, 9) == 3 and pdk.plan_splits(8, 4, 9) == 5
+    gen = _gen(dev, 47)
+    qc = QuantConfig(group_size=128)
+    k = torch.randn((8, 8, 1000, 128), generator=gen, device=dev).to(_BF16)
+    v = torch.randn((8, 8, 1000, 128), generator=gen, device=dev).to(_BF16)
+    q = torch.randn((8, 32, 128), generator=gen, device=dev).to(_BF16)
+    whole = kvc.init_cache(qc, 8, 8, 128, 1152, device=dev)
+    kvc.prefill(whole, k, v)
+    want = {"fused": kvc.fused_decode_attention(whole, q),
+            "score": kvc.decode_attention(whole, q)}
+    for r in range(2):
+        blk = slice(4 * r, 4 * r + 4)
+        shard = kvc.init_cache(qc, 8, 8, 128, 1152, device=dev,
+                               head_shard=(r, 2))
+        kvc.prefill(shard, k[:, blk].contiguous(), v[:, blk].contiguous())
+        qb = q[:, 16 * r:16 * r + 16].contiguous()
+        n = pak.launches_split
+        got = {"fused": kvc.fused_decode_attention(shard, qb),
+               "score": kvc.decode_attention(shard, qb)}
+        assert pak.launches_split == n + 1
+        for route, out in got.items():
+            assert torch.equal(out, want[route][:, 16 * r:16 * r + 16]), \
+                (route, r)
+
+
+def test_head_einsum_runs_a_shard_at_the_model_shape(dev):
+    """On the card a batched einsum at a head block's batch count may sum
+    in another order than the whole call's; ``head_einsum`` at the
+    model's head count gives the block the whole call's bits."""
+    from repro_torch.core.kv_cache import head_einsum
+    gen = _gen(dev, 53)
+    p = torch.softmax(torch.randn((8, 8, 4, 1152), generator=gen,
+                                  device=dev), -1)
+    vals = torch.randn((8, 8, 1152, 128), generator=gen, device=dev)
+    whole = torch.einsum("bhqt,bhtd->bhqd", p, vals)
+    for r in range(2):
+        blk = slice(4 * r, 4 * r + 4)
+        got = head_einsum("bhqt,bhtd->bhqd", p[:, blk].contiguous(),
+                          vals[:, blk].contiguous(), 8)
+        assert torch.equal(got, whole[:, blk])
+
+
 # (B, H, Hkv, Tq, Tk, d, mode, window, dtype): the training path's #3
 # forward with the log-sum-exp — tinyllama's 8:1 GQA, every mask mode, a
 # ragged T, both bodies (bf16 tensor cores, fp32 FMA) and d 32 / 64 / 128

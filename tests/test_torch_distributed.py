@@ -13,8 +13,17 @@ package, in one process (no world; the cross-process checks are in
   KV-head count (the unsharded call's plan);
 * ``leaf_pspec`` / ``cache_pspecs`` equal JAX's and ``shard_paged_state``
   keeps head block r of a fragmented cache, every codec;
-* the mesh, the context and the engine's refusals.
+* the mesh, the context and the engines' refusals (a data axis > 1;
+  the hybrid, encoder-decoder and SSM families on
+  ``ServeEngine(mesh=)``);
+* on a (1, 1) mesh: ``runahead=4`` taken and left unused, spec on both
+  verifiers with the meshless streams, ``ServeEngine(mesh=)`` with the
+  meshless tokens; shadow and gathered views keep the head
+  block, and the dense fused route plans #5's splits for the model's
+  KV heads.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -40,7 +49,9 @@ from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.kernels import paged_decode as pdk  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.serve import EngineCore, Request  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    EngineCore, GenerationConfig, Request, ServeEngine,
+)
 from repro_torch.spec import SpecConfig  # noqa: E402
 from test_sharding import FakeMesh  # noqa: E402
 from test_torch_mesh_serve import _to_jax  # noqa: E402
@@ -342,20 +353,24 @@ def test_engine_one_position_mesh_replays_meshless(smoke):
 
 
 def test_engine_refuses_unported_mesh_options(smoke):
+    """A data axis > 1 (both engines) and a mesh without a ``model`` axis
+    are refused; ``runahead`` and ``spec`` are taken under a mesh, as
+    JAX's engine takes them."""
     _, model, params = smoke
     mesh = tmesh.make_mesh((1, 1), ("data", "model"))
     dp = tmesh.Mesh({"data": 2, "model": 1}, {"data": 0, "model": 0},
                     {"data": [0, 1], "model": [0]})
-    with pytest.raises(ValueError, match="data axis"):
+    with pytest.raises(ValueError, match="data axis > 1 in the paged"):
         EngineCore(model, params, device="cpu", mesh=dp)
-    with pytest.raises(ValueError, match="runahead"):
-        EngineCore(model, params, device="cpu", mesh=mesh, runahead=4)
-    with pytest.raises(ValueError, match="speculative"):
-        EngineCore(model, params, device="cpu", mesh=mesh,
-                   spec=SpecConfig(mode="ngram", k=2))
+    with pytest.raises(ValueError, match="data axis > 1 in the static"):
+        ServeEngine(model, params, 64, device="cpu", mesh=dp)
     no_model = tmesh.Mesh({"data": 1}, {"data": 0}, {"data": [0]})
     with pytest.raises(ValueError, match="no 'model' axis"):
         EngineCore(model, params, device="cpu", mesh=no_model)
+    assert EngineCore(model, params, device="cpu", mesh=mesh,
+                      runahead=4).runahead == 4
+    assert EngineCore(model, params, device="cpu", mesh=mesh,
+                      spec=SpecConfig(mode="ngram", k=2)).spec.k == 2
 
 
 def test_collectives_refuse_a_wide_axis_without_a_group():
@@ -367,3 +382,127 @@ def test_collectives_refuse_a_wide_axis_without_a_group():
     with pytest.raises(ValueError, match="no process group"):
         col.merge_softmax_stats(x[:, 0], x[:, 0], x, _model_mesh(2, 1),
                                 "model")
+
+
+def _mesh_reqs(cfg, n=4, new=6):
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (int(
+        rng.integers(8, 60)),)).astype(np.int32), max_new_tokens=new)
+        for i in range(n)]
+
+
+def test_runahead_under_a_mesh_takes_the_one_token_step(smoke):
+    """``runahead=4`` under a mesh: no horizon is captured or dispatched
+    (JAX's planner has ``self.mesh is None``), the streams are those of
+    ``runahead=0``, and ``result()["runahead"]`` reports the horizon
+    unused."""
+    cfg, model, params = smoke
+    mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+    base = EngineCore(model, params, max_slots=3, max_len=128, device="cpu",
+                      mesh=mesh)
+    core = EngineCore(model, params, max_slots=3, max_len=128, device="cpu",
+                      mesh=mesh, runahead=4)
+    core.warmup([60])
+    assert not core._runahead_want()
+    assert _streams(core, _mesh_reqs(cfg)) == _streams(base, _mesh_reqs(cfg))
+    ra = core.result()["runahead"]
+    assert (ra["h"], ra["horizons"], ra["tokens"]) == (4, 0, 0)
+    assert ra["dispatch_gap_ewma_s"] == 0.0
+
+
+@pytest.mark.parametrize("verifier", ["jnp", "paged_fused"])
+def test_spec_under_a_mesh_of_one_keeps_meshless_streams(smoke, verifier):
+    """Both verifiers (span on ``"jnp"``, scan on ``"paged_fused"``) under
+    a (1, 1) mesh: the head-sharded dispatch and commits give the
+    meshless spec engine's streams and spec counts; the scan verifier's
+    shadow state keeps the head block."""
+    cfg, _, params = smoke
+    model = get_model(dataclasses.replace(cfg, decode_backend=verifier))
+    mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+    spec = SpecConfig(mode="ngram", k=4)
+    prompts = [np.full((36,), t, np.int32) for t in (5, 17, 300)]
+
+    def run(m):
+        core = EngineCore(model, params, max_slots=3, max_len=128,
+                          device="cpu", mesh=m, spec=spec)
+        core.reset()
+        for i, p in enumerate(prompts):
+            core.add_request(Request(rid=i, prompt=p, max_new_tokens=24))
+        list(core.events())
+        res = core.result()
+        return core, ({r.rid: list(r.out_tokens) for r in core.completed},
+                      res["spec"]["steps"], res["spec"]["accepted_tokens"])
+    core, got = run(mesh)
+    _, want = run(None)
+    assert got == want and got[2] > 0
+    if verifier == "paged_fused":
+        shadows = core._graphs.verifier._shadows
+        assert shadows and all(c.head_shard == (0, 1)
+                               for c in shadows[0][1])
+
+
+def test_static_engine_under_a_mesh_of_one(smoke):
+    """``ServeEngine(mesh=)``: the caches hold head block (0, 1) and the
+    tokens and cache bytes are the meshless engine's."""
+    cfg, model, params = smoke
+    mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 40))}
+    gen = GenerationConfig(max_new_tokens=8)
+    base = ServeEngine(model, params, 96, device="cpu").generate(batch, gen)
+    eng = ServeEngine(model, params, 96, device="cpu", mesh=mesh)
+    out = eng.generate(batch, gen)
+    assert eng.head_shard == (0, 1) and out["head_shard"] == (0, 1)
+    np.testing.assert_array_equal(out["tokens"], base["tokens"])
+    assert out["cache_bytes"] == base["cache_bytes"]
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "seamless-m4t-medium",
+                                  "mamba2-2.7b"])
+def test_static_engine_refuses_unported_families_under_a_mesh(name):
+    """The hybrid, encoder-decoder and SSM families under a mesh are
+    refused by name (ROADMAP queue 1)."""
+    cfg = reduce_for_smoke(get_config(name))
+    model = get_model(cfg)
+    mesh = tmesh.make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(ValueError, match=repr(cfg.family)):
+        ServeEngine(model, {}, 64, device="cpu", mesh=mesh)
+
+
+def test_shadow_and_gathered_views_keep_the_head_block():
+    """``empty_like_cache`` (the scan verifier's shadow) and
+    ``gather_view`` (the gathered decode route) keep a shard's
+    ``head_shard``, so ``kv_heads`` — what #2 and #5 plan their splits
+    for — stays the model's."""
+    cfg = CODEC_CONFIGS[4]
+    cache, table = build_fragmented_cache(cfg)
+    shard = dsrv.shard_paged_state(cache, _model_mesh(2, 1))
+    for c in (pgc.empty_like_cache(shard), pgc.gather_view(shard, table)):
+        assert c.head_shard == (1, 2) and c.kv_heads == 4
+
+
+def test_dense_fused_decode_plans_for_the_model_kv_heads(monkeypatch):
+    """The dense cache's fused route (#5) hands the model's KV heads to
+    the split planner, as the paged route (#2) does, so that a head shard
+    sums each head in the splits of the whole call."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.core.quantizers import QuantConfig
+    from repro_torch.kernels import polar_attention as pak
+    seen = []
+    real = pak.polar_decode_attention_grouped
+
+    def spy(*a, plan_heads=None, **kw):
+        seen.append(plan_heads)
+        return real(*a, plan_heads=plan_heads, **kw)
+    monkeypatch.setattr(pak, "polar_decode_attention_grouped", spy)
+    qc = QuantConfig(method="polar", group_size=8)
+    for shard, heads in ((None, 4), ((1, 2), 2)):
+        c = kvc.init_cache(qc, 2, 4, 16, 32, dtype=torch.float32,
+                           device="cpu", head_shard=shard)
+        assert c.num_kv_heads == heads and c.kv_heads == 4
+        kvc.prefill(c, torch.randn(2, heads, 20, 16),
+                    torch.randn(2, heads, 20, 16))
+        kvc.fused_decode_attention(c, torch.randn(2, 2 * heads, 16))
+    assert seen == [4, 4]
+    with pytest.raises(ValueError, match="head block"):
+        kvc.init_cache(qc, 2, 4, 16, 32, device="cpu", head_shard=(0, 3))

@@ -4,8 +4,11 @@ and the cache constructors the port's distributed tests share.
 Run as ``python tests/torch_mesh_worker.py JOB RANK WORLD`` with ``src`` on
 ``PYTHONPATH``: it joins a gloo world of WORLD processes through a file
 rendezvous beside JOB (a pickle the test wrote), runs every check of
-:func:`run_checks` as rank RANK of a (1, WORLD) mesh and pickles its
-results to ``result_<RANK>.pkl`` beside JOB. It imports torch and the
+:func:`run_checks` (or, for a job of kind ``"spec"`` or ``"static"``,
+of :func:`run_engine_checks`: ``tests/test_torch_mesh_spec.py`` and
+``tests/test_torch_mesh_static.py``) as rank
+RANK of a (1, WORLD) mesh and pickles its results to ``result_<RANK>.pkl``
+beside JOB. It imports torch and the
 port only; the test compares the results with the JAX package. Any
 exception fails the rank (non-zero exit, traceback on stderr).
 """
@@ -269,6 +272,140 @@ def _group_timeouts(mesh) -> list:
             for g in (*mesh.groups.values(), *mesh.host_groups.values())]
 
 
+def _cfg(name: str, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_for_smoke
+    return dataclasses.replace(reduce_for_smoke(get_config(name)), **kw)
+
+
+def _events(events) -> list:
+    return [(e.kind, e.rid, e.slot, e.ordinal, e.token, e.span, e.span_ix)
+            for e in events]
+
+
+def _spec_runs(job: dict, mesh) -> dict:
+    """Speculative decode under the mesh on both verifiers (span on
+    ``"jnp"``, scan on ``"paged_fused"``) with each proposer of
+    ``job["spec"]`` (mode -> k; the draft model's weights JAX's, carried
+    across): streams, events, spec counts, decode steps; the scan
+    verifier's shadow head blocks."""
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousBatchingEngine, Request
+    from repro_torch.spec import SpecConfig
+    from repro_torch.spec.draft import _derive_draft_cfg
+    from repro_torch.weights import params_from_jax
+    out = {}
+    for verifier, backend in (("span", "jnp"), ("scan", "paged_fused")):
+        cfg = _cfg("tinyllama-1.1b", decode_backend=backend)
+        model = get_model(cfg)
+        params = params_from_jax(job["params"], cfg, device="cpu")
+        for mode, k in job["spec"].items():
+            spec = SpecConfig(mode=mode, k=k)
+            eng = ContinuousBatchingEngine(model, params, max_slots=2,
+                                           max_len=128, device="cpu",
+                                           mesh=mesh, spec=spec)
+            if mode == "draft":
+                eng.core._proposer.params = params_from_jax(
+                    job["draft_params"], _derive_draft_cfg(cfg, spec),
+                    device="cpu")
+            res = eng.run([Request(rid=i, prompt=np.asarray(p, np.int32),
+                                   max_new_tokens=32)
+                           for i, p in enumerate(job["spec_prompts"])])
+            sp = res["spec"]
+            shadows = getattr(eng.core._graphs.verifier, "_shadows", [])
+            out[(verifier, mode)] = {
+                "streams": {r.rid: list(r.out_tokens)
+                            for r in res["requests"]},
+                "events": _events(res["events"]),
+                "counts": (sp["steps"], sp["drafted_tokens"],
+                           sp["accepted_tokens"]),
+                "decode_steps": res["decode_steps"],
+                "proposer_faults": res["proposer_faults"],
+                "head_shard": res["head_shard"],
+                "shadow_blocks": [c.head_shard for _, sh in shadows
+                                  for c in sh]}
+    return out
+
+
+def _runahead_runs(job: dict, mesh) -> dict:
+    """``runahead=4`` and ``0`` under the mesh on JAX's
+    ``_engine_requests``: streams, events and the reported horizon."""
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousBatchingEngine, Request
+    from repro_torch.weights import params_from_jax
+    cfg = _cfg("tinyllama-1.1b")
+    model = get_model(cfg)
+    params = params_from_jax(job["params"], cfg, device="cpu")
+    out = {}
+    for h in (0, 4):
+        eng = ContinuousBatchingEngine(model, params, max_slots=3,
+                                       max_len=128, device="cpu", mesh=mesh,
+                                       runahead=h)
+        res = eng.run([Request(rid=rid, prompt=np.asarray(p, np.int32),
+                               max_new_tokens=n)
+                       for rid, p, n in job["requests"]])
+        out[h] = {"streams": {r.rid: list(r.out_tokens)
+                              for r in res["requests"]},
+                  "events": _events(res["events"]),
+                  "runahead": res.get("runahead")}
+    return out
+
+
+def _linear_bytes(state) -> int:
+    """The per-layer linear caches' bytes, the whole length scalars
+    left out."""
+    from repro_torch.utils import tree_bytes
+    return sum(tree_bytes(c) - c.length.numel() * c.length.element_size()
+               for c in state)
+
+
+def _static_runs(job: dict, mesh) -> dict:
+    """``ServeEngine(mesh=)`` on every static case
+    (config, decode backend, batch): tokens, the head block, and the
+    rank's linear-cache bytes beside the meshless state's."""
+    from repro_torch.models import get_model
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    from repro_torch.weights import params_from_jax
+    out = {}
+    for key, case in job["static"].items():
+        name, backend = key
+        cfg = _cfg(name, decode_backend=backend)
+        model = get_model(cfg)
+        params = params_from_jax(job["static_params"][name], cfg,
+                                 device="cpu")
+        b = case["batch"]["tokens"].shape[0]
+        eng = ServeEngine(model, params, case["max_len"], device="cpu",
+                          mesh=mesh)
+        res = eng.generate(case["batch"], GenerationConfig(
+            max_new_tokens=case["new"]))
+        # a () int32 length a layer, whole on every rank
+        lengths = 4 * cfg.num_layers
+        out[key] = {"tokens": res["tokens"], "head_shard": res["head_shard"],
+                    "bytes": res["cache_bytes"] - lengths,
+                    "meshless_bytes": _linear_bytes(model.init_decode_state(
+                        b, case["max_len"], "cpu"))}
+    return out
+
+
+def run_engine_checks(job: dict, rank: int, world: int) -> dict:
+    """The engines under the mesh that :func:`run_checks` leaves out: a
+    job of kind ``"spec"`` runs speculation and run-ahead, one of kind
+    ``"static"`` the static engine under the serving rules."""
+    from repro_torch.launch.mesh import init_world, make_mesh
+    torch.set_num_threads(1)
+    init_world(rank, world, job["init_method"], "gloo",
+               timeout_s=job["timeout_s"])
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        if job["kind"] == "static":
+            return {"coords": mesh.coords, "static": _static_runs(job, mesh)}
+        return {"coords": mesh.coords, "spec": _spec_runs(job, mesh),
+                "runahead": _runahead_runs(job, mesh)}
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
 def run_checks(job: dict, rank: int, world: int) -> dict:
     from repro_torch.launch.mesh import init_world, make_mesh
     torch.set_num_threads(1)
@@ -294,7 +431,8 @@ def main(argv: list[str]) -> int:
     with open(job_path, "rb") as f:
         job = pickle.load(f)
     try:
-        res = run_checks(job, rank, world)
+        run = run_engine_checks if "kind" in job else run_checks
+        res = run(job, rank, world)
     except Exception:
         traceback.print_exc()
         return 1
