@@ -236,6 +236,23 @@ run):
               falls, step 1 within 1e-4 of plain); and
               ``python -m repro_torch.launch.train --smoke --steps 12``
               in a subprocess, its checkpoint resumed here to step 16.
+              Then the sharded step (``make_train_step(mesh=)``): (a) an
+              NCCL world of one here, tinyllama-1.1b whole on a (1, 1)
+              mesh, 3 steps: loss, grad_norm and the state bit-equal to
+              the meshless step's (else the first differing leaf named);
+              (b) two gloo ranks on the card (``--train-rank``),
+              tinyllama-1.1b at full width with its depth cut to 6 of 22
+              layers, mesh (2, 1) (FSDP) and (1, 2) (TP: 16 query / 2 KV
+              heads a rank through #3), 8 x 512, 3 steps each: each
+              step's loss within 1e-3 and grad_norm within 2e-2 of a
+              meshless run here, each rank's params and moments exactly
+              its spec blocks' bytes, exactly 2 x 6 #3 launches a step a
+              rank, step ms, tokens/s and peak GiB a rank (gloo stages
+              every collective through the host); (c) the (2, 1) run's
+              sharded checkpoint restored here meshless, bit-equal to
+              the state the ranks gathered. #3 at a TP rank's shape is
+              the ``flash_prefill[lse,tp2]`` row, its launches rank 0's
+              of the (1, 2) run.
 
 Each phase's end and seconds go to stderr as it ends; then a line of
 seconds per phase, one JSON line of per-kernel numbers (launches summed
@@ -245,7 +262,8 @@ fixed-angle-grid form on rows of their own, the head_dim-128 forms on
 theirs, counted in the configs and moe phases, the head_dim-256 and
 head_dim-64 forms on theirs, counted in the families phase, #3's
 training form with the log-sum-exp on ``flash_prefill[lse]``, counted in
-the train phase), and last the device JSON. Any failure raises
+the train phase, and at a tensor-parallel rank's heads on
+``flash_prefill[lse,tp2]``), and last the device JSON. Any failure raises
 (non-zero exit). Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 
@@ -4721,14 +4739,16 @@ TRAIN_GNORM_RTOL = 2e-2
 SMOKE_LOSS_RTOL = 1e-4         # fp32 smoke width: kernel vs plain, step 1
 
 
-def check_train_attention(torch, dev, gen, flush) -> dict:
+def check_train_attention(torch, dev, gen, flush, h=32, hkv=HKV,
+                          form="[lse]") -> dict:
     """#3 with the log-sum-exp at the training shape (tinyllama-1.1b's 32
-    / 4 heads x 512 tokens x d 64, 8 rows, causal, bf16): ``out`` within
-    one bf16 step (2^-7) of the plain version (the chunked online-softmax
-    forward), ``lse`` within 1e-3, and ``out`` bit-equal to the serving
-    launch without ``lse``. Timed beside the plain version and SDPA."""
+    / 4 heads x 512 tokens x d 64, 8 rows, causal, bf16; a tensor-parallel
+    rank's 16 / 2 for ``[lse,tp2]``): ``out`` within one bf16 step (2^-7)
+    of the plain version (the chunked online-softmax forward), ``lse``
+    within 1e-3, and ``out`` bit-equal to the serving launch without
+    ``lse``. Timed beside the plain version and SDPA."""
     from repro_torch.kernels import flash_prefill as fpk
-    h, hkv, b, t = 32, HKV, TRAIN_B, TRAIN_T
+    b, t = TRAIN_B, TRAIN_T
     q = torch.randn((b, h, t, D), generator=gen, device=dev).to(
         torch.bfloat16)
     k, v = (torch.randn((b, hkv, t, D), generator=gen, device=dev).to(
@@ -4756,13 +4776,13 @@ def check_train_attention(torch, dev, gen, flush) -> dict:
                      flush=flush)
     nbytes = (2 * h + 2 * hkv) * b * t * D * 2 + b * h * t * 4
     b_ms = bound(nbytes, 4.0 * b * h * D * (t * (t + 1) / 2), "bf16")
-    print(f"train[kernel]: flash_prefill with lse {b} x {h} heads ({hkv} "
-          f"kv) x {t} x {D} bf16, causal: {ms:.4f} ms (without lse "
+    print(f"train[kernel{form}]: flash_prefill with lse {b} x {h} heads "
+          f"({hkv} kv) x {t} x {D} bf16, causal: {ms:.4f} ms (without lse "
           f"{serve_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
           f"ms, bound {b_ms[0]:.4f} ms {b_ms[1]}); out err {err:.3g}, lse "
           f"err {lse_err:.3g}", flush=True)
     return _form_row(
-        "flash_prefill", "[lse]", "flash_prefill.cu",
+        "flash_prefill", form, "flash_prefill.cu",
         "src/repro/kernels/flash_prefill.py:77", max(err, lse_err), ms,
         plain_ms, b_ms, lib_ms, "SDPA",
         f"{b} x {h} heads ({hkv} kv) x {t} tokens x {D} bf16, causal, "
@@ -4916,7 +4936,7 @@ def train_resume(torch, dev) -> str:
             f"{time.monotonic() - t0:.1f} s")
 
 
-def phase_train(torch, counters, dev="cuda") -> tuple[dict, dict]:
+def phase_train(torch, counters, dev="cuda") -> tuple[dict, list]:
     """The training path on the card: #3 with its log-sum-exp at the
     training shape (the ``flash_prefill[lse]`` row) and the gradients of
     ``flash_attention``, both beside their references (launches not
@@ -4924,7 +4944,11 @@ def phase_train(torch, counters, dev="cuda") -> tuple[dict, dict]:
     ``make_train_step`` for ``TRAIN_STEPS`` steps (its first step beside
     a plain run's; 2 x 22 #3 launches a step under block remat), the five
     other families at smoke width, and the launcher in a subprocess with
-    a resume here. Returns (launches, the kernel row)."""
+    a resume here; then the sharded arms (:func:`train_mesh_arms`: two gloo
+    ranks on (2, 1) and (1, 2) with a sharded checkpoint;
+    :func:`train_mesh_one`: an NCCL world of one) and #3 at a
+    tensor-parallel rank's heads. Returns (launches, the kernel rows:
+    ``flash_prefill[lse]`` and ``flash_prefill[lse,tp2]``)."""
     import gc
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.data import SyntheticLMDataset
@@ -4988,9 +5012,360 @@ def phase_train(torch, counters, dev="cuda") -> tuple[dict, dict]:
               f"{r['first5']:.4f} -> {r['last5']:.4f}; {gate}; "
               f"{time.monotonic() - t0:.1f} s", flush=True)
     print(f"train[launch]: {train_resume(torch, dev)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = train_mesh_arms(torch, dev)
+    print(f"train[mesh x1]: {train_mesh_one(torch, dev)}", flush=True)
     counts = read_counts(counters)
     print(f"train: launches {json.dumps(counts)}", flush=True)
-    return {"flash_prefill[lse]": counts["flash_prefill[lse]"]}, row
+    gen.manual_seed(28)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    tp_row = check_train_attention(torch, dev, gen, flush, h=16, hkv=2,
+                                   form="[lse,tp2]")
+    return {"flash_prefill[lse]": counts["flash_prefill[lse]"],
+            "flash_prefill[lse,tp2]": tp}, [row, tp_row]
+
+
+# ---------------------------------------------------------------------------
+# the train phase's sharded arms: make_train_step(mesh=)
+# ---------------------------------------------------------------------------
+
+#: (b)'s depth (tinyllama-1.1b at full width, 6 of its 22 layers), steps
+#: and meshes: FSDP over two data ranks, TP over two model ranks
+TRAIN_MESH_DEPTH, TRAIN_MESH_STEPS = 6, 3
+TRAIN_MESH_SHAPES = ((2, 1), (1, 2))
+#: a rank's seconds to come up, run both meshes and write its results
+TRAIN_RANK_TIMEOUT_S = 300
+
+
+def _first_diff(torch, a: list, b: list, keys: list) -> str | None:
+    """The key of the first pair of tensors that are not bit-equal."""
+    for k, x, y in zip(keys, a, b):
+        if not torch.equal(x, y):
+            return k
+    return None
+
+
+def train_mesh_one(torch, dev, backend="nccl") -> str:
+    """Arm (a): an NCCL world of one in this process, tinyllama-1.1b whole
+    on a (1, 1) mesh with the phase's StepConfig, 3 steps from the state
+    the meshless step starts from, on the same batches: every metric, and
+    after the steps every param and moment, bit-equal to the meshless
+    step's (the first differing leaf named)."""
+    import gc
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.train import StepConfig, init_train_state, \
+        make_train_step
+    t0 = time.monotonic()
+    cfg = get_config(TRAIN_CONFIG)
+    model = get_model(cfg)
+    ds = SyntheticLMDataset(cfg, global_batch=TRAIN_B, seq_len=TRAIN_T,
+                            seed=0)
+    batches = [ds.next_batch() for _ in range(TRAIN_MESH_STEPS)]
+    sc = StepConfig(**TRAIN_STEP_CFG)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train1_") as tmp:
+        init_world(0, 1, f"file://{tmp}/rdzv", backend, timeout_s=60)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            assert mesh.backend("model") == backend
+            step = make_train_step(model, mesh, sc, global_batch=TRAIN_B)
+            ref = make_train_step(model, None, sc)
+            st = init_train_state(model, 0, device=dev)
+            ms = step.place(st)
+            for i, b in enumerate(batches):
+                st, m = ref(st, b)
+                ms, mm = step(ms, b)
+                keys = sorted(m)
+                bad = _first_diff(torch, [m[k] for k in keys],
+                                  [mm[k] for k in keys], keys)
+                assert bad is None, f"mesh x1 step {i + 1}: {bad} differs"
+            lay = step.layout
+            names = [leaf.key for leaf in lay.leaves]
+            for part, a, b in (("params", st.params, ms.params),
+                               ("m", st.opt.m, ms.opt.m),
+                               ("v", st.opt.v, ms.opt.v)):
+                bad = _first_diff(torch, lay.whole(a), lay.values(b), names)
+                assert bad is None, f"mesh x1: {part} leaf {bad} differs"
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            del st, ms, step, ref
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"{backend} world of one, {cfg.name} whole ({cfg.num_layers} "
+            f"layers), "
+            f"{TRAIN_B} x {TRAIN_T}, {TRAIN_MESH_STEPS} steps on a (1, 1) "
+            f"mesh: loss, grad_norm, lr, ce, aux and every param and moment "
+            f"bit-equal to the meshless step's (step 3 loss {loss:.6f}, "
+            f"grad_norm {gnorm:.5f}); {time.monotonic() - t0:.1f} s")
+
+
+def _mesh_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TRAIN_CONFIG),
+                               num_layers=TRAIN_MESH_DEPTH)
+
+
+def _spec_bytes(layout) -> int:
+    """A rank's params + moments bytes from its specs alone: each leaf's
+    elements over the positions of every axis its spec names (params in
+    the layout's dtype, moments fp32)."""
+    import math
+    from repro_torch.launch.mesh import entry_index
+    total = 0
+    for leaf in layout.leaves:
+        n = math.prod(entry_index(layout.mesh, entry)[1]
+                      for entry in leaf.spec)
+        numel = math.prod(leaf.shape)
+        assert numel % n == 0 and math.prod(leaf.block_shape) * n == numel, \
+            leaf.key
+        total += numel // n * (leaf.dtype.itemsize + 8)
+    return total
+
+
+def _state_digests(state) -> dict:
+    """sha256 of every leaf of a numpy state in JAX's layout (8 threads:
+    hashlib releases the interpreter lock on large buffers)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from repro_torch.checkpoint.checkpointing import _flatten_with_paths
+    leaves = _flatten_with_paths(state)
+
+    def digest(v):
+        return hashlib.sha256(memoryview(np.ascontiguousarray(v)).cast(
+            "B")).hexdigest()
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip([k for k, _ in leaves],
+                        pool.map(digest, [v for _, v in leaves])))
+
+
+def train_rank_main(argv: list[str]) -> int:
+    """One rank of arm (b): ``--train-rank R --train-world N --train-dir
+    D --train-dev DEV``. Joins the gloo world through ``D/rdzv``, draws tinyllama-1.1b's
+    state (depth cut to :data:`TRAIN_MESH_DEPTH`) on the card, waits for
+    ``D/go`` (the parent's meshless run is done), then on each of
+    :data:`TRAIN_MESH_SHAPES` places it, runs :data:`TRAIN_MESH_STEPS`
+    steps on its block of the synthetic batches (each timed on the host
+    clock to a synchronise, its #3 launches counted) and records its
+    bytes and peak memory; after the (2, 1) run it saves the sharded
+    checkpoint to ``D/ckpt`` and gathers the state (rank 0 keeps its
+    digests). Results to ``D/rank_R.pt``. The kernels are the parent's
+    build."""
+    import gc
+    import math
+    import torch
+    import torch.distributed as dist
+    args = dict(zip(argv[0::2], argv[1::2]))
+    rank, world = int(args["--train-rank"]), int(args["--train-world"])
+    out_dir, dev = Path(args["--train-dir"]), args["--train-dev"]
+    sys.path.insert(0, str(SRC))
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import flash_prefill, paged_decode, \
+        paged_prefill, polar_attention, polar_encode, polar_qk
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.train import StepConfig, init_train_state, \
+        make_train_step
+    from repro_torch.utils import tree_bytes
+    counters = (polar_encode, paged_decode, flash_prefill, paged_prefill,
+                polar_attention, polar_qk)
+    torch.set_num_threads(1)
+    init_world(rank, world, f"file://{out_dir / 'rdzv'}", "gloo",
+               timeout_s=120)
+    try:
+        meshes = {s: make_mesh(s, ("data", "model"))
+                  for s in TRAIN_MESH_SHAPES}
+        cfg = _mesh_cfg()
+        model = get_model(cfg)
+        state = init_train_state(model, 0, device=dev)
+        deadline = time.monotonic() + TRAIN_RANK_TIMEOUT_S
+        while not (out_dir / "go").exists():
+            assert time.monotonic() < deadline, "no go from the parent"
+            time.sleep(0.05)
+        res = {}
+        for shape, mesh in meshes.items():
+            step = make_train_step(model, mesh, StepConfig(**TRAIN_STEP_CFG),
+                                   global_batch=TRAIN_B)
+            ms = step.place(state)
+            ds = SyntheticLMDataset(cfg, global_batch=TRAIN_B,
+                                    seq_len=TRAIN_T, seed=0, mesh=mesh)
+            specs = ds.batch_pspecs(mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            for _ in range(TRAIN_MESH_STEPS):
+                batch = ds.global_batch_arrays(mesh, specs)
+                reset_counts(counters)
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                ms, m = step(ms, batch)
+                torch.cuda.synchronize()
+                dt = time.monotonic() - t0
+                counts = read_counts(counters)
+                steps.append({
+                    "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]), "ms": dt * 1e3,
+                    "lse": counts.pop("flash_prefill[lse]"),
+                    "others": {k: n for k, n in counts.items() if n}})
+            r = {"steps": steps, "coords": mesh.coords,
+                 "rows": batch["tokens"].shape[0],
+                 "bytes": tree_bytes(ms.params) + tree_bytes(ms.opt.m)
+                 + tree_bytes(ms.opt.v),
+                 "layout_bytes": step.layout.state_bytes(),
+                 "spec_bytes": _spec_bytes(step.layout),
+                 "whole_bytes": sum(
+                     math.prod(leaf.shape) * (leaf.dtype.itemsize + 8)
+                     for leaf in step.layout.leaves),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            if shape == (2, 1):
+                save_checkpoint(str(out_dir / "ckpt"), TRAIN_MESH_STEPS,
+                                step.layout.checkpoint_tree(ms),
+                                extra={"step": TRAIN_MESH_STEPS})
+                whole = step.gather(ms)
+                if rank == 0:
+                    r["digests"] = _state_digests(whole)
+                del whole
+            res[shape] = r
+            del ms, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.save(res, out_dir / f"rank_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_train_world(out_dir: Path, dev) -> list:
+    """Start arm (b)'s two rank processes of this script (their output to
+    ``out_dir/rank_R.log``)."""
+    procs = []
+    for r in range(2):
+        log = open(out_dir / f"rank_{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--train-rank",
+             str(r), "--train-world", "2", "--train-dir", str(out_dir),
+             "--train-dev", str(dev)],
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT), log))
+    return procs
+
+
+def train_mesh_arms(torch, dev) -> int:
+    """Arms (b) and (c): spawn :data:`TRAIN_MESH_SHAPES`' two gloo ranks
+    (the mesh phase's way), run the meshless step at the same depth here
+    while they come up, then let them run; gate each rank's steps against
+    it, its bytes and #3 launches, and restore the (2, 1) run's sharded
+    checkpoint here meshless against the digests of the state the ranks
+    gathered. Returns rank 0's #3 launches in the (1, 2) run (the
+    ``flash_prefill[lse,tp2]`` row's)."""
+    import gc
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import get_model
+    from repro_torch.train import StepConfig, init_train_state, \
+        make_train_step
+    from repro_torch.train.sharded import state_shapes
+    t_arm = time.monotonic()
+    cfg = _mesh_cfg()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train2_") as tmp:
+        tmp = Path(tmp)
+        procs = _spawn_train_world(tmp, dev)
+        deadline = time.monotonic() + TRAIN_RANK_TIMEOUT_S
+        try:
+            model = get_model(cfg)
+            ds = SyntheticLMDataset(cfg, global_batch=TRAIN_B,
+                                    seq_len=TRAIN_T, seed=0)
+            step = make_train_step(model, None, StepConfig(**TRAIN_STEP_CFG))
+            st = init_train_state(model, 0, device=dev)
+            base = []
+            for _ in range(TRAIN_MESH_STEPS):
+                st, m = step(st, ds.next_batch())
+                base.append({"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"])})
+            del st, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            (tmp / "go").touch()
+        except BaseException:
+            for p, log in procs:
+                p.kill()
+                p.wait()
+                log.close()
+            raise
+        ranks = _join_world(torch, procs, tmp, deadline)
+        t_join = time.monotonic()
+        lines = []
+        for shape in TRAIN_MESH_SHAPES:
+            rs = [r[shape] for r in ranks]
+            kind = ("FSDP" if shape[1] == 1 else
+                    f"TP, {cfg.num_heads // shape[1]} / "
+                    f"{cfg.num_kv_heads // shape[1]} heads a rank")
+            for i, b in enumerate(base):
+                got = [x["steps"][i] for x in rs]
+                assert got[0]["loss"] == got[1]["loss"], (shape, i)
+                rel = abs(got[0]["loss"] - b["loss"]) / b["loss"]
+                rg = abs(got[0]["grad_norm"] - b["grad_norm"]) / \
+                    b["grad_norm"]
+                assert rel <= TRAIN_LOSS_RTOL, f"{shape} step {i}: loss {rel}"
+                assert rg <= TRAIN_GNORM_RTOL, \
+                    f"{shape} step {i}: grad_norm {rg}"
+            for x in rs:
+                assert x["bytes"] == x["layout_bytes"] == x["spec_bytes"], \
+                    (shape, x["bytes"], x["spec_bytes"])
+                assert x["rows"] == (TRAIN_B // shape[0])
+                for st_ in x["steps"]:
+                    assert st_["lse"] == 2 * TRAIN_MESH_DEPTH, (shape, st_)
+                    assert not st_["others"], (shape, st_)
+            # the slower rank's mean over the steps after the first
+            step_ms = max(sum(y["ms"] for y in x["steps"][1:])
+                          / (TRAIN_MESH_STEPS - 1) for x in rs)
+            lines.append(
+                f"{shape} {kind}: losses "
+                f"{[round(y['loss'], 5) for y in rs[0]['steps']]} vs "
+                f"meshless {[round(y['loss'], 5) for y in base]} (max rel "
+                f"{max(abs(y['loss'] - b['loss']) / b['loss'] for y, b in zip(rs[0]['steps'], base)):.2e}), "
+                f"grad_norm max rel "
+                f"{max(abs(y['grad_norm'] - b['grad_norm']) / b['grad_norm'] for y, b in zip(rs[0]['steps'], base)):.2e}; "
+                f"state bytes a rank {rs[0]['bytes']:,} of "
+                f"{rs[0]['whole_bytes']:,} (its spec blocks, exactly); #3 "
+                f"launches a step a rank {rs[0]['steps'][0]['lse']}; step ms "
+                f"a rank (steps 2-{TRAIN_MESH_STEPS}, host clock to a "
+                f"synchronise) {[round(y['ms'], 1) for y in rs[0]['steps'][1:]]}"
+                f" / {[round(y['ms'], 1) for y in rs[1]['steps'][1:]]}, "
+                f"{TRAIN_B * TRAIN_T / step_ms * 1e3:.0f} tokens/s the pair "
+                f"(gloo stages every collective through the host: not a "
+                f"claim); peak {rs[0]['peak_gib']:.2f} / "
+                f"{rs[1]['peak_gib']:.2f} GiB a rank")
+        t0 = time.monotonic()
+        back, extra = restore_checkpoint(str(tmp / "ckpt"), TRAIN_MESH_STEPS,
+                                         state_shapes(cfg))
+        assert extra == {"step": TRAIN_MESH_STEPS}, extra
+        got = _state_digests(back)
+        want = ranks[0][(2, 1)]["digests"]
+        bad = [k for k in want if got.get(k) != want[k]]
+        assert sorted(got) == sorted(want) and not bad, \
+            f"restored checkpoint differs at {bad[:1]}"
+        files = sorted(p.name for p in (
+            tmp / "ckpt" / f"step_{TRAIN_MESH_STEPS:010d}").iterdir())
+        del back
+    print(f"train[mesh x2]: {cfg.name} at full width, depth cut from 22 to "
+          f"{TRAIN_MESH_DEPTH} layers, two gloo ranks on the card, "
+          f"{TRAIN_B} x {TRAIN_T}, {TRAIN_MESH_STEPS} steps a mesh; "
+          + "; ".join(lines) + f"; ranks joined {t_join - t_arm:.1f} s after "
+          f"the spawn", flush=True)
+    print(f"train[mesh ckpt]: the (2, 1) run's sharded checkpoint ({files}) "
+          f"restored here meshless: {len(want)} leaves bit-equal to the "
+          f"state the ranks gathered; {time.monotonic() - t0:.1f} s",
+          flush=True)
+    return sum(y["lse"] for y in ranks[0][(1, 2)]["steps"])
 
 
 # ---------------------------------------------------------------------------
@@ -6106,6 +6481,8 @@ def main() -> int:
     t_start = time.monotonic()
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank_main(sys.argv[1:])
+    if sys.argv[1:2] == ["--train-rank"]:
+        return train_rank_main(sys.argv[1:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6158,8 +6535,8 @@ def main() -> int:
                         D128_CONFIGS, "configs")
     moe = clock.run("moe", phase_configs, torch, counters, MOE_CONFIGS, "moe")
     families = clock.run("families", phase_families, torch, counters)
-    train, train_row = clock.run("train", phase_train, torch, counters)
-    rows.append(train_row)
+    train, train_rows = clock.run("train", phase_train, torch, counters)
+    rows.extend(train_rows)
 
     phases = {"serve": serve, "runahead": runahead, "spec": spec,
               "prefix": prefix, "static": static, "values": values,

@@ -5,8 +5,11 @@ Learnable token streams (a mixture of Markov "documents" with
 per-document grammars), fully deterministic in (seed, step): resuming
 after a crash replays the exact batch sequence, and the trainer
 checkpoints only (seed, step). Host-sharded: each process materializes
-only its slice of the global batch. The tokens are numpy and equal JAX's
-bit for bit.
+only its slice of the global batch — under a mesh (``mesh=``) the slice
+of its data coordinate, so the ranks along ``model`` see the same rows,
+and :meth:`SyntheticLMDataset.global_batch_arrays` gives a rank its block
+of the global batch per ``batch_pspecs``. The tokens are numpy and equal
+JAX's bit for bit.
 
 The stubbed modality frontends' inputs (the VLM's ``patches``, the
 encoder-decoder's ``frames``) are standard normals from a numpy generator
@@ -46,18 +49,39 @@ def _world() -> tuple[int, int]:
     return 0, 1
 
 
+def _data_block(mesh, entry, global_batch: int) -> tuple[int, int]:
+    """(index, count) of this rank's block of the batch rows over a spec
+    entry (a data axis, a tuple of them, or None: the whole batch)."""
+    from repro_torch.launch.mesh import entry_index
+    idx, n = entry_index(mesh, entry)
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} does not split over "
+                         f"{n} data positions")
+    return idx, n
+
+
 class SyntheticLMDataset:
     """Markov-mixture token stream. One instance per host process."""
 
     def __init__(self, cfg: ModelConfig, global_batch: int, seq_len: int,
                  seed: int = 0, num_grammars: int = 16, order: int = 2,
                  process_index: Optional[int] = None,
-                 process_count: Optional[int] = None):
+                 process_count: Optional[int] = None, mesh=None):
+        """``mesh``: the process index and count are the rank's data
+        coordinate and the data positions (the whole batch, index 0 of 1,
+        where it does not split over them: ``batch_pspecs``' rule); without
+        one, the world's rank and size."""
         self.cfg = cfg
         self.global_batch = global_batch
         self.seq_len = seq_len
         self.state = DataState(seed=seed, step=0)
-        rank, world = _world()
+        if mesh is not None:
+            from repro_torch.distributed.sharding import batch_pspecs
+            spec = batch_pspecs({"tokens": np.zeros((global_batch, 1))}, mesh,
+                                global_batch)["tokens"]
+            rank, world = _data_block(mesh, spec[0], global_batch)
+        else:
+            rank, world = _world()
         self.process_index = rank if process_index is None else process_index
         self.process_count = world if process_count is None else process_count
         if global_batch % self.process_count:
@@ -94,6 +118,20 @@ class SyntheticLMDataset:
             out[i] = seq
         return out
 
+    def _rows(self, step: int, lo: int, count: int) -> dict:
+        """Global rows ``[lo, lo + count)`` of batch ``step``."""
+        rows = np.arange(lo, lo + count)
+        cfg = self.cfg
+        text = self.seq_len - (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+        batch = {"tokens": self._tokens(step, rows, text + 1).astype(np.int32)}
+        if cfg.family in ("encdec", "vlm"):
+            rng = np.random.default_rng((self.state.seed << 20) ^ step)
+            feats = rng.standard_normal(
+                (count, cfg.frontend_tokens, cfg.frontend_dim),
+                dtype=np.float32)
+            batch["frames" if cfg.family == "encdec" else "patches"] = feats
+        return batch
+
     def local_batch_np(self, step: Optional[int] = None) -> dict:
         """This process's rows of batch ``step`` (the current step unless
         named): ``tokens`` (local_batch, seq_len + 1) int32 (the VLM's text
@@ -101,20 +139,36 @@ class SyntheticLMDataset:
         ``frames`` (encoder-decoder) (local_batch, frontend_tokens,
         frontend_dim) float32."""
         step = self.state.step if step is None else step
-        lo = self.process_index * self.local_batch
-        rows = np.arange(lo, lo + self.local_batch)
-        cfg = self.cfg
-        text = self.seq_len - (cfg.frontend_tokens if cfg.family == "vlm" else 0)
-        batch = {"tokens": self._tokens(step, rows, text + 1).astype(np.int32)}
-        if cfg.family in ("encdec", "vlm"):
-            rng = np.random.default_rng((self.state.seed << 20) ^ step)
-            feats = rng.standard_normal(
-                (self.local_batch, cfg.frontend_tokens, cfg.frontend_dim),
-                dtype=np.float32)
-            batch["frames" if cfg.family == "encdec" else "patches"] = feats
-        return batch
+        return self._rows(step, self.process_index * self.local_batch,
+                          self.local_batch)
 
     def next_batch(self) -> dict:
         b = self.local_batch_np()
         self.state.step += 1
         return b
+
+    def batch_pspecs(self, mesh) -> dict:
+        """``batch_pspecs`` of this stream's arrays on ``mesh``."""
+        from repro_torch.distributed.sharding import batch_pspecs
+        keys = ["tokens"] + {"vlm": ["patches"], "encdec": ["frames"]}.get(
+            self.cfg.family, [])
+        shapes = {k: np.zeros((1,) * (2 if k == "tokens" else 3))
+                  for k in keys}
+        return batch_pspecs(shapes, mesh, self.global_batch)
+
+    def global_batch_arrays(self, mesh, pspecs: dict) -> dict:
+        """The next global batch, as this rank's block of each array per
+        ``pspecs`` (``batch_pspecs``: the rows of the rank's data
+        coordinate, or every row where the spec leaves the batch whole);
+        the block of data coordinate d of n equals ``local_batch_np`` of
+        process d of n. Advances the step, as ``next_batch``."""
+        step = self.state.step
+        self.state.step += 1
+        out, cache = {}, {}
+        for k in pspecs:
+            idx, n = _data_block(mesh, pspecs[k][0], self.global_batch)
+            if (idx, n) not in cache:
+                count = self.global_batch // n
+                cache[(idx, n)] = self._rows(step, idx * count, count)
+            out[k] = cache[(idx, n)][k]
+        return out

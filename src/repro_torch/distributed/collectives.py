@@ -15,6 +15,11 @@ and the collectives are the identity).
   ``exp(m_i - max_j m_j)`` and sums. A shard with zero live positions
   carries ``m = -inf`` (or the finite ``NEG_INF`` sentinel) and
   contributes exactly zero, not ``exp(-inf - -inf) = NaN``.
+* **Collectives inside autograd** for sharded training
+  (:func:`copy_to`, :func:`reduce_from`, :func:`gather_from`,
+  :func:`scatter_to`): identity forward / all-reduce backward, all-reduce
+  forward / identity backward, all-gather forward / slice backward and
+  slice forward / all-gather backward, over one axis or several.
 * **int8 error-feedback mean** (:func:`ef_allreduce_mean`): each
   participant quantizes (grad + carried error) to int8 with its own fp32
   scale, the dequantized contributions are summed over the axis, and the
@@ -23,7 +28,8 @@ and the collectives are the identity).
 Gathers are all-reduce sums of zero-filled buffers in which each rank
 writes its block: exact (x + 0 = x; only the sign of a zero can change),
 and supported for CUDA tensors by both gloo and NCCL — gloo has no CUDA
-all-gather. NCCL's all-reduce can be captured in a CUDA graph.
+all-gather. NCCL's all-reduce can be captured in a CUDA graph. Gloo sums
+bf16 and fp16 tensors in fp32 here (:func:`sum_over`), cast back after.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch.mesh import entry_index
 
 
 def _group(mesh, axis: str):
@@ -51,6 +59,144 @@ def _all_reduce(x: torch.Tensor, mesh, axis: str,
     if group is not None:
         dist.all_reduce(x, op=op, group=group)
     return x
+
+
+def sum_over(x: torch.Tensor, mesh, axes, inplace: bool = False
+             ) -> torch.Tensor:
+    """``x`` summed over every axis of ``axes`` (one name or several; an
+    axis of one position adds nothing): a new tensor, or ``x`` itself,
+    summed in place, with ``inplace``. Where the axis's backend is gloo,
+    a bf16 or fp16 ``x`` is summed in fp32 and cast back."""
+    out = x
+    for axis in _names(axes):
+        if mesh.shape[axis] == 1:
+            continue
+        group = _group(mesh, axis)
+        if x.dtype in (torch.bfloat16, torch.float16) and \
+                mesh.backend(axis) == "gloo":
+            y = out.float()
+            dist.all_reduce(y, group=group)
+            out = out.copy_(y) if inplace else y.to(x.dtype)
+        else:
+            out = out.clone() if out is x and not inplace else out
+            dist.all_reduce(out, group=group)
+    return out
+
+
+def _names(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def block_of(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``, split over the positions
+    of ``axes`` (one name or several, combined row-major)."""
+    idx, n = entry_index(mesh, _names(axes))
+    if n == 1:
+        return x
+    size = x.shape[dim] // n
+    return x.narrow(dim, idx * size, size)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, all-reduce backward: where a value replicated
+    over ``axes`` enters code each rank runs on its own block (its
+    gradient is the sum of every rank's partial)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_over(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce forward, identity backward: every rank's partial summed
+    into a value replicated over ``axes`` (each rank's partial takes the
+    replicated value's gradient as is)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return sum_over(x.contiguous(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """All-gather forward along ``dim`` over ``axis``, slice backward (the
+    gathered value's gradient is replicated: each rank keeps its
+    block)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return allgather_concat(x.contiguous(), mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (block_of(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(), None,
+                None, None)
+
+
+class _ScatterTo(torch.autograd.Function):
+    """Slice forward along ``dim`` over ``axis``, all-gather backward
+    (each rank's block gradient is complete; the replicated value's is
+    their concatenation)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return block_of(x, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (allgather_concat(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim),
+                None, None, None)
+
+
+def copy_to(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Identity forward, all-reduce over ``axes`` backward."""
+    return _CopyTo.apply(x, mesh, axes)
+
+
+def reduce_from(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """All-reduce over ``axes`` forward, identity backward."""
+    return _ReduceFrom.apply(x, mesh, axes)
+
+
+def gather_from(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` over ``axis`` forward, slice backward."""
+    return _GatherFrom.apply(x, mesh, axis, dim)
+
+
+def scatter_to(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` forward, all-gather backward."""
+    return _ScatterTo.apply(x, mesh, axis, dim)
+
+
+def max_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """A new tensor: the elementwise max of ``x`` over ``axis`` (no
+    gradient; fp32 on gloo for bf16 and fp16)."""
+    if mesh.shape[axis] == 1:
+        return x
+    y = x.detach().float().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=_group(mesh, axis))
+    return y.to(x.dtype)
+
+
+def any_rank(flag: bool, mesh) -> bool:
+    """Whether ``flag`` holds on any rank of the mesh (a host all-reduce
+    over every axis's gloo group; the flag itself outside a world)."""
+    t = torch.tensor([int(flag)], dtype=torch.int32)
+    for axis in mesh.axis_names:
+        group = mesh.host_group(axis)
+        if group is not None and mesh.shape[axis] > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t[0])
 
 
 def broadcast_host_float(value: float, mesh, axis: str) -> float:
@@ -132,22 +278,23 @@ def finalize_softmax(l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(acc))
 
 
-def allgather_concat(x: torch.Tensor, mesh, axis_name: str,
+def allgather_concat(x: torch.Tensor, mesh, axes,
                      axis: int = -1) -> torch.Tensor:
-    """Every rank's block of ``x`` concatenated along ``axis`` in mesh
-    order — the rank at coordinate ``r`` fills ``[r * n, (r + 1) * n)`` of
-    a zero buffer and the buffers are summed (exact: see the module
-    doc)."""
-    world = mesh.shape[axis_name]
-    if _group(mesh, axis_name) is None:
+    """Every rank's block of ``x`` concatenated along ``axis`` over
+    ``axes`` (one mesh axis or several, combined row-major) — the rank at
+    combined coordinate ``r`` fills ``[r * n, (r + 1) * n)`` of a zero
+    buffer and the buffers are summed (:func:`sum_over`; exact: see the
+    module doc)."""
+    idx, world = entry_index(mesh, _names(axes))
+    if world == 1:
         return x
     axis = axis % x.ndim
     n = x.shape[axis]
     shape = list(x.shape)
     shape[axis] = n * world
     out = x.new_zeros(shape)
-    out.narrow(axis, mesh.axis_index(axis_name) * n, n).copy_(x)
-    return _all_reduce(out, mesh, axis_name)
+    out.narrow(axis, idx * n, n).copy_(x)
+    return sum_over(out, mesh, axes, inplace=True)
 
 
 # ---------------------------------------------------------------------------

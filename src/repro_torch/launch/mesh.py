@@ -16,7 +16,8 @@ A mesh of one position needs no world: built before
 ``init_process_group`` it has no groups and every collective over it is
 the identity. The world's process group gets its address, size, rank and a
 timeout from :func:`init_world`, and every group :func:`make_mesh` creates
-gets the same timeout; nothing here reads the environment.
+gets the same timeout; nothing here reads the environment (the launchers
+hand :func:`launcher_world` theirs).
 
 Axes:
   * ``pod``   — inter-pod axis; composes with ``data`` for data-parallel
@@ -32,7 +33,13 @@ import datetime
 import itertools
 import math
 
+import torch
 import torch.distributed as dist
+
+from repro_torch.utils import resolve_device
+
+#: what ``python -m torch.distributed.run`` sets for each process it starts
+LAUNCHER_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 #: the longest a collective may wait for its peers before the group
 #: fails: ranks whose host decisions diverged issue mismatched
@@ -43,6 +50,30 @@ DEFAULT_TIMEOUT_S = 60.0
 #: it to every group it creates (``new_group`` without one would take the
 #: backend's default, up to 30 min)
 _world_timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+
+
+def launcher_world(environ) -> dict | None:
+    """This process as the launcher started it — {"rank", "size",
+    "local", "local_size"} from ``environ`` (``os.environ``) — or None
+    where one of :data:`LAUNCHER_VARS` is missing."""
+    if any(v not in environ for v in LAUNCHER_VARS):
+        return None
+    size = int(environ["WORLD_SIZE"])
+    return {"rank": int(environ["RANK"]), "size": size,
+            "local": int(environ.get("LOCAL_RANK", environ["RANK"])),
+            "local_size": int(environ.get("LOCAL_WORLD_SIZE", size))}
+
+
+def rank_device(device, world: dict | None) -> tuple[torch.device, str]:
+    """(this rank's device, the world's backend): the named device, or the
+    card — each rank its own when the node has a card for every local
+    rank (NCCL), else the first for all (gloo)."""
+    if device is not None or world is None:
+        return resolve_device(device), "gloo"
+    dev = resolve_device(None)
+    if torch.cuda.device_count() >= world["local_size"]:
+        return torch.device("cuda", world["local"]), "nccl"
+    return dev, "gloo"
 
 
 def init_world(rank: int, world_size: int, init_method: str, backend: str,
@@ -177,6 +208,25 @@ def make_host_mesh(model_axis: int = 1) -> Mesh:
 def data_axes(mesh) -> tuple[str, ...]:
     """Mesh axes forming the data-parallel dimension."""
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes a ``PartitionSpec`` entry names: none (None), one
+    (a name) or several (a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def entry_index(mesh, entry) -> tuple[int, int]:
+    """(index, count) of this rank's block along a dimension whose spec
+    entry is ``entry``: the coordinates on its axes combined row-major,
+    as JAX lays a tuple entry's devices, over the product of their
+    sizes."""
+    idx, n = 0, 1
+    for a in entry_axes(entry):
+        idx, n = idx * mesh.shape[a] + mesh.coords[a], n * mesh.shape[a]
+    return idx, n
 
 
 def model_axis_size(mesh) -> int:

@@ -53,17 +53,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_configs, reduce_for_smoke
+from repro_torch.launch.mesh import (  # noqa: F401 — LAUNCHER_VARS re-exported
+    LAUNCHER_VARS, launcher_world, rank_device,
+)
 from repro_torch.models import get_model
 from repro_torch.serve import (
     ContinuousBatchingEngine, GenerationConfig, Request, ServeEngine,
 )
-from repro_torch.utils import resolve_device
 
 #: JAX's execution modes of one kernel (TPU, Pallas interpreter, jnp
 #: oracle); the port takes only the backends that name a computation
 TPU_MODES = ("ref", "interpret", "pallas")
 #: the environment ``python -m torch.distributed.run`` gives each rank
-LAUNCHER_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -175,7 +176,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                      "version)")
     args.mesh = _mesh_shape(args.mesh_shape) if args.mesh_shape else None
     args.world = _world(args)
-    args.rank_device, args.backend = _device(args, args.world)
+    args.rank_device, args.backend = rank_device(args.device, args.world)
     return args
 
 
@@ -207,26 +208,12 @@ def _world(args) -> dict | None:
             f"position ({n}), and {', '.join(missing)} are not set; launch "
             f"it with: python -m torch.distributed.run --nproc_per_node {n} "
             f"-m repro_torch.launch.serve --mesh-shape {args.mesh_shape} ...")
-    world = int(os.environ["WORLD_SIZE"])
-    if world != n:
+    world = launcher_world(os.environ)
+    if world["size"] != n:
         raise SystemExit(f"--mesh-shape {args.mesh_shape} holds {n} "
-                         f"positions but the launcher started {world} "
-                         "processes")
-    return {"rank": int(os.environ["RANK"]), "size": world,
-            "local": int(os.environ.get("LOCAL_RANK", os.environ["RANK"])),
-            "local_size": int(os.environ.get("LOCAL_WORLD_SIZE", world))}
-
-
-def _device(args, world: dict | None) -> tuple[torch.device, str]:
-    """(this rank's device, the world's backend): the named device, or the
-    card — each rank its own when the node has a card for every local
-    rank (NCCL), else the first for all (gloo)."""
-    if args.device is not None or world is None:
-        return resolve_device(args.device), "gloo"
-    dev = resolve_device(None)
-    if torch.cuda.device_count() >= world["local_size"]:
-        return torch.device("cuda", world["local"]), "nccl"
-    return dev, "gloo"
+                         f"positions but the launcher started "
+                         f"{world['size']} processes")
+    return world
 
 
 def build(args) -> tuple:

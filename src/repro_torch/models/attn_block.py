@@ -68,6 +68,7 @@ from repro_torch.core import paged_cache as pgc
 from repro_torch.core.attention import flash_attention
 from repro_torch.core.cache_layout import LinearLayout, RingLayout
 from repro_torch.distributed import serving as dsrv
+from repro_torch.distributed import training as dtrain
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.utils import torch_dtype
@@ -87,13 +88,28 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator | None,
     return p
 
 
-def _project(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    q = L.split_heads(L.linear(x, params["wq"], params.get("bq")),
-                      cfg.num_heads)
-    k = L.split_heads(L.linear(x, params["wk"], params.get("bk")),
-                      cfg.num_kv_heads)
-    v = L.split_heads(L.linear(x, params["wv"], params.get("bv")),
-                      cfg.num_kv_heads)
+def _project(params: dict, x: torch.Tensor, cfg: ModelConfig,
+             plan: dtrain.TrainPlan = dtrain.MESHLESS):
+    """q (B, Hq, T, d), k and v (B, Hkv, T, d). Under a train plan that
+    splits the heads over ``model`` (``params`` then the rank's column
+    blocks): the rank's block of query heads, and its block of KV heads
+    or, where the KV heads do not split, the one KV head its query heads
+    read — every rank projects all of them (replicated) and the copy sums
+    the ranks' partial gradients before each keeps its head."""
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    xin = plan.copy_to_model(x, plan.attn)
+    if plan.attn:
+        hq //= plan.model_n
+    if plan.kv:
+        hkv //= plan.model_n
+    xkv = xin if plan.kv else x
+    q = L.split_heads(L.linear(xin, params["wq"], params.get("bq")), hq)
+    k = L.split_heads(L.linear(xkv, params["wk"], params.get("bk")), hkv)
+    v = L.split_heads(L.linear(xkv, params["wv"], params.get("bv")), hkv)
+    if plan.attn and not plan.kv:
+        h0 = plan.model_idx // (plan.model_n // hkv)
+        k = plan.copy_to_model(k)[:, h0:h0 + 1]
+        v = plan.copy_to_model(v)[:, h0:h0 + 1]
     return q, k, v
 
 
@@ -125,11 +141,15 @@ def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """x: (B, T, D) -> (B, T, D), no cache, in ``mask_mode`` (``causal``,
     ``full``, ``prefix`` with ``prefix_len`` (B,) int32, ``local`` with
     ``window``). ``memory`` (B, Tm, D) switches to cross-attention: K/V
-    from memory, no RoPE on keys or queries, mode ``full``."""
+    from memory, no RoPE on keys or queries, mode ``full``. Under a
+    sharded train step's plan that splits the heads (self-attention
+    only): the rank's head block (``_project``), ``wo`` row-parallel and
+    the ranks' outputs summed."""
+    plan = dtrain.active_plan()
     if memory is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        q, k, v = _project(params, x, cfg)
+        q, k, v = _project(params, x, cfg, plan)
         q = L.apply_rope(q, positions, cfg.rope_base, cfg.rope_ntk_scale)
         k = L.apply_rope(k, positions, cfg.rope_base, cfg.rope_ntk_scale)
     else:
@@ -143,7 +163,8 @@ def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         out = ops.flash_prefill(q.contiguous(), k.contiguous(),
                                 v.contiguous(), **kw)
-    return L.linear(L.merge_heads(out), params["wo"])
+    return plan.reduce_from_model(L.linear(L.merge_heads(out), params["wo"]),
+                                  plan.attn and memory is None)
 
 
 def _memory_kv(params: dict, memory: torch.Tensor, cfg: ModelConfig):

@@ -116,17 +116,6 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * d)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_id: int = -1) -> torch.Tensor:
-    """Mean token cross entropy in fp32 over the labels that are not
-    ``ignore_id``. logits: (..., V), labels: (...) int."""
-    logits32 = logits.float()
-    lse = torch.logsumexp(logits32, dim=-1)
-    ll = torch.gather(logits32, -1, labels.clamp(min=0)[..., None])[..., 0]
-    mask = (labels != ignore_id).float()
-    return torch.sum((lse - ll) * mask) / torch.clamp_min(mask.sum(), 1.0)
-
-
 def remat(fn, policy: str):
     """``fn`` recomputed in the backward instead of keeping its
     activations (``jax.checkpoint``; non-reentrant

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import training as dtrain
 from repro_torch.models import layers as L
 
 
@@ -123,7 +124,15 @@ def moe_ffn_train(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    """(y, router probs, expert indices)."""
+    """(y, router probs, expert indices). Under a sharded train step's
+    plan that splits the experts over ``model`` (or, where E does not
+    divide it, each expert's ``d_ff``; ``params`` then the rank's
+    blocks): the routing, capacities and drops are every rank's (the
+    router is replicated), each rank runs its experts' capacity buffers
+    for every token, and the ranks' outputs are summed; the shared
+    experts split over their ``d_ff`` where the plan says so."""
+    plan = dtrain.active_plan()
+    split = plan.experts or plan.expert_ff
     b, t, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     cap = capacity(t, cfg)
@@ -131,18 +140,33 @@ def _moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig):
     keep, dst = dispatch(eidx, cap, e)
 
     rows = e * b * cap
-    xk = x[:, None].expand(b, k, t, d).reshape(b * k * t, d)
+    xin = plan.copy_to_model(x, split)
+    xk = xin[:, None].expand(b, k, t, d).reshape(b * k * t, d)
     buf = x.new_zeros((rows + 1, d))
     buf.index_add_(0, dst.reshape(-1), xk)                    # drop row last
-    out = _experts(params, buf[:rows].view(e, b * cap, d), cfg.act)
+    buf = buf[:rows].view(e, b * cap, d)
+    if plan.experts:
+        # the rank's experts; the others' rows stay zero
+        e0, ne = plan.block(e)
+        out = F.pad(_experts(params, buf[e0:e0 + ne], cfg.act),
+                    (0, 0, 0, 0, e0, e - e0 - ne))
+    else:
+        out = _experts(params, buf, cfg.act)
     out = torch.cat([out.reshape(rows, d), out.new_zeros((1, d))])
     back = out.index_select(0, dst.reshape(-1)).view(b, k, t, d)
     # gates masked by keep and cast to the model dtype before the combine,
     # one contraction over the k slots (one rounding, as JAX's einsum)
-    gk = (gates.transpose(1, 2) * keep).to(x.dtype)           # (B, k, T)
+    gk = plan.copy_to_model((gates.transpose(1, 2) * keep).to(x.dtype),
+                            split)                            # (B, k, T)
     y = torch.einsum("bktd,bkt->btd", back, gk)
-    if cfg.num_shared_experts:
-        y = y + L.mlp(params["shared"], x, cfg.act)
+    shared = cfg.num_shared_experts > 0
+    if shared and plan.shared == split:
+        y = y + L.mlp(params["shared"], xin, cfg.act)
+    y = plan.reduce_from_model(y, split)
+    if shared and plan.shared != split:
+        y = y + plan.reduce_from_model(L.mlp(
+            params["shared"], plan.copy_to_model(x, plan.shared), cfg.act),
+            plan.shared)
     return y, probs, eidx
 
 
@@ -156,9 +180,19 @@ def load_balance_loss(params: dict, x: torch.Tensor,
 def _switch_aux(probs: torch.Tensor, eidx: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """E * sum(mean router prob * mean assignment share) *
-    router_aux_loss, in fp32; the gradient flows through the probs."""
+    router_aux_loss, in fp32; the gradient flows through the probs. Under
+    a sharded train step's plan the means are the global batch's: the
+    probabilities', assignments' and tokens' sums over the data ranks
+    before they divide (``distributed/training.py``)."""
     e = cfg.num_experts
-    me = probs.mean(dim=(0, 1))
-    ce = (eidx[..., None] == torch.arange(e, device=eidx.device)).float() \
-        .sum(dim=2).mean(dim=(0, 1))
+    hits = (eidx[..., None] == torch.arange(e, device=eidx.device)).float() \
+        .sum(dim=2)
+    plan = dtrain.active_plan()
+    if not plan.data_parallel:
+        me, ce = probs.mean(dim=(0, 1)), hits.mean(dim=(0, 1))
+    else:
+        n = plan.data_sum(torch.full(
+            (), float(probs.shape[0] * probs.shape[1]), device=probs.device))
+        me = plan.data_sum(probs.sum(dim=(0, 1))) / n
+        ce = plan.data_sum(hits.sum(dim=(0, 1))) / n
     return e * torch.sum(me * ce) * cfg.router_aux_loss

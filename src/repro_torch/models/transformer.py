@@ -44,6 +44,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged_cache as pgc
 from repro_torch.distributed import serving as dsrv
+from repro_torch.distributed import training as dtrain
 from repro_torch.models import attn_block as AB
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -58,10 +59,38 @@ def embed_tokens(params: dict, tokens: torch.Tensor,
     return x
 
 
-def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              plan: dtrain.TrainPlan = dtrain.MESHLESS) -> torch.Tensor:
+    """The head's logits; under a train plan that splits ``lm_head`` over
+    ``model``, the rank's vocab block of them."""
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    h = plan.copy_to_model(h, plan.vocab)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w.to(h.dtype)
+
+
+def _ce_parts(logits: torch.Tensor, labels: torch.Tensor,
+              plan: dtrain.TrainPlan, v0: int):
+    """(masked sum of token NLLs, token count) in fp32 over ``logits``:
+    the whole vocab, or under a plan that splits ``lm_head`` the rank's
+    block from ``v0``, the log-sum-exp's max and sum and the label's
+    logit then taken over every block."""
+    logits = logits.float()
+    mask = (labels != -1).float()
+    if not plan.vocab:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+        return torch.sum((lse - ll) * mask), torch.sum(mask)
+    vb = logits.shape[-1]
+    mx = plan.max_over_model(logits.detach().amax(dim=-1))
+    se = plan.reduce_from_model(
+        torch.sum(torch.exp(logits - mx[..., None]), dim=-1))
+    lse = mx + torch.log(se)
+    local = labels.long() - v0
+    mine = (local >= 0) & (local < vb)
+    ll = torch.gather(logits, -1, local.clamp(0, vb - 1)[..., None])[..., 0]
+    ll = plan.reduce_from_model(ll * mine)
+    return torch.sum((lse - ll) * mask), torch.sum(mask)
 
 
 def lm_head_loss(params: dict, h: torch.Tensor, labels: torch.Tensor,
@@ -69,24 +98,26 @@ def lm_head_loss(params: dict, h: torch.Tensor, labels: torch.Tensor,
     """Cross entropy of the head over h (B, T, D) without keeping (B, T, V)
     fp32 logits: over chunks of ``ce_chunk`` tokens, each chunk's logits
     recomputed in the backward. Single-shot when ``ce_chunk <= 0``, T <=
-    ``ce_chunk`` or T is not a multiple of it, as JAX."""
-    t = h.shape[1]
-    if ce_chunk <= 0 or t <= ce_chunk or t % ce_chunk:
-        return L.cross_entropy_loss(lm_logits(params, h, cfg), labels)
+    ``ce_chunk`` or T is not a multiple of it, as JAX. Under a sharded
+    train step's plan the head is vocab-parallel where the plan splits it,
+    and the masked sum and count are summed over the data ranks before
+    they divide (the global batch's mean)."""
+    plan = dtrain.active_plan()
+    v0 = plan.block(cfg.vocab_size)[0] if plan.vocab else 0
 
     def body(hx, lx):
-        logits = lm_logits(params, hx, cfg).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lx.clamp(min=0)[..., None])[..., 0]
-        mask = (lx != -1).float()
-        return torch.sum((lse - ll) * mask), torch.sum(mask)
+        return _ce_parts(lm_logits(params, hx, cfg, plan), lx, plan, v0)
 
-    body = L.remat(body, "block")
-    nll = n = torch.zeros((), device=h.device)
-    for c0 in range(0, t, ce_chunk):
-        a, m = body(h[:, c0:c0 + ce_chunk], labels[:, c0:c0 + ce_chunk])
-        nll, n = nll + a, n + m
-    return nll / torch.clamp_min(n, 1.0)
+    t = h.shape[1]
+    if ce_chunk <= 0 or t <= ce_chunk or t % ce_chunk:
+        nll, n = body(h, labels)
+    else:
+        body = L.remat(body, "block")
+        nll = n = torch.zeros((), device=h.device)
+        for c0 in range(0, t, ce_chunk):
+            a, m = body(h[:, c0:c0 + ce_chunk], labels[:, c0:c0 + ce_chunk])
+            nll, n = nll + a, n + m
+    return plan.data_sum(nll) / torch.clamp_min(plan.data_sum(n), 1.0)
 
 
 def ffn_apply(bp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -101,7 +132,10 @@ def block_train(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 mask_mode: str, prefix_len: Optional[torch.Tensor],
                 window: int = 0):
     """One block over a whole sequence, no cache: (x, the MoE aux loss, 0
-    for a dense FFN)."""
+    for a dense FFN). Under a sharded train step's plan that splits
+    ``d_ff`` the dense FFN runs over the rank's block (``wg``/``wu``
+    column-, ``wd`` row-parallel) and the ranks' outputs are summed."""
+    plan = dtrain.active_plan()
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     x = x + AB.attention_train(bp["attn"], h, cfg, mask_mode=mask_mode,
                                prefix_len=prefix_len, window=window)
@@ -109,7 +143,10 @@ def block_train(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.family == "moe":
         f, aux = MOE.moe_ffn_train(bp["ffn"], h, cfg)
     else:
-        f, aux = L.mlp(bp["ffn"], h, cfg.act), torch.zeros((), device=x.device)
+        f = plan.reduce_from_model(
+            L.mlp(bp["ffn"], plan.copy_to_model(h, plan.ff), cfg.act),
+            plan.ff)
+        aux = torch.zeros((), device=x.device)
     return x + f, aux
 
 

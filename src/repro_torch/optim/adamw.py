@@ -81,11 +81,15 @@ def global_norm(tree) -> torch.Tensor:
 
 def adamw_update(params, grads, state: AdamWState, lr, *, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float = 1.0):
+                 weight_decay: float = 0.1, clip_norm: float = 1.0,
+                 gnorm=None):
     """Returns (new_params, new_state, {"grad_norm"}). ``lr`` a float or a
     0-dim fp32 tensor. Bias corrections are computed in float32 from the
-    int32 step, as JAX's ``b1 ** t`` with ``t`` float32."""
-    gnorm = global_norm(grads)
+    int32 step, as JAX's ``b1 ** t`` with ``t`` float32. ``gnorm``: the
+    clipping norm when the caller computed it (a sharded step's grads are
+    blocks: their norm is the whole tree's); else ``global_norm(grads)``.
+    """
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
     step = state.step + 1
     t = step.to(torch.float32)

@@ -7,8 +7,16 @@ that runs on the params' device: the loss and its gradient by autograd
 ``core.attention.flash_backward``), microbatches accumulated as JAX's
 scan does, then the cosine schedule and AdamW. The params are fp32
 masters unless ``param_dtype`` names another dtype; the model casts them
-to ``cfg.dtype`` at every use, as JAX's layers do. Sharded training
-(``mesh``) is not ported yet.
+to ``cfg.dtype`` at every use, as JAX's layers do.
+
+With a ``mesh`` (``launch/mesh.py``: one process a position) the step is
+JAX's fully sharded one, FSDP over the data axes x tensor parallelism
+over ``model`` (``train/sharded.py``): it takes and returns a
+:class:`~repro_torch.train.sharded.ShardedTrainState` (each rank's
+blocks of :func:`train_state_pspecs`' specs) and the rank's rows of the
+global batch. ``seq_shard`` (JAX's sequence-sharded remat saves) is a
+placement of activations with no effect on the math: the flag is taken
+and the saves stay whole.
 """
 from __future__ import annotations
 
@@ -17,6 +25,8 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.ctx import P
+from repro_torch.distributed.sharding import param_pspecs
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      tree_map)
@@ -92,6 +102,18 @@ def train_state_from_jax(np_state, cfg, device=None,
                        v=tree(opt.v, torch.float32)))
 
 
+def train_state_pspecs(state_shapes: TrainState, mesh, cfg) -> TrainState:
+    """JAX's ``train_state_pspecs`` on a state in JAX's layout (anything
+    with ``.shape`` at the leaves: ``train_state_to_jax``'s numpy, or
+    ``sharded.state_shapes``): params and both moments take
+    ``param_pspecs``, the step ``P()``."""
+    return TrainState(
+        params=param_pspecs(state_shapes.params, mesh, cfg),
+        opt=AdamWState(step=P(),
+                       m=param_pspecs(state_shapes.opt.m, mesh, cfg),
+                       v=param_pspecs(state_shapes.opt.v, mesh, cfg)))
+
+
 def loss_and_grad(model: Model, params, batch: dict, remat: str,
                   ce_chunk: int):
     """(loss, metrics, grads) of ``model.loss`` at ``params``; every leaf
@@ -116,13 +138,28 @@ def make_train_step(model: Model, mesh: Optional[Any] = None,
     0-dim tensor on the device. The batch's arrays (numpy or tensors) are
     moved to the params' device; ``microbatches`` n splits its rows as
     JAX's ``x.reshape((n, B // n) + ...)``, microbatch 0 fixing the
-    metric and gradient trees, and averages loss, metrics and grads."""
-    del global_batch    # the batch layout over a mesh; no mesh here
-    if mesh is not None:
-        raise ValueError(
-            "make_train_step(mesh=...): sharded training is not ported yet "
-            "(ROADMAP.md queue 1, 'sharded training'); pass mesh=None")
+    metric and gradient trees, and averages loss, metrics and grads.
+
+    With ``mesh``: the sharded step (``train/sharded.py``) over a global
+    batch of ``global_batch`` rows, each rank passing its rows
+    (``SyntheticLMDataset.global_batch_arrays``); the metrics are the
+    global batch's. It carries ``state_specs`` (JAX's
+    ``train_state_pspecs``), ``place`` (a meshless state -> this rank's
+    blocks), ``gather`` (the blocks -> the whole state in JAX's layout,
+    numpy) and ``layout``. Every family trains under the data axes; the
+    hybrid, encoder-decoder and SSM families are refused by name where
+    ``model`` > 1."""
     sc = step_cfg
+    if mesh is not None:
+        from repro_torch.distributed.training import make_plan
+        from repro_torch.train import sharded
+        plan = make_plan(model.cfg, mesh, global_batch)
+        layout = sharded.StateLayout(model, mesh, plan, sc.param_dtype)
+        fn = sharded.make_sharded_step(model, mesh, sc, global_batch, layout)
+        fn.state_specs = train_state_pspecs(
+            sharded.state_shapes(model.cfg, sc.param_dtype), mesh, model.cfg)
+        fn.layout, fn.place, fn.gather = layout, layout.place, layout.gather
+        return fn
 
     def step(state: TrainState, batch: dict):
         dev = state.opt.step.device

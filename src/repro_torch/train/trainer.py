@@ -13,6 +13,15 @@ preemption, straggler watchdog) around ``make_train_step`` (port of
 
 The step is timed to its end on the device (``torch.cuda.synchronize``,
 where JAX blocks on the loss).
+
+Under a mesh (``Trainer(mesh=)``, one process a position) the state is
+the sharded step's: a fresh one is drawn whole from the seed and placed
+onto the specs (``step_fn.place``), a checkpoint is restored straight
+into each rank's blocks on any mesh (elastic) and saved as blocks at
+JAX's offsets, each rank takes its block of every global batch
+(``global_batch_arrays``), the losses are the global batch's, a SIGTERM
+on any rank checkpoints every rank at the same step, and only the rank at
+coordinate 0 on every axis logs.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 
 from repro_torch.checkpoint import (CheckpointManager, latest_step,
                                     restore_checkpoint)
+from repro_torch.distributed.collectives import any_rank
 from repro_torch.data.pipeline import SyntheticLMDataset
 from repro_torch.models.registry import Model
 from repro_torch.train.train_step import (StepConfig, TrainState,
@@ -59,9 +69,13 @@ class Trainer:
         self.cfg = cfg
         self.step_cfg = step_cfg
         self.device = resolve_device(device)
-        self.log = log_fn
+        self.mesh = mesh
+        lead = mesh is None or all(c == 0 for c in mesh.coords.values())
+        self.log = log_fn if lead else (lambda msg: None)
         self.step_fn = make_train_step(model, mesh, step_cfg,
                                        global_batch=dataset.global_batch)
+        self._bspecs = (dataset.batch_pspecs(mesh) if mesh is not None
+                        else None)
         self.ckpt = CheckpointManager(cfg.checkpoint_dir,
                                       keep=cfg.keep_checkpoints)
         self.straggler_events: list[int] = []
@@ -71,18 +85,27 @@ class Trainer:
 
     # -- state ----------------------------------------------------------
     def init_or_restore(self) -> TrainState:
-        fresh = init_train_state(self.model, self.cfg.seed,
-                                 self.step_cfg.param_dtype, self.device)
         last = latest_step(self.cfg.checkpoint_dir)
+        layout = getattr(self.step_fn, "layout", None)
         if last is None:
-            self.state = fresh
+            fresh = init_train_state(self.model, self.cfg.seed,
+                                     self.step_cfg.param_dtype, self.device)
+            self.state = fresh if layout is None else layout.place(fresh)
             return self.state
-        np_state, extra = restore_checkpoint(
-            self.cfg.checkpoint_dir, last,
-            train_state_to_jax(fresh, self.model.cfg))
-        self.state = train_state_from_jax(np_state, self.model.cfg,
-                                          self.device,
-                                          self.step_cfg.param_dtype)
+        if layout is None:
+            fresh = init_train_state(self.model, self.cfg.seed,
+                                     self.step_cfg.param_dtype, self.device)
+            np_state, extra = restore_checkpoint(
+                self.cfg.checkpoint_dir, last,
+                train_state_to_jax(fresh, self.model.cfg))
+            self.state = train_state_from_jax(np_state, self.model.cfg,
+                                              self.device,
+                                              self.step_cfg.param_dtype)
+        else:
+            np_state, extra = restore_checkpoint(
+                self.cfg.checkpoint_dir, last, layout.target(),
+                blocks=layout.regions())
+            self.state = layout.from_numpy(np_state, self.device)
         self.step = int(extra["step"])
         self.dataset.state.step = int(extra["data_step"])
         self.log(f"[trainer] restored step={self.step}")
@@ -91,10 +114,19 @@ class Trainer:
     def _extra(self) -> dict:
         return {"step": self.step, "data_step": self.dataset.state.step}
 
+    def _tree(self):
+        """The state as a checkpoint holds it (JAX's layout)."""
+        if self.mesh is None:
+            return train_state_to_jax(self.state, self.model.cfg)
+        return self.step_fn.layout.checkpoint_tree(self.state)
+
     def _save(self):
-        self.ckpt.save(self.step, train_state_to_jax(self.state,
-                                                     self.model.cfg),
-                       extra=self._extra())
+        self.ckpt.save(self.step, self._tree(), extra=self._extra())
+
+    def _preempted(self) -> bool:
+        if self.mesh is None:
+            return self.ckpt.preempted
+        return any_rank(self.ckpt.preempted, self.mesh)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -106,7 +138,9 @@ class Trainer:
             self.init_or_restore()
         history = []
         while self.step < self.cfg.total_steps:
-            batch = self.dataset.next_batch()
+            batch = (self.dataset.next_batch() if self.mesh is None else
+                     self.dataset.global_batch_arrays(self.mesh,
+                                                      self._bspecs))
             t0 = time.monotonic()
             self.state, metrics = self.step_fn(self.state, batch)
             self._sync()
@@ -130,12 +164,9 @@ class Trainer:
                          f"lr={float(metrics['lr']):.2e} {dur*1e3:.0f}ms")
             if self.step % self.cfg.checkpoint_every == 0:
                 self._save()
-            if self.ckpt.preempted:
-                self.ckpt.maybe_emergency_save(
-                    self.step, train_state_to_jax(self.state,
-                                                  self.model.cfg),
-                    extra=self._extra())
-                self.log("[trainer] preemption checkpoint written; exiting")
+            if self._preempted():
+                # the save below, unless this step's just ran
+                self.log("[trainer] preempted: checkpointing and exiting")
                 break
         if self.step % self.cfg.checkpoint_every:
             self._save()

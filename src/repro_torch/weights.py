@@ -137,36 +137,47 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
     return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
-def _stack(layers: list):
-    """Per-layer trees (dicts of tensors) -> one tree of numpy arrays with
-    a leading layer axis."""
+def _stack(layers: list, stack):
+    """Per-layer trees (dicts of leaves) -> one tree whose every leaf is
+    ``stack`` of that leaf across the layers."""
     if isinstance(layers[0], dict):
-        return {k: _stack([lp[k] for lp in layers]) for k in layers[0]}
-    return np.stack([_to_numpy(x) for x in layers])
+        return {k: _stack([lp[k] for lp in layers], stack) for k in layers[0]}
+    return stack(layers)
 
 
-def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
-    """The port's params (or any tree of their shape, such as the AdamW
-    moments) -> numpy in JAX's ``init_params`` layout: every layer list
+def jax_layout(params: dict, cfg: ModelConfig, leaf=None, stack=None) -> dict:
+    """The port's tree in JAX's ``init_params`` layout: every layer list
     stacked along a leading axis, the hybrid's layers split back into
-    ``periods/sub{i}_{kind}`` and ``tail`` by ``_period_split``. The
-    inverse of ``params_from_jax(..., dtype=torch.float32)``, bit for
-    bit."""
-    out = {k: _to_numpy(v) for k, v in params.items()
-           if isinstance(v, torch.Tensor)}
+    ``periods/sub{i}_{kind}`` and ``tail`` by ``_period_split``. ``leaf``
+    maps a leaf outside the layer lists, ``stack`` the list of one leaf's
+    per-layer values (numpy arrays by default, as :func:`params_to_jax`);
+    any other leaf type works alike (``train/sharded.py`` lays out
+    references to the port's leaves)."""
+    leaf = leaf or _to_numpy
+    stack = stack or (lambda xs: np.stack([_to_numpy(x) for x in xs]))
+    out = {k: leaf(v) for k, v in params.items()
+           if not isinstance(v, (dict, list))}
     if cfg.family == "hybrid":
         n_periods, pat, tail = HY._period_split(cfg)
         layers, n = params["layers"], len(pat)
         out["periods"] = {
-            f"sub{i}_{kind}": _stack(layers[i:n_periods * n:n])
+            f"sub{i}_{kind}": _stack(layers[i:n_periods * n:n], stack)
             for i, kind in enumerate(pat)}
         if tail:
-            out["tail"] = _stack(layers[n_periods * n:])
+            out["tail"] = _stack(layers[n_periods * n:], stack)
         return out
     for name in ("layers", "enc_layers", "dec_layers"):
         if name in params:
-            out[name] = _stack(params[name])
+            out[name] = _stack(params[name], stack)
     return out
+
+
+def params_to_jax(params: dict, cfg: ModelConfig) -> dict:
+    """The port's params (or any tree of their shape, such as the AdamW
+    moments) -> numpy in JAX's ``init_params`` layout
+    (:func:`jax_layout`). The inverse of ``params_from_jax(...,
+    dtype=torch.float32)``, bit for bit."""
+    return jax_layout(params, cfg)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,

@@ -11,7 +11,9 @@ against JAX's ``make_train_step``.
   (``tests/test_train.py::test_microbatch_equivalence``).
 * ``init_train_state`` keeps fp32 masters (for a bf16 config too) and
   zero fp32 moments; the state's JAX layout round trips; a mesh is
-  refused by name."""
+  taken (sharded training: ``tests/test_torch_mesh_train*.py``) except
+  ``model`` > 1 for the hybrid, encoder-decoder and SSM families, refused
+  by name."""
 import dataclasses
 
 import pytest
@@ -90,6 +92,19 @@ def test_init_train_state_keeps_fp32_masters():
 
 
 def test_mesh_is_refused_by_name():
+    """The refusals that remain under a mesh: tensor parallelism for the
+    families ``models/transformer.py`` does not train, by name; a (1, 1)
+    mesh is taken."""
+    class Mesh:
+        shape = {"data": 1, "model": 2}
+        axis_names = ("data", "model")
+        coords = {"data": 0, "model": 0}
+    for name in ("recurrentgemma-9b", "seamless-m4t-medium", "mamba2-2.7b"):
+        _, cfg = H.configs(name)
+        with pytest.raises(ValueError, match=f"{cfg.family!r} family"):
+            make_train_step(get_model(cfg), Mesh())
+    from repro_torch.launch.mesh import make_mesh
     _, cfg = H.configs(NAME)
-    with pytest.raises(ValueError, match="sharded training"):
-        make_train_step(get_model(cfg), object())
+    step = make_train_step(get_model(cfg), make_mesh((1, 1),
+                                                     ("data", "model")))
+    assert step.state_specs.params["embed"] == ("data", None)

@@ -112,8 +112,20 @@ def test_launch_train_runs_and_resumes(tmp_path, capsys):
     assert latest_step(str(tmp_path)) == 8
 
 
-def test_launch_train_refuses_mesh_host(tmp_path, capsys):
-    with pytest.raises(SystemExit):
-        launch_train.main(["--smoke", "--mesh", "host", "--device", "cpu",
-                           "--ckpt", str(tmp_path)])
-    assert "sharded training" in capsys.readouterr().err
+def test_launch_train_refuses_mesh_host(tmp_path, capsys, monkeypatch):
+    """``--mesh host`` without the launcher's variables is a world of one:
+    the sharded step on a (1, 1) mesh, whose run is the meshless one's
+    (the gloo x2 launch: ``tests/test_torch_mesh_train_ckpt.py``)."""
+    from repro_torch.launch.mesh import LAUNCHER_VARS
+    for var in LAUNCHER_VARS:
+        monkeypatch.delenv(var, raising=False)
+    args = ["--smoke", "--steps", "4", "--batch", "4", "--seq", "32",
+            "--device", "cpu"]
+    assert launch_train.main(args + ["--mesh", "host", "--ckpt",
+                                     str(tmp_path / "m")]) == 0
+    mesh_out = capsys.readouterr().out
+    assert "[train] mesh {'data': 1, 'model': 1} over no world" in mesh_out
+    assert latest_step(str(tmp_path / "m")) == 4
+    assert launch_train.main(args + ["--ckpt", str(tmp_path / "n")]) == 0
+    plain_out = capsys.readouterr().out
+    assert mesh_out.splitlines()[-1] == plain_out.splitlines()[-1]

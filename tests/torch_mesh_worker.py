@@ -8,7 +8,9 @@ rendezvous beside JOB (a pickle the test wrote), runs every check of
 of :func:`run_engine_checks`: ``tests/test_torch_mesh_spec.py`` and
 ``tests/test_torch_mesh_static.py``) as rank
 RANK of a (1, WORLD) mesh and pickles its results to ``result_<RANK>.pkl``
-beside JOB. It imports torch and the
+beside JOB. A job of kind ``"train"`` (``tests/test_torch_mesh_train.py``)
+runs :func:`run_train_checks`: the sharded train step on every mesh of
+the job, its checkpoints and ``Trainer(mesh=)``. It imports torch and the
 port only; the test compares the results with the JAX package. Any
 exception fails the rank (non-zero exit, traceback on stderr).
 """
@@ -406,6 +408,196 @@ def run_engine_checks(job: dict, rank: int, world: int) -> dict:
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# sharded training (job kind "train")
+# ---------------------------------------------------------------------------
+
+
+def _train_cfg(job: dict, name: str):
+    return _cfg(name, **job["cfg_overrides"].get(name, {}))
+
+
+def _rows(batch: dict, mesh, global_batch: int) -> dict:
+    """The rank's rows of a numpy global batch (its data block)."""
+    n, i = mesh.shape["data"], mesh.coords["data"]
+    b = global_batch // n
+    return {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+
+
+def _state0(job: dict, name: str, cfg):
+    """The port's initial state from JAX's numpy params: fp32 masters and
+    zero moments."""
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.train_step import TrainState
+    from repro_torch.weights import params_from_jax
+    params = params_from_jax(job["params"][name], cfg, device="cpu",
+                             dtype=torch.float32)
+    return TrainState(params=params, opt=adamw_init(params))
+
+
+def _adamw_gap(pre, grads: dict, post, sc: dict) -> float:
+    """Max |params| gap between the sharded step's update and the meshless
+    ``adamw_update`` on the same gathered state and gradients."""
+    from repro_torch.optim.adamw import AdamWState, adamw_update, tree_map
+    from repro_torch.optim.schedule import cosine_schedule
+    t = lambda tree: tree_map(torch.from_numpy, tree)  # noqa: E731
+    step = torch.as_tensor(pre.opt.step)
+    lr = cosine_schedule(step, sc["peak_lr"], sc["warmup_steps"],
+                         sc["total_steps"])
+    params, _, _ = adamw_update(
+        t(pre.params), t(grads), AdamWState(step, t(pre.opt.m),
+                                            t(pre.opt.v)), lr,
+        weight_decay=sc["weight_decay"], clip_norm=sc["clip_norm"])
+    from repro_torch.optim.adamw import tree_leaves
+    return max(float((a - torch.from_numpy(b)).abs().max()) for a, b in
+               zip(tree_leaves(params), tree_leaves(post.params)))
+
+
+def _train_case(job: dict, mesh, name: str, mb: int, meshless: bool) -> dict:
+    """Three sharded steps of ``name`` from JAX's params on the job's
+    global batches: per step the metrics, the gathered gradients and the
+    sharded AdamW's gap to the meshless update; the gathered state after
+    the last step, the rank's state bytes beside its layout's sum of spec
+    blocks; with ``meshless`` the port's meshless run beside it."""
+    from repro_torch.models import get_model
+    from repro_torch.train import StepConfig, make_train_step
+    from repro_torch.train.train_step import loss_and_grad, \
+        train_state_to_jax
+    from repro_torch.utils import tree_bytes
+    cfg = _train_cfg(job, name)
+    model = get_model(cfg)
+    sc = dict(job["step_cfg"], microbatches=mb)
+    gb = job["global_batch"]
+    step = make_train_step(model, mesh, StepConfig(**sc), global_batch=gb)
+    state = step.place(_state0(job, name, cfg))
+    out = {"metrics": [], "grads": [], "adamw_gap": []}
+    for b in job["batches"][name]:
+        lb = _rows(b, mesh, gb)
+        _, _, g = step.grads(state, lb)
+        grads = step.layout.gather_tree(g)
+        pre = step.gather(state)
+        state, met = step(state, lb)
+        post = step.gather(state)
+        out["metrics"].append({k: float(v) for k, v in met.items()})
+        out["grads"].append(grads)
+        out["adamw_gap"].append(_adamw_gap(pre, grads, post, sc))
+    out["state"] = step.gather(state)
+    out["bytes"] = (tree_bytes(state.params) + tree_bytes(state.opt.m)
+                    + tree_bytes(state.opt.v))
+    out["layout_bytes"] = step.layout.state_bytes()
+    out["blocks"] = {leaf.key: leaf.block_shape
+                     for leaf in step.layout.leaves}
+    if meshless:
+        from repro_torch.weights import params_to_jax
+        st = _state0(job, name, cfg)
+        ref = make_train_step(model, None, StepConfig(**sc))
+        out["meshless"] = {"metrics": [], "grads": []}
+        for b in job["batches"][name]:
+            if mb == 1:
+                _, _, g = loss_and_grad(
+                    model, st.params,
+                    {k: torch.from_numpy(v) for k, v in b.items()},
+                    sc["remat"], sc["ce_chunk"])
+                out["meshless"]["grads"].append(params_to_jax(g, cfg))
+            st, met = ref(st, b)
+            out["meshless"]["metrics"].append(
+                {k: float(v) for k, v in met.items()})
+        out["meshless"]["state"] = train_state_to_jax(st, cfg)
+    return out
+
+
+def _train_checkpoints(job: dict, meshes: dict) -> dict:
+    """A (2, 1) sharded save of three tinyllama steps, restored on (1, 2)
+    (elastic); JAX's save restored onto (2, 1) and (1, 2). Each restore
+    gathered whole."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.models import get_model
+    from repro_torch.train import StepConfig, make_train_step
+    name, gb = "tinyllama-1.1b", job["global_batch"]
+    cfg = _train_cfg(job, name)
+    model = get_model(cfg)
+    sc = StepConfig(**job["step_cfg"])
+    steps = {s: make_train_step(model, meshes[s], sc, global_batch=gb)
+             for s in ((2, 1), (1, 2))}
+    src = steps[(2, 1)]
+    job = dict(job, params={name: job["ckpt_params"]})
+    state = src.place(_state0(job, name, cfg))
+    for b in job["ckpt_batches"]:
+        state, _ = src(state, _rows(b, meshes[(2, 1)], gb))
+    save_checkpoint(job["port_ckpt"], 3, src.layout.checkpoint_tree(state),
+                    extra={"step": 3})
+    out = {"saved": src.gather(state), "dir": job["port_ckpt"]}
+    from repro_torch.train.train_step import (train_state_from_jax,
+                                              train_state_to_jax)
+    whole, _ = restore_checkpoint(job["port_ckpt"], 3, out["saved"])
+    out["whole"] = train_state_to_jax(
+        train_state_from_jax(whole, cfg, device="cpu"), cfg)
+    lay = steps[(1, 2)].layout
+    back, extra = restore_checkpoint(job["port_ckpt"], 3, lay.target(),
+                                     blocks=lay.regions())
+    out["elastic"] = lay.gather(lay.from_numpy(back, "cpu"))
+    out["elastic_extra"] = extra
+    for s, st in steps.items():
+        lay = st.layout
+        back, _ = restore_checkpoint(job["jax_ckpt"], 3, lay.target(),
+                                     blocks=lay.regions())
+        out[("jax", s)] = lay.gather(lay.from_numpy(back, "cpu"))
+    return out
+
+
+def _train_trainer(job: dict, mesh) -> dict:
+    """``Trainer(mesh=)`` on smoke tinyllama: four steps unbroken, and two
+    steps then a new trainer resumed from their checkpoint to four."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import get_model
+    from repro_torch.train import StepConfig, Trainer, TrainerConfig
+    cfg = _train_cfg(job, "tinyllama-1.1b")
+    sc = StepConfig(peak_lr=1e-3, warmup_steps=2, total_steps=4)
+    logs, runs = [], {}
+    for tag_, total, d in (("unbroken", [4], "a"), ("resumed", [2, 4], "b")):
+        losses = []
+        for n in total:
+            ds = SyntheticLMDataset(cfg, global_batch=4, seq_len=32, seed=3,
+                                    mesh=mesh)
+            tr = Trainer(get_model(cfg), ds,
+                         TrainerConfig(total_steps=n, checkpoint_every=2,
+                                       checkpoint_dir=f"{job['trainer_dir']}"
+                                       f"/{d}", log_every=100),
+                         sc, mesh=mesh, log_fn=logs.append, device="cpu")
+            losses += tr.run()["losses"]
+        runs[tag_] = {"losses": losses,
+                      "state": tr.step_fn.gather(tr.state),
+                      "data_step": ds.state.step}
+    runs["logs"] = logs
+    return runs
+
+
+def run_train_checks(job: dict, rank: int, world: int) -> dict:
+    """The job's train cases on each of its meshes (every rank makes every
+    mesh, in order), then (world 2) the checkpoints and the trainer."""
+    from repro_torch.launch.mesh import init_world, make_mesh
+    torch.set_num_threads(1)
+    init_world(rank, world, job["init_method"], "gloo",
+               timeout_s=job["timeout_s"])
+    try:
+        meshes = {tuple(s): make_mesh(tuple(s), ("data", "model"))
+                  for s in job["meshes"]}
+        out = {"coords": {s: m.coords for s, m in meshes.items()},
+               "cases": {}}
+        for name, shape, mb in job["cases"]:
+            out["cases"][(name, tuple(shape), mb)] = _train_case(
+                job, meshes[tuple(shape)], name, mb,
+                meshless=rank == 0 and job["meshless"])
+        if job.get("port_ckpt"):
+            out["ckpt"] = _train_checkpoints(job, meshes)
+        if job.get("trainer_dir"):
+            out["trainer"] = _train_trainer(job, meshes[(2, 1)])
+        return out
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
 def run_checks(job: dict, rank: int, world: int) -> dict:
     from repro_torch.launch.mesh import init_world, make_mesh
     torch.set_num_threads(1)
@@ -431,7 +623,8 @@ def main(argv: list[str]) -> int:
     with open(job_path, "rb") as f:
         job = pickle.load(f)
     try:
-        run = run_engine_checks if "kind" in job else run_checks
+        run = (run_train_checks if job.get("kind") == "train" else
+               run_engine_checks if "kind" in job else run_checks)
         res = run(job, rank, world)
     except Exception:
         traceback.print_exc()
