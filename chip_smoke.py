@@ -252,7 +252,16 @@ run):
               sharded checkpoint restored here meshless, bit-equal to
               the state the ranks gathered. #3 at a TP rank's shape is
               the ``flash_prefill[lse,tp2]`` row, its launches rank 0's
-              of the (1, 2) run.
+              of the (1, 2) run. Last the dry run's arm
+              (:func:`dryrun_arm`): the per-op counter of
+              ``repro_torch/launch/op_cost.py`` over the full-width
+              meshless train step and one static decode step on CUDA
+              tensors equals its count on meta tensors (FLOPs, dot FLOPs,
+              bytes, each kernel's work); the step's FLOPs over its
+              measured ms as a share of 989 TFLOP/s beside the card's
+              name and power limit; ``python -m
+              repro_torch.launch.dryrun`` on one cell in a subprocess
+              that sees no card, its record ``ok``.
 
 Each phase's end and seconds go to stderr as it ends; then a line of
 seconds per phase, one JSON line of per-kernel numbers (launches summed
@@ -280,6 +289,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -289,8 +299,6 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor bf16; fp32 non-tensor
 FP32_TOL = 1e-4               # rtol = atol, as the JAX kernel tests
 BF16_RTOL = 2 ** -7           # one bf16 rounding step of the output
 # bf16 model, kernel path vs plain path: both round to bf16 at the same
@@ -320,12 +328,11 @@ LATER_DEPTH = 6
 def bound(nbytes: float, flops: float | dict, kind: str = "fp32"
           ) -> tuple[float, str]:
     """Least time (ms) of moving ``nbytes`` once and doing ``flops`` at the
-    ``kind`` peak — or ``flops`` = {kind: operations}, each kind on its own
-    units, which may run side by side — and which of the two bounds it."""
-    ops = flops if isinstance(flops, dict) else {kind: flops}
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = max(n / PEAK_FLOPS[k] * 1e3 for k, n in ops.items())
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    ``kind`` peak, and which of the two bounds it: the package's
+    ``repro_torch.kernels.work.bound`` (H100 SXM: 3.35 TB/s, bf16 989 and
+    fp32 67 TFLOP/s), which the dry run's counter reads too."""
+    from repro_torch.kernels.work import bound as work_bound
+    return work_bound(nbytes, flops, kind)
 
 
 def time_ms(torch, fn, iters=30, flush=None, lead_cycles=2_000_000) -> float:
@@ -562,6 +569,7 @@ def check_encode(torch, dev, gen, flush) -> list[dict]:
     prefill form and in the decode form with no slot and one slot
     flushing. Returns the prefill form's row and the decode form's (whose
     time is the one-slot flush)."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_encode as pe
     k, pages, res, dforms = _encode_inputs(torch, dev, gen)
     k[0, 0, :5, :3] = 0.0           # zero pairs: the theta pin
@@ -601,11 +609,9 @@ def check_encode(torch, dev, gen, flush) -> list[dict]:
                     lead_cycles=PLAIN_LEAD))
 
     def enc_bound(tokens, pg):
-        # bytes: the page list, the flushing groups' keys, codes and stats;
-        # ~22 fp32 operations per pair (see PERF.md)
-        nbytes = pg.numel() * 4 + tokens * HKV * (D * 2 + P) \
-            + 4 * (tokens // G) * HKV * P * 4
-        return bound(nbytes, 22 * tokens * HKV * P, "fp32")
+        # the page list, the flushing groups' keys, codes and stats; ~22
+        # fp32 operations per pair (repro_torch.kernels.work.encode)
+        return W.work_bound(W.encode(tokens, HKV, D, G, pages=pg.numel()))
 
     def row(form, ms, plain_ms, tokens, pg, shape):
         b_ms, by = enc_bound(tokens, pg)
@@ -640,6 +646,7 @@ def check_encode_fixed(torch, dev, flush, k, pages, res, dpages,
     2pi exactly: codes and stats bit-equal to the plain version, skipped
     pages untouched; timed in the prefill form (the row) and the decode
     form with one slot flushing (its own line)."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_encode as pe
     k = k.clone()
     k[0, 2, 11, 3], k[0, 2, 11, 3 + P] = -1.0, 0.0   # atan2(+0, -1) + pi
@@ -672,9 +679,8 @@ def check_encode_fixed(torch, dev, flush, k, pages, res, dpages,
     def enc_bound(tokens, pg):
         # the bytes of check_encode's bound; ~20 fp32 operations per pair
         # (no theta min/max)
-        nbytes = pg.numel() * 4 + tokens * HKV * (D * 2 + P) \
-            + 4 * (tokens // G) * HKV * P * 4
-        return bound(nbytes, 20 * tokens * HKV * P, "fp32")
+        return W.work_bound(W.encode(tokens, HKV, D, G, pages=pg.numel(),
+                               fixed=True))
 
     ms, plain_ms = timed(k, pages)
     b_ms, by = enc_bound(1024, pages)
@@ -696,6 +702,7 @@ def check_encode_fixed(torch, dev, flush, k, pages, res, dpages,
 
 
 def check_decode(torch, dev, gen, flush) -> dict:
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_decode as pd
     s, n, pp = 8, 8, 65
@@ -775,11 +782,8 @@ def check_decode(torch, dev, gen, flush) -> dict:
     errs.append(float((got[0] - ref[0]).abs().max()))
     l_ms = time_ms(torch, lambda: pd.polar_paged_decode_grouped(
         q_l, codes, rs, rz, ts, tz, vb, table_l, fl_l), flush=flush)
-    l_b, l_by = bound(
-        q_l.numel() * 4 + n_long * HKV * (G * P + 4 * P * 4 + G * D * 2)
-        + n_long * 4 + 4 + HKV * QH * (D + 2) * 4,
-        n_long * HKV * (3 * QH * P * 16 + 2 * G * P + 2 * QH * G * P
-                        + 4 * QH * G + 2 * QH * G * D))
+    l_b, l_by = W.work_bound(W.paged_decode(n_long * HKV, s=1, hkv=HKV, qh=QH,
+                                      d=D, g=G, table=n_long, value_elt=2))
     print(f"decode[long shape]: paged_decode 1 slot x {HKV} kv heads x {QH} "
           f"query heads x {n_long} live pages ({n_long * G} tokens), bf16 "
           f"values, nsplit {pd.plan_splits(1, HKV, n_long)}: {l_ms:.4f} ms "
@@ -807,15 +811,12 @@ def check_decode(torch, dev, gen, flush) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(qf4, kf, vf, attn_mask=mask,
                                          scale=1.0), flush=flush)
-    pages = s * n * HKV
-    nbytes = q.numel() * 4 + pages * (G * P + 4 * P * 4 + G * D * 2) \
-        + table_t.numel() * 4 + s * 4 + s * HKV * QH * (D + 2) * 4
     # per (page, kv head): LUT 3*Qh*P*2^t, rho~ 2*g*P once for every row,
     # scores one FMA on a gathered LUT entry 2*Qh*g*P, softmax ~4*Qh*g,
-    # p@V 2*Qh*g*d
-    flops = pages * (3 * QH * P * 16 + 2 * G * P + 2 * QH * G * P
-                     + 4 * QH * G + 2 * QH * G * D)
-    b_ms, by = bound(nbytes, flops, "fp32")
+    # p@V 2*Qh*g*d (repro_torch.kernels.work.paged_decode)
+    b_ms, by = W.work_bound(W.paged_decode(s * n * HKV, s=s, hkv=HKV, qh=QH, d=D,
+                                     g=G, table=table_t.numel(),
+                                     value_elt=2))
     return {"name": "paged_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/paged_decode.py:104",
@@ -831,6 +832,7 @@ def check_prefill(torch, dev, gen, flush) -> dict:
     """fp32 inputs run the FMA body (1e-4), bf16 the tensor-core body
     (2^-7); timed at a 1024-token serve prompt and, on a line of its own,
     at the static phase's 8 x 1000-token prefill."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import flash_prefill as fpk
     h = 32
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -858,8 +860,8 @@ def check_prefill(torch, dev, gen, flush) -> dict:
             ve = v.repeat_interleave(h // HKV, dim=1)
             st_lib = time_ms(torch, lambda: sdpa(q, ke, ve, is_causal=True),
                              flush=flush)
-            st_b, _ = bound((2 * h + 2 * HKV) * b * t * D * 2,
-                            4.0 * b * h * D * (t * (t + 1) / 2), "bf16")
+            st_b, _ = W.work_bound(W.flash_prefill(b, h, HKV, t, t, D,
+                                             b * (t * (t + 1) / 2)))
             print(f"prefill[static shape]: flash_prefill {SB} x {h} heads "
                   f"({HKV} kv) x {t} tokens x {D} bf16, causal: {st_ms:.4f} "
                   f"ms a layer (SDPA {st_lib:.4f} ms, bound {st_b:.4f} ms "
@@ -873,9 +875,7 @@ def check_prefill(torch, dev, gen, flush) -> dict:
     ve = v.repeat_interleave(h // HKV, dim=1)
     lib_ms = time_ms(torch, lambda: sdpa(q, ke, ve, is_causal=True),
                      flush=flush)
-    nbytes = (2 * h + 2 * HKV) * t * D * 2
-    flops = 4.0 * h * D * (t * (t + 1) / 2)
-    b_ms, by = bound(nbytes, flops, "bf16")
+    b_ms, by = W.work_bound(W.flash_prefill(1, h, HKV, t, t, D, t * (t + 1) / 2))
     return {"name": "flash_prefill", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
             "replaces": "src/repro/kernels/flash_prefill.py:77",
@@ -886,6 +886,7 @@ def check_prefill(torch, dev, gen, flush) -> dict:
 
 
 def check_paged_prefill(torch, dev, gen, flush) -> dict:
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import paged_prefill as ppk
     pp = 65
     scratch = pp - 1
@@ -951,16 +952,13 @@ def check_paged_prefill(torch, dev, gen, flush) -> dict:
         LUT entry 2*QT*g*P, softmax 4*QT*g, p@V 2*QT*g*d, and (4d + 4) per
         causal pair of the chunk."""
         n = start // G
-        nbytes = (HKV * n * (G * P + 4 * P * 4 + G * D * 2) + n * 4
-                  + q.numel() * 4 + 2 * HKV * TC * D * 2 + HKV * qt * D * 4)
+        w = W.paged_prefill(hkv=HKV, qh=QH, d=D, g=G, start=start, chunk=TC,
+                            value_elt=2)
         causal = QH * TC * (TC + 1) // 2      # (row, key) pairs per kv head
-        pairs = HKV * (qt * start + causal)
-        ops = {"bf16": 4.0 * D * pairs,
-               "fp32": HKV * n * (4 * P * 16 + 4 * G * P) + 4.0 * pairs}
         old = HKV * n * (3 * qt * P * 16 + 2 * G * P + 2 * qt * G * P
                          + 4 * qt * G + 2 * qt * G * D) \
             + HKV * causal * (4 * D + 4)
-        return nbytes, ops, old
+        return w.nbytes, w.ops, old
 
     # timing: start 1024 (8 live pages) + a full 256-token chunk, bf16 as
     # on the main path; then start 2048 (16 pages) on a line of its own
@@ -1063,17 +1061,6 @@ def _paged_keys(torch, codes, stats, tl):
     return k.reshape(tl.shape[0], hkv, tl.shape[1] * g, 2 * p)
 
 
-def _dense_flops(groups, with_attention=True):
-    """Operations on ``groups`` (row, kv head, group) tiles: LUT build
-    3*Qh*P*2^t, rho~ 2*g*P once for every row, one FMA per gathered LUT
-    entry 2*Qh*g*P; the fused kernel adds softmax ~4*Qh*g and p@V
-    2*Qh*g*d."""
-    per = 3 * QH * P * 16 + 2 * G * P + 2 * QH * G * P
-    if with_attention:
-        per += 4 * QH * G + 2 * QH * G * D
-    return groups * per
-
-
 def _partials_err(torch, got, ref) -> tuple[float, float]:
     """Flash partials (acc, m, l) of a decode kernel against its plain
     version: each finite and within rtol = atol = 1e-4; returns the max
@@ -1092,6 +1079,7 @@ def _partials_err(torch, got, ref) -> tuple[float, float]:
 
 
 def check_polar_attention(torch, dev, gen, flush) -> dict:
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_attention as pak
     bufs, vals = _dense_cache(torch, dev, gen)
     q = torch.randn((SB, HKV, QH, D), generator=gen, device=dev) * D ** -0.5
@@ -1127,10 +1115,8 @@ def check_polar_attention(torch, dev, gen, flush) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(qf, kf, vf, attn_mask=mask,
                                          scale=1.0), flush=flush)
-    groups = SB * HKV * 8
-    nbytes = q.numel() * 4 + groups * (G * P + 4 * P * 4 + G * D * 2) \
-        + SB * 4 + SB * HKV * QH * (D + 2) * 4
-    b_ms, by = bound(nbytes, _dense_flops(groups), "fp32")
+    b_ms, by = W.work_bound(W.dense_decode(SB * HKV * 8, b=SB, hkv=HKV, qh=QH, d=D,
+                                     g=G, value_elt=2))
     return {"name": "polar_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/polar_attention.cu",
             "replaces": "src/repro/kernels/polar_attention.py:104",
@@ -1144,6 +1130,7 @@ def check_polar_attention(torch, dev, gen, flush) -> dict:
 
 
 def check_qk_scores(torch, dev, gen, flush) -> dict:
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_encode as pe
     from repro_torch.kernels import polar_qk as qkk
     bufs, _ = _dense_cache(torch, dev, gen)
@@ -1167,11 +1154,9 @@ def check_qk_scores(torch, dev, gen, flush) -> dict:
     # yardstick only: one matmul of q against the pre-dequantized keys
     kt = _dequant(torch, bufs).transpose(-1, -2).contiguous()
     lib_ms = time_ms(torch, lambda: torch.matmul(q, kt), flush=flush)
-    groups = SB * HKV * SG        # every group is scored
-    nbytes = q.numel() * 4 + groups * (G * P + 4 * P * 4) \
-        + SB * HKV * QH * SMAX * 4
-    b_ms, by = bound(nbytes, _dense_flops(groups, with_attention=False),
-                     "fp32")
+    # every group is scored
+    b_ms, by = W.work_bound(W.qk_scores(SB * HKV * SG, b=SB, hkv=HKV, qh=QH, d=D,
+                                  g=G))
     return {"name": "polar_qk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/polar_qk.cu",
             "replaces": "src/repro/kernels/polar_qk.py:68",
@@ -1242,17 +1227,13 @@ def _poison_u8(vals, page):
     vz[page] = float("nan")
 
 
-def _u8_row_bytes(rows: int) -> int:
-    """Bytes of ``rows`` uint8 value rows with their scales and zeros."""
-    return rows * (D + 8)
-
-
 def check_decode_u8(torch, dev, gen, flush) -> dict:
     """Paged decode (#2) on uint8 value rows, at value_bits 4 and 8: slots
     flushed 0 ... 896 over a fragmented table whose dead entries hit a
     scratch page with NaN stats, scales and zeros; then the ``ops`` entry
     with ragged lengths (the residual's rows dequantized in PyTorch) on a
     width-sliced table; timed at 8 slots x 8 live pages."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_decode as pd
     s, n, pp = 8, 8, 65
@@ -1319,13 +1300,10 @@ def check_decode_u8(torch, dev, gen, flush) -> dict:
     lib_ms = time_ms(torch, lambda: sdpa(q.reshape(s, HKV * QH, 1, D), kf,
                                          vf, attn_mask=mask, scale=1.0),
                      flush=flush)
-    pages = s * n * HKV
-    nbytes = q.numel() * 4 + pages * (G * P + 4 * P * 4 + _u8_row_bytes(G)) \
-        + table_t.numel() * 4 + s * 4 + s * HKV * QH * (D + 2) * 4
     # as the bf16 form, plus p_t s_t and p_t z_t (4 per (query head, token))
-    flops = pages * (3 * QH * P * 16 + 2 * G * P + 2 * QH * G * P
-                     + 8 * QH * G + 2 * QH * G * D)
-    b_ms, by = bound(nbytes, flops, "fp32")
+    b_ms, by = W.work_bound(W.paged_decode(s * n * HKV, s=s, hkv=HKV, qh=QH, d=D,
+                                     g=G, table=table_t.numel(),
+                                     value_elt=1))
     return {"name": "paged_decode[u8]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/paged_decode.py:81",
@@ -1344,10 +1322,10 @@ def check_paged_prefill_u8(torch, dev, gen, flush) -> dict:
     bf16 launch); NaN stats, scales and zeros on the scratch page behind
     the dead entries and on the value page at ``start``, NaN chunk rows
     past ``chunk_len``. Timed at start 1024 with a full bf16 chunk."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import paged_prefill as ppk
     pp = 65
     scratch = pp - 1
-    qt = QH * TC
     q, _, _, codes, *stats, _, _, _, _ = _prefill_inputs(torch, dev, gen, 0)
     for x in stats:
         x[scratch] = float("nan")
@@ -1421,14 +1399,8 @@ def check_paged_prefill_u8(torch, dev, gen, flush) -> dict:
     # codes + 8 bytes of scale and zero per row, and per (kv head, page)
     # the codes widened once (g*d) and per prefix (row, key) pair p_t s_t
     # and p_t z_t (4) in fp32
-    causal = QH * TC * (TC + 1) // 2
-    pairs = HKV * (qt * start + causal)
-    nbytes = (HKV * n * (G * P + 4 * P * 4 + _u8_row_bytes(G)) + n * 4
-              + q.numel() * 4 + 2 * HKV * TC * D * 2 + HKV * qt * D * 4)
-    ops = {"bf16": 4.0 * D * pairs,
-           "fp32": HKV * n * (4 * P * 16 + 4 * G * P + G * D) + 4.0 * pairs
-           + 4.0 * HKV * qt * start}
-    b_ms, by = bound(nbytes, ops)
+    b_ms, by = W.work_bound(W.paged_prefill(hkv=HKV, qh=QH, d=D, g=G, start=start,
+                                      chunk=TC, value_elt=1))
     return {"name": "paged_prefill[u8]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_prefill.cu",
             "replaces": "src/repro/kernels/paged_prefill.py:103",
@@ -1445,6 +1417,7 @@ def check_polar_attention_u8(torch, dev, gen, flush) -> dict:
     per-row lengths (1024 and ragged: empty, partial and whole groups)
     with every scale and zero past a row's length NaN; timed at the static
     phase's decode shape (8 flushed groups) with 4-bit codes."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_attention as pak
     bufs, _ = _dense_cache(torch, dev, gen)
     q = torch.randn((SB, HKV, QH, D), generator=gen, device=dev) * D ** -0.5
@@ -1482,12 +1455,9 @@ def check_polar_attention_u8(torch, dev, gen, flush) -> dict:
     lib_ms = time_ms(torch, lambda: sdpa(q.reshape(SB, HKV * QH, 1, D), kf,
                                          vf, attn_mask=mask, scale=1.0),
                      flush=flush)
-    groups = SB * HKV * 8
-    nbytes = q.numel() * 4 + groups * (G * P + 4 * P * 4 + _u8_row_bytes(G)) \
-        + SB * 4 + SB * HKV * QH * (D + 2) * 4
     # the bf16 form's work plus one FMA per staged code (c * s + z)
-    b_ms, by = bound(nbytes, _dense_flops(groups) + groups * 2 * G * D,
-                     "fp32")
+    b_ms, by = W.work_bound(W.dense_decode(SB * HKV * 8, b=SB, hkv=HKV, qh=QH, d=D,
+                                     g=G, value_elt=1))
     return {"name": "polar_attention[u8]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/polar_attention.cu",
             "replaces": "src/repro/kernels/polar_attention.py:84",
@@ -1548,6 +1518,7 @@ def check_encode_d128(torch, dev, gen, flush, form="[d128]") -> dict:
     ``[d128,mesh2]``) x 1024 bf16 tokens x d 128 into 8 fragmented pages
     (P = 64 pairs): codes and stats bit-equal to the plain version, other
     pages untouched."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_encode as pe
     hkv, d = _d128_shape(form)[0], D128
     p = d // 2
@@ -1573,12 +1544,10 @@ def check_encode_d128(torch, dev, gen, flush, form="[d128]") -> dict:
                  flush=flush)
     plain_ms = time_ms(torch, lambda: pe.polar_encode_pages_plain(
         k, pages, *pp_), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
-    nbytes = pages.numel() * 4 + 1024 * hkv * (d * 2 + p) \
-        + 4 * (1024 // G) * hkv * p * 4
     return _form_row(
         "polar_encode", form, "polar_encode.cu",
         "src/repro/kernels/polar_encode.py:51", err, ms, plain_ms,
-        bound(nbytes, 22 * 1024 * hkv * p, "fp32"), None, None,
+        W.work_bound(W.encode(1024, hkv, d, G, pages=pages.numel())), None, None,
         f"prefill form, 1 x {hkv} kv heads x 1024 tokens x 128 bf16 "
         "(launches: both forms)")
 
@@ -1591,6 +1560,7 @@ def check_decode_d128(torch, dev, gen, flush, form) -> dict:
     form plans its splits for the model's kv heads
     (:data:`MESH_PLAN_HEADS`), and its output is bit-equal to the same
     heads of the whole model's call."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import paged_decode as pd
     hkv, qh = _d128_shape(form)
     plan = {"plan_heads": MESH_PLAN_HEADS[form]} if form in MESH_SHAPES \
@@ -1646,15 +1616,11 @@ def check_decode_d128(torch, dev, gen, flush, form) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(q.reshape(s, hkv * qh, 1, d), kf,
                                          vf, scale=1.0), flush=flush)
-    pages = s * n * hkv
-    nbytes = q.numel() * 4 + pages * (G * p + 4 * p * 4 + G * d * 2) \
-        + table_t.numel() * 4 + s * 4 + s * hkv * qh * (d + 2) * 4
-    flops = pages * (3 * qh * p * 16 + 2 * G * p + 2 * qh * G * p
-                     + 4 * qh * G + 2 * qh * G * d)
     row = _form_row(
         "paged_decode", form, "paged_decode.cu",
         "src/repro/kernels/paged_decode.py:104", err, ms, plain_ms,
-        bound(nbytes, flops, "fp32"), lib_ms,
+        W.work_bound(W.paged_decode(s * n * hkv, s=s, hkv=hkv, qh=qh, d=d, g=G,
+                              table=table_t.numel(), value_elt=2)), lib_ms,
         "SDPA over gathered pre-dequantized keys (fp32)",
         f"8 slots x {hkv} kv heads x {qh} query heads x 8 live pages x "
         f"d 128, bf16 values, nsplit "
@@ -1673,6 +1639,7 @@ def check_prefill_d128(torch, dev, gen, flush, form) -> dict:
     llama3.1-8b's 32 heads over 8 kv heads (``[d128]``), qwen1.5-4b's 20
     over 20 (``[d128,qh1]``) or dbrx-132b's 48 over 8 (``[d128,qh6]``),
     within one bf16 step (2^-7) of the plain version."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import flash_prefill as fpk
     hkv, qh = _d128_shape(form)
     h, t, d = hkv * qh, 1024, D128
@@ -1696,8 +1663,8 @@ def check_prefill_d128(torch, dev, gen, flush, form) -> dict:
     return _form_row(
         "flash_prefill", form, "flash_prefill.cu",
         "src/repro/kernels/flash_prefill.py:77", err, ms, plain_ms,
-        bound((2 * h + 2 * hkv) * t * d * 2,
-              4.0 * h * d * (t * (t + 1) / 2), "bf16"), lib_ms, "SDPA",
+        W.work_bound(W.flash_prefill(1, h, hkv, t, t, d, t * (t + 1) / 2)), lib_ms,
+        "SDPA",
         f"1 x {h} heads ({hkv} kv) x 1024 tokens x 128 bf16, causal")
 
 
@@ -1707,6 +1674,7 @@ def check_paged_prefill_d128(torch, dev, gen, flush, form) -> dict:
     77-token ragged chunk at start 384 with the value page at ``start``
     and the chunk rows past ``chunk_len`` NaN-poisoned, dead entries on a
     NaN scratch page; 1e-4 against the plain version."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import paged_prefill as ppk
     hkv, qh = _d128_shape(form)
     d, pp = D128, 65
@@ -1764,15 +1732,11 @@ def check_paged_prefill_d128(torch, dev, gen, flush, form) -> dict:
                                          attn_mask=mask, scale=1.0),
                      flush=flush)
     # the work of check_paged_prefill's bound at these heads and widths
-    nbytes = (hkv * n * (G * p + 4 * p * 4 + G * d * 2) + n * 4
-              + q.numel() * 4 + 2 * hkv * TC * d * 2 + hkv * qt * d * 4)
-    pairs = hkv * (qt * start + qh * TC * (TC + 1) // 2)
-    ops = {"bf16": 4.0 * d * pairs,
-           "fp32": hkv * n * (4 * p * 16 + 4 * G * p) + 4.0 * pairs}
     return _form_row(
         "paged_prefill", form, "paged_prefill.cu",
         "src/repro/kernels/paged_prefill.py:136", max(errs), ms, plain_ms,
-        bound(nbytes, ops), lib_ms,
+        W.work_bound(W.paged_prefill(hkv=hkv, qh=qh, d=d, g=G, start=start,
+                               chunk=TC, value_elt=2)), lib_ms,
         "SDPA over pre-dequantized keys (fp32, bool mask)",
         f"{hkv} kv heads x {qh} query heads x 256-token chunk over 8 prefix "
         "pages (1024 tokens) x d 128, bf16, tensor-core body")
@@ -1784,6 +1748,7 @@ def check_dense_d128(torch, dev, gen, flush, form) -> list[dict]:
     flushed): #5 on the split body with ragged lengths and every stat and
     value row past a length NaN-poisoned, #6 over every group; both
     within 1e-4 of the plain versions."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_attention as pak
     from repro_torch.kernels import polar_encode as pe
     from repro_torch.kernels import polar_qk as qkk
@@ -1791,7 +1756,6 @@ def check_dense_d128(torch, dev, gen, flush, form) -> list[dict]:
     hkv, qh = _d128_shape(form)
     plan = MESH_PLAN_HEADS.get(form)
     d = D128
-    p = d // 2
     k = torch.randn((SB, hkv, 8 * G, d), generator=gen, device=dev).to(
         torch.bfloat16)
     enc = pe.polar_encode(k)
@@ -1849,17 +1813,11 @@ def check_dense_d128(torch, dev, gen, flush, form) -> list[dict]:
         vals.float().repeat_interleave(qh, 1), attn_mask=mask, scale=1.0),
         flush=flush)
 
-    def flops(groups, attention):
-        per = 3 * qh * p * 16 + 2 * G * p + 2 * qh * G * p
-        return groups * (per + (4 * qh * G + 2 * qh * G * d
-                                if attention else 0))
-    groups = SB * hkv * 8
-    nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4 + G * d * 2) \
-        + SB * 4 + SB * hkv * qh * (d + 2) * 4
     rows = [_form_row(
         "polar_attention", form, "polar_attention.cu",
         "src/repro/kernels/polar_attention.py:104", err, ms, plain_ms,
-        bound(nbytes, flops(groups, True), "fp32"), lib_ms,
+        W.work_bound(W.dense_decode(SB * hkv * 8, b=SB, hkv=hkv, qh=qh, d=d, g=G,
+                              value_elt=2)), lib_ms,
         "SDPA over pre-dequantized keys (fp32, length mask)",
         f"8 rows x {hkv} kv heads x {qh} query heads x 8 flushed groups of a "
         "1152-token buffer x d 128, bf16 values" + own)]
@@ -1873,12 +1831,10 @@ def check_dense_d128(torch, dev, gen, flush, form) -> list[dict]:
                        iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
     kt = kf.transpose(-1, -2).contiguous()
     lib_ms = time_ms(torch, lambda: torch.matmul(q, kt), flush=flush)
-    groups = SB * hkv * SG
-    nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4) \
-        + SB * hkv * qh * SMAX * 4
     rows.append(_form_row(
         "polar_qk", form, "polar_qk.cu", "src/repro/kernels/polar_qk.py:68",
-        err, ms, plain_ms, bound(nbytes, flops(groups, False), "fp32"),
+        err, ms, plain_ms,
+        W.work_bound(W.qk_scores(SB * hkv * SG, b=SB, hkv=hkv, qh=qh, d=d, g=G)),
         lib_ms, "matmul over pre-dequantized keys (fp32)",
         f"8 rows x {hkv} kv heads x {qh} query heads x 9 groups (1152 "
         "tokens) x d 128"))
@@ -1931,8 +1887,8 @@ def check_encode_d256(torch, dev, gen, flush) -> dict:
     """#1's dense form at the static prefill of both families: 8 rows x 1
     kv head x 7 groups x d 256 bf16 (P = 128 pairs); codes and stats
     bit-equal to the plain version."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_encode as pe
-    p = D256 // 2
     k = torch.randn((SB, 1, 7 * G, D256), generator=gen, device=dev).to(
         torch.bfloat16)
     k[0, 0, :5, :3] = 0.0
@@ -1945,12 +1901,10 @@ def check_encode_d256(torch, dev, gen, flush) -> dict:
     ms = time_ms(torch, lambda: pe.polar_encode(k), flush=flush)
     plain_ms = time_ms(torch, lambda: pe.polar_encode_plain(k), iters=10,
                        flush=flush, lead_cycles=PLAIN_LEAD)
-    tokens = SB * 7 * G
-    nbytes = tokens * (D256 * 2 + p) + 4 * SB * 7 * p * 4
     return _form_row(
         "polar_encode", "[d256]", "polar_encode.cu",
         "src/repro/kernels/polar_encode.py:51", err, ms, plain_ms,
-        bound(nbytes, 22 * tokens * p, "fp32"), None, None,
+        W.work_bound(W.encode(SB * 7 * G, 1, D256, G)), None, None,
         "dense form, 8 rows x 1 kv head x 896 tokens x 256 bf16 "
         "(launches: both forms)")
 
@@ -1962,6 +1916,7 @@ def check_prefill_d256(torch, dev, gen, flush, mode) -> dict:
     ``local`` at recurrentgemma-9b's 16 over 1, 2560 tokens under a 2048
     window; within one bf16 step (2^-7) of the plain version. Timed at
     the served masks, beside SDPA with the same boolean mask."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import flash_prefill as fpk
     h, t = (VLM_QH, SPROMPT) if mode == "prefix" else (HYB_QH, HYB_T)
     q = torch.randn((SB, h, t, D256), generator=gen, device=dev).to(
@@ -2002,8 +1957,8 @@ def check_prefill_d256(torch, dev, gen, flush, mode) -> dict:
     return _form_row(
         "flash_prefill", f"[d256,{mode}]", "flash_prefill.cu",
         "src/repro/kernels/flash_prefill.py:77", max(errs), ms, plain_ms,
-        bound(SB * (2 * h + 2) * t * D256 * 2, 4.0 * h * D256 * pairs,
-              "bf16"), lib_ms, "SDPA, bool mask",
+        W.work_bound(W.flash_prefill(SB, h, 1, t, t, D256, pairs)), lib_ms,
+        "SDPA, bool mask",
         f"8 x {h} heads (1 kv) x {t} tokens x 256 bf16, " + (
             f"prefix {PREFIX}" if mode == "prefix" else f"window {WINDOW}"))
 
@@ -2015,10 +1970,11 @@ def check_dense_d256(torch, dev, gen, flush) -> list[dict]:
     NaN-poisoned rows past them; #6 at the same buffer (``[d256,qh8]``)
     and at recurrentgemma-9b's 16 query heads over its 2048-slot ring
     (``[d256,qh16]``); all within 1e-4 of the plain versions."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_attention as pak
     from repro_torch.kernels import polar_encode as pe
     from repro_torch.kernels import polar_qk as qkk
-    d, p = D256, D256 // 2
+    d = D256
 
     def buffers(groups, flushed):
         k = torch.randn((SB, 1, flushed * G, d), generator=gen,
@@ -2029,11 +1985,6 @@ def check_dense_d256(torch, dev, gen, flush) -> list[dict]:
         for b, x in zip(bufs, enc):
             b[:, :, :flushed] = x
         return bufs
-
-    def flops(groups, qh, attention):
-        per = 3 * qh * p * 16 + 2 * G * p + 2 * qh * G * p
-        return groups * (per + (4 * qh * G + 2 * qh * G * d
-                                if attention else 0))
 
     bufs = buffers(SG, 8)
     vals = torch.randn((SB, 1, SMAX, d), generator=gen, device=dev).to(
@@ -2064,13 +2015,11 @@ def check_dense_d256(torch, dev, gen, flush) -> list[dict]:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(qr, kr, vr, attn_mask=mask,
                                          scale=1.0), flush=flush)
-    groups = SB * 8
-    nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4 + G * d * 2) \
-        + SB * 4 + SB * VLM_QH * (d + 2) * 4
     rows = [_form_row(
         "polar_attention", f"[d256,qh{VLM_QH}]", "polar_attention.cu",
         "src/repro/kernels/polar_attention.py:104", err, ms, plain_ms,
-        bound(nbytes, flops(groups, VLM_QH, True), "fp32"), lib_ms,
+        W.work_bound(W.dense_decode(SB * 8, b=SB, hkv=1, qh=VLM_QH, d=d, g=G,
+                              value_elt=2)), lib_ms,
         "SDPA over pre-dequantized keys (fp32, length mask)",
         "8 rows x 1 kv head x 8 query heads x 8 flushed groups of a "
         "1152-token buffer x d 256, bf16 values, one staging buffer")]
@@ -2089,13 +2038,11 @@ def check_dense_d256(torch, dev, gen, flush) -> list[dict]:
                            iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
         kt = _dequant(torch, b).transpose(-1, -2).contiguous()
         lib_ms = time_ms(torch, lambda: torch.matmul(q, kt), flush=flush)
-        groups = SB * gcount
-        nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4) \
-            + SB * qh * gcount * G * 4
         rows.append(_form_row(
             "polar_qk", f"[d256,qh{qh}]", "polar_qk.cu",
             "src/repro/kernels/polar_qk.py:68", err, ms, plain_ms,
-            bound(nbytes, flops(groups, qh, False), "fp32"), lib_ms,
+            W.work_bound(W.qk_scores(SB * gcount, b=SB, hkv=1, qh=qh, d=d, g=G)),
+            lib_ms,
             "matmul over pre-dequantized keys (fp32)",
             f"8 rows x 1 kv head x {qh} query heads x {gcount} groups "
             f"({gcount * G} tokens) x d 256"))
@@ -2125,8 +2072,8 @@ def check_encode_d64(torch, dev, gen, flush) -> dict:
     """#1's dense form at the cross-cache fill: 8 rows x 16 kv heads x 1024
     un-rotated memory keys x d 64 bf16 (8 groups each); codes and stats
     bit-equal to the plain version."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_encode as pe
-    p = D // 2
     k = torch.randn((SB, ED_HKV, ED_FRAMES, D), generator=gen,
                     device=dev).to(torch.bfloat16)
     k[0, 0, :5, :3] = 0.0
@@ -2139,12 +2086,10 @@ def check_encode_d64(torch, dev, gen, flush) -> dict:
     ms = time_ms(torch, lambda: pe.polar_encode(k), flush=flush)
     plain_ms = time_ms(torch, lambda: pe.polar_encode_plain(k), iters=10,
                        flush=flush, lead_cycles=PLAIN_LEAD)
-    tokens = SB * ED_HKV * ED_FRAMES
-    nbytes = tokens * (D * 2 + p) + 4 * (tokens // G) * p * 4
     return _form_row(
         "polar_encode", "[d64,cross]", "polar_encode.cu",
         "src/repro/kernels/polar_encode.py:51", err, ms, plain_ms,
-        bound(nbytes, 22 * tokens * p, "fp32"), None, None,
+        W.work_bound(W.encode(SB * ED_FRAMES, ED_HKV, D, G)), None, None,
         "dense form, 8 rows x 16 kv heads x 1024 memory keys x 64 bf16 "
         "(the cross-cache fill)")
 
@@ -2156,6 +2101,7 @@ def check_prefill_d64(torch, dev, gen, flush, form) -> dict:
     over Tk 1024 memory frames, also checked at a ragged Tq 33 / Tk 1000
     (key-tile masking past Tk, zero-filled q rows past Tq); ``[d64,qh1]``
     the decoder prompt's causal 16 x 16. Timed beside SDPA."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import flash_prefill as fpk
     mode = "causal" if form == "[d64,qh1]" else "full"
     shapes = {"[d64,full]": [(ED_FRAMES, ED_FRAMES)],
@@ -2187,8 +2133,7 @@ def check_prefill_d64(torch, dev, gen, flush, form) -> dict:
     return _form_row(
         "flash_prefill", form, "flash_prefill.cu",
         "src/repro/kernels/flash_prefill.py:77", max(errs), ms, plain_ms,
-        bound(SB * h * (2 * tq + 2 * tk) * D * 2, 4.0 * h * D * pairs,
-              "bf16"), lib_ms, "SDPA",
+        W.work_bound(W.flash_prefill(SB, h, h, tq, tk, D, pairs)), lib_ms, "SDPA",
         f"8 x 16 heads (16 kv) x {tq} queries x {tk} keys x 64 bf16, "
         f"{mode}" + (", also Tq 33 / Tk 1000" if len(shapes) > 1 else ""))
 
@@ -2200,10 +2145,11 @@ def check_dense_d64(torch, dev, gen, flush) -> list[dict]:
     NaN-poisoned) on the split body, and #6 at its cross decode (8 rows x
     16 kv heads x 1 query head x 8 groups, the 1024 memory keys); both
     within 1e-4 of the plain versions."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_attention as pak
     from repro_torch.kernels import polar_encode as pe
     from repro_torch.kernels import polar_qk as qkk
-    hkv, qh, d, p = ED_HKV, 1, D, D // 2
+    hkv, qh, d = ED_HKV, 1, D
 
     def buffers(groups, flushed):
         k = torch.randn((SB, hkv, flushed * G, d), generator=gen,
@@ -2214,11 +2160,6 @@ def check_dense_d64(torch, dev, gen, flush) -> list[dict]:
         for b, x in zip(bufs, enc):
             b[:, :, :flushed] = x
         return bufs
-
-    def flops(groups, attention):
-        per = 3 * qh * p * 16 + 2 * G * p + 2 * qh * G * p
-        return groups * (per + (4 * qh * G + 2 * qh * G * d
-                                if attention else 0))
 
     sg = ED_MAX // G
     bufs = buffers(sg, 1)
@@ -2249,13 +2190,11 @@ def check_dense_d64(torch, dev, gen, flush) -> list[dict]:
     lib_ms = time_ms(torch, lambda: sdpa(
         q.reshape(SB, hkv, 1, d), kf, vals.float(), attn_mask=mask,
         scale=1.0), flush=flush)
-    groups = SB * hkv
-    nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4 + G * d * 2) \
-        + SB * 4 + SB * hkv * qh * (d + 2) * 4
     rows = [_form_row(
         "polar_attention", "[d64,qh1]", "polar_attention.cu",
         "src/repro/kernels/polar_attention.py:104", err, ms, plain_ms,
-        bound(nbytes, flops(groups, True), "fp32"), lib_ms,
+        W.work_bound(W.dense_decode(SB * hkv, b=SB, hkv=hkv, qh=qh, d=d, g=G,
+                              value_elt=2)), lib_ms,
         "SDPA over pre-dequantized keys (fp32, length mask)",
         "8 rows x 16 kv heads x 1 query head x 1 flushed group of a "
         "256-token buffer x d 64, bf16 values")]
@@ -2271,13 +2210,11 @@ def check_dense_d64(torch, dev, gen, flush) -> list[dict]:
                        iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
     kt = _dequant(torch, cross).transpose(-1, -2).contiguous()
     lib_ms = time_ms(torch, lambda: torch.matmul(q, kt), flush=flush)
-    groups = SB * hkv * cg
-    nbytes = q.numel() * 4 + groups * (G * p + 4 * p * 4) \
-        + SB * hkv * qh * ED_FRAMES * 4
     rows.append(_form_row(
         "polar_qk", "[d64,qh1]", "polar_qk.cu",
         "src/repro/kernels/polar_qk.py:68", err, ms, plain_ms,
-        bound(nbytes, flops(groups, False), "fp32"), lib_ms,
+        W.work_bound(W.qk_scores(SB * hkv * cg, b=SB, hkv=hkv, qh=qh, d=d, g=G)),
+        lib_ms,
         "matmul over pre-dequantized keys (fp32)",
         "8 rows x 16 kv heads x 1 query head x 8 groups (the 1024-frame "
         "cross cache) x d 64"))
@@ -3222,6 +3159,7 @@ def _qk_span_check(torch, q_n=5) -> str:
     """#6 at the span verifier's shape: 8 slots x 4 kv heads x (8 query
     heads x Q) rows over an 8-page view, against its plain version, and
     timed (kernel, plain, one launch of the one-token step's 8 rows)."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_qk as qkk
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -3242,10 +3180,8 @@ def _qk_span_check(torch, q_n=5) -> str:
     ms8 = time_ms(torch, lambda: qkk.polar_qk_scores(q8, *bufs), flush=flush)
     plain_ms = time_ms(torch, lambda: qkk.polar_qk_scores_plain(q, *bufs),
                        iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
-    groups = SB * HKV * 8
-    per = 3 * qh * P * 16 + 2 * G * P + 2 * qh * G * P
-    b_ms, by = bound(q.numel() * 4 + groups * (G * P + 4 * P * 4)
-                     + SB * HKV * qh * 8 * G * 4, groups * per)
+    b_ms, by = W.work_bound(W.qk_scores(SB * HKV * 8, b=SB, hkv=HKV, qh=qh, d=D,
+                                  g=G))
     return (f"qk[span shape]: {SB} rows x {HKV} kv heads x {qh} query heads "
             f"(Q {q_n}) x 8 groups: err "
             f"{float((got - ref).abs().max()):.3g} (limit {FP32_TOL}), rows "
@@ -4747,6 +4683,7 @@ def check_train_attention(torch, dev, gen, flush, h=32, hkv=HKV,
     of the plain version (the chunked online-softmax forward), ``lse``
     within 1e-3, and ``out`` bit-equal to the serving launch without
     ``lse``. Timed beside the plain version and SDPA."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels import flash_prefill as fpk
     b, t = TRAIN_B, TRAIN_T
     q = torch.randn((b, h, t, D), generator=gen, device=dev).to(
@@ -4774,8 +4711,8 @@ def check_train_attention(torch, dev, gen, flush, h=32, hkv=HKV,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(q, ke, ve, is_causal=True),
                      flush=flush)
-    nbytes = (2 * h + 2 * hkv) * b * t * D * 2 + b * h * t * 4
-    b_ms = bound(nbytes, 4.0 * b * h * D * (t * (t + 1) / 2), "bf16")
+    b_ms = W.work_bound(W.flash_prefill(b, h, hkv, t, t, D, b * (t * (t + 1) / 2),
+                                  lse=True))
     print(f"train[kernel{form}]: flash_prefill with lse {b} x {h} heads "
           f"({hkv} kv) x {t} x {D} bf16, causal: {ms:.4f} ms (without lse "
           f"{serve_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
@@ -5022,8 +4959,124 @@ def phase_train(torch, counters, dev="cuda") -> tuple[dict, list]:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     tp_row = check_train_attention(torch, dev, gen, flush, h=16, hkv=2,
                                    form="[lse,tp2]")
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(dryrun_arm(torch, dev, step_ms), flush=True)
     return {"flash_prefill[lse]": counts["flash_prefill[lse]"],
             "flash_prefill[lse,tp2]": tp}, [row, tp_row]
+
+
+# ---------------------------------------------------------------------------
+# the train phase's dry-run arm: the per-op counter on the card and on meta
+# ---------------------------------------------------------------------------
+
+#: the dry run's CLI cell run in a subprocess with no card visible
+DRYRUN_CLI = ("--arch", "tinyllama-1.1b", "--shape", "train_4k",
+              "--mesh", "single")
+DRYRUN_CLI_TIMEOUT_S = 120
+
+
+def _same_counts(label: str, got, want) -> None:
+    """``launch/op_cost.OpCounter`` counts of one step on the card and on
+    meta tensors: FLOPs, dot FLOPs, transcendentals, bytes and every
+    kernel's calls and work equal; on a difference, the aten ops whose
+    counts part are named."""
+    keys = ("flops", "dot_flops", "transcendentals", "bytes")
+    a = {k: getattr(got, k) for k in keys}
+    b = {k: getattr(want, k) for k in keys}
+    if a == b and got.kernels == want.kernels:
+        return
+    ops = sorted(set(got.by_op) | set(want.by_op))
+    diff = {o: (got.by_op.get(o), want.by_op.get(o)) for o in ops
+            if got.by_op.get(o) != want.by_op.get(o)}
+    raise AssertionError(f"dryrun[{label}]: card {a} {got.kernels} != meta "
+                         f"{b} {want.kernels}; ops that differ {diff}")
+
+
+def _dry_counts(torch, dev) -> tuple:
+    """(train step, decode step) counters on meta, each after the same
+    step on ``dev`` counted equal (:func:`_same_counts`)."""
+    import gc
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun_lib as lib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.train.train_step import StepConfig, lower_train_step
+    model = get_model(get_config(TRAIN_CONFIG))
+    shape = ShapeConfig("train", TRAIN_T, TRAIN_B, "train")
+    dshape = ShapeConfig("decode", SMAX, SB, "decode")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = []
+    for label, fn in (
+            ("train step", lambda d: lower_train_step(
+                model, None, StepConfig(**TRAIN_STEP_CFG), TRAIN_B,
+                model.input_specs(shape), d)()),
+            ("decode step", lambda d: lib._serving_step(
+                model, dshape, mesh, d)())):
+        card = fn(dev)
+        torch.cuda.synchronize()
+        meta = fn("meta")
+        _same_counts(label, card, meta)
+        del card
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.append(meta)
+    return tuple(out)
+
+
+def dryrun_arm(torch, dev, step_ms: float) -> str:
+    """The dry run's counter (``launch/op_cost.py``) against the card: the
+    full-width tinyllama-1.1b meshless train step of this phase (``TRAIN_B``
+    x ``TRAIN_T``, ``TRAIN_STEP_CFG``) and one static decode step (8 rows at
+    position 1151 of a 1152-token cache, the group's flush included) each
+    counted on CUDA tensors, kernels launched, and on meta tensors: the
+    FLOPs and bytes must be equal. The train step's FLOPs over this
+    phase's measured ms a step, as a share of the H100's bf16 peak. Then
+    ``python -m repro_torch.launch.dryrun`` on one cell in a subprocess
+    that sees no card: its record must read ``ok``."""
+    import tempfile
+    from repro_torch.kernels import work as W
+    t0 = time.monotonic()
+    # the CLI's cell runs in a subprocess beside the counts here
+    with tempfile.TemporaryDirectory() as out:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
+             "--out", out], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=str(ROOT),
+            env=dict(os.environ, PYTHONPATH=str(SRC),
+                     CUDA_VISIBLE_DEVICES=""))
+        try:
+            meta, dmeta = _dry_counts(torch, dev)
+            log, _ = cli.communicate(timeout=DRYRUN_CLI_TIMEOUT_S)
+        finally:
+            cli.kill()
+            cli.wait()
+        t_cli = time.monotonic() - t0
+        assert cli.returncode == 0, log[-3000:]
+        rec = json.loads((Path(out) / "single_16x16" / "tinyllama-1.1b"
+                          / "train_4k.json").read_text())
+    assert rec["status"] == "ok", rec
+    share = meta.flops / (step_ms / 1e3) / W.PEAK_FLOPS["bf16"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kernels = {k: v["calls"] for k, v in dmeta.kernels.items()}
+    return (f"dryrun: tinyllama-1.1b train step {TRAIN_B} x {TRAIN_T} "
+            f"(meshless, block remat): {meta.flops:.6g} FLOPs "
+            f"({meta.dot_flops:.6g} dot), {meta.bytes:.6g} traffic-proxy "
+            f"bytes, {meta.ops} aten ops, #3 "
+            f"{meta.kernels['flash_prefill']['calls']} calls: card == meta; "
+            f"decode step {SB} x {SMAX} ({SMAX - 1} cached): "
+            f"{dmeta.flops:.6g} FLOPs, {dmeta.bytes:.6g} bytes, kernels "
+            f"{kernels}: card == meta; at {step_ms:.2f} ms a step: "
+            f"{share * 100:.2f} % of {W.PEAK_FLOPS['bf16'] / 1e12:.0f} "
+            f"TFLOP/s bf16 ({smi}); CLI cell {rec['arch']} x {rec['shape']} "
+            f"[{rec['mesh']}] ok {t_cli:.1f} s after its start (peak/rank "
+            f"{rec['memory']['peak_per_device'] / 2**30:.2f} GiB, "
+            f"{rec['cost']['flops']:.4g} FLOPs); "
+            f"{time.monotonic() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------

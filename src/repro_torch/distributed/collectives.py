@@ -30,6 +30,8 @@ writes its block: exact (x + 0 = x; only the sign of a zero can change),
 and supported for CUDA tensors by both gloo and NCCL — gloo has no CUDA
 all-gather. NCCL's all-reduce can be captured in a CUDA graph. Gloo sums
 bf16 and fp16 tensors in fp32 here (:func:`sum_over`), cast back after.
+Each collective reports its kind and buffer to the dry run's counter
+(``cost_hook.py``).
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch import cost_hook
 from repro_torch.launch.mesh import entry_index
 
 
@@ -57,6 +60,7 @@ def _all_reduce(x: torch.Tensor, mesh, axis: str,
     outside a world)."""
     group = _group(mesh, axis)
     if group is not None:
+        cost_hook.collective("all-reduce", x)
         dist.all_reduce(x, op=op, group=group)
     return x
 
@@ -75,10 +79,12 @@ def sum_over(x: torch.Tensor, mesh, axes, inplace: bool = False
         if x.dtype in (torch.bfloat16, torch.float16) and \
                 mesh.backend(axis) == "gloo":
             y = out.float()
+            cost_hook.collective("all-reduce", y)
             dist.all_reduce(y, group=group)
             out = out.copy_(y) if inplace else y.to(x.dtype)
         else:
             out = out.clone() if out is x and not inplace else out
+            cost_hook.collective("all-reduce", out)
             dist.all_reduce(out, group=group)
     return out
 
@@ -184,6 +190,7 @@ def max_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if mesh.shape[axis] == 1:
         return x
     y = x.detach().float().clone()
+    cost_hook.collective("all-reduce", y)
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=_group(mesh, axis))
     return y.to(x.dtype)
 
@@ -195,6 +202,7 @@ def any_rank(flag: bool, mesh) -> bool:
     for axis in mesh.axis_names:
         group = mesh.host_group(axis)
         if group is not None and mesh.shape[axis] > 1:
+            cost_hook.collective("all-reduce", t)
             dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return bool(t[0])
 
@@ -207,6 +215,7 @@ def broadcast_host_float(value: float, mesh, axis: str) -> float:
     if group is None:
         return value
     t = torch.tensor([value], dtype=torch.float64)
+    cost_hook.collective("broadcast", t)
     dist.broadcast(t, src=mesh.lines[axis][0], group=group)
     return float(t[0])
 

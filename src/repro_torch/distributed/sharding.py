@@ -136,11 +136,27 @@ def param_pspecs(params: Any, mesh, cfg: Optional[ModelConfig] = None) -> Any:
 # ---------------------------------------------------------------------------
 
 
+def _batch_entry(mesh, global_batch: int) -> Any:
+    """The batch axis entry of a global batch of ``global_batch`` rows:
+    the data axes where they divide it, else None (every rank holds it
+    whole). The one decision behind ``logical_rules``' ``batch``,
+    :func:`batch_pspecs` and :func:`batch_rows`."""
+    dp, baxes = _dp(mesh)
+    return baxes if _divides(global_batch, dp) else None
+
+
+def batch_rows(mesh, global_batch: int) -> int:
+    """A rank's rows of a global batch of ``global_batch`` rows, as
+    :func:`batch_pspecs` splits it."""
+    dp, _ = _dp(mesh)
+    split = _batch_entry(mesh, global_batch) is not None
+    return global_batch // dp if split else global_batch
+
+
 def logical_rules(cfg: ModelConfig, mesh, global_batch: int) -> dict:
     model_n = mesh.shape.get("model", 1)
-    dp, batch_axes = _dp(mesh)
     rules: dict[str, Any] = {
-        "batch": batch_axes if _divides(global_batch, dp) else None,
+        "batch": _batch_entry(mesh, global_batch),
         "heads": "model" if _divides(cfg.num_heads, model_n) else None,
         "kv_heads": "model" if _divides(cfg.num_kv_heads, model_n) else None,
         "ff": "model" if _divides(cfg.d_ff, model_n) else None,
@@ -177,9 +193,7 @@ def serving_rules(cfg: ModelConfig, mesh, global_batch: int) -> dict:
 
 
 def batch_pspecs(batch_specs: dict, mesh, global_batch: int) -> dict:
-    dp, baxes = _dp(mesh)
-    if not _divides(global_batch, dp):
-        baxes = None
+    baxes = _batch_entry(mesh, global_batch)
     return {k: P(baxes, *([None] * (len(v.shape) - 1)))
             for k, v in batch_specs.items()}
 

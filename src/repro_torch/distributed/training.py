@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.distributed import collectives as col
 from repro_torch.launch.mesh import data_axes
+from repro_torch.utils import NotPorted
 
 MODEL = "model"
 
@@ -183,7 +184,7 @@ def make_plan(cfg, mesh, global_batch: int) -> TrainPlan:
     if m == 1:
         return TrainPlan(**base)
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise ValueError(
+        raise NotPorted(
             f"make_train_step: tensor parallelism over 'model' is not ported "
             f"for the {cfg.family!r} family (its {cfg.name} splits only over "
             f"the data axes: use a (n, 1) mesh)")

@@ -96,17 +96,18 @@ def library(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     return lib
 
 
-def on_card(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (run the plain version); anything else — mixed or other devices —
-    raises."""
+def route(*tensors: torch.Tensor) -> str:
+    """Where a wrapper's call goes: ``"cuda"`` for CUDA tensors (launch
+    the kernel), ``"cpu"`` for CPU tensors (run the plain version),
+    ``"meta"`` for meta tensors (outputs of the kernel's shapes, dtypes
+    and aliasing, no values: the dry run's placeholders). Mixed or other
+    devices raise."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
-        return True
-    if kinds == {"cpu"}:
-        return False
+    if len(kinds) == 1 and next(iter(kinds)) in ("cuda", "cpu", "meta"):
+        return next(iter(kinds))
     raise ValueError(f"tensors on {sorted(kinds)}: the kernels take CUDA "
-                     "tensors and their plain versions CPU tensors")
+                     "tensors, their plain versions CPU tensors and their "
+                     "shape-only forms meta tensors, each alone")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

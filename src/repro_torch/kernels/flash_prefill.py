@@ -39,6 +39,8 @@ import torch
 from repro_torch.core.attention import (MASK_MODES, flash_forward,
                                         reference_attention)
 from repro_torch.kernels import _build as B
+from repro_torch.kernels import work as W
+from repro_torch import cost_hook
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
@@ -78,17 +80,38 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``mode`` one of ``MASK_MODES``, ``prefix_len`` (B,) int32 for
     ``prefix``, ``window`` > 0 for ``local``; ``return_lse``: (out, lse
     (B, H, Tq) fp32). The kernel for CUDA tensors, the plain version for
-    CPU tensors."""
-    global launches, launches_full, launches_lse
+    CPU tensors, outputs of the kernel's shapes for meta tensors; the
+    call's :func:`work` goes to the dry run's counter
+    (``launch/op_cost.py``)."""
     B.require(mode in MASK_MODES, f"unknown mask mode {mode!r}")
     B.require((prefix_len is not None) == (mode == "prefix"),
               "prefix_len is required by, and only by, mode 'prefix'")
     B.require(mode != "local" or window > 0, "mode 'local' needs window > 0")
     tensors = (q, k, v) + ((prefix_len,) if prefix_len is not None else ())
-    if not B.on_card(*tensors):
-        return flash_prefill_plain(q, k, v, mode=mode, window=window,
-                                   prefix_len=prefix_len, scale=scale,
-                                   return_lse=return_lse)
+    where = B.route(*tensors)
+    with cost_hook.kernel_call("flash_prefill", lambda: work(
+            q, k, mode=mode, window=window, return_lse=return_lse)):
+        if where == "cpu":
+            return flash_prefill_plain(q, k, v, mode=mode, window=window,
+                                       prefix_len=prefix_len, scale=scale,
+                                       return_lse=return_lse)
+        return _launch(q, k, v, mode, window, prefix_len, scale, return_lse,
+                       where)
+
+
+def work(q, k, *, mode: str = "causal", window: int = 0,
+         return_lse: bool = False) -> W.Work:
+    """One call's work from the shapes (``kernels/work.py``): the visible
+    pairs of ``mode`` (``prefix`` counted as causal)."""
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    pairs = b * W.visible_pairs(mode, tq, tk, window)
+    return W.flash_prefill(b, h, hkv, tq, tk, d, pairs,
+                           elt=q.element_size(), lse=return_lse)
+
+
+def _launch(q, k, v, mode, window, prefix_len, scale, return_lse, where):
+    global launches, launches_full, launches_lse
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     for x in (q, k, v):
@@ -108,6 +131,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if where == "meta":
+        return (out, lse) if return_lse else out
     lib = B.library("flash_prefill", _bind)
     err = lib.flash_prefill_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

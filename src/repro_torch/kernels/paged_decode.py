@@ -36,6 +36,8 @@ import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels import ref as ref_mod
+from repro_torch.kernels import work as W
+from repro_torch import cost_hook
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
@@ -111,17 +113,37 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
     uint8 codes with fp32 vscale/vzero (PP, Hkv, g, 1); page_table (S, N) int32 (may be a width slice of a wider table);
     flushed (S,) int32. Returns (acc (S,Hkv,Qh,d), m (S,Hkv,Qh),
     l (S,Hkv,Qh)) fp32. The kernel for CUDA tensors, the plain version
-    for CPU tensors. ``plan_heads``: plan the splits as for that many kv
-    heads — a head shard's call passes the model's count, so its splits,
-    and the order its partials merge in, are those of the unsharded call
-    (default: Hkv)."""
-    global launches, launches_u8, launches_split
+    for CPU tensors, outputs of the kernel's shapes for meta tensors.
+    ``plan_heads``: plan the splits as for that many kv heads — a head
+    shard's call passes the model's count, so its splits, and the order
+    its partials merge in, are those of the unsharded call (default:
+    Hkv)."""
     tensors = (q, codes, rs, rz, ts, tz, values, page_table, flushed)
     quant = tuple(x for x in (vscale, vzero) if x is not None)
-    if not B.on_card(*tensors, *quant):
-        return polar_paged_decode_grouped_plain(
-            q, codes, rs, rz, ts, tz, values, page_table, flushed,
-            vscale=vscale, vzero=vzero, r_bits=r_bits, t_bits=t_bits)
+    where = B.route(*tensors, *quant)
+    with cost_hook.kernel_call("paged_decode", lambda: work(
+            q, codes, values, page_table, t_bits=t_bits)):
+        if where == "cpu":
+            return polar_paged_decode_grouped_plain(
+                q, codes, rs, rz, ts, tz, values, page_table, flushed,
+                vscale=vscale, vzero=vzero, r_bits=r_bits, t_bits=t_bits)
+        return _launch(q, codes, rs, rz, ts, tz, values, page_table,
+                       flushed, vscale, vzero, t_bits, plan_heads, where)
+
+
+def work(q, codes, values, page_table, *, t_bits: int = 4) -> W.Work:
+    """One call's work from the shapes (``kernels/work.py``): every table
+    entry's page walked (``flushed`` is data)."""
+    s, hkv, qh, d = q.shape
+    n = page_table.shape[1]
+    return W.paged_decode(s * n * hkv, s=s, hkv=hkv, qh=qh, d=d,
+                          g=codes.shape[2], table=page_table.numel(),
+                          value_elt=values.element_size(), t_bits=t_bits)
+
+
+def _launch(q, codes, rs, rz, ts, tz, values, page_table, flushed, vscale,
+            vzero, t_bits, plan_heads, where):
+    global launches, launches_u8, launches_split
     s, hkv, qh, d = q.shape
     pp, _, g, p = codes.shape
     n = page_table.shape[1]
@@ -144,6 +166,8 @@ def polar_paged_decode_grouped(q: torch.Tensor, codes: torch.Tensor,
     acc = torch.empty((s, hkv, qh, d), dtype=torch.float32, device=q.device)
     m = torch.empty((s, hkv, qh), dtype=torch.float32, device=q.device)
     l = torch.empty((s, hkv, qh), dtype=torch.float32, device=q.device)
+    if where == "meta":
+        return acc, m, l
     nsplit = plan_splits(s, plan_heads or hkv, n)
     # the splits' (acc, m, l) partials, merged on the device
     part = torch.empty(nsplit * s * hkv * qh * (d + 2), dtype=torch.float32,

@@ -31,6 +31,8 @@ import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels import ref as ref_mod
+from repro_torch.kernels import work as W
+from repro_torch import cost_hook
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
@@ -85,8 +87,8 @@ def polar_paged_prefill_grouped(q: torch.Tensor, k_chunk: torch.Tensor,
     uint8 codes with fp32 vscale/vzero (PP, Hkv, g, 1); page_row (N,) int32, the slot's table row (may be width-sliced);
     ``start`` page-aligned, ``start <= N*g``; ``chunk_len <= Tc`` real
     chunk tokens. Returns (Hkv, QT, d) fp32. The kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    global launches, launches_u8, launches_mma
+    the plain version for CPU tensors, the output's shape for meta
+    tensors."""
     start, chunk_len = int(start), int(chunk_len)
     g = codes.shape[2]
     B.require(start % g == 0, f"start {start} is not page-aligned (g={g})")
@@ -95,11 +97,35 @@ def polar_paged_prefill_grouped(q: torch.Tensor, k_chunk: torch.Tensor,
               "pages")
     tensors = (q, k_chunk, v_chunk, codes, rs, rz, ts, tz, values, page_row)
     quant = tuple(x for x in (vscale, vzero) if x is not None)
-    if not B.on_card(*tensors, *quant):
-        return polar_paged_prefill_grouped_plain(
-            q, k_chunk, v_chunk, codes, rs, rz, ts, tz, values, page_row,
-            start, chunk_len, vscale=vscale, vzero=vzero, r_bits=r_bits,
-            t_bits=t_bits)
+    where = B.route(*tensors, *quant)
+    with cost_hook.kernel_call("paged_prefill", lambda: work(
+            q, k_chunk, codes, values, start, t_bits=t_bits)):
+        if where == "cpu":
+            return polar_paged_prefill_grouped_plain(
+                q, k_chunk, v_chunk, codes, rs, rz, ts, tz, values,
+                page_row, start, chunk_len, vscale=vscale, vzero=vzero,
+                r_bits=r_bits, t_bits=t_bits)
+        return _launch(q, k_chunk, v_chunk, codes, rs, rz, ts, tz, values,
+                       page_row, start, chunk_len, vscale, vzero, t_bits,
+                       where)
+
+
+def work(q, k_chunk, codes, values, start: int, *,
+         t_bits: int = 4) -> W.Work:
+    """One call's work (``kernels/work.py``) from the shapes and the host
+    ``start``: the prefix's pages and a whole chunk."""
+    hkv, qt, d = q.shape
+    tc = k_chunk.shape[1]
+    return W.paged_prefill(hkv=hkv, qh=qt // tc, d=d, g=codes.shape[2],
+                           start=int(start), chunk=tc,
+                           value_elt=values.element_size(),
+                           kv_elt=k_chunk.element_size(), t_bits=t_bits)
+
+
+def _launch(q, k_chunk, v_chunk, codes, rs, rz, ts, tz, values, page_row,
+            start, chunk_len, vscale, vzero, t_bits, where):
+    global launches, launches_u8, launches_mma
+    g = codes.shape[2]
     hkv, qt, d = q.shape
     pp, _, _, p = codes.shape
     tc = k_chunk.shape[1]
@@ -128,6 +154,8 @@ def polar_paged_prefill_grouped(q: torch.Tensor, k_chunk: torch.Tensor,
               and page_row.is_contiguous(),
               "page_row must be a contiguous int32 (N,) row")
     out = torch.empty((hkv, qt, d), dtype=torch.float32, device=q.device)
+    if where == "meta":
+        return out
     lib = B.library("paged_prefill", _bind)
     kv_bf16 = int(k_chunk.dtype == torch.bfloat16)
     pools = (codes.data_ptr(), rs.data_ptr(), rz.data_ptr(), ts.data_ptr(),

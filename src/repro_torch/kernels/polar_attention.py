@@ -41,7 +41,9 @@ import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels import ref as ref_mod
+from repro_torch.kernels import work as W
 from repro_torch.kernels.paged_decode import plan_splits
+from repro_torch import cost_hook
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
@@ -85,17 +87,36 @@ def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
     token-major rows, or uint8 codes with fp32 vscale/vzero
     (B, Hkv, G*g, 1); length (B,) int32 valid grouped tokens per row.
     Returns (acc (B,Hkv,Qh,d), m (B,Hkv,Qh), l (B,Hkv,Qh)) fp32. The kernel
-    for CUDA tensors, the plain version for CPU tensors. ``plan_heads``:
+    for CUDA tensors, the plain version for CPU tensors, outputs of the
+    kernel's shapes for meta tensors. ``plan_heads``:
     plan the splits as for that many kv heads (a head shard passes the
     model's, so that each head is summed in the same splits as in the
     whole call)."""
-    global launches, launches_u8, launches_split
     tensors = (q, codes, rs, rz, ts, tz, values, length)
     quant = tuple(x for x in (vscale, vzero) if x is not None)
-    if not B.on_card(*tensors, *quant):
-        return polar_decode_attention_grouped_plain(
-            q, codes, rs, rz, ts, tz, values, length, vscale=vscale,
-            vzero=vzero, r_bits=r_bits, t_bits=t_bits)
+    where = B.route(*tensors, *quant)
+    with cost_hook.kernel_call("polar_attention", lambda: work(
+            q, codes, values, t_bits=t_bits)):
+        if where == "cpu":
+            return polar_decode_attention_grouped_plain(
+                q, codes, rs, rz, ts, tz, values, length, vscale=vscale,
+                vzero=vzero, r_bits=r_bits, t_bits=t_bits)
+        return _launch(q, codes, rs, rz, ts, tz, values, length, vscale,
+                       vzero, r_bits, t_bits, plan_heads, where)
+
+
+def work(q, codes, values, *, t_bits: int = 4) -> W.Work:
+    """One call's work from the shapes (``kernels/work.py``): every group
+    of the buffer walked (``length`` is data)."""
+    b, hkv, qh, d = q.shape
+    gc, g = codes.shape[2], codes.shape[3]
+    return W.dense_decode(b * hkv * gc, b=b, hkv=hkv, qh=qh, d=d, g=g,
+                          value_elt=values.element_size(), t_bits=t_bits)
+
+
+def _launch(q, codes, rs, rz, ts, tz, values, length, vscale, vzero, r_bits,
+            t_bits, plan_heads, where):
+    global launches, launches_u8, launches_split
     b, hkv, qh, d = q.shape
     B.require(codes.dim() == 5, "codes must be (B, Hkv, G, g, d/2)")
     _, _, gc, g, p = codes.shape
@@ -116,6 +137,8 @@ def polar_decode_attention_grouped(q: torch.Tensor, codes: torch.Tensor,
     acc = torch.empty((b, hkv, qh, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, qh), dtype=torch.float32, device=q.device)
     l = torch.empty((b, hkv, qh), dtype=torch.float32, device=q.device)
+    if where == "meta":
+        return acc, m, l
     nsplit = plan_splits(b, plan_heads or hkv, gc)
     # the splits' (acc, m, l) partials, merged on the device
     part = torch.empty(nsplit * b * hkv * qh * (d + 2), dtype=torch.float32,

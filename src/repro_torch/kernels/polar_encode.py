@@ -34,6 +34,8 @@ from repro_torch.core.quantizers import (
     QuantConfig, encode_polar_keys, fixed_theta_step,
 )
 from repro_torch.kernels import _build as B
+from repro_torch.kernels import work as W
+from repro_torch import cost_hook
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
@@ -112,25 +114,39 @@ def _launch(k, pages, outs, *, g, r_bits, t_bits, fixed) -> None:
     launches_fixed += int(fixed)
 
 
+def work(k: torch.Tensor, g: int, *, pages: int = 0,
+         fixed: bool = False) -> W.Work:
+    """One call's work from the shapes (``kernels/work.py``): every group
+    of ``k`` (B, Hkv, T, d), a skipped page's too (the page ids are
+    data)."""
+    b, h, t, d = k.shape
+    return W.encode(b * t, h, d, g, pages=pages,
+                    key_bytes=k.element_size(), fixed=fixed)
+
+
 def polar_encode(k: torch.Tensor, *, r_bits: int = 4, t_bits: int = 4,
                  group_size: int = 128, fixed: bool = False):
     """Dense encode of k (B, Hkv, T, d): the kernel for a CUDA tensor, the
-    plain version for a CPU tensor. Same outputs as
-    :func:`polar_encode_plain`."""
-    if not B.on_card(k):
-        return polar_encode_plain(k, r_bits=r_bits, t_bits=t_bits,
-                                  group_size=group_size, fixed=fixed)
-    g = group_size
-    _check_keys(k, g)
-    b, h, t, d = k.shape
-    p = d // 2
-    codes = torch.empty((b, h, t // g, g, p), dtype=torch.uint8,
-                        device=k.device)
-    stats = [torch.empty((b, h, t // g, 1, p), dtype=torch.float32,
-                         device=k.device) for _ in range(4)]
-    _launch(k, None, (codes, *stats), g=g, r_bits=r_bits, t_bits=t_bits,
-            fixed=fixed)
-    return (codes, *stats)
+    plain version for a CPU tensor, outputs of the kernel's shapes for a
+    meta tensor. Same outputs as :func:`polar_encode_plain`."""
+    where = B.route(k)
+    with cost_hook.kernel_call("polar_encode", lambda: work(
+            k, group_size, fixed=fixed)):
+        if where == "cpu":
+            return polar_encode_plain(k, r_bits=r_bits, t_bits=t_bits,
+                                      group_size=group_size, fixed=fixed)
+        g = group_size
+        _check_keys(k, g)
+        b, h, t, d = k.shape
+        p = d // 2
+        codes = torch.empty((b, h, t // g, g, p), dtype=torch.uint8,
+                            device=k.device)
+        stats = [torch.empty((b, h, t // g, 1, p), dtype=torch.float32,
+                             device=k.device) for _ in range(4)]
+        if where == "cuda":
+            _launch(k, None, (codes, *stats), g=g, r_bits=r_bits,
+                    t_bits=t_bits, fixed=fixed)
+        return (codes, *stats)
 
 
 def polar_encode_pages(k: torch.Tensor, pages: torch.Tensor,
@@ -140,23 +156,30 @@ def polar_encode_pages(k: torch.Tensor, pages: torch.Tensor,
                        fixed: bool = False) -> None:
     """Paged encode, in place: group (b, n) of k (B, Hkv, G*g, d) goes to
     pool page ``pages[b, n]`` (pages (B, G) int32; < 0 skips). The kernel
-    for CUDA tensors, the plain version for CPU tensors."""
-    if not B.on_card(k, pages, codes, rs, rz, ts, tz):
-        polar_encode_pages_plain(k, pages, codes, rs, rz, ts, tz,
-                                 r_bits=r_bits, t_bits=t_bits, fixed=fixed)
-        return
-    g = codes.shape[2]
-    _check_keys(k, g)
-    b, h, t, d = k.shape
-    B.require(pages.dtype == torch.int32 and pages.is_contiguous()
-              and tuple(pages.shape) == (b, t // g),
-              f"pages must be contiguous int32 {(b, t // g)}")
-    B.require(codes.dtype == torch.uint8 and codes.is_contiguous()
-              and codes.shape[1:] == (h, g, d // 2),
-              "codes pool must be contiguous uint8 (PP, Hkv, g, d/2)")
-    for s in (rs, rz, ts, tz):
-        B.require(s.dtype == torch.float32 and s.is_contiguous()
-                  and s.shape[1:] == (h, 1, d // 2),
-                  "stat pools must be contiguous float32 (PP, Hkv, 1, d/2)")
-    _launch(k, pages, (codes, rs, rz, ts, tz), g=g, r_bits=r_bits,
-            t_bits=t_bits, fixed=fixed)
+    for CUDA tensors, the plain version for CPU tensors; meta tensors are
+    checked and left as they are (the pools are written in place)."""
+    where = B.route(k, pages, codes, rs, rz, ts, tz)
+    with cost_hook.kernel_call("polar_encode", lambda: work(
+            k, codes.shape[2], pages=pages.numel(), fixed=fixed)):
+        if where == "cpu":
+            polar_encode_pages_plain(k, pages, codes, rs, rz, ts, tz,
+                                     r_bits=r_bits, t_bits=t_bits,
+                                     fixed=fixed)
+            return
+        g = codes.shape[2]
+        _check_keys(k, g)
+        b, h, t, d = k.shape
+        B.require(pages.dtype == torch.int32 and pages.is_contiguous()
+                  and tuple(pages.shape) == (b, t // g),
+                  f"pages must be contiguous int32 {(b, t // g)}")
+        B.require(codes.dtype == torch.uint8 and codes.is_contiguous()
+                  and codes.shape[1:] == (h, g, d // 2),
+                  "codes pool must be contiguous uint8 (PP, Hkv, g, d/2)")
+        for s in (rs, rz, ts, tz):
+            B.require(s.dtype == torch.float32 and s.is_contiguous()
+                      and s.shape[1:] == (h, 1, d // 2),
+                      "stat pools must be contiguous float32 "
+                      "(PP, Hkv, 1, d/2)")
+        if where == "cuda":
+            _launch(k, pages, (codes, rs, rz, ts, tz), g=g, r_bits=r_bits,
+                    t_bits=t_bits, fixed=fixed)

@@ -32,6 +32,8 @@ import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels import ref as ref_mod
+from repro_torch.kernels import work as W
+from repro_torch import cost_hook
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
@@ -67,17 +69,34 @@ def polar_qk_scores_plain(q, codes, rs, rz, ts, tz, *, r_bits: int = 4,
                                        r_bits=r_bits, t_bits=t_bits)
 
 
+def work(q, codes, *, t_bits: int = 4) -> W.Work:
+    """One call's work from the shapes (``kernels/work.py``): every group
+    of the buffer is scored."""
+    b, hkv, qh, d = q.shape
+    gc, g = codes.shape[2], codes.shape[3]
+    return W.qk_scores(b * hkv * gc, b=b, hkv=hkv, qh=qh, d=d, g=g,
+                       t_bits=t_bits)
+
+
 def polar_qk_scores(q: torch.Tensor, codes: torch.Tensor, rs: torch.Tensor,
                     rz: torch.Tensor, ts: torch.Tensor, tz: torch.Tensor, *,
                     r_bits: int = 4, t_bits: int = 4) -> torch.Tensor:
     """LUT q·K̃ scores. q (B, Hkv, Qh, d) fp32; codes (B, Hkv, G, g, P)
     uint8; stats (B, Hkv, G, 1, P) fp32. Returns (B, Hkv, Qh, G*g) fp32.
     The kernel for CUDA tensors (one launch per :func:`max_rows` query
-    heads), the plain version for CPU tensors."""
+    heads), the plain version for CPU tensors, the output's shape for
+    meta tensors."""
+    where = B.route(q, codes, rs, rz, ts, tz)
+    with cost_hook.kernel_call("polar_qk", lambda: work(q, codes,
+                                                      t_bits=t_bits)):
+        if where == "cpu":
+            return polar_qk_scores_plain(q, codes, rs, rz, ts, tz,
+                                         r_bits=r_bits, t_bits=t_bits)
+        return _launch(q, codes, rs, rz, ts, tz, r_bits, t_bits, where)
+
+
+def _launch(q, codes, rs, rz, ts, tz, r_bits, t_bits, where):
     global launches
-    if not B.on_card(q, codes, rs, rz, ts, tz):
-        return polar_qk_scores_plain(q, codes, rs, rz, ts, tz, r_bits=r_bits,
-                                     t_bits=t_bits)
     b, hkv, qh, d = q.shape
     B.require(codes.dim() == 5, "codes must be (B, Hkv, G, g, d/2)")
     _, _, gc, g, p = codes.shape
@@ -96,6 +115,8 @@ def polar_qk_scores(q: torch.Tensor, codes: torch.Tensor, rs: torch.Tensor,
               "query heads exceeds the shared memory")
     out = torch.empty((b, hkv, qh, gc * g), dtype=torch.float32,
                       device=q.device)
+    if where == "meta":
+        return out
     lib = B.library("polar_qk", _bind)
     for lo in range(0, qh, tile):
         rows = min(tile, qh - lo)

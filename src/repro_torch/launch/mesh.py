@@ -10,7 +10,8 @@ take either package's mesh (or a test double with those two attributes).
 It also carries what a rank needs to run collectives itself: its
 coordinate on each axis, the global ranks of its line along each axis and
 one process group per line (with, where the world's backend is not gloo,
-a gloo twin for host-side agreement on CPU tensors).
+a gloo twin for host-side agreement on CPU tensors; the ``fake``
+backend of a dry run, which moves no data, is its own twin).
 
 A mesh of one position needs no world: built before
 ``init_process_group`` it has no groups and every collective over it is
@@ -25,7 +26,9 @@ Axes:
   * ``data``  — intra-pod data-parallel axis.
   * ``model`` — tensor (head) parallel axis.
 
-``make_production_mesh`` (the dry run's 2 x 16 x 16 layout) is not ported.
+:func:`make_production_mesh` is JAX's 16 x 16 and 2 x 16 x 16 layouts;
+it needs a world of 256 or 512 ranks (the dry run's ``fake`` world,
+``launch/dryrun_lib.py``).
 """
 from __future__ import annotations
 
@@ -180,7 +183,9 @@ def make_mesh(shape, axes) -> Mesh:
     lines = {a: _line_ranks(shape, coords, i) for i, a in enumerate(axes)}
     groups, host_groups = {}, {}
     if in_world:
-        gloo_world = dist.get_backend() == "gloo"
+        # a fake world (the dry run) has no gloo twin; its groups move
+        # no data, on the host or elsewhere
+        gloo_world = dist.get_backend() in ("gloo", "fake")
         for i, a in enumerate(axes):
             rest = [range(s) for j, s in enumerate(shape) if j != i]
             for other in itertools.product(*rest):
@@ -194,6 +199,15 @@ def make_mesh(shape, axes) -> Mesh:
                     groups[a], host_groups[a] = g, hg
     return Mesh(dict(zip(axes, shape)), dict(zip(axes, coords)), lines,
                 groups, host_groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """JAX's production layouts: ``(data 16, model 16)``, or ``(pod 2,
+    data 16, model 16)`` with ``multi_pod``. A world of 256 (512) ranks
+    must be up (:func:`make_mesh`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
 
 
 def make_host_mesh(model_axis: int = 1) -> Mesh:

@@ -18,6 +18,11 @@ VLM, hybrid, encoder-decoder and SSM (port of
   decode(params, state, token (B,)) -> (logits (B, V), state)
   cache_layer_bytes(state) -> physical cache bytes per layer (None for the
       hybrid, encoder-decoder and SSM families, as JAX)
+  input_specs(shape) -> {name: ShapeDtype} — a shape's step inputs
+      (JAX's ``_token_specs``: tokens, and the VLM's ``patches`` or the
+      encoder-decoder's ``frames``), the dry run's stand-ins
+  decode_state_specs(shape, **kw) -> the decode state of the shape's
+      batch and length on the meta device (shapes, no values)
 The paged entries below are None for the VLM, hybrid, encoder-decoder
 and SSM families, which JAX serves on the static engine only (the VLM
 and encoder-decoder prefills need their frontends; the paged attention
@@ -49,11 +54,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm_lm as SSM
 from repro_torch.models import transformer as TF
+from repro_torch.utils import ShapeDtype, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +83,33 @@ class Model:
     commit_paged: Callable[..., Any] | None = None
     verify_span: Callable[..., Any] | None = None
     commit_span: Callable[..., Any] | None = None
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """JAX's ``_token_specs`` (``repro/models/registry.py:83-110``):
+        train ``tokens`` (B, T+1) and prefill ``tokens`` (B, T), each T
+        less the VLM's ``frontend_tokens``, with the VLM's ``patches`` or
+        the encoder-decoder's ``frames`` (B, frontend_tokens,
+        frontend_dim) in the model dtype; decode one ``token`` (B,)."""
+        cfg = self.cfg
+        b, t = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"token": ShapeDtype((b,), torch.int32)}
+        text = t - (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+        specs = {"tokens": ShapeDtype((b, text + (shape.kind == "train")),
+                                      torch.int32)}
+        front = {"encdec": "frames", "vlm": "patches"}.get(cfg.family)
+        if front:
+            specs[front] = ShapeDtype(
+                (b, cfg.frontend_tokens, cfg.frontend_dim),
+                torch_dtype(cfg.dtype))
+        return specs
+
+    def decode_state_specs(self, shape: ShapeConfig, **kw):
+        """The decode state of ``shape.global_batch`` rows and
+        ``shape.seq_len`` positions on the meta device (``kw``: the
+        family's ``init_decode_state`` options, e.g. ``head_shard``)."""
+        return self.init_decode_state(shape.global_batch, shape.seq_len,
+                                      "meta", **kw)
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -88,7 +88,8 @@ from repro_torch.serve.qos import (
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.spec import SpecConfig, make_proposer, make_verifier
 from repro_torch.utils import (
-    cdiv, nearest_rank_pct, pow2_bucket, resolve_device, tree_bytes,
+    NotPorted, cdiv, nearest_rank_pct, pow2_bucket, resolve_device,
+    tree_bytes,
 )
 
 
@@ -130,6 +131,23 @@ def _check_mesh(mesh, engine: str) -> None:
 _STATIC_MESH_FAMILIES = ("dense", "moe", "vlm")
 
 
+def static_head_shard(cfg, mesh) -> Optional[tuple[int, int]]:
+    """The static engine's placement on ``mesh`` (DESIGN.md §17): this
+    rank's (block, blocks) of the KV heads where ``serving_rules`` maps
+    them to an axis, None where every rank holds them all (the GQA
+    fallback). The hybrid, encoder-decoder and SSM families are refused
+    (:class:`~repro_torch.utils.NotPorted`)."""
+    fam = cfg.family
+    if fam not in _STATIC_MESH_FAMILIES:
+        raise NotPorted(
+            f"ServeEngine(mesh=): the {fam!r} family under a mesh "
+            "is not ported (ROADMAP queue 1); the "
+            f"{', '.join(_STATIC_MESH_FAMILIES)} families are")
+    # the kv_heads rule does not depend on the batch
+    axis = serving_rules(cfg, mesh, 1).get("kv_heads")
+    return dsrv.head_block(mesh, axis) if isinstance(axis, str) else None
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)  # sync: honest clock after a dispatch
@@ -164,17 +182,8 @@ class ServeEngine:
         #: the caches hold every head
         self.head_shard = None
         if mesh is not None:
-            fam = model.cfg.family
-            if fam not in _STATIC_MESH_FAMILIES:
-                raise ValueError(
-                    f"ServeEngine(mesh=): the {fam!r} family under a mesh "
-                    "is not ported (ROADMAP queue 1); the "
-                    f"{', '.join(_STATIC_MESH_FAMILIES)} families are")
+            self.head_shard = static_head_shard(model.cfg, mesh)
             _check_mesh(mesh, "static")
-            # the kv_heads rule does not depend on the batch
-            axis = serving_rules(model.cfg, mesh, 1).get("kv_heads")
-            if isinstance(axis, str):
-                self.head_shard = dsrv.head_block(mesh, axis)
 
     def _ctx(self, batch: int):
         """The sharding context of this engine's dispatches: the serving

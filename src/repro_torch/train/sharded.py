@@ -67,7 +67,7 @@ from repro_torch.distributed.sharding import param_pspec
 from repro_torch.launch.mesh import data_axes, entry_axes, entry_index
 from repro_torch.optim.adamw import AdamWState, adamw_update, tree_map
 from repro_torch.optim.schedule import cosine_schedule
-from repro_torch.utils import torch_dtype
+from repro_torch.utils import ShapeDtype, torch_dtype
 from repro_torch.weights import _to_numpy, init_params, jax_layout
 
 
@@ -78,14 +78,6 @@ class ShardedTrainState(NamedTuple):
     are JAX's."""
     params: Any
     opt: AdamWState
-
-
-@dataclasses.dataclass(frozen=True)
-class ShapeDtype:
-    """A leaf's shape and dtype without its values (``jax.ShapeDtypeStruct``
-    for the spec resolvers)."""
-    shape: tuple
-    dtype: Any
 
 
 @dataclasses.dataclass(frozen=True)

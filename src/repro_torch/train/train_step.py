@@ -189,3 +189,61 @@ def make_train_step(model: Model, mesh: Optional[Any] = None,
         return TrainState(params, opt), dict(metrics, loss=loss, lr=lr, **om)
 
     return step
+
+
+def lower_train_step(model: Model, mesh, step_cfg: StepConfig,
+                     global_batch: int, batch_specs: dict,
+                     device="meta"):
+    """The dry run's step (JAX's returns a ``Lowered``): a callable that
+    runs ``make_train_step(mesh=)`` once on this rank's blocks of the
+    state (``StateLayout``'s ``block_shape``s; meshless with ``mesh``
+    None) and its rows of ``batch_specs`` (``{name: ShapeDtype}`` of the
+    global batch, split over the data axes as ``batch_pspecs`` splits
+    them), all on ``device`` — ``meta``: shapes, no values; another
+    device, zeros (the fresh params drawn, meshless) to check that a
+    count does not depend on the device — under a fresh
+    ``launch/op_cost.OpCounter``, and returns the counter with its memory
+    record of the step (``counter.record``). Every collective runs on
+    the world's backend (the dry run's ``fake``)."""
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.train import sharded
+    sc = step_cfg
+    step = make_train_step(model, mesh, sc, global_batch=global_batch)
+    if mesh is None:
+        rows = global_batch
+
+        def state_fn():
+            dt = torch_dtype(sc.param_dtype)
+            params = _cast(init_params(model.cfg, device=device, dtype=dt),
+                           dt)
+            return TrainState(params=params, opt=adamw_init(params))
+    else:
+        from repro_torch.distributed.sharding import batch_rows
+        layout = step.layout
+        rows = batch_rows(mesh, global_batch)
+
+        def blocks(dtype=None):
+            return layout.tree([
+                torch.zeros(leaf.block_shape, dtype=dtype or leaf.dtype,
+                            device=device) for leaf in layout.leaves])
+
+        def state_fn():
+            return sharded.ShardedTrainState(
+                params=blocks(), opt=AdamWState(
+                    step=torch.zeros((), dtype=torch.int32, device=device),
+                    m=blocks(torch.float32), v=blocks(torch.float32)))
+
+    def run() -> OpCounter:
+        state = state_fn()
+        batch = {k: torch.zeros((rows,) + tuple(v.shape[1:]),
+                                dtype=v.dtype, device=device)
+                 for k, v in batch_specs.items()}
+        with OpCounter() as counter:
+            counter.hold(state, batch)
+            out = step(state, batch)
+        counter.record = counter.memory((state, batch), out)
+        return counter
+
+    run.step = step
+    run.rows = rows
+    return run

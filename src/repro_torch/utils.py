@@ -44,6 +44,20 @@ def tree_bytes(tree) -> int:
     return 0
 
 
+class NotPorted(ValueError):
+    """A placement or option of the JAX package the port refuses by name
+    (its message says which); the dry run records such a cell as
+    refused."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """A leaf's shape and dtype without its values (``jax.ShapeDtypeStruct``
+    for the spec resolvers and the dry run's inputs)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
 def torch_dtype(name: str | torch.dtype) -> torch.dtype:
     """``"bfloat16"`` -> ``torch.bfloat16`` (configs name dtypes as JAX
     does, by string)."""
