@@ -48,7 +48,10 @@ run):
               encoder's 1024 x 1024 frames and the cross-attention's 16
               queries x 1024 frames (also a ragged 33 x 1000) and causal
               over the 16-token decoder prompt, beside SDPA, #5 at the
-              self decode and #6 at the cross decode; then the paged
+              self decode and #6 at the cross decode, and #1, #3
+              (causal), #5 and #6 at a mesh rank's 8 of those 16 kv heads
+              (``name[d64,mesh2]``; #5 planned for the model's 16 and
+              bit-equal to those heads of the whole call); then the paged
               engine's three decode backends against each other on one
               fragmented cache, with bf16 and with 4-bit values.
 4. model    — full-width tinyllama-1.1b in bf16 (random weights from a
@@ -158,7 +161,15 @@ run):
               choice made before capture) — streams and events equal to
               the meshless engine's, decode logits bit-equal, each rank's
               pool bytes exactly half, its launches those of the meshless
-              run; the smoke tinyllama over four gloo ranks — 2 KV heads do
+              run; the same two ranks then serve recurrentgemma-9b (one
+              (rec, rec, attn) period), seamless-m4t-medium (2 + 2 layers)
+              and mamba2-2.7b (4 of 64 layers) at full width on
+              ``ServeEngine(mesh=)`` — tokens equal to the meshless run's,
+              each split state part exactly half (the RG-LRU states, the
+              self and cross caches, the SSD states; the one-KV-head rings
+              whole; the SSM conv windows their half of ``xin`` and every
+              B/C channel), the same launches, the logits reported; the
+              smoke tinyllama over four gloo ranks — 2 KV heads do
               not divide 4, so every rank holds the whole pools (the GQA
               fallback, asserted). Its seconds go to stderr.
 12. configs — the paper's dense configs at head_dim 128, one at a time at
@@ -214,7 +225,12 @@ run):
               kernel) on 8 x 1000-token prompts, 64 greedy tokens: no
               launch, the decode state's bytes exactly, and the duality
               gate (prefill T + 16 steps against prefill T + 16) in fp32
-              and in bf16.
+              and in bf16. Then recurrentgemma-9b, seamless-m4t-medium and
+              mamba2-2.7b each on ``ServeEngine(mesh=)`` over an NCCL
+              world of one in this process (the block path: every state
+              block (0, 1)) against the meshless engine: tokens, the
+              prefill's and every decode step's logits bit-equal, the
+              same launches and state bytes.
 15. train   — the training path: #3 with its log-sum-exp output at
               tinyllama-1.1b's training shape (8 x 32 / 4 heads x 512 x
               d 64, causal, bf16; ``out`` within 2^-7 of the plain
@@ -272,7 +288,9 @@ theirs, counted in the configs and moe phases, the head_dim-256 and
 head_dim-64 forms on theirs, counted in the families phase, #3's
 training form with the log-sum-exp on ``flash_prefill[lse]``, counted in
 the train phase, and at a tensor-parallel rank's heads on
-``flash_prefill[lse,tp2]``), and last the device JSON. Any failure raises
+``flash_prefill[lse,tp2]``; a mesh rank's head-block forms on
+``[d128,mesh2]`` and ``[d64,mesh2]``, counted in the mesh phase), and
+last the device JSON. Any failure raises
 (non-zero exit). Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 
@@ -293,6 +311,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -2066,15 +2085,21 @@ def check_d256(torch, dev, gen, flush) -> list[dict]:
 #: kv heads of one query head each (MHA) at head_dim 64, 1024 stubbed audio
 #: frames, a 16-token decoder prompt, a 256-token self cache (2 groups)
 ED_HKV, ED_FRAMES, ED_TEXT, ED_NEW, ED_MAX = 16, 1024, 16, 128, 256
+#: a rank's KV heads of seamless-m4t-medium over the mesh phase's two gloo
+#: ranks (``ServeEngine(mesh=)``: its self and cross caches split over
+#: the 16 KV heads)
+ED_MESH_FORM, ED_MESH_HKV = "[d64,mesh2]", ED_HKV // 2
 
 
-def check_encode_d64(torch, dev, gen, flush) -> dict:
-    """#1's dense form at the cross-cache fill: 8 rows x 16 kv heads x 1024
-    un-rotated memory keys x d 64 bf16 (8 groups each); codes and stats
-    bit-equal to the plain version."""
+def check_encode_d64(torch, dev, gen, flush, hkv=ED_HKV,
+                     form="[d64,cross]") -> dict:
+    """#1's dense form at the cross-cache fill: 8 rows x ``hkv`` kv heads
+    (16; a mesh rank's 8 for ``[d64,mesh2]``) x 1024 un-rotated memory
+    keys x d 64 bf16 (8 groups each); codes and stats bit-equal to the
+    plain version."""
     from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_encode as pe
-    k = torch.randn((SB, ED_HKV, ED_FRAMES, D), generator=gen,
+    k = torch.randn((SB, hkv, ED_FRAMES, D), generator=gen,
                     device=dev).to(torch.bfloat16)
     k[0, 0, :5, :3] = 0.0
     got = pe.polar_encode(k)
@@ -2087,11 +2112,13 @@ def check_encode_d64(torch, dev, gen, flush) -> dict:
     plain_ms = time_ms(torch, lambda: pe.polar_encode_plain(k), iters=10,
                        flush=flush, lead_cycles=PLAIN_LEAD)
     return _form_row(
-        "polar_encode", "[d64,cross]", "polar_encode.cu",
+        "polar_encode", form, "polar_encode.cu",
         "src/repro/kernels/polar_encode.py:51", err, ms, plain_ms,
-        W.work_bound(W.encode(SB * ED_FRAMES, ED_HKV, D, G)), None, None,
-        "dense form, 8 rows x 16 kv heads x 1024 memory keys x 64 bf16 "
-        "(the cross-cache fill)")
+        W.work_bound(W.encode(SB * ED_FRAMES, hkv, D, G)), None, None,
+        f"dense form, 8 rows x {hkv} kv heads x 1024 memory keys x 64 bf16 "
+        "(the cross-cache fill" + (
+            "; launches: a mesh rank's fills and flushes)"
+            if form == ED_MESH_FORM else ")"))
 
 
 def check_prefill_d64(torch, dev, gen, flush, form) -> dict:
@@ -2100,14 +2127,16 @@ def check_prefill_d64(torch, dev, gen, flush, form) -> dict:
     full mode over 1024 x 1024 frames; ``[d64,cross]`` full mode at Tq 16
     over Tk 1024 memory frames, also checked at a ragged Tq 33 / Tk 1000
     (key-tile masking past Tk, zero-filled q rows past Tq); ``[d64,qh1]``
-    the decoder prompt's causal 16 x 16. Timed beside SDPA."""
+    the decoder prompt's causal 16 x 16, ``[d64,mesh2]`` the same on a
+    mesh rank's 8 heads. Timed beside SDPA."""
     from repro_torch.kernels import work as W
     from repro_torch.kernels import flash_prefill as fpk
-    mode = "causal" if form == "[d64,qh1]" else "full"
+    mode = "causal" if form in ("[d64,qh1]", ED_MESH_FORM) else "full"
     shapes = {"[d64,full]": [(ED_FRAMES, ED_FRAMES)],
               "[d64,cross]": [(ED_TEXT, ED_FRAMES), (33, 1000)],
-              "[d64,qh1]": [(ED_TEXT, ED_TEXT)]}[form]
-    h = ED_HKV
+              "[d64,qh1]": [(ED_TEXT, ED_TEXT)],
+              ED_MESH_FORM: [(ED_TEXT, ED_TEXT)]}[form]
+    h = ED_MESH_HKV if form == ED_MESH_FORM else ED_HKV
     errs = []
     for tq, tk in reversed(shapes):
         q = torch.randn((SB, h, tq, D), generator=gen, device=dev).to(
@@ -2134,22 +2163,26 @@ def check_prefill_d64(torch, dev, gen, flush, form) -> dict:
         "flash_prefill", form, "flash_prefill.cu",
         "src/repro/kernels/flash_prefill.py:77", max(errs), ms, plain_ms,
         W.work_bound(W.flash_prefill(SB, h, h, tq, tk, D, pairs)), lib_ms, "SDPA",
-        f"8 x 16 heads (16 kv) x {tq} queries x {tk} keys x 64 bf16, "
+        f"8 x {h} heads ({h} kv) x {tq} queries x {tk} keys x 64 bf16, "
         f"{mode}" + (", also Tq 33 / Tk 1000" if len(shapes) > 1 else ""))
 
 
-def check_dense_d64(torch, dev, gen, flush) -> list[dict]:
+def check_dense_d64(torch, dev, gen, flush, form="[d64,qh1]") -> list[dict]:
     """#5 at seamless-m4t-medium's self decode (8 rows x 16 kv heads x 1
     query head over a 256-token buffer of 2 groups, the first flushed,
     d 64, bf16 values, ragged lengths with the rows past them
     NaN-poisoned) on the split body, and #6 at its cross decode (8 rows x
     16 kv heads x 1 query head x 8 groups, the 1024 memory keys); both
-    within 1e-4 of the plain versions."""
+    within 1e-4 of the plain versions. ``[d64,mesh2]``: a mesh rank's 8
+    kv heads, #5 planning its splits for the model's 16 and bit-equal to
+    those heads of the whole call."""
     from repro_torch.kernels import work as W
     from repro_torch.kernels import polar_attention as pak
     from repro_torch.kernels import polar_encode as pe
     from repro_torch.kernels import polar_qk as qkk
-    hkv, qh, d = ED_HKV, 1, D
+    mesh = form == ED_MESH_FORM
+    hkv, qh, d = ED_MESH_HKV if mesh else ED_HKV, 1, D
+    plan = ED_HKV if mesh else None
 
     def buffers(groups, flushed):
         k = torch.randn((SB, hkv, flushed * G, d), generator=gen,
@@ -2175,13 +2208,26 @@ def check_dense_d64(torch, dev, gen, flush) -> list[dict]:
         for x in st:
             x[i, :, -(-n // G):] = float("nan")
     n_split = pak.launches_split
-    got = pak.polar_decode_attention_grouped(q, bufs[0], *st, v, length)
+    got = pak.polar_decode_attention_grouped(q, bufs[0], *st, v, length,
+                                             plan_heads=plan)
     assert pak.launches_split == n_split + 1, "d 64 qh 1 left the split body"
     ref = pak.polar_decode_attention_grouped_plain(q, bufs[0], *st, v, length)
     err = _partials_err(torch, got, ref)[0]
+    if mesh:
+        # the rank's heads are the first block of the model's: pad the
+        # inputs to every head and run the whole model's call
+        def whole(x):
+            return torch.cat([x, torch.zeros_like(x)], 1)
+        wfull = pak.polar_decode_attention_grouped(
+            whole(q), whole(bufs[0]), *(whole(x) for x in st), whole(v),
+            length)
+        assert all(torch.equal(a[:, :hkv], b) for a, b in zip(wfull, got)), \
+            f"{form}: the shard's #5 differs from the whole call's heads"
+        res_note = _residual_probe(torch, dev, gen, whole, hkv, plan)
+        print(f"kernels: polar_attention{form}: {res_note}", flush=True)
     full = torch.full((SB,), G, dtype=torch.int32, device=dev)
     ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped(
-        q, *bufs, vals, full), flush=flush)
+        q, *bufs, vals, full, plan_heads=plan), flush=flush)
     plain_ms = time_ms(torch, lambda: pak.polar_decode_attention_grouped_plain(
         q, *bufs, vals, full), iters=10, flush=flush, lead_cycles=PLAIN_LEAD)
     mask = (torch.arange(ED_MAX, device=dev) < G)[None, None, None, :]
@@ -2191,13 +2237,16 @@ def check_dense_d64(torch, dev, gen, flush) -> list[dict]:
         q.reshape(SB, hkv, 1, d), kf, vals.float(), attn_mask=mask,
         scale=1.0), flush=flush)
     rows = [_form_row(
-        "polar_attention", "[d64,qh1]", "polar_attention.cu",
+        "polar_attention", form, "polar_attention.cu",
         "src/repro/kernels/polar_attention.py:104", err, ms, plain_ms,
         W.work_bound(W.dense_decode(SB * hkv, b=SB, hkv=hkv, qh=qh, d=d, g=G,
                               value_elt=2)), lib_ms,
         "SDPA over pre-dequantized keys (fp32, length mask)",
-        "8 rows x 16 kv heads x 1 query head x 1 flushed group of a "
-        "256-token buffer x d 64, bf16 values")]
+        f"8 rows x {hkv} kv heads x 1 query head x 1 flushed group of a "
+        "256-token buffer x d 64, bf16 values" + (
+            f", splits planned for the model's {plan} kv heads; bit-equal "
+            f"to those heads of the whole call; {res_note}" if mesh
+            else ""))]
     cg = ED_FRAMES // G
     cross = buffers(cg, cg)
     got = qkk.polar_qk_scores(q, *cross)
@@ -2211,14 +2260,40 @@ def check_dense_d64(torch, dev, gen, flush) -> list[dict]:
     kt = _dequant(torch, cross).transpose(-1, -2).contiguous()
     lib_ms = time_ms(torch, lambda: torch.matmul(q, kt), flush=flush)
     rows.append(_form_row(
-        "polar_qk", "[d64,qh1]", "polar_qk.cu",
+        "polar_qk", form, "polar_qk.cu",
         "src/repro/kernels/polar_qk.py:68", err, ms, plain_ms,
         W.work_bound(W.qk_scores(SB * hkv * cg, b=SB, hkv=hkv, qh=qh, d=d, g=G)),
         lib_ms,
         "matmul over pre-dequantized keys (fp32)",
-        "8 rows x 16 kv heads x 1 query head x 8 groups (the 1024-frame "
+        f"8 rows x {hkv} kv heads x 1 query head x 8 groups (the 1024-frame "
         "cross cache) x d 64"))
     return rows
+
+
+def _residual_probe(torch, dev, gen, whole, hkv: int, heads: int) -> str:
+    """The dense fused route's residual segment (``ops.
+    _residual_flash_partials``) on a head shard against the same heads of
+    the whole call: its einsums at the model's ``heads`` must be
+    bit-equal; at the shard's own ``hkv``, reported."""
+    from repro_torch.kernels import ops
+    q4 = torch.randn((SB, hkv, 1, D), generator=gen, device=dev) * D ** -0.5
+    res = torch.randn((SB, hkv, G, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    v_res = torch.randn((SB, hkv, G, D), generator=gen, device=dev)
+    n_res = torch.tensor([1, 5, 127, 64, 3, 100, 128, 17], device=dev,
+                         dtype=torch.int32)
+    ref = ops._residual_flash_partials(whole(q4), whole(res), n_res,
+                                       whole(v_res))
+    padded = ops._residual_flash_partials(q4, res, n_res, v_res, heads)
+    own = ops._residual_flash_partials(q4, res, n_res, v_res)
+
+    def same(got):
+        return all(torch.equal(a[:, :hkv], b) for a, b in zip(ref, got))
+    assert same(padded), "the shard's residual partials differ at the " \
+        "model's head count"
+    return (f"the residual segment's einsums at {heads} heads bit-equal to "
+            f"the whole call's (at the shard's own {hkv}: "
+            + ("bit-equal too)" if same(own) else "not bit-equal)"))
 
 
 def check_d64(torch, dev, gen, flush) -> list[dict]:
@@ -2226,11 +2301,17 @@ def check_d64(torch, dev, gen, flush) -> list[dict]:
     query head: #1 at the cross-cache fill, #3 in ``full`` mode (encoder
     and cross-attention) and causal (the decoder prompt), #5 at the self
     decode and #6 at the cross decode. Their launches are counted in the
-    families phase (:func:`encdec_run`)."""
+    families phase (:func:`encdec_run`). Then the per-head-block forms of
+    a mesh rank's 8 kv heads (``[d64,mesh2]``: #1, #3 causal, #5, #6),
+    whose launches the mesh phase's gloo ranks count."""
     return [check_encode_d64(torch, dev, gen, flush),
             *(check_prefill_d64(torch, dev, gen, flush, f)
               for f in ("[d64,full]", "[d64,cross]", "[d64,qh1]")),
-            *check_dense_d64(torch, dev, gen, flush)]
+            *check_dense_d64(torch, dev, gen, flush),
+            check_encode_d64(torch, dev, gen, flush, ED_MESH_HKV,
+                             ED_MESH_FORM),
+            check_prefill_d64(torch, dev, gen, flush, ED_MESH_FORM),
+            *check_dense_d64(torch, dev, gen, flush, ED_MESH_FORM)]
 
 
 def phase_kernels(torch) -> list[dict]:
@@ -4313,6 +4394,39 @@ def _polar_cache_bytes(b, hkv, t, d, g=G) -> int:
         + rows * d * 2 + 4
 
 
+def encdec_spans() -> dict:
+    """:func:`booked_launches`' spans of an encoder-decoder run: the
+    prefill, the encoder, the cross caches' fills and the cross-attention
+    over the fp memory."""
+    from repro_torch.models import attn_block as AB
+    from repro_torch.models import encdec as ED
+    always = lambda *a, **kw: True  # noqa: E731
+    return {"prefill": (ED, "prefill_fn", always),
+            "encoder": (ED, "encode", always),
+            "cross fill": (AB, "cross_attention_cache", always),
+            "cross": (AB, "attention_train",
+                      lambda *a, memory=None, **kw: memory is not None)}
+
+
+def encdec_forms(got: dict, spent: dict) -> dict:
+    """An encoder-decoder run's launches by form, from its counts and its
+    :func:`encdec_spans`' bookings: the encodes inside the cross fills
+    (``polar_encode[cross]``), the rest of the prefill's
+    (``polar_encode``) and those after it (``polar_encode[decode]``); the
+    ``full`` flash prefills of the encoder (``flash_prefill[full]``) and
+    of the cross-attention (``flash_prefill[cross]``)."""
+    pre = spent["prefill"]["polar_encode"]
+    fill = spent["cross fill"]["polar_encode"]
+    return {"polar_encode[cross]": fill,
+            "polar_encode": pre - fill,
+            "polar_encode[decode]": got["polar_encode"] - pre,
+            "flash_prefill[full]": spent["encoder"]["flash_prefill[full]"],
+            "flash_prefill[cross]": spent["cross"]["flash_prefill[full]"],
+            "flash_prefill": got["flash_prefill"],
+            "polar_attention": got["polar_attention"],
+            "polar_qk": got["polar_qk"]}
+
+
 def encdec_run(torch, cfg, params, counters) -> dict:
     """``ServeEngine`` on seamless-m4t-medium, speech-to-text: 8 rows, 1024
     stubbed audio frames of 160 seeded random features, a 16-token
@@ -4338,18 +4452,11 @@ def encdec_run(torch, cfg, params, counters) -> dict:
     import dataclasses
     import numpy as np
     from repro_torch.kernels import polar_attention as pak
-    from repro_torch.models import attn_block as AB
-    from repro_torch.models import encdec as ED
     from repro_torch.models import get_model
     from repro_torch.serve import GenerationConfig, ServeEngine
     dev = params["embed"].device
     nl, ne, steps = cfg.num_layers, cfg.encoder_layers, ED_NEW - 1
-    always = lambda *a, **kw: True  # noqa: E731
-    spans = {"prefill": (ED, "prefill_fn", always),
-             "encoder": (ED, "encode", always),
-             "cross fill": (AB, "cross_attention_cache", always),
-             "cross": (AB, "attention_train",
-                       lambda *a, memory=None, **kw: memory is not None)}
+    spans = encdec_spans()
     prompts = torch.as_tensor(np.random.default_rng(ED_TEXT).integers(
         0, cfg.vocab_size, (SB, ED_TEXT)), device=dev).long()
     fgen = torch.Generator(device=dev)
@@ -4396,18 +4503,7 @@ def encdec_run(torch, cfg, params, counters) -> dict:
         assert spent == want, (backend, spent, want)
         assert pak.launches_split == got["polar_attention"], \
             (backend, "polar_attention off the split body")
-        pre = spent["prefill"]["polar_encode"]
-        fill = spent["cross fill"]["polar_encode"]
-        measured = {"polar_encode[cross]": fill,
-                    "polar_encode": pre - fill,
-                    "polar_encode[decode]": got["polar_encode"] - pre,
-                    "flash_prefill[full]":
-                        spent["encoder"]["flash_prefill[full]"],
-                    "flash_prefill[cross]":
-                        spent["cross"]["flash_prefill[full]"],
-                    "flash_prefill": got["flash_prefill"],
-                    "polar_attention": got["polar_attention"],
-                    "polar_qk": got["polar_qk"]}
+        measured = encdec_forms(got, spent)
         for k, n in measured.items():
             total[k] = total.get(k, 0) + n
         assert out["tokens"].shape == (SB, ED_NEW)
@@ -4593,12 +4689,135 @@ def ssm_run(torch, cfg, params, counters) -> dict:
     return {}
 
 
+def static_run(torch, model, params, counters, batch, new, max_len, dev,
+               mesh=None, keep=None) -> dict:
+    """One ``ServeEngine`` generate (on ``mesh`` when one is given) with
+    the prefill's and every decode step's logits recorded: tokens, the
+    logits (``keep``: only the first ``keep`` steps' whole, on the host;
+    every step's digest), launches, the state's bytes in all and by part
+    (``registry.state_part_bytes``), the blocks and the prefill / decode
+    seconds."""
+    import dataclasses
+    from repro_torch.models.registry import (
+        state_block_kwargs, state_part_bytes,
+    )
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    from repro_torch.utils import tree_bytes
+    logits = []
+
+    def rec(fn):
+        def call(*a):
+            lg, st = fn(*a)
+            logits.append(lg.clone())
+            return lg, st
+        return call
+    recorded = dataclasses.replace(model, prefill=rec(model.prefill),
+                                   decode=rec(model.decode))
+    eng = ServeEngine(recorded, params, max_len=max_len, device=dev,
+                      mesh=mesh)
+    _sync_dev(torch, dev)
+    reset_counts(counters)
+    out = eng.generate(batch, GenerationConfig(max_new_tokens=new))
+    _sync_dev(torch, dev)
+    launches = read_counts(counters)
+    b = batch["tokens"].shape[0]
+    state = model.init_decode_state(b, max_len, dev,
+                                    **state_block_kwargs(eng.blocks))
+    parts = state_part_bytes(state)
+    assert out["cache_bytes"] == tree_bytes(state), "state bytes"
+    del state
+    digests = [_digest(torch, x) for x in logits]
+    if keep is not None:
+        logits = [x.cpu() for x in logits[:keep + 1]]
+    return {"tokens": out["tokens"], "logits": logits, "digests": digests,
+            "launches": launches, "cache_bytes": out["cache_bytes"],
+            "parts": parts, "head_shard": out["head_shard"],
+            "state_blocks": out["state_blocks"],
+            "prefill_s": out["prefill_s"], "decode_s": out["decode_s"]}
+
+
+def family_batch(torch, cfg, dev, prompt: int) -> dict:
+    """8 rows of ``prompt`` seeded random tokens on ``dev`` (the
+    encoder-decoder also 1024 seeded numpy frames), the same in every
+    process."""
+    import numpy as np
+    rng = np.random.default_rng(prompt)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SB, prompt)), device=dev).long()}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (SB, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32),
+            device=dev)
+    return batch
+
+
+#: each family's ``ServeEngine(mesh=)`` run: (prompt, new tokens, max_len,
+#: decode backend). recurrentgemma's 2560-token prompt wraps its ring at
+#: prefill; seamless's self cache flushes at 127 (#5 for the self decode,
+#: #6 for the cross decode); mamba2's prompt is 4 SSD chunks, the last
+#: ragged
+FAMILY_MESH_RUNS = {"hybrid": (HYB_T, 16, HYB_T + 16, None),
+                    "encdec": (ED_TEXT, ED_NEW, ED_MAX, "paged_fused"),
+                    "ssm": (SSM_T, SSM_NEW, SSM_T + SSM_NEW, None)}
+
+
+def family_model(cfg):
+    """The model of ``cfg``'s mesh run (on its decode backend)."""
+    import dataclasses
+    from repro_torch.models import get_model
+    backend = FAMILY_MESH_RUNS[cfg.family][3]
+    return get_model(cfg if backend is None else dataclasses.replace(
+        cfg, decode_backend=backend))
+
+
+def family_mesh_arm(torch, cfg, params, counters, mesh, dev) -> dict:
+    """``ServeEngine(mesh=)`` on an NCCL world of one — the block path,
+    every block (0, 1), the gathers the identity — against the meshless
+    engine on the same batch (:data:`FAMILY_MESH_RUNS`): tokens, the
+    prefill's and every decode step's logits bit-equal (by digest), the
+    same launches and state bytes. Returns the mesh run's launches that
+    ran (the encoder-decoder's by form, :func:`encdec_forms`)."""
+    model = family_model(cfg)
+    prompt, new, max_len, _ = FAMILY_MESH_RUNS[cfg.family]
+    batch = family_batch(torch, cfg, dev, prompt)
+    base = static_run(torch, model, params, counters, batch, new, max_len,
+                      dev)
+    encdec = cfg.family == "encdec"
+    with booked_launches(counters, encdec_spans() if encdec else {}) \
+            as spent:
+        got = static_run(torch, model, params, counters, batch, new,
+                         max_len, dev, mesh=mesh)
+    label = f"families[{cfg.name}:mesh {mesh.backend('model')} x1]"
+    assert (got["tokens"] == base["tokens"]).all(), label
+    assert got["digests"] == base["digests"], \
+        (label, "logits differ at steps", [i for i, (a, b) in enumerate(
+            zip(got["digests"], base["digests"])) if a != b][:8])
+    assert got["launches"] == base["launches"], \
+        (label, got["launches"], base["launches"])
+    assert got["cache_bytes"] == base["cache_bytes"], label
+    blocks = {"hybrid": {"rec_width": (0, 1)},
+              "ssm": {"ssm_heads": (0, 1)}}.get(cfg.family, {})
+    assert got["state_blocks"] == blocks, (label, got["state_blocks"])
+    assert got["head_shard"] == (None if cfg.family == "ssm" else (0, 1))
+    print(f"{label}: ServeEngine(mesh=) on a world of one (KV head "
+          f"block {got['head_shard']}, state blocks {got['state_blocks']})"
+          f", {SB} rows x {prompt}-token prompts, {new} new: tokens and the "
+          f"prefill's and all {new - 1} decode steps' logits bit-equal to "
+          f"the meshless ServeEngine's; state {got['cache_bytes']} B "
+          f"(meshless {base['cache_bytes']}); decode {got['decode_s']:.3f} "
+          f"s (meshless {base['decode_s']:.3f} s); launches "
+          f"{json.dumps(got['launches'])}", flush=True)
+    launches = encdec_forms(got["launches"], spent) if encdec \
+        else got["launches"]
+    return {k: n for k, n in launches.items() if n}
+
+
 #: the families phase's configs, one at a time
 FAMILY_CONFIGS = ("paligemma-3b", "recurrentgemma-9b", "seamless-m4t-medium",
                   "mamba2-2.7b")
 
 
-def phase_families(torch, counters, dev="cuda") -> dict:
+def phase_families(torch, counters, dev="cuda", backend="nccl") -> dict:
     """paligemma-3b, recurrentgemma-9b, seamless-m4t-medium and
     mamba2-2.7b whole, at full width in bf16 on the static engine (seeded
     random weights on the card, one model at a time, params freed
@@ -4606,13 +4825,35 @@ def phase_families(torch, counters, dev="cuda") -> dict:
     256 image + 744 text tokens, 64 new, the logit gate over every decode
     step; every fused launch on #5's split body), recurrentgemma's
     :data:`HYBRID_RUNS` (:func:`hybrid_run`), seamless's
-    :func:`encdec_run` and mamba2's :func:`ssm_run` (none). Returns the
-    launches under the kernel rows' names (:func:`family_rows`)."""
+    :func:`encdec_run` and mamba2's :func:`ssm_run` (none); then each of
+    the last three on ``ServeEngine(mesh=)`` over a ``backend`` (NCCL)
+    world of one in this process, bit-equal to meshless
+    (:func:`family_mesh_arm`). Returns the launches under the kernel
+    rows' names (:func:`family_rows`)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world, make_mesh
+    t_phase = time.monotonic()
+    total: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_families_") as tmp:
+        init_world(0, 1, f"file://{Path(tmp) / 'rdzv'}", backend,
+                   timeout_s=60)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            assert mesh.backend("model") == backend
+            _families(torch, counters, dev, mesh, total)
+        finally:
+            dist.destroy_process_group()
+    print(f"families: {time.monotonic() - t_phase:.1f} s; launches "
+          f"{json.dumps(total)}", flush=True)
+    return total
+
+
+def _families(torch, counters, dev, mesh, total: dict) -> None:
+    """:func:`phase_families`' runs, their launches added to ``total``."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
-    t_phase = time.monotonic()
-    total: dict = {}
     for name in FAMILY_CONFIGS:
         t0 = time.monotonic()
         gc.collect()
@@ -4635,6 +4876,12 @@ def phase_families(torch, counters, dev="cuda") -> dict:
             runs = [encdec_run(torch, cfg, params, counters)]
         else:
             runs = [ssm_run(torch, cfg, params, counters)]
+        if cfg.family in FAMILY_MESH_RUNS:
+            t1 = time.monotonic()
+            runs.append(family_mesh_arm(torch, cfg, params, counters, mesh,
+                                        dev))
+            print(f"families[{name}]: mesh arm {time.monotonic() - t1:.1f} "
+                  "s", flush=True)
         for r in runs:
             for k, n in family_rows(r, cfg).items():
                 total[k] = total.get(k, 0) + n
@@ -4644,9 +4891,6 @@ def phase_families(torch, counters, dev="cuda") -> dict:
         torch.cuda.empty_cache()
         print(f"families[{name}]: peak memory {peak / 2 ** 30:.2f} GiB; "
               f"{time.monotonic() - t0:.1f} s", flush=True)
-    print(f"families: {time.monotonic() - t_phase:.1f} s; launches "
-          f"{json.dumps(total)}", flush=True)
-    return total
 
 
 # ---------------------------------------------------------------------------
@@ -5431,7 +5675,24 @@ def train_mesh_arms(torch, dev) -> int:
 #: the GQA fallback: every rank holds the whole pools
 MESH_WORLDS = (("llama3.1-8b", 8, 2, False), ("tinyllama-1.1b", 0, 4, True))
 #: a rank's seconds to come up, serve and write its results
-MESH_RANK_TIMEOUT_S = 150
+MESH_RANK_TIMEOUT_S = 300
+#: the families a full-width world's ranks also serve on
+#: ``ServeEngine(mesh=)`` after their llama arms, at full width with their
+#: depth cut: recurrentgemma-9b to one (rec, rec, attn) period,
+#: seamless-m4t-medium to 2 + 2 layers, mamba2-2.7b to 4 of 64 layers
+MESH_FAMILIES = (("recurrentgemma-9b", {"num_layers": 3}),
+                 ("seamless-m4t-medium", {"num_layers": 2,
+                                          "encoder_layers": 2}),
+                 ("mamba2-2.7b", {"num_layers": 4}))
+#: a mesh rank's seamless launches under the kernel rows' names: the
+#: caches' encodes, the causal prefill and both decode kernels run on its
+#: 8 of 16 kv heads; the encoder's and the cross-attention's ``full``
+#: prefills run whole
+ED_MESH_ROWS = {"polar_encode": ED_MESH_FORM, "polar_encode[cross]":
+                ED_MESH_FORM, "polar_encode[decode]": ED_MESH_FORM,
+                "flash_prefill": ED_MESH_FORM, "polar_attention": ED_MESH_FORM,
+                "polar_qk": ED_MESH_FORM, "flash_prefill[full]": "[d64,full]",
+                "flash_prefill[cross]": "[d64,cross]"}
 
 
 def _mesh_workload(cfg, smoke: bool, seed: int = 11) -> dict:
@@ -5559,51 +5820,163 @@ def mesh_static(torch, cfg, params, counters, dev, mesh=None,
     """``ServeEngine`` on the static phase's shape (8 rows x 1000-token
     prompts, 64 greedy new tokens, max_len 1152) per decode route of
     :data:`MESH_STATIC_ROUTES`, on ``mesh`` when one is given (the engine
-    installs ``serving_rules``), after a 2-token warm-up. Per route: tokens, the prefill's and every decode step's
-    logits (``keep``: only the first ``keep`` steps' whole, every step's
-    digest), launches, the linear caches' bytes (the whole length scalars
-    left out), the head block and the decode seconds."""
+    installs ``serving_rules``), after a 2-token warm-up
+    (:func:`static_run`). Per route: tokens, the prefill's and every
+    decode step's logits (``keep``: only the first ``keep`` steps' whole,
+    every step's digest), launches, the linear caches' bytes (the whole
+    length scalars left out), the head block and the decode seconds."""
     import dataclasses
     import numpy as np
     from repro_torch.models import get_model
-    from repro_torch.models import transformer as TF
     from repro_torch.serve import GenerationConfig, ServeEngine
-    prompts = torch.as_tensor(np.random.default_rng(4).integers(
-        0, cfg.vocab_size, (SB, SPROMPT)), device=dev).long()
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (SB, SPROMPT)), device=dev).long()}
     out = {}
     for backend, route in MESH_STATIC_ROUTES:
         model = get_model(dataclasses.replace(cfg, decode_backend=backend))
-        eng = ServeEngine(model, params, max_len=SMAX, device=dev, mesh=mesh)
-        eng.generate({"tokens": prompts}, GenerationConfig(max_new_tokens=2))
-        logits = []
-        real_p, real_d = TF.prefill_fn, TF.decode_fn
-
-        def prefill(*a, **k):
-            lg, st = real_p(*a, **k)
-            logits.append(lg.clone())
-            return lg, st
-
-        def decode(*a, **k):
-            lg, st = real_d(*a, **k)
-            logits.append(lg.clone())
-            return lg, st
-        with mock.patch.object(TF, "prefill_fn", prefill), \
-                mock.patch.object(TF, "decode_fn", decode):
-            _sync_dev(torch, dev)
-            reset_counts(counters)
-            res = eng.generate({"tokens": prompts},
-                               GenerationConfig(max_new_tokens=SNEW))
-            _sync_dev(torch, dev)
-            launches = read_counts(counters)
-        digests = [_digest(torch, x) for x in logits]
-        if keep is not None:
-            logits = [x.cpu() for x in logits[:keep + 1]]
-        out[route] = {"tokens": res["tokens"], "logits": logits,
-                      "digests": digests, "launches": launches,
-                      "bytes": res["cache_bytes"] - 4 * cfg.num_layers,
-                      "head_shard": res["head_shard"],
-                      "decode_s": res["decode_s"]}
+        ServeEngine(model, params, max_len=SMAX, device=dev,
+                    mesh=mesh).generate(batch, GenerationConfig(
+                        max_new_tokens=2))
+        res = static_run(torch, model, params, counters, batch, SNEW, SMAX,
+                         dev, mesh=mesh, keep=keep)
+        out[route] = {**{k: res[k] for k in (
+            "tokens", "logits", "digests", "launches", "head_shard",
+            "decode_s")}, "bytes": res["parts"]["kv"]}
     return out
+
+
+def mesh_family_runs(torch, counters, dev, mesh=None) -> dict:
+    """:data:`MESH_FAMILIES` one at a time (seeded random weights, the same
+    in every process; params freed between) on :func:`static_run` (on
+    ``mesh`` when one is given; the first :data:`MESH_KEEP_STEPS` steps'
+    logits kept whole): {name: run}, each run's ``launches`` by form
+    (the encoder-decoder's through :func:`encdec_forms`)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    out = {}
+    for name, cut in MESH_FAMILIES:
+        cfg = dataclasses.replace(get_config(name), **cut)
+        model = family_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = model.init(generator=gen, device=dev)
+        prompt, new, max_len, _ = FAMILY_MESH_RUNS[cfg.family]
+        batch = family_batch(torch, cfg, dev, prompt)
+        encdec = cfg.family == "encdec"
+        with booked_launches(counters, encdec_spans() if encdec else {}) \
+                as spent:
+            run = static_run(torch, model, params, counters, batch, new,
+                             max_len, dev, mesh=mesh, keep=MESH_KEEP_STEPS)
+        if encdec:
+            run["launches"] = encdec_forms(run["launches"], spent)
+        out[name] = run
+        del params, batch
+        gc.collect()
+        if str(dev).startswith("cuda"):
+            torch.cuda.empty_cache()
+    return out
+
+
+def _family_rows_mesh(name: str, launches: dict, world: int) -> dict:
+    """A mesh rank's family launches under the kernel rows' names: the
+    seamless forms of :data:`ED_MESH_ROWS` (a world of two), the others
+    at their whole shapes (:func:`family_rows`)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if cfg.family != "encdec":
+        return family_rows(launches, cfg)
+    assert world == 2, world
+    out: dict = {}
+    for k, n in launches.items():
+        if n:
+            row = k.split("[")[0] + ED_MESH_ROWS[k]
+            out[row] = out.get(row, 0) + n
+    return out
+
+
+def _want_family_part(name: str, part: str, meshless: int,
+                      world: int) -> int:
+    """A rank's bytes of one state part on (1, ``world``): the meshless
+    part over ``world`` where the placement
+    (``registry.state_split_axes``) splits its logical axis
+    (recurrentgemma's one KV head: whole), whole where it does not; the
+    SSM's conv window keeps the whole B/C channels."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models.registry import state_split_axes
+    cfg = get_config(name)
+    shape = types.SimpleNamespace(shape={"data": 1, "model": world},
+                                  axis_names=("data", "model"))
+    split = state_split_axes(cfg, shape)
+    axis = {"ring": "kv_heads", "self": "kv_heads", "cross": "kv_heads",
+            "rg_conv": "rec_width", "rg_h": "rec_width", "ssd": "ssm_heads",
+            "ssd_conv": "ssm_heads"}[part]
+    n = world if split[axis] else 1
+    if part != "ssd_conv":
+        return meshless // n
+    dm = M2.dims(cfg)
+    return meshless // dm.conv_dim * (dm.d_inner // n
+                                      + 2 * dm.ngroups * dm.dstate)
+
+
+def _family_logits_note(torch, got: dict, want: dict) -> str:
+    """``bit-equal`` logits (by digest) over the prefill and every decode
+    step; else the steps that differ and the rel. L2 error over those of
+    the first :data:`MESH_KEEP_STEPS` + 1 kept whole."""
+    if got["digests"] == want["digests"]:
+        return "bit-equal"
+    differ = [i for i, (a, b) in enumerate(zip(got["digests"],
+                                               want["digests"])) if a != b]
+    rel = max(float((a.float() - b.float()).norm() / b.float().norm())
+              for a, b in zip(got["logits"], want["logits"]))
+    return (f"{len(differ)} of {len(got['digests'])} steps differ "
+            f"(first {differ[:4]}), rel. L2 over the first "
+            f"{len(got['logits'])} max {rel:.3e}")
+
+
+def check_family_ranks(torch, fams: dict, ranks: list, world: int) -> dict:
+    """Hold each rank's :func:`mesh_family_runs` to the meshless runs
+    ``fams``: tokens, launches and the prefill's and every decode step's
+    logits (by digest) equal, each state part's bytes the meshless part's
+    split as the placement splits it (:func:`_want_family_part`). Prints a
+    line a family; returns rank 0's launches under the kernel rows'
+    names."""
+    from repro_torch.configs import get_config
+    total: dict = {}
+    for fname, b in fams.items():
+        notes = []
+        for r, res in enumerate(ranks):
+            g = res["families"][fname]
+            assert (g["tokens"] == b["tokens"]).all(), (fname, r)
+            assert g["launches"] == b["launches"], \
+                (fname, r, g["launches"], b["launches"])
+            assert sorted(g["parts"]) == sorted(b["parts"])
+            for part, n in g["parts"].items():
+                want = _want_family_part(fname, part, b["parts"][part],
+                                         world)
+                assert n == want, (fname, r, part, n, want)
+            note = _family_logits_note(torch, g, b)
+            assert g["digests"] == b["digests"], (fname, r, note)
+            notes.append(note)
+        g0 = ranks[0]["families"][fname]
+        for k, n in _family_rows_mesh(fname, g0["launches"], world).items():
+            if n:
+                total[k] = total.get(k, 0) + n
+        prompt, new, _, _ = FAMILY_MESH_RUNS[get_config(fname).family]
+        print(f"mesh[gloo x{world},{fname},static]: ServeEngine(mesh=) at "
+              f"full width, depth {dict(MESH_FAMILIES)[fname]}, {SB} rows x "
+              f"{prompt}-token prompts, {new} new; head block "
+              f"{g0['head_shard']}, state blocks {g0['state_blocks']}: "
+              "every rank's tokens equal to the meshless ServeEngine's; "
+              f"state bytes a rank by part {json.dumps(g0['parts'])} "
+              f"(meshless {json.dumps(b['parts'])}); logits per rank: "
+              f"{'; '.join(notes)}; decode a rank "
+              + ", ".join(f"{x['families'][fname]['decode_s']:.3f}"
+                          for x in ranks)
+              + f" s (meshless {b['decode_s']:.3f} s); launches a rank "
+              f"{json.dumps(g0['launches'])}", flush=True)
+    return total
 
 
 def static_expect(launches: dict, cfg, route: str) -> tuple[dict, int]:
@@ -5735,7 +6108,8 @@ def mesh_rank_main(argv: list[str]) -> int:
     --mesh-dev DEV``. Joins the gloo world through ``D/rdzv``, serves the
     workload arms on ``EngineCore(mesh=(1, N))`` (and, for a full-width
     config, the static engine's routes on ``ServeEngine(mesh=)``:
-    :func:`mesh_static`) and saves its results to ``D/rank_R.pt``. The kernels are built by the parent before any rank
+    :func:`mesh_static`, then :data:`MESH_FAMILIES` on it:
+    :func:`mesh_family_runs`) and saves its results to ``D/rank_R.pt``. The kernels are built by the parent before any rank
     starts: a rank loads them and never runs nvcc."""
     import torch
     import torch.distributed as dist
@@ -5776,6 +6150,11 @@ def mesh_rank_main(argv: list[str]) -> int:
                                         mesh=mesh, keep=MESH_KEEP_STEPS)
             mine["static"] = [r["tokens"].tolist()
                               for r in res["static"].values()]
+            del params, model
+            res["families"] = mesh_family_runs(torch, counters, dev,
+                                               mesh=mesh)
+            mine["families"] = {k: r["tokens"].tolist()
+                                for k, r in res["families"].items()}
         every = [None] * world
         dist.all_gather_object(every, mine)
         res["ranks_agree"] = all(x == every[0] for x in every)
@@ -5913,9 +6292,12 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
        prefix and spec (scan verifier) arms: streams equal to the meshless
        engine's run here, decode logits bit-equal (else rel. L2 1e-6 with
        the first differing op named), each rank's pool bytes exactly
-       half, per-rank launches equal to the meshless run's; and the
+       half, per-rank launches equal to the meshless run's; the
        static routes: tokens equal, logits bit-equal by digest, each
-       rank's linear-cache bytes exactly half;
+       rank's linear-cache bytes exactly half; and
+       :data:`MESH_FAMILIES` on ``ServeEngine(mesh=)`` against their
+       meshless runs here (:func:`check_family_ranks`): tokens and
+       launches equal, each split state part exactly half;
     3. the smoke tinyllama over four gloo ranks, spawned with part 2: the
        GQA fallback (2 KV heads; every rank holds the whole pools, no
        collective in the step, graphs replayed), streams equal;
@@ -5924,7 +6306,9 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
     and on a ``1x1`` mesh.
 
     Returns the launches under the kernel rows' names: part 1's on the
-    tinyllama rows, rank 0's of part 2 on the ``[d128,mesh2]`` rows."""
+    tinyllama rows, rank 0's of part 2 on the ``[d128,mesh2]`` rows and,
+    for its families, seamless's head-block forms on the ``[d64,mesh2]``
+    rows and the whole-head forms on their families rows."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_world, make_mesh
@@ -6050,6 +6434,8 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
                 static = None if smoke else mesh_static(
                     torch, cfg, mparams, counters, dev)
                 del mparams, mmodel
+                fams = None if smoke else mesh_family_runs(torch, counters,
+                                                           dev)
                 t_ref = time.monotonic() - t0
                 ranks = _join_world(torch, procs, d, deadline)
                 split = cfg.num_kv_heads % world == 0
@@ -6140,7 +6526,10 @@ def phase_mesh(torch, counters, model, params, dev="cuda",
                         if n:
                             row = k.split("[")[0] + f"[d128,mesh{world}]"
                             total[row] = total.get(row, 0) + n
-                del static
+                for k, n in check_family_ranks(torch, fams or {}, ranks,
+                                               world).items():
+                    total[k] = total.get(k, 0) + n
+                del static, fams
                 print(f"mesh: gloo x{world} {name} done "
                       f"{time.monotonic() - t_phase:.1f} s into the phase "
                       f"(its meshless runs here {t_ref:.1f} s; its ranks "

@@ -27,6 +27,12 @@ same host schedule.
   through :func:`dispatch_flash_prefill`, :func:`dispatch_decode_attention`
   and :func:`dispatch_fused_decode_attention`, and the speculative span
   verifier's attention through :func:`dispatch_span_verify_attention`.
+* **Recurrent states too.** The static engine's hybrid and SSM states
+  split over the ``rec_width`` (RG-LRU channels) and ``ssm_heads`` (SSD
+  heads) rules: a rank holds its block (:class:`StateBlock`, read by
+  :func:`state_block` from the state's shape and the installed rules),
+  computes the projections whole, runs the mixer on its block and
+  gathers the block before the output projection.
 * **GQA fallback.** When ``num_kv_heads`` (or ``num_heads``) does not
   divide the model axis, every rank holds the whole pools and dispatch
   runs the plain path — same math, no partitioning, no collective.
@@ -44,7 +50,7 @@ the rank's line of the model axis.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -356,6 +362,51 @@ def dispatch_fused_decode_attention(cache: kvc.KVCache,
     _check_block(cache, mesh, axis)
     out = kvc.fused_decode_attention(cache, local_heads(cache, q))
     return allgather_concat(out, mesh, axis, axis=1)
+
+
+# ---------------------------------------------------------------------------
+# Blocks of the static engine's recurrent states (hybrid, SSM)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StateBlock:
+    """Block ``r`` of ``n`` of a logical axis (``rec_width``,
+    ``ssm_heads``) that the installed serving rules map to mesh axis
+    ``axis``: the part of a recurrent state this rank holds and computes."""
+    mesh: Mesh
+    axis: str
+    r: int
+    n: int
+
+    def take(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Block ``r`` of ``n`` of ``x`` along ``dim``, contiguous."""
+        b = x.shape[dim] // self.n
+        return x.narrow(dim, self.r * b, b).contiguous()
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every rank's block of ``x`` along ``dim``, in block order."""
+        return allgather_concat(x, self.mesh, self.axis, axis=dim)
+
+
+def state_block(logical: str, whole: int,
+                held: int) -> Optional[StateBlock]:
+    """The block of ``logical`` that a state holding ``held`` of its
+    ``whole`` size is: this rank's block where the installed rules map
+    ``logical`` to a mesh axis of n and ``held * n == whole`` (on a mesh
+    of one, block (0, 1)); None for a state that holds it whole outside
+    such a context, or under the context where the placement left it
+    whole. A part outside the context that split it raises."""
+    mesh = ctx.current_mesh()
+    axis = (ctx.current_rules() or {}).get(logical)
+    if isinstance(mesh, Mesh) and isinstance(axis, str) and \
+            axis in mesh.shape and held * mesh.shape[axis] == whole:
+        return StateBlock(mesh, axis, mesh.axis_index(axis),
+                          mesh.shape[axis])
+    if held != whole:
+        raise ValueError(f"a state holding {held} of {whole} {logical!r} "
+                         "needs the mesh context that split it")
+    return None
 
 
 # ---------------------------------------------------------------------------

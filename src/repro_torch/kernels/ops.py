@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.kv_cache import dequant_rows
+from repro_torch.core.kv_cache import dequant_rows, head_einsum
 from repro_torch.kernels import flash_prefill as fp_mod
 from repro_torch.kernels import paged_decode as pd_mod
 from repro_torch.kernels import paged_prefill as pp_mod
@@ -126,18 +126,22 @@ def merge_softmax_partials(parts):
     return acc_tot / l_safe[..., None]
 
 
-def _residual_flash_partials(q4, key_residual, n_res, v_res):
+def _residual_flash_partials(q4, key_residual, n_res, v_res, heads=None):
     """Flash partials of the fp residual segment.
 
     q4 (B, Hkv, Qh, d) ALREADY scaled; key_residual (B, Hkv, g, d); n_res
     (B,) tokens in the residual window; v_res (B, Hkv, g, d) fp32 value
     rows for positions [flushed, flushed + g) — dead rows may hold garbage
     and are zeroed under the mask, so ``p == 0`` lanes never contribute
-    ``0 * NaN``. Returns (acc_r, m_r, l_r)."""
+    ``0 * NaN``. ``heads``: the model's kv heads when the inputs hold a
+    block of them, the two einsums run at that count
+    (:func:`~repro_torch.core.kv_cache.head_einsum`). Returns (acc_r, m_r,
+    l_r)."""
     res = key_residual.float()
     g = res.shape[2]
+    heads = heads or res.shape[1]
     zero = torch.zeros((), dtype=torch.float32, device=q4.device)
-    s_res = torch.einsum("bhqd,bhgd->bhqg", q4, res)
+    s_res = head_einsum("bhqd,bhgd->bhqg", q4, res, heads)
     slot = torch.arange(g, dtype=torch.int32, device=q4.device)
     mask = slot[None, None, None, :] < n_res[:, None, None, None]
     s_res = torch.where(mask, s_res, torch.full_like(zero, NEG_INF))
@@ -146,7 +150,7 @@ def _residual_flash_partials(q4, key_residual, n_res, v_res):
     l_r = torch.sum(p_r, dim=-1)
     row_live = slot[None, :] < n_res[:, None]
     v_res = torch.where(row_live[:, None, :, None], v_res, zero)
-    acc_r = torch.einsum("bhqg,bhgd->bhqd", p_r, v_res)
+    acc_r = head_einsum("bhqg,bhgd->bhqd", p_r, v_res, heads)
     return acc_r, m_r, l_r
 
 
@@ -161,8 +165,9 @@ def polar_decode_attention_full(q, codes, rs, rz, ts, tz, key_residual,
     key_residual (B, Hkv, g, d); values (B, Hkv, T, d) token-major rows
     (fp, or uint8 with vscale/vzero (B, Hkv, T, 1)); length () or (B,) int32 total tokens (per-row lengths mask gathered
     continuous-batching slots at their own positions). ``plan_heads`` as
-    in :func:`polar_decode_attention_grouped`. Returns (B, Hq, d) in
-    q.dtype."""
+    in :func:`polar_decode_attention_grouped`; the residual segment's
+    einsums run at that head count too, so a head shard's bits are the
+    whole call's. Returns (B, Hq, d) in q.dtype."""
     b, hq, d = q.shape
     hkv = codes.shape[1]
     g = codes.shape[3]
@@ -189,7 +194,8 @@ def polar_decode_attention_full(q, codes, rs, rz, ts, tz, key_residual,
         vscale, vzero = (torch.gather(x, 2, one) for x in (vscale, vzero))
     v_res = dequant_rows(v_res, vscale, vzero)
     acc_r, m_r, l_r = _residual_flash_partials(q4, key_residual,
-                                               len_b - flushed, v_res)
+                                               len_b - flushed, v_res,
+                                               plan_heads)
     out = merge_softmax_partials([(acc_g, m_g, l_g), (acc_r, m_r, l_r)])
     return out.reshape(b, hq, d).to(q.dtype)
 

@@ -20,28 +20,33 @@ and the shape's full size:
   blocks and its ``batch_pspecs`` rows: JAX's placement
   (``placement: "train_pspecs"``);
 * **prefill / decode** — ``Model.prefill`` / ``Model.decode`` on the
-  static engine's linear caches under the port's serving placement
-  (``ServeEngine(mesh=)``, DESIGN.md §17; ``placement: "serving"``):
-  params whole on every rank, caches and attention per KV-head block over
-  ``model`` (every head where they do not divide), the heads gathered
-  before ``wo``, the rank's rows of the batch split over the data axes
-  as ``batch_pspecs`` splits them and no collective over them (each data
-  line is an independent replica). A decode cell decodes the token at
-  position ``seq_len - 1`` of a cache of ``seq_len`` (its host length,
-  the one stated static value; that token completes its group, so the
-  step includes the group's encode — JAX's lowered step holds the flush
-  branch too). JAX lowers these cells under FSDP params and a cache
-  sequence split over ``model`` (a GSPMD decision the port has no
-  counterpart of): the record prints the argument bytes a device holds
-  under that placement, from the port's resolvers, as
-  ``jax_argument_bytes``.
+  static engine's decode state under the port's serving placement
+  (``ServeEngine(mesh=)``'s ``static_blocks``, DESIGN.md §17;
+  ``placement: "serving"``): params whole on every rank, caches and
+  attention per KV-head block over ``model`` (every head where they do
+  not divide), the heads gathered before ``wo``; the hybrid's RG-LRU
+  states per block of the width and the SSM's states per block of the
+  SSD heads, gathered before the mixers' output projections; the rank's
+  rows of the batch split over the data axes as ``batch_pspecs`` splits
+  them and no collective over them (each data line is an independent
+  replica). A decode cell decodes the token at position ``seq_len - 1``
+  of a cache of ``seq_len`` (its host length, the one stated static
+  value; that token completes its group, so the step includes the
+  group's encode — JAX's lowered step holds the flush branch too); the
+  encoder-decoder's cross caches hold the ``frontend_tokens`` frames.
+  JAX lowers these cells under FSDP params and a cache sequence split
+  over ``model`` (a GSPMD decision the port has no counterpart of): the
+  record prints the argument bytes a device holds under that placement,
+  from the port's resolvers, as ``jax_argument_bytes``; the record's
+  ``state_blocks`` are the rank's blocks of the state.
 
 Statuses: ``ok``; ``skip`` — JAX's :func:`should_skip` (``long_500k``
 needs sub-quadratic attention); ``refused`` — a cell the port cannot
 place yet, with the port's own error
-(:class:`~repro_torch.utils.NotPorted`: tensor parallelism of the hybrid,
-encoder-decoder and SSM families). Anything else raises: the CLI reports
-the cell as failed.
+(:class:`~repro_torch.utils.NotPorted`: the train cells of the hybrid,
+encoder-decoder and SSM families, whose tensor parallelism over
+``model`` in training is not ported). Anything else raises: the CLI
+reports the cell as failed.
 """
 from __future__ import annotations
 
@@ -166,13 +171,15 @@ def _tree_spec_bytes(shapes, specs, mesh) -> int:
                        mesh)
 
 
-def _stacked_state_shapes(state: list) -> list:
-    """JAX's decode state leaves from the port's per-layer caches: each
-    tensor field stacked over the layers (one policy segment)."""
+def _stacked_state_shapes(state) -> list:
+    """JAX's decode state leaves from the port's per-layer state (caches,
+    RG-LRU or SSD states, the encoder-decoder's dict): every layer's
+    leaves with a stacked axis of one. JAX stacks each run of alike
+    layers; the spec never splits the stacked axis, so the per-device
+    bytes are the same."""
     from repro_torch.utils import ShapeDtype
-    n = len(state)
-    return [ShapeDtype((n,) + tuple(t.shape), t.dtype)
-            for t in _leaves(state[0])]
+    return [ShapeDtype((1,) + tuple(t.shape), t.dtype)
+            for t in _leaves(state)]
 
 
 def jax_argument_bytes(model: Model, shape: ShapeConfig, mesh,
@@ -215,29 +222,42 @@ def _tensor_bytes(tree) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _set_decode_lengths(state, seq_len: int, frames: int) -> None:
+    """A decode cell's host lengths: ``seq_len - 1`` tokens in every self
+    cache (a list's caches, linear or ring, or the encoder-decoder's
+    ``"self"`` list), ``frames`` in its cross caches; the RG-LRU and SSD
+    states hold no length."""
+    from repro_torch.core.kv_cache import KVCache
+    parts = state.items() if isinstance(state, dict) else [("self", state)]
+    for name, layers in parts:
+        for layer in layers:
+            if isinstance(layer, KVCache):
+                layer.host_length = frames if name == "cross" else seq_len - 1
+
+
 def _serving_step(model: Model, shape: ShapeConfig, mesh, device="meta"):
     """The prefill or decode step of ``shape`` on this rank under the
     serving placement, as :func:`lower_train_step`'s callable (on
     ``device``: meta, or zeros and fresh params elsewhere)."""
-    from repro_torch.serve.core import static_head_shard
+    from repro_torch.models.registry import state_block_kwargs
+    from repro_torch.serve.core import static_blocks
     cfg = model.cfg
-    try:
-        head_shard = static_head_shard(cfg, mesh)
-    except NotPorted as e:
-        raise RefusedCell(str(e)) from e
+    blocks = static_blocks(cfg, mesh)
     rows = batch_rows(mesh, shape.global_batch)
-    kw = {} if head_shard is None else {"head_shard": head_shard}
     specs = model.input_specs(shape)
 
     def run() -> OpCounter:
         params = model.init(device=device)
-        state = model.init_decode_state(rows, shape.seq_len, device, **kw)
+        state = model.init_decode_state(rows, shape.seq_len, device,
+                                        **state_block_kwargs(blocks))
         inputs = {k: torch.zeros((rows,) + tuple(v.shape[1:]),
                                  dtype=v.dtype, device=device)
                   for k, v in specs.items()}
         if shape.kind == "decode":
-            for cache in state:
-                cache.host_length = shape.seq_len - 1
+            _set_decode_lengths(state, shape.seq_len, cfg.frontend_tokens)
+        # the state the rank holds, before a step replaces a recurrent
+        # layer's entry by views of its own buffers
+        state_bytes = _tensor_bytes(state)
         with ctx.use_sharding(mesh, serving_rules(cfg, mesh, rows)), \
                 OpCounter() as counter:
             counter.hold(params, state, inputs)
@@ -247,12 +267,12 @@ def _serving_step(model: Model, shape: ShapeConfig, mesh, device="meta"):
                 out = model.decode(params, state, inputs["token"])
         counter.record = counter.memory((params, state, inputs), out)
         counter.parts = {"params_bytes": _tensor_bytes(params),
-                         "state_bytes": _tensor_bytes(state),
+                         "state_bytes": state_bytes,
                          "batch_bytes": _tensor_bytes(inputs)}
         return counter
 
     run.rows = rows
-    run.head_shard = head_shard
+    run.blocks = blocks
     return run
 
 
@@ -314,6 +334,8 @@ def run_cell(arch: str, shape_name: str, mesh, out_dir: str,
         counter = run()
         rec["placement"] = run.placement
         rec["rows"] = run.rows
+        if run.placement == "serving":
+            rec["state_blocks"] = run.blocks
         rec["jax_argument_bytes"] = jax_argument_bytes(
             run.model, run.shape, m, step_cfg)
     rec["lower_s"] = time.monotonic() - t0

@@ -54,9 +54,11 @@ span verify) and the dense cache's prefill and decode go through
 ``distributed/serving.py``'s dispatch, as JAX's do: when the engine
 installed a mesh and the cache is one rank's head shard, the rank writes
 its block of the step's k/v, attends over its head block and gathers the
-heads before ``wo``; otherwise the plain calls run. (The cross cache of
-the encoder-decoder is never sharded: that family is refused under a
-mesh.)
+heads before ``wo``; otherwise the plain calls run. The encoder-decoder's
+cross cache splits the same way: its fill writes the rank's block of the
+memory's K/V and its decode attention runs per head block; the
+cross-attention over the fp memory (``attention_train`` with
+``memory``) holds no cache and runs whole.
 """
 from __future__ import annotations
 
@@ -180,9 +182,10 @@ def cross_attention_cache(params: dict, memory: torch.Tensor,
                           cfg: ModelConfig,
                           cache: kvc.KVCache) -> kvc.KVCache:
     """Fill a cross-attention cache from encoder memory (B, Tm, D), no
-    RoPE, in place."""
+    RoPE, in place (a head shard: its block of the KV heads)."""
     k, v = _memory_kv(params, memory, cfg)
-    return kvc.prefill(cache, k.contiguous(), v.contiguous())
+    return kvc.prefill(cache, dsrv.local_heads(cache, k.contiguous()),
+                       dsrv.local_heads(cache, v.contiguous()))
 
 
 def attention_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -217,7 +220,7 @@ def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if cross:
         q = L.split_heads(L.linear(x, params["wq"], params.get("bq")),
                           cfg.num_heads)
-        out = kvc.decode_attention(cache, q[:, :, 0])
+        out = dsrv.dispatch_decode_attention(cache, q[:, :, 0])
         return L.linear(out.reshape(b, 1, -1), params["wo"]), cache
     q, k, v = _project(params, x, cfg)
     pos = cache.length.reshape(1)

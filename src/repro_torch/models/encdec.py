@@ -12,6 +12,13 @@ memory (``full`` mode, Tq = the prompt, Tk = the frames), as JAX's; every
 decode step reads the cross cache on the score route (the score-only LUT
 kernel + softmax) and the self cache on ``cfg.decode_backend``.
 
+Under a serving mesh (``ServeEngine(mesh=)``) the self and cross caches
+hold the rank's block of the KV heads: the prompt's attention, the cross
+cache's fill and both decode attentions run per head block and gather
+the heads before ``wo`` (``distributed/serving.py``). The encoder and the
+prefill's cross-attention over the fp memory hold no cache and run whole
+on every rank.
+
 Params: the LM's ``embed``, ``final_norm`` and ``lm_head``;
 ``frontend_proj`` (frontend_dim, D); ``enc_layers``, each ``{"ln1",
 "ln2", "attn", "ffn"}``; ``dec_layers``, each ``{"ln1", "ln_x", "ln2",
@@ -100,11 +107,15 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device) -> dict:
+                      device,
+                      head_shard: tuple[int, int] | None = None) -> dict:
     """Per decoder layer a self cache of ``max_len`` and a cross cache of
-    ``cfg.frontend_tokens`` (each rounded up to a group multiple)."""
+    ``cfg.frontend_tokens`` (each rounded up to a group multiple); under
+    a serving mesh both hold block ``head_shard = (r, n)`` of the KV
+    heads."""
     def caches(n):
-        return [AB.make_cache(cfg, batch, n, device=device)
+        return [AB.make_cache(cfg, batch, n, device=device,
+                              head_shard=head_shard)
                 for _ in range(cfg.num_layers)]
     return {"self": caches(max_len), "cross": caches(cfg.frontend_tokens)}
 

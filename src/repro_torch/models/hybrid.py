@@ -12,6 +12,10 @@ this is where PolarQuant applies in this family; prefill runs the
 flash-prefill kernel in ``local`` mode, and decode stays on the score
 route (the score-only LUT kernel + softmax), never the fused kernel,
 which assumes linear placement. The RG-LRU state (conv window, h) is fp.
+Under a serving mesh (``ServeEngine(mesh=)``) the rings split over KV
+heads as the other families' caches do (whole on every rank where the
+KV heads do not divide the axis: recurrentgemma-9b's one) and the RG-LRU
+states over their width (``models/rglru.py``).
 
 Params: the LM's ``embed``, ``final_norm``, ``lm_head`` and ``layers``,
 each ``{"ln1", "ln2", "ffn": {wg, wu, wd}, "mix"}`` with ``mix`` the
@@ -64,11 +68,16 @@ def init_sub_layer(cfg: ModelConfig, kind: str,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device) -> list:
+                      device, head_shard: tuple[int, int] | None = None,
+                      rec_shard: tuple[int, int] | None = None) -> list:
     """Per layer: a ring cache of ``min(max_len, window)`` slots (attention)
-    or the zero RG-LRU state (recurrent)."""
-    return [AB.make_cache(cfg, batch, max_len, device=device)
-            if kind == "attn" else RG.init_state(cfg, batch, device)
+    or the zero RG-LRU state (recurrent). Under a serving mesh the rings
+    hold block ``head_shard = (r, n)`` of the KV heads and the RG-LRU
+    states block ``rec_shard`` of the width."""
+    return [AB.make_cache(cfg, batch, max_len, device=device,
+                          head_shard=head_shard)
+            if kind == "attn" else RG.init_state(cfg, batch, device,
+                                                  rec_shard)
             for kind in layer_types(cfg)]
 
 
@@ -119,7 +128,9 @@ def _sub_prefill(lp: dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
                                             mask_mode="local",
                                             window=cfg.window)
     else:
-        y, sub_state = RG.rglru_mix(lp["mix"], hn, cfg, want_state=True)
+        # the incoming zero state gives the rank's block of the width
+        y, sub_state = RG.rglru_mix(lp["mix"], hn, cfg, want_state=True,
+                                    block=RG.state_shard(cfg, sub_state))
     h = h + y
     f = L.mlp(lp["ffn"], L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg.act)
     return h + f, sub_state

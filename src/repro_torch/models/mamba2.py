@@ -17,6 +17,16 @@ Params: ``in_proj`` (D, 2·d_inner + 2·G·N + H) and ``out_proj``
 (d_inner, D) in the model dtype; ``conv_w`` (W, conv_dim), ``conv_b``,
 ``A_log``, ``dt_bias``, ``D``, ``norm_w`` and ``ln`` in fp32, which JAX
 computes them in.
+
+Under a serving mesh whose ``ssm_heads`` rule splits the R heads of each
+group (``ServeEngine(mesh=)``), a rank's state holds its block of R / n
+heads in every group (:func:`init_state`'s ``shard``, read back by
+:func:`state_shard`): the SSD state those heads, the conv window their
+``xin`` channels and the whole B/C channels, which every head of a group
+reads. ``in_proj`` runs whole; the mixer cuts ``xin``, ``dt``, ``A``
+and the per-head params to the block, runs the conv, the scan and the D
+skip on it, and gathers ``y`` over ``model`` before the ``silu(z)``
+gate, whose RMSNorm spans the whole d_inner.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import serving as dsrv
 from repro_torch.models import layers as L
 from repro_torch.utils import torch_dtype
 
@@ -175,54 +186,118 @@ def _split(proj: torch.Tensor, dm: SSMDims):
     return torch.split(proj, [dm.d_inner, dm.d_inner, bc, dm.nheads], dim=-1)
 
 
-def _gate_out(params: dict, y: torch.Tensor, xin: torch.Tensor,
-              z: torch.Tensor, dm: SSMDims, cfg: ModelConfig,
-              dtype: torch.dtype) -> torch.Tensor:
-    """y + D-skip, gated by silu(z), normed and projected out."""
-    y = y + xin.float() * torch.repeat_interleave(
-        params["D"].float(), dm.headdim)
+def state_shard(cfg: ModelConfig, state) -> dsrv.StateBlock | None:
+    """The ``ssm_heads`` block a (conv, SSD) state holds
+    (:func:`~repro_torch.distributed.serving.state_block`)."""
+    dm = dims(cfg)
+    return dsrv.state_block("ssm_heads", dm.nheads // dm.ngroups,
+                            state[1].shape[2])
+
+
+def _heads(x: torch.Tensor, dm: SSMDims, block: dsrv.StateBlock | None,
+           per_head: int = 1) -> torch.Tensor:
+    """The block's heads of ``x`` (..., H * per_head), in every group:
+    head ``g * R + j`` for j in block r of n of R."""
+    if block is None:
+        return x
+    lead = x.shape[:-1]
+    r = dm.nheads // dm.ngroups
+    x = block.take(x.reshape(*lead, dm.ngroups, r, per_head), -2)
+    return x.reshape(*lead, -1)
+
+
+def _param_block(params: dict, dm: SSMDims,
+                 block: dsrv.StateBlock | None) -> dict:
+    """The per-channel and per-head params the block reads: the conv over
+    its ``xin`` channels and the whole B/C channels, and ``D`` of its
+    heads; ``params`` itself without a block."""
+    if block is None:
+        return params
+
+    def conv(x):  # (..., conv_dim): the block's xin channels + B/C
+        return torch.cat([_heads(x[..., :dm.d_inner], dm, block,
+                                 dm.headdim), x[..., dm.d_inner:]], -1)
+    return {"conv_w": conv(params["conv_w"]),
+            "conv_b": conv(params["conv_b"]),
+            "D": _heads(params["D"], dm, block)}
+
+
+def _dt_a(params: dict, dt: torch.Tensor, dm: SSMDims,
+          block: dsrv.StateBlock | None):
+    """(softplus(dt + dt_bias), -exp(A_log)) of the block's heads,
+    computed over every head and cut after: the CPU's vector and scalar
+    transcendentals differ in the last bit, and a head block would move
+    which heads take which."""
+    dt = F.softplus(dt.float() + params["dt_bias"].float())
+    a = -torch.exp(params["A_log"].float())
+    return _heads(dt, dm, block), _heads(a, dm, block)
+
+
+def _skip_gather(p: dict, y: torch.Tensor, xin: torch.Tensor, dm: SSMDims,
+                 block: dsrv.StateBlock | None) -> torch.Tensor:
+    """y (..., G, R', P) of the block's R' heads + their D skip, gathered
+    over ``model`` into head order -> (..., d_inner) fp32."""
+    y = y + xin.float().reshape(y.shape) * p["D"].float().reshape(
+        dm.ngroups, -1, 1)
+    if block is not None:
+        y = block.gather(y, -2)
+    return y.reshape(*y.shape[:-3], dm.d_inner)
+
+
+def _gate_out(params: dict, y: torch.Tensor, z: torch.Tensor,
+              cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
+    """y (with its D skip) gated by silu(z), normed and projected out."""
     y = L.rms_norm((y * F.silu(z.float())).to(dtype), params["norm_w"],
                    cfg.norm_eps)
     return L.linear(y, params["out_proj"])
 
 
+def _local(dm: SSMDims, block: dsrv.StateBlock | None) -> tuple[int, int]:
+    """(heads a group, xin channels) that ``block`` computes."""
+    r = dm.nheads // dm.ngroups // (1 if block is None else block.n)
+    return r, dm.ngroups * r * dm.headdim
+
+
 def mamba_mix(params: dict, u: torch.Tensor, cfg: ModelConfig,
-              initial=None, want_state: bool = False):
+              initial=None, want_state: bool = False,
+              block: dsrv.StateBlock | None = None):
     """The SSD mixer on u (B, T, D) (the layer-normed input). ``initial``
     = (conv window, SSD state) continues from a state. ``want_state``
     also returns the state after the last token: the conv tail is the
     last W - 1 conv inputs, zero-padded on the left when fewer came —
     the causal conv's own zero padding (JAX keeps fewer rows there, and
-    its next step fails)."""
+    its next step fails). ``block``: the rank's ``ssm_heads`` block
+    (:func:`state_shard`), whose heads the state holds; the output is
+    whole."""
     dm = dims(cfg)
     bsz, t, _ = u.shape
+    r, d_in = _local(dm, block)
+    p = _param_block(params, dm, block)
     z, xin, bc, dt = _split(L.linear(u, params["in_proj"]), dm)
+    xin = _heads(xin, dm, block, dm.headdim)
+    dt, a = _dt_a(params, dt, dm, block)                 # (B,T,H'), (H',)
     conv_in = torch.cat([xin, bc], dim=-1)
     if initial is not None:
         conv_state0, ssd_state0 = initial
         conv_state0 = conv_state0.to(conv_in.dtype)
         padded = torch.cat([conv_state0, conv_in], dim=1)
-        conv_out = _causal_conv(padded, params["conv_w"], params["conv_b"])
+        conv_out = _causal_conv(padded, p["conv_w"], p["conv_b"])
         conv_out = conv_out[:, dm.conv_w - 1:]
     else:
-        conv_state0 = conv_in.new_zeros((bsz, dm.conv_w - 1, dm.conv_dim))
-        conv_out = _causal_conv(conv_in, params["conv_w"], params["conv_b"])
+        conv_state0 = conv_in.new_zeros((bsz, dm.conv_w - 1,
+                                         conv_in.shape[-1]))
+        conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
         ssd_state0 = None
     gn = dm.ngroups * dm.dstate
-    xin = conv_out[..., :dm.d_inner]
-    b_ = conv_out[..., dm.d_inner:dm.d_inner + gn].reshape(
-        bsz, t, dm.ngroups, dm.dstate)
-    c_ = conv_out[..., dm.d_inner + gn:].reshape(bsz, t, dm.ngroups,
-                                                 dm.dstate)
-    r = dm.nheads // dm.ngroups
-    a = -torch.exp(params["A_log"].float())                      # (H,)
-    dt = F.softplus(dt.float() + params["dt_bias"].float())      # (B,T,H)
+    xin = conv_out[..., :d_in]
+    b_ = conv_out[..., d_in:d_in + gn].reshape(bsz, t, dm.ngroups, dm.dstate)
+    c_ = conv_out[..., d_in + gn:].reshape(bsz, t, dm.ngroups, dm.dstate)
     xh = xin.reshape(bsz, t, dm.ngroups, r, dm.headdim)
     dth = dt.reshape(bsz, t, dm.ngroups, r)
     y, state = ssd_chunked(xh.float() * dth[..., None],
                            dth * a.reshape(1, 1, dm.ngroups, r), b_, c_,
                            min(cfg.ssm_chunk, t), ssd_state0)
-    out = _gate_out(params, y.reshape(bsz, t, dm.d_inner), xin, z, dm, cfg,
+    out = _gate_out(params, _skip_gather(p, y, xin, dm, block), z, cfg,
                     u.dtype)
     if want_state:
         tail = torch.cat([conv_state0, conv_in], dim=1)[:, -(dm.conv_w - 1):]
@@ -231,42 +306,53 @@ def mamba_mix(params: dict, u: torch.Tensor, cfg: ModelConfig,
 
 
 def mamba_step(params: dict, u_t: torch.Tensor, cfg: ModelConfig, state):
-    """Single-token recurrent step. u_t: (B, D); state = (conv, ssd).
-    Returns (out (B, D), state)."""
+    """Single-token recurrent step. u_t: (B, D); state = (conv, ssd), or
+    the rank's block of the heads (:func:`state_shard`). Returns (out
+    (B, D), state)."""
     dm = dims(cfg)
     conv_state, ssd_state = state
+    block = state_shard(cfg, state)
     bsz = u_t.shape[0]
+    r, d_in = _local(dm, block)
+    p = _param_block(params, dm, block)
     z, xin, bc, dt = _split(L.linear(u_t, params["in_proj"]), dm)
+    xin = _heads(xin, dm, block, dm.headdim)
+    dt, a = _dt_a(params, dt, dm, block)                 # (B,H'), (H',)
     conv_in = torch.cat([xin, bc], dim=-1)
-    conv_out, conv_state = _conv_step(conv_in, conv_state, params["conv_w"],
-                                      params["conv_b"])
+    conv_out, conv_state = _conv_step(conv_in, conv_state, p["conv_w"],
+                                      p["conv_b"])
     gn = dm.ngroups * dm.dstate
-    xin = conv_out[..., :dm.d_inner]
-    b_ = conv_out[..., dm.d_inner:dm.d_inner + gn].reshape(
+    xin = conv_out[..., :d_in]
+    b_ = conv_out[..., d_in:d_in + gn].reshape(
         bsz, dm.ngroups, dm.dstate).float()
-    c_ = conv_out[..., dm.d_inner + gn:].reshape(
+    c_ = conv_out[..., d_in + gn:].reshape(
         bsz, dm.ngroups, dm.dstate).float()
-    r = dm.nheads // dm.ngroups
-    a = -torch.exp(params["A_log"].float())
-    dt = F.softplus(dt.float() + params["dt_bias"].float())      # (B,H)
     xh = xin.reshape(bsz, dm.ngroups, r, dm.headdim).float()
     dth = dt.reshape(bsz, dm.ngroups, r)
     adt = dth * a.reshape(1, dm.ngroups, r)
     ssd_state = ssd_state * torch.exp(adt)[..., None, None] + torch.einsum(
         "bgrp,bgn->bgrpn", xh * dth[..., None], b_)
-    y = torch.einsum("bgrpn,bgn->bgrp", ssd_state, c_).reshape(bsz,
-                                                               dm.d_inner)
-    out = _gate_out(params, y, xin, z, dm, cfg, u_t.dtype)
+    y = torch.einsum("bgrpn,bgn->bgrp", ssd_state, c_)
+    out = _gate_out(params, _skip_gather(p, y, xin, dm, block), z, cfg,
+                    u_t.dtype)
     return out, (conv_state, ssd_state)
 
 
-def init_state(cfg: ModelConfig, batch: int, device) -> tuple:
+def init_state(cfg: ModelConfig, batch: int, device,
+               shard: tuple[int, int] | None = None) -> tuple:
     """The zero state: conv window (B, W-1, conv_dim) in ``cfg.dtype``, SSD
-    state (B, G, R, P, N) fp32."""
+    state (B, G, R, P, N) fp32. ``shard = (r, n)``: block r of n of each
+    group's R heads — the SSD state of those heads, the conv window of
+    their ``xin`` channels and every B/C channel."""
     dm = dims(cfg)
-    return (torch.zeros((batch, dm.conv_w - 1, dm.conv_dim),
+    r = dm.nheads // dm.ngroups
+    if shard is not None:
+        if r % shard[1] or not 0 <= shard[0] < shard[1]:
+            raise ValueError(f"SSD head block {shard} of {r} heads a group")
+        r //= shard[1]
+    conv = dm.ngroups * r * dm.headdim + 2 * dm.ngroups * dm.dstate
+    return (torch.zeros((batch, dm.conv_w - 1, conv),
                         dtype=torch_dtype(cfg.dtype), device=device),
-            torch.zeros((batch, dm.ngroups, dm.nheads // dm.ngroups,
-                         dm.headdim, dm.dstate), dtype=torch.float32,
-                        device=device))
+            torch.zeros((batch, dm.ngroups, r, dm.headdim, dm.dstate),
+                        dtype=torch.float32, device=device))
 

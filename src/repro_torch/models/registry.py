@@ -8,11 +8,14 @@ VLM, hybrid, encoder-decoder and SSM (port of
       the training loss: batch["tokens"] (B, T+1) (+ "patches" for the
       VLM, "frames" for the encoder-decoder); metrics {"ce", "aux"} for
       the dense, MoE and VLM families, {"ce"} for the others, as JAX
-  init_decode_state(batch, max_len, device) -> the decode state: a list of
-      per-layer KVCaches (dense, MoE, VLM; these also take
-      ``head_shard=(r, n)``: block r of n of the KV heads), of ring caches
-      and RG-LRU states (hybrid) or of (conv, SSD) states (SSM), or the
-      encoder-decoder's {"self": [...], "cross": [...]} caches
+  init_decode_state(batch, max_len, device, **blocks) -> the decode state:
+      a list of per-layer KVCaches (dense, MoE, VLM), of ring caches and
+      RG-LRU states (hybrid) or of (conv, SSD) states (SSM), or the
+      encoder-decoder's {"self": [...], "cross": [...]} caches. Under a
+      serving mesh, ``blocks`` holds this rank's block (r, n) of each
+      logical axis the state splits over (:data:`STATE_BLOCK_KW`):
+      ``head_shard`` of the KV heads (every family with caches),
+      ``rec_shard`` of the RG-LRU width, ``ssm_shard`` of the SSD heads
   prefill(params, {"tokens": (B, T)[, "patches" | "frames": (B, Nf, F)]},
           state) -> (last logits (B, V), state)
   decode(params, state, token (B,)) -> (logits (B, V), state)
@@ -62,6 +65,75 @@ from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm_lm as SSM
 from repro_torch.models import transformer as TF
 from repro_torch.utils import ShapeDtype, torch_dtype
+
+
+#: the ``init_decode_state`` keyword of each logical axis a decode state
+#: may split over (``serving_rules``' names)
+STATE_BLOCK_KW = {"kv_heads": "head_shard", "rec_width": "rec_shard",
+                  "ssm_heads": "ssm_shard"}
+
+#: the logical axes of each family's decode state (every other family's:
+#: its caches' KV heads)
+_STATE_AXES = {"hybrid": ("kv_heads", "rec_width"), "ssm": ("ssm_heads",)}
+
+
+def state_split_axes(cfg: ModelConfig, mesh) -> dict:
+    """The serving placement of ``cfg``'s decode state on ``mesh``
+    (DESIGN.md §17): for each logical axis the family's state has —
+    ``kv_heads`` (every cache), ``rec_width`` (the RG-LRU states),
+    ``ssm_heads`` (the SSD states and their heads' conv channels) — the
+    mesh axis ``serving_rules`` splits it over, None where every rank
+    holds it whole (the GQA fallback; an RG-LRU width whose gates'
+    diagonal blocks do not split with it, :func:`~repro_torch.models.
+    rglru.splits`). The SSM family has no KV heads: JAX's rule maps its
+    ``num_kv_heads`` of 0 to ``model``, a split of caches that do not
+    exist, and it is not read. ``mesh`` needs only its ``shape``."""
+    from repro_torch.distributed.sharding import serving_rules
+    from repro_torch.models import rglru
+    rules = serving_rules(cfg, mesh, 1)   # these rules ignore the batch
+    out = {}
+    for name in _STATE_AXES.get(cfg.family, ("kv_heads",)):
+        axis = rules.get(name)
+        if not isinstance(axis, str) or (name == "rec_width" and not
+                                         rglru.splits(cfg, mesh.shape[axis])):
+            axis = None
+        out[name] = axis
+    return out
+
+
+def state_block_kwargs(blocks: dict) -> dict:
+    """``init_decode_state``'s keywords for ``blocks`` (logical axis ->
+    (r, n) or None): the blocks that are split."""
+    return {STATE_BLOCK_KW[k]: v for k, v in blocks.items()
+            if v is not None}
+
+
+def state_part_bytes(state) -> dict:
+    """A static decode state's bytes by part, the whole length scalars left
+    out: ``kv`` / ``ring`` (a list's linear or ring caches), ``self`` /
+    ``cross`` (the encoder-decoder's), ``rg_conv`` / ``rg_h`` (the RG-LRU
+    states), ``ssd_conv`` / ``ssd`` (the SSM's) — the parts a mesh splits
+    apart."""
+    from repro_torch.core.cache_layout import RingLayout
+    from repro_torch.core.kv_cache import KVCache
+    from repro_torch.utils import tree_bytes
+    parts: dict = {}
+
+    def add(k, n):
+        parts[k] = parts.get(k, 0) + n
+    for name, layers in (state.items() if isinstance(state, dict)
+                         else [(None, state)]):
+        for x in layers:
+            if isinstance(x, KVCache):
+                kind = name or ("ring" if isinstance(x.layout, RingLayout)
+                                else "kv")
+                add(kind, tree_bytes(x) - x.length.numel()
+                    * x.length.element_size())
+            else:   # an RG-LRU (conv, h) or an SSM (conv, SSD) state
+                ssd = x[1].ndim == 5
+                add("ssd_conv" if ssd else "rg_conv", tree_bytes(x[0]))
+                add("ssd" if ssd else "rg_h", tree_bytes(x[1]))
+    return parts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,24 +201,27 @@ def get_model(cfg: ModelConfig) -> Model:
     if cfg.family == "hybrid":
         return Model(
             cfg=cfg, init=init,
-            init_decode_state=lambda batch, max_len, device:
-                HY.init_decode_state(cfg, batch, max_len, device),
+            init_decode_state=lambda batch, max_len, device,
+            head_shard=None, rec_shard=None: HY.init_decode_state(
+                cfg, batch, max_len, device, head_shard, rec_shard),
             prefill=lambda p, b, s: HY.prefill_fn(p, b, cfg, s),
             decode=lambda p, s, t: HY.decode_fn(p, s, t, cfg),
             loss=lambda p, b, **kw: HY.lm_loss(p, b, cfg, **kw))
     if cfg.family == "encdec":
         return Model(
             cfg=cfg, init=init,
-            init_decode_state=lambda batch, max_len, device:
-                ED.init_decode_state(cfg, batch, max_len, device),
+            init_decode_state=lambda batch, max_len, device,
+            head_shard=None: ED.init_decode_state(cfg, batch, max_len,
+                                                  device, head_shard),
             prefill=lambda p, b, s: ED.prefill_fn(p, b, cfg, s),
             decode=lambda p, s, t: ED.decode_fn(p, s, t, cfg),
             loss=lambda p, b, **kw: ED.lm_loss(p, b, cfg, **kw))
     if cfg.family == "ssm":
         return Model(
             cfg=cfg, init=init,
-            init_decode_state=lambda batch, max_len, device:
-                SSM.init_decode_state(cfg, batch, device),
+            init_decode_state=lambda batch, max_len, device,
+            ssm_shard=None: SSM.init_decode_state(cfg, batch, device,
+                                                  ssm_shard),
             prefill=lambda p, b, s: SSM.prefill_fn(p, b, cfg, s),
             decode=lambda p, s, t: SSM.decode_fn(p, s, t, cfg),
             loss=lambda p, b, **kw: SSM.lm_loss(p, b, cfg, **kw))

@@ -20,10 +20,13 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as TF
 
 
-def init_decode_state(cfg: ModelConfig, batch: int, device) -> list:
+def init_decode_state(cfg: ModelConfig, batch: int, device,
+                      ssm_shard: tuple[int, int] | None = None) -> list:
     """Per layer the zero state: conv window in ``cfg.dtype``, SSD state
-    in fp32."""
-    return [M2.init_state(cfg, batch, device) for _ in range(cfg.num_layers)]
+    in fp32; under a serving mesh, block ``ssm_shard = (r, n)`` of each
+    group's SSD heads (``models/mamba2.py``)."""
+    return [M2.init_state(cfg, batch, device, ssm_shard)
+            for _ in range(cfg.num_layers)]
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
@@ -43,12 +46,14 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
 @torch.no_grad()
 def prefill_fn(params: dict, batch: dict, cfg: ModelConfig, state: list):
     """batch["tokens"]: (B, T) int. The prompt runs from the zero state,
-    as JAX's (the incoming state only gives the list its length). Returns
-    (last-token logits (B, V), the state after the prompt)."""
+    as JAX's (the incoming state only gives the list its length and the
+    rank's block of the heads). Returns (last-token logits (B, V), the
+    state after the prompt)."""
     x = TF.embed_tokens(params, batch["tokens"], cfg)
     for i, lp in enumerate(params["layers"]):
         y, state[i] = M2.mamba_mix(lp, L.rms_norm(x, lp["ln"], cfg.norm_eps),
-                                   cfg, want_state=True)
+                                   cfg, want_state=True,
+                                   block=M2.state_shard(cfg, state[i]))
         x = x + y
     logits = TF.lm_logits(params, x[:, -1:], cfg)
     return logits[:, 0], state

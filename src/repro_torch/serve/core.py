@@ -59,7 +59,8 @@ across ranks: the clock advances by rank 0's measured time. A step whose
 collectives cannot be captured in a CUDA graph (gloo's) runs eagerly, the
 verify included. Speculation runs under a mesh; run-ahead is taken and
 stays off, as in JAX. ``ServeEngine(mesh=)`` splits the static engine's
-linear caches over KV heads the same way.
+caches over KV heads the same way, and the hybrid's and the SSM's
+recurrent states over their width and heads, for every family.
 """
 from __future__ import annotations
 
@@ -80,7 +81,9 @@ from repro_torch.distributed.sharding import serving_rules
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models import moe
 from repro_torch.models import transformer as TF
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import (
+    Model, state_block_kwargs, state_split_axes,
+)
 from repro_torch.serve.graphs import DecodeGraphs
 from repro_torch.serve.qos import (
     DegradeController, QosConfig, QosState, RateEstimator,
@@ -88,7 +91,7 @@ from repro_torch.serve.qos import (
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.spec import SpecConfig, make_proposer, make_verifier
 from repro_torch.utils import (
-    NotPorted, cdiv, nearest_rank_pct, pow2_bucket, resolve_device,
+    cdiv, nearest_rank_pct, pow2_bucket, resolve_device,
     tree_bytes,
 )
 
@@ -126,26 +129,13 @@ def _check_mesh(mesh, engine: str) -> None:
                          "engine is not ported (ROADMAP queue 1)")
 
 
-#: the families whose static caches split over KV heads under a mesh
-#: (``ServeEngine(mesh=)``): those ``models/transformer.py`` serves
-_STATIC_MESH_FAMILIES = ("dense", "moe", "vlm")
-
-
-def static_head_shard(cfg, mesh) -> Optional[tuple[int, int]]:
-    """The static engine's placement on ``mesh`` (DESIGN.md §17): this
-    rank's (block, blocks) of the KV heads where ``serving_rules`` maps
-    them to an axis, None where every rank holds them all (the GQA
-    fallback). The hybrid, encoder-decoder and SSM families are refused
-    (:class:`~repro_torch.utils.NotPorted`)."""
-    fam = cfg.family
-    if fam not in _STATIC_MESH_FAMILIES:
-        raise NotPorted(
-            f"ServeEngine(mesh=): the {fam!r} family under a mesh "
-            "is not ported (ROADMAP queue 1); the "
-            f"{', '.join(_STATIC_MESH_FAMILIES)} families are")
-    # the kv_heads rule does not depend on the batch
-    axis = serving_rules(cfg, mesh, 1).get("kv_heads")
-    return dsrv.head_block(mesh, axis) if isinstance(axis, str) else None
+def static_blocks(cfg, mesh) -> dict[str, Optional[tuple[int, int]]]:
+    """The static engine's placement on ``mesh``: this rank's (block,
+    blocks) of each logical axis of the family's decode state that
+    :func:`~repro_torch.models.registry.state_split_axes` splits, None
+    where the rank holds it whole."""
+    return {name: dsrv.head_block(mesh, axis) if axis else None
+            for name, axis in state_split_axes(cfg, mesh).items()}
 
 
 def _sync(device: torch.device) -> None:
@@ -161,15 +151,19 @@ class ServeEngine:
 
     ``mesh`` (JAX's ``ServeEngine(mesh=, rules=)``, whose CLI passes
     ``serving_rules``): ``generate`` installs
-    :func:`~repro_torch.distributed.sharding.serving_rules` for its batch.
-    Where their ``kv_heads`` maps to the ``model`` axis (n divides the KV
-    heads), each layer's linear cache holds this rank's block of the KV
-    heads (``KVCache.head_shard``), #1 and #3 run on it at prefill, #5 or
-    #6 at decode, and the heads are gathered over the axis before ``wo``;
-    where they do not divide, every rank holds the whole caches (the GQA
-    fallback). The dense, MoE and VLM families serve under a mesh; the
-    hybrid, encoder-decoder and SSM families are refused, and so is a
-    data axis > 1 (ROADMAP queue 1)."""
+    :func:`~repro_torch.distributed.sharding.serving_rules` for its batch,
+    and the params stay whole on every rank. Where their ``kv_heads`` maps
+    to the ``model`` axis (n divides the KV heads), each layer's cache —
+    linear, ring, the encoder-decoder's self and cross caches — holds
+    this rank's block of the KV heads (``KVCache.head_shard``), #1 and #3
+    run on it at prefill, #5 or #6 at decode, and the heads are gathered
+    over the axis before ``wo``; where they do not divide, every rank
+    holds the whole caches (the GQA fallback). The hybrid's RG-LRU states
+    hold the rank's block of the width (``rec_width``) and the SSM's
+    states its block of the SSD heads (``ssm_heads``); the mixers run on
+    the block and gather it before their output projections
+    (:func:`static_blocks`). Every family serves under a (1, n) mesh; a
+    data axis > 1 is refused (ROADMAP queue 1)."""
 
     def __init__(self, model: Model, params: dict, max_len: int,
                  device=None, mesh=None):
@@ -178,12 +172,15 @@ class ServeEngine:
         self.max_len = max_len
         self.device = resolve_device(device)
         self.mesh = mesh
-        #: this rank's (head block, blocks) of the KV heads, or None when
-        #: the caches hold every head
-        self.head_shard = None
+        #: this rank's (block, blocks) of each logical axis of the decode
+        #: state (:func:`static_blocks`), None where it holds the axis
+        #: whole; {} meshless
+        self.blocks = {}
         if mesh is not None:
-            self.head_shard = static_head_shard(model.cfg, mesh)
             _check_mesh(mesh, "static")
+            self.blocks = static_blocks(model.cfg, mesh)
+        #: the block of the KV heads the caches hold, or None
+        self.head_shard = self.blocks.get("kv_heads")
 
     def _ctx(self, batch: int):
         """The sharding context of this engine's dispatches: the serving
@@ -200,7 +197,10 @@ class ServeEngine:
         frontend_dim)). Returns the generated tokens (B, max_new_tokens)
         as numpy, prefill and decode seconds, decode tokens/s and the
         decode state's physical bytes (in all and per layer; per layer
-        None for the hybrid, encoder-decoder and SSM families).
+        None for the hybrid, encoder-decoder and SSM families), the KV
+        head block (``head_shard``) and the other blocks of the state
+        (``state_blocks``: ``rec_width`` for the hybrid, ``ssm_heads``
+        for the SSM; {} for the other families and meshless).
 
         A linear self cache (dense, MoE, VLM, encoder-decoder) must hold
         the prompt and the appended tokens, else ``ValueError``. JAX's
@@ -227,10 +227,8 @@ class ServeEngine:
                     f"exceeds cache capacity {self.max_len}")
         generator = torch.Generator(device=self.device)
         generator.manual_seed(gen.seed)
-        skw = ({} if self.head_shard is None
-               else {"head_shard": self.head_shard})
-        state = self.model.init_decode_state(b, self.max_len, self.device,
-                                             **skw)
+        state = self.model.init_decode_state(
+            b, self.max_len, self.device, **state_block_kwargs(self.blocks))
         with self._ctx(b):
             t0 = time.monotonic()
             logits, state = self.model.prefill(self.params, inputs, state)
@@ -262,6 +260,8 @@ class ServeEngine:
                 self.model.cache_layer_bytes(state)
                 if self.model.cache_layer_bytes else None),
             "head_shard": self.head_shard,
+            "state_blocks": {k: v for k, v in self.blocks.items()
+                             if k != "kv_heads"},
         }
 
 

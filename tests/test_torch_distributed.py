@@ -13,12 +13,12 @@ package, in one process (no world; the cross-process checks are in
   KV-head count (the unsharded call's plan);
 * ``leaf_pspec`` / ``cache_pspecs`` equal JAX's and ``shard_paged_state``
   keeps head block r of a fragmented cache, every codec;
-* the mesh, the context and the engines' refusals (a data axis > 1;
-  the hybrid, encoder-decoder and SSM families on
-  ``ServeEngine(mesh=)``);
+* the mesh, the context and the engines' refusals (a data axis > 1,
+  the hybrid, encoder-decoder and SSM families' too);
 * on a (1, 1) mesh: ``runahead=4`` taken and left unused, spec on both
   verifiers with the meshless streams, ``ServeEngine(mesh=)`` with the
-  meshless tokens; shadow and gathered views keep the head
+  meshless tokens (for the hybrid, encoder-decoder and SSM families the
+  meshless logits too, bit for bit); shadow and gathered views keep the head
   block, and the dense fused route plans #5's splits for the model's
   KV heads.
 """
@@ -34,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import list_configs as j_list_configs  # noqa: E402
+from repro.configs import reduce_for_smoke as j_reduce_for_smoke  # noqa: E402
 from repro.distributed import collectives as jcol  # noqa: E402
 from repro.distributed import serving as jsrv  # noqa: E402
 from repro.distributed import sharding as jsh  # noqa: E402
@@ -41,6 +42,7 @@ from repro.launch import mesh as jmesh  # noqa: E402
 from repro.models import get_model as j_get_model  # noqa: E402
 from repro_torch.configs import get_config, list_configs  # noqa: E402
 from repro_torch.configs import reduce_for_smoke  # noqa: E402
+from repro_torch.models.registry import state_split_axes  # noqa: E402
 from repro_torch.core import paged_cache as pgc  # noqa: E402
 from repro_torch.distributed import collectives as col  # noqa: E402
 from repro_torch.distributed import ctx  # noqa: E402
@@ -57,7 +59,7 @@ from test_sharding import FakeMesh  # noqa: E402
 from test_torch_mesh_serve import _to_jax  # noqa: E402
 from test_distributed_serving import CODEC_CONFIGS as J_CODECS  # noqa: E402
 from torch_mesh_worker import (  # noqa: E402
-    CODEC_CONFIGS, build_fragmented_cache, decode_q,
+    CODEC_CONFIGS, build_fragmented_cache, decode_q, recorded,
 )
 
 MESHES = ({"model": 2}, {"data": 2, "model": 2}, {"model": 4},
@@ -460,13 +462,90 @@ def test_static_engine_under_a_mesh_of_one(smoke):
 @pytest.mark.parametrize("name", ["recurrentgemma-9b", "seamless-m4t-medium",
                                   "mamba2-2.7b"])
 def test_static_engine_refuses_unported_families_under_a_mesh(name):
-    """The hybrid, encoder-decoder and SSM families under a mesh are
-    refused by name (ROADMAP queue 1)."""
+    """The hybrid, encoder-decoder and SSM families serve on a (1, n) mesh;
+    under a data axis > 1, which no family's engine has (ROADMAP queue 1),
+    they are refused by name."""
     cfg = reduce_for_smoke(get_config(name))
     model = get_model(cfg)
-    mesh = tmesh.make_mesh((1, 1), ("data", "model"))
-    with pytest.raises(ValueError, match=repr(cfg.family)):
-        ServeEngine(model, {}, 64, device="cpu", mesh=mesh)
+    dp = tmesh.Mesh({"data": 2, "model": 1}, {"data": 0, "model": 0},
+                    {"data": [0, 1], "model": [0]})
+    with pytest.raises(ValueError, match="data axis > 1 in the static"):
+        ServeEngine(model, {}, 64, device="cpu", mesh=dp)
+    eng = ServeEngine(model, {}, 64, device="cpu",
+                      mesh=tmesh.make_mesh((1, 1), ("data", "model")))
+    assert eng.blocks and set(eng.blocks.values()) == {(0, 1)}
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "seamless-m4t-medium",
+                                  "mamba2-2.7b"])
+def test_static_engine_serves_every_family_on_a_mesh_of_one(name):
+    """``ServeEngine(mesh=(1, 1))`` on the hybrid, encoder-decoder and SSM
+    smoke configs takes the block path (every block (0, 1), the gather
+    the identity): tokens, the prefill's and every decode step's logits
+    bit-equal to the meshless engine's, and the same state bytes."""
+    cfg = reduce_for_smoke(get_config(name))
+    model = get_model(cfg)
+    gen_ = torch.Generator()
+    gen_.manual_seed(0)
+    params = model.init(generator=gen_, device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 40))}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    runs = []
+    for mesh in (None, tmesh.make_mesh((1, 1), ("data", "model"))):
+        m, logits = recorded(model)
+        out = ServeEngine(m, params, 64, device="cpu", mesh=mesh).generate(
+            batch, GenerationConfig(max_new_tokens=6))
+        runs.append((out, logits))
+    (base, want), (out, got) = runs
+    np.testing.assert_array_equal(out["tokens"], base["tokens"])
+    assert len(got) == len(want) == 6
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert out["cache_bytes"] == base["cache_bytes"]
+    assert out["head_shard"] == (None if cfg.family == "ssm" else (0, 1))
+    assert out["state_blocks"] == {"hybrid": {"rec_width": (0, 1)},
+                                   "ssm": {"ssm_heads": (0, 1)}}.get(
+                                       cfg.family, {})
+
+
+def _placement_configs():
+    """Every config, its smoke reduction, and recurrentgemma's with 2 KV
+    heads (JAX's and the port's)."""
+    for name in list_configs():
+        yield name, j_get_config(name), get_config(name)
+        yield (f"{name}/smoke", j_reduce_for_smoke(j_get_config(name)),
+               reduce_for_smoke(get_config(name)))
+    yield ("recurrentgemma-9b/smoke/kv2",
+           j_reduce_for_smoke(j_get_config("recurrentgemma-9b"),
+                              num_kv_heads=2),
+           reduce_for_smoke(get_config("recurrentgemma-9b"), num_kv_heads=2))
+
+
+@pytest.mark.parametrize("mesh_shape", MESHES + ({"data": 1, "model": 8},),
+                         ids=str)
+def test_static_placement_follows_jax_rules(mesh_shape):
+    """``registry.state_split_axes`` — the static engine's placement — for
+    every config: the family's state axes (KV heads for every cache, the
+    RG-LRU width, the SSD heads; none of the KV heads that JAX's rule maps
+    to ``model`` for mamba2's 0), each split over the axis JAX's
+    ``serving_rules`` maps it to, the RG-LRU width only where JAX's params
+    also place ``rg_w``'s diagonal blocks over ``model`` (its -3 rule)."""
+    mesh = FakeMesh(mesh_shape)
+    for name, jcfg, cfg in _placement_configs():
+        rules = jsh.serving_rules(jcfg, mesh, 1)
+        want = {"ssm": ("ssm_heads",), "hybrid": ("kv_heads", "rec_width")
+                }.get(cfg.family, ("kv_heads",))
+        want = {k: rules[k] for k in want}
+        if want.get("rec_width"):
+            w = jcfg.lru_width or jcfg.d_model
+            nb = max(jcfg.num_heads, 1)
+            spec = jsh.param_pspec("periods/sub0_rec/mix/rg_w",
+                                   (1, nb, w // nb, w // nb), mesh, jcfg)
+            if tuple(spec)[-3] != "model":
+                want["rec_width"] = None
+        assert state_split_axes(cfg, mesh) == want, (name, mesh_shape)
 
 
 def test_shadow_and_gathered_views_keep_the_head_block():

@@ -13,8 +13,12 @@
   give equal records;
 * a decode cell's ``jax_argument_bytes`` are JAX's per-device bytes from
   JAX's own trees and resolvers;
-* refused cells carry the port's named error, skips JAX's reason, and no
-  world outlives a cell.
+* refused cells (the hybrid, encoder-decoder and SSM families' train
+  cells) carry the port's named error, skips JAX's reason, and no world
+  outlives a cell;
+* the serving cells of those three families place their states as
+  ``ServeEngine(mesh=)`` does: each part's bytes the meshless part's
+  over the split ``serving_rules`` gives.
 """
 import math
 
@@ -132,12 +136,10 @@ def test_train_cell_bytes_are_jax(kind, tmp_path):
             assert a[key] == b[key], key
 
 
-def test_decode_cell_jax_bytes_from_jax_trees():
-    """``jax_argument_bytes`` of a decode cell: fp32 params under
-    ``param_pspecs``, the stacked decode state under
-    ``decode_state_pspecs``, the token under ``batch_pspecs`` — the same
-    sum from JAX's own trees and resolvers."""
-    arch, shape = "tinyllama-1.1b", cfgs.SHAPES["decode_32k"]
+def _jax_decode_bytes(arch: str) -> int:
+    """JAX's per-device argument bytes of ``arch``'s ``decode_32k`` cell on
+    the (16, 16) mesh, from JAX's own trees and resolvers."""
+    shape = cfgs.SHAPES["decode_32k"]
     mesh = FakeMesh(PROD["single"])
     jc = jcfg.get_config(arch)
     jm = j_get_model(jc)
@@ -157,31 +159,87 @@ def test_decode_cell_jax_bytes_from_jax_trees():
                     n //= mesh.shape[a]
             total += n * x.dtype.itemsize
         return total
-    want = tree_bytes(params, jsh.param_pspecs(params, mesh, jc)) \
+    return tree_bytes(params, jsh.param_pspecs(params, mesh, jc)) \
         + tree_bytes(state, jsh.decode_state_pspecs(state, mesh,
                                                     shape.global_batch)) \
         + shape.global_batch // 16 * 4
-    got = lib.jax_argument_bytes(get_model(get_config(arch)), shape, mesh)
-    assert got == want
+
+
+def test_decode_cell_jax_bytes_from_jax_trees():
+    """``jax_argument_bytes`` of a decode cell: fp32 params under
+    ``param_pspecs``, the stacked decode state under
+    ``decode_state_pspecs``, the token under ``batch_pspecs`` — the same
+    sum from JAX's own trees and resolvers."""
+    arch = "tinyllama-1.1b"
+    mesh = FakeMesh(PROD["single"])
+    got = lib.jax_argument_bytes(get_model(get_config(arch)),
+                                 cfgs.SHAPES["decode_32k"], mesh)
+    assert got == _jax_decode_bytes(arch)
 
 
 # -- statuses and the world's lifetime -----------------------------------------
 
 def test_refused_and_skipped_cells(tmp_path):
-    for arch, shape, needle in (
-            ("mamba2-2.7b", "train_4k", "make_train_step: tensor "
-             "parallelism over 'model' is not ported for the 'ssm'"),
-            ("recurrentgemma-9b", "decode_32k", "ServeEngine(mesh=): the "
-             "'hybrid' family under a mesh is not ported"),
-            ("seamless-m4t-medium", "prefill_32k", "the 'encdec' family")):
-        rec = lib.run_cell(arch, shape, "single", str(tmp_path), "single")
-        assert rec["status"] == "refused" and needle in rec["reason"]
+    """The cells still refused are the train cells of the hybrid,
+    encoder-decoder and SSM families (training's tensor parallelism over
+    ``model``); JAX's skip rule holds."""
+    for arch, family in (("mamba2-2.7b", "ssm"),
+                         ("recurrentgemma-9b", "hybrid"),
+                         ("seamless-m4t-medium", "encdec")):
+        rec = lib.run_cell(arch, "train_4k", "single", str(tmp_path),
+                           "single")
+        assert rec["status"] == "refused"
+        assert ("make_train_step: tensor parallelism over 'model' is not "
+                f"ported for the {family!r} family") in rec["reason"]
         assert not dist.is_initialized()
     rec = lib.run_cell("yi-9b", "long_500k", "multi", str(tmp_path), "multi")
     assert rec["status"] == "skip"
     assert rec["reason"] == jlib.should_skip(jcfg.get_config("yi-9b"),
                                              jcfg.SHAPES["long_500k"])
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "seamless-m4t-medium",
+                                  "mamba2-2.7b"])
+def test_serving_cell_of_a_recurrent_or_encdec_family(arch, tmp_path):
+    """``decode_32k`` of the hybrid, encoder-decoder and SSM families on the
+    (16, 16) mesh runs under the static engine's placement: the record's
+    state bytes are the meshless state's parts (at the rank's rows) over
+    the split where ``serving_rules`` splits them — seamless's self and
+    cross caches over its 16 KV heads, recurrentgemma's RG-LRU states over
+    its width (its one-KV-head rings whole), mamba2's SSD states over its
+    80 heads and its conv windows to the block's ``xin`` channels plus
+    every B/C channel — and the length scalars whole; its
+    ``jax_argument_bytes`` are JAX's from JAX's own trees (the hybrid's
+    period / tail stacks, the encoder-decoder's self / cross dict)."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models.registry import state_part_bytes
+    from repro_torch.utils import tree_bytes
+    rec = lib.run_cell(arch, "decode_32k", "single", str(tmp_path), "single")
+    assert rec["status"] == "ok" and rec["placement"] == "serving"
+    assert not dist.is_initialized()
+    assert rec["jax_argument_bytes"] == _jax_decode_bytes(arch)
+    cfg = get_config(arch)
+    shape = cfgs.SHAPES["decode_32k"]
+    meshless = get_model(cfg).init_decode_state(rec["rows"], shape.seq_len,
+                                                "meta")
+    parts = state_part_bytes(meshless)
+    n = 16
+    want = {"hybrid": {"kv_heads": None, "rec_width": (0, n)},
+            "encdec": {"kv_heads": (0, n)},
+            "ssm": {"ssm_heads": (0, n)}}[cfg.family]
+    assert rec["state_blocks"] == want
+    split = {"self": n, "cross": n, "ring": 1, "rg_conv": n, "rg_h": n,
+             "ssd": n}
+    total = tree_bytes(meshless) - sum(parts.values())   # the lengths
+    for part, b in parts.items():
+        if part == "ssd_conv":
+            dm = M2.dims(cfg)
+            total += b // dm.conv_dim * (dm.d_inner // n
+                                         + 2 * dm.ngroups * dm.dstate)
+        else:
+            total += b // split[part]
+    assert rec["state_bytes"] == total, (rec["state_bytes"], total)
 
 
 def test_world_gone_after_a_failing_cell_and_refused_inside_one(tmp_path,

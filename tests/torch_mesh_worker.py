@@ -353,39 +353,88 @@ def _runahead_runs(job: dict, mesh) -> dict:
     return out
 
 
-def _linear_bytes(state) -> int:
-    """The per-layer linear caches' bytes, the whole length scalars
-    left out."""
-    from repro_torch.utils import tree_bytes
-    return sum(tree_bytes(c) - c.length.numel() * c.length.element_size()
-               for c in state)
+#: a static case's config override, by the tag its key ends with
+STATIC_OVERRIDES = {"kv2": {"num_kv_heads": 2}}
+
+
+def static_cfg_kw(key: tuple) -> dict:
+    """A static case's config fields past the smoke reduction: the decode
+    backend (``key[1]``) and the override its tag (``key[2]``) names."""
+    return {"decode_backend": key[1],
+            **(STATIC_OVERRIDES[key[2]] if len(key) > 2 else {})}
+
+
+def static_model_key(key: tuple) -> str:
+    """The params a static case serves: its config's name and override."""
+    return "+".join((key[0], *key[2:]))
+
+
+def recorded(model):
+    """``model`` with its prefill and decode recording every call's
+    logits into the returned list."""
+    import dataclasses
+    logits = []
+
+    def rec(fn):
+        def call(*a):
+            lg, st = fn(*a)
+            logits.append(lg.clone())
+            return lg, st
+        return call
+    return dataclasses.replace(model, prefill=rec(model.prefill),
+                               decode=rec(model.decode)), logits
 
 
 def _static_runs(job: dict, mesh) -> dict:
-    """``ServeEngine(mesh=)`` on every static case
-    (config, decode backend, batch): tokens, the head block, and the
-    rank's linear-cache bytes beside the meshless state's."""
+    """``ServeEngine(mesh=)`` on every static case (config, decode
+    backend[, override]): tokens, the head block and the other state
+    blocks, the prefill's and every decode step's logits, and the rank's
+    state bytes by part (``registry.state_part_bytes``) beside the
+    meshless state's. In the world of ``job["meshless_world"]`` ranks the
+    meshless ``ServeEngine`` also runs, each case in one rank (case i in
+    rank i mod n): its tokens and logits, which every rank's mesh run is
+    held to."""
     from repro_torch.models import get_model
+    from repro_torch.models.registry import (
+        state_block_kwargs, state_part_bytes,
+    )
     from repro_torch.serve import GenerationConfig, ServeEngine
+    from repro_torch.utils import tree_bytes
     from repro_torch.weights import params_from_jax
+    world, rank = mesh.shape["model"], mesh.coords["model"]
     out = {}
-    for key, case in job["static"].items():
-        name, backend = key
-        cfg = _cfg(name, decode_backend=backend)
+    for i, (key, case) in enumerate(job["static"].items()):
+        cfg = _cfg(key[0], **static_cfg_kw(key))
         model = get_model(cfg)
-        params = params_from_jax(job["static_params"][name], cfg,
-                                 device="cpu")
+        params = params_from_jax(job["static_params"][static_model_key(key)],
+                                 cfg, device="cpu")
         b = case["batch"]["tokens"].shape[0]
-        eng = ServeEngine(model, params, case["max_len"], device="cpu",
-                          mesh=mesh)
-        res = eng.generate(case["batch"], GenerationConfig(
-            max_new_tokens=case["new"]))
-        # a () int32 length a layer, whole on every rank
-        lengths = 4 * cfg.num_layers
-        out[key] = {"tokens": res["tokens"], "head_shard": res["head_shard"],
-                    "bytes": res["cache_bytes"] - lengths,
-                    "meshless_bytes": _linear_bytes(model.init_decode_state(
-                        b, case["max_len"], "cpu"))}
+        gen = GenerationConfig(max_new_tokens=case["new"])
+        meshes = [mesh]
+        if world == job["meshless_world"] and i % world == rank:
+            meshes.append(None)
+        runs = {}
+        for m in meshes:
+            rec, logits = recorded(model)
+            eng = ServeEngine(rec, params, case["max_len"], device="cpu",
+                              mesh=m)
+            runs[m is None] = (eng, eng.generate(case["batch"], gen),
+                               [x.numpy() for x in logits])
+        eng, res, logits = runs[False]
+        state = model.init_decode_state(b, case["max_len"], "cpu",
+                                        **state_block_kwargs(eng.blocks))
+        meshless = model.init_decode_state(b, case["max_len"], "cpu")
+        assert res["cache_bytes"] == tree_bytes(state)
+        out[key] = {"tokens": res["tokens"],
+                    "head_shard": res["head_shard"],
+                    "state_blocks": res["state_blocks"],
+                    "logits": logits,
+                    "parts": state_part_bytes(state),
+                    "meshless_parts": state_part_bytes(meshless)}
+        if True in runs:
+            _, base, base_logits = runs[True]
+            out[key]["meshless"] = {"tokens": base["tokens"],
+                                    "logits": base_logits}
     return out
 
 
